@@ -1,0 +1,335 @@
+"""Architecture registry and model assembly, in PyTorch.
+
+Counterpart of `repro.configs`: each `configs/<id>.py` defines `ARCH:
+ArchSpec` with the published dims, and `build_model(arch, mode)` assembles
+the model with every linear site resolved to dense or LUT by the arch's
+replacement plan. Only the `dense` family is ported (qwen3_1p7b, llama3_8b);
+the other families follow ROADMAP Queue A item 10.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+import torch
+
+from repro_torch.core.amm import LUTConfig, Mode
+from repro_torch.core.plan import (  # noqa: F401  (re-exported: the plan API surface)
+    PAPER_DEFAULT,
+    LUTPlan,
+    PlanRule,
+    SitePolicy,
+    SiteSelector,
+    SiteSpec,
+    rule,
+)
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.common import SiteCfg
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    """Every field of `repro.configs.ArchSpec`, so that configs and (later)
+    artifact manifests carry over unchanged."""
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    act: str = "silu"
+    mlp_gated: bool = True
+    qk_norm: bool = False
+    use_bias: bool = False
+    causal: bool = True
+    rope_theta: float = 500_000.0
+    mrope_sections: tuple[int, ...] = ()
+    tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_shared_expert: bool = False
+    moe_dense_residual: bool = False
+    moe_group_tokens: int = 1024
+    # SSM
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    conv_width: int = 4
+    ssd_chunk: int = 256
+    # hybrid
+    attn_every: int = 0
+    # enc-dec (audio)
+    n_enc_layers: int = 0
+    enc_frames: int = 0
+    takes_embeds: bool = False
+    # LUT-NN settings (paper defaults: K=16, V aligned to site width, INT8)
+    lut_k: int = 16
+    lut_v: int = 32
+    lut_bits: int = 8
+    lut_int8_dot: bool = False
+    lut_use_kernel: bool = False        # the CUDA LUT kernels at LUT sites
+    lut_policy: str = "all_but_first"   # or "last_n:<n>", "all"
+    lut_plan: LUTPlan | None = None     # when set, subsumes lut_policy and the lut_* flags
+    param_dtype: str = "float32"
+    kv_cache_dtype: str = "bfloat16"
+    sub_quadratic: bool = False
+    grad_accum: int = 1
+    notes: str = ""
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+
+ARCH_IDS = ("llama3_8b", "qwen3_1p7b")      # the dense archs ported so far
+
+
+def get_arch(name: str) -> ArchSpec:
+    if name not in ARCH_IDS:
+        raise NotImplementedError(f"arch {name!r} is not ported yet (ported: {ARCH_IDS})")
+    return importlib.import_module(f"repro_torch.configs.{name}").ARCH
+
+
+def reduce_arch(arch: ArchSpec, **overrides: Any) -> ArchSpec:
+    """Shrink an arch to a CPU-testable config of the same family, exactly as
+    `repro.configs.reduce_arch` does (same defaults, same overrides)."""
+    small: dict[str, Any] = dict(
+        n_layers=min(arch.n_layers, 4),
+        d_model=128,
+        d_ff=0 if arch.d_ff == 0 else 256,
+        vocab=512,
+        param_dtype="float32",
+        grad_accum=1,
+    )
+    if arch.n_heads:
+        small.update(n_heads=4, d_head=32,
+                     n_kv_heads=min(arch.n_kv_heads, 2) if arch.n_kv_heads < arch.n_heads else 4)
+    if arch.n_experts:
+        small.update(n_experts=4, top_k=arch.top_k)
+    if arch.ssm_state:
+        small.update(ssm_state=16, ssm_head_dim=16, ssd_chunk=8)
+    if arch.attn_every:
+        small.update(attn_every=2)
+    if arch.n_enc_layers:
+        small.update(n_enc_layers=2, enc_frames=8)
+    if arch.mrope_sections:
+        small.update(mrope_sections=(4, 6, 6))
+    small.update(lut_v=16)
+    small.update(overrides)
+    out = dataclasses.replace(arch, **small)
+    # a depth cut can strand a last_n policy past the new layer count: clamp
+    if out.lut_plan is not None:
+        clamped = tuple(
+            dataclasses.replace(
+                r, select=dataclasses.replace(
+                    r.select, n=min(r.select.n, out.n_layers),
+                    layer_set=tuple(sorted({
+                        min(i, out.n_layers - 1) for i in r.select.layer_set
+                    })),
+                )
+            ) if r.select.layers in ("last_n", "set") else r
+            for r in out.lut_plan.rules
+        )
+        out = dataclasses.replace(out, lut_plan=dataclasses.replace(out.lut_plan, rules=clamped))
+    elif out.lut_policy.startswith("last_n:"):
+        n = int(out.lut_policy.split(":", 1)[1])
+        if n > out.n_layers:
+            out = dataclasses.replace(out, lut_policy=f"last_n:{out.n_layers}")
+    return out
+
+
+def effective_plan(arch: ArchSpec) -> LUTPlan:
+    """`lut_plan` when set, else the single-rule plan parsed from `lut_policy`
+    and the flat `lut_*` flags."""
+    if arch.lut_plan is not None:
+        return arch.lut_plan
+    return LUTPlan.from_policy_string(
+        arch.lut_policy,
+        default=SitePolicy(
+            k=arch.lut_k, v=arch.lut_v, bits=arch.lut_bits, per_column=False,
+            int8_dot=arch.lut_int8_dot, use_kernel=arch.lut_use_kernel,
+        ),
+    )
+
+
+class _PlanResolver:
+    """Resolves every linear site of one build to (mode, LUTConfig): the
+    bundle's mode where the plan replaces the site's (layer, kind), DENSE
+    otherwise (dense sites carry the plan default's config as metadata)."""
+
+    def __init__(self, arch: ArchSpec, mode: Mode):
+        self.arch = arch
+        self.mode = mode
+        self.plan = effective_plan(arch).validate(arch.n_layers)
+
+    def _resolve(self, layer: int | None, kind: str, d_in: int,
+                 lut_site: bool) -> tuple[Mode, LUTConfig]:
+        cfg = None
+        if lut_site and self.mode != Mode.DENSE:
+            cfg = self.plan.lut_config(layer, kind, d_in, self.arch.n_layers)
+        if cfg is None:
+            return Mode.DENSE, self.plan.default.lut_config(d_in)
+        return self.mode, cfg
+
+    def site(self, d_in: int, d_out: int, kind: str, *, layer: int | None = None,
+             lut_site: bool = True) -> SiteCfg:
+        mode, cfg = self._resolve(layer, kind, d_in, lut_site)
+        return SiteCfg(d_in=d_in, d_out=d_out, mode=mode, lut=cfg,
+                       bias=self.arch.use_bias, name=kind)
+
+
+def _attn_cfg(res: _PlanResolver, *, layer: int | None = None) -> attn_mod.AttnCfg:
+    arch = res.arch
+    d, h, kv, dh = arch.d_model, arch.n_heads, arch.n_kv_heads, arch.d_head
+    return attn_mod.AttnCfg(
+        d_model=d, n_heads=h, n_kv_heads=kv, d_head=dh,
+        q=res.site(d, h * dh, "attn/q", layer=layer),
+        k=res.site(d, kv * dh, "attn/k", layer=layer),
+        v=res.site(d, kv * dh, "attn/v", layer=layer),
+        o=res.site(h * dh, d, "attn/o", layer=layer),
+        qk_norm=arch.qk_norm,
+        rope_theta=arch.rope_theta,
+        mrope_sections=arch.mrope_sections,
+        causal=arch.causal,
+    )
+
+
+def _mlp_cfg(res: _PlanResolver, *, layer: int | None = None) -> mlp_mod.MLPCfg:
+    arch = res.arch
+    d, f = arch.d_model, arch.d_ff
+    return mlp_mod.MLPCfg(
+        d_model=d, d_ff=f,
+        gate=res.site(d, f, "mlp/gate", layer=layer),
+        up=res.site(d, f, "mlp/up", layer=layer),
+        down=res.site(f, d, "mlp/down", layer=layer),
+        act=arch.act,
+        gated=arch.mlp_gated,
+    )
+
+
+def _block(res: _PlanResolver, *, layer: int | None = None) -> tf_mod.BlockCfg:
+    return tf_mod.BlockCfg(kind="dense", d_model=res.arch.d_model,
+                           attn=_attn_cfg(res, layer=layer), mlp=_mlp_cfg(res, layer=layer))
+
+
+def _segments(res: _PlanResolver) -> tuple[tuple[int, tf_mod.BlockCfg], ...]:
+    """Per-layer blocks grouped into runs of identical config."""
+    n_layers = res.arch.n_layers
+    if res.mode == Mode.DENSE:
+        return ((n_layers, _block(res)),)
+    segs: list[list[Any]] = []
+    for j in range(n_layers):
+        b = _block(res, layer=j)
+        if segs and segs[-1][1] == b:
+            segs[-1][0] += 1
+        else:
+            segs.append([1, b])
+    return tuple((n, b) for n, b in segs)
+
+
+def _block_site_list(bcfg: tf_mod.BlockCfg) -> list[tuple[str, SiteCfg]]:
+    a, m = bcfg.attn, bcfg.mlp
+    sites = [a.q, a.k, a.v, a.o] + ([m.gate] if m.gated else []) + [m.up, m.down]
+    return [(s.name, s) for s in sites]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    arch: ArchSpec
+    mode: Mode
+    kind: str                    # "lm" (the only kind ported)
+    cfg: Any
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.arch.param_dtype == "bfloat16" else torch.float32
+
+    def init(self, generator: torch.Generator | None = None, *,
+             device: str | torch.device | None = None):
+        """Random params drawn from `generator` (seed 0 on the CPU when None)
+        and placed on `device`, which defaults to the card."""
+        device = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        return tf_mod.lm_init(gen, self.cfg, dtype=self.param_dtype, device=device)
+
+    def sites(self) -> list[SiteSpec]:
+        """One SiteSpec per (site, layer), paths as in the reference registry."""
+        out: list[SiteSpec] = []
+        g = 0
+        for i, (count, bcfg) in enumerate(self.cfg.segments):
+            for j in range(count):
+                for rel, sc in _block_site_list(bcfg):
+                    out.append(SiteSpec(
+                        path=f"segments/{i}/{rel}", layer=g + j, stack_index=j, kind=rel,
+                        d_in=sc.d_in, d_out=sc.d_out, bias=sc.bias, mode=sc.mode, lut=sc.lut,
+                        tape_key=f"segments/{i}/{j}/{rel}",
+                    ))
+            g += count
+        if self.cfg.lm_head is not None:
+            sc = self.cfg.lm_head
+            out.append(SiteSpec(path="lm_head", layer=None, stack_index=None, kind="lm_head",
+                                d_in=sc.d_in, d_out=sc.d_out, bias=sc.bias, mode=sc.mode,
+                                lut=sc.lut, tape_key="lm_head"))
+        return out
+
+    def lut_sites(self) -> list[SiteSpec]:
+        return [s for s in self.sites() if s.mode != Mode.DENSE]
+
+    def init_caches(self, b: int, s_max: int, *, dtype=torch.bfloat16,
+                    device: str | torch.device | None = None) -> list:
+        return tf_mod.init_caches(self.cfg, b, s_max, dtype, resolve_device(device))
+
+    def forward_step(self, params, batch, caches, *, compute_dtype=torch.float32):
+        """One serving step (prefill if S > 1, decode if S == 1).
+
+        batch: "tokens" (B, S), "cache_len" (B,), and optionally "write_rows"
+        (the batch rows whose cache may change; all when absent). Returns
+        (logits for the new positions, caches), the caches updated in place.
+        cache_len and write_rows are read on the host: pass CPU tensors to
+        keep the forward free of device-to-host waits."""
+        if "block_tables" in batch:
+            raise NotImplementedError("paged KV caches are not ported yet: ROADMAP Queue A "
+                                      "item 7")
+        tokens = batch["tokens"]
+        dev = tokens.device
+        s = tokens.shape[1]
+        cache_len = batch["cache_len"].long().to(dev)
+        pos = cache_len[:, None] + torch.arange(s, device=dev)[None, :]
+        write_index = None
+        if caches is not None:
+            write_index = attn_mod.cache_write_index(batch["cache_len"], batch.get("write_rows"),
+                                                     s, caches[0]["k"].shape[2], dev)
+        return tf_mod.lm_apply(self.cfg, params, tokens=tokens, pos=pos, caches=caches,
+                               cache_len=cache_len, compute_dtype=compute_dtype,
+                               write_index=write_index)
+
+
+def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBundle:
+    if isinstance(arch, str):
+        arch = get_arch(arch)
+    if isinstance(mode, str):
+        mode = Mode(mode)
+    if arch.family != "dense":
+        raise NotImplementedError(f"family {arch.family!r} is not ported yet: ROADMAP Queue A "
+                                  f"item 10")
+    if arch.takes_embeds or arch.mrope_sections:
+        raise NotImplementedError("embedding inputs and M-RoPE are not ported yet")
+    res = _PlanResolver(arch, mode)
+    d = arch.d_model
+    cfg = tf_mod.LMCfg(
+        vocab=arch.vocab, d_model=d, segments=_segments(res),
+        lm_head=None if arch.tie_embeddings else res.site(d, arch.vocab, "lm_head",
+                                                          lut_site=False),
+    )
+    return ModelBundle(arch=arch, mode=mode, kind="lm", cfg=cfg)

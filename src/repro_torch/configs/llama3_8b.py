@@ -1,0 +1,13 @@
+"""Llama-3-8B — dense GQA, 128k vocab [arXiv:2407.21783]."""
+from repro_torch.configs import ArchSpec
+
+ARCH = ArchSpec(
+    name="llama3_8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=14336,
+    vocab=128256,
+    rope_theta=500_000.0,
+)

@@ -1,0 +1,85 @@
+"""Functional LUT-NN linear layer (the paper's core operator), in PyTorch.
+
+Counterpart of `repro.core.amm`: one entry point, `lut_linear`, with modes
+
+  DENSE      exact x @ W (+ b)
+  LUT_INFER  deployed path: int8 table + hard argmin encode, through the
+             LUT kernels (`use_kernel`), or through plain tensor ops as the
+             integer one-hot contraction (`int8_dot`) or the dequantized
+             one-hot contraction
+  LUT_TRAIN  soft-PQ training: not ported yet (ROADMAP Queue A item 11)
+
+Param dicts as in the reference:
+  dense  : {"w": (D, M) [, "b": (M,)]}
+  deploy : {"centroids": (C, K, V), "table_q": int8 (C, K, M),
+            "table_scale": (1|C, 1, 1|M) [, "b": (M,)]}
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Mapping
+
+import torch
+
+from repro_torch.core import pq, quant
+
+
+class Mode(str, enum.Enum):
+    DENSE = "dense"
+    LUT_TRAIN = "lut_train"
+    LUT_INFER = "lut_infer"
+
+
+@dataclasses.dataclass(frozen=True)
+class LUTConfig:
+    """Static LUT hyper-parameters of one site (see repro.core.amm.LUTConfig)."""
+
+    k: int = 16
+    v: int = 32
+    bits: int = 8
+    per_column: bool = False
+    int8_dot: bool = False
+    use_kernel: bool = False
+
+    def codebooks(self, d: int) -> int:
+        if d % self.v:
+            raise ValueError(f"D={d} not divisible by V={self.v}")
+        return d // self.v
+
+
+def lut_linear(cfg: LUTConfig, mode: Mode, params: Mapping[str, Any],
+               x: torch.Tensor) -> torch.Tensor:
+    """Apply one (possibly LUT-replaced) linear layer. x: (..., D) -> (..., M)."""
+    if mode == Mode.DENSE:
+        y = x @ params["w"].to(x.dtype)
+        b = params.get("b")
+        return y + b.to(y.dtype) if b is not None else y
+
+    if mode == Mode.LUT_TRAIN:
+        raise NotImplementedError("LUT_TRAIN is not ported to PyTorch yet: ROADMAP Queue A "
+                                  "item 11 (training)")
+
+    if mode == Mode.LUT_INFER:
+        p = params["centroids"]
+        qt = quant.QuantizedTable(params["table_q"], params["table_scale"])
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1])
+        b = params.get("b")
+        if cfg.use_kernel:
+            from repro_torch.kernels import ops
+
+            # bias rides the kernel's fused epilogue
+            y = ops.lut_amm(xf, p, qt.q, qt.scale, bias=b)
+        else:
+            dists = pq.pairwise_sq_dists(pq.split_subvectors(xf, cfg.v), p)
+            if cfg.int8_dot:
+                y = pq.lut_contract_int8(pq.hard_encode(dists), qt.q, qt.scale)
+            else:
+                table = qt.dequant(dtype=x.dtype)
+                y = pq.lut_contract(pq.hard_encode(dists).to(x.dtype), table)
+            y = y + b.to(y.dtype) if b is not None else y
+        return y.reshape(*lead, -1).to(x.dtype)
+
+    raise ValueError(f"unknown mode {mode}")

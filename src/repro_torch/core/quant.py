@@ -1,0 +1,53 @@
+"""Scalar quantization of lookup tables (paper section 3.3), in PyTorch.
+
+Counterpart of `repro.core.quant`: symmetric r = s * q with
+s = max|r| / (2^(bits-1) - 1), zero-point 0. Scale layouts:
+
+  per-codebook (C, 1, 1)   the paper's one scale per table
+  per-column   (C, 1, M)
+  m-shared     (1, 1, M)   one scale per output column, shared over codebooks:
+                           it factors out of the codebook sum, so the kernels
+                           accumulate exact int32 and dequantize once
+  scalar       (1, 1, 1)   accepted by the kernels like m-shared
+
+`fake_quant` (quantization-aware training) waits for the training port.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class QuantizedTable(NamedTuple):
+    """Deployed LUT: int8 codes (C, K, M) plus fp32 scales."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return (self.q.float() * self.scale).to(dtype)
+
+
+def _qmax(bits: int) -> float:
+    return float(2 ** (bits - 1) - 1)
+
+
+def table_scale(t: torch.Tensor, *, bits: int = 8, per_column: bool = False,
+                m_shared: bool = False) -> torch.Tensor:
+    """Symmetric scale in the layout the flags select (see module docstring)."""
+    if m_shared:
+        absmax = t.abs().amax(dim=(0, 1), keepdim=True)    # (1, 1, M)
+    elif per_column:
+        absmax = t.abs().amax(dim=1, keepdim=True)         # (C, 1, M)
+    else:
+        absmax = t.abs().amax(dim=(1, 2), keepdim=True)    # (C, 1, 1)
+    return torch.clamp(absmax.float(), min=1e-8) / _qmax(bits)
+
+
+def quantize_table(t: torch.Tensor, *, bits: int = 8, per_column: bool = False,
+                   m_shared: bool = False) -> QuantizedTable:
+    scale = table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared)
+    q = torch.clamp(torch.round(t.float() / scale), -_qmax(bits), _qmax(bits))
+    return QuantizedTable(q=q.to(torch.int8), scale=scale)

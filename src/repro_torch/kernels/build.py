@@ -1,0 +1,104 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under `csrc/` becomes its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), compiled for
+Hopper only (`sm_90a`). Libraries land in `<repo>/build/kernels/`, named by
+a hash of the sources and flags, so a checkout builds what it needs at first
+use and a changed source can never load a stale library. Nothing here runs
+at import time: a machine without nvcc or a card can import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {
+    "fused_decode": "fused_decode.cu",
+    "lut_amm_v2": "lut_amm_v2.cu",
+}
+HEADERS = ("lut_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """`build/kernels` at the root of the checkout (listed in .gitignore)."""
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name], *HEADERS):
+        h.update((CSRC / f).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}-{_digest(name)}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(nvcc, os.X_OK):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
+
+
+def build(names: tuple[str, ...] | list[str] | None = None) -> dict[str, float]:
+    """Compile every named kernel whose library is missing, all nvcc processes
+    at once. Returns {name: seconds} for the ones compiled. The compiler's
+    report (registers, shared memory, spills from `-Xptxas -v`) is kept in
+    `build/kernels/<name>.log`."""
+    names = list(SOURCES) if names is None else list(names)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    running = []
+    for name in names:
+        target = lib_path(name)
+        if target.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        running.append((name, target, tmp, proc, time.perf_counter()))
+    times: dict[str, float] = {}
+    failed = []
+    for name, target, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, target)          # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return times
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    return lib
+

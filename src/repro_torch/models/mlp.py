@@ -1,0 +1,41 @@
+"""Gated-linear-unit FFN (SwiGLU family); gate/up/down are LUT sites.
+
+Counterpart of `repro.models.mlp`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.common import Params, SiteCfg, activation, linear, linear_init
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPCfg:
+    d_model: int
+    d_ff: int
+    gate: SiteCfg
+    up: SiteCfg
+    down: SiteCfg
+    act: str = "silu"
+    gated: bool = True
+
+
+def mlp_init(gen: torch.Generator, cfg: MLPCfg, *, dtype=torch.float32, device="cpu") -> Params:
+    p: Params = {}
+    if cfg.gated:
+        p["gate"] = linear_init(gen, cfg.gate, dtype=dtype, device=device)
+    p["up"] = linear_init(gen, cfg.up, dtype=dtype, device=device)
+    p["down"] = linear_init(gen, cfg.down, dtype=dtype, device=device)
+    return p
+
+
+def mlp(cfg: MLPCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    up = linear(cfg.up, p["up"], x)
+    if cfg.gated:
+        h = activation(cfg.act, linear(cfg.gate, p["gate"], x)) * up
+    else:
+        h = activation(cfg.act, up)
+    return linear(cfg.down, p["down"], h)

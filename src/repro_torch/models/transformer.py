@@ -1,0 +1,148 @@
+"""Decoder-only LM: dense blocks, segments of layers, tied or separate head.
+
+Counterpart of `repro.models.transformer` for the `dense` block kind. Layers
+are grouped into segments of identical block config, as in the reference
+(the paper's "keep the first layer dense" gives a 1-layer dense segment and
+an (L-1)-layer LUT segment). Each segment's params are a list of per-layer
+dicts run by a Python loop; its KV cache is one stacked (L, B, S_max, KV, Dh)
+tensor per K and V, the reference's layout.
+
+A decode forward (S == 1) attends with deferred cache writes and then writes
+every layer's fresh K/V slab into the segment's stacked cache in one scatter,
+as the reference does. A prefill forward writes each layer's K/V in place
+before attending over the cache. MoE and Mamba blocks are not ported yet
+(ROADMAP Queue A item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (
+    Params,
+    SiteCfg,
+    embed,
+    embed_init,
+    linear,
+    linear_init,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCfg:
+    kind: str                                  # only "dense" is ported
+    d_model: int
+    attn: attn_mod.AttnCfg | None = None
+    mlp: mlp_mod.MLPCfg | None = None
+
+
+def _require_dense(cfg: BlockCfg) -> None:
+    if cfg.kind != "dense":
+        raise NotImplementedError(f"{cfg.kind!r} blocks are not ported yet: ROADMAP Queue A "
+                                  f"item 10")
+
+
+def block_init(gen: torch.Generator, cfg: BlockCfg, *, dtype=torch.float32,
+               device="cpu") -> Params:
+    _require_dense(cfg)
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, dtype, device),
+        "norm2": rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": attn_mod.attn_init(gen, cfg.attn, dtype=dtype, device=device),
+        "mlp": mlp_mod.mlp_init(gen, cfg.mlp, dtype=dtype, device=device),
+    }
+
+
+def block_apply(cfg: BlockCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
+                cache: Params | None = None, cache_len: torch.Tensor | None = None,
+                defer_cache_write: bool = False,
+                write_index=None) -> tuple[torch.Tensor, Params | None]:
+    """Returns (x, cache or deferred slabs)."""
+    a, new_cache = attn_mod.attention(
+        cfg.attn, p["attn"], rmsnorm(p["norm1"], x), pos=pos, cache=cache,
+        cache_len=cache_len, defer_cache_write=defer_cache_write, write_index=write_index,
+    )
+    x = x + a
+    return x + mlp_mod.mlp(cfg.mlp, p["mlp"], rmsnorm(p["norm2"], x)), new_cache
+
+
+@dataclasses.dataclass(frozen=True)
+class LMCfg:
+    vocab: int
+    d_model: int
+    segments: tuple[tuple[int, BlockCfg], ...]   # (n_layers, block cfg) runs
+    lm_head: SiteCfg | None = None               # None -> tied to the embedding
+
+    @property
+    def n_layers(self) -> int:
+        return sum(n for n, _ in self.segments)
+
+
+def lm_init(gen: torch.Generator, cfg: LMCfg, *, dtype=torch.float32, device="cpu") -> Params:
+    p: Params = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device),
+        "segments": [[block_init(gen, bcfg, dtype=dtype, device=device) for _ in range(count)]
+                     for count, bcfg in cfg.segments],
+        "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
+    }
+    if cfg.lm_head is not None:
+        p["lm_head"] = linear_init(gen, cfg.lm_head, dtype=dtype, device=device)
+    return p
+
+
+def init_caches(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16, device="cpu") -> list:
+    """One {"k", "v"} dict of (L_seg, B, S_max, KV, Dh) zeros per segment."""
+    out = []
+    for count, bcfg in cfg.segments:
+        _require_dense(bcfg)
+        a = bcfg.attn
+        shape = (count, b, s_max, a.n_kv_heads, a.d_head)
+        out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return out
+
+
+def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: torch.Tensor,
+               caches: Params | None, cache_len: torch.Tensor | None,
+               write_index) -> torch.Tensor:
+    """Run one segment's layers; writes the segment's cache in place."""
+    defer = caches is not None and x.shape[1] == 1
+    k_slabs, v_slabs = [], []
+    for j, lp in enumerate(layers):
+        cl = None if caches is None else {"k": caches["k"][j], "v": caches["v"][j]}
+        x, nc = block_apply(bcfg, lp, x, pos=pos, cache=cl, cache_len=cache_len,
+                            defer_cache_write=defer, write_index=write_index)
+        if defer:
+            k_slabs.append(nc["k_slab"])
+            v_slabs.append(nc["v_slab"])
+    if defer:
+        # one scatter of all layers' slabs replaces per-layer cache writes
+        attn_mod.write_at(caches["k"], torch.stack(k_slabs), write_index)
+        attn_mod.write_at(caches["v"], torch.stack(v_slabs), write_index)
+    return x
+
+
+def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor, pos: torch.Tensor,
+             caches: list | None = None, cache_len: torch.Tensor | None = None,
+             compute_dtype=torch.float32,
+             write_index=None) -> tuple[torch.Tensor, list | None]:
+    """Returns (logits (B, S, vocab), caches). The caches are updated in
+    place where `write_index` (attention.cache_write_index) says."""
+    x = embed(params["embed"], tokens).to(compute_dtype)
+    for i, (_, bcfg) in enumerate(cfg.segments):
+        x = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
+                       caches=None if caches is None else caches[i],
+                       cache_len=cache_len, write_index=write_index)
+    x = rmsnorm(params["final_norm"], x)
+    if cfg.lm_head is not None:
+        logits = linear(cfg.lm_head, params["lm_head"], x)
+    else:
+        # tied head: a plain matmul, left to the library as the reference leaves it to XLA
+        logits = x @ params["embed"]["table"].to(x.dtype).T
+    return logits, caches

@@ -6,6 +6,11 @@ import jax
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA Hopper GPU (CUDA kernels); skipped without one")
+
+
 @pytest.fixture
 def key():
     return jax.random.PRNGKey(0)

@@ -1,0 +1,150 @@
+"""The port's dense decoder LM against the JAX reference, from the same
+params: the reference's `bundle.init(PRNGKey(0))`, carried over as numpy by
+`repro_torch.weights.params_from_numpy`."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfg
+from repro_torch import configs as tcfg
+from repro_torch.kernels import fused_decode as fused_mod
+from repro_torch.kernels import lut_amm as v2_mod
+from repro_torch.kernels import ref
+from repro_torch.models import common
+from repro_torch.weights import params_from_numpy
+
+ARCHS = ["qwen3_1p7b", "llama3_8b"]
+MODES = ["dense", "lut_infer"]
+B, S_MAX, CHUNK = 2, 16, 4
+# fp32 everywhere; matmuls, softmax and the fp32 rescale sum in another order
+# than XLA's, so logits agree to float rounding, not bit for bit
+ATOL, RTOL = 1e-4, 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def _bundles(arch_name, mode):
+    """Reduced arch (lut_use_kernel: m-shared scales, LUT sites through the
+    kernels) in both packages, and the reference's params in both layouts.
+    Cached: callers build their own caches and never write to params."""
+    jarch = jcfg.reduce_arch(jcfg.get_arch(arch_name), lut_use_kernel=True)
+    tarch = tcfg.reduce_arch(tcfg.get_arch(arch_name), lut_use_kernel=True)
+    jb = jcfg.build_model(jarch, mode)
+    tb = tcfg.build_model(tarch, mode)
+    jparams = jb.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tb, jax.tree.map(np.asarray, jparams), device="cpu")
+    return jb, jparams, tb, tparams
+
+
+def test_arch_spec_fields_match_reference():
+    assert [f.name for f in dataclasses.fields(tcfg.ArchSpec)] == \
+        [f.name for f in dataclasses.fields(jcfg.ArchSpec)]
+    for name in ARCHS:
+        j, t = jcfg.get_arch(name), tcfg.get_arch(name)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert dataclasses.asdict(tcfg.reduce_arch(t, lut_use_kernel=True)) == \
+            dataclasses.asdict(jcfg.reduce_arch(j, lut_use_kernel=True))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("arch_name", ARCHS)
+def test_sites_match_reference(arch_name, mode):
+    """The same sites resolve to the same modes and LUT configs, at full size."""
+    jsites = jcfg.build_model(arch_name, mode).sites()
+    tsites = tcfg.build_model(arch_name, mode).sites()
+    assert len(tsites) == len(jsites)
+    for t, j in zip(tsites, jsites):
+        assert (t.path, t.layer, t.stack_index, t.kind, t.d_in, t.d_out, t.bias, t.tape_key) == \
+            (j.path, j.layer, j.stack_index, j.kind, j.d_in, j.d_out, j.bias, j.tape_key)
+        assert t.mode.value == j.mode.value
+        assert dataclasses.asdict(t.lut) == dataclasses.asdict(j.lut)
+
+
+def test_params_carry_is_dtype_exact():
+    _, jparams, tb, tparams = _bundles("qwen3_1p7b", "lut_infer")
+    lut = tparams["segments"][1][0]["attn"]["q"]
+    jlut = jparams["segments"][1]["attn"]["q"]
+    assert lut["table_q"].dtype == torch.int8 and lut["table_scale"].shape == (1, 1, 128)
+    np.testing.assert_array_equal(lut["table_q"].numpy(), np.asarray(jlut["table_q"][0]))
+    assert len(tparams["segments"][1]) == 3           # layers 1..3 unstacked
+    assert "lm_head" not in tparams                   # tied embeddings
+    bf = jnp.asarray(np.arange(6, dtype=np.float32).reshape(2, 3), jnp.bfloat16)
+    from repro_torch.weights import tensor_from_numpy
+    t = tensor_from_numpy(np.asarray(bf), torch.device("cpu"))
+    assert t.dtype == torch.bfloat16 and t.float().tolist() == [[0, 1, 2], [3, 4, 5]]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("arch_name", ARCHS)
+def test_forward_step_logits_match_reference(arch_name, mode):
+    """A prefill chunk, then two decode steps on the deferred-write path."""
+    jb, jparams, tb, tparams = _bundles(arch_name, mode)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(1, tb.arch.vocab, (B, CHUNK), dtype=np.int32)
+    jcache = jb.init_caches(B, S_MAX, dtype=jnp.float32)
+    tcache = tb.init_caches(B, S_MAX, dtype=torch.float32, device="cpu")
+    ref.calls.update(fused_decode_plain=0, lut_amm_v2_plain=0)
+
+    toks = prompt
+    cache_len = np.zeros((B,), np.int32)
+    for step in range(3):
+        jlog, jcache = jb.forward_step(
+            jparams, {"tokens": jnp.asarray(toks), "cache_len": jnp.asarray(cache_len)},
+            jcache, compute_dtype=jnp.float32)
+        tlog, tcache = tb.forward_step(
+            tparams, {"tokens": torch.from_numpy(toks), "cache_len": torch.from_numpy(cache_len)},
+            tcache, compute_dtype=torch.float32)
+        jlog = np.asarray(jlog)
+        assert tlog.shape == jlog.shape == (B, toks.shape[1], tb.arch.vocab)
+        np.testing.assert_allclose(tlog.numpy(), jlog, atol=ATOL, rtol=RTOL,
+                                   err_msg=f"step {step}")
+        nxt = jlog[:, -1].argmax(-1)
+        assert (tlog[:, -1].argmax(-1).numpy() == nxt).all()
+        cache_len = cache_len + toks.shape[1]
+        toks = nxt[:, None].astype(np.int32)
+    # the one cache write per forward left the same K/V as the reference's
+    for tc, jc in zip(tcache, jcache):
+        np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), atol=ATOL, rtol=RTOL)
+    if mode == "lut_infer":
+        # 3 forwards x 3 LUT layers x 7 sites, all on the CPU plain versions
+        assert sum(ref.calls.values()) == 3 * 3 * 7
+        assert fused_mod.launches == 0 and v2_mod.launches == 0
+
+
+def test_write_rows_leave_other_slots_untouched():
+    """A forward that may write only row 1 changes no cache entry of row 0."""
+    tb = tcfg.build_model(tcfg.reduce_arch(tcfg.get_arch("qwen3_1p7b"), n_layers=2),
+                          "lut_infer")
+    params = tb.init(torch.Generator().manual_seed(0), device="cpu")
+    caches = tb.init_caches(B, S_MAX, dtype=torch.float32, device="cpu")
+    toks = torch.full((B, CHUNK), 7, dtype=torch.int32)
+    for s in (CHUNK, 1):              # prefill path, then the deferred decode write
+        tb.forward_step(params, {"tokens": toks[:, :s], "cache_len": torch.tensor([0, 4]),
+                                 "write_rows": torch.tensor([1])}, caches)
+        for c in caches:
+            assert not c["k"][:, 0].any() and not c["v"][:, 0].any()
+            assert c["k"][:, 1].any()
+
+
+def test_model_pieces_follow_the_reference_conventions():
+    x = torch.linspace(-3, 3, 13)
+    # gelu is the tanh approximation (jax.nn.gelu's default), not erf
+    np.testing.assert_allclose(common.activation("gelu", x).numpy(),
+                               np.asarray(jax.nn.gelu(jnp.asarray(x.numpy()))), atol=1e-6)
+    xr = np.random.default_rng(1).standard_normal((2, 3, 2, 8), dtype=np.float32)
+    pos = np.array([[0, 5, 9], [1, 2, 3]], np.int32)
+    from repro.models.common import apply_rope as japply_rope
+    np.testing.assert_allclose(
+        common.apply_rope(torch.from_numpy(xr), torch.from_numpy(pos), 10000.0).numpy(),
+        np.asarray(japply_rope(jnp.asarray(xr), jnp.asarray(pos), 10000.0)), atol=1e-5)
+    with pytest.raises(NotImplementedError):
+        common.apply_mrope(xr, pos, 1e6, (4, 6, 6))
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        tcfg.build_model(dataclasses.replace(tcfg.get_arch("qwen3_1p7b"), family="moe"))
+    with pytest.raises(NotImplementedError):
+        tcfg.get_arch("mamba2_370m")
