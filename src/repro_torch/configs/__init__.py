@@ -101,6 +101,38 @@ def get_arch(name: str) -> ArchSpec:
     return importlib.import_module(f"repro_torch.configs.{name}").ARCH
 
 
+def arch_to_dict(arch: ArchSpec) -> dict[str, Any]:
+    """JSON-safe dict of every ArchSpec field (tuples become lists), the
+    plan through its own schema: `repro.configs.arch_to_dict`'s format."""
+    out = dataclasses.asdict(dataclasses.replace(arch, lut_plan=None))
+    for k, v in out.items():
+        if isinstance(v, tuple):
+            out[k] = list(v)
+    out["lut_plan"] = arch.lut_plan.to_dict() if arch.lut_plan is not None else None
+    return out
+
+
+def arch_from_dict(d: dict[str, Any]) -> ArchSpec:
+    """Rebuild an ArchSpec from `arch_to_dict` output (the port's or the
+    reference's). Unknown keys are ignored; lists become tuples; a missing
+    required field raises ValueError."""
+    fields = {f.name: f for f in dataclasses.fields(ArchSpec)}
+    kw: dict[str, Any] = {}
+    for k, v in d.items():
+        if k not in fields:
+            continue
+        if k == "lut_plan":
+            kw[k] = LUTPlan.from_dict(v) if v else None
+            continue
+        kw[k] = tuple(v) if isinstance(v, list) else v
+    missing = [n for n, f in fields.items()
+               if n not in kw and f.default is dataclasses.MISSING
+               and f.default_factory is dataclasses.MISSING]
+    if missing:
+        raise ValueError(f"arch dict missing required fields: {missing}")
+    return ArchSpec(**kw)
+
+
 def reduce_arch(arch: ArchSpec, **overrides: Any) -> ArchSpec:
     """Shrink an arch to a CPU-testable config of the same family, exactly as
     `repro.configs.reduce_arch` does (same defaults, same overrides)."""
@@ -262,6 +294,12 @@ class ModelBundle:
         device = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         return tf_mod.lm_init(gen, self.cfg, dtype=self.param_dtype, device=device)
+
+    def param_specs(self) -> dict[str, Any]:
+        """The reference's param tree of this bundle (segments stacked over
+        their layers), each leaf a ParamSpec(shape, dtype): what an artifact
+        must hold, computed from the configs without allocating params."""
+        return tf_mod.lm_param_specs(self.cfg, self.param_dtype)
 
     def sites(self) -> list[SiteSpec]:
         """One SiteSpec per (site, layer), paths as in the reference registry."""

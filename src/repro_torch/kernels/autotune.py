@@ -1,0 +1,334 @@
+"""Shape-keyed kernel-version and launch-parameter autotuner for the LUT kernels.
+
+Counterpart of `repro.kernels.autotune`: the same record format, cache file
+format, key format and precedence, with the TPU's tiling model replaced by the
+CUDA wrappers' own launch parameters and the H100's numbers.
+
+A `BlockConfig` names one launch of one kernel; 0 in a field means "the
+wrapper's own default". Per kernel:
+
+  version 1 (`lut_amm.lut_amm_v1`, csrc/lut_amm_v1.cu)
+      block_n  rows per N tile: always BLOCK_N (8), fixed by the kernels
+      block_m  columns per M tile, 4 x the tile's column quads
+      block_c  codebooks summed per chunk before the chunk joins the output
+               (the reference's bc; it sets the fp32 order of the sums)
+  version 2 (`lut_amm.lut_amm_v2`, csrc/lut_amm_v2.cu)
+      block_n  BLOCK_N;  block_m  4 x quads
+      block_c  codebooks staged in shared memory per chunk (v2's codebook chunk)
+  version 3 (`fused_decode.fused_decode`, csrc/fused_decode.cu)
+      block_n  BLOCK_N;  block_m  4 x quads;  block_c  C (all codebooks resident)
+  kind "encode" (`dist_argmin.encode`, csrc/encode.cu)
+      block_n  rows per block;  block_m  0;  block_c  codebooks per block
+
+Keys are `kind|n=|m=|c=|k=|v=|dtype=|backend=` as in the reference, with
+backend `cuda-sm90` for tensors on the card and `torch-cpu` for CPU tensors.
+The reference's records carry backend `tpu` or `cpu` and are never read
+for the card, so one cache file can hold both packages' records.
+
+`kernel_choice` is the hot-path consumer: a record (measured, restored from
+an artifact, or analytic) always wins; with no record the port's fit rule
+(`fit_version`) applies: the fused kernel when its codebooks fit in a block's
+shared memory, else v2. `tune` sweeps versions 3, 2, 1 and their candidates,
+timed by a `measure(cfg, version) -> seconds` callable (`kernels.measure`,
+CUDA events on the card). Without one, `predict_us`, a roofline model with
+the H100's numbers, ranks only the versions, each at its wrapper's default
+launch: the model is set by device-memory bytes at these shapes, which do not
+depend on the tile, so it cannot tell launches apart, and an analytic record
+keeps block_m = block_c = 0. Records carry `measured` so a timed winner is
+never replaced by a projection. Cache path: $REPRO_AUTOTUNE_CACHE, else
+~/.cache/repro_torch/autotune.json.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import pathlib
+import tempfile
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.kernels import fused_decode as fused_mod
+from repro_torch.kernels import lut_amm as lut_mod
+from repro_torch.kernels import ref
+
+# H100 SXM (NVIDIA's data sheet): device memory rate, fp32 outside the
+# tensor cores, int8 tensor-core rate; L2 rate (rough) for staging centroids
+HBM_BYTES_S = 3.35e12
+FP32_FLOPS = 67e12
+INT8_OPS = 1979e12
+L2_BYTES_S = 10e12
+LAUNCH_S = 4e-6              # fixed cost of one kernel launch on the device
+N_SMS = 132
+
+# the versions `tune` sweeps, in the order that wins a tie: the fit rule's
+# preference (fused, then v2), then v1
+KERNEL_VERSIONS = (3, 2, 1)
+VERSION_FUSED = 3
+BACKEND_CUDA = "cuda-sm90"
+
+_CACHE_VERSION = 1
+_ENV_CACHE = "REPRO_AUTOTUNE_CACHE"
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockConfig:
+    """One launch choice of one LUT kernel (fields per kernel: module docstring)."""
+
+    block_n: int
+    block_m: int
+    block_c: int
+
+    def as_dict(self) -> dict[str, int]:
+        return dataclasses.asdict(self)
+
+    @property
+    def quads(self) -> int | None:
+        return self.block_m // 4 or None
+
+
+DEFAULT = BlockConfig(0, 0, 0)
+
+
+def backend_for(device: str | torch.device) -> str:
+    """The key's backend for kernels run on `device`."""
+    device = torch.device(device)
+    return BACKEND_CUDA if device.type == "cuda" else f"torch-{device.type}"
+
+
+def backend_of(t: torch.Tensor) -> str:
+    """The key's backend for kernels given tensor `t`."""
+    return backend_for(t.device)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """"float32" / "bfloat16": the reference's `str(x.dtype)`."""
+    return str(dtype).removeprefix("torch.")
+
+
+def shape_key(kind: str, n: int, m: int, c: int, k: int, v: int, dtype: str,
+              backend: str) -> str:
+    return f"{kind}|n={n}|m={m}|c={c}|k={k}|v={v}|dtype={dtype}|backend={backend}"
+
+
+def default_cache_path() -> pathlib.Path:
+    env = os.environ.get(_ENV_CACHE)
+    if env:
+        return pathlib.Path(env)
+    return pathlib.Path.home() / ".cache" / "repro_torch" / "autotune.json"
+
+
+def _read_entries(path: pathlib.Path) -> dict[str, dict[str, Any]]:
+    """Entries of a cache file; an unreadable or foreign file counts as empty."""
+    try:
+        raw = json.loads(path.read_text())
+        ok = isinstance(raw, dict) and raw.get("version") == _CACHE_VERSION
+        return dict(raw["entries"]) if ok else {}
+    except (OSError, ValueError, KeyError, TypeError):
+        return {}
+
+
+class AutotuneCache:
+    """JSON-backed winner store; writes are atomic (tmp file, os.replace)."""
+
+    def __init__(self, path: str | os.PathLike | None = None):
+        self.path = pathlib.Path(path) if path is not None else default_cache_path()
+        self._entries: dict[str, dict[str, Any]] | None = None
+
+    def load(self) -> dict[str, dict[str, Any]]:
+        if self._entries is None:
+            self._entries = _read_entries(self.path)
+        return self._entries
+
+    def get(self, key: str) -> dict[str, Any] | None:
+        return self.load().get(key)
+
+    def put(self, key: str, record: dict[str, Any]) -> None:
+        self.load()[key] = record
+
+    def save(self) -> None:
+        """Write this cache's entries over the file's current ones, so that
+        records another process (or the reference package) wrote meanwhile
+        under other keys survive."""
+        payload = {"version": _CACHE_VERSION,
+                   "entries": {**_read_entries(self.path), **self.load()}}
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=self.path.parent, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f, indent=1, sort_keys=True)
+            os.replace(tmp, self.path)
+        except BaseException:
+            with contextlib.suppress(OSError):
+                os.unlink(tmp)
+            raise
+
+
+_DEFAULT_CACHE: AutotuneCache | None = None
+
+
+def get_cache() -> AutotuneCache:
+    """The process cache at `default_cache_path()` (re-opened when the
+    environment variable points elsewhere)."""
+    global _DEFAULT_CACHE
+    if _DEFAULT_CACHE is None or _DEFAULT_CACHE.path != default_cache_path():
+        _DEFAULT_CACHE = AutotuneCache()
+    return _DEFAULT_CACHE
+
+
+# ---------------------------------------------------------------------------
+# candidates and the analytic model
+# ---------------------------------------------------------------------------
+
+def candidates(kind: str, n: int, m: int, c: int, k: int, v: int,
+               version: int = 2) -> list[BlockConfig]:
+    """Every launch the tuner tries for one kernel and shape: the column
+    quads of the M tile for the LUT-AMM kernels, plus v2's codebook chunk and
+    v1's chunk of the sum, or the encode's codebook chunk and row range.
+    Empty for the fused kernel when its codebooks do not fit."""
+    bn = lut_mod.BLOCK_N
+    if kind == "encode":
+        fit = lut_mod.max_chunk(c, k, v)
+        chunks = sorted({fit, lut_mod.cdiv(fit, 2), min(c, 16)})
+        rows = sorted({0, max(1, lut_mod.cdiv(n, 4))})
+        return [BlockConfig(r, 0, cc) for cc in chunks for r in rows]
+    quads = lut_mod.QUADS
+    if version >= VERSION_FUSED:
+        if not fused_mod.fits(c, k, v):
+            return []
+        return [BlockConfig(bn, 4 * q, c) for q in quads]
+    if version == 2:
+        fit = lut_mod.max_chunk(c, k, v)
+        chunks = sorted({fit, lut_mod.cdiv(fit, 2)})
+        return [BlockConfig(bn, 4 * q, cc) for cc in chunks for q in quads]
+    chunks = sorted({ref.v1_block_c(c, v), c})
+    return [BlockConfig(bn, 4 * q, bc) for bc in chunks for q in quads]
+
+
+def predict_us(kind: str, n: int, m: int, c: int, k: int, v: int, cfg: BlockConfig,
+               *, version: int = 2, n_sms: int = N_SMS) -> float:
+    """Roofline estimate (microseconds) of one launch on an H100: the larger
+    of its device-memory bytes (x, centroids, table once per N tile, output)
+    and its operations (fp32 encode per block, int8 lookup; v1's fp32
+    dequantize), plus what every block pays in sequence (staging its
+    codebooks from L2 and encoding them, spread over the blocks one wave
+    runs at once) and a launch."""
+    n_tiles = lut_mod.cdiv(n, lut_mod.BLOCK_N)
+    staged = c * lut_mod.codebook_smem_bytes(k, v)
+    if kind == "encode":
+        rows = cfg.block_n or lut_mod.cdiv(n, max(1, n_sms // lut_mod.cdiv(c, cfg.block_c or c)))
+        blocks = lut_mod.cdiv(c, cfg.block_c or c) * lut_mod.cdiv(n, rows)
+        hbm = n * c * v * 4 + c * k * v * 4 + n * c * 4
+        ops = 2.0 * n * c * k * v / FP32_FLOPS
+        stage = blocks * (staged / lut_mod.cdiv(c, cfg.block_c or c)) / L2_BYTES_S
+        return (max(hbm / HBM_BYTES_S, ops) + stage / min(blocks, n_sms) + LAUNCH_S) * 1e6
+    quads = cfg.quads or lut_mod.tile_quads(n_tiles, m, n_sms)
+    m_tiles = lut_mod.cdiv(m, 4 * quads)
+    if version >= VERSION_FUSED:
+        blocks = n_tiles * min(m_tiles, max(1, n_sms // n_tiles))
+    else:
+        blocks = n_tiles * m_tiles
+    hbm = n * c * v * 4 + c * k * v * 4 + c * k * m * n_tiles + n * m * 4
+    ops = 2.0 * blocks * lut_mod.BLOCK_N * c * k * v / FP32_FLOPS + n * c * m / INT8_OPS
+    # v1 dequantizes every gathered entry in fp32 and adds it in order, a
+    # serial pass on top of the lookup (as the reference's model charges it)
+    serial = n * c * m * 2 / FP32_FLOPS if version == 1 else 0.0
+    waves = lut_mod.cdiv(blocks, n_sms)
+    return (max(hbm / HBM_BYTES_S, ops) + serial + waves * staged / L2_BYTES_S
+            + LAUNCH_S) * 1e6
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+def lookup(kind: str, n: int, m: int, c: int, k: int, v: int, *, dtype: str = "float32",
+           backend: str = BACKEND_CUDA, cache: AutotuneCache | None = None) -> BlockConfig:
+    """The recorded launch for a shape, else DEFAULT (each wrapper's own)."""
+    rec = (cache or get_cache()).get(shape_key(kind, n, m, c, k, v, dtype, backend))
+    if rec is None:
+        return DEFAULT
+    return BlockConfig(rec["block_n"], rec["block_m"], rec["block_c"])
+
+
+def resolve_blocks(kind: str, n: int, m: int, c: int, k: int, v: int, dtype: str,
+                   backend: str, block_n: int | None, block_m: int | None,
+                   block_c: int | None) -> BlockConfig:
+    """Fill unspecified fields from the record (or the wrappers' defaults)."""
+    if block_n is None or block_m is None or block_c is None:
+        tuned = lookup(kind, n, m, c, k, v, dtype=dtype, backend=backend)
+        block_n = tuned.block_n if block_n is None else block_n
+        block_m = tuned.block_m if block_m is None else block_m
+        block_c = tuned.block_c if block_c is None else block_c
+    return BlockConfig(block_n, block_m, block_c)
+
+
+def tune(kind: str, n: int, m: int, c: int, k: int, v: int, *, dtype: str = "float32",
+         backend: str = BACKEND_CUDA, cache: AutotuneCache | None = None,
+         measure: Callable[[BlockConfig, int], float] | None = None,
+         versions: tuple[int, ...] | None = None,
+         save: bool = True) -> tuple[BlockConfig, dict[str, Any]]:
+    """Pick the best (version, launch) for one shape and record it.
+
+    measure: `(cfg, version) -> seconds`, timed on the card
+    (`kernels.measure`); a candidate the wrapper refuses (ValueError: it
+    does not fit this shape) is skipped. Without it, `predict_us` scores
+    each version at its default launch (DEFAULT); a tie goes to the version
+    swept first. versions: defaults to KERNEL_VERSIONS for kind "lut_amm"."""
+    cache = cache or get_cache()
+    key = shape_key(kind, n, m, c, k, v, dtype, backend)
+    if versions is None:
+        versions = KERNEL_VERSIONS if kind == "lut_amm" else (2,)
+    best_cfg, best_t, best_ver = None, math.inf, versions[0]
+    for ver in versions:
+        cands = candidates(kind, n, m, c, k, v, ver)
+        if measure is None and cands:
+            cands = [DEFAULT]
+        for cand in cands:
+            if measure is not None:
+                try:
+                    t_us = measure(cand, ver) * 1e6
+                except ValueError:
+                    continue
+            else:
+                t_us = predict_us(kind, n, m, c, k, v, cand, version=ver)
+            if t_us < best_t:
+                best_cfg, best_t, best_ver = cand, t_us, ver
+    if best_cfg is None:
+        raise RuntimeError(f"no candidate of {key} ran")
+    record = {
+        **best_cfg.as_dict(),
+        "predicted_us": best_t,
+        "measured": measure is not None,
+        "source": "cuda_events" if measure is not None else "roofline_model",
+    }
+    if kind == "lut_amm":
+        record["version"] = best_ver
+    cache.put(key, record)
+    if save:
+        cache.save()
+    return best_cfg, record
+
+
+def kernel_choice(n: int, m: int, c: int, k: int, v: int, *, dtype: str = "float32",
+                  backend: str = BACKEND_CUDA,
+                  cache: AutotuneCache | None = None) -> tuple[int, BlockConfig, bool]:
+    """(version, launch, from_record) for `ops.lut_amm`. A record always
+    wins (a record without "version" means v2, as in the reference); with
+    none, `fit_version` at the default launch."""
+    rec = (cache or get_cache()).get(shape_key("lut_amm", n, m, c, k, v, dtype, backend))
+    if rec is not None:
+        return (int(rec.get("version", 2)),
+                BlockConfig(rec["block_n"], rec["block_m"], rec["block_c"]), True)
+    return fit_version(c, k, v), DEFAULT, False
+
+
+def fit_version(c: int, k: int, v: int) -> int:
+    """The no-record fit rule: the fused kernel when all C codebooks' fp32
+    centroids plus one N tile's codes fit in a block's shared memory on this
+    card, else v2."""
+    return VERSION_FUSED if fused_mod.fits(c, k, v) else 2

@@ -22,6 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "fused_decode": "fused_decode.cu",
     "lut_amm_v2": "lut_amm_v2.cu",
+    "lut_amm_v1": "lut_amm_v1.cu",
+    "encode": "encode.cu",
 }
 HEADERS = ("lut_common.cuh",)
 NVCC_FLAGS = (

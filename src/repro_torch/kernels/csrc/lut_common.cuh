@@ -1,12 +1,16 @@
-// Device pieces shared by the two LUT-AMM kernels (fused_decode.cu, lut_amm_v2.cu).
+// Device pieces shared by the LUT kernels (fused_decode.cu, lut_amm_v2.cu,
+// lut_amm_v1.cu, encode.cu).
 //
-// Both kernels compute, for x (N, C*V), centroids P (C, K, V) fp32, int8 table
-// T (C, K, M) and scale s (1|C, 1, 1|M):
+// The fused and v2 kernels compute, for x (N, C*V), centroids P (C, K, V)
+// fp32, int8 table T (C, K, M) and scale s (1|C, 1, 1|M):
 //
 //   code[n, c] = argmin_k  ||a||^2 - 2 a.P[c,k] + ||P[c,k]||^2   (fp32, lowest k wins)
-//   y[n, m]    = sum_c T[c, code[n,c], m]  (int32, then one fp32 rescale: m-shared/scalar)
+//   y[n, m]    = sum_c T[c, code[n,c], m]  (int32, then one fp32 rescale fused with the
+//                                         bias add: m-shared/scalar)
 //              | sum_c T[c, code[n,c], m] * s[c, m|0]           (fp32: per-codebook/column)
 //   out        = act(y + bias), written once in x's dtype.
+//
+// v1 and the encode kernel share the staging and the device encode only.
 //
 // Thread layout of the lookup: a block owns kBlockN rows and one M tile of
 // 4*Q columns at a time. Thread t handles the 4 adjacent columns 4*(t % Q)..+3
@@ -228,10 +232,16 @@ __device__ __forceinline__ void reduce_store(const AccT (&acc)[kBlockN][4], void
     if (n < n_rows && mm < M) {
       AccT sum = 0;
       for (int gg = 0; gg < G; ++gg) sum += red[(gg * kBlockN + n) * TW + col];
-      // explicit _rn intrinsics: no fused multiply-add, so the m-shared result
-      // is the reference's single rounding of (float)acc32 * s, then + bias
-      float y = SHARED ? __fmul_rn((float)sum, scale[scale_m == 1 ? 0 : mm]) : (float)sum;
-      if (bias != nullptr) y = __fadd_rn(y, bias[mm]);
+      // m-shared / scalar: the reference's (float)acc32 * s + bias, which XLA
+      // contracts into one fused multiply-add (one rounding); without a bias,
+      // the single rounding of the product. Per-codebook: the fp32 sum + bias.
+      float y;
+      if (SHARED) {
+        const float s = scale[scale_m == 1 ? 0 : mm];
+        y = bias != nullptr ? __fmaf_rn((float)sum, s, bias[mm]) : __fmul_rn((float)sum, s);
+      } else {
+        y = bias != nullptr ? __fadd_rn((float)sum, bias[mm]) : (float)sum;
+      }
       store_out(out + (size_t)(n0 + n) * M + mm, apply_act(y, act));
     }
   }

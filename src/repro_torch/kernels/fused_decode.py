@@ -23,6 +23,7 @@ from repro_torch.kernels.lut_amm import (
     _align16,
     cdiv,
     check_args,
+    check_quads,
     codebook_smem_bytes,
     launch_args,
     raise_on_error,
@@ -49,17 +50,20 @@ def fits(c: int, k: int, v: int) -> bool:
     return smem_bytes(c, k, v) <= MAX_SMEM
 
 
-def fused_geometry(n: int, c: int, k: int, v: int, m: int, n_sms: int) -> dict[str, int]:
+def fused_geometry(n: int, c: int, k: int, v: int, m: int, n_sms: int, *,
+                   quads: int | None = None) -> dict[str, int]:
     """Tile width, M ranges and shared memory of one fused launch. Each block
     owns one N tile and a contiguous range of M tiles. Every block stages
     all C codebooks (at C = 64, V = 32 its 137 KB of shared memory leave
     room for one block per SM), so the grid aims at one wave: about n_sms
     blocks, never more unless the N tiles alone exceed it. Among tile
-    widths, the one giving most ranges (then the widest) wins."""
+    widths, the one giving most ranges (then the widest) wins, unless
+    `quads` (an autotune record's) fixes the width."""
+    check_quads(quads)
     n_tiles = cdiv(n, BLOCK_N)
     ranges = max(1, n_sms // n_tiles)
     best = None
-    for quads in QUADS:
+    for quads in (quads,) if quads else QUADS:
         n_mtiles = cdiv(m, 4 * quads)
         per_range = cdiv(n_mtiles, ranges)
         m_ranges = cdiv(n_mtiles, per_range)
@@ -88,8 +92,9 @@ def _lib():
 
 def fused_decode(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
                  scale: torch.Tensor, *, bias: torch.Tensor | None = None,
-                 act: str = "none") -> torch.Tensor:
-    """Fused encode -> lookup: (N, C*V) -> (N, M) in x.dtype. See csrc/fused_decode.cu."""
+                 act: str = "none", quads: int | None = None) -> torch.Tensor:
+    """Fused encode -> lookup: (N, C*V) -> (N, M) in x.dtype. See csrc/fused_decode.cu.
+    quads: the M tile's column quads (None: `fused_geometry`'s choice)."""
     global launches
     if x.device.type == "cpu":
         return ref.fused_decode_plain(x, centroids, table_q, scale, bias=bias, act=act)
@@ -101,7 +106,7 @@ def fused_decode(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    geo = fused_geometry(n, c, k, v, m, sm_count(x.device.index))
+    geo = fused_geometry(n, c, k, v, m, sm_count(x.device.index), quads=quads)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().lutnn_fused_decode(

@@ -1,13 +1,17 @@
-"""LUT-AMM v2 on Hopper: wrapper of the CUDA kernel in csrc/lut_amm_v2.cu.
+"""LUT-AMM v2 and v1 on Hopper: wrappers of csrc/lut_amm_v2.cu and
+csrc/lut_amm_v1.cu.
 
-Counterpart of `repro.kernels.lut_amm.lut_amm_pallas` (v2), the main path's
-kernel when the fused kernel's resident codebooks do not fit in one block's
-shared memory (the down projection of qwen3_1p7b: C = 192). Also holds the
-argument checks and launch geometry both CUDA wrappers share. The TPU's v1
-kernel (`lut_amm_pallas_v1`) is not ported yet (ROADMAP Queue B).
+`lut_amm_v2` is the counterpart of `repro.kernels.lut_amm.lut_amm_pallas`
+(v2), the fit rule's kernel when the fused kernel's resident codebooks do not
+fit in one block's shared memory (the down projection of qwen3_1p7b: C = 192).
+`lut_amm_v1` is the counterpart of `lut_amm_pallas_v1`, the generation that
+dequantizes the table to fp32 and sums in fp32; the autotuner times it and
+`ops.lut_amm` runs it where a record says version 1. This module also holds
+the argument checks and launch geometry the CUDA wrappers share.
 
-A CPU tensor runs the plain version (`ref.lut_amm_v2_plain`); a CUDA tensor
-launches the kernel or raises. `launches` counts kernel launches.
+A CPU tensor runs the plain version (`ref.lut_amm_v2_plain`,
+`ref.lut_amm_v1_plain`); a CUDA tensor launches the kernel or raises.
+`launches` and `launches_v1` count kernel launches.
 """
 
 from __future__ import annotations
@@ -39,9 +43,12 @@ MAX_SMEM = 232_448
 V2_REGION = 139_264
 
 launches = 0
+launches_v1 = 0
 
 _LIB = None
+_LIB_V1 = None
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_ARGTYPES_V1 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def codebook_smem_bytes(k: int, v: int) -> int:
@@ -143,34 +150,54 @@ def _lib():
     return _LIB
 
 
-def v2_geometry(n: int, c: int, k: int, v: int, m: int, n_sms: int) -> dict[str, int]:
-    """Tile width, codebook chunk and shared memory of one v2 launch. The
-    chunks split C evenly within V2_REGION, so each chunk's encode keeps
-    as many threads busy as the region allows."""
-    max_chunk = max(1, min(c, V2_REGION // codebook_smem_bytes(k, v)))
-    chunk_c = cdiv(c, cdiv(c, max_chunk))
+def max_chunk(c: int, k: int, v: int) -> int:
+    """The largest chunk of codebooks staged at once (V2_REGION), spread so
+    that the chunks split C evenly: each chunk's encode keeps as many threads
+    busy as the region allows."""
+    most = max(1, min(c, V2_REGION // codebook_smem_bytes(k, v)))
+    return cdiv(c, cdiv(c, most))
+
+
+def check_quads(quads: int | None) -> None:
+    if quads is not None and quads not in QUADS:
+        raise ValueError(f"quads={quads} not in {QUADS}")
+
+
+def v2_geometry(n: int, c: int, k: int, v: int, m: int, n_sms: int, *,
+                quads: int | None = None, chunk_c: int | None = None) -> dict[str, int]:
+    """Tile width, codebook chunk and shared memory of one v2 launch: the
+    given ones (an autotune record's), else `tile_quads` and `max_chunk`."""
+    check_quads(quads)
+    chunk_c = min(chunk_c or max_chunk(c, k, v), c)
     region = _align16(max(chunk_c * codebook_smem_bytes(k, v), RED_BYTES))
+    smem = region + _align16(BLOCK_N * chunk_c)
+    if smem > MAX_SMEM:
+        raise ValueError(f"v2 chunk of {chunk_c} codebooks needs {smem} B of shared memory; "
+                         f"the card allows {MAX_SMEM}")
     return {
-        "quads": tile_quads(cdiv(n, BLOCK_N), m, n_sms),
+        "quads": quads or tile_quads(cdiv(n, BLOCK_N), m, n_sms),
         "chunk_c": chunk_c,
         "region": region,
-        "smem": region + _align16(BLOCK_N * chunk_c),
+        "smem": smem,
     }
 
 
 def lut_amm_v2(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
                scale: torch.Tensor, *, bias: torch.Tensor | None = None,
-               act: str = "none") -> torch.Tensor:
-    """v2 LUT-AMM: (N, C*V) -> (N, M) in x.dtype. See csrc/lut_amm_v2.cu."""
+               act: str = "none", quads: int | None = None,
+               chunk_c: int | None = None) -> torch.Tensor:
+    """v2 LUT-AMM: (N, C*V) -> (N, M) in x.dtype. See csrc/lut_amm_v2.cu.
+    quads / chunk_c: the M tile's column quads and the codebook chunk
+    (None: the defaults of `v2_geometry`)."""
     global launches
     if x.device.type == "cpu":
         return ref.lut_amm_v2_plain(x, centroids, table_q, scale, bias=bias, act=act)
     dims = check_args(x, centroids, table_q, scale, bias, act)
     n, c, k, v, m = dims[:5]
+    geo = v2_geometry(n, c, k, v, m, sm_count(x.device.index), quads=quads, chunk_c=chunk_c)
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    geo = v2_geometry(n, c, k, v, m, sm_count(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().lutnn_lut_amm_v2(
@@ -179,4 +206,58 @@ def lut_amm_v2(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
         )
     raise_on_error(err, "lut_amm_v2")
     launches += 1
+    return out
+
+
+def _lib_v1():
+    global _LIB_V1
+    if _LIB_V1 is None:
+        lib = build.load("lut_amm_v1")
+        lib.lutnn_lut_amm_v1.argtypes = _ARGTYPES_V1
+        lib.lutnn_lut_amm_v1.restype = ctypes.c_int
+        _LIB_V1 = lib
+    return _LIB_V1
+
+
+def v1_geometry(n: int, c: int, k: int, v: int, m: int, n_sms: int, *,
+                quads: int | None = None) -> dict[str, int]:
+    """Tile width, staging chunk and shared memory of one v1 launch. The
+    staging chunk only bounds shared memory; the chunk of the sum is block_c."""
+    check_quads(quads)
+    stage_c = max_chunk(c, k, v)
+    region = _align16(stage_c * codebook_smem_bytes(k, v))
+    return {
+        "quads": quads or tile_quads(cdiv(n, BLOCK_N), m, n_sms),
+        "stage_c": stage_c,
+        "region": region,
+        "smem": region + _align16(BLOCK_N * stage_c),
+    }
+
+
+def lut_amm_v1(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
+               scale: torch.Tensor, *, block_c: int | None = None,
+               quads: int | None = None) -> torch.Tensor:
+    """v1 LUT-AMM: (N, C*V) -> (N, M) in x.dtype, fp32 sums of t * s in
+    chunks of block_c codebooks (None: the reference's default chunk). No
+    bias or activation. See csrc/lut_amm_v1.cu."""
+    global launches_v1
+    if x.device.type == "cpu":
+        return ref.lut_amm_v1_plain(x, centroids, table_q, scale, block_c=block_c)
+    dims = check_args(x, centroids, table_q, scale, None, "none")
+    n, c, k, v, m, scale_c, scale_m = dims
+    bc = ref.v1_block_c(c, v, block_c)
+    geo = v1_geometry(n, c, k, v, m, sm_count(x.device.index), quads=quads)
+    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib_v1().lutnn_lut_amm_v1(
+            x.data_ptr(), centroids.data_ptr(), table_q.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), n, c, k, v, m, scale_c, scale_m, int(x.dtype == torch.bfloat16),
+            geo["quads"], bc, geo["stage_c"], geo["region"], geo["smem"], vec4_ok(table_q),
+            stream,
+        )
+    raise_on_error(err, "lut_amm_v1")
+    launches_v1 += 1
     return out

@@ -1,44 +1,72 @@
-"""Public LUT-AMM entry point with version dispatch.
+"""Public LUT entry points with autotuned version dispatch.
 
-Counterpart of `repro.kernels.ops.lut_amm`. Without `version`, a site runs the
-fused kernel (v3) when all C codebooks' fp32 centroids plus one N tile's codes
-fit in a block's shared memory on this card, else v2: the no-record rule of
-`repro.kernels.autotune.kernel_choice`, with the card's 227 KB in place of the
-TPU's VMEM budget. There is no autotuner yet: block sizes are fixed in each
-wrapper. A CPU tensor runs the plain version of the chosen kernel.
+Counterpart of `repro.kernels.ops`. `lut_amm` asks `autotune.kernel_choice`
+for the kernel version and launch of each shape: a record (measured on the
+card, restored from an artifact, or analytic) always wins; with none, the
+fused kernel (v3) runs when all C codebooks' fp32 centroids plus one N tile's
+codes fit in a block's shared memory on this card, else v2. `version=1|2|3`
+forces a kernel. A CPU tensor runs the plain version of the chosen kernel.
+`encode` runs the encode kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autotune
+from repro_torch.kernels import dist_argmin as enc_mod
 from repro_torch.kernels import fused_decode as fused_mod
-from repro_torch.kernels import lut_amm as v2_mod
+from repro_torch.kernels import lut_amm as lut_mod
+from repro_torch.kernels import ref
 
+VERSION_V1 = 1
 VERSION_V2 = 2
-VERSION_FUSED = 3
-
-
-def choose_version(c: int, k: int, v: int) -> int:
-    return VERSION_FUSED if fused_mod.fits(c, k, v) else VERSION_V2
+VERSION_FUSED = autotune.VERSION_FUSED
 
 
 def lut_amm(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
             scale: torch.Tensor, *, bias: torch.Tensor | None = None,
-            act: str = "none", version: int | None = None) -> torch.Tensor:
+            act: str = "none", version: int | None = None,
+            blocks: autotune.BlockConfig | None = None) -> torch.Tensor:
     """LUT-NN approximate matmul: (N, C*V) -> (N, M) in x.dtype.
 
-    version: None picks by the fit rule; 3 forces the fused kernel, 2 forces
-    v2. The TPU's v1 kernel is not ported (ROADMAP Queue B)."""
-    if version == 1:
-        raise NotImplementedError("lut_amm version=1 (lut_amm_pallas_v1) is not ported to "
-                                  "the GPU yet: ROADMAP Queue B")
-    if version not in (None, VERSION_V2, VERSION_FUSED):
-        raise ValueError(f"version={version!r}: expected None, 2 or 3")
+    version: None asks the autotune record (else the fit rule); 1, 2 or 3
+    forces v1, v2 or the fused kernel. blocks: the launch (None: the
+    record's when it chose the version, else the wrapper's defaults)."""
+    if version not in (None, VERSION_V1, VERSION_V2, VERSION_FUSED):
+        raise ValueError(f"version={version!r}: expected None, 1, 2 or 3")
     if version is None:
+        n, _ = x.shape
         c, k, v = centroids.shape
-        version = choose_version(c, k, v)
+        version, rec_blocks, _ = autotune.kernel_choice(
+            n, table_q.shape[-1], c, k, v, dtype=autotune.dtype_name(x.dtype),
+            backend=autotune.backend_of(x))
+        blocks = blocks or rec_blocks
+    cfg = blocks or autotune.DEFAULT
+    if version == VERSION_V1:
+        # v1 has no fused epilogue: bias and activation follow in x's dtype,
+        # as the reference adds them outside lut_amm_pallas_v1
+        y = lut_mod.lut_amm_v1(x, centroids, table_q, scale, block_c=cfg.block_c or None,
+                               quads=cfg.quads)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return ref.apply_act(y, act).to(y.dtype)
     if bias is not None:
         bias = bias.float()           # the epilogue adds bias in fp32
-    fn = fused_mod.fused_decode if version == VERSION_FUSED else v2_mod.lut_amm_v2
-    return fn(x, centroids, table_q, scale, bias=bias, act=act)
+    if version == VERSION_FUSED:
+        return fused_mod.fused_decode(x, centroids, table_q, scale, bias=bias, act=act,
+                                      quads=cfg.quads)
+    return lut_mod.lut_amm_v2(x, centroids, table_q, scale, bias=bias, act=act,
+                              quads=cfg.quads, chunk_c=cfg.block_c or None)
+
+
+def encode(x: torch.Tensor, centroids: torch.Tensor, *, block_n: int | None = None,
+           block_c: int | None = None) -> torch.Tensor:
+    """Closest-centroid encode: (N, C*V) -> int32 (N, C), with the launch of
+    the "encode" autotune record unless given."""
+    n, _ = x.shape
+    c, k, v = centroids.shape
+    cfg = autotune.resolve_blocks("encode", n, 0, c, k, v, autotune.dtype_name(x.dtype),
+                                  autotune.backend_of(x), block_n, None, block_c)
+    return enc_mod.encode(x, centroids, block_n=cfg.block_n or None,
+                          block_c=cfg.block_c or None)

@@ -3,8 +3,11 @@
 `fused_decode_plain` and `lut_amm_v2_plain` compute exactly what the CUDA
 kernels compute (csrc/lut_common.cuh): fp32 expansion distances, lowest index
 wins a tie, then an exact int32 gather-accumulate dequantized once for an
-m-shared or scalar scale (fp32 per-codebook rescale otherwise), then bias and
-activation in fp32, cast to x's dtype. They are what a CPU tensor runs, what
+m-shared or scalar scale, fused with the bias add into one rounding (fp32
+per-codebook rescale, then + bias, otherwise), then the activation in fp32,
+cast to x's dtype. `lut_amm_v1_plain` sums the fp32-dequantized entries in
+the v1 kernel's order (csrc/lut_amm_v1.cu). `encode_ref` is the plain version
+of the encode kernel (csrc/encode.cu). They are what a CPU tensor runs, what
 the CPU tests hold against the JAX kernels, and what `chip_smoke.py` holds the
 CUDA kernels against on the card. `lut_amm_ref` and `encode_ref` are the
 counterparts of the reference's oracle (`repro.kernels.ref`).
@@ -22,7 +25,8 @@ from repro_torch.core import pq
 
 ACTIVATIONS = ("none", "relu", "silu", "gelu", "relu2")
 
-calls = {"fused_decode_plain": 0, "lut_amm_v2_plain": 0}
+calls = {"fused_decode_plain": 0, "lut_amm_v2_plain": 0, "lut_amm_v1_plain": 0,
+         "encode_plain": 0}
 
 
 def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -45,6 +49,29 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
 def encode_ref(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """(N, D), (C, K, V) -> int32 (N, C) nearest-centroid indices."""
     return pq.encode_indices(x, centroids)
+
+
+def encode_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the encode kernel (kernels/dist_argmin.py)."""
+    calls["encode_plain"] += 1
+    return encode_ref(x, centroids)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fl32(a * b + c) with a single rounding, as a fused multiply-add gives
+    it: the product of two fp32 values is exact in fp64; the fp64 sum is
+    rounded to odd (TwoSum finds its error, and an inexact sum with an even
+    last bit moves one ulp toward the exact value), which makes the final
+    rounding to fp32 the correct one."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def lut_amm_ref(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
@@ -70,12 +97,15 @@ def _lookup(x, centroids, table_q, scale, bias, act):
         raise ValueError(f"act={act!r} not in {ACTIVATIONS}")
     idx = encode_ref(x, centroids)
     if scale.shape[0] == 1:
-        # m-shared / scalar: exact int32 sum, one rounding per element
-        y = pq.gather_lut(idx, table_q.to(torch.int32)).float() * scale.reshape(1, -1)
+        # m-shared / scalar: exact int32 sum, one rounding per element, the
+        # bias add fused into it
+        acc = pq.gather_lut(idx, table_q.to(torch.int32)).float()
+        s = scale.reshape(1, -1).expand_as(acc)
+        y = acc * s if bias is None else fma_f32(acc, s, bias.float().expand_as(acc))
     else:
         y = pq.gather_lut(idx, table_q.float() * scale)
-    if bias is not None:
-        y = y + bias.float()
+        if bias is not None:
+            y = y + bias.float()
     return apply_act(y, act).to(x.dtype)
 
 
@@ -89,3 +119,36 @@ def lut_amm_v2_plain(x, centroids, table_q, scale, *, bias=None, act="none"):
     """Plain version of the v2 kernel (kernels/lut_amm.py)."""
     calls["lut_amm_v2_plain"] += 1
     return _lookup(x, centroids, table_q, scale, bias, act)
+
+
+def v1_block_c(c: int, v: int, block_c: int | None = None) -> int:
+    """v1's chunk of the codebook sum: the reference's max(1, min(C, 2048 // V))
+    unless given, reduced to a divisor of C (`lut_amm_pallas_v1`)."""
+    bc = min(block_c if block_c else max(1, min(c, 2048 // v)), c)
+    while c % bc:
+        bc -= 1
+    return bc
+
+
+def lut_amm_v1_plain(x, centroids, table_q, scale, *, block_c=None):
+    """Plain version of the v1 kernel (kernels/lut_amm.py::lut_amm_v1): each
+    entry dequantized in fp32 (t * s), summed in codebook order within chunks
+    of block_c codebooks, the chunk sums added in order; cast to x's dtype.
+    No bias or activation. A (1, 1, 1|M) scale is read as its broadcast over C."""
+    calls["lut_amm_v1_plain"] += 1
+    n, d = x.shape
+    c, k, v = centroids.shape
+    if d != c * v:
+        raise ValueError(f"D={d} != C*V={c}*{v}")
+    bc = v1_block_c(c, v, block_c)
+    idx = encode_ref(x, centroids).long()
+    s = scale.float()
+    total = torch.zeros((n, table_q.shape[-1]), dtype=torch.float32, device=x.device)
+    chunk = torch.zeros_like(total)
+    for ci in range(c):
+        entry = table_q[ci][idx[:, ci]].float() * s[0 if s.shape[0] == 1 else ci, 0]
+        chunk = chunk + entry
+        if (ci + 1) % bc == 0:
+            total = total + chunk
+            chunk = torch.zeros_like(total)
+    return total.to(x.dtype)

@@ -1,18 +1,27 @@
-"""Serving launcher, batch mode: a timed burst of greedy requests through the
+"""Serving launcher, batch mode: a timed burst of requests through the
 continuous-batching engine with a LUT_INFER (int8 table) model.
 
-  # on the card, LUT sites through the CUDA kernels (fused v3 / v2):
+  # serve a deployment artifact (written by either package), on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir>
+
+  # sampled requests (seed + i for request i):
+  PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> \\
+      --temperature 0.8 --top-k 50 --top-p 0.9 --seed 7
+
+  # random tables, LUT sites through the CUDA kernels (autotuned v1/v2/v3):
   PYTHONPATH=src python -m repro_torch.launch.serve --use-kernel --requests 8
 
   # on the CPU, plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4 --slots 2
 
-Counterpart of `repro.launch.serve` in random-init batch mode: the arch is
-reduced exactly as there (`reduce_arch`; --layers/--d-model/--vocab override
-depth, width and vocab) and initialized from a seeded generator. A warm-up
-request runs off the clock first. Serving a LUTArtifact (--artifact) is the
-next slice (ROADMAP Queue A item 5); the HTTP, supervised and multi-replica
-modes follow with item 9.
+Counterpart of `repro.launch.serve` in batch mode. With --artifact the arch,
+plan and mode come from the manifest and the artifact's autotune snapshot is
+restored; without it the arch is reduced exactly as there (`reduce_arch`;
+--layers/--d-model/--vocab) and initialized from a seeded generator. The
+engine warms the kernel autotuner for every LUT site at its two token shapes
+(timed on the card with REPRO_AUTOTUNE_MEASURE=1); a warm-up request runs off
+the clock unless --no-warmup. The HTTP, supervised and multi-replica modes
+follow with ROADMAP Queue A item 9.
 """
 
 from __future__ import annotations
@@ -24,69 +33,105 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, build_model, get_arch, reduce_arch
 from repro_torch.core.amm import Mode
-from repro_torch.kernels import fused_decode as fused_mod
-from repro_torch.kernels import lut_amm as v2_mod
-from repro_torch.kernels import ref
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.kernels import autotune, counters
+from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures
+from repro_torch.serving.sampling import SamplingParams
+
+
+def chosen_versions(bundle, token_counts: list[int], dtype: str,
+                    device: torch.device) -> dict[tuple[int, int, int, int], list[int]]:
+    """{(M, C, K, V): [version per token count]} as `ops.lut_amm` will
+    dispatch each LUT kernel site signature."""
+    backend = autotune.backend_for(device)
+    return {sig: [autotune.kernel_choice(n, *sig, dtype=dtype, backend=backend)[0]
+                  for n in token_counts]
+            for sig in lut_kernel_signatures(bundle)}
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3_1p7b")
+    ap.add_argument("--artifact", default=None,
+                    help="a LUTArtifact directory: serve its tables (arch, plan and mode from "
+                         "the manifest) instead of random ones")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3_1p7b",
+                    help="arch of random-init mode (ignored with --artifact)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--max-tokens", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                    help="engine compute dtype")
+                    help="engine compute dtype; also keys the autotune records")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 = greedy")
+    ap.add_argument("--top-k", type=int, default=0, help="top-k filter; 0 disables")
+    ap.add_argument("--top-p", type=float, default=1.0, help="nucleus mass; 1 disables")
+    ap.add_argument("--seed", type=int, default=0, help="base sampling seed")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip the untimed warm-up request")
     ap.add_argument("--use-kernel", action="store_true",
-                    help="run LUT sites through the LUT kernels (CUDA on the card, their "
-                         "plain versions on the CPU)")
-    ap.add_argument("--layers", type=int, default=None, help="reduce the arch to N layers")
-    ap.add_argument("--d-model", type=int, default=None, help="reduced arch width")
-    ap.add_argument("--vocab", type=int, default=None, help="reduced arch vocab")
+                    help="random-init mode: run LUT sites through the LUT kernels (CUDA on the "
+                         "card, their plain versions on the CPU); artifacts carry their own "
+                         "setting")
+    ap.add_argument("--layers", type=int, default=None, help="random-init: reduce to N layers")
+    ap.add_argument("--d-model", type=int, default=None, help="random-init: reduced width")
+    ap.add_argument("--vocab", type=int, default=None, help="random-init: reduced vocab")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
-    overrides = {"lut_use_kernel": args.use_kernel}
-    for name in ("layers", "d_model", "vocab"):
-        val = getattr(args, name)
-        if val is not None:
-            overrides["n_layers" if name == "layers" else name] = val
-    arch = reduce_arch(get_arch(args.arch), **overrides)
-    bundle = build_model(arch, Mode.LUT_INFER)
-    params = bundle.init(torch.Generator().manual_seed(0), device=args.device)
-    source = f"random init ({arch.name})"
+    if args.artifact:
+        from repro_torch.serving.artifact import load_artifact
+
+        art = load_artifact(args.artifact, device=args.device)
+        bundle, params = art.bundle, art.params
+        source = f"artifact {args.artifact} ({art.arch_name})"
+    else:
+        overrides = {"lut_use_kernel": args.use_kernel}
+        for name in ("layers", "d_model", "vocab"):
+            val = getattr(args, name)
+            if val is not None:
+                overrides["n_layers" if name == "layers" else name] = val
+        arch = reduce_arch(get_arch(args.arch), **overrides)
+        bundle = build_model(arch, Mode.LUT_INFER)
+        params = bundle.init(torch.Generator().manual_seed(0), device=args.device)
+        source = f"random init ({arch.name})"
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     eng = ServingEngine(bundle, params, n_slots=args.slots, max_seq=args.max_seq,
                         prefill_chunk=args.prefill_chunk, compute_dtype=dtype,
                         device=args.device)
-    eng.warmup()
+    if not args.no_warmup:
+        eng.warmup()
 
-    fused_mod.launches = v2_mod.launches = 0
-    ref.calls.update(fused_decode_plain=0, lut_amm_v2_plain=0)
+    counters.reset()
     gen = torch.Generator().manual_seed(1)
     t0 = time.time()
     for i in range(args.requests):
         plen = int(torch.randint(4, 24, (1,), generator=gen))
-        eng.submit(list(range(i + 1, i + 1 + plen)), max_tokens=args.max_tokens)
+        eng.submit(list(range(i + 1, i + 1 + plen)), max_tokens=args.max_tokens,
+                   sampling=SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                                           top_p=args.top_p, seed=args.seed + i))
     done = eng.run_until_done()
     dt = max(time.time() - t0, 1e-9)
     total_tok = sum(len(r.out_tokens) for r in done)
-    mode = "LUT kernels (fused v3 / v2)" if args.use_kernel else "plain one-hot"
+    use_kernel = any(s.lut is not None and s.lut.use_kernel for s in bundle.lut_sites())
+    mode = "LUT kernels (autotuned v1/v2/v3)" if use_kernel else "plain one-hot"
     st = eng.stats()
     print(f"{len(done)} requests, {total_tok} tokens in {dt:.1f}s "
           f"({total_tok/dt:.1f} tok/s, {args.slots} slots, LUT INT8 tables, "
-          f"{mode}, {args.dtype}, {source}, on {eng.device}, fixed kernel blocks)")
+          f"{mode}, {args.dtype}, {source}, on {eng.device}, "
+          f"{eng.n_lut_shapes_tuned} LUT shapes autotuned)")
     print(f"  steps={st['steps']} prefill: {st['prefill_tokens']} tok / "
           f"{st['prefill_forwards']} fwd ({st['prefill_tok_s']:.1f} tok/s)  "
           f"decode: {st['decode_tokens']} tok / {st['decode_forwards']} fwd "
           f"({st['decode_tok_s']:.1f} tok/s)  "
           f"occupancy={st['decode_occupancy']:.2f}  "
           f"shape_cache_hits={st['shape_cache_hits']}")
-    print(f"  kernel launches: fused_decode={fused_mod.launches} lut_amm_v2={v2_mod.launches}  "
-          f"plain calls: {ref.calls['fused_decode_plain'] + ref.calls['lut_amm_v2_plain']}")
+    counts = [args.slots, args.slots * args.prefill_chunk]
+    versions = chosen_versions(bundle, counts, args.dtype, eng.device)
+    print(f"  kernel version per site (M, C, K, V) at N={counts}: "
+          + ", ".join(f"{sig}: {v}" for sig, v in versions.items()))
+    print(f"  kernel launches: {counters.launch_line()}  "
+          f"plain calls: {counters.plain_calls()}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"  req {r.rid}: {r.out_tokens[:8]}...")
 

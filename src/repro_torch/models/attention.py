@@ -59,6 +59,16 @@ def attn_init(gen: torch.Generator, cfg: AttnCfg, *, dtype=torch.float32,
     return p
 
 
+def attn_specs(cfg: AttnCfg, dtype=torch.float32) -> Params:
+    """ParamSpecs of `attn_init`'s params."""
+    p: Params = {name: common.linear_specs(getattr(cfg, name), dtype)
+                 for name in ("q", "k", "v", "o")}
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": common.ParamSpec((cfg.d_head,), dtype)}
+        p["k_norm"] = {"scale": common.ParamSpec((cfg.d_head,), dtype)}
+    return p
+
+
 def _rope(cfg: AttnCfg, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     if not cfg.use_rope:
         return x

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.amm import LUTConfig, Mode, lut_linear
-from repro_torch.core.lut_layer import deploy_param_specs
+from repro_torch.core.lut_layer import ParamSpec, deploy_param_specs
 
 Params = dict[str, Any]
 
@@ -57,6 +57,20 @@ def linear_init(gen: torch.Generator, site: SiteCfg, *, dtype=torch.float32,
         raise NotImplementedError(f"{site.mode} sites are not ported yet: ROADMAP Queue A item 11")
     if site.bias:
         p["b"] = torch.zeros((site.d_out,), dtype=dtype, device=device)
+    return p
+
+
+def linear_specs(site: SiteCfg, dtype=torch.float32) -> Params:
+    """ParamSpecs of `linear_init`'s params, without allocating them."""
+    if site.mode == Mode.DENSE:
+        p = {"w": ParamSpec((site.d_in, site.d_out), dtype)}
+    elif site.mode == Mode.LUT_INFER:
+        specs = deploy_param_specs(site.d_in, site.d_out, site.lut, bias=site.bias)
+        p = {name: specs[name] for name in ("centroids", "table_q", "table_scale")}
+    else:
+        raise NotImplementedError(f"{site.mode} sites are not ported yet: ROADMAP Queue A item 11")
+    if site.bias:
+        p["b"] = ParamSpec((site.d_out,), dtype)
     return p
 
 

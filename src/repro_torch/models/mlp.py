@@ -9,7 +9,14 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import Params, SiteCfg, activation, linear, linear_init
+from repro_torch.models.common import (
+    Params,
+    SiteCfg,
+    activation,
+    linear,
+    linear_init,
+    linear_specs,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +36,14 @@ def mlp_init(gen: torch.Generator, cfg: MLPCfg, *, dtype=torch.float32, device="
         p["gate"] = linear_init(gen, cfg.gate, dtype=dtype, device=device)
     p["up"] = linear_init(gen, cfg.up, dtype=dtype, device=device)
     p["down"] = linear_init(gen, cfg.down, dtype=dtype, device=device)
+    return p
+
+
+def mlp_specs(cfg: MLPCfg, dtype=torch.float32) -> Params:
+    """ParamSpecs of `mlp_init`'s params."""
+    p: Params = {"gate": linear_specs(cfg.gate, dtype)} if cfg.gated else {}
+    p["up"] = linear_specs(cfg.up, dtype)
+    p["down"] = linear_specs(cfg.down, dtype)
     return p
 
 

@@ -23,12 +23,14 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
+    ParamSpec,
     Params,
     SiteCfg,
     embed,
     embed_init,
     linear,
     linear_init,
+    linear_specs,
     rmsnorm,
     rmsnorm_init,
 )
@@ -93,6 +95,31 @@ def lm_init(gen: torch.Generator, cfg: LMCfg, *, dtype=torch.float32, device="cp
     }
     if cfg.lm_head is not None:
         p["lm_head"] = linear_init(gen, cfg.lm_head, dtype=dtype, device=device)
+    return p
+
+
+def lm_param_specs(cfg: LMCfg, dtype=torch.float32) -> Params:
+    """ParamSpecs of `lm_init`'s params in the reference's layout: each
+    segment one dict whose leaves are stacked over its layers."""
+    def stacked(tree, count):
+        if isinstance(tree, dict):
+            return {k: stacked(v, count) for k, v in tree.items()}
+        return ParamSpec((count, *tree.shape), tree.dtype)
+
+    segs = []
+    for count, bcfg in cfg.segments:
+        _require_dense(bcfg)
+        norm = {"scale": ParamSpec((cfg.d_model,), dtype)}
+        segs.append(stacked({"norm1": norm, "norm2": norm,
+                             "attn": attn_mod.attn_specs(bcfg.attn, dtype),
+                             "mlp": mlp_mod.mlp_specs(bcfg.mlp, dtype)}, count))
+    p: Params = {
+        "embed": {"table": ParamSpec((cfg.vocab, cfg.d_model), dtype)},
+        "segments": segs,
+        "final_norm": {"scale": ParamSpec((cfg.d_model,), dtype)},
+    }
+    if cfg.lm_head is not None:
+        p["lm_head"] = linear_specs(cfg.lm_head, dtype)
     return p
 
 

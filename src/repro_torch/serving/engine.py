@@ -18,9 +18,16 @@ scheduler (DESIGN.md §6):
 * Every request ends in a terminal status in {ok, timeout, cancelled, shed,
   error}; `run_until_done` raises rather than strand live work.
 
-Greedy decoding only: a request with temperature > 0 is refused at `submit`
-(see serving/sampling.py). Paged caches, speculative decoding, mesh sharding
-and fault injection are not ported yet (ROADMAP Queue A items 7-9).
+* Sampled requests (temperature > 0) draw as the reference does, with JAX's
+  threefry bits reproduced in torch (serving/sampling.py): the same request
+  samples the same tokens here and there, under any slot placement.
+* With `autotune_lut` (the default), construction warms the kernel autotuner
+  for every LUT kernel site at the engine's two token shapes
+  (`warm_lut_autotune`): on the card it times v1, v2 and the fused kernel when
+  REPRO_AUTOTUNE_MEASURE=1, else the analytic model picks the version.
+
+Paged caches, speculative decoding, mesh sharding and fault injection are not
+ported yet (ROADMAP Queue A items 7-9).
 """
 
 from __future__ import annotations
@@ -34,10 +41,60 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelBundle
+from repro_torch.core.amm import Mode
 from repro_torch.device import resolve_device
-from repro_torch.serving.sampling import GREEDY, SamplingParams
+from repro_torch.kernels import autotune, measure
+from repro_torch.serving.sampling import GREEDY, SamplingParams, batch_arrays, sample_tokens
 
 STATUSES = ("ok", "timeout", "cancelled", "shed", "error")
+
+
+def lut_kernel_signatures(bundle: ModelBundle) -> list[tuple[int, int, int, int]]:
+    """The distinct (M, C, K, V) of the bundle's LUT kernel sites, in site order."""
+    sigs: dict[tuple[int, int, int, int], None] = {}
+    for site in bundle.sites():
+        if site.mode != Mode.LUT_INFER or site.lut is None or not site.lut.use_kernel:
+            continue
+        lut = site.lut
+        sigs[(site.d_out, site.d_in // lut.v, lut.k, lut.v)] = None
+    return list(sigs)
+
+
+def warm_lut_autotune(bundle: ModelBundle, token_counts: list[int], dtype: str = "float32",
+                      device: str | torch.device = "cuda") -> int:
+    """Tune the kernel version and launch of every (LUT site signature x
+    token count); returns the number of lut_amm shapes tuned.
+
+    `dtype` is the compute dtype the sites see (records are keyed on it) and
+    `device` the engine's (it sets the key's backend). With
+    REPRO_AUTOTUNE_MEASURE=1 every candidate of v1, v2 and the fused kernel
+    is timed on the card (kernels/measure.py); without it the analytic model
+    picks the version, at the wrappers' default launch. Measurement needs the
+    card: on a CPU engine it raises.
+
+    Precedence as in the reference: a measured record (from an earlier
+    warm-up or an artifact's snapshot) is never re-derived; an analytic one
+    is kept in analytic mode and re-tuned when measuring."""
+    backend = autotune.backend_for(device)
+    measure_live = measure.measure_enabled()
+    cache = autotune.get_cache()
+    tuned = 0
+    for m, c, k, v in lut_kernel_signatures(bundle):
+        for n in token_counts:
+            rec = cache.get(autotune.shape_key("lut_amm", n, m, c, k, v, dtype, backend))
+            if rec is not None and (not measure_live or rec.get("measured")):
+                continue
+            fn = (measure.measure_lut_amm(n, m, c, k, v, dtype=dtype, device=device)
+                  if measure_live else None)
+            autotune.tune("lut_amm", n, m, c, k, v, dtype=dtype, backend=backend, cache=cache,
+                          measure=fn, save=False)
+            tuned += 1
+    if tuned:
+        try:
+            cache.save()
+        except OSError:
+            pass          # the records stay in the process cache; serving goes on
+    return tuned
 
 
 @dataclasses.dataclass
@@ -86,6 +143,7 @@ class ServingEngine:
         kv_dtype: torch.dtype | None = None,
         max_queue: int | None = None,
         device: str | torch.device | None = None,
+        autotune_lut: bool = True,
         paged: bool = False,
         spec_decode: bool = False,
         mesh: Any | None = None,
@@ -106,6 +164,12 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self._compute_dtype = compute_dtype
         self.kv_dtype = compute_dtype if kv_dtype is None else kv_dtype
+        # the engine issues exactly two token shapes: decode and a prefill chunk
+        self.n_lut_shapes_tuned = (
+            warm_lut_autotune(bundle, [n_slots, n_slots * prefill_chunk],
+                              dtype=autotune.dtype_name(compute_dtype),
+                              device=self.device)
+            if autotune_lut else 0)
         self.caches = bundle.init_caches(n_slots, max_seq, dtype=self.kv_dtype, device=self.device)
         self.cache_len = np.zeros((n_slots,), np.int32)
         self.slots: list[Request | None] = [None] * n_slots
@@ -143,6 +207,7 @@ class ServingEngine:
         c["decode_occupancy"] = c["decode_tokens"] / (dec_f * self.n_slots) if dec_f else 0.0
         c["prefill_tok_s"] = c["prefill_tokens"] / c["prefill_s"] if c["prefill_s"] else 0.0
         c["decode_tok_s"] = c["decode_tokens"] / c["decode_s"] if c["decode_s"] else 0.0
+        c["lut_shapes_tuned"] = self.n_lut_shapes_tuned
         return c
 
     # ------------------------------------------------------------------
@@ -160,10 +225,6 @@ class ServingEngine:
                sampling: SamplingParams | None = None, priority: int = 0,
                deadline_s: float | None = None) -> int:
         """Queue a request; returns its rid. `deadline_s` is relative."""
-        if sampling is not None and not sampling.greedy:
-            raise NotImplementedError(
-                "sampling with temperature > 0 is not ported: it needs JAX's threefry fold_in "
-                "and categorical draw reproduced in torch (ROADMAP Queue C)")
         prompt = list(prompt) or [0]
         padded = -(-len(prompt) // self.prefill_chunk) * self.prefill_chunk
         if padded > self.max_seq:
@@ -251,6 +312,18 @@ class ServingEngine:
             self._counters["shape_cache_hits"] += 1
         self._shapes_seen.add(shape)
 
+    def _sample(self, logits_rows: torch.Tensor) -> np.ndarray:
+        """One token per slot row of (n_slots, V) logits; callers read only
+        the rows of the slots they own. Greedy batches skip the sampler (it
+        gives argmax for greedy rows anyway); a sampled row's counter is the
+        number of tokens its request has already produced."""
+        params = [r.sampling if r is not None else GREEDY for r in self.slots]
+        if all(p.greedy for p in params):
+            return torch.argmax(logits_rows, dim=-1).cpu().numpy()   # ties: lowest index
+        counters = [len(r.out_tokens) if r is not None else 0 for r in self.slots]
+        return sample_tokens(logits_rows, *batch_arrays(params, counters,
+                                                        logits_rows.device)).cpu().numpy()
+
     def _check_done_after_token(self, slot: int, req: Request, tok: int) -> None:
         hit_eos = req.eos_id is not None and tok == req.eos_id
         out_of_cache = self.cache_len[slot] >= self.max_seq
@@ -313,7 +386,7 @@ class ServingEngine:
             return
         rows = logits[torch.arange(self.n_slots, device=logits.device),
                       torch.from_numpy(last_idx).to(logits.device)]
-        nxt = torch.argmax(rows, dim=-1).cpu().numpy()   # ties: lowest index, as jnp.argmax
+        nxt = self._sample(rows)
         for i, r in finishing:
             tok = int(nxt[i])
             r.out_tokens.append(tok)
@@ -335,7 +408,7 @@ class ServingEngine:
         self._counters["decode_tokens"] += len(dec)
         self._counters["decode_s"] += time.perf_counter() - t0
 
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+        nxt = self._sample(logits[:, 0, :])
         for i, r in dec:
             self.cache_len[i] += 1
             tok = int(nxt[i])

@@ -1,0 +1,184 @@
+"""The port's kernel autotuner: key format, record precedence, isolation from
+the reference's TPU/CPU records, the cache file, and the measured path with
+a fake timer."""
+
+import json
+
+import pytest
+import torch
+
+from repro import configs as jcfg
+from repro.kernels import autotune as jautotune
+from repro_torch import configs as tcfg
+from repro_torch.kernels import autotune, measure, ops, ref
+from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures, warm_lut_autotune
+
+SIG = (2048, 64, 16, 32)          # qwen3_1p7b q/o at lut_v = 32: (M, C, K, V)
+DOWN = (2048, 192, 16, 32)
+
+
+def _rec(version, measured=False, **blocks):
+    return {"block_n": 8, "block_m": 0, "block_c": 0, **blocks, "version": version,
+            "measured": measured, "source": "cuda_events" if measured else "roofline_model"}
+
+
+def test_key_format_is_the_references():
+    args = ("lut_amm", 4, 2048, 64, 16, 32, "float32")
+    assert autotune.shape_key(*args, "cuda-sm90") == jautotune.shape_key(*args, "cuda-sm90")
+    assert autotune.shape_key(*args, "cuda-sm90") == \
+        "lut_amm|n=4|m=2048|c=64|k=16|v=32|dtype=float32|backend=cuda-sm90"
+    assert autotune.backend_of(torch.zeros(1)) == "torch-cpu"
+    assert autotune.dtype_name(torch.bfloat16) == "bfloat16"
+
+
+def test_no_record_follows_the_fit_rule():
+    for sig, want in ((SIG, 3), (DOWN, 2)):
+        version, cfg, from_record = autotune.kernel_choice(4, *sig)
+        assert (version, cfg, from_record) == (want, autotune.DEFAULT, False)
+        assert version == autotune.fit_version(*sig[1:])
+
+
+def test_a_record_always_wins_and_reference_records_never_steer_the_card():
+    cache = autotune.get_cache()
+    for backend in ("tpu", "cpu"):                 # what the reference writes
+        cache.put(autotune.shape_key("lut_amm", 4, *SIG, "float32", backend), _rec(1))
+    assert autotune.kernel_choice(4, *SIG)[0] == 3
+    assert autotune.kernel_choice(4, *SIG, backend="torch-cpu")[0] == 3
+    cache.put(autotune.shape_key("lut_amm", 4, *SIG, "float32", "cuda-sm90"),
+              _rec(1, block_m=64, block_c=16))
+    version, cfg, from_record = autotune.kernel_choice(4, *SIG)
+    assert (version, cfg.quads, cfg.block_c, from_record) == (1, 16, 16, True)
+    # a record without a version (written before the version axis) means v2
+    cache.put(autotune.shape_key("lut_amm", 4, *DOWN, "float32", "cuda-sm90"),
+              {"block_n": 8, "block_m": 0, "block_c": 0})
+    assert autotune.kernel_choice(4, *DOWN)[0] == 2
+
+
+def test_cpu_dispatch_runs_the_recorded_versions_plain_version():
+    x = torch.randn(5, 64)
+    p, q = torch.randn(4, 16, 16), torch.randint(-127, 127, (4, 16, 24), dtype=torch.int8)
+    s = torch.full((1, 1, 24), 0.02)
+    for version, plain in ((1, "lut_amm_v1_plain"), (2, "lut_amm_v2_plain"),
+                           (3, "fused_decode_plain")):
+        autotune.get_cache().put(autotune.shape_key("lut_amm", 5, 24, 4, 16, 16, "float32",
+                                                     "torch-cpu"), _rec(version))
+        before = dict(ref.calls)
+        ops.lut_amm(x, p, q, s)
+        assert {k for k in ref.calls if ref.calls[k] != before[k]} == {plain}
+
+
+def test_cache_file_roundtrip_corruption_and_shared_file(tmp_path, monkeypatch):
+    path = tmp_path / "tune.json"
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(path))
+    assert autotune.default_cache_path() == path
+    path.write_text("{not json")
+    cache = autotune.get_cache()
+    assert cache.path == path and cache.load() == {}            # corrupt -> empty
+    key = autotune.shape_key("lut_amm", 4, *SIG, "float32", "cuda-sm90")
+    cache.put(key, _rec(2))
+    cache.save()
+    # the reference writes its own record to the same file meanwhile ...
+    raw = json.loads(path.read_text())
+    jkey = jautotune.shape_key("lut_amm", 4, *SIG, "float32", "tpu")
+    raw["entries"][jkey] = _rec(1)
+    path.write_text(json.dumps(raw))
+    cache.put(autotune.shape_key("lut_amm", 128, *SIG, "float32", "cuda-sm90"), _rec(3))
+    cache.save()                                  # ... and the port's save keeps it
+    entries = json.loads(path.read_text())["entries"]
+    assert {key, jkey} <= set(entries) and len(entries) == 3
+    assert autotune.AutotuneCache(path).get(key)["version"] == 2
+    monkeypatch.delenv("REPRO_AUTOTUNE_CACHE")
+    assert autotune.default_cache_path().parts[-2:] == ("repro_torch", "autotune.json")
+
+
+def test_tune_with_a_fake_timer_records_the_measured_winner():
+    timed = []
+
+    def fake(cfg, version):
+        timed.append((version, cfg))
+        if version == 2 and cfg.block_c == 32:
+            raise ValueError("does not fit")        # a refused candidate is skipped
+        return {1: 3e-5, 2: 2e-5, 3: 4e-5}[version] - cfg.block_m * 1e-9
+
+    cfg, rec = autotune.tune("lut_amm", 4, *SIG, measure=fake, save=False)
+    assert {v for v, _ in timed} == {1, 2, 3}
+    assert rec["version"] == 2 and rec["measured"] and rec["source"] == "cuda_events"
+    assert cfg.block_m == 4 * max(autotune.lut_mod.QUADS)
+    assert autotune.kernel_choice(4, *SIG)[0] == 2
+    # the fused kernel has no candidate where its codebooks do not fit
+    assert autotune.candidates("lut_amm", 4, *DOWN, version=3) == []
+    cands = autotune.candidates("lut_amm", 4, *DOWN, version=1)
+    assert {c.block_c for c in cands} == {64, 192}      # the reference's bc, and all of C
+    enc = autotune.candidates("encode", 4, 0, *SIG[1:])
+    assert enc and all(c.block_m == 0 for c in enc)
+
+
+def test_analytic_ranking_matches_the_fit_rule_and_never_picks_v1():
+    for n in (4, 128):
+        for sig in (SIG, (1024, 64, 16, 32), (6144, 64, 16, 32), DOWN):
+            cfg, rec = autotune.tune("lut_amm", n, *sig, save=False)
+            assert rec["version"] == autotune.fit_version(*sig[1:]) and not rec["measured"]
+            # the model cannot rank launches: the wrapper's default launch is kept
+            assert cfg == autotune.DEFAULT and rec["block_m"] == rec["block_c"] == 0
+
+
+@pytest.mark.parametrize("c,v,block_c", [(64, 32, None), (192, 32, None), (10, 8, None),
+                                         (12, 16, 5), (7, 4, 100)])
+def test_v1_chunk_is_the_references(c, v, block_c):
+    bc = block_c if block_c is not None else max(1, min(c, 2048 // v))
+    while c % bc:
+        bc -= 1
+    assert ref.v1_block_c(c, v, block_c) == bc
+
+
+def _bundle():
+    arch = tcfg.reduce_arch(tcfg.get_arch("qwen3_1p7b"), n_layers=2, lut_use_kernel=True)
+    return tcfg.build_model(arch, "lut_infer")
+
+
+def test_engine_warmup_tunes_every_site_signature_once():
+    tb = _bundle()
+    sigs = lut_kernel_signatures(tb)
+    jb = jcfg.build_model(jcfg.reduce_arch(jcfg.get_arch("qwen3_1p7b"), n_layers=2,
+                                           lut_use_kernel=True), "lut_infer")
+    assert len(sigs) == len({(s.d_out, s.d_in // s.lut.v) for s in jb.lut_sites()})
+    params = tb.init(torch.Generator().manual_seed(0), device="cpu")
+    eng = ServingEngine(tb, params, device="cpu", n_slots=2, max_seq=32, prefill_chunk=4)
+    assert eng.n_lut_shapes_tuned == 2 * len(sigs) == eng.stats()["lut_shapes_tuned"]
+    for m, c, k, v in sigs:
+        for n in (2, 8):
+            key = autotune.shape_key("lut_amm", n, m, c, k, v, "float32", "torch-cpu")
+            assert autotune.get_cache().get(key)["version"] in (2, 3)
+    # serving tunes the kernels its forwards run; no request calls the encode
+    assert not any(key.startswith("encode|") for key in autotune.get_cache().load())
+    # analytic records are kept in analytic mode: nothing left to tune
+    assert warm_lut_autotune(tb, [2, 8], device="cpu") == 0
+    assert ServingEngine(tb, params, device="cpu", autotune_lut=False,
+                         n_slots=2, max_seq=32, prefill_chunk=4).n_lut_shapes_tuned == 0
+
+
+def test_measured_warmup_needs_the_card(monkeypatch):
+    monkeypatch.setenv("REPRO_AUTOTUNE_MEASURE", "1")
+    assert measure.measure_enabled()
+    with pytest.raises(RuntimeError, match="card"):
+        warm_lut_autotune(_bundle(), [2], device="cpu")
+    with pytest.raises(RuntimeError, match="card"):
+        measure.measure_lut_amm(4, *SIG, device="cpu")
+    monkeypatch.setenv("REPRO_AUTOTUNE_MEASURE", "0")
+    assert not measure.measure_enabled()
+
+
+def test_measured_records_are_never_retuned(monkeypatch):
+    """A measured record (an earlier warm-up's, or an artifact snapshot's)
+    stands even when measuring is on; analytic ones are re-tuned then."""
+    tb = _bundle()
+    m, c, k, v = lut_kernel_signatures(tb)[0]
+    cache = autotune.get_cache()
+    for sig in lut_kernel_signatures(tb):
+        cache.put(autotune.shape_key("lut_amm", 2, *sig, "float32", "torch-cpu"),
+                  _rec(1, measured=True))
+    monkeypatch.setenv("REPRO_AUTOTUNE_MEASURE", "1")
+    assert warm_lut_autotune(tb, [2], device="cpu") == 0
+    cache.put(autotune.shape_key("lut_amm", 2, m, c, k, v, "float32", "torch-cpu"), _rec(2))
+    with pytest.raises(RuntimeError, match="card"):      # re-tuning it would measure
+        warm_lut_autotune(tb, [2], device="cpu")

@@ -10,13 +10,24 @@ that has only PyTorch:
 import pytest
 import torch
 
+from repro_torch.kernels import autotune, counters, measure, ops, ref
+from repro_torch.kernels import dist_argmin as enc_mod
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as v2_mod
-from repro_torch.kernels import ops, ref
-from repro_torch.testing import LAYOUTS, RAGGED, make_amm_inputs, quantize_np, rows_near_tie
+from repro_torch.serving import sampling
+from repro_torch.testing import (
+    LAYOUTS,
+    RAGGED,
+    make_amm_inputs,
+    quantize_np,
+    rows_near_tie,
+    tie_gaps,
+)
 
 pytestmark = pytest.mark.cuda
 TIE_EPS = 1e-6        # relative fp32 distance gap where another sum order may flip a code
+TIE_ULPS = 8          # gumbel + logit gap, in fp32 ulps of its size, that explains a flip
+EPS32 = torch.finfo(torch.float32).eps
 KERNELS = {"fused": (fused_mod.fused_decode, ref.fused_decode_plain),
            "v2": (v2_mod.lut_amm_v2, ref.lut_amm_v2_plain)}
 
@@ -70,7 +81,7 @@ def test_fused_and_v2_bytewise_equal_on_m_shared(dev):
 
 
 def test_ops_dispatch_by_fit_rule_and_bf16(dev):
-    ref.calls.update(fused_decode_plain=0, lut_amm_v2_plain=0)
+    counters.reset()
     for c, counter in ((64, fused_mod), (192, v2_mod)):
         x, P, q, s, _ = _inputs((4, c * 32, 256, 16, 32), "m_shared", c, dev)
         before = counter.launches
@@ -97,3 +108,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused_mod.fused_decode(torch.zeros(1, 192 * 32, device=dev), big,
                                torch.zeros(192, 16, 8, dtype=torch.int8, device=dev),
                                torch.ones(1, 1, 8, device=dev))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_v1_matches_plain_bytewise(dev, layout):
+    """Same fp32 order of the sums in kernel and plain version: equal bytes
+    on every row whose codes agree, at the default chunk, one-codebook
+    chunks and a single chunk, f32 and bf16."""
+    for i, shape in enumerate(RAGGED):
+        x, P, q, s, _ = _inputs(shape, layout, i + 10, dev)
+        for xx in (x, x.bfloat16()):
+            for bc in (None, 1, P.shape[0]):
+                before = v2_mod.launches_v1
+                got = v2_mod.lut_amm_v1(xx, P, q, s, block_c=bc)
+                assert v2_mod.launches_v1 == before + 1
+                want = ref.lut_amm_v1_plain(xx, P, q, s, block_c=bc)
+                _assert_agree(got, want, xx.float(), P, exact=True)
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 2048, 16, 32), (128, 6144, 2048, 16, 32)])
+def test_v1_and_encode_at_path_shapes(dev, shape):
+    x, P, q, s, b = _inputs(shape, "m_shared", 3, dev)
+    got = ops.lut_amm(x, P, q, s, bias=b, act="silu", version=1)
+    want = ref.apply_act(ref.lut_amm_v1_plain(x, P, q, s) + b, "silu")
+    _assert_agree(got, want, x, P, exact=True)
+    codes = ops.encode(x, P)
+    torch.cuda.synchronize()
+    assert codes.dtype == torch.int32 and codes.shape == (x.shape[0], P.shape[0])
+    assert (tie_gaps(x, P, codes, ref.encode_ref(x, P)) <= TIE_EPS).all()
+
+
+def test_encode_launches_and_geometry(dev):
+    for i, shape in enumerate(RAGGED):
+        x, P, *_ = _inputs(shape, "m_shared", i, dev)
+        for blocks in ({}, {"block_c": 1, "block_n": 5}):
+            before = enc_mod.launches
+            codes = enc_mod.encode(x, P, **blocks)
+            assert enc_mod.launches == before + 1
+            assert (tie_gaps(x, P, codes, ref.encode_ref(x, P)) <= TIE_EPS).all()
+    with pytest.raises(ValueError, match="K="):
+        enc_mod.encode(torch.zeros(2, 64, device=dev), torch.zeros(2, 512, 32, device=dev))
+    assert enc_mod.encode(x[:0], P).shape == (0, P.shape[0])
+
+
+def test_sampler_on_the_card_equals_the_cpu():
+    """The threefry bits are integer arithmetic: identical on both devices;
+    the tokens agree unless gumbel + logit ties within an ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(8, 151936, generator=gen) * 3
+    args = (torch.tensor([0.0, 0.8, 0.8, 1.0, 0.5, 1.3, 0.8, 0.9]),
+            torch.tensor([0, 50, 0, 5, 0, 0, 50, 1], dtype=torch.int32),
+            torch.tensor([1.0, 0.9, 0.9, 1.0, 0.5, 0.95, 1.0, 1.0]),
+            torch.arange(8, dtype=torch.int32) * 977 - 3000,
+            torch.arange(8, dtype=torch.int32) * 3)
+    keys = sampling.fold_in(sampling.prng_keys(args[3]), args[4])
+    assert torch.equal(sampling.random_bits(keys.cuda(), 4096).cpu(),
+                       sampling.random_bits(keys, 4096))
+    cpu = sampling.sample_tokens(logits, *args)
+    card = sampling.sample_tokens(logits.cuda(), *(a.cuda() for a in args)).cpu()
+    # each differing token ties with the CPU's on gumbel + scaled logit,
+    # the noise recomputed from the port's own bits
+    noise = sampling.gumbel(keys, logits.shape[1])
+    scaled = logits / torch.clamp_min(args[0], 1e-6)[:, None]
+    for row in (cpu != card).nonzero().flatten().tolist():
+        assert args[0][row] > 0, f"greedy row {row} differs"
+        a, b = (float(noise[row, t] + scaled[row, t]) for t in (cpu[row], card[row]))
+        assert abs(a - b) <= TIE_ULPS * EPS32 * max(abs(a), abs(b), 1.0), (row, a, b)
+
+
+def test_measured_tuning_on_the_card(dev):
+    """The measured path times every version and launch on the card and
+    records a measured winner that dispatch then runs."""
+    cache = autotune.AutotuneCache("/dev/null/unwritable")
+    fn = measure.measure_lut_amm(4, 256, 64, 16, 32, reps=2)
+    _, rec = autotune.tune("lut_amm", 4, 256, 64, 16, 32, cache=cache, measure=fn, save=False)
+    assert rec["measured"] and rec["version"] in (1, 2, 3) and rec["predicted_us"] > 0
+    counters.reset()
+    fn(autotune.DEFAULT, 1)
+    assert counters.launches()["lut_amm_v1"] >= 2 and counters.plain_calls() == 0

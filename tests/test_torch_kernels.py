@@ -1,8 +1,8 @@
 """The port's LUT kernel modules against the JAX Pallas kernels.
 
 Given CPU tensors, the wrappers run their plain versions, which are held
-against `fused_decode_pallas` and `lut_amm_pallas` in interpret mode
-(how the JAX package's own tests run them). The CUDA kernels themselves are
+against `fused_decode_pallas`, `lut_amm_pallas`, `lut_amm_pallas_v1` and
+`encode_pallas` in interpret mode (how the JAX package's own tests run them). The CUDA kernels themselves are
 held against the same plain versions on the card by tests/test_torch_cuda.py
 and by chip_smoke.py.
 """
@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
+from repro.kernels.dist_argmin import encode_pallas
 from repro.kernels.fused_decode import fused_decode_pallas
-from repro.kernels.lut_amm import lut_amm_pallas
+from repro.kernels.lut_amm import lut_amm_pallas, lut_amm_pallas_v1
 from repro.kernels.ref import encode_ref as jencode_ref
 from repro.kernels.ref import lut_amm_ref as jlut_amm_ref
+from repro_torch.kernels import autotune, counters
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as v2_mod
 from repro_torch.kernels import ops, ref
@@ -63,17 +66,11 @@ def _check_against_jax(kernel, x, P, q, s, b, act):
     gaps = tie_gaps(torch.from_numpy(x), torch.from_numpy(P), codes, codes_ref)
     assert (gaps <= TIE_EPS).all(), f"codes differ off a near-tie: {gaps}"
     rows = (codes == codes_ref).all(dim=1).numpy()
-    if s.shape[0] == 1 and act in EXACT_ACTS and b is None:
-        # m-shared / scalar: exact int32 sums, one rounding -> byte-identical
+    if s.shape[0] == 1 and act in EXACT_ACTS:
+        # m-shared / scalar: exact int32 sums, then one rounding of
+        # (float)acc * s (+ bias, which XLA:CPU contracts into one fused
+        # multiply-add and the port computes as one) -> byte-identical
         np.testing.assert_array_equal(got[rows], want[rows])
-    elif s.shape[0] == 1 and act in EXACT_ACTS:
-        # XLA:CPU contracts the reference's (float)acc * s + bias into one
-        # fused multiply-add; the port rounds the product and the sum apart,
-        # as the program is written: they differ by the product's rounding,
-        # an ulp of the output's scale (twice that after relu2's square)
-        w = want[rows]
-        atol = 4 * np.finfo(np.float32).eps * max(1.0, float(np.abs(w).max()))
-        np.testing.assert_allclose(got[rows], w, rtol=0, atol=atol)
     else:
         # fp32 per-codebook sums in another order; ulp-level exp/tanh
         np.testing.assert_allclose(got[rows], want[rows], rtol=1e-5, atol=1e-4)
@@ -112,17 +109,93 @@ def test_bf16_input_writes_bf16():
 
 
 def test_ops_cpu_runs_plain_versions_and_launches_nothing():
-    fused_mod.launches = v2_mod.launches = 0
-    ref.calls.update(fused_decode_plain=0, lut_amm_v2_plain=0)
+    counters.reset()
     x, P, q, s, b = [torch.from_numpy(a) for a in _inputs(RAGGED[0], "m_shared", seed=1)]
-    for version in (None, 2, 3):
+    for version in (None, 1, 2, 3):
         ops.lut_amm(x, P, q, s, bias=b, version=version)
-    assert fused_mod.launches == 0 and v2_mod.launches == 0
-    assert ref.calls == {"fused_decode_plain": 2, "lut_amm_v2_plain": 1}
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        ops.lut_amm(x, P, q, s, version=1)
+    ops.encode(x, P)
+    assert set(counters.launches().values()) == {0}
+    assert ref.calls == {"fused_decode_plain": 2, "lut_amm_v2_plain": 1, "lut_amm_v1_plain": 1,
+                         "encode_plain": 1}
+    # version=1 dispatches to v1: its fp32 sums plus bias in x's dtype
+    want = ref.lut_amm_v1_plain(x, P, q, s) + b
+    assert torch.equal(ops.lut_amm(x, P, q, s, bias=b, version=1), want)
     with pytest.raises(ValueError):
         ops.lut_amm(x, P, q, s, version=4)
+
+
+V1_LAYOUTS = ("per_codebook", "per_column")         # the (C, ...) scales v1 takes
+
+
+@pytest.mark.parametrize("layout", V1_LAYOUTS)
+@pytest.mark.parametrize("shape", RAGGED, ids=[str(s[:5]) for s in RAGGED])
+def test_plain_v1_matches_pallas_v1(shape, layout):
+    """fp32 sums of t * s in another order than XLA's: the reference's own
+    bound (tests/test_kernels.py), on rows whose codes agree; a differing
+    code must sit on a near-tie."""
+    x, P, q, s, _ = _inputs(shape, layout, seed=sum(shape) + 3)
+    want = np.asarray(lut_amm_pallas_v1(jnp.asarray(x), jnp.asarray(P), jnp.asarray(q),
+                                        jnp.asarray(s), interpret=True))
+    got = ref.lut_amm_v1_plain(*(torch.from_numpy(a) for a in (x, P, q, s))).numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    codes_ref = torch.from_numpy(np.array(jencode_ref(jnp.asarray(x), jnp.asarray(P))))
+    codes = ref.encode_ref(torch.from_numpy(x), torch.from_numpy(P))
+    assert (tie_gaps(torch.from_numpy(x), torch.from_numpy(P), codes, codes_ref) <= TIE_EPS).all()
+    rows = (codes == codes_ref).all(dim=1).numpy()
+    np.testing.assert_allclose(got[rows], want[rows], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_ops_v1_matches_reference_ops_v1(act, dtype):
+    """ops.lut_amm(version=1) against the reference's: m-shared scale
+    broadcast over C, bias and activation added outside the kernel in x's
+    dtype. bf16: one bf16 rounding of each of the output, the bias add and
+    the activation, in either package."""
+    x, P, q, s, b = _inputs(RAGGED[1], "m_shared", seed=11)
+    jx = jnp.asarray(x).astype(dtype)
+    want = np.asarray(jops.lut_amm(jx, jnp.asarray(P), jnp.asarray(q), jnp.asarray(s),
+                                   bias=jnp.asarray(b), act=act, version=1).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = ops.lut_amm(tx, torch.from_numpy(P), torch.from_numpy(q), torch.from_numpy(s),
+                      bias=torch.from_numpy(b), act=act, version=1)
+    assert got.dtype == tx.dtype
+    codes = ref.encode_ref(tx, torch.from_numpy(P))
+    codes_ref = torch.from_numpy(np.array(jencode_ref(jx, jnp.asarray(P))))
+    rows = (codes == codes_ref).all(dim=1).numpy()
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().numpy()[rows], want[rows], rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("shape", RAGGED, ids=[str(s[:5]) for s in RAGGED])
+def test_plain_encode_matches_encode_pallas(shape):
+    """Codes equal except where the fp32 distances of the two choices tie."""
+    x, P, _, _, _ = _inputs(shape, "m_shared", seed=sum(shape) + 5)
+    want = torch.from_numpy(np.array(encode_pallas(jnp.asarray(x), jnp.asarray(P),
+                                                   interpret=True)))
+    got = ops.encode(torch.from_numpy(x), torch.from_numpy(P))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    gaps = tie_gaps(torch.from_numpy(x), torch.from_numpy(P), got, want)
+    assert (gaps <= TIE_EPS).all(), f"codes differ off a near-tie: {gaps}"
+
+
+def test_plain_encode_differing_codes_sit_on_ties():
+    """Rows built to tie: x halfway between two centroids of a codebook. The
+    two packages' fp32 sums may pick either, and each differing code shows a
+    relative gap within TIE_EPS."""
+    x, P, _, _, _ = _inputs(RAGGED[2], "m_shared", seed=21)
+    c, k, v = P.shape
+    for row in range(0, x.shape[0], 2):          # every other row on an exact midpoint
+        for ci in range(c):
+            x[row, ci * v:(ci + 1) * v] = 0.5 * (P[ci, 0] + P[ci, 1])
+    want = torch.from_numpy(np.array(encode_pallas(jnp.asarray(x), jnp.asarray(P),
+                                                   interpret=True)))
+    got = ops.encode(torch.from_numpy(x), torch.from_numpy(P))
+    gaps = tie_gaps(torch.from_numpy(x), torch.from_numpy(P), got, want)
+    assert (gaps <= TIE_EPS).all()
+    assert bool((got[1::2] == want[1::2]).all())     # rows off the midpoints agree
 
 
 @pytest.mark.parametrize("c,k,v,version", [(64, 16, 32, 3), (192, 16, 32, 2),
@@ -130,7 +203,7 @@ def test_ops_cpu_runs_plain_versions_and_launches_nothing():
 def test_fit_rule(c, k, v, version):
     """qwen3_1p7b at lut_v=32: q/k/v/o/gate/up (C=64) run fused, down (C=192,
     384 KiB of centroids) does not fit in 227 KB and runs v2."""
-    assert ops.choose_version(c, k, v) == version
+    assert autotune.fit_version(c, k, v) == version
     assert fused_mod.fits(c, k, v) == (fused_mod.smem_bytes(c, k, v) <= v2_mod.MAX_SMEM)
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro import configs as jcfg
 from repro_torch import configs as tcfg
+from repro_torch.kernels import counters
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as v2_mod
 from repro_torch.kernels import ref
@@ -88,7 +89,7 @@ def test_forward_step_logits_match_reference(arch_name, mode):
     prompt = rng.integers(1, tb.arch.vocab, (B, CHUNK), dtype=np.int32)
     jcache = jb.init_caches(B, S_MAX, dtype=jnp.float32)
     tcache = tb.init_caches(B, S_MAX, dtype=torch.float32, device="cpu")
-    ref.calls.update(fused_decode_plain=0, lut_amm_v2_plain=0)
+    counters.reset()
 
     toks = prompt
     cache_len = np.zeros((B,), np.int32)

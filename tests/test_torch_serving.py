@@ -74,11 +74,22 @@ def test_engine_never_runs_on_the_cpu_silently():
 
 
 def test_engine_refuses_what_is_not_ported():
+    """Sampled requests are served (and replay: the draw is keyed on the
+    request's seed and token index only); paged KV and speculative decoding
+    are still refused."""
     tb, tparams = _port_model()
-    eng = ServingEngine(tb, tparams, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="Queue C"):
-        eng.submit([1, 2], sampling=SamplingParams(temperature=0.8, seed=3))
-    eng.submit([1, 2], sampling=SamplingParams(temperature=0.0))   # greedy is fine
+    outs = []
+    for first in ("sampled", "greedy"):
+        eng = ServingEngine(tb, tparams, device="cpu", **ENGINE)
+        reqs = {"sampled": SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=3),
+                "greedy": SamplingParams(temperature=0.0)}
+        order = [first, "greedy" if first == "sampled" else "sampled"]
+        rids = {name: eng.submit([1, 2, 7, 9, 4], max_tokens=6, sampling=reqs[name])
+                for name in order}
+        done = {r.rid: r for r in eng.run_until_done()}
+        assert all(r.status == "ok" and len(r.out_tokens) == 6 for r in done.values())
+        outs.append({name: done[rid].out_tokens for name, rid in rids.items()})
+    assert outs[0] == outs[1]            # same tokens in either slot placement
     for kw in ({"paged": True}, {"spec_decode": True}):
         with pytest.raises(NotImplementedError):
             ServingEngine(tb, tparams, device="cpu", **kw)
@@ -115,6 +126,23 @@ def test_warmup_and_serve_launcher_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "3 requests" in out and "decode:" in out
     assert "kernel launches: fused_decode=0 lut_amm_v2=0" in out
+
+
+def test_serve_launcher_serves_an_artifact(tmp_path, capsys):
+    """--artifact takes arch, plan and mode from the manifest; the summary
+    names the source, the shapes tuned and the version per site."""
+    from repro.serving.artifact import save_artifact
+    from repro_torch.launch import serve
+
+    jb, jparams, _, _ = _models(n_layers=2)
+    save_artifact(tmp_path / "art", jb, jparams)
+    serve.main(["--artifact", str(tmp_path / "art"), "--device", "cpu", "--requests", "3",
+                "--slots", "2", "--max-tokens", "4", "--temperature", "0.8", "--top-k", "50",
+                "--top-p", "0.9", "--seed", "5", "--no-warmup"])
+    out = capsys.readouterr().out
+    assert f"artifact {tmp_path / 'art'} (qwen3_1p7b)" in out and "3 requests, 12 tokens" in out
+    assert "8 LUT shapes autotuned" in out
+    assert "kernel version per site (M, C, K, V) at N=[2, 64]: (128, 8, 16, 16): [3, 3]" in out
 
 
 def test_port_imports_neither_jax_nor_reference():
