@@ -7,12 +7,15 @@ Phases (any failed check exits non-zero; no phase is skipped):
   1. the card: name and power limit, and a build of every CUDA kernel from
      the sources in this checkout, all nvcc processes at once;
   2. each kernel against its plain PyTorch version on the card: at the main
-     path's shapes (qwen3_1p7b's LUT sites at N = 4 and N = 128), then on
+     path's shapes (qwen3_1p7b's LUT sites at N = 4 and N = 128), then the
+     fused and v2 kernels under every launch the tuner can choose there
+     (rows per N tile, M tile; fused == v2 == plain bytewise), then on
      ragged shapes x 4 scale layouts (x every activation x bias for the
-     fused and v2 kernels), in float32 and bfloat16; with CUDA-event times of
-     the kernel and its plain version, the host's enqueue time, the dense
-     matmul the site replaces (context only) and the least time the card
-     could take;
+     fused and v2 kernels, and x every N tile on shapes whose C take every
+     cluster size), in
+     float32 and bfloat16; with CUDA-event times of the kernel and its plain
+     version, the host's enqueue time, the dense matmul the site replaces
+     (context only) and the least time the card could take;
   3. the slice at full width and reduced depth (2 layers), card against CPU
      (plain versions) from the same params: a prefill chunk and greedy decode
      steps, once from random params under the fit rule, once from a 2-layer
@@ -259,6 +262,7 @@ def phase_kernels(dev) -> dict:
                     f"{mm_ms:.5f}                    {hus:.1f}")
                 if n == 4 and site == MAIN_SITE[name]:
                     results[name].update(ms=kms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    sweep_launches(gen, dev, flush, note_err)
     ragged = 0
     for shape in RAGGED:
         for li, layout in enumerate(LAYOUTS):
@@ -298,11 +302,100 @@ def phase_kernels(dev) -> dict:
                     if dtype == torch.float32:
                         note_err("encode", err)
                     ragged += 1
+    ragged += sweep_ragged_launches(dev, note_err)
     log(f"[kernels] ragged sweep: {ragged} kernel calls agree with the plain versions; "
         f"max abs err (float32, off ties): "
         + ", ".join(f"{k} {r['err']:.3g}" for k, r in results.items()))
     del flush
     return results
+
+
+def sweep_launches(gen, dev, flush, note_err) -> None:
+    """Every launch the tuner can choose for the fused and v2 kernels at the
+    path shapes (rows per N tile, M tile): each must equal the
+    plain version bytewise (m-shared scale, codes off near-ties) and the two
+    kernels each other; a launch that does not fit a block is refused
+    (ValueError), as the tuner skips it. Logs the best and the default
+    launch's time per kernel and shape."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import fused_decode as fused_mod
+    from repro_torch.kernels import lut_amm as lut_mod
+
+    log("[sweep] fused and v2 over the tuner's launches at the path shapes (m-shared, float32); "
+        "median us, L2 flushed")
+    points = refused = 0
+    for n in (4, 128):
+        for site, c, m in SITES:
+            x, p, q, s = make_site(n, c, m, gen, dev)
+            want = ref.fused_decode_plain(x, p, q, s)
+            kernels = [("lut_amm_v2", lut_mod.lut_amm_v2)]
+            if fused_mod.fits(c, 16, 32):
+                kernels.insert(0, ("fused_decode", fused_mod.fused_decode))
+            times = {name: [] for name, _ in kernels}
+            for cfg in autotune.candidates("lut_amm", n, m, c, 16, 32, 2):
+                launch = autotune.cluster_launch(cfg)
+                outs = []
+                for name, fn in kernels:
+                    try:
+                        out = fn(x, p, q, s, **launch)
+                    except ValueError:
+                        refused += 1
+                        continue
+                    note_err(name, compare(f"{name} {site} N={n} {launch}", out, want, x, p,
+                                           exact=True, rtol=0))
+                    outs.append(out)
+                    us = time_ms(lambda: fn(x, p, q, s, **launch), flush, reps=10) * 1e3
+                    times[name].append((us, launch))
+                    points += 1
+                if len(outs) == 2:
+                    check(torch.equal(*outs), f"fused != v2 bytewise at {site} N={n} {launch}")
+            for name, fn in kernels:
+                default_us = time_ms(lambda: fn(x, p, q, s), flush, reps=10) * 1e3
+                t_us, launch = min(times[name], key=lambda t: t[0])
+                log(f"  {site:8s} N={n:<4d} {name:12s} best {t_us:8.2f} us {launch}; "
+                    f"default {default_us:8.2f} us")
+    log(f"[sweep] {points} launches agree with the plain version (and fused == v2); {refused} "
+        f"refused as too large for a block")
+
+
+def sweep_ragged_launches(dev, note_err) -> int:
+    """The ragged shapes (C = 1..20, which take every cluster size from 1 to
+    16, and C = 5, 6, 20 not divisible by theirs; N not a multiple of the N
+    tile) under every N tile (the table staged where its rows are 16-byte
+    aligned, M = 48, 144 and 384, else gathered), in float32 and bfloat16:
+    fused == v2 == plain bytewise on m-shared scales, within KERNEL_ATOL
+    per codebook. Returns the number of kernel calls."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_decode as fused_mod
+    from repro_torch.kernels import lut_amm as lut_mod
+    from repro_torch.testing import CLUSTER_SHAPES, make_amm_inputs, quantize_np
+
+    calls = 0
+    for i, shape in enumerate(CLUSTER_SHAPES):
+        nn, d, m, k, v = shape
+        for layout in ("m_shared", "per_codebook"):
+            xn, pn, tn, bn = make_amm_inputs(nn, d, m, k, v, seed=SEED + 10 + i)
+            qn, sn = quantize_np(tn, layout)
+            p, q, s, b = (torch.from_numpy(a).to(dev) for a in (pn, qn, sn, bn))
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.from_numpy(xn).to(dev, dtype)
+                want = ref.fused_decode_plain(x, p, q, s, bias=b, act="relu")
+                exact = layout == "m_shared"
+                rtol = 8e-3 if dtype == torch.bfloat16 else KERNEL_ATOL
+                for rows in lut_mod.ROW_TILES:
+                    outs = []
+                    for name, fn in (("fused_decode", fused_mod.fused_decode),
+                                     ("lut_amm_v2", lut_mod.lut_amm_v2)):
+                        got = fn(x, p, q, s, bias=b, act="relu", rows=rows)
+                        err = compare(f"{name} {shape} {layout} {dtype} rows={rows}", got, want,
+                                      x, p, exact=exact, rtol=rtol)
+                        if dtype == torch.float32:
+                            note_err(name, err)
+                        outs.append(got)
+                        calls += 1
+                    if exact:
+                        check(torch.equal(*outs), f"fused != v2 at {shape} {dtype} rows={rows}")
+    return calls
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
@@ -39,15 +39,17 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def lib_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """The library of kernel `name` compiled with the macros `defines`, named
+    by a hash of its sources and flags."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for f in (SOURCES[name], *HEADERS):
         h.update((CSRC / f).read_bytes())
-    return h.hexdigest()[:16]
-
-
-def lib_path(name: str) -> Path:
-    return build_dir() / f"lib{name}-{_digest(name)}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -58,23 +60,25 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(names: tuple[str, ...] | list[str] | None = None) -> dict[str, float]:
+def build(names: tuple[str, ...] | list[str] | None = None,
+          defines: tuple[str, ...] = ()) -> dict[str, float]:
     """Compile every named kernel whose library is missing, all nvcc processes
-    at once. Returns {name: seconds} for the ones compiled. The compiler's
-    report (registers, shared memory, spills from `-Xptxas -v`) is kept in
-    `build/kernels/<name>.log`."""
+    at once, with the preprocessor macros `defines`. Returns {name: seconds}
+    for the ones compiled. The compiler's report (registers, shared memory,
+    spills from `-Xptxas -v`) is kept in `build/kernels/<name>.log` (without
+    macros)."""
     names = list(SOURCES) if names is None else list(names)
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = []
     for name in names:
-        target = lib_path(name)
+        target = lib_path(name, defines)
         if target.exists():
             continue
         nvcc = nvcc or _nvcc()
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         running.append((name, target, tmp, proc, time.perf_counter()))
@@ -83,7 +87,8 @@ def build(names: tuple[str, ...] | list[str] | None = None) -> dict[str, float]:
     for name, target, tmp, proc, t0 in running:
         log, _ = proc.communicate()
         times[name] = time.perf_counter() - t0
-        (out_dir / f"{name}.log").write_text(log)
+        if not defines:
+            (out_dir / f"{name}.log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
@@ -94,13 +99,14 @@ def build(names: tuple[str, ...] | list[str] | None = None) -> dict[str, float]:
     return times
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library `name` (compiled with the macros `defines`), built
+    first if needed."""
+    lib = _LIBS.get((name, defines))
     if lib is None:
-        path = lib_path(name)
+        path = lib_path(name, defines)
         if not path.exists():
-            build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+            build([name], defines)
+        lib = _LIBS[name, defines] = ctypes.CDLL(str(path))
     return lib
 

@@ -62,7 +62,7 @@ cudaError_t launch_encode(const void* x, const void* centroids, void* out, int N
                           int V, int chunk_c, int rows_per_block, int region_bytes,
                           int smem_bytes, cudaStream_t stream) {
   auto kernel = encode_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem_bytes);
+  cudaError_t err = allow_smem<encode_kernel<T>>();
   if (err != cudaSuccess) return err;
   dim3 grid((C + chunk_c - 1) / chunk_c, (N + rows_per_block - 1) / rows_per_block);
   kernel<<<grid, kThreads, smem_bytes, stream>>>(

@@ -133,7 +133,7 @@ cudaError_t launch_v1(const void* x, const void* centroids, const void* table_q,
                       int scale_c, int scale_m, int Q, int block_c, int stage_c,
                       int region_bytes, int smem_bytes, int vec4, cudaStream_t stream) {
   auto kernel = lut_amm_v1_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem_bytes);
+  cudaError_t err = allow_smem<lut_amm_v1_kernel<T>>();
   if (err != cudaSuccess) return err;
   dim3 grid((N + kBlockN - 1) / kBlockN, (M + 4 * Q - 1) / (4 * Q));
   kernel<<<grid, kThreads, smem_bytes, stream>>>(

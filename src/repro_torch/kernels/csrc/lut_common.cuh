@@ -10,18 +10,63 @@
 //              | sum_c T[c, code[n,c], m] * s[c, m|0]           (fp32: per-codebook/column)
 //   out        = act(y + bias), written once in x's dtype.
 //
-// v1 and the encode kernel share the staging and the device encode only.
+// They replace the TPU kernels src/repro/kernels/fused_decode.py::fused_decode_pallas
+// and src/repro/kernels/lut_amm.py::lut_amm_pallas (v2). v1 and the encode
+// kernel share the staging and the serial device encode only.
 //
-// Thread layout of the lookup: a block owns kBlockN rows and one M tile of
-// 4*Q columns at a time. Thread t handles the 4 adjacent columns 4*(t % Q)..+3
-// (one coalesced 4-byte table read per row) for the codebooks c = t / Q,
-// t / Q + G, ... with G = kThreads / Q codebook groups; the G partial sums are
-// reduced through shared memory before the epilogue. The sum over codebooks
-// is therefore split across threads and re-joined inside the block: no atomics
-// and no second pass, and every output element is written exactly once.
+// What bounds them on this card. The bytes are the int8 table, read once per
+// N tile (2-6 MiB at qwen3_1p7b's sites: 0.6-1.9 us at 3.35 TB/s). Before the
+// lookup can start, every row's codes must exist, and they depend on all C
+// codebooks' centroids; a block that stages all of them from L2 and encodes
+// its rows over all of them spends ~20 us per 64 codebooks in a serial chain,
+// which was the whole kernel's time at decode.
+//
+// The design (lut_cluster_body below), shared by both kernels:
+//  1. A thread-block cluster of S blocks (along the M axis) owns one N tile
+//     of `rows` rows. Rank r stages only its share of the codebooks,
+//     [r*C/S, (r+1)*C/S), with their norms, and encodes the N tile's rows for
+//     that share: S-fold less staging and encode per block.
+//  2. The codes go through distributed shared memory: each rank writes its
+//     share into its own code array (rows x C bytes) and pushes it into every
+//     peer's array with st.async, whose bytes the peer's mbarrier counts; a
+//     rank looks up once its mbarrier has counted every peer's share. Codes
+//     never reach device memory, and no cluster-wide memory fence is needed
+//     (cluster.sync() compiles to a GPU-scope fence and an L1 invalidate:
+//     ~0.6 us here). A relaxed cluster barrier orders the mbarriers' setup
+//     before the pushes, and one before exit keeps a block alive while a
+//     peer may still write into it. The trade: S - 1 small pushes and two
+//     cluster barriers per block.
+//  3. The encode runs parallel over K: a chunk's centroids and the N tile's
+//     sub-vectors are staged by cp.async (every copy in flight at once),
+//     then a thread holds R rows x 4 centroids in registers, 4 lanes split
+//     K, and the lanes' minima merge by shuffles, lowest k on a tie. Each
+//     distance is the same fp32 sequence as the serial encode's (a_nrm and
+//     cross as FMA chains over v ascending), so the codes equal the serial
+//     encode's.
+//  4. A centroid norm's sum starts at word (c*K + k) % V of its row, a
+//     function of the global row: every rank, chunk and kernel computes the
+//     same fp32 norm, so fused == v2 bytewise whatever cluster and chunk.
+//  5. Lookup. The block's table tile (C*K rows x 4Q columns) can be staged
+//     into shared memory, issued at the kernel's start so the table's bytes
+//     arrive while the codes are computed. N tiles of 16 rows and more
+//     (prefill) stage it by TMA, one box of stage_c codebooks per ring stage
+//     on an mbarrier: the lanes of a warp read along one table row
+//     (conflict-free), warps and lane groups run along rows, each thread
+//     holds whole sums for its rows, and the table is read once per N tile.
+//     At decode (8-row tiles) the whole tile is copied by 16-byte cp.async
+//     beside the centroids where it fits RING_BYTES, else gathered straight
+//     from global memory; thread (q, g) owns 4 adjacent columns and the
+//     codebooks g, g + G, ..., and the G partials join by warp shuffles and
+//     then through shared memory.
+//  6. The epilogue is unchanged: m-shared/scalar fmaf((float)acc, s, bias),
+//     per-codebook the fp32 sum + bias; act, cast, one store per element; no
+//     atomics.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,12 +75,41 @@
 namespace lutnn {
 
 constexpr int kThreads = 256;  // threads per block
-constexpr int kBlockN = 8;     // rows of x per N tile
+constexpr int kBlockN = 8;     // rows per register tile of the direct lookup
 constexpr int kMaxV = 32;      // longest sub-vector held in registers by the encoder
 // reduction buffer: G groups x kBlockN rows x 4Q columns x 4 bytes, G * Q = kThreads
 constexpr int kRedBytes = kThreads * kBlockN * 4 * 4;
 
 enum Act { kActNone = 0, kActRelu = 1, kActSilu = 2, kActGelu = 3, kActRelu2 = 4 };
+
+// Phase timestamps of the cluster kernels, compiled in only with
+// -DLUTNN_PHASE_TRACE (kernels/phase_trace.py): thread 0 of each block
+// reads the SM's cycle counter at kPhases points after a block barrier into
+// shared memory; the last phase writes the block's row of lutnn_phase_log:
+// its start on %globaltimer (ns), then the cycles from its start to each
+// later phase. No device-memory traffic between phases.
+constexpr int kPhases = 10;
+#ifdef LUTNN_PHASE_TRACE
+__device__ long long lutnn_phase_log[1 << 16];
+__shared__ long long lutnn_cycles[kPhases];
+#define LUTNN_STAMP(i)                                                                  \
+  do {                                                                                  \
+    __syncthreads();                                                                    \
+    if (threadIdx.x == 0) {                                                             \
+      lutnn_cycles[i] = clock64();                                                      \
+      long long* row =                                                                  \
+          lutnn_phase_log + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * kPhases;    \
+      if ((i) == 0) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(row[0]));          \
+      if ((i) == kPhases - 1) {                                                         \
+        for (int j = 1; j < kPhases; ++j) row[j] = lutnn_cycles[j] - lutnn_cycles[0];   \
+      }                                                                                 \
+    }                                                                                   \
+  } while (0)
+#else
+#define LUTNN_STAMP(i) \
+  do {                 \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float load_x(const float* p) { return *p; }
 __device__ __forceinline__ float load_x(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -63,26 +137,64 @@ __device__ __forceinline__ float apply_act(float y, int act) {
   }
 }
 
-// Shared-memory layout of staged centroids: codebook c's K*V floats start at
-// c * centroid_stride(K, V), its K squared norms at c * (K + 1). The padding
-// shifts neighbouring codebooks by 4 (and 1) banks, so the encoder's threads,
-// which read several codebooks at once, do not collide on one bank.
-__host__ __device__ __forceinline__ int centroid_stride(int K, int V) { return K * V + 4; }
+// Shared-memory layout of staged centroids: centroid row k of codebook c
+// starts at c * centroid_stride(K, V) + k * row_stride(V); the codebook's K
+// squared norms at c * (K + 1). The row stride is odd, so the lanes of a
+// warp that read one word of 32 different rows hit 32 different banks.
+__host__ __device__ __forceinline__ int row_stride(int V) { return V | 1; }
+__host__ __device__ __forceinline__ int centroid_stride(int K, int V) {
+  return K * row_stride(V) + 4;
+}
+// The cluster kernels' staging instead starts every row 16-byte aligned, so
+// that one 16-byte cp.async moves 4 words: the issue of the staging copies,
+// not their bytes, set the staging time (PERF.md). The extra 4 words
+// keep the lanes of a warp that read one word of 8 rows on 8 bank groups.
+__host__ __device__ __forceinline__ int row_stride16(int V) { return ((V + 3) & ~3) + 4; }
+
+// The norms of `rows` staged centroid rows of codebooks from c_lo on: the
+// row in registers (independent loads), then one FMA chain over words
+// w0, w0 + 1, ..., V - 1, 0, ..., w0 - 1 with w0 = (c_lo*K + row) % V, the
+// row's global index: the same fp32 norm in every block, chunk and kernel.
+__device__ __forceinline__ void centroid_norms(int c_lo, int rows, int K, int V,
+                                               const float* p_s, float* pn_s,
+                                               int rs = -1) {
+  if (rs < 0) rs = row_stride(V);
+  const int ps = K * rs + 4;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const float* p = p_s + (size_t)(i / K) * ps + (i % K) * rs;
+    const int w0 = (c_lo * K + i) % V;
+    float r[kMaxV];
+#pragma unroll
+    for (int v = 0; v < kMaxV; ++v) r[v] = v < V ? p[v] : 0.f;
+    float nrm = 0.f;
+#pragma unroll
+    for (int v = 0; v < kMaxV; ++v) {
+      if (v >= w0 && v < V) nrm = fmaf(r[v], r[v], nrm);
+    }
+#pragma unroll
+    for (int v = 0; v < kMaxV; ++v) {
+      if (v < w0) nrm = fmaf(r[v], r[v], nrm);
+    }
+    pn_s[(i / K) * (K + 1) + i % K] = nrm;
+  }
+}
 
 // Stage the centroids of codebooks [c_lo, c_lo + cc) into shared memory and
 // compute their squared norms: p_s holds cc * centroid_stride floats, pn_s
 // cc * (K + 1). 16-byte loads, eight in flight per thread: the copy is bound
-// by L2 bandwidth rather than by one round trip per element.
+// by L2 bandwidth rather than by one round trip per element. The norm of
+// global centroid row g = c*K + k sums its words starting at g % V: the same
+// order in every block, chunk and kernel, whichever thread takes the row.
 __device__ __forceinline__ void stage_centroids(const float* __restrict__ centroids, int c_lo,
                                                 int cc, int K, int V, float* p_s, float* pn_s) {
   const float* src = centroids + (size_t)c_lo * K * V;
-  const int kv = K * V;
+  const int rs = row_stride(V);
   const int ps = centroid_stride(K, V);
-  if ((kv % 4) == 0 && (reinterpret_cast<uintptr_t>(src) % 16) == 0) {
+  const int rows = cc * K;
+  if ((V % 4) == 0 && (reinterpret_cast<uintptr_t>(src) % 16) == 0) {
     const float4* src4 = reinterpret_cast<const float4*>(src);
-    float4* dst4 = reinterpret_cast<float4*>(p_s);
-    const int kv4 = kv / 4;
-    const int total4 = cc * kv4;
+    const int v4 = V / 4;
+    const int total4 = rows * v4;
     for (int base = threadIdx.x; base < total4; base += 8 * blockDim.x) {
       float4 r[8];
 #pragma unroll
@@ -93,60 +205,75 @@ __device__ __forceinline__ void stage_centroids(const float* __restrict__ centro
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int i = base + u * blockDim.x;
-        if (i < total4) dst4[(i / kv4) * (ps / 4) + i % kv4] = r[u];
+        if (i < total4) {
+          const int row = i / v4;
+          float* dst = p_s + (row / K) * ps + (row % K) * rs + (i % v4) * 4;
+          dst[0] = r[u].x;
+          dst[1] = r[u].y;
+          dst[2] = r[u].z;
+          dst[3] = r[u].w;
+        }
       }
     }
   } else {
-    for (int i = threadIdx.x; i < cc * kv; i += blockDim.x) p_s[(i / kv) * ps + i % kv] = src[i];
+    for (int i = threadIdx.x; i < rows * V; i += blockDim.x) {
+      const int row = i / V;
+      p_s[(row / K) * ps + (row % K) * rs + i % V] = src[i];
+    }
   }
   __syncthreads();
-  // one thread per centroid row; each lane starts its sum at another word of
-  // the row, so the lanes of a warp, whose rows lie V words apart, read
-  // different banks (the order of the sum is fixed by the lane)
-  const int rot = threadIdx.x % V;
-  for (int i = threadIdx.x; i < cc * K; i += blockDim.x) {
-    const float* p = p_s + (size_t)(i / K) * ps + (i % K) * V;
-    float nrm = 0.f;
-    for (int v = 0, w = rot; v < V; ++v, w = (w + 1 == V) ? 0 : w + 1) nrm = fmaf(p[w], p[w], nrm);
-    pn_s[(i / K) * (K + 1) + i % K] = nrm;
-  }
+  centroid_norms(c_lo, rows, K, V, p_s, pn_s);
   __syncthreads();
 }
 
-// Nearest-centroid codes of the block's rows for codebooks [c_lo, c_lo + cc):
-// codes_s[n * cc + (c - c_lo)] for the n_rows valid rows. fp32 distances by
-// the reference's expansion ||a||^2 - 2 a.p + ||p||^2; k ascends with a
-// strict '<', so the lowest index wins a tie.
+// The fp32 distance of one centroid row: the reference's expansion
+// ||a||^2 - 2 a.p + ||p||^2, `cross` an FMA chain over v ascending.
+__device__ __forceinline__ float distance(const float (&a)[kMaxV], float a_nrm, const float* p,
+                                          float p_nrm, int V) {
+  float cross = 0.f;
+#pragma unroll
+  for (int v = 0; v < kMaxV; ++v) {
+    if (v < V) cross = fmaf(a[v], p[v], cross);
+  }
+  return __fadd_rn(__fsub_rn(a_nrm, __fmul_rn(2.f, cross)), p_nrm);
+}
+
+// One row's sub-vector in registers and its squared norm (FMA chain, v ascending).
+template <typename T>
+__device__ __forceinline__ float load_subvector(const T* __restrict__ xr, int V,
+                                                float (&a)[kMaxV]) {
+  float a_nrm = 0.f;
+#pragma unroll
+  for (int v = 0; v < kMaxV; ++v) {
+    if (v < V) {
+      a[v] = load_x(xr + v);
+      a_nrm = fmaf(a[v], a[v], a_nrm);
+    }
+  }
+  return a_nrm;
+}
+
+// Serial encode (v1 and the encode kernel): one thread per (row, codebook)
+// over k ascending with a strict '<', so the lowest index wins a tie.
+// codes_s[n * cc + (c - c_lo)] for the n_rows valid rows.
 template <typename T>
 __device__ __forceinline__ void encode_rows(const T* __restrict__ x, int n0, int n_rows, int D,
                                             int c_lo, int cc, int K, int V, const float* p_s,
                                             const float* pn_s, uint8_t* codes_s) {
+  const int rs = row_stride(V);
   const int ps = centroid_stride(K, V);
   for (int t = threadIdx.x; t < n_rows * cc; t += blockDim.x) {
     // the rows of one codebook are neighbouring threads: centroid reads broadcast
     const int cl = t / n_rows;
     const int n = t % n_rows;
-    const T* xr = x + (size_t)(n0 + n) * D + (size_t)(c_lo + cl) * V;
     float a[kMaxV];
-    float a_nrm = 0.f;
-#pragma unroll
-    for (int v = 0; v < kMaxV; ++v) {
-      if (v < V) {
-        a[v] = load_x(xr + v);
-        a_nrm = fmaf(a[v], a[v], a_nrm);
-      }
-    }
+    const float a_nrm = load_subvector(x + (size_t)(n0 + n) * D + (size_t)(c_lo + cl) * V, V, a);
     const float* p = p_s + (size_t)cl * ps;
     const float* pn = pn_s + cl * (K + 1);
     float best = 0.f;
     int best_k = 0;
     for (int k = 0; k < K; ++k) {
-      float cross = 0.f;
-#pragma unroll
-      for (int v = 0; v < kMaxV; ++v) {
-        if (v < V) cross = fmaf(a[v], p[k * V + v], cross);
-      }
-      const float d = __fadd_rn(__fsub_rn(a_nrm, __fmul_rn(2.f, cross)), pn[k]);
+      const float d = distance(a, a_nrm, p + k * rs, pn[k], V);
       if (k == 0 || d < best) {
         best = d;
         best_k = k;
@@ -156,16 +283,246 @@ __device__ __forceinline__ void encode_rows(const T* __restrict__ x, int n0, int
   }
 }
 
-// Accumulate the table rows of codebooks [c_lo, c_lo + cc) into this thread's
-// 4 columns m .. m+3 for every valid row. SHARED: raw int32 sums (the m-shared
-// or scalar scale factors out); otherwise fp32 sums of T * s[c, m|0].
-template <bool SHARED, typename AccT>
-__device__ __forceinline__ void lookup_rows(AccT (&acc)[kBlockN][4],
-                                            const int8_t* __restrict__ table_q,
+// Stage the N tile's sub-vectors of codebooks [c0, c0 + cc) into shared
+// memory: x_s[(cl * rows + n) * row_stride(V) + v], rows beyond n_rows left
+// unwritten (their distances are computed and never used). 4 elements per
+// load where rows allow it, 16 loads in flight per thread: the copy waits on
+// memory once, not once per element.
+template <typename T>
+__device__ __forceinline__ void stage_x(const T* __restrict__ x, int n0, int n_rows, int rows,
+                                        int D, int c0, int cc, int V, float* x_s, int rs) {
+  using Vec = typename std::conditional<std::is_same<T, float>::value, float4, uint2>::type;
+  constexpr int kBatch = 16;
+  const int per_row = cc * V;
+  const T* src = x + (size_t)n0 * D + (size_t)c0 * V;
+  const bool vec = (V % 4) == 0 && (D % 4) == 0 && (c0 * V) % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(src) % sizeof(Vec)) == 0;
+  if (vec) {
+    const int per_row4 = per_row / 4;
+    const int total4 = n_rows * per_row4;
+    for (int base = threadIdx.x; base < total4; base += kBatch * blockDim.x) {
+      Vec r[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * blockDim.x;
+        if (i < total4) {
+          r[u] = *reinterpret_cast<const Vec*>(src + (size_t)(i / per_row4) * D +
+                                               (i % per_row4) * 4);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * blockDim.x;
+        if (i < total4) {
+          const int rem = (i % per_row4) * 4;
+          float* dst = x_s + ((rem / V) * rows + i / per_row4) * rs + rem % V;
+          const T* e = reinterpret_cast<const T*>(&r[u]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dst[j] = load_x(e + j);
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_rows * per_row; i += blockDim.x) {
+      const int rem = i % per_row;
+      x_s[((rem / V) * rows + i / per_row) * rs + rem % V] =
+          load_x(src + (size_t)(i / per_row) * D + rem);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Stage one chunk of a rank's share, codebooks [c0, c0 + cc): their
+// centroids (padded rows), their norms, and the N tile's sub-vectors
+// (x_s[(cl * rows + n) * row_stride16(V) + v]). Every copy is issued
+// before any is waited on (cp.async), so the chunk waits on memory once;
+// `issued()` runs while they are in flight and
+// returns true if it committed a cp.async group of its own, which this
+// chunk's wait leaves in flight.
+template <typename T, typename Issued>
+__device__ __forceinline__ void stage_share(const T* __restrict__ x,
+                                            const float* __restrict__ centroids, int n0,
+                                            int n_rows, int rows, int D, int c0, int cc, int K,
+                                            int V, float* p_s, float* pn_s, float* x_s,
+                                            Issued&& issued) {
+  const int rs = row_stride16(V);
+  const int ps = K * rs + 4;
+  const float* cent = centroids + (size_t)c0 * K * V;
+  const T* xs = x + (size_t)n0 * D + (size_t)c0 * V;
+  const bool fp32_x = std::is_same<T, float>::value;
+  // 16-byte copies where the rows allow them, else 4-byte ones
+  const int wc = V % 4 == 0 && reinterpret_cast<uintptr_t>(cent) % 16 == 0 ? 4 : 1;
+  for (int i = threadIdx.x; i < cc * K * V / wc; i += blockDim.x) {
+    const int row = i / (V / wc);
+    float* dst = p_s + (row / K) * ps + (row % K) * rs + wc * (i % (V / wc));
+    if (wc == 4) {
+      cp_async16(dst, cent + 4 * i);
+    } else {
+      cp_async4(dst, cent + i);
+    }
+  }
+  if (fp32_x) {
+    const float* xf = reinterpret_cast<const float*>(xs);
+    const int wx = V % 4 == 0 && D % 4 == 0 && reinterpret_cast<uintptr_t>(xf) % 16 == 0 ? 4 : 1;
+    const int per_row = cc * V / wx;  // one row's share of x is contiguous
+    for (int i = threadIdx.x; i < n_rows * per_row; i += blockDim.x) {
+      const int n = i / per_row;
+      const int e = wx * (i % per_row);  // the element within the row's share
+      float* dst = x_s + ((e / V) * rows + n) * rs + e % V;
+      if (wx == 4) {
+        cp_async16(dst, xf + (size_t)n * D + e);
+      } else {
+        cp_async4(dst, xf + (size_t)n * D + e);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  LUTNN_STAMP(2);
+  const bool later = issued();  // the caller's work that overlaps the copies
+  if (!fp32_x) stage_x(x, n0, n_rows, rows, D, c0, cc, V, x_s, rs);
+  LUTNN_STAMP(3);
+  if (later) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();
+  LUTNN_STAMP(4);
+  centroid_norms(c0, cc * K, K, V, p_s, pn_s, rs);
+  __syncthreads();
+}
+
+// Parallel encode (fused and v2) from staged sub-vectors and centroids. A
+// thread holds R rows (rg, rg + n_rg, ...: the lanes of neighbouring row
+// groups read neighbouring rows, on distinct banks at the 16-byte aligned
+// row stride) x 4 centroids of one codebook in registers (the v loop
+// outermost: R + 4 shared loads feed 4R FMAs) and takes k = kg, kg + 4, ...
+// (its first k always, then a strict '<'); the 4 lanes kg of a row group
+// merge their minima by shuffles, the lower k winning a tie. Every distance
+// is the serial encode's fp32 sequence (a_nrm and cross as FMA chains over v
+// ascending, then the expansion), so the codes equal the serial encode's.
+// Writes codes_s[c * rows + n] (codebook-major) for c in [c0, c0 + cc).
+template <int R>
+__device__ __forceinline__ void encode_tile(int n_rows, int rows, int c0, int cc, int K, int V,
+                                            const float* p_s, const float* pn_s,
+                                            const float* x_s, uint8_t* codes_s) {
+  constexpr int KG = 4;  // lanes across k per row group
+  constexpr int KT = 4;  // centroids per lane per pass over v
+  const int rs = row_stride16(V);
+  const int ps = K * rs + 4;
+  const int n_rg = (n_rows + R - 1) / R;
+  const int total = cc * n_rg * KG;
+  // every lane of a warp runs each pass (the shuffles need them all); the KG
+  // lanes of a row group lie wholly inside or outside [0, total)
+  for (int base = 0; base < total; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const int kg = t % KG;
+    const int rg = (t / KG) % n_rg;
+    const int cl = (t / KG) / n_rg;
+    float best[R];
+    int best_k[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      best[i] = INFINITY;
+      best_k[i] = 0x7fffffff;
+    }
+    if (t < total) {
+      const float* xa = x_s + (size_t)(cl * rows + rg) * rs;
+      const float* p = p_s + (size_t)cl * ps;
+      const float* pn = pn_s + cl * (K + 1);
+      for (int kb = 0; kb < K; kb += KG * KT) {
+        const float* pk[KT];
+#pragma unroll
+        for (int j = 0; j < KT; ++j) pk[j] = p + min(kb + kg + KG * j, K - 1) * rs;
+        float cross[R][KT];
+        float a_nrm[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          a_nrm[i] = 0.f;
+#pragma unroll
+          for (int j = 0; j < KT; ++j) cross[i][j] = 0.f;
+        }
+#pragma unroll 4
+        for (int v = 0; v < V; ++v) {
+          float av[R];
+          float pv[KT];
+#pragma unroll
+          for (int i = 0; i < R; ++i) av[i] = xa[i * n_rg * rs + v];
+#pragma unroll
+          for (int j = 0; j < KT; ++j) pv[j] = pk[j][v];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            a_nrm[i] = fmaf(av[i], av[i], a_nrm[i]);
+#pragma unroll
+            for (int j = 0; j < KT; ++j) cross[i][j] = fmaf(av[i], pv[j], cross[i][j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          const int k = kb + kg + KG * j;
+          if (k < K) {
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              const float d = __fadd_rn(__fsub_rn(a_nrm[i], __fmul_rn(2.f, cross[i][j])), pn[k]);
+              if (best_k[i] == 0x7fffffff || d < best[i]) {
+                best[i] = d;
+                best_k[i] = k;
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = KG / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float od = __shfl_xor_sync(0xffffffffu, best[i], off);
+        const int ok = __shfl_xor_sync(0xffffffffu, best_k[i], off);
+        if (od < best[i] || (od == best[i] && ok < best_k[i])) {
+          best[i] = od;
+          best_k[i] = ok;
+        }
+      }
+    }
+    if (t < total && kg == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int n = rg + i * n_rg;
+        if (n < n_rows) codes_s[(size_t)(c0 + cl) * rows + n] = (uint8_t)best_k[i];
+      }
+    }
+  }
+}
+
+// Accumulate table rows of codebooks [c_lo, c_lo + cc) into this thread's 4
+// columns for the rows of one NR-row register tile. `tbl` points at codebook c_lo's
+// first table row, `pitch` bytes apart, `col` this thread's first column in
+// a row; m is that column's index in [0, M). Codes: codes[c * ldn + n].
+// SHARED: raw int32 sums (the m-shared or scalar scale factors out);
+// otherwise fp32 sums of T * s[c, m|0]. Thread group g takes the codebooks
+// g, g + G, ... Rows past n_rows repeat the last valid row's code (their
+// sums are never stored), so the loop has no branch per row.
+template <bool SHARED, int NR, typename AccT>
+__device__ __forceinline__ void lookup_rows(AccT (&acc)[NR][4], const int8_t* tbl,
+                                            size_t pitch, int col,
                                             const float* __restrict__ scale, int K, int M,
                                             int scale_m, int c_lo, int cc,
-                                            const uint8_t* codes_s, int n_rows, int m, int g,
-                                            int G, bool vec4) {
+                                            const uint8_t* codes, int ldn, int n_rows, int m,
+                                            int g, int G, bool vec4) {
   if (m >= M) return;
   const bool full4 = vec4 && (m + 3 < M);
   for (int cl = g; cl < cc; cl += G) {
@@ -178,81 +535,640 @@ __device__ __forceinline__ void lookup_rows(AccT (&acc)[kBlockN][4],
         s[j] = scale[(size_t)c * scale_m + (scale_m == 1 ? 0 : mm)];
       }
     }
+    const int8_t* base = tbl + (size_t)cl * K * pitch + col;
+    int t[NR][4];
+    if (full4) {
 #pragma unroll
-    for (int n = 0; n < kBlockN; ++n) {
-      if (n < n_rows) {
-        const int code = codes_s[n * cc + cl];
-        const int8_t* row = table_q + ((size_t)c * K + code) * M + m;
-        int t[4];
-        if (full4) {
-          const char4 t4 = *reinterpret_cast<const char4*>(row);
-          t[0] = t4.x;
-          t[1] = t4.y;
-          t[2] = t4.z;
-          t[3] = t4.w;
+      for (int n = 0; n < NR; ++n) {
+        const char4 t4 = *reinterpret_cast<const char4*>(
+            base + (size_t)codes[(size_t)c * ldn + min(n, n_rows - 1)] * pitch);
+        t[n][0] = t4.x;
+        t[n][1] = t4.y;
+        t[n][2] = t4.z;
+        t[n][3] = t4.w;
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        const int8_t* row = base + (size_t)codes[(size_t)c * ldn + min(n, n_rows - 1)] * pitch;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t[n][j] = (m + j < M) ? (int)row[j] : 0;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NR; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (SHARED) {
+          acc[n][j] += t[n][j];
         } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) t[j] = (m + j < M) ? (int)row[j] : 0;
+          acc[n][j] += (float)t[n][j] * s[j];
         }
+      }
+    }
+  }
+}
+
+// The epilogue of one output element. m-shared / scalar: the reference's
+// (float)acc32 * s + bias, which XLA contracts into one fused multiply-add
+// (one rounding); without a bias, the single rounding of the product.
+// Per-codebook: the fp32 sum + bias. Then the activation.
+template <bool SHARED, typename AccT>
+__device__ __forceinline__ float finish(AccT sum, float s, float b, bool has_bias, int act) {
+  float y;
+  if (SHARED) {
+    y = has_bias ? __fmaf_rn((float)sum, s, b) : __fmul_rn((float)sum, s);
+  } else {
+    y = has_bias ? __fadd_rn((float)sum, b) : (float)sum;
+  }
+  return apply_act(y, act);
+}
+
+// Join the G codebook-group partials of one (NR x 4Q) tile, then the
+// epilogue: one dequantize (SHARED), bias, activation, cast, and the single
+// store of each output element. The groups of a warp that share columns
+// (lanes q, q + Q, ...) join first by shuffles, then the warps' partials
+// through shared memory: red_s must hold kRedBytes and is free again when
+// this returns. The order of the sums is fixed by the launch. s_s / b_s: the
+// scale and bias of the tile's columns, staged in shared memory. Q is a
+// power of two (qs = log2 Q): the index math shifts instead of dividing.
+template <bool SHARED, int NR, typename AccT, typename T>
+__device__ __forceinline__ void reduce_store(AccT (&acc)[NR][4], void* red_s, int Q, int qs,
+                                             int q, int g, int G, int n0, int n_rows, int m0,
+                                             int M, const float* s_s, const float* b_s,
+                                             bool has_bias, int act, T* __restrict__ out) {
+  const int TW = 4 * Q;
+  AccT* red = reinterpret_cast<AccT*>(red_s);
+  const int gpws = max(5 - qs, 0);  // log2 of the groups per warp
+  for (int off = Q; off < 32; off <<= 1) {
+#pragma unroll
+    for (int n = 0; n < NR; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[n][j] += __shfl_xor_sync(0xffffffffu, acc[n][j], off);
+    }
+  }
+  if (Q >= 32 || (threadIdx.x & 31) < Q) {
+#pragma unroll
+    for (int n = 0; n < NR; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[((g >> gpws) * NR + n) * TW + 4 * q + j] = acc[n][j];
+    }
+  }
+  __syncthreads();
+  const int G2 = G >> gpws;
+  for (int idx = threadIdx.x; idx < n_rows * TW; idx += blockDim.x) {
+    const int n = idx >> (qs + 2);
+    const int col = idx & (TW - 1);
+    const int mm = m0 + col;
+    if (mm < M) {
+      AccT sum = 0;
+      for (int gg = 0; gg < G2; ++gg) sum += red[(gg * NR + n) * TW + col];
+      store_out(out + (size_t)(n0 + n) * M + mm,
+                finish<SHARED>(sum, s_s[col], b_s[col], has_bias, act));
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The cluster pipeline of the fused and v2 kernels
+// ---------------------------------------------------------------------------
+
+// H100: dynamic shared memory one block may use (less the trace's stamps)
+#ifdef LUTNN_PHASE_TRACE
+constexpr int kMaxSmem = 232448 - 1024;
+#else
+constexpr int kMaxSmem = 232448;
+#endif
+constexpr int kStagedRows = 8;    // rows one thread accumulates in the row-split lookup
+
+// One launch's arguments; the shared-memory offsets come from the wrapper's
+// geometry (kernels/lut_amm.py::cluster_geometry), which alone defines the
+// layout: [ codes C x rows | epilogue scale and bias of the block's columns |
+// centroid region | table ring | ring mbarriers ].
+// The centroid region holds a chunk's centroids, their norms and the N
+// tile's sub-vectors, and later the reduction buffer.
+struct LutArgs {
+  CUtensorMap tmap;     // the int8 table as a (C*K, M) tensor, one ring stage per box
+  const void* x;
+  const float* centroids;
+  const int8_t* table_q;
+  const float* scale;
+  const float* bias;
+  void* out;
+  int N, C, K, V, M, scale_m, act;
+  int S;                // cluster size (blocks along M sharing one N tile)
+  int rows;             // rows of x per N tile (a multiple of 8)
+  int Q;                // column quads per M tile (4Q columns)
+  int tiles_per_block;  // M tiles one block sweeps (1 when staged)
+  int chunk_c;          // codebooks of a rank's share staged at once
+  int staged;           // 1: the table tile staged (one M tile per block): by
+                        // TMA over N tiles of more than 8 rows, else by cp.async
+  int stage_c;          // codebooks per table stage (one TMA box)
+  int n_stages;         // table stages in the TMA ring (0 at decode)
+  int epi_off, cent_off, ring_off, bar_off;
+  int vec4;             // 4-byte table loads allowed (direct lookup)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Cluster barrier arrive, relaxed: the barriers here order no memory (the
+// codes travel on the exchange's mbarrier), and a release arrive compiles
+// to a GPU-scope fence.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of shared-memory location p in the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// 8 bytes into a peer's shared memory; the peer's mbarrier `bar` counts them.
+__device__ __forceinline__ void push_u64(uint32_t dst, uint64_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n" ::"r"(
+                   dst),
+               "l"(v), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Thread 0 fills ring slot i % n_stages with table stage i: one TMA box of
+// stage_c*K table rows x 4Q columns from (row c0*K, column m0); rows past C*K
+// and columns past M arrive as zeros. The slot's mbarrier expects the box.
+__device__ __forceinline__ void issue_stage(const LutArgs& a, int i, int m0, uint8_t* ring,
+                                            uint64_t* bars) {
+  const int box = a.stage_c * a.K * 4 * a.Q;
+  const int slot = i % a.n_stages;
+  uint64_t* bar = bars + slot;
+  // the consumers' generic reads of this slot happen before the async writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_expect_tx(bar, (uint32_t)box);
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(ring + (size_t)slot * box)),
+      "l"(reinterpret_cast<uint64_t>(&a.tmap)), "r"(m0), "r"(i * a.stage_c * a.K),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait for stage i; after the block is done with it (ring_release), refill
+// its slot with stage i + n_stages.
+__device__ __forceinline__ const uint8_t* ring_acquire(const LutArgs& a, int i, uint8_t* ring,
+                                                       uint64_t* bars) {
+  const int slot = i % a.n_stages;
+  mbar_wait(bars + slot, (uint32_t)((i / a.n_stages) & 1));
+  return ring + (size_t)slot * a.stage_c * a.K * 4 * a.Q;
+}
+
+__device__ __forceinline__ void ring_release(const LutArgs& a, int i, int n_chunks, int m0,
+                                             uint8_t* ring, uint64_t* bars) {
+  __syncthreads();  // every thread is done with this slot
+  if (threadIdx.x == 0 && i + a.n_stages < n_chunks) issue_stage(a, i + a.n_stages, m0, ring, bars);
+}
+
+// Row-split lookup of one staged M tile (N tiles of more than 8 rows): lane
+// ql of a lane group reads 4 columns of one staged table row (the group
+// reads the row once, conflict-free); row group rg takes rows rg, rg + RG,
+// ... Every stage serves every row, and each thread holds its elements'
+// whole sums: the epilogue follows without a reduction. Rows past n_rows
+// repeat the last valid row's code and are not stored.
+template <bool SHARED, typename T>
+__device__ __forceinline__ void staged_lookup(const LutArgs& a, int n0, int n_rows, int m0,
+                                              const uint8_t* codes_s, const float* s_s,
+                                              const float* b_s, uint8_t* ring, uint64_t* bars) {
+  using AccT = typename std::conditional<SHARED, int, float>::type;
+  const int TW = 4 * a.Q;
+  const int K = a.K;
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 / a.Q;
+  const int ql = lane % a.Q;
+  const int rg = (threadIdx.x >> 5) * groups + lane / a.Q;
+  const int RG = (kThreads / 32) * groups;
+  const int m = m0 + 4 * ql;
+  const int n_chunks = (a.C + a.stage_c - 1) / a.stage_c;
+  int rowc[kStagedRows];
+#pragma unroll
+  for (int r = 0; r < kStagedRows; ++r) rowc[r] = min(rg + r * RG, n_rows - 1);
+  AccT acc[kStagedRows][4];
+#pragma unroll
+  for (int i = 0; i < kStagedRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  }
+  for (int i = 0; i < n_chunks; ++i) {
+    const uint8_t* st = ring_acquire(a, i, ring, bars) + 4 * ql;
+    const int c0 = i * a.stage_c;
+    const int cs = min(a.stage_c, a.C - c0);
+    for (int cl = 0; cl < cs; ++cl) {
+      const int c = c0 + cl;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      if (!SHARED) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[j] = a.scale[(size_t)c * a.scale_m + (a.scale_m == 1 ? 0 : min(m + j, a.M - 1))];
+        }
+      }
+      const uint8_t* code_row = codes_s + (size_t)c * a.rows;
+      const uint8_t* tile = st + (size_t)cl * K * TW;
+      int code[kStagedRows];
+#pragma unroll
+      for (int r = 0; r < kStagedRows; ++r) code[r] = code_row[rowc[r]];
+#pragma unroll
+      for (int r = 0; r < kStagedRows; ++r) {
+        const char4 t4 = *reinterpret_cast<const char4*>(tile + code[r] * TW);
+        const int t[4] = {t4.x, t4.y, t4.z, t4.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (SHARED) {
-            acc[n][j] += t[j];
+            acc[r][j] += t[j];
           } else {
-            acc[n][j] += (float)t[j] * s[j];
+            acc[r][j] += (float)t[j] * s[j];
           }
         }
       }
     }
+    ring_release(a, i, n_chunks, m0, ring, bars);
   }
-}
-
-// Join the G codebook-group partials of one (kBlockN x 4Q) tile through shared
-// memory, then the epilogue: one dequantize (SHARED), bias, activation, cast,
-// and the single store of each output element. red_s must hold kRedBytes and
-// is free again when this returns. The order of the sums is fixed.
-template <bool SHARED, typename AccT, typename T>
-__device__ __forceinline__ void reduce_store(const AccT (&acc)[kBlockN][4], void* red_s, int Q,
-                                             int q, int g, int G, int n0, int n_rows, int m0,
-                                             int M, const float* __restrict__ scale,
-                                             int scale_m, const float* __restrict__ bias,
-                                             int act, T* __restrict__ out) {
-  const int TW = 4 * Q;
-  AccT* red = reinterpret_cast<AccT*>(red_s);
+  T* out = static_cast<T*>(a.out);
+  const bool has_bias = a.bias != nullptr;
+  float sv[4], bv[4];
 #pragma unroll
-  for (int n = 0; n < kBlockN; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[(g * kBlockN + n) * TW + 4 * q + j] = acc[n][j];
+  for (int j = 0; j < 4; ++j) {
+    sv[j] = s_s[4 * ql + j];
+    bv[j] = b_s[4 * ql + j];
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kBlockN * TW; idx += blockDim.x) {
-    const int n = idx / TW;
-    const int col = idx % TW;
-    const int mm = m0 + col;
-    if (n < n_rows && mm < M) {
-      AccT sum = 0;
-      for (int gg = 0; gg < G; ++gg) sum += red[(gg * kBlockN + n) * TW + col];
-      // m-shared / scalar: the reference's (float)acc32 * s + bias, which XLA
-      // contracts into one fused multiply-add (one rounding); without a bias,
-      // the single rounding of the product. Per-codebook: the fp32 sum + bias.
-      float y;
-      if (SHARED) {
-        const float s = scale[scale_m == 1 ? 0 : mm];
-        y = bias != nullptr ? __fmaf_rn((float)sum, s, bias[mm]) : __fmul_rn((float)sum, s);
-      } else {
-        y = bias != nullptr ? __fadd_rn((float)sum, bias[mm]) : (float)sum;
+#pragma unroll
+  for (int r = 0; r < kStagedRows; ++r) {
+    const int n = rg + r * RG;
+    if (n < n_rows) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (m + j < a.M) {
+          store_out(out + (size_t)(n0 + n) * a.M + m + j,
+                    finish<SHARED>(acc[r][j], sv[j], bv[j], has_bias, a.act));
+        }
       }
-      store_out(out + (size_t)(n0 + n) * M + mm, apply_act(y, act));
     }
   }
-  __syncthreads();
 }
 
-// Host helper: lift the dynamic shared memory cap of a kernel once.
-template <typename K>
-inline cudaError_t allow_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Decode's staged table: the block's whole tile (C*K rows x 4Q columns,
+// row-major at `ring`) by 16-byte cp.async, issued after the first chunk's
+// staging copies as a cp.async group of its own that only the lookup waits
+// for: the tile lands while the codes are computed. One instruction per 16
+// bytes from every thread: TMA boxes of 256 narrow rows took ~5.7 us to land
+// here (PERF.md). Pieces past M (a multiple of 16 when staged) are
+// left unwritten; their columns are never stored.
+__device__ __forceinline__ void copy_table(const LutArgs& a, int m0, uint8_t* ring) {
+  const int TW = 4 * a.Q;
+  const int per_row = TW / 16;
+  const int inside = (min(a.M, m0 + TW) - m0) / 16;
+  const int total = a.C * a.K * per_row;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int row = i / per_row;
+    const int piece = i % per_row;
+    if (piece < inside) {
+      cp_async16(ring + (size_t)row * TW + piece * 16,
+                 a.table_q + (size_t)row * a.M + m0 + piece * 16);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Group-split lookup of the block's M tiles, NR rows at a time: thread
+// (q, g) gathers 4 columns of the codebooks g, g + G, ... from the table
+// tile copied to shared memory (`copy_table`) or straight from global
+// memory, and reduce_store joins the groups. The centroid region is dead by
+// now and holds the reduction buffer (red_s).
+template <bool SHARED, typename T, int NR>
+__device__ __forceinline__ void group_lookup(const LutArgs& a, bool staged, int n0, int n_rows,
+                                             int mt_begin, int mt_end, int col0,
+                                             const uint8_t* codes_s, const float* s_s,
+                                             const float* b_s, void* red_s,
+                                             const uint8_t* ring) {
+  using AccT = typename std::conditional<SHARED, int, float>::type;
+  const int TW = 4 * a.Q;
+  const int qs = __ffs(a.Q) - 1;  // Q is a power of two
+  const int G = kThreads >> qs;
+  const int q = threadIdx.x & (a.Q - 1);
+  const int g = threadIdx.x >> qs;
+  const bool has_bias = a.bias != nullptr;
+  for (int mt = mt_begin; mt < mt_end; ++mt) {
+    const int m0 = mt * TW;
+    for (int sub = 0; sub < n_rows; sub += NR) {
+      const int sub_rows = min(NR, n_rows - sub);
+      AccT acc[NR][4];
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[n][j] = 0;
+      }
+      if (staged) {
+        lookup_rows<SHARED, NR>(acc, reinterpret_cast<const int8_t*>(ring), TW, 4 * q, a.scale,
+                                a.K, a.M, a.scale_m, 0, a.C, codes_s + sub, a.rows, sub_rows,
+                                m0 + 4 * q, g, G, true);
+      } else {
+        lookup_rows<SHARED, NR>(acc, a.table_q, a.M, m0 + 4 * q, a.scale, a.K, a.M, a.scale_m, 0,
+                                a.C, codes_s + sub, a.rows, sub_rows, m0 + 4 * q, g, G,
+                                a.vec4 != 0);
+      }
+      reduce_store<SHARED, NR>(acc, red_s, a.Q, qs, q, g, G, n0 + sub, sub_rows, m0, a.M,
+                               s_s + (m0 - col0), b_s + (m0 - col0), has_bias, a.act,
+                               static_cast<T*>(a.out));
+    }
+  }
+}
+
+// The body of both kernels. Grid: x = S blocks per cluster x column groups,
+// y = N tiles; the cluster's S blocks share one N tile, block x owns M tiles
+// [x * tiles_per_block, (x + 1) * tiles_per_block). CHUNKED (v2) stages a
+// rank's share in chunks of chunk_c codebooks; the fused kernel holds its
+// whole share at once.
+template <typename T, bool SHARED, bool CHUNKED>
+__device__ __forceinline__ void lut_cluster_body(const LutArgs& a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint8_t* codes_s = smem;
+  float* p_s = reinterpret_cast<float*>(smem + a.cent_off);
+  uint8_t* ring = smem + a.ring_off;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + a.bar_off);
+  uint64_t* xbar = bars + a.n_stages;  // the code exchange's mbarrier
+
+  LUTNN_STAMP(0);
+  const int S = a.S;
+  const int r = (int)cooperative_groups::this_cluster().block_rank();
+  // this rank's share of the codebooks; every rank owns at least one (the
+  // wrapper's cluster is at most C)
+  const int c_lo = r * a.C / S;
+  const int c_hi = (r + 1) * a.C / S;
+
+  // the exchange's mbarrier expects the peers' shares of the codes; the
+  // cluster barrier's wait, after the encode, orders its setup before any
+  // peer's push. Set up before any copy is issued: the release fence would
+  // wait for copies in flight
+  if (threadIdx.x == 0) {
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(xbar, (uint32_t)((a.C - (c_hi - c_lo)) * a.rows));
+  }
+  cluster_arrive();
+  LUTNN_STAMP(1);
+  const int n0 = blockIdx.y * a.rows;
+  const int n_rows = min(a.rows, a.N - n0);
+  const int TW = 4 * a.Q;
+  const int n_mtiles = (a.M + TW - 1) / TW;
+  const int mt_begin = blockIdx.x * a.tiles_per_block;
+  const int mt_end = min(n_mtiles, mt_begin + a.tiles_per_block);
+  const bool staged = a.staged != 0 && mt_begin < mt_end;
+  const bool tma = staged && a.rows > kBlockN;  // a prefill chunk's ring of TMA boxes
+
+  // the table, issued once while the first chunk's copies are in flight:
+  // its bytes arrive while the codes are computed. At decode the whole tile
+  // by cp.async (`copy_table`), at a prefill chunk the ring's first stages
+  bool table_pending = staged;
+  auto issue_table = [&]() -> bool {
+    if (!table_pending) return false;
+    table_pending = false;
+    if (!tma) {
+      copy_table(a, mt_begin * TW, ring);
+      return true;
+    }
+    if (threadIdx.x == 0) {
+      const int n_chunks = (a.C + a.stage_c - 1) / a.stage_c;
+      for (int i = 0; i < a.n_stages; ++i) mbar_init(bars + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int i = 0; i < min(a.n_stages, n_chunks); ++i) {
+        issue_stage(a, i, mt_begin * TW, ring, bars);
+      }
+    }
+    return false;
+  };
+  // the epilogue's scale and bias of this block's columns, on their way too
+  float* s_s = reinterpret_cast<float*>(smem + a.epi_off);
+  float* b_s = s_s + a.tiles_per_block * TW;
+  const int col0 = mt_begin * TW;
+  const bool has_bias = a.bias != nullptr;
+  for (int i = threadIdx.x; i < min(a.M, mt_end * TW) - col0; i += blockDim.x) {
+    if (SHARED) cp_async4(s_s + i, a.scale + (a.scale_m == 1 ? 0 : col0 + i));
+    if (has_bias) cp_async4(b_s + i, a.bias + col0 + i);
+  }
+
+
+  // the share, chunk by chunk: its centroids and norms and the N tile's
+  // sub-vectors staged, then the codes
+  const int step = CHUNKED ? a.chunk_c : max(c_hi - c_lo, 1);
+  float* pn_s = p_s + (size_t)step * (a.K * row_stride16(a.V) + 4);
+  float* x_s = pn_s + ((step * (a.K + 1) + 3) & ~3);  // 16-byte aligned
+  for (int c0 = c_lo; c0 < c_hi; c0 += step) {
+    const int cc = min(step, c_hi - c0);
+    stage_share(static_cast<const T*>(a.x), a.centroids, n0, n_rows, a.rows, a.C * a.V, c0, cc,
+                a.K, a.V, p_s, pn_s, x_s, issue_table);
+    if (c0 == c_lo) LUTNN_STAMP(5);  // the first chunk staged
+    if (a.rows > kBlockN) {
+      encode_tile<4>(n_rows, a.rows, c0, cc, a.K, a.V, p_s, pn_s, x_s, codes_s);
+    } else {
+      encode_tile<1>(n_rows, a.rows, c0, cc, a.K, a.V, p_s, pn_s, x_s, codes_s);
+    }
+    __syncthreads();  // the next chunk overwrites the staged centroids
+  }
+
+  // the exchange: each rank pushes its share of the codes (contiguous,
+  // codebook-major, 8 bytes at a time) into every peer's shared memory, and
+  // waits until its own mbarrier has counted every peer's share
+  LUTNN_STAMP(6);  // the share encoded
+  cluster_wait();
+  const int own = (c_hi - c_lo) * a.rows / 8;
+  const uint64_t* mine = reinterpret_cast<const uint64_t*>(codes_s + (size_t)c_lo * a.rows);
+  for (int i = threadIdx.x; i < own * (S - 1); i += blockDim.x) {
+    const int peer = i / own + (i / own >= r);
+    const int w = i % own;
+    push_u64(peer_addr(mine + w, peer), mine[w], peer_addr(xbar, peer));
+  }
+  mbar_wait(xbar, 0);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // decode's table tile
+  __syncthreads();
+  LUTNN_STAMP(7);  // the codes exchanged
+  cluster_arrive();  // every code received: no peer writes here any more
+
+  if (tma) {
+    staged_lookup<SHARED, T>(a, n0, n_rows, col0, codes_s, s_s, b_s, ring, bars);
+  } else if (n_rows <= kBlockN / 2) {  // decode: a 4-row register tile
+    group_lookup<SHARED, T, kBlockN / 2>(a, staged, n0, n_rows, mt_begin, mt_end, col0, codes_s,
+                                         s_s, b_s, p_s, ring);
+  } else {
+    group_lookup<SHARED, T, kBlockN>(a, staged, n0, n_rows, mt_begin, mt_end, col0, codes_s,
+                                     s_s, b_s, p_s, ring);
+  }
+  LUTNN_STAMP(8);
+  cluster_wait();  // no block leaves while a peer may still write its codes here
+  LUTNN_STAMP(9);
+}
+
+// Host side: the launch attributes of a kernel, set once per instantiation
+// (the dynamic shared memory cap, and clusters of 16).
+template <auto KERNEL>
+inline cudaError_t prepare_kernel() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxSmem);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    return e;
+  }();
+  return err;
+}
+
+// Kernels without clusters (v1, encode) lift only the shared memory cap, once.
+template <auto KERNEL>
+inline cudaError_t allow_smem() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  return err;
+}
+
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int S, int smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = S;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime (no
+// link against libcuda).
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+#endif
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// The table as a 2-D tensor of C*K rows x M int8 columns, boxes of one ring
+// stage (stage_c*K rows x 4Q columns).
+inline cudaError_t encode_table_map(LutArgs& a) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.M, (cuuint64_t)a.C * a.K};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.M};
+  const cuuint32_t box[2] = {(cuuint32_t)(4 * a.Q), (cuuint32_t)(a.stage_c * a.K)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(&a.tmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                              const_cast<int8_t*>(a.table_q), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <auto KERNEL>
+inline cudaError_t launch_cluster(LutArgs& a, int smem, cudaStream_t stream) {
+  cudaError_t err = prepare_kernel<KERNEL>();
+  if (err == cudaSuccess && a.staged && a.rows > kBlockN) err = encode_table_map(a);
+  if (err != cudaSuccess) return err;
+  const int TW = 4 * a.Q;
+  const int n_mtiles = (a.M + TW - 1) / TW;
+  const int col_blocks = (n_mtiles + a.tiles_per_block - 1) / a.tiles_per_block;
+  const dim3 grid(((col_blocks + a.S - 1) / a.S) * a.S, (a.N + a.rows - 1) / a.rows, 1);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, a.S, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, KERNEL, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of S blocks with `smem` bytes each can be resident at once
+// (0: the launch cannot run on this card).
+template <auto KERNEL>
+inline cudaError_t max_clusters(int S, int smem, int* out) {
+  cudaError_t err = prepare_kernel<KERNEL>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(S, 1, 1), S, smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(out, KERNEL, &cfg);
+}
+
+constexpr int kGeoInts = 13;  // ints of the geometry array the C entry points take
+
+// Fill a LutArgs from the C entry points' arguments; geo holds, in order,
+// S, rows, Q, tiles_per_block, chunk_c, staged, stage_c, n_stages, epi_off,
+// cent_off, ring_off, bar_off, vec4.
+inline LutArgs make_args(const void* x, const void* centroids, const void* table_q,
+                         const void* scale, const void* bias, void* out, int N, int C, int K,
+                         int V, int M, int scale_m, int act, const int* geo) {
+  LutArgs a = {};
+  a.x = x;
+  a.centroids = static_cast<const float*>(centroids);
+  a.table_q = static_cast<const int8_t*>(table_q);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.N = N;
+  a.C = C;
+  a.K = K;
+  a.V = V;
+  a.M = M;
+  a.scale_m = scale_m;
+  a.act = act;
+  int* fields[kGeoInts] = {&a.S,        &a.rows,     &a.Q,        &a.tiles_per_block,
+                           &a.chunk_c,  &a.staged,   &a.stage_c,  &a.n_stages,
+                           &a.epi_off,  &a.cent_off, &a.ring_off, &a.bar_off,
+                           &a.vec4};
+  for (int i = 0; i < kGeoInts; ++i) *fields[i] = geo[i];
+  return a;
 }
 
 }  // namespace lutnn

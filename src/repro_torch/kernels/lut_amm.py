@@ -29,7 +29,7 @@ ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}   # lut_common.cuh A
 
 # launch geometry, mirrored from csrc/lut_common.cuh
 THREADS = 256
-BLOCK_N = 8                  # rows of x per N tile
+BLOCK_N = 8                  # rows per register tile of the direct lookup (kBlockN)
 MAX_V = 32                   # sub-vector length the encoder holds in registers
 MAX_K = 256                  # codes are stored as uint8
 RED_BYTES = THREADS * BLOCK_N * 4 * 4
@@ -37,24 +37,46 @@ RED_BYTES = THREADS * BLOCK_N * 4 * 4
 QUADS = (64, 32, 16, 8, 4, 2)
 # H100: dynamic shared memory one block may use (227 KB, after opting in)
 MAX_SMEM = 232_448
-# v2 stages centroids in chunks of at most this many bytes: 64 codebooks of
-# K=16, V=32, so that a decode step's 4 rows x 64 codebooks fill the block's
-# 256 threads in each chunk's encode; one block per SM, as the grid aims for
-V2_REGION = 139_264
+# v1, v2 and the encode stage centroids in chunks of at most this many bytes:
+# 64 codebooks of K=16, V=32
+V2_REGION = 140_544
+# the fused and v2 kernels' cluster launch (csrc/lut_common.cuh, LutArgs):
+CLUSTER_SIZES = (1, 2, 4, 8, 16)     # 16 is a non-portable size, allowed by the kernels
+ROW_TILES = (8, 16, 32, 64)          # rows of x per N tile
+STAGED_ROWS = 32                     # N tiles this large stage their table tile
+STAGED_QUADS = (32, 16, 8, 4)        # M tiles a warp's lanes read as one table row
+STAGED_ROWS_PER_THREAD = 8           # kStagedRows
+MAX_BOX_ROWS = 256                   # table rows of one TMA box (one ring stage)
+MAX_STAGES = 8                       # table stages in the ring at most
+RING_BYTES = 96 * 1024               # shared memory of the table ring at most
+# order of the geometry ints the C entry points take (kGeoInts)
+GEO_KEYS = ("cluster", "rows", "quads", "tiles_per_block", "chunk_c", "staged", "stage_c",
+            "n_stages", "epi_off", "cent_off", "ring_off", "bar_off", "vec4")
 
 launches = 0
 launches_v1 = 0
 
 _LIB = None
 _LIB_V1 = None
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+# x, centroids, table_q, scale, bias, out; N C K V M scale_c scale_m x_bf16 act;
+# the geometry ints; smem; stream (csrc/fused_decode.cu, csrc/lut_amm_v2.cu)
+CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+CLUSTERS_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
 _ARGTYPES_V1 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def codebook_smem_bytes(k: int, v: int) -> int:
-    """Shared memory of one staged codebook: its K*V centroids padded by 4
-    floats and its K norms padded by 1 (csrc/lut_common.cuh centroid_stride)."""
-    return 4 * ((k * v + 4) + (k + 1))
+    """Shared memory of one staged codebook: its K centroid rows at an odd
+    stride (V | 1 floats), padded by 4 floats, and its K norms padded by 1
+    (csrc/lut_common.cuh centroid_stride)."""
+    return 4 * ((k * (v | 1) + 4) + (k + 1))
+
+
+def row_stride16(v: int) -> int:
+    """Words per staged centroid or sub-vector row in the fused and v2
+    kernels: 16-byte aligned rows (csrc/lut_common.cuh row_stride16)."""
+    return ((v + 3) & ~3) + 4
 
 
 def _align16(b: int) -> int:
@@ -70,13 +92,13 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def tile_quads(n_tiles: int, m: int, target: int) -> int:
-    """Column quads Q of a v2 M tile (4Q columns wide): the tile whose
+def tile_quads(n_tiles: int, m: int, target: int, allowed: tuple[int, ...] = QUADS) -> int:
+    """Column quads Q of an M tile (4Q columns wide): the tile whose
     (N tile, M tile) grid comes closest to `target` blocks from below, the
-    widest among equals. Every v2 block encodes its rows over all C
-    codebooks, so blocks beyond one per SM only repeat that work."""
-    best_q, best = QUADS[0], 0
-    for q in QUADS:
+    widest among equals. Each block pays a fixed cost (staging and encoding
+    its codebooks), so blocks beyond one per SM only repeat that work."""
+    best_q, best = allowed[0], 0
+    for q in allowed:
         blocks = n_tiles * cdiv(m, 4 * q)
         if best < blocks <= target:
             best_q, best = q, blocks
@@ -143,11 +165,22 @@ def raise_on_error(err: int, kernel: str) -> None:
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load("lut_amm_v2")
-        lib.lutnn_lut_amm_v2.argtypes = _ARGTYPES
-        lib.lutnn_lut_amm_v2.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = cluster_lib("lut_amm_v2")
     return _LIB
+
+
+def cluster_lib(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Load a cluster kernel's library (fused_decode, lut_amm_v2; compiled
+    with the macros `defines`) and declare its two entry points: the launch
+    and the resident-cluster query."""
+    lib = build.load(name, defines)
+    launch = getattr(lib, f"lutnn_{name}")
+    launch.argtypes = CLUSTER_ARGTYPES
+    launch.restype = ctypes.c_int
+    clusters = getattr(lib, f"lutnn_{name}_clusters")
+    clusters.argtypes = CLUSTERS_ARGTYPES
+    clusters.restype = ctypes.c_int
+    return lib
 
 
 def max_chunk(c: int, k: int, v: int) -> int:
@@ -163,48 +196,173 @@ def check_quads(quads: int | None) -> None:
         raise ValueError(f"quads={quads} not in {QUADS}")
 
 
-def v2_geometry(n: int, c: int, k: int, v: int, m: int, n_sms: int, *,
-                quads: int | None = None, chunk_c: int | None = None) -> dict[str, int]:
-    """Tile width, codebook chunk and shared memory of one v2 launch: the
-    given ones (an autotune record's), else `tile_quads` and `max_chunk`."""
+def default_cluster(c: int) -> int:
+    """Blocks per cluster of the fused and v2 launches: 16, or the largest
+    size not above C, so that every rank owns at least one codebook. Fixed
+    by measurement: timed over every size from 1 to 16, 16 was the fastest
+    or within 0.5 us of it at every path shape (PERF.md)."""
+    return max(s for s in CLUSTER_SIZES if s <= max(1, c))
+
+
+def default_tile(n: int, m: int, wave: int, aligned: bool, rows: int | None = None,
+                 quads: int | None = None) -> tuple[int, int]:
+    """Rows per N tile and column quads per M tile by default. At decode (N
+    up to 16) the N tile holds all rows; at a prefill chunk it is the
+    smallest staged tile (32, then 64 rows) whose widest M tiles fit one
+    wave of `wave` blocks. The M tile: `tile_quads` for that wave."""
+    if rows is None:
+        rows = next((r for r in ROW_TILES if r >= n), ROW_TILES[-1])
+        if rows > 2 * BLOCK_N:
+            widest = quads or STAGED_QUADS[0]
+            rows = next((r for r in (STAGED_ROWS, 2 * STAGED_ROWS)
+                         if cdiv(n, r) * cdiv(m, 4 * widest) <= wave), 2 * STAGED_ROWS)
+    if rows not in ROW_TILES:
+        raise ValueError(f"rows={rows} not in {ROW_TILES}")
+    if quads is None:
+        quads = tile_quads(cdiv(n, rows), m, wave,
+                           STAGED_QUADS if aligned and rows >= STAGED_ROWS else QUADS)
+    return rows, quads
+
+
+def _align(b: int, a: int) -> int:
+    return -(-b // a) * a
+
+
+def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunked: bool,
+                     rows: int | None = None, quads: int | None = None,
+                     aligned: bool = True) -> dict[str, int]:
+    """One launch of the fused (chunked=False) or v2 (chunked=True) kernel
+    (csrc/lut_common.cuh, lut_cluster_body) with at most `wave` blocks, the
+    blocks one wave of such clusters holds: the cluster size
+    (`default_cluster`), the rows per N tile, the M tile (4 * quads columns)
+    and the M tiles per block, the codebook chunk of a rank's share, whether
+    the table tile is staged by TMA, the table ring, and the shared-memory
+    layout. The table tile is staged only for 16-byte aligned table rows
+    (`aligned`): by TMA at N tiles of STAGED_ROWS rows and more (and at 16
+    rows where the whole tile fits the ring), and at decode (8-row tiles)
+    by cp.async where the whole tile fits RING_BYTES. None picks the
+    default; a launch that needs more shared memory than a block has
+    raises ValueError."""
     check_quads(quads)
-    chunk_c = min(chunk_c or max_chunk(c, k, v), c)
-    region = _align16(max(chunk_c * codebook_smem_bytes(k, v), RED_BYTES))
-    smem = region + _align16(BLOCK_N * chunk_c)
-    if smem > MAX_SMEM:
-        raise ValueError(f"v2 chunk of {chunk_c} codebooks needs {smem} B of shared memory; "
+    if rows is not None and rows not in ROW_TILES:
+        raise ValueError(f"rows={rows} not in {ROW_TILES}")
+    s = default_cluster(c)
+    rows_s, q = default_tile(n, m, wave, aligned, rows, quads)
+    n_tiles = cdiv(max(n, 1), rows_s)
+    rs = row_stride16(v)
+    # a codebook's centroids (16-byte rows), its norms and the tile's sub-vectors
+    per_cb = 4 * ((k * rs + 4) + (k + 1) + rows_s * rs)
+    tw = 4 * q
+    n_mtiles = cdiv(m, tw)
+    share = cdiv(c, s)
+    chunk_c = share
+    if chunked:
+        most = max(1, min(share, V2_REGION // per_cb))
+        chunk_c = cdiv(share, cdiv(share, most))
+    stage_c = max(1, min(c, MAX_BOX_ROWS // k))
+    stage_c = cdiv(c, cdiv(c, stage_c))
+    n_chunks = cdiv(c, stage_c)
+    box = stage_c * k * tw
+
+    tma = rows_s > BLOCK_N
+
+    def layout(stg: bool) -> dict[str, int]:
+        tiles_per_block = 1 if stg else cdiv(n_mtiles, max(1, wave // n_tiles))
+        epi_off = _align16(rows_s * c)
+        cent_off = epi_off + 8 * tiles_per_block * tw   # scale and bias per column
+        cent = chunk_c * per_cb + 16             # + the sub-vectors' 16-byte alignment
+        cent = cent if stg and tma else max(cent, RED_BYTES)
+        ring_off = _align(cent_off + cent, 128)
+        n_stages = 0
+        ring = c * k * tw if stg else 0                 # decode: the whole tile
+        if stg and tma:
+            room = min(RING_BYTES, MAX_SMEM - ring_off - 8 * MAX_STAGES)
+            n_stages = min(n_chunks, MAX_STAGES, max(2, room // box))
+            ring = n_stages * box
+        bar_off = _align16(ring_off + ring)
+        return {"cluster": s, "rows": rows_s, "quads": q, "tiles_per_block": tiles_per_block,
+                "chunk_c": chunk_c, "staged": int(stg), "stage_c": stage_c if stg and tma else 0,
+                "n_stages": n_stages, "epi_off": epi_off, "cent_off": cent_off,
+                "ring_off": ring_off, "bar_off": bar_off, "smem": bar_off + 8 * (n_stages + 1),
+                "n_tiles": n_tiles,
+                "grid_x": cdiv(cdiv(n_mtiles, tiles_per_block), s) * s}
+
+    # the row-split lookup holds STAGED_ROWS_PER_THREAD rows per thread
+    row_split_ok = q <= 32 and rows_s <= STAGED_ROWS_PER_THREAD * 8 * (32 // q)
+    whole = c * k * tw <= RING_BYTES and (not tma or n_chunks <= MAX_STAGES)
+    stg = (rows_s >= STAGED_ROWS or whole) and aligned and tw % 16 == 0 and \
+        (not tma or row_split_ok)
+    geo = layout(stg)
+    if stg and not tma and geo["smem"] > MAX_SMEM:
+        geo = layout(False)      # decode gathers from global memory instead
+    if geo["smem"] > MAX_SMEM:
+        raise ValueError(f"{'v2' if chunked else 'fused'} launch (C={c}, K={k}, V={v}, "
+                         f"rows={rows_s}, quads={q}) needs {geo['smem']} B of shared memory; "
                          f"the card allows {MAX_SMEM}")
-    return {
-        "quads": quads or tile_quads(cdiv(n, BLOCK_N), m, n_sms),
-        "chunk_c": chunk_c,
-        "region": region,
-        "smem": smem,
-    }
+    return geo
+
+
+def table_layout(table_q: torch.Tensor) -> tuple[bool, int]:
+    """(aligned, vec4): whether TMA can read the table (16-byte aligned, rows
+    a multiple of 16 bytes) and whether 4-byte loads can (`vec4_ok`)."""
+    m, ptr = table_q.shape[-1], table_q.data_ptr()
+    return m % 16 == 0 and ptr % 16 == 0, int(m % 4 == 0 and ptr % 4 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def cluster_plan(lib: ctypes.CDLL, name: str, dims: tuple[int, ...], x_bf16: int,
+                 chunked: bool, rows: int | None, quads: int | None, aligned: bool,
+                 vec4: int) -> tuple[dict, ctypes.Array]:
+    """One launch shape of the fused or v2 kernel, worked out once: the
+    clusters this card holds at once with one block per SM (raises
+    ValueError if none), which make one wave; the geometry for that wave
+    (`cluster_geometry`); and the geometry as the C int array the entry
+    points read."""
+    n, c, k, v, m, scale_c, _ = dims
+    s = default_cluster(c)
+    resident = ctypes.c_int(0)
+    # more than half an SM's shared memory a block: one block per SM
+    err = getattr(lib, f"lutnn_{name}_clusters")(x_bf16, scale_c, s, MAX_SMEM // 2 + 1,
+                                                 ctypes.byref(resident))
+    raise_on_error(err, f"{name} occupancy query")
+    if resident.value < 1:
+        raise ValueError(f"{name}: a cluster of {s} blocks cannot be resident on this card")
+    geo = cluster_geometry(n, c, k, v, m, resident.value * s, chunked=chunked, rows=rows,
+                           quads=quads, aligned=aligned)
+    ints = (ctypes.c_int * len(GEO_KEYS))(*(geo[key] for key in GEO_KEYS[:-1]), vec4)
+    return geo, ints
+
+
+def launch_cluster_kernel(lib: ctypes.CDLL, name: str, x, centroids, table_q, scale, bias,
+                          out, dims, act, *, chunked: bool, rows: int | None,
+                          quads: int | None) -> None:
+    """Launch the fused or v2 kernel on the current stream with the launch
+    `cluster_plan` works out; raises if it cannot run or the launch fails."""
+    args = launch_args(x, centroids, table_q, scale, bias, out, dims, act)
+    geo, ints = cluster_plan(lib, name, dims, args[13], chunked, rows, quads,
+                             *table_layout(table_q))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, f"lutnn_{name}")(*args, ints, geo["smem"], stream)
+    raise_on_error(err, name)
 
 
 def lut_amm_v2(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
                scale: torch.Tensor, *, bias: torch.Tensor | None = None,
                act: str = "none", quads: int | None = None,
-               chunk_c: int | None = None) -> torch.Tensor:
+               rows: int | None = None) -> torch.Tensor:
     """v2 LUT-AMM: (N, C*V) -> (N, M) in x.dtype. See csrc/lut_amm_v2.cu.
-    quads / chunk_c: the M tile's column quads and the codebook chunk
-    (None: the defaults of `v2_geometry`)."""
+    quads / rows: the M tile's column quads and the rows per N tile (None:
+    the defaults of `cluster_geometry`)."""
     global launches
     if x.device.type == "cpu":
         return ref.lut_amm_v2_plain(x, centroids, table_q, scale, bias=bias, act=act)
     dims = check_args(x, centroids, table_q, scale, bias, act)
-    n, c, k, v, m = dims[:5]
-    geo = v2_geometry(n, c, k, v, m, sm_count(x.device.index), quads=quads, chunk_c=chunk_c)
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    if n == 0:
+    out = torch.empty((dims[0], dims[4]), dtype=x.dtype, device=x.device)
+    if dims[0] == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().lutnn_lut_amm_v2(
-            *launch_args(x, centroids, table_q, scale, bias, out, dims, act),
-            geo["quads"], geo["chunk_c"], geo["region"], geo["smem"], vec4_ok(table_q), stream,
-        )
-    raise_on_error(err, "lut_amm_v2")
+    launch_cluster_kernel(_lib(), "lut_amm_v2", x, centroids, table_q, scale, bias, out, dims,
+                          act, chunked=True, rows=rows, quads=quads)
     launches += 1
     return out
 

@@ -53,11 +53,10 @@ def lut_amm(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
         return ref.apply_act(y, act).to(y.dtype)
     if bias is not None:
         bias = bias.float()           # the epilogue adds bias in fp32
+    launch = autotune.cluster_launch(cfg)
     if version == VERSION_FUSED:
-        return fused_mod.fused_decode(x, centroids, table_q, scale, bias=bias, act=act,
-                                      quads=cfg.quads)
-    return lut_mod.lut_amm_v2(x, centroids, table_q, scale, bias=bias, act=act,
-                              quads=cfg.quads, chunk_c=cfg.block_c or None)
+        return fused_mod.fused_decode(x, centroids, table_q, scale, bias=bias, act=act, **launch)
+    return lut_mod.lut_amm_v2(x, centroids, table_q, scale, bias=bias, act=act, **launch)
 
 
 def encode(x: torch.Tensor, centroids: torch.Tensor, *, block_n: int | None = None,

@@ -21,6 +21,10 @@ RAGGED = [
     (65, 160, 48, 16, 32),
     (17, 96, 384, 16, 16),
 ]
+# RAGGED and two shapes whose C (1 and 20) take the cluster sizes the ragged
+# C (2..8) do not: the fused and v2 launches use clusters of min(16, C)
+# rounded down to a power of two, so C = 5, 6 and 20 do not divide by theirs
+CLUSTER_SHAPES = RAGGED + [(9, 32, 70, 16, 32), (33, 640, 144, 16, 32)]
 LAYOUTS = ("per_codebook", "per_column", "m_shared", "scalar")
 
 

@@ -182,3 +182,44 @@ def test_measured_records_are_never_retuned(monkeypatch):
     cache.put(autotune.shape_key("lut_amm", 2, m, c, k, v, "float32", "torch-cpu"), _rec(2))
     with pytest.raises(RuntimeError, match="card"):      # re-tuning it would measure
         warm_lut_autotune(tb, [2], device="cpu")
+
+
+@pytest.mark.parametrize("n", [4, 128])
+def test_candidates_sweep_clusters_row_tiles_and_tiles(n):
+    """Fused and v2 candidates name 8-row tiles at decode and 32/64-row
+    staged tiles at a prefill chunk, each with every M tile its lookup
+    takes, all in the cluster C fixes (block_c 0); each one fits a block
+    and launches as named."""
+    lut = autotune.lut_mod
+    for version, (m, c, k, v) in ((3, SIG), (2, SIG), (2, DOWN)):
+        cands = autotune.candidates("lut_amm", n, m, c, k, v, version)
+        assert {cfg.block_c for cfg in cands} == {0}
+        launches = [autotune.cluster_launch(cfg) for cfg in cands]
+        assert {la["rows"] for la in launches} == ({8} if n == 4 else {32, 64})
+        for rows in {la["rows"] for la in launches}:
+            quads = lut.STAGED_QUADS if rows >= lut.STAGED_ROWS else lut.QUADS
+            assert sorted(la["quads"] for la in launches if la["rows"] == rows) == sorted(quads)
+        for la in launches:
+            geo = lut.cluster_geometry(n, c, k, v, m, 112, chunked=version == 2, **la)
+            assert (geo["rows"], geo["quads"], geo["cluster"]) == (la["rows"], la["quads"], 16)
+
+
+def test_a_record_written_before_the_cluster_launch_still_launches():
+    """Records of the one-block kernels (block_n 8; block_c = C for the
+    fused kernel, v2's staging chunk) keep their version and take the
+    default cluster launch, which fits."""
+    cache = autotune.get_cache()
+    old = {"fused": (SIG, _rec(3, measured=True, block_m=16, block_c=64)),
+           "v2": (DOWN, _rec(2, measured=True, block_m=16, block_c=64))}
+    for n in (4, 128):
+        for (m, c, k, v), rec in old.values():
+            cache.put(autotune.shape_key("lut_amm", n, m, c, k, v, "float32", "cuda-sm90"), rec)
+            version, cfg, from_record = autotune.kernel_choice(n, m, c, k, v)
+            assert from_record and version == rec["version"] and cfg.block_n == 8
+            launch = autotune.cluster_launch(cfg)
+            assert launch == {"rows": None, "quads": None}
+            geo = autotune.lut_mod.cluster_geometry(n, c, k, v, m, 112, chunked=version == 2,
+                                                    **launch)
+            default = autotune.lut_mod.cluster_geometry(n, c, k, v, m, 112,
+                                                        chunked=version == 2)
+            assert geo == default and geo["cluster"] == 16

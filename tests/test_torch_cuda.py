@@ -16,6 +16,7 @@ from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as v2_mod
 from repro_torch.serving import sampling
 from repro_torch.testing import (
+    CLUSTER_SHAPES,
     LAYOUTS,
     RAGGED,
     make_amm_inputs,
@@ -188,3 +189,46 @@ def test_measured_tuning_on_the_card(dev):
     counters.reset()
     fn(autotune.DEFAULT, 1)
     assert counters.launches()["lut_amm_v1"] >= 2 and counters.plain_calls() == 0
+
+
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES, ids=[str(s[:5]) for s in CLUSTER_SHAPES])
+def test_every_cluster_and_n_tile_matches_plain(dev, shape):
+    """One ragged shape under every N tile (the table staged where its rows
+    are 16-byte aligned, M = 48, 144 and 384, else gathered). The shapes'
+    C (1 to 20) take every cluster size from 1 to 16, and C = 5, 6 and 20
+    do not divide by theirs; N is no multiple of the tile. m-shared:
+    fused == v2 == plain bytewise, in float32 and bfloat16; per-codebook
+    scales within the fp32 bound."""
+    i = CLUSTER_SHAPES.index(shape)
+    for layout in ("m_shared", "per_codebook"):
+        x, P, q, s, b = _inputs(shape, layout, 20 + i, dev)
+        for xx in (x, x.bfloat16()):
+            want = ref.fused_decode_plain(xx, P, q, s, bias=b, act="relu2")
+            exact = layout == "m_shared"
+            for rows in v2_mod.ROW_TILES:
+                kw = {"rows": rows}
+                got = [fn(xx, P, q, s, bias=b, act="relu2", **kw) for fn, _ in KERNELS.values()]
+                for out in got:
+                    if xx.dtype == torch.bfloat16 and not exact:
+                        torch.cuda.synchronize()
+                        tol = 8e-3 * max(1.0, want.float().abs().max().item())
+                        bad = ((out.float() - want.float()).abs() > tol).any(dim=1)
+                        assert not (bad & ~rows_near_tie(xx.float(), P, TIE_EPS)).any()
+                    else:
+                        _assert_agree(out, want, xx.float(), P, exact)
+                if exact:
+                    assert torch.equal(got[0], got[1])
+
+
+def test_path_shape_launches_agree(dev):
+    """qwen3_1p7b's q/o site at decode and at a prefill chunk under every
+    launch the tuner sweeps: fused == v2 == plain bytewise (m-shared)."""
+    for n in (4, 128):
+        x, P, q, s, _ = _inputs((n, 2048, 2048, 16, 32), "m_shared", n, dev)
+        want = ref.fused_decode_plain(x, P, q, s)
+        for cfg in autotune.candidates("lut_amm", n, 2048, 64, 16, 32, 3):
+            kw = autotune.cluster_launch(cfg)
+            a = fused_mod.fused_decode(x, P, q, s, **kw)
+            c = v2_mod.lut_amm_v2(x, P, q, s, **kw)
+            _assert_agree(a, want, x, P, exact=True)
+            assert torch.equal(a, c), kw

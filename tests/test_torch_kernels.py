@@ -25,7 +25,14 @@ from repro_torch.kernels import autotune, counters
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as v2_mod
 from repro_torch.kernels import ops, ref
-from repro_torch.testing import LAYOUTS, RAGGED, make_amm_inputs, quantize_np, tie_gaps
+from repro_torch.testing import (
+    CLUSTER_SHAPES,
+    LAYOUTS,
+    RAGGED,
+    make_amm_inputs,
+    quantize_np,
+    tie_gaps,
+)
 
 ACTS = ("none", "relu", "silu", "gelu", "relu2")
 # acts whose epilogue is exact arithmetic (max, multiply): byte-identical;
@@ -207,26 +214,99 @@ def test_fit_rule(c, k, v, version):
     assert fused_mod.fits(c, k, v) == (fused_mod.smem_bytes(c, k, v) <= v2_mod.MAX_SMEM)
 
 
+def _check_cluster_launch(geo, n, c, m, k=16):
+    """What every cluster launch must satisfy on an H100."""
+    s = geo["cluster"]
+    assert s == v2_mod.default_cluster(c) and s <= c and geo["grid_x"] % s == 0
+    assert s in v2_mod.CLUSTER_SIZES
+    # the ranks' codebook shares partition [0, C), as the kernel cuts them,
+    # and every rank owns one at least (it issues the table's copies)
+    shares = [range(r * c // s, (r + 1) * c // s) for r in range(s)]
+    assert [cb for share in shares for cb in share] == list(range(c))
+    assert 1 <= min(map(len, shares)) and max(map(len, shares)) <= v2_mod.cdiv(c, s)
+    # every column is covered by exactly one block of each N tile, every row by one tile
+    tw = 4 * geo["quads"]
+    cover = [0] * m
+    for bx in range(geo["grid_x"]):
+        for mt in range(bx * geo["tiles_per_block"], (bx + 1) * geo["tiles_per_block"]):
+            for col in range(mt * tw, min(m, (mt + 1) * tw)):
+                cover[col] += 1
+    assert cover == [1] * m
+    assert geo["n_tiles"] * geo["rows"] >= n > (geo["n_tiles"] - 1) * geo["rows"]
+    # the layout: codes, then the centroid region, ring and barriers, in bounds
+    assert geo["cent_off"] >= geo["rows"] * c
+    assert geo["cent_off"] <= geo["ring_off"] <= geo["bar_off"] <= geo["smem"] <= v2_mod.MAX_SMEM
+    if geo["staged"]:
+        assert geo["tiles_per_block"] == 1 and tw % 16 == 0
+        if geo["rows"] <= v2_mod.BLOCK_N:     # decode copies the whole tile, no TMA ring
+            assert geo["n_stages"] == geo["stage_c"] == 0
+            assert geo["bar_off"] - geo["ring_off"] >= c * k * tw
+        else:                                 # the row split's registers hold the rows
+            assert geo["bar_off"] - geo["ring_off"] >= geo["n_stages"] * geo["stage_c"] * k * tw
+            assert geo["n_stages"] >= 1 and geo["stage_c"] >= 1
+            assert geo["rows"] <= v2_mod.STAGED_ROWS_PER_THREAD * 8 * (32 // geo["quads"])
+    else:
+        assert geo["ring_off"] - geo["cent_off"] >= v2_mod.RED_BYTES
+
+
 @pytest.mark.parametrize("n", [4, 128])
 @pytest.mark.parametrize("c,m", [(64, 2048), (64, 1024), (64, 6144), (192, 2048)])
 def test_launch_geometry_fills_the_card(n, c, m):
-    """Decode (N=4, one N tile) and a prefill chunk (N=128) at qwen3_1p7b's
-    sites: the fused kernel launches about one wave of one block per SM of an
-    H100 and covers every M tile; v2 launches about one block per SM."""
-    sms = 132
-    n_tiles = v2_mod.cdiv(n, v2_mod.BLOCK_N)
-    if c == 64:
-        g = fused_mod.fused_geometry(n, c, 16, 32, m, sms)
-        n_mtiles = v2_mod.cdiv(m, 4 * g["quads"])
-        assert g["m_ranges"] * g["tiles_per_range"] >= n_mtiles
-        assert (g["m_ranges"] - 1) * g["tiles_per_range"] < n_mtiles
-        assert 96 <= n_tiles * g["m_ranges"] <= sms
-        assert g["smem"] <= v2_mod.MAX_SMEM
-    g = v2_mod.v2_geometry(n, c, 16, 32, m, sms)
-    blocks = n_tiles * v2_mod.cdiv(m, 4 * g["quads"])
-    # more than one wave only when even the widest tile cannot avoid it
-    assert 64 <= blocks and (blocks <= sms or g["quads"] == max(v2_mod.QUADS))
-    assert g["smem"] <= v2_mod.MAX_SMEM and g["chunk_c"] == 64   # C split evenly
+    """Decode (N=4) and a prefill chunk (N=128) at qwen3_1p7b's sites: the
+    fused kernel (C=64) and v2 launch clusters whose ranks split the
+    codebooks and whose blocks cover every column once, within shared
+    memory; every launch runs one wave on an H100, and the table tiles are
+    staged at every site (at decode the whole tile, down's 96 KiB too)."""
+    # an H100 SXM holds 7 clusters of 16 at once with one block per SM
+    # (cudaOccupancyMaxActiveClusters, which the wrapper queries)
+    wave = 7 * 16
+    kernels = [True] + ([False] if c == 64 else [])
+    for chunked in kernels:
+        geo = v2_mod.cluster_geometry(n, c, 16, 32, m, wave, chunked=chunked)
+        _check_cluster_launch(geo, n, c, m)
+        blocks = geo["n_tiles"] * geo["grid_x"]
+        # one wave: no more clusters than the card holds at once
+        assert 64 <= blocks <= wave
+        # prefill stages its table tiles by TMA; decode copies its whole tile
+        assert geo["cluster"] == 16 and geo["staged"] and (geo["n_stages"] > 0) == (n == 128)
+        if chunked:
+            assert geo["chunk_c"] == v2_mod.cdiv(c, 16)   # down: 12 codebooks, one chunk
+
+
+@pytest.mark.parametrize("wave", [8, 16, 64, 112, 132])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES, ids=[str(s[:5]) for s in CLUSTER_SHAPES])
+def test_launch_geometry_on_ragged_shapes(shape, wave):
+    """Every N tile and kernel on the ragged shapes, whose C (1 to 20) take
+    clusters of 1 to 16 and need not divide by them, at waves from 8 blocks
+    (a card holding few clusters at once) to an H100's 132 SMs."""
+    n, d, m, k, v = shape
+    c = d // v
+    for chunked in (False, True):
+        for rows in v2_mod.ROW_TILES:
+            for aligned in (True, False):
+                geo = v2_mod.cluster_geometry(n, c, k, v, m, wave, chunked=chunked, rows=rows,
+                                              aligned=aligned)
+                _check_cluster_launch(geo, n, c, m, k)
+                assert geo["rows"] == rows
+                # TMA needs aligned rows; a prefill-sized tile always stages
+                assert geo["staged"] <= aligned
+                assert geo["staged"] or not (aligned and rows >= v2_mod.STAGED_ROWS)
+
+
+def test_cluster_launch_reads_old_records():
+    """A record names rows per N tile and the M tile (block_c 0); a record
+    written for the one-block kernels (block_c = C fused, v2's chunk) takes
+    the default launch, whatever its other fields."""
+    assert autotune.cluster_launch(autotune.BlockConfig(32, 64, 0)) == {"rows": 32, "quads": 16}
+    assert autotune.cluster_launch(autotune.BlockConfig(0, 0, 0)) == \
+        {"rows": None, "quads": None}
+    for old in (autotune.BlockConfig(8, 16, 64), autotune.BlockConfig(8, 0, 64),
+                autotune.BlockConfig(8, 512, 32)):
+        assert autotune.cluster_launch(old) == {"rows": None, "quads": None}
+    with pytest.raises(ValueError, match="rows"):
+        v2_mod.cluster_geometry(4, 64, 16, 32, 2048, 112, chunked=False, rows=12)
+    with pytest.raises(ValueError, match="shared memory"):
+        v2_mod.cluster_geometry(128, 1024, 16, 32, 2048, 112, chunked=False, rows=64)
 
 
 def test_wrappers_refuse_non_cuda_devices_without_fallback():
