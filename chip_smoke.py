@@ -7,15 +7,17 @@ Phases (any failed check exits non-zero; no phase is skipped):
   1. the card: name and power limit, and a build of every CUDA kernel from
      the sources in this checkout, all nvcc processes at once;
   2. each kernel against its plain PyTorch version on the card: at the main
-     path's shapes (qwen3_1p7b's LUT sites at N = 4 and N = 128), then the
-     fused and v2 kernels under every launch the tuner can choose there
-     (rows per N tile, M tile; fused == v2 == plain bytewise), then on
-     ragged shapes x 4 scale layouts (x every activation x bias for the
-     fused and v2 kernels, and x every N tile on shapes whose C take every
-     cluster size), in
-     float32 and bfloat16; with CUDA-event times of the kernel and its plain
-     version, the host's enqueue time, the dense matmul the site replaces
-     (context only) and the least time the card could take;
+     path's shapes (qwen3_1p7b's LUT sites at N = 4 and N = 128), then every
+     kernel under every launch the tuner can choose there (rows per N tile
+     and M tile, v1's chunk of the sum, the encode's rows and codebooks per
+     block; fused == v2 == plain and v1 == plain bytewise), then on ragged
+     shapes x 4 scale layouts (x every activation x bias for the fused and
+     v2 kernels, and x every N tile on shapes whose C take every cluster
+     size, v1 with 3 chunks of the sum and the encode under its launches),
+     in float32 and bfloat16; with CUDA-event times of the kernel and its
+     plain version, the event floor (a 1-element kernel timed the same way),
+     the host's enqueue time, the dense matmul the site replaces (context
+     only) and the least time the card could take;
   3. the slice at full width and reduced depth (2 layers), card against CPU
      (plain versions) from the same params: a prefill chunk and greedy decode
      steps, once from random params under the fit rule, once from a 2-layer
@@ -221,8 +223,13 @@ def phase_kernels(dev) -> dict:
     def note_err(name: str, err: float) -> None:
         results[name]["err"] = max(results[name]["err"], err)
 
-    log("[kernels] path shapes, m-shared scale, float32: median ms (L2 flushed)")
-    log("  site     N    kernel        ms       plain_ms  bound_ms  dense_matmul_ms (context)  host_us")
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.zero_(), flush)
+    log(f"[kernels] event floor: a 1-element zero_ timed the same way takes {floor_ms:.5f} ms")
+    log("[kernels] path shapes, m-shared scale, float32: median ms (L2 flushed); net = ms less "
+        "the event floor")
+    log("  site     N    kernel        ms       net_ms    plain_ms  bound_ms  "
+        "dense_matmul_ms (context)  host_us")
     for n in (4, 128):
         for site, c, m in SITES:
             x, p, q, s = make_site(n, c, m, gen, dev)
@@ -258,8 +265,8 @@ def phase_kernels(dev) -> dict:
                 plain_ms = time_ms(lambda: plain(x, p, q, s), flush, reps=10)
                 hus = host_us(lambda: fn(x, p, q, s))
                 bms, by = bound_ms(n, c, 16, 32, m, 4, kernel=name)
-                log(f"  {site:8s} {n:<4d} {name:12s} {kms:.5f}  {plain_ms:.5f}  {bms:.5f}  "
-                    f"{mm_ms:.5f}                    {hus:.1f}")
+                log(f"  {site:8s} {n:<4d} {name:12s} {kms:.5f}  {kms - floor_ms:.5f}  "
+                    f"{plain_ms:.5f}  {bms:.5f}  {mm_ms:.5f}                    {hus:.1f}")
                 if n == 4 and site == MAIN_SITE[name]:
                     results[name].update(ms=kms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
     sweep_launches(gen, dev, flush, note_err)
@@ -311,27 +318,36 @@ def phase_kernels(dev) -> dict:
 
 
 def sweep_launches(gen, dev, flush, note_err) -> None:
-    """Every launch the tuner can choose for the fused and v2 kernels at the
-    path shapes (rows per N tile, M tile): each must equal the
-    plain version bytewise (m-shared scale, codes off near-ties) and the two
-    kernels each other; a launch that does not fit a block is refused
-    (ValueError), as the tuner skips it. Logs the best and the default
-    launch's time per kernel and shape."""
+    """Every launch the tuner can choose at the path shapes, for every
+    kernel: fused and v2 (rows per N tile, M tile), v1 (the same and its
+    chunk of the sum) and the encode (rows and codebooks per block). Each
+    must equal its plain version bytewise (m-shared scale; fused == v2 too)
+    and the encode's codes the plain version's off near-ties; a launch that
+    does not fit a block is refused (ValueError), as the tuner skips it.
+    Logs the best and the default launch's time per kernel and shape."""
     from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import dist_argmin as enc_mod
     from repro_torch.kernels import fused_decode as fused_mod
     from repro_torch.kernels import lut_amm as lut_mod
 
-    log("[sweep] fused and v2 over the tuner's launches at the path shapes (m-shared, float32); "
+    log("[sweep] every kernel over the tuner's launches at the path shapes (m-shared, float32); "
         "median us, L2 flushed")
     points = refused = 0
     for n in (4, 128):
         for site, c, m in SITES:
             x, p, q, s = make_site(n, c, m, gen, dev)
             want = ref.fused_decode_plain(x, p, q, s)
+            v1_want = {}
             kernels = [("lut_amm_v2", lut_mod.lut_amm_v2)]
             if fused_mod.fits(c, 16, 32):
                 kernels.insert(0, ("fused_decode", fused_mod.fused_decode))
-            times = {name: [] for name, _ in kernels}
+            times = {name: [] for name, _ in kernels + [("lut_amm_v1", None), ("encode", None)]}
+
+            def timed(name, fn, launch):
+                nonlocal points
+                times[name].append((time_ms(fn, flush, reps=10) * 1e3, launch))
+                points += 1
+
             for cfg in autotune.candidates("lut_amm", n, m, c, 16, 32, 2):
                 launch = autotune.cluster_launch(cfg)
                 outs = []
@@ -344,18 +360,42 @@ def sweep_launches(gen, dev, flush, note_err) -> None:
                     note_err(name, compare(f"{name} {site} N={n} {launch}", out, want, x, p,
                                            exact=True, rtol=0))
                     outs.append(out)
-                    us = time_ms(lambda: fn(x, p, q, s, **launch), flush, reps=10) * 1e3
-                    times[name].append((us, launch))
-                    points += 1
+                    timed(name, lambda: fn(x, p, q, s, **launch), launch)
                 if len(outs) == 2:
                     check(torch.equal(*outs), f"fused != v2 bytewise at {site} N={n} {launch}")
-            for name, fn in kernels:
+            for cfg in autotune.candidates("lut_amm", n, m, c, 16, 32, 1):
+                launch = autotune.v1_launch(cfg)
+                try:
+                    out = lut_mod.lut_amm_v1(x, p, q, s, **launch)
+                except ValueError:
+                    refused += 1
+                    continue
+                bc = launch["block_c"]
+                if bc not in v1_want:
+                    v1_want[bc] = ref.lut_amm_v1_plain(x, p, q, s, block_c=bc)
+                note_err("lut_amm_v1", compare(f"lut_amm_v1 {site} N={n} {launch}", out,
+                                               v1_want[bc], x, p, exact=True, rtol=0))
+                timed("lut_amm_v1", lambda: lut_mod.lut_amm_v1(x, p, q, s, **launch), launch)
+            codes = ref.encode_plain(x, p)
+            for cfg in autotune.candidates("encode", n, 0, c, 16, 32):
+                launch = {"block_n": cfg.block_n, "block_c": cfg.block_c}
+                try:
+                    out = enc_mod.encode(x, p, **launch)
+                except ValueError:
+                    refused += 1
+                    continue
+                note_err("encode", compare_codes(f"encode {site} N={n} {launch}", out, codes,
+                                                 x, p))
+                timed("encode", lambda: enc_mod.encode(x, p, **launch), launch)
+            defaults = dict(kernels, lut_amm_v1=lut_mod.lut_amm_v1,
+                            encode=lambda x, p, q, s: enc_mod.encode(x, p))
+            for name, fn in defaults.items():
                 default_us = time_ms(lambda: fn(x, p, q, s), flush, reps=10) * 1e3
                 t_us, launch = min(times[name], key=lambda t: t[0])
                 log(f"  {site:8s} N={n:<4d} {name:12s} best {t_us:8.2f} us {launch}; "
                     f"default {default_us:8.2f} us")
-    log(f"[sweep] {points} launches agree with the plain version (and fused == v2); {refused} "
-        f"refused as too large for a block")
+    log(f"[sweep] {points} launches agree with their plain versions (and fused == v2); "
+        f"{refused} refused as too large for a block")
 
 
 def sweep_ragged_launches(dev, note_err) -> int:
@@ -364,8 +404,12 @@ def sweep_ragged_launches(dev, note_err) -> int:
     tile) under every N tile (the table staged where its rows are 16-byte
     aligned, M = 48, 144 and 384, else gathered), in float32 and bfloat16:
     fused == v2 == plain bytewise on m-shared scales, within KERNEL_ATOL
-    per codebook. Returns the number of kernel calls."""
-    from repro_torch.kernels import ref
+    per codebook; v1 with its chunk of the sum at the reference's, 1 and C,
+    bytewise with its plain version on both layouts; the encode under every
+    launch the tuner can choose there, codes equal off near-ties. Returns
+    the number of kernel calls."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import dist_argmin as enc_mod
     from repro_torch.kernels import fused_decode as fused_mod
     from repro_torch.kernels import lut_amm as lut_mod
     from repro_torch.testing import CLUSTER_SHAPES, make_amm_inputs, quantize_np
@@ -382,6 +426,8 @@ def sweep_ragged_launches(dev, note_err) -> int:
                 want = ref.fused_decode_plain(x, p, q, s, bias=b, act="relu")
                 exact = layout == "m_shared"
                 rtol = 8e-3 if dtype == torch.bfloat16 else KERNEL_ATOL
+                v1_want = {bc: ref.lut_amm_v1_plain(x, p, q, s, block_c=bc)
+                           for bc in (None, 1, d // v)}
                 for rows in lut_mod.ROW_TILES:
                     outs = []
                     for name, fn in (("fused_decode", fused_mod.fused_decode),
@@ -395,6 +441,22 @@ def sweep_ragged_launches(dev, note_err) -> int:
                         calls += 1
                     if exact:
                         check(torch.equal(*outs), f"fused != v2 at {shape} {dtype} rows={rows}")
+                    for bc, v1 in v1_want.items():
+                        got = lut_mod.lut_amm_v1(x, p, q, s, block_c=bc, rows=rows)
+                        err = compare(f"lut_amm_v1 {shape} {layout} {dtype} rows={rows} bc={bc}",
+                                      got, v1, x, p, exact=True, rtol=0)
+                        if dtype == torch.float32:
+                            note_err("lut_amm_v1", err)
+                        calls += 1
+                if exact:
+                    codes = ref.encode_plain(x, p)
+                    for cfg in autotune.candidates("encode", nn, 0, d // v, k, v):
+                        err = compare_codes(f"encode {shape} {dtype} {cfg}",
+                                            enc_mod.encode(x, p, block_n=cfg.block_n,
+                                                           block_c=cfg.block_c), codes, x, p)
+                        if dtype == torch.float32:
+                            note_err("encode", err)
+                        calls += 1
     return calls
 
 
@@ -681,7 +743,7 @@ def phase_serve(dev, scratch: Path) -> dict:
     snap = json.loads((scratch / "main" / artifact._AUTOTUNE).read_text())["entries"]
     n_snap = sum(key.startswith("encode|") and rec["measured"] for key, rec in snap.items())
     check(n_snap == n_enc, f"the snapshot ships {n_snap} measured encode records, not {n_enc}")
-    log(f"[serve] export: {n_enc} encode records measured in {t_enc:.1f}s, save_artifact "
+    log(f"[serve] export: {n_enc} encode records measured in {t_enc:.3f}s, save_artifact "
         f"{time.perf_counter() - t0:.1f}s, snapshot of {len(snap)} records")
     t0 = time.perf_counter()
     art = artifact.load_artifact(scratch / "main", device=dev)
@@ -692,7 +754,7 @@ def phase_serve(dev, scratch: Path) -> dict:
     t_tune = time.perf_counter() - t0
     tuner = counters.launches()             # export and warm-up: the tuner's timing runs
     versions = chosen_versions(art.bundle, counts, "float32", dev)
-    log(f"[serve] load_artifact {t_load:.1f}s; measured warm-up {t_tune:.1f}s, "
+    log(f"[serve] load_artifact {t_load:.1f}s; measured warm-up {t_tune:.3f}s, "
         f"{eng.n_lut_shapes_tuned} lut_amm shapes tuned; kernel version per site "
         f"(M, C, K, V) at N={counts}: " + ", ".join(f"{s}: {v}" for s, v in versions.items()))
     cache = autotune.get_cache()

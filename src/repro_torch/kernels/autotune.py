@@ -7,26 +7,28 @@ CUDA wrappers' own launch parameters and the H100's numbers.
 A `BlockConfig` names one launch of one kernel; 0 in a field means "the
 wrapper's own default". Per kernel:
 
-  version 1 (`lut_amm.lut_amm_v1`, csrc/lut_amm_v1.cu)
-      block_n  rows per N tile: always BLOCK_N (8), fixed by the kernel
-      block_m  columns per M tile, 4 x the tile's column quads
-      block_c  codebooks summed per chunk before the chunk joins the output
-               (the reference's bc; it sets the fp32 order of the sums)
-  version 2 (`lut_amm.lut_amm_v2`, csrc/lut_amm_v2.cu) and
-  version 3 (`fused_decode.fused_decode`, csrc/fused_decode.cu), both
+  version 2 (`lut_amm.lut_amm_v2`, csrc/lut_amm_v2.cu),
+  version 3 (`fused_decode.fused_decode`, csrc/fused_decode.cu) and
+  version 1 (`lut_amm.lut_amm_v1`, csrc/lut_amm_v1.cu), all three
   thread-block cluster launches (`lut_amm.cluster_geometry`):
       block_n  rows per N tile, the tile one cluster encodes and shares
                (8-64; N tiles of 32 rows and more stage their table tiles)
       block_m  columns per M tile, 4 x the tile's column quads
-      block_c  0: the cluster size is fixed by C (`lut_amm.default_cluster`)
-               and v2's codebook chunk by shared memory
+      block_c  fused and v2: 0 (the cluster size is fixed by C,
+               `lut_amm.default_cluster`, and v2's codebook chunk by shared
+               memory); v1: codebooks summed per chunk before the chunk
+               joins the output (the reference's bc; it sets the fp32 order
+               of the sums, and only it)
   kind "encode" (`dist_argmin.encode`, csrc/encode.cu)
       block_n  rows per block;  block_m  0;  block_c  codebooks per block
 
 A fused or v2 record with block_c != 0 was written for the one-block kernels
 that came before the cluster launch (block_c was C, or v2's chunk); its
 fields describe a launch that no longer exists, so it takes the wrapper's
-default launch (`cluster_launch`), keeping its version.
+default launch (`cluster_launch`), keeping its version. A v1 record of the
+one-block v1 kernel (block_n = 8) names a launch the cluster kernel offers
+(`v1_launch`); an encode record whose block does not fit shared memory any
+more takes the default launch (`encode_launch`).
 
 Keys are `kind|n=|m=|c=|k=|v=|dtype=|backend=` as in the reference, with
 backend `cuda-sm90` for tensors on the card and `torch-cpu` for CPU tensors.
@@ -60,6 +62,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.kernels import dist_argmin as enc_mod
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as lut_mod
 from repro_torch.kernels import ref
@@ -71,8 +74,9 @@ FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 L2_BYTES_S = 10e12
 LAUNCH_S = 4e-6              # fixed cost of one kernel launch on the device
-V1_LOAD_S = 1e-6             # v1's ordered table load per codebook (PERF.md)
 CLUSTER_SYNC_S = 1e-6        # a cluster's two barriers and its code exchange (rough)
+ORDERED_ADD_S = 4e-9         # v1: one element's dequantize, multiply and add per codebook
+                             # in a thread's ordered chain (rough)
 N_SMS = 132
 
 # the versions `tune` sweeps, in the order that wins a tie: the fit rule's
@@ -196,27 +200,27 @@ def get_cache() -> AutotuneCache:
 
 def candidates(kind: str, n: int, m: int, c: int, k: int, v: int,
                version: int = 2) -> list[BlockConfig]:
-    """Every launch the tuner tries for one kernel and shape. Fused and v2:
-    the rows per N tile (8 at decode; 32 and 64 rows, the staged table, at
-    a prefill chunk) and the column quads of the M tile. v1: the column
-    quads and its chunk of the sum; the encode: its codebook chunk and row
-    range. Empty for the fused kernel when its codebooks do not fit."""
+    """Every launch the tuner tries for one kernel and shape. Fused, v2 and
+    v1: the rows per N tile (8 at decode; 32 and 64 rows, the staged table,
+    at a prefill chunk) and the column quads of the M tile; v1 also its
+    chunk of the sum (the reference's, and all of C). The encode: its rows
+    per block (the default's, 8 and 32, at most N's power of two) and its
+    codebooks per block (the default's, 4 and 16). Empty for the fused
+    kernel when its codebooks do not fit."""
     bn = lut_mod.BLOCK_N
     if kind == "encode":
-        fit = lut_mod.max_chunk(c, k, v)
-        chunks = sorted({fit, lut_mod.cdiv(fit, 2), min(c, 16)})
-        rows = sorted({0, max(1, lut_mod.cdiv(n, 4))})
-        return [BlockConfig(r, 0, cc) for cc in chunks for r in rows]
-    quads = lut_mod.QUADS
-    if version == 1:
-        chunks = sorted({ref.v1_block_c(c, v), c})
-        return [BlockConfig(bn, 4 * q, bc) for bc in chunks for q in quads]
+        geo = enc_mod.encode_geometry(n, c, k, v, N_SMS)
+        cap = 1 << max(n - 1, 0).bit_length()
+        rows = sorted({geo["rows"], min(bn, cap), min(enc_mod.MAX_ROWS, cap)})
+        chunks = sorted({geo["chunk_c"], min(c, 4), min(c, 16)})
+        return [BlockConfig(r, 0, cc) for r in rows for cc in chunks]
     if version >= VERSION_FUSED and not fused_mod.fits(c, k, v):
         return []
     small = next((r for r in lut_mod.ROW_TILES if r >= n), lut_mod.ROW_TILES[-1])
     row_tiles = [small] if small <= 2 * bn else [lut_mod.STAGED_ROWS, 2 * lut_mod.STAGED_ROWS]
-    return [BlockConfig(rows, 4 * q, 0) for rows in row_tiles
-            for q in (lut_mod.STAGED_QUADS if rows >= lut_mod.STAGED_ROWS else quads)]
+    sums = sorted({ref.v1_block_c(c, v), c}) if version == 1 else [0]
+    return [BlockConfig(rows, 4 * q, bc) for bc in sums for rows in row_tiles
+            for q in (lut_mod.STAGED_QUADS if rows >= lut_mod.STAGED_ROWS else lut_mod.QUADS)]
 
 
 def cluster_launch(cfg: BlockConfig) -> dict[str, int | None]:
@@ -227,40 +231,57 @@ def cluster_launch(cfg: BlockConfig) -> dict[str, int | None]:
     return {"rows": cfg.block_n or None, "quads": cfg.quads}
 
 
+def v1_launch(cfg: BlockConfig) -> dict[str, int | None]:
+    """The v1 wrapper's launch keywords for a record's fields. A record of the
+    one-block v1 kernel (block_n 8, block_m 4Q) names 8-row N tiles and an M
+    tile the cluster kernel offers; an M tile it does not offer takes the
+    default. block_c, the order of the sums, is kept."""
+    quads = cfg.quads if cfg.quads in lut_mod.QUADS else None
+    return {"rows": cfg.block_n or None, "quads": quads, "block_c": cfg.block_c or None}
+
+
+def encode_launch(cfg: BlockConfig, n: int, c: int, k: int, v: int) -> dict[str, int | None]:
+    """The encode wrapper's launch keywords for a record's fields; a record
+    whose block does not fit shared memory (one written for the kernel that
+    staged row ranges pass by pass) takes the default launch."""
+    launch = {"block_n": cfg.block_n or None, "block_c": cfg.block_c or None}
+    try:
+        enc_mod.encode_geometry(n, c, k, v, N_SMS, **launch)
+    except ValueError:
+        return {"block_n": None, "block_c": None}
+    return launch
+
+
 def predict_us(kind: str, n: int, m: int, c: int, k: int, v: int, cfg: BlockConfig,
                *, version: int = 2, n_sms: int = N_SMS) -> float:
     """Roofline estimate (microseconds) of one launch on an H100: the larger
     of its device-memory bytes (x, centroids, the table once per N tile,
-    output) and its operations (fp32 encode, int8 lookup; v1's fp32
-    dequantize), plus what every block pays in sequence before its lookup,
-    spread over the blocks one wave runs at once, and a launch. Fused and v2
-    blocks pay for their cluster rank's share of the codebooks: staging it
-    from L2, encoding the N tile's rows over it, and the cluster's barriers."""
+    output) and its operations (fp32 encode, int8 lookup), plus what every
+    block pays in sequence, spread over the blocks one wave runs at once, and
+    a launch. Fused, v2 and v1 blocks pay for their cluster rank's share of
+    the codebooks (staging it from L2, encoding the N tile's rows over it)
+    and the cluster's barriers; v1 then its elements' ordered fp32 chains of
+    C multiply-adds. An encode block pays for staging its chunk's centroids
+    and rows and encoding them."""
     cb = lut_mod.codebook_smem_bytes(k, v)
     if kind == "encode":
-        rows = cfg.block_n or lut_mod.cdiv(n, max(1, n_sms // lut_mod.cdiv(c, cfg.block_c or c)))
-        blocks = lut_mod.cdiv(c, cfg.block_c or c) * lut_mod.cdiv(n, rows)
+        geo = enc_mod.encode_geometry(n, c, k, v, n_sms, block_n=cfg.block_n or None,
+                                      block_c=cfg.block_c or None)
+        rows, cc = geo["rows"], geo["chunk_c"]
         hbm = n * c * v * 4 + c * k * v * 4 + n * c * 4
         ops = 2.0 * n * c * k * v / FP32_FLOPS
-        stage = blocks * (c * cb / lut_mod.cdiv(c, cfg.block_c or c)) / L2_BYTES_S
-        return (max(hbm / HBM_BYTES_S, ops) + stage / min(blocks, n_sms) + LAUNCH_S) * 1e6
-    if version == 1:
-        n_tiles = lut_mod.cdiv(n, lut_mod.BLOCK_N)
-        quads = cfg.quads or lut_mod.tile_quads(n_tiles, m, n_sms)
-        blocks = n_tiles * lut_mod.cdiv(m, 4 * quads)
-        hbm = n * c * v * 4 + c * k * v * 4 + c * k * m * n_tiles + n * m * 4
-        ops = 2.0 * blocks * lut_mod.BLOCK_N * c * k * v / FP32_FLOPS + n * c * m / INT8_OPS
-        # v1 dequantizes every gathered entry in fp32 and adds it in order: each
-        # thread waits on one table load per codebook, in series
-        serial = n * c * m * 2 / FP32_FLOPS + c * V1_LOAD_S
-        waves = lut_mod.cdiv(blocks, n_sms)
-        return (max(hbm / HBM_BYTES_S, ops) + serial + waves * c * cb / L2_BYTES_S
-                + LAUNCH_S) * 1e6
+        serial = ((cc * cb + rows * cc * v * 4) / (L2_BYTES_S / n_sms)
+                  + 2.0 * rows * cc * k * v / (FP32_FLOPS / n_sms))
+        waves = lut_mod.cdiv(geo["blocks"], n_sms)
+        return (max(hbm / HBM_BYTES_S, ops) + waves * serial + LAUNCH_S) * 1e6
     s = lut_mod.default_cluster(c)
     # one wave of whole clusters (the card may hold fewer: a cluster's blocks
     # share a GPC)
-    geo = lut_mod.cluster_geometry(n, c, k, v, m, n_sms // s * s, chunked=version == 2,
-                                   **cluster_launch(cfg))
+    if version == 1:
+        geo = lut_mod.v1_geometry(n, c, k, v, m, n_sms // s * s, **v1_launch(cfg))
+    else:
+        geo = lut_mod.cluster_geometry(n, c, k, v, m, n_sms // s * s, chunked=version == 2,
+                                       **cluster_launch(cfg))
     blocks = geo["n_tiles"] * geo["grid_x"]
     share = lut_mod.cdiv(c, geo["cluster"])
     hbm = n * c * v * 4 + c * k * v * 4 + c * k * m * geo["n_tiles"] + n * m * 4
@@ -268,6 +289,10 @@ def predict_us(kind: str, n: int, m: int, c: int, k: int, v: int, cfg: BlockConf
     serial = (share * cb / L2_BYTES_S
               + 2.0 * geo["rows"] * share * k * v / (FP32_FLOPS / n_sms)
               + (CLUSTER_SYNC_S if geo["cluster"] > 1 else 0.0))
+    if version == 1:
+        # each thread's elements, every codebook in order
+        per_thread = lut_mod.cdiv(min(n, geo["rows"]) * 4 * geo["quads"], lut_mod.THREADS)
+        serial += geo["tiles_per_block"] * per_thread * c * ORDERED_ADD_S
     waves = lut_mod.cdiv(blocks, n_sms)
     return (max(hbm / HBM_BYTES_S, ops) + waves * serial + LAUNCH_S) * 1e6
 

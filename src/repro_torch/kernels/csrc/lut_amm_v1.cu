@@ -13,155 +13,79 @@
 // order across chunks, then cast once to x's dtype. No bias or activation: the
 // dispatcher adds them outside, in x's dtype, as the reference does. A (1, ..)
 // scale is read as its broadcast over C, which the reference materializes.
+// The plain version (ref.lut_amm_v1_plain) adds in the same order with the
+// same roundings, so kernel and plain version agree bytewise under every
+// launch: the order depends on block_c alone.
 //
 // Design against the TPU original. The Pallas grid is (N/bn, M/bm, C/bc) with
 // the codebook axis innermost and sequential: each step dequantizes its table
 // tile to fp32 (t * s), contracts a one-hot against it, sums the bc codebooks
-// of the step and read-modify-writes the output tile. Here the grid is
-// (N tiles, M tiles) and the sequential C axis is a loop inside the block.
-// Each thread owns 4 adjacent columns of one or two rows and sums every
-// codebook of them itself, in order, with explicit _rn intrinsics (no FMA
-// contraction): the plain version (ref.lut_amm_v1_plain) adds in the same
-// order, so kernel and plain agree bytewise. The centroids are staged through
-// shared memory in chunks of stage_c codebooks, which the wrapper sizes to
-// shared memory independently of block_c: staging does not change the sums.
+// of the step and read-modify-writes the output tile. Here the sequential C
+// axis is a loop in a thread, and the launch is the fused and v2 kernels'
+// cluster pipeline (lut_common.cuh, lut_cluster_body, with V1 set): a
+// cluster of S blocks shares an N tile, each rank stages (16-byte cp.async)
+// and encodes (encode_tile) only its share of the codebooks in chunks, as v2
+// does, and pushes its codes into its peers' shared memory with st.async.
+// The lookup cannot split an element's codebooks over threads (that would
+// change the fp32 order), so one thread holds each element's whole sum: at a
+// prefill chunk the row-split lookup over the table tile staged by TMA, at
+// decode one thread per (row, column) over the tile copied to shared memory
+// (or gathered from global memory where it does not fit), with the loads of
+// 16 codebooks in flight before their ordered multiply-adds. Entries become
+// fp32 by an exact bit trick instead of I2F (s8_to_f32), and every product
+// and sum is an explicit _rn intrinsic: nvcc would contract t * s + acc
+// into an FMA, a different rounding.
 //
-// What bounds it on this card: like v2, at decode the bytes of the int8 table
-// (read once per N tile) and, in practice, the staging of all C codebooks'
-// centroids into every block and the serial encode; the fp32 dequantize costs
-// one multiply per gathered entry. It is the slowest generation by design.
+// What bounds it on this card: at decode, as for v2, the dependent chain of
+// staging, encode and code exchange ahead of the lookup (the table's bytes,
+// read once per N tile, take 0.6-1.9 us at the main path's sites); at a
+// prefill chunk the lookup's fp32 instructions, three per element and
+// codebook (dequantize, multiply, add) where the int32 kernels issue one.
 //
-// Shared memory: [ max(stage_c staged codebooks) | kBlockN * stage_c code bytes ].
+// Shared memory: [ C x rows codes | the block's scale (of a (1, ..) scale) |
+// the chunk's codebooks centroids, norms and sub-vectors | table ring | its
+// mbarriers ], offsets from the wrapper (lut_amm.py, cluster_geometry).
 #include "lut_common.cuh"
 
 namespace lutnn {
 
-// rows of the N tile one thread sums: kBlockN * Q / kThreads, with Q <= 64
-constexpr int kV1Rows = 2;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lut_amm_v1_kernel(const T* __restrict__ x, const float* __restrict__ centroids,
-                      const int8_t* __restrict__ table_q, const float* __restrict__ scale,
-                      T* __restrict__ out, int N, int C, int K, int V, int M, int scale_c,
-                      int scale_m, int Q, int block_c, int stage_c, int region_bytes, int vec4) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* p_s = reinterpret_cast<float*>(smem);
-  float* pn_s = p_s + (size_t)stage_c * centroid_stride(K, V);
-  uint8_t* codes_s = smem + region_bytes;
-
-  const int n0 = blockIdx.x * kBlockN;
-  const int n_rows = min(kBlockN, N - n0);
-  const int q = threadIdx.x % Q;
-  const int r0 = threadIdx.x / Q;  // this thread's first row; rows r0, r0 + R
-  const int R = kThreads / Q;
-  const int m = blockIdx.y * 4 * Q + 4 * q;
-  const bool full4 = vec4 != 0 && m + 3 < M;
-
-  float total[kV1Rows][4];
-  float chunk[kV1Rows][4];
-#pragma unroll
-  for (int i = 0; i < kV1Rows; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) total[i][j] = chunk[i][j] = 0.f;
-  }
-
-  for (int c_lo = 0; c_lo < C; c_lo += stage_c) {
-    const int cc = min(stage_c, C - c_lo);
-    stage_centroids(centroids, c_lo, cc, K, V, p_s, pn_s);
-    encode_rows(x, n0, n_rows, C * V, c_lo, cc, K, V, p_s, pn_s, codes_s);
-    __syncthreads();
-    if (m < M) {
-      for (int cl = 0; cl < cc; ++cl) {
-        const int c = c_lo + cl;
-        const float* sc = scale + (size_t)(scale_c == 1 ? 0 : c) * scale_m;
-        float s[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[j] = sc[scale_m == 1 ? 0 : min(m + j, M - 1)];
-#pragma unroll
-        for (int i = 0; i < kV1Rows; ++i) {
-          const int n = r0 + i * R;
-          if (n < n_rows) {
-            const int8_t* row = table_q + ((size_t)c * K + codes_s[n * cc + cl]) * M + m;
-            int t[4];
-            if (full4) {
-              const char4 t4 = *reinterpret_cast<const char4*>(row);
-              t[0] = t4.x;
-              t[1] = t4.y;
-              t[2] = t4.z;
-              t[3] = t4.w;
-            } else {
-#pragma unroll
-              for (int j = 0; j < 4; ++j) t[j] = (m + j < M) ? (int)row[j] : 0;
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              chunk[i][j] = __fadd_rn(chunk[i][j], __fmul_rn((float)t[j], s[j]));
-            }
-          }
-        }
-        if ((c + 1) % block_c == 0) {  // the reference's grid step ends here
-#pragma unroll
-          for (int i = 0; i < kV1Rows; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              total[i][j] = __fadd_rn(total[i][j], chunk[i][j]);
-              chunk[i][j] = 0.f;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // codes and centroids of this stage are overwritten next
-  }
-  if (m >= M) return;
-#pragma unroll
-  for (int i = 0; i < kV1Rows; ++i) {
-    const int n = r0 + i * R;
-    if (n < n_rows) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (m + j < M) store_out(out + (size_t)(n0 + n) * M + m + j, total[i][j]);
-      }
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_v1(const void* x, const void* centroids, const void* table_q,
-                      const void* scale, void* out, int N, int C, int K, int V, int M,
-                      int scale_c, int scale_m, int Q, int block_c, int stage_c,
-                      int region_bytes, int smem_bytes, int vec4, cudaStream_t stream) {
-  auto kernel = lut_amm_v1_kernel<T>;
-  cudaError_t err = allow_smem<lut_amm_v1_kernel<T>>();
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + kBlockN - 1) / kBlockN, (M + 4 * Q - 1) / (4 * Q));
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(centroids),
-      static_cast<const int8_t*>(table_q), static_cast<const float*>(scale), static_cast<T*>(out),
-      N, C, K, V, M, scale_c, scale_m, Q, block_c, stage_c, region_bytes, vec4);
-  return cudaGetLastError();
+template <typename T, bool SHARED>
+__global__ void __launch_bounds__(kThreads) lut_amm_v1_kernel(const __grid_constant__ LutArgs a) {
+  lut_cluster_body<T, SHARED, true, true>(a);
 }
 
 }  // namespace lutnn
 
-// Plain C entry point (loaded with ctypes). Returns a cudaError_t: 0 on a
+// SHARED: a (1, ..) scale, the same for every codebook
+#define LUTNN_DISPATCH(FN, ...)                                                \
+  (x_bf16 ? (shared ? FN<lut_amm_v1_kernel<__nv_bfloat16, true>>(__VA_ARGS__)  \
+                    : FN<lut_amm_v1_kernel<__nv_bfloat16, false>>(__VA_ARGS__)) \
+          : (shared ? FN<lut_amm_v1_kernel<float, true>>(__VA_ARGS__)          \
+                    : FN<lut_amm_v1_kernel<float, false>>(__VA_ARGS__)))
+
+// Plain C entry point (loaded with ctypes), the fused and v2 kernels'
+// signature; bias must be null and act none. geo: kGeoInts launch parameters
+// (LutArgs, from S to vec4; block_c divides C). Returns a cudaError_t: 0 on a
 // successful launch. Launches on `stream` and does not synchronise.
 extern "C" int lutnn_lut_amm_v1(const void* x, const void* centroids, const void* table_q,
-                                const void* scale, void* out, int N, int C, int K, int V, int M,
-                                int scale_c, int scale_m, int x_bf16, int Q, int block_c,
-                                int stage_c, int region_bytes, int smem_bytes, int vec4,
-                                void* stream) {
+                                const void* scale, const void* bias, void* out, int N, int C,
+                                int K, int V, int M, int scale_c, int scale_m, int x_bf16,
+                                int act, const int* geo, int smem_bytes, void* stream) {
   using namespace lutnn;
-  if (Q < 1 || Q > 64 || kThreads % Q != 0 || block_c < 1 || C % block_c != 0 || stage_c < 1) {
+  const bool shared = scale_c == 1;
+  LutArgs a =
+      make_args(x, centroids, table_q, scale, bias, out, N, C, K, V, M, scale_m, act, geo);
+  if (bias != nullptr || act != kActNone || a.block_c < 1 || C % a.block_c != 0) {
     return cudaErrorInvalidValue;
   }
-  auto s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return launch_v1<__nv_bfloat16>(x, centroids, table_q, scale, out, N, C, K, V, M, scale_c,
-                                    scale_m, Q, block_c, stage_c, region_bytes, smem_bytes, vec4,
-                                    s);
-  }
-  return launch_v1<float>(x, centroids, table_q, scale, out, N, C, K, V, M, scale_c, scale_m, Q,
-                          block_c, stage_c, region_bytes, smem_bytes, vec4, s);
+  return LUTNN_DISPATCH(launch_cluster, a, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of S blocks of `smem_bytes` can be resident at once on
+// this card (0: such a launch cannot run).
+extern "C" int lutnn_lut_amm_v1_clusters(int x_bf16, int scale_c, int S, int smem_bytes,
+                                         int* out) {
+  using namespace lutnn;
+  const bool shared = scale_c == 1;
+  return LUTNN_DISPATCH(max_clusters, S, smem_bytes, out);
 }

@@ -10,9 +10,14 @@
 //              | sum_c T[c, code[n,c], m] * s[c, m|0]           (fp32: per-codebook/column)
 //   out        = act(y + bias), written once in x's dtype.
 //
-// They replace the TPU kernels src/repro/kernels/fused_decode.py::fused_decode_pallas
-// and src/repro/kernels/lut_amm.py::lut_amm_pallas (v2). v1 and the encode
-// kernel share the staging and the serial device encode only.
+// v1 computes the same codes and, per output element, the fp32 sum of
+// fl(T * s[c|0, m|0]) in codebook order within chunks of block_c codebooks,
+// the chunks added in order; no bias or activation (lut_amm_v1.cu). The
+// encode kernel computes the codes alone (encode.cu).
+//
+// They replace the TPU kernels src/repro/kernels/fused_decode.py::fused_decode_pallas,
+// src/repro/kernels/lut_amm.py::lut_amm_pallas (v2) and lut_amm_pallas_v1,
+// and src/repro/kernels/dist_argmin.py::encode_pallas.
 //
 // What bounds them on this card. The bytes are the int8 table, read once per
 // N tile (2-6 MiB at qwen3_1p7b's sites: 0.6-1.9 us at 3.35 TB/s). Before the
@@ -21,7 +26,7 @@
 // its rows over all of them spends ~20 us per 64 codebooks in a serial chain,
 // which was the whole kernel's time at decode.
 //
-// The design (lut_cluster_body below), shared by both kernels:
+// The design (lut_cluster_body below), shared by the three LUT-AMM kernels:
 //  1. A thread-block cluster of S blocks (along the M axis) owns one N tile
 //     of `rows` rows. Rank r stages only its share of the codebooks,
 //     [r*C/S, (r+1)*C/S), with their norms, and encodes the N tile's rows for
@@ -36,13 +41,13 @@
 //     before the pushes, and one before exit keeps a block alive while a
 //     peer may still write into it. The trade: S - 1 small pushes and two
 //     cluster barriers per block.
-//  3. The encode runs parallel over K: a chunk's centroids and the N tile's
-//     sub-vectors are staged by cp.async (every copy in flight at once),
-//     then a thread holds R rows x 4 centroids in registers, 4 lanes split
-//     K, and the lanes' minima merge by shuffles, lowest k on a tie. Each
-//     distance is the same fp32 sequence as the serial encode's (a_nrm and
-//     cross as FMA chains over v ascending), so the codes equal the serial
-//     encode's.
+//  3. The encode runs parallel over K (encode_tile; the encode kernel runs it
+//     too, one block per codebook chunk and N tile): a chunk's centroids and
+//     the N tile's sub-vectors are staged by cp.async (every copy in flight
+//     at once), then a thread holds R rows x 4 centroids in registers, 4
+//     lanes split K, and the lanes' minima merge by shuffles, lowest k on a
+//     tie. Each distance is one fixed fp32 sequence (a_nrm and cross as FMA
+//     chains over v ascending), so every kernel and launch finds the same codes.
 //  4. A centroid norm's sum starts at word (c*K + k) % V of its row, a
 //     function of the global row: every rank, chunk and kernel computes the
 //     same fp32 norm, so fused == v2 bytewise whatever cluster and chunk.
@@ -57,10 +62,13 @@
 //     beside the centroids where it fits RING_BYTES, else gathered straight
 //     from global memory; thread (q, g) owns 4 adjacent columns and the
 //     codebooks g, g + G, ..., and the G partials join by warp shuffles and
-//     then through shared memory.
+//     then through shared memory. v1 must add every codebook of an element
+//     in order, so it never splits codebooks: at a prefill chunk it takes
+//     the same row-split lookup, at decode one thread per (row, column) with
+//     a run of codebooks' loads issued ahead of the ordered adds.
 //  6. The epilogue is unchanged: m-shared/scalar fmaf((float)acc, s, bias),
 //     per-codebook the fp32 sum + bias; act, cast, one store per element; no
-//     atomics.
+//     atomics. v1 stores its total, cast to x's dtype.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,7 +84,7 @@ namespace lutnn {
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kBlockN = 8;     // rows per register tile of the direct lookup
-constexpr int kMaxV = 32;      // longest sub-vector held in registers by the encoder
+constexpr int kMaxV = 32;      // longest sub-vector (a centroid's norm holds its row in registers)
 // reduction buffer: G groups x kBlockN rows x 4Q columns x 4 bytes, G * Q = kThreads
 constexpr int kRedBytes = kThreads * kBlockN * 4 * 4;
 
@@ -137,18 +145,10 @@ __device__ __forceinline__ float apply_act(float y, int act) {
   }
 }
 
-// Shared-memory layout of staged centroids: centroid row k of codebook c
-// starts at c * centroid_stride(K, V) + k * row_stride(V); the codebook's K
-// squared norms at c * (K + 1). The row stride is odd, so the lanes of a
-// warp that read one word of 32 different rows hit 32 different banks.
-__host__ __device__ __forceinline__ int row_stride(int V) { return V | 1; }
-__host__ __device__ __forceinline__ int centroid_stride(int K, int V) {
-  return K * row_stride(V) + 4;
-}
-// The cluster kernels' staging instead starts every row 16-byte aligned, so
-// that one 16-byte cp.async moves 4 words: the issue of the staging copies,
-// not their bytes, set the staging time (PERF.md). The extra 4 words
-// keep the lanes of a warp that read one word of 8 rows on 8 bank groups.
+// Staged centroid and sub-vector rows start 16-byte aligned, so that one
+// 16-byte cp.async moves 4 words: the issue of the staging copies, not
+// their bytes, sets the staging time (PERF.md). The extra 4 words keep the
+// lanes of a warp that read one word of 8 rows on 8 bank groups.
 __host__ __device__ __forceinline__ int row_stride16(int V) { return ((V + 3) & ~3) + 4; }
 
 // The norms of `rows` staged centroid rows of codebooks from c_lo on: the
@@ -157,8 +157,7 @@ __host__ __device__ __forceinline__ int row_stride16(int V) { return ((V + 3) & 
 // row's global index: the same fp32 norm in every block, chunk and kernel.
 __device__ __forceinline__ void centroid_norms(int c_lo, int rows, int K, int V,
                                                const float* p_s, float* pn_s,
-                                               int rs = -1) {
-  if (rs < 0) rs = row_stride(V);
+                                               int rs) {
   const int ps = K * rs + 4;
   for (int i = threadIdx.x; i < rows; i += blockDim.x) {
     const float* p = p_s + (size_t)(i / K) * ps + (i % K) * rs;
@@ -179,112 +178,8 @@ __device__ __forceinline__ void centroid_norms(int c_lo, int rows, int K, int V,
   }
 }
 
-// Stage the centroids of codebooks [c_lo, c_lo + cc) into shared memory and
-// compute their squared norms: p_s holds cc * centroid_stride floats, pn_s
-// cc * (K + 1). 16-byte loads, eight in flight per thread: the copy is bound
-// by L2 bandwidth rather than by one round trip per element. The norm of
-// global centroid row g = c*K + k sums its words starting at g % V: the same
-// order in every block, chunk and kernel, whichever thread takes the row.
-__device__ __forceinline__ void stage_centroids(const float* __restrict__ centroids, int c_lo,
-                                                int cc, int K, int V, float* p_s, float* pn_s) {
-  const float* src = centroids + (size_t)c_lo * K * V;
-  const int rs = row_stride(V);
-  const int ps = centroid_stride(K, V);
-  const int rows = cc * K;
-  if ((V % 4) == 0 && (reinterpret_cast<uintptr_t>(src) % 16) == 0) {
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    const int v4 = V / 4;
-    const int total4 = rows * v4;
-    for (int base = threadIdx.x; base < total4; base += 8 * blockDim.x) {
-      float4 r[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = base + u * blockDim.x;
-        if (i < total4) r[u] = __ldg(src4 + i);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = base + u * blockDim.x;
-        if (i < total4) {
-          const int row = i / v4;
-          float* dst = p_s + (row / K) * ps + (row % K) * rs + (i % v4) * 4;
-          dst[0] = r[u].x;
-          dst[1] = r[u].y;
-          dst[2] = r[u].z;
-          dst[3] = r[u].w;
-        }
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * V; i += blockDim.x) {
-      const int row = i / V;
-      p_s[(row / K) * ps + (row % K) * rs + i % V] = src[i];
-    }
-  }
-  __syncthreads();
-  centroid_norms(c_lo, rows, K, V, p_s, pn_s);
-  __syncthreads();
-}
-
-// The fp32 distance of one centroid row: the reference's expansion
-// ||a||^2 - 2 a.p + ||p||^2, `cross` an FMA chain over v ascending.
-__device__ __forceinline__ float distance(const float (&a)[kMaxV], float a_nrm, const float* p,
-                                          float p_nrm, int V) {
-  float cross = 0.f;
-#pragma unroll
-  for (int v = 0; v < kMaxV; ++v) {
-    if (v < V) cross = fmaf(a[v], p[v], cross);
-  }
-  return __fadd_rn(__fsub_rn(a_nrm, __fmul_rn(2.f, cross)), p_nrm);
-}
-
-// One row's sub-vector in registers and its squared norm (FMA chain, v ascending).
-template <typename T>
-__device__ __forceinline__ float load_subvector(const T* __restrict__ xr, int V,
-                                                float (&a)[kMaxV]) {
-  float a_nrm = 0.f;
-#pragma unroll
-  for (int v = 0; v < kMaxV; ++v) {
-    if (v < V) {
-      a[v] = load_x(xr + v);
-      a_nrm = fmaf(a[v], a[v], a_nrm);
-    }
-  }
-  return a_nrm;
-}
-
-// Serial encode (v1 and the encode kernel): one thread per (row, codebook)
-// over k ascending with a strict '<', so the lowest index wins a tie.
-// codes_s[n * cc + (c - c_lo)] for the n_rows valid rows.
-template <typename T>
-__device__ __forceinline__ void encode_rows(const T* __restrict__ x, int n0, int n_rows, int D,
-                                            int c_lo, int cc, int K, int V, const float* p_s,
-                                            const float* pn_s, uint8_t* codes_s) {
-  const int rs = row_stride(V);
-  const int ps = centroid_stride(K, V);
-  for (int t = threadIdx.x; t < n_rows * cc; t += blockDim.x) {
-    // the rows of one codebook are neighbouring threads: centroid reads broadcast
-    const int cl = t / n_rows;
-    const int n = t % n_rows;
-    float a[kMaxV];
-    const float a_nrm = load_subvector(x + (size_t)(n0 + n) * D + (size_t)(c_lo + cl) * V, V, a);
-    const float* p = p_s + (size_t)cl * ps;
-    const float* pn = pn_s + cl * (K + 1);
-    float best = 0.f;
-    int best_k = 0;
-    for (int k = 0; k < K; ++k) {
-      const float d = distance(a, a_nrm, p + k * rs, pn[k], V);
-      if (k == 0 || d < best) {
-        best = d;
-        best_k = k;
-      }
-    }
-    codes_s[n * cc + cl] = (uint8_t)best_k;
-  }
-}
-
 // Stage the N tile's sub-vectors of codebooks [c0, c0 + cc) into shared
-// memory: x_s[(cl * rows + n) * row_stride(V) + v], rows beyond n_rows left
+// memory: x_s[(cl * rows + n) * rs + v], rows beyond n_rows left
 // unwritten (their distances are computed and never used). 4 elements per
 // load where rows allow it, 16 loads in flight per thread: the copy waits on
 // memory once, not once per element.
@@ -405,15 +300,16 @@ __device__ __forceinline__ void stage_share(const T* __restrict__ x,
   __syncthreads();
 }
 
-// Parallel encode (fused and v2) from staged sub-vectors and centroids. A
+// Parallel encode (every kernel) from staged sub-vectors and centroids. A
 // thread holds R rows (rg, rg + n_rg, ...: the lanes of neighbouring row
 // groups read neighbouring rows, on distinct banks at the 16-byte aligned
 // row stride) x 4 centroids of one codebook in registers (the v loop
 // outermost: R + 4 shared loads feed 4R FMAs) and takes k = kg, kg + 4, ...
 // (its first k always, then a strict '<'); the 4 lanes kg of a row group
 // merge their minima by shuffles, the lower k winning a tie. Every distance
-// is the serial encode's fp32 sequence (a_nrm and cross as FMA chains over v
-// ascending, then the expansion), so the codes equal the serial encode's.
+// is the reference's fp32 sequence (a_nrm and cross as FMA chains over v
+// ascending, then the expansion ||a||^2 - 2 a.p + ||p||^2), so the codes are
+// the same in every kernel and launch.
 // Writes codes_s[c * rows + n] (codebook-major) for c in [c0, c0 + cc).
 template <int R>
 __device__ __forceinline__ void encode_tile(int n_rows, int rows, int c0, int cc, int K, int V,
@@ -506,6 +402,19 @@ __device__ __forceinline__ void encode_tile(int n_rows, int rows, int c0, int cc
       }
     }
   }
+}
+
+// int8 table entries as fp32 for v1's dequantize, exactly and without I2F
+// (a quarter-rate instruction on this card): the byte's bits b ^ 0x80 = b + 128
+// placed in the mantissa of 2^23 give the float 2^23 + 128 + b, from which one
+// exact subtraction leaves b. `u8` is the entry's raw byte; `w` four entries
+// of one 32-bit word, already XORed with 0x80808080, J selects one.
+__device__ __forceinline__ float s8_to_f32(uint32_t u8) {
+  return __fsub_rn(__int_as_float(0x4B000000u | (u8 ^ 0x80u)), 8388736.f);
+}
+template <int J>
+__device__ __forceinline__ float s8x4_to_f32(uint32_t w) {
+  return __fsub_rn(__int_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | J)), 8388736.f);
 }
 
 // Accumulate table rows of codebooks [c_lo, c_lo + cc) into this thread's 4
@@ -631,7 +540,7 @@ __device__ __forceinline__ void reduce_store(AccT (&acc)[NR][4], void* red_s, in
 }
 
 // ---------------------------------------------------------------------------
-// The cluster pipeline of the fused and v2 kernels
+// The cluster pipeline of the fused, v2 and v1 kernels
 // ---------------------------------------------------------------------------
 
 // H100: dynamic shared memory one block may use (less the trace's stamps)
@@ -640,7 +549,7 @@ constexpr int kMaxSmem = 232448 - 1024;
 #else
 constexpr int kMaxSmem = 232448;
 #endif
-constexpr int kStagedRows = 8;    // rows one thread accumulates in the row-split lookup
+constexpr int kStagedRows = 8;    // rows one thread accumulates in the row-split lookup, at most
 
 // One launch's arguments; the shared-memory offsets come from the wrapper's
 // geometry (kernels/lut_amm.py::cluster_geometry), which alone defines the
@@ -667,6 +576,7 @@ struct LutArgs {
   int stage_c;          // codebooks per table stage (one TMA box)
   int n_stages;         // table stages in the TMA ring (0 at decode)
   int epi_off, cent_off, ring_off, bar_off;
+  int block_c;          // v1: codebooks per chunk of the fp32 sum (0 for fused and v2)
   int vec4;             // 4-byte table loads allowed (direct lookup)
 };
 
@@ -764,12 +674,18 @@ __device__ __forceinline__ void ring_release(const LutArgs& a, int i, int n_chun
 // reads the row once, conflict-free); row group rg takes rows rg, rg + RG,
 // ... Every stage serves every row, and each thread holds its elements'
 // whole sums: the epilogue follows without a reduction. Rows past n_rows
-// repeat the last valid row's code and are not stored.
-template <bool SHARED, typename T>
+// repeat the last valid row's code and are not stored. V1: each element's
+// fp32 sum of fl(t * s) in codebook order, joined into its total after every
+// block_c codebooks (a chunk may span ring stages), with explicit _rn
+// intrinsics (no FMA contraction); the total is stored without bias or
+// activation. SHARED then means a (1, ..) scale: the column's, from s_s.
+// NR rows per thread (at most kStagedRows): the fewest that cover the N
+// tile, so that no thread repeats a row.
+template <bool SHARED, typename T, bool V1, int NR>
 __device__ __forceinline__ void staged_lookup(const LutArgs& a, int n0, int n_rows, int m0,
                                               const uint8_t* codes_s, const float* s_s,
                                               const float* b_s, uint8_t* ring, uint64_t* bars) {
-  using AccT = typename std::conditional<SHARED, int, float>::type;
+  using AccT = typename std::conditional<SHARED && !V1, int, float>::type;
   const int TW = 4 * a.Q;
   const int K = a.K;
   const int lane = threadIdx.x & 31;
@@ -779,22 +695,30 @@ __device__ __forceinline__ void staged_lookup(const LutArgs& a, int n0, int n_ro
   const int RG = (kThreads / 32) * groups;
   const int m = m0 + 4 * ql;
   const int n_chunks = (a.C + a.stage_c - 1) / a.stage_c;
-  int rowc[kStagedRows];
+  float sv[4], bv[4];
 #pragma unroll
-  for (int r = 0; r < kStagedRows; ++r) rowc[r] = min(rg + r * RG, n_rows - 1);
-  AccT acc[kStagedRows][4];
-#pragma unroll
-  for (int i = 0; i < kStagedRows; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  for (int j = 0; j < 4; ++j) {
+    sv[j] = s_s[4 * ql + j];
+    bv[j] = b_s[4 * ql + j];
   }
+  int rowc[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) rowc[r] = min(rg + r * RG, n_rows - 1);
+  AccT acc[NR][4];
+  float total[NR][4];  // V1 only
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = total[i][j] = 0;
+  }
+  int left = a.block_c;  // V1: codebooks until the chunk joins its total
   for (int i = 0; i < n_chunks; ++i) {
     const uint8_t* st = ring_acquire(a, i, ring, bars) + 4 * ql;
     const int c0 = i * a.stage_c;
     const int cs = min(a.stage_c, a.C - c0);
     for (int cl = 0; cl < cs; ++cl) {
       const int c = c0 + cl;
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      float s[4] = {sv[0], sv[1], sv[2], sv[3]};
       if (!SHARED) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -803,19 +727,41 @@ __device__ __forceinline__ void staged_lookup(const LutArgs& a, int n0, int n_ro
       }
       const uint8_t* code_row = codes_s + (size_t)c * a.rows;
       const uint8_t* tile = st + (size_t)cl * K * TW;
-      int code[kStagedRows];
+      int code[NR];
 #pragma unroll
-      for (int r = 0; r < kStagedRows; ++r) code[r] = code_row[rowc[r]];
+      for (int r = 0; r < NR; ++r) code[r] = code_row[rowc[r]];
 #pragma unroll
-      for (int r = 0; r < kStagedRows; ++r) {
-        const char4 t4 = *reinterpret_cast<const char4*>(tile + code[r] * TW);
-        const int t[4] = {t4.x, t4.y, t4.z, t4.w};
+      for (int r = 0; r < NR; ++r) {
+        if constexpr (V1) {
+          const uint32_t w =
+              *reinterpret_cast<const uint32_t*>(tile + code[r] * TW) ^ 0x80808080u;
+          acc[r][0] = __fadd_rn(acc[r][0], __fmul_rn(s8x4_to_f32<0>(w), s[0]));
+          acc[r][1] = __fadd_rn(acc[r][1], __fmul_rn(s8x4_to_f32<1>(w), s[1]));
+          acc[r][2] = __fadd_rn(acc[r][2], __fmul_rn(s8x4_to_f32<2>(w), s[2]));
+          acc[r][3] = __fadd_rn(acc[r][3], __fmul_rn(s8x4_to_f32<3>(w), s[3]));
+        } else {
+          const char4 t4 = *reinterpret_cast<const char4*>(tile + code[r] * TW);
+          const int t[4] = {t4.x, t4.y, t4.z, t4.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (SHARED) {
-            acc[r][j] += t[j];
-          } else {
-            acc[r][j] += (float)t[j] * s[j];
+          for (int j = 0; j < 4; ++j) {
+            if (SHARED) {
+              acc[r][j] += t[j];
+            } else {
+              acc[r][j] += (float)t[j] * s[j];
+            }
+          }
+        }
+      }
+      if constexpr (V1) {
+        if (--left == 0) {  // the reference's grid step ends after codebook c
+          left = a.block_c;
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              total[r][j] = __fadd_rn(total[r][j], acc[r][j]);
+              acc[r][j] = 0.f;
+            }
           }
         }
       }
@@ -824,21 +770,15 @@ __device__ __forceinline__ void staged_lookup(const LutArgs& a, int n0, int n_ro
   }
   T* out = static_cast<T*>(a.out);
   const bool has_bias = a.bias != nullptr;
-  float sv[4], bv[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    sv[j] = s_s[4 * ql + j];
-    bv[j] = b_s[4 * ql + j];
-  }
-#pragma unroll
-  for (int r = 0; r < kStagedRows; ++r) {
+  for (int r = 0; r < NR; ++r) {
     const int n = rg + r * RG;
     if (n < n_rows) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (m + j < a.M) {
           store_out(out + (size_t)(n0 + n) * a.M + m + j,
-                    finish<SHARED>(acc[r][j], sv[j], bv[j], has_bias, a.act));
+                    V1 ? total[r][j] : finish<SHARED>(acc[r][j], sv[j], bv[j], has_bias, a.act));
         }
       }
     }
@@ -912,12 +852,73 @@ __device__ __forceinline__ void group_lookup(const LutArgs& a, bool staged, int 
   }
 }
 
-// The body of both kernels. Grid: x = S blocks per cluster x column groups,
-// y = N tiles; the cluster's S blocks share one N tile, block x owns M tiles
-// [x * tiles_per_block, (x + 1) * tiles_per_block). CHUNKED (v2) stages a
-// rank's share in chunks of chunk_c codebooks; the fused kernel holds its
-// whole share at once.
-template <typename T, bool SHARED, bool CHUNKED>
+// v1's lookup where the table tile is not staged by TMA (decode, and tiles
+// that gather from global memory): thread i takes the (row, column) pairs i,
+// i + 256, ... of the N tile x M tile, one column each (so 16Q threads hold
+// a row at 4 rows), and sums its element over every codebook in order, as
+// staged_lookup's V1 does. The order of the adds is fixed, so the latency is
+// hidden by issuing ahead: the loads of a run of kRun codebooks (code, table
+// byte from the tile copied to shared memory or from global memory, scale)
+// all go out before the run's ordered multiply-adds.
+template <bool SHARED, typename T>
+__device__ __forceinline__ void ordered_lookup(const LutArgs& a, bool staged, int n0, int n_rows,
+                                               int mt_begin, int mt_end, int col0,
+                                               const uint8_t* codes_s, const float* s_s,
+                                               const uint8_t* ring) {
+  constexpr int kRun = 16;
+  const int TW = 4 * a.Q;
+  const int ts = __ffs(a.Q) + 1;  // log2(TW): Q is a power of two
+  const size_t pitch = staged ? TW : a.M;
+  T* out = static_cast<T*>(a.out);
+  for (int mt = mt_begin; mt < mt_end; ++mt) {
+    const int m0 = mt * TW;
+    for (int i = threadIdx.x; i < (n_rows << ts); i += blockDim.x) {
+      const int n = i >> ts;
+      const int col = i & (TW - 1);
+      const int m = m0 + col;
+      if (m >= a.M) continue;
+      const uint8_t* tbl =
+          staged ? ring + col : reinterpret_cast<const uint8_t*>(a.table_q) + m;
+      const float* sp = a.scale + (a.scale_m == 1 ? 0 : m);
+      const float s_col = SHARED ? s_s[m - col0] : 0.f;
+      const uint8_t* code = codes_s + n;
+      float total = 0.f;
+      float chunk = 0.f;
+      int left = a.block_c;
+      for (int c0 = 0; c0 < a.C; c0 += kRun) {
+        uint32_t t[kRun];
+        float s[kRun];
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          const int c = min(c0 + j, a.C - 1);
+          t[j] = tbl[((size_t)c * a.K + code[c * a.rows]) * pitch];
+          s[j] = SHARED ? s_col : sp[(size_t)c * a.scale_m];
+        }
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          if (c0 + j < a.C) {
+            chunk = __fadd_rn(chunk, __fmul_rn(s8_to_f32(t[j]), s[j]));
+            if (--left == 0) {  // the reference's grid step ends after this codebook
+              left = a.block_c;
+              total = __fadd_rn(total, chunk);
+              chunk = 0.f;
+            }
+          }
+        }
+      }
+      store_out(out + (size_t)(n0 + n) * a.M + m, total);
+    }
+  }
+}
+
+// The body of the three LUT-AMM kernels. Grid: x = S blocks per cluster x
+// column groups, y = N tiles; the cluster's S blocks share one N tile, block
+// x owns M tiles [x * tiles_per_block, (x + 1) * tiles_per_block). CHUNKED
+// (v2, v1) stages a rank's share in chunks of chunk_c codebooks; the fused
+// kernel holds its whole share at once. V1 looks up with v1's ordered fp32
+// sums (staged_lookup's V1, ordered_lookup) and no epilogue; SHARED then
+// means a (1, ..) scale.
+template <typename T, bool SHARED, bool CHUNKED, bool V1 = false>
 __device__ __forceinline__ void lut_cluster_body(const LutArgs& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint8_t* codes_s = smem;
@@ -1022,8 +1023,20 @@ __device__ __forceinline__ void lut_cluster_body(const LutArgs& a) {
   LUTNN_STAMP(7);  // the codes exchanged
   cluster_arrive();  // every code received: no peer writes here any more
 
-  if (tma) {
-    staged_lookup<SHARED, T>(a, n0, n_rows, col0, codes_s, s_s, b_s, ring, bars);
+  if (tma) {  // the fewest rows per thread that cover the N tile
+    const int per_thread = (a.rows * a.Q + kThreads - 1) / kThreads;
+    if (per_thread <= 1) {
+      staged_lookup<SHARED, T, V1, 1>(a, n0, n_rows, col0, codes_s, s_s, b_s, ring, bars);
+    } else if (per_thread <= 2) {
+      staged_lookup<SHARED, T, V1, 2>(a, n0, n_rows, col0, codes_s, s_s, b_s, ring, bars);
+    } else if (per_thread <= 4) {
+      staged_lookup<SHARED, T, V1, 4>(a, n0, n_rows, col0, codes_s, s_s, b_s, ring, bars);
+    } else {
+      staged_lookup<SHARED, T, V1, kStagedRows>(a, n0, n_rows, col0, codes_s, s_s, b_s, ring,
+                                                bars);
+    }
+  } else if constexpr (V1) {
+    ordered_lookup<SHARED, T>(a, staged, n0, n_rows, mt_begin, mt_end, col0, codes_s, s_s, ring);
   } else if (n_rows <= kBlockN / 2) {  // decode: a 4-row register tile
     group_lookup<SHARED, T, kBlockN / 2>(a, staged, n0, n_rows, mt_begin, mt_end, col0, codes_s,
                                          s_s, b_s, p_s, ring);
@@ -1051,7 +1064,7 @@ inline cudaError_t prepare_kernel() {
   return err;
 }
 
-// Kernels without clusters (v1, encode) lift only the shared memory cap, once.
+// Kernels without clusters (the encode) lift only the shared memory cap, once.
 template <auto KERNEL>
 inline cudaError_t allow_smem() {
   static const cudaError_t err =
@@ -1141,11 +1154,11 @@ inline cudaError_t max_clusters(int S, int smem, int* out) {
   return cudaOccupancyMaxActiveClusters(out, KERNEL, &cfg);
 }
 
-constexpr int kGeoInts = 13;  // ints of the geometry array the C entry points take
+constexpr int kGeoInts = 14;  // ints of the geometry array the C entry points take
 
 // Fill a LutArgs from the C entry points' arguments; geo holds, in order,
 // S, rows, Q, tiles_per_block, chunk_c, staged, stage_c, n_stages, epi_off,
-// cent_off, ring_off, bar_off, vec4.
+// cent_off, ring_off, bar_off, block_c, vec4.
 inline LutArgs make_args(const void* x, const void* centroids, const void* table_q,
                          const void* scale, const void* bias, void* out, int N, int C, int K,
                          int V, int M, int scale_m, int act, const int* geo) {
@@ -1166,7 +1179,7 @@ inline LutArgs make_args(const void* x, const void* centroids, const void* table
   int* fields[kGeoInts] = {&a.S,        &a.rows,     &a.Q,        &a.tiles_per_block,
                            &a.chunk_c,  &a.staged,   &a.stage_c,  &a.n_stages,
                            &a.epi_off,  &a.cent_off, &a.ring_off, &a.bar_off,
-                           &a.vec4};
+                           &a.block_c,  &a.vec4};
   for (int i = 0; i < kGeoInts; ++i) *fields[i] = geo[i];
   return a;
 }

@@ -2,9 +2,9 @@
 
 Counterpart of `repro.kernels.dist_argmin.encode_pallas`: int32 codes (N, C)
 of x (N, C*V) against centroids (C, K, V), by the device encode the LUT-AMM
-kernels share (csrc/lut_common.cuh). Reached through `ops.encode`; the
-autotuner's "encode" kind times it (block_n = rows per block, block_c =
-codebooks per block; see kernels/autotune.py).
+kernels share (csrc/lut_common.cuh, encode_tile). Reached through
+`ops.encode`; the autotuner's "encode" kind times it (block_n = rows per
+block, block_c = codebooks per block; see kernels/autotune.py).
 
 A CPU tensor runs the plain version (`ref.encode_plain`); a CUDA tensor
 launches the kernel or raises. `launches` counts kernel launches.
@@ -22,20 +22,18 @@ from repro_torch.kernels.lut_amm import (
     MAX_K,
     MAX_SMEM,
     MAX_V,
-    _align16,
     cdiv,
-    codebook_smem_bytes,
-    max_chunk,
     raise_on_error,
+    row_stride16,
     sm_count,
 )
 
-ENC_ROWS = 32                # rows per encode pass, mirrored from csrc/encode.cu
+MAX_ROWS = 32                # the default's largest N tile (rows per block)
 
 launches = 0
 
 _LIB = None
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -48,29 +46,53 @@ def _lib():
     return _LIB
 
 
+def smem_bytes(rows: int, chunk_c: int, k: int, v: int) -> int:
+    """Shared memory of one block (csrc/encode.cu): the chunk's centroids in
+    16-byte rows, their norms, the tile's sub-vectors and the code bytes."""
+    rs = row_stride16(v)
+    return 4 * (chunk_c * (k * rs + 4) + ((chunk_c * (k + 1) + 3) & ~3)
+                + chunk_c * rows * rs) + chunk_c * rows
+
+
 def encode_geometry(n: int, c: int, k: int, v: int, n_sms: int, *,
                     block_n: int | None = None,
                     block_c: int | None = None) -> dict[str, int]:
-    """Codebook chunk, rows per block and shared memory of one launch: the
-    given ones (an autotune record's), else the largest chunk that fits and
-    enough row ranges for about one block per SM."""
-    chunk_c = min(block_c or max_chunk(c, k, v), c)
-    region = _align16(chunk_c * codebook_smem_bytes(k, v))
-    smem = region + _align16(ENC_ROWS * chunk_c)
+    """One launch: a grid of independent blocks, each encoding `rows` rows
+    (block_n) over `chunk_c` codebooks (block_c). The default, for at least
+    one block per SM where the shape allows it: rows, the largest power of
+    two up to MAX_ROWS (and up to N's) whose N tiles times C codebooks reach
+    `n_sms`; then the largest chunk that still gives `n_sms` blocks, spread so
+    that the chunks split C evenly. Raises ValueError for a launch that needs
+    more shared memory than a block has."""
+    if block_n is not None and block_n < 0 or block_c is not None and block_c < 0:
+        raise ValueError(f"block_n={block_n} and block_c={block_c} must not be negative")
+    rows = block_n
+    if not rows:
+        cap = min(MAX_ROWS, 1 << max(n - 1, 0).bit_length())
+        rows = 1
+        while 2 * rows <= cap and cdiv(n, 2 * rows) * c >= n_sms:
+            rows *= 2
+    n_tiles = cdiv(max(n, 1), rows)
+    chunk_c = min(block_c or c, c)
+    if not block_c:
+        while chunk_c > 1 and (n_tiles * cdiv(c, chunk_c) < n_sms
+                               or smem_bytes(rows, chunk_c, k, v) > MAX_SMEM):
+            chunk_c -= 1
+        chunk_c = cdiv(c, cdiv(c, chunk_c))
+    smem = smem_bytes(rows, chunk_c, k, v)
     if smem > MAX_SMEM:
-        raise ValueError(f"encode chunk of {chunk_c} codebooks needs {smem} B of shared "
-                         f"memory; the card allows {MAX_SMEM}")
-    if block_n:
-        rows = block_n
-    else:
-        ranges = max(1, min(cdiv(n, ENC_ROWS), n_sms // cdiv(c, chunk_c)))
-        rows = cdiv(n, ranges)
-    return {"chunk_c": chunk_c, "rows": rows, "region": region, "smem": smem}
+        raise ValueError(f"encode block of {rows} rows x {chunk_c} codebooks (K={k}, V={v}) "
+                         f"needs {smem} B of shared memory; the card allows {MAX_SMEM}")
+    n_chunks = cdiv(c, chunk_c)
+    return {"rows": rows, "chunk_c": chunk_c, "n_tiles": n_tiles, "n_chunks": n_chunks,
+            "blocks": n_tiles * n_chunks, "smem": smem}
 
 
 def encode(x: torch.Tensor, centroids: torch.Tensor, *, block_n: int | None = None,
            block_c: int | None = None) -> torch.Tensor:
-    """(N, C*V), (C, K, V) fp32 -> int32 (N, C). See csrc/encode.cu."""
+    """(N, C*V), (C, K, V) fp32 -> int32 (N, C). See csrc/encode.cu.
+    block_n / block_c: rows and codebooks per block (None or 0: the
+    defaults of `encode_geometry`)."""
     global launches
     if x.device.type == "cpu":
         return ref.encode_plain(x, centroids)
@@ -99,8 +121,7 @@ def encode(x: torch.Tensor, centroids: torch.Tensor, *, block_n: int | None = No
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().lutnn_encode(
             x.data_ptr(), centroids.data_ptr(), out.data_ptr(), n, c, k, v,
-            int(x.dtype == torch.bfloat16), geo["chunk_c"], geo["rows"], geo["region"],
-            geo["smem"], stream,
+            int(x.dtype == torch.bfloat16), geo["chunk_c"], geo["rows"], geo["smem"], stream,
         )
     raise_on_error(err, "encode")
     launches += 1

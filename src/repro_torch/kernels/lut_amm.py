@@ -5,9 +5,10 @@ csrc/lut_amm_v1.cu.
 (v2), the fit rule's kernel when the fused kernel's resident codebooks do not
 fit in one block's shared memory (the down projection of qwen3_1p7b: C = 192).
 `lut_amm_v1` is the counterpart of `lut_amm_pallas_v1`, the generation that
-dequantizes the table to fp32 and sums in fp32; the autotuner times it and
-`ops.lut_amm` runs it where a record says version 1. This module also holds
-the argument checks and launch geometry the CUDA wrappers share.
+dequantizes the table to fp32 and sums in fp32 in codebook order; the
+autotuner times it and `ops.lut_amm` runs it where a record says version 1.
+All three LUT-AMM kernels run one cluster pipeline (csrc/lut_common.cuh);
+this module holds the argument checks and the launch geometry they share.
 
 A CPU tensor runs the plain version (`ref.lut_amm_v2_plain`,
 `ref.lut_amm_v1_plain`); a CUDA tensor launches the kernel or raises.
@@ -37,21 +38,21 @@ RED_BYTES = THREADS * BLOCK_N * 4 * 4
 QUADS = (64, 32, 16, 8, 4, 2)
 # H100: dynamic shared memory one block may use (227 KB, after opting in)
 MAX_SMEM = 232_448
-# v1, v2 and the encode stage centroids in chunks of at most this many bytes:
-# 64 codebooks of K=16, V=32
+# v2 and v1 stage a rank's share of the codebooks in chunks of at most this
+# many bytes
 V2_REGION = 140_544
 # the fused and v2 kernels' cluster launch (csrc/lut_common.cuh, LutArgs):
 CLUSTER_SIZES = (1, 2, 4, 8, 16)     # 16 is a non-portable size, allowed by the kernels
 ROW_TILES = (8, 16, 32, 64)          # rows of x per N tile
 STAGED_ROWS = 32                     # N tiles this large stage their table tile
 STAGED_QUADS = (32, 16, 8, 4)        # M tiles a warp's lanes read as one table row
-STAGED_ROWS_PER_THREAD = 8           # kStagedRows
+STAGED_ROWS_PER_THREAD = 8           # kStagedRows: most rows a thread holds in the row split
 MAX_BOX_ROWS = 256                   # table rows of one TMA box (one ring stage)
 MAX_STAGES = 8                       # table stages in the ring at most
 RING_BYTES = 96 * 1024               # shared memory of the table ring at most
 # order of the geometry ints the C entry points take (kGeoInts)
 GEO_KEYS = ("cluster", "rows", "quads", "tiles_per_block", "chunk_c", "staged", "stage_c",
-            "n_stages", "epi_off", "cent_off", "ring_off", "bar_off", "vec4")
+            "n_stages", "epi_off", "cent_off", "ring_off", "bar_off", "block_c", "vec4")
 
 launches = 0
 launches_v1 = 0
@@ -59,23 +60,22 @@ launches_v1 = 0
 _LIB = None
 _LIB_V1 = None
 # x, centroids, table_q, scale, bias, out; N C K V M scale_c scale_m x_bf16 act;
-# the geometry ints; smem; stream (csrc/fused_decode.cu, csrc/lut_amm_v2.cu)
+# the geometry ints; smem; stream (csrc/fused_decode.cu, lut_amm_v2.cu, lut_amm_v1.cu)
 CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                     + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
 CLUSTERS_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-_ARGTYPES_V1 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def codebook_smem_bytes(k: int, v: int) -> int:
-    """Shared memory of one staged codebook: its K centroid rows at an odd
-    stride (V | 1 floats), padded by 4 floats, and its K norms padded by 1
-    (csrc/lut_common.cuh centroid_stride)."""
+    """The fit rule's measure of one codebook in shared memory: its K fp32
+    centroid rows of V | 1 words, padded by 4 words, and its K norms padded
+    by 1 (`fused_decode.fits`)."""
     return 4 * ((k * (v | 1) + 4) + (k + 1))
 
 
 def row_stride16(v: int) -> int:
-    """Words per staged centroid or sub-vector row in the fused and v2
-    kernels: 16-byte aligned rows (csrc/lut_common.cuh row_stride16)."""
+    """Words per staged centroid or sub-vector row in every kernel: 16-byte
+    aligned rows (csrc/lut_common.cuh row_stride16)."""
     return ((v + 3) & ~3) + 4
 
 
@@ -152,11 +152,6 @@ def launch_args(x, centroids, table_q, scale, bias, out, dims, act) -> list:
     ]
 
 
-def vec4_ok(table_q: torch.Tensor) -> int:
-    """4-byte table loads need 4-aligned rows."""
-    return int(table_q.shape[-1] % 4 == 0 and table_q.data_ptr() % 4 == 0)
-
-
 def raise_on_error(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with cudaError_t {err}")
@@ -170,7 +165,7 @@ def _lib():
 
 
 def cluster_lib(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Load a cluster kernel's library (fused_decode, lut_amm_v2; compiled
+    """Load a cluster kernel's library (fused_decode, lut_amm_v2, lut_amm_v1; compiled
     with the macros `defines`) and declare its two entry points: the launch
     and the resident-cluster query."""
     lib = build.load(name, defines)
@@ -183,21 +178,13 @@ def cluster_lib(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
-def max_chunk(c: int, k: int, v: int) -> int:
-    """The largest chunk of codebooks staged at once (V2_REGION), spread so
-    that the chunks split C evenly: each chunk's encode keeps as many threads
-    busy as the region allows."""
-    most = max(1, min(c, V2_REGION // codebook_smem_bytes(k, v)))
-    return cdiv(c, cdiv(c, most))
-
-
 def check_quads(quads: int | None) -> None:
     if quads is not None and quads not in QUADS:
         raise ValueError(f"quads={quads} not in {QUADS}")
 
 
 def default_cluster(c: int) -> int:
-    """Blocks per cluster of the fused and v2 launches: 16, or the largest
+    """Blocks per cluster of the fused, v2 and v1 launches: 16, or the largest
     size not above C, so that every rank owns at least one codebook. Fixed
     by measurement: timed over every size from 1 to 16, 16 was the fastest
     or within 0.5 us of it at every path shape (PERF.md)."""
@@ -230,8 +217,9 @@ def _align(b: int, a: int) -> int:
 
 def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunked: bool,
                      rows: int | None = None, quads: int | None = None,
-                     aligned: bool = True) -> dict[str, int]:
-    """One launch of the fused (chunked=False) or v2 (chunked=True) kernel
+                     aligned: bool = True, block_c: int = 0) -> dict[str, int]:
+    """One launch of the fused (chunked=False), v2 or v1 (chunked=True; v1
+    with its chunk of the sum `block_c`, `v1_geometry`) kernel
     (csrc/lut_common.cuh, lut_cluster_body) with at most `wave` blocks, the
     blocks one wave of such clusters holds: the cluster size
     (`default_cluster`), the rows per N tile, the M tile (4 * quads columns)
@@ -283,11 +271,12 @@ def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunk
         return {"cluster": s, "rows": rows_s, "quads": q, "tiles_per_block": tiles_per_block,
                 "chunk_c": chunk_c, "staged": int(stg), "stage_c": stage_c if stg and tma else 0,
                 "n_stages": n_stages, "epi_off": epi_off, "cent_off": cent_off,
-                "ring_off": ring_off, "bar_off": bar_off, "smem": bar_off + 8 * (n_stages + 1),
+                "ring_off": ring_off, "bar_off": bar_off, "block_c": block_c,
+                "smem": bar_off + 8 * (n_stages + 1),
                 "n_tiles": n_tiles,
                 "grid_x": cdiv(cdiv(n_mtiles, tiles_per_block), s) * s}
 
-    # the row-split lookup holds STAGED_ROWS_PER_THREAD rows per thread
+    # the row-split lookup holds at most STAGED_ROWS_PER_THREAD rows per thread
     row_split_ok = q <= 32 and rows_s <= STAGED_ROWS_PER_THREAD * 8 * (32 // q)
     whole = c * k * tw <= RING_BYTES and (not tma or n_chunks <= MAX_STAGES)
     stg = (rows_s >= STAGED_ROWS or whole) and aligned and tw % 16 == 0 and \
@@ -296,7 +285,8 @@ def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunk
     if stg and not tma and geo["smem"] > MAX_SMEM:
         geo = layout(False)      # decode gathers from global memory instead
     if geo["smem"] > MAX_SMEM:
-        raise ValueError(f"{'v2' if chunked else 'fused'} launch (C={c}, K={k}, V={v}, "
+        kernel = "v1" if block_c else "v2" if chunked else "fused"
+        raise ValueError(f"{kernel} launch (C={c}, K={k}, V={v}, "
                          f"rows={rows_s}, quads={q}) needs {geo['smem']} B of shared memory; "
                          f"the card allows {MAX_SMEM}")
     return geo
@@ -304,7 +294,7 @@ def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunk
 
 def table_layout(table_q: torch.Tensor) -> tuple[bool, int]:
     """(aligned, vec4): whether TMA can read the table (16-byte aligned, rows
-    a multiple of 16 bytes) and whether 4-byte loads can (`vec4_ok`)."""
+    a multiple of 16 bytes) and whether 4-byte loads can (4-aligned rows)."""
     m, ptr = table_q.shape[-1], table_q.data_ptr()
     return m % 16 == 0 and ptr % 16 == 0, int(m % 4 == 0 and ptr % 4 == 0)
 
@@ -312,8 +302,8 @@ def table_layout(table_q: torch.Tensor) -> tuple[bool, int]:
 @functools.lru_cache(maxsize=4096)
 def cluster_plan(lib: ctypes.CDLL, name: str, dims: tuple[int, ...], x_bf16: int,
                  chunked: bool, rows: int | None, quads: int | None, aligned: bool,
-                 vec4: int) -> tuple[dict, ctypes.Array]:
-    """One launch shape of the fused or v2 kernel, worked out once: the
+                 vec4: int, block_c: int = 0) -> tuple[dict, ctypes.Array]:
+    """One launch shape of the fused, v2 or v1 kernel, worked out once: the
     clusters this card holds at once with one block per SM (raises
     ValueError if none), which make one wave; the geometry for that wave
     (`cluster_geometry`); and the geometry as the C int array the entry
@@ -328,19 +318,20 @@ def cluster_plan(lib: ctypes.CDLL, name: str, dims: tuple[int, ...], x_bf16: int
     if resident.value < 1:
         raise ValueError(f"{name}: a cluster of {s} blocks cannot be resident on this card")
     geo = cluster_geometry(n, c, k, v, m, resident.value * s, chunked=chunked, rows=rows,
-                           quads=quads, aligned=aligned)
+                           quads=quads, aligned=aligned, block_c=block_c)
     ints = (ctypes.c_int * len(GEO_KEYS))(*(geo[key] for key in GEO_KEYS[:-1]), vec4)
     return geo, ints
 
 
 def launch_cluster_kernel(lib: ctypes.CDLL, name: str, x, centroids, table_q, scale, bias,
                           out, dims, act, *, chunked: bool, rows: int | None,
-                          quads: int | None) -> None:
-    """Launch the fused or v2 kernel on the current stream with the launch
-    `cluster_plan` works out; raises if it cannot run or the launch fails."""
+                          quads: int | None, block_c: int = 0) -> None:
+    """Launch the fused, v2 or v1 kernel on the current stream with the
+    launch `cluster_plan` works out; raises if it cannot run or the launch
+    fails."""
     args = launch_args(x, centroids, table_q, scale, bias, out, dims, act)
     geo, ints = cluster_plan(lib, name, dims, args[13], chunked, rows, quads,
-                             *table_layout(table_q))
+                             *table_layout(table_q), block_c)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, f"lutnn_{name}")(*args, ints, geo["smem"], stream)
@@ -370,52 +361,40 @@ def lut_amm_v2(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
 def _lib_v1():
     global _LIB_V1
     if _LIB_V1 is None:
-        lib = build.load("lut_amm_v1")
-        lib.lutnn_lut_amm_v1.argtypes = _ARGTYPES_V1
-        lib.lutnn_lut_amm_v1.restype = ctypes.c_int
-        _LIB_V1 = lib
+        _LIB_V1 = cluster_lib("lut_amm_v1")
     return _LIB_V1
 
 
-def v1_geometry(n: int, c: int, k: int, v: int, m: int, n_sms: int, *,
-                quads: int | None = None) -> dict[str, int]:
-    """Tile width, staging chunk and shared memory of one v1 launch. The
-    staging chunk only bounds shared memory; the chunk of the sum is block_c."""
-    check_quads(quads)
-    stage_c = max_chunk(c, k, v)
-    region = _align16(stage_c * codebook_smem_bytes(k, v))
-    return {
-        "quads": quads or tile_quads(cdiv(n, BLOCK_N), m, n_sms),
-        "stage_c": stage_c,
-        "region": region,
-        "smem": region + _align16(BLOCK_N * stage_c),
-    }
+def v1_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *,
+                block_c: int | None = None, rows: int | None = None,
+                quads: int | None = None, aligned: bool = True) -> dict[str, int]:
+    """One v1 launch: v2's cluster launch (`cluster_geometry`, chunked), with
+    v1's chunk of the sum, the reference's `bc` unless given, reduced to a
+    divisor of C (`ref.v1_block_c`). The chunk sets the order of the sums and
+    nothing else: any launch gives the same bytes. Raises ValueError for a
+    launch that needs more shared memory than a block has."""
+    return cluster_geometry(n, c, k, v, m, wave, chunked=True, rows=rows, quads=quads,
+                            aligned=aligned, block_c=ref.v1_block_c(c, v, block_c))
 
 
 def lut_amm_v1(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
                scale: torch.Tensor, *, block_c: int | None = None,
-               quads: int | None = None) -> torch.Tensor:
+               quads: int | None = None, rows: int | None = None) -> torch.Tensor:
     """v1 LUT-AMM: (N, C*V) -> (N, M) in x.dtype, fp32 sums of t * s in
     chunks of block_c codebooks (None: the reference's default chunk). No
-    bias or activation. See csrc/lut_amm_v1.cu."""
+    bias or activation. quads / rows: the M tile's column quads and the rows
+    per N tile (None: the defaults of `cluster_geometry`). See
+    csrc/lut_amm_v1.cu."""
     global launches_v1
     if x.device.type == "cpu":
         return ref.lut_amm_v1_plain(x, centroids, table_q, scale, block_c=block_c)
     dims = check_args(x, centroids, table_q, scale, None, "none")
-    n, c, k, v, m, scale_c, scale_m = dims
-    bc = ref.v1_block_c(c, v, block_c)
-    geo = v1_geometry(n, c, k, v, m, sm_count(x.device.index), quads=quads)
+    n, c, k, v, m = dims[:5]
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib_v1().lutnn_lut_amm_v1(
-            x.data_ptr(), centroids.data_ptr(), table_q.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), n, c, k, v, m, scale_c, scale_m, int(x.dtype == torch.bfloat16),
-            geo["quads"], bc, geo["stage_c"], geo["region"], geo["smem"], vec4_ok(table_q),
-            stream,
-        )
-    raise_on_error(err, "lut_amm_v1")
+    launch_cluster_kernel(_lib_v1(), "lut_amm_v1", x, centroids, table_q, scale, None, out,
+                          dims, "none", chunked=True, rows=rows, quads=quads,
+                          block_c=ref.v1_block_c(c, v, block_c))
     launches_v1 += 1
     return out

@@ -46,8 +46,7 @@ def lut_amm(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
     if version == VERSION_V1:
         # v1 has no fused epilogue: bias and activation follow in x's dtype,
         # as the reference adds them outside lut_amm_pallas_v1
-        y = lut_mod.lut_amm_v1(x, centroids, table_q, scale, block_c=cfg.block_c or None,
-                               quads=cfg.quads)
+        y = lut_mod.lut_amm_v1(x, centroids, table_q, scale, **autotune.v1_launch(cfg))
         if bias is not None:
             y = y + bias.to(y.dtype)
         return ref.apply_act(y, act).to(y.dtype)
@@ -62,10 +61,12 @@ def lut_amm(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
 def encode(x: torch.Tensor, centroids: torch.Tensor, *, block_n: int | None = None,
            block_c: int | None = None) -> torch.Tensor:
     """Closest-centroid encode: (N, C*V) -> int32 (N, C), with the launch of
-    the "encode" autotune record unless given."""
+    the "encode" autotune record unless given (a record's launch that does
+    not fit the kernel takes the default, `autotune.encode_launch`)."""
     n, _ = x.shape
     c, k, v = centroids.shape
     cfg = autotune.resolve_blocks("encode", n, 0, c, k, v, autotune.dtype_name(x.dtype),
                                   autotune.backend_of(x), block_n, None, block_c)
-    return enc_mod.encode(x, centroids, block_n=cfg.block_n or None,
-                          block_c=cfg.block_c or None)
+    if block_n is None or block_c is None:          # a field came from the record
+        return enc_mod.encode(x, centroids, **autotune.encode_launch(cfg, n, c, k, v))
+    return enc_mod.encode(x, centroids, block_n=block_n or None, block_c=block_c or None)

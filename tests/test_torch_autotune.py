@@ -12,6 +12,7 @@ from repro.kernels import autotune as jautotune
 from repro_torch import configs as tcfg
 from repro_torch.kernels import autotune, measure, ops, ref
 from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures, warm_lut_autotune
+from repro_torch.testing import RAGGED
 
 SIG = (2048, 64, 16, 32)          # qwen3_1p7b q/o at lut_v = 32: (M, C, K, V)
 DOWN = (2048, 192, 16, 32)
@@ -223,3 +224,70 @@ def test_a_record_written_before_the_cluster_launch_still_launches():
             default = autotune.lut_mod.cluster_geometry(n, c, k, v, m, 112,
                                                         chunked=version == 2)
             assert geo == default and geo["cluster"] == 16
+
+
+@pytest.mark.parametrize("n", [4, 128])
+def test_v1_and_encode_records_of_the_one_block_kernels_still_launch(tmp_path, n):
+    """v1 and encode records as an artifact snapshot of the one-block kernels
+    holds them (v1: 8-row tiles, an M tile of 4Q columns, the reference's
+    chunk of the sum or all of C; encode: a row range, or 0, and a staging
+    chunk of up to 64 codebooks) resolve to launches that fit: v1 keeps its
+    8 rows, M tile and chunk of the sum; an encode block too large for
+    shared memory now takes the default launch."""
+    entries = {}
+    for m, c, k, v in (SIG, DOWN):
+        for q in autotune.lut_mod.QUADS:
+            for bc in sorted({ref.v1_block_c(c, v), c}):
+                entries[f"{q}-{bc}-{c}"] = (
+                    autotune.shape_key("lut_amm", n, m, c, k, v, "float32", "cuda-sm90"),
+                    {"block_n": 8, "block_m": 4 * q, "block_c": bc, "version": 1,
+                     "predicted_us": 70.0, "measured": True, "source": "cuda_events"})
+        for rows in (0, -(-n // 4)):
+            for chunk in (64, 32, 16):
+                entries[f"enc-{rows}-{chunk}-{c}"] = (
+                    autotune.shape_key("encode", n, 0, c, k, v, "float32", "cuda-sm90"),
+                    {"block_n": rows, "block_m": 0, "block_c": chunk, "predicted_us": 25.0,
+                     "measured": True, "source": "cuda_events"})
+    for key, rec in entries.values():
+        # one record per key at a time, read back from a snapshot file
+        path = tmp_path / "autotune.json"
+        path.write_text(json.dumps({"version": 1, "entries": {key: rec}}))
+        cache = autotune.AutotuneCache(path)
+        kind, _, m, c, k, v = (f.split("=")[-1] for f in key.split("|")[:6])
+        m, c, k, v = int(m), int(c), int(k), int(v)
+        if kind == "lut_amm":
+            version, cfg, from_record = autotune.kernel_choice(n, m, c, k, v, cache=cache)
+            assert version == 1 and from_record
+            launch = autotune.v1_launch(cfg)
+            assert launch == {"rows": 8, "quads": rec["block_m"] // 4, "block_c": rec["block_c"]}
+            geo = autotune.lut_mod.v1_geometry(n, c, k, v, m, 112, **launch)
+            assert (geo["rows"], geo["quads"], geo["block_c"]) == (8, rec["block_m"] // 4,
+                                                                   rec["block_c"])
+        else:
+            cfg = autotune.lookup("encode", n, 0, c, k, v, cache=cache)
+            launch = autotune.encode_launch(cfg, n, c, k, v)
+            geo = autotune.enc_mod.encode_geometry(n, c, k, v, autotune.N_SMS, **launch)
+            fits = autotune.enc_mod.smem_bytes(rec["block_n"] or geo["rows"], rec["block_c"],
+                                               k, v) <= autotune.lut_mod.MAX_SMEM
+            if fits and rec["block_n"]:
+                assert (geo["rows"], geo["chunk_c"]) == (rec["block_n"], rec["block_c"])
+            if not fits:
+                assert launch == {"block_n": None, "block_c": None}
+    # an M tile the cluster kernel does not offer takes the default
+    assert autotune.v1_launch(autotune.BlockConfig(8, 12, 64))["quads"] is None
+
+
+@pytest.mark.parametrize("shape", [(4, *SIG), (128, *SIG), (4, *DOWN), (128, *DOWN)]
+                         + [(n, m, d // v, k, v) for n, d, m, k, v in RAGGED],
+                         ids=lambda s: str(s))
+def test_analytic_model_never_picks_v1(shape):
+    """v1 runs v2's cluster chain and then each element's ordered fp32 chain:
+    the model prices it above v2 at every launch, so without a timer the
+    tuner never records it."""
+    n, m, c, k, v = shape
+    for cfg in [autotune.DEFAULT] + autotune.candidates("lut_amm", n, m, c, k, v, 1):
+        same = autotune.BlockConfig(cfg.block_n, cfg.block_m, 0)     # v2 at v1's launch
+        assert (autotune.predict_us("lut_amm", n, m, c, k, v, cfg, version=1)
+                > autotune.predict_us("lut_amm", n, m, c, k, v, same, version=2))
+    _, rec = autotune.tune("lut_amm", n, m, c, k, v, save=False)
+    assert rec["version"] == autotune.fit_version(c, k, v) != 1

@@ -115,16 +115,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 def test_v1_matches_plain_bytewise(dev, layout):
     """Same fp32 order of the sums in kernel and plain version: equal bytes
     on every row whose codes agree, at the default chunk, one-codebook
-    chunks and a single chunk, f32 and bf16."""
+    chunks and a single chunk, under every N tile (the ordered lookup at 8
+    rows, the row-split lookup over the TMA ring where the table is staged
+    at more), f32 and bf16."""
     for i, shape in enumerate(RAGGED):
         x, P, q, s, _ = _inputs(shape, layout, i + 10, dev)
         for xx in (x, x.bfloat16()):
             for bc in (None, 1, P.shape[0]):
-                before = v2_mod.launches_v1
-                got = v2_mod.lut_amm_v1(xx, P, q, s, block_c=bc)
-                assert v2_mod.launches_v1 == before + 1
                 want = ref.lut_amm_v1_plain(xx, P, q, s, block_c=bc)
-                _assert_agree(got, want, xx.float(), P, exact=True)
+                for rows in (None, *v2_mod.ROW_TILES):
+                    before = v2_mod.launches_v1
+                    got = v2_mod.lut_amm_v1(xx, P, q, s, block_c=bc, rows=rows)
+                    assert v2_mod.launches_v1 == before + 1
+                    _assert_agree(got, want, xx.float(), P, exact=True)
 
 
 @pytest.mark.parametrize("shape", [(4, 2048, 2048, 16, 32), (128, 6144, 2048, 16, 32)])
@@ -142,7 +145,10 @@ def test_v1_and_encode_at_path_shapes(dev, shape):
 def test_encode_launches_and_geometry(dev):
     for i, shape in enumerate(RAGGED):
         x, P, *_ = _inputs(shape, "m_shared", i, dev)
-        for blocks in ({}, {"block_c": 1, "block_n": 5}):
+        n, c, k, v = x.shape[0], *P.shape
+        cands = [{"block_n": cfg.block_n, "block_c": cfg.block_c}
+                 for cfg in autotune.candidates("encode", n, 0, c, k, v)]
+        for blocks in ({}, {"block_c": 1, "block_n": 5}, *cands):
             before = enc_mod.launches
             codes = enc_mod.encode(x, P, **blocks)
             assert enc_mod.launches == before + 1
@@ -232,3 +238,22 @@ def test_path_shape_launches_agree(dev):
             c = v2_mod.lut_amm_v2(x, P, q, s, **kw)
             _assert_agree(a, want, x, P, exact=True)
             assert torch.equal(a, c), kw
+
+
+@pytest.mark.parametrize("n", [4, 128])
+def test_v1_and_encode_under_every_candidate_at_path_shapes(dev, n):
+    """qwen3_1p7b's q/o and down sites under every v1 and encode launch the
+    tuner sweeps: v1 == plain bytewise (m-shared), codes equal off near-ties."""
+    for c, seed in ((64, 1), (192, 2)):
+        x, P, q, s, _ = _inputs((n, c * 32, 2048, 16, 32), "m_shared", n + seed, dev)
+        want = {}
+        for cfg in autotune.candidates("lut_amm", n, 2048, c, 16, 32, 1):
+            launch = autotune.v1_launch(cfg)
+            bc = launch["block_c"]
+            want.setdefault(bc, ref.lut_amm_v1_plain(x, P, q, s, block_c=bc))
+            _assert_agree(v2_mod.lut_amm_v1(x, P, q, s, **launch), want[bc], x, P, exact=True)
+        codes = ref.encode_ref(x, P)
+        for cfg in autotune.candidates("encode", n, 0, c, 16, 32):
+            got = enc_mod.encode(x, P, block_n=cfg.block_n, block_c=cfg.block_c)
+            torch.cuda.synchronize()
+            assert (tie_gaps(x, P, got, codes) <= TIE_EPS).all()

@@ -22,6 +22,7 @@ from repro.kernels.lut_amm import lut_amm_pallas, lut_amm_pallas_v1
 from repro.kernels.ref import encode_ref as jencode_ref
 from repro.kernels.ref import lut_amm_ref as jlut_amm_ref
 from repro_torch.kernels import autotune, counters
+from repro_torch.kernels import dist_argmin as enc_mod
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as v2_mod
 from repro_torch.kernels import ops, ref
@@ -307,6 +308,105 @@ def test_cluster_launch_reads_old_records():
         v2_mod.cluster_geometry(4, 64, 16, 32, 2048, 112, chunked=False, rows=12)
     with pytest.raises(ValueError, match="shared memory"):
         v2_mod.cluster_geometry(128, 1024, 16, 32, 2048, 112, chunked=False, rows=64)
+
+
+# qwen3_1p7b's LUT sites at lut_v = 32: (C, M) of q/o, k/v, gate/up, down
+PATH_SITES = [(64, 2048), (64, 1024), (64, 6144), (192, 2048)]
+N_SMS = 132                      # an H100 SXM's SMs
+
+
+def _check_v1_launch(geo, n, c, m, k, v, wave, launch):
+    """A v1 launch is v2's cluster launch with v1's chunk of the sum."""
+    _check_cluster_launch(geo, n, c, m, k)
+    assert geo["block_c"] == ref.v1_block_c(c, v, launch.get("block_c"))
+    assert c % geo["block_c"] == 0
+    v2 = v2_mod.cluster_geometry(n, c, k, v, m, wave, chunked=True, rows=launch.get("rows"),
+                                 quads=launch.get("quads"))
+    assert {**v2, "block_c": geo["block_c"]} == geo
+    if launch.get("rows"):
+        assert geo["rows"] == launch["rows"]
+    if launch.get("quads"):
+        assert geo["quads"] == launch["quads"]
+
+
+def _check_encode_launch(geo, n, c, k, v):
+    """Every row and codebook in exactly one block, every block owning at
+    least one codebook and one row, within a block's shared memory."""
+    rows, cc = geo["rows"], geo["chunk_c"]
+    assert (geo["n_tiles"] - 1) * rows < n <= geo["n_tiles"] * rows
+    assert (geo["n_chunks"] - 1) * cc < c <= geo["n_chunks"] * cc
+    assert geo["blocks"] == geo["n_tiles"] * geo["n_chunks"]
+    assert geo["smem"] == enc_mod.smem_bytes(rows, cc, k, v) <= v2_mod.MAX_SMEM
+
+
+@pytest.mark.parametrize("n", [4, 128])
+@pytest.mark.parametrize("c,m", PATH_SITES)
+def test_v1_and_encode_geometry_at_path_shapes(n, c, m):
+    """v1 launches v2's clusters (16 ranks, every rank owning codebooks,
+    every column covered once, within shared memory; the table staged) with
+    the reference's chunk of the sum; the encode's default puts at least
+    one block on every SM at decode and at a prefill chunk."""
+    wave = 7 * 16
+    geo = v2_mod.v1_geometry(n, c, 16, 32, m, wave)
+    _check_v1_launch(geo, n, c, m, 16, 32, wave, {})
+    assert geo["cluster"] == 16 and geo["staged"] and geo["block_c"] == 64
+    enc = enc_mod.encode_geometry(n, c, 16, 32, N_SMS)
+    _check_encode_launch(enc, n, c, 16, 32)
+    assert enc["blocks"] >= N_SMS
+
+
+@pytest.mark.parametrize("shape", RAGGED, ids=[str(s[:5]) for s in RAGGED])
+def test_v1_and_encode_geometry_on_ragged_shapes(shape):
+    """Every N tile, chunk of the sum and wave of v1, and the encode's
+    default and every block it may be given, on the ragged shapes."""
+    n, d, m, k, v = shape
+    c = d // v
+    for wave in (8, 64, 132):
+        for rows in v2_mod.ROW_TILES:
+            for bc in (None, 1, c):
+                launch = {"rows": rows, "block_c": bc}
+                _check_v1_launch(v2_mod.v1_geometry(n, c, k, v, m, wave, **launch), n, c, m, k,
+                                 v, wave, launch)
+    enc = enc_mod.encode_geometry(n, c, k, v, N_SMS)
+    _check_encode_launch(enc, n, c, k, v)
+    # a shape with fewer (row, codebook) pairs than SMs takes one block per pair
+    assert enc["blocks"] >= min(N_SMS, n * c)
+    for rows in (1, 5, 8, 32, 64):
+        for cc in (1, 3, c, 2 * c):
+            geo = enc_mod.encode_geometry(n, c, k, v, N_SMS, block_n=rows, block_c=cc)
+            assert (geo["rows"], geo["chunk_c"]) == (rows, min(cc, c))
+            _check_encode_launch(geo, n, c, k, v)
+    with pytest.raises(ValueError, match="shared memory"):
+        enc_mod.encode_geometry(n, 4096, k, v, N_SMS, block_n=64, block_c=4096)
+
+
+@pytest.mark.parametrize("n", [4, 128])
+@pytest.mark.parametrize("c,m", PATH_SITES)
+def test_every_v1_and_encode_candidate_fits_or_is_refused(n, c, m):
+    """What the tuner sweeps for v1 and the encode at the path shapes
+    launches as named, or the wrapper refuses it with ValueError (which the
+    tuner skips); at these shapes every candidate fits."""
+    wave, fitted = 7 * 16, 0
+    cands = autotune.candidates("lut_amm", n, m, c, 16, 32, 1)
+    for cfg in cands:
+        launch = autotune.v1_launch(cfg)
+        try:
+            geo = v2_mod.v1_geometry(n, c, 16, 32, m, wave, **launch)
+        except ValueError:
+            continue
+        _check_v1_launch(geo, n, c, m, 16, 32, wave, launch)
+        fitted += 1
+    enc = autotune.candidates("encode", n, 0, c, 16, 32)
+    for cfg in enc:
+        try:
+            geo = enc_mod.encode_geometry(n, c, 16, 32, N_SMS, block_n=cfg.block_n,
+                                          block_c=cfg.block_c)
+        except ValueError:
+            continue
+        assert (geo["rows"], geo["chunk_c"]) == (cfg.block_n, cfg.block_c)
+        _check_encode_launch(geo, n, c, 16, 32)
+        fitted += 1
+    assert fitted == len(cands) + len(enc)
 
 
 def test_wrappers_refuse_non_cuda_devices_without_fallback():
