@@ -7,17 +7,18 @@ Phases (any failed check exits non-zero; no phase is skipped):
   1. the card: name and power limit, and a build of every CUDA kernel from
      the sources in this checkout, all nvcc processes at once;
   2. each kernel against its plain PyTorch version on the card: at the main
-     path's shapes (qwen3_1p7b's LUT sites at N = 4 and N = 128), then every
-     kernel under every launch the tuner can choose there (rows per N tile
-     and M tile, v1's chunk of the sum, the encode's rows and codebooks per
-     block; fused == v2 == plain and v1 == plain bytewise), then on ragged
-     shapes x 4 scale layouts (x every activation x bias for the fused and
-     v2 kernels, and x every N tile on shapes whose C take every cluster
-     size, v1 with 3 chunks of the sum and the encode under its launches),
-     in float32 and bfloat16; with CUDA-event times of the kernel and its
-     plain version, the event floor (a 1-element kernel timed the same way),
-     the host's enqueue time, the dense matmul the site replaces (context
-     only) and the least time the card could take;
+     path's shapes (qwen3_1p7b's LUT sites at N = 4 decode, N = 20 the
+     speculative verify of 4 slots at gamma 4, and N = 128 a prefill chunk),
+     then every kernel under every launch the tuner can choose there (rows
+     per N tile and M tile, v1's chunk of the sum, the encode's rows and
+     codebooks per block; fused == v2 == plain and v1 == plain bytewise),
+     then on ragged shapes x 4 scale layouts (x every activation x bias for
+     the fused and v2 kernels, and x every N tile on shapes whose C take
+     every cluster size, v1 with 3 chunks of the sum and the encode under its
+     launches), in float32 and bfloat16; with CUDA-event times of the kernel
+     and its plain version, the event floor (a 1-element kernel timed the
+     same way), the host's enqueue time, the dense matmul the site replaces
+     (context only) and the least time the card could take;
   3. the slice at full width and reduced depth (2 layers), card against CPU
      (plain versions) from the same params: a prefill chunk and greedy decode
      steps, once from random params under the fit rule, once from a 2-layer
@@ -30,7 +31,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
      and the fused kernel timed on the card per site and token count), and a
      burst of 8 requests (2 sampled) served twice by ServingEngine, with every
      kernel's launch count read around the run; then the analytic tuner's
-     choices timed against the measured records.
+     choices timed against the measured records;
+  5. the paged KV cache and speculative decoding on the phase-4 model, each
+     run with the launch counts set to 0 before it and read after (some
+     kernel launched, no plain version called; launches per N printed) and
+     its tokens held against the plain dense engine's (a difference only at
+     a near-tie of the plain run's sampler values, counted and printed):
+     paged with prefix sharing (page 16, the default pool; 8 requests
+     sharing a 48-token prefix, the last a resubmission of the first, so
+     prefix hits and a copy-on-write), the same burst on a 9-page pool
+     (shedding, nothing raises), fp8 paged against dense fp8 (bytes against
+     fp32), and the paged decode step profiled beside phase 4's dense one;
+     speculative decoding at gamma 4 on the phase-4 burst with a self-draft,
+     then a divergent draft (the same arch from another seed) dense and
+     paged (rollback and page rewind); a two-plan artifact at 2 layers the
+     port writes (target keeps mlp/down dense, the draft all-LUT shares the
+     rest), served by `launch.serve --spec-decode --draft-plan draft` and by
+     a spec engine against plain decode.
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -60,6 +77,9 @@ FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 INT8_OPS = 1979e12      # H100 SXM int8
 # qwen3_1p7b LUT sites at lut_v = 32: (name, C, M)
 SITES = [("q/o", 64, 2048), ("k/v", 64, 1024), ("gate/up", 64, 6144), ("down", 192, 2048)]
+# the path's token counts at 4 slots: decode, verify (gamma 4) and a prefill chunk of 32
+GAMMA = 4
+PATH_N = (4, 4 * (GAMMA + 1), 4 * 32)
 
 
 class CheckFailed(Exception):
@@ -230,7 +250,7 @@ def phase_kernels(dev) -> dict:
         "the event floor")
     log("  site     N    kernel        ms       net_ms    plain_ms  bound_ms  "
         "dense_matmul_ms (context)  host_us")
-    for n in (4, 128):
+    for n in PATH_N:
         for site, c, m in SITES:
             x, p, q, s = make_site(n, c, m, gen, dev)
             want = ref.fused_decode_plain(x, p, q, s)
@@ -333,7 +353,7 @@ def sweep_launches(gen, dev, flush, note_err) -> None:
     log("[sweep] every kernel over the tuner's launches at the path shapes (m-shared, float32); "
         "median us, L2 flushed")
     points = refused = 0
-    for n in (4, 128):
+    for n in PATH_N:
         for site, c, m in SITES:
             x, p, q, s = make_site(n, c, m, gen, dev)
             want = ref.fused_decode_plain(x, p, q, s)
@@ -651,31 +671,41 @@ def phase_slice_parity(dev, scratch: Path) -> dict:
 SAMPLED = (2, 5)                 # burst requests that sample; the rest are greedy
 
 
-def serve_burst(eng, vocab: int) -> tuple[list, dict]:
-    """8 requests (prompts 8-60 tokens, 16 new tokens each), the same on
-    every call; requests SAMPLED draw at temperature 0.8, top-k 50, top-p 0.9."""
+def phase4_burst(vocab: int) -> list[tuple[list[int], object]]:
+    """8 requests (prompts 8-60 tokens), the same on every call; requests
+    SAMPLED draw at temperature 0.8, top-k 50, top-p 0.9."""
     from repro_torch.serving.sampling import SamplingParams
 
     gen = torch.Generator().manual_seed(SEED + 1)
-    eng.finished.clear()
-    eng.reset_stats()
-    rids = []
-    t0 = time.perf_counter()
+    burst = []
     for i in range(8):
         plen = int(torch.randint(8, 61, (1,), generator=gen))
         prompt = torch.randint(0, vocab, (plen,), generator=gen).tolist()
-        sampling = (SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=SEED + i)
-                    if i in SAMPLED else None)
-        rids.append(eng.submit(prompt, max_tokens=16, sampling=sampling))
+        burst.append((prompt, SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=SEED + i)
+                      if i in SAMPLED else None))
+    return burst
+
+
+def run_burst(eng, burst, *, all_ok: bool = True) -> tuple[list, dict]:
+    """Submit every (prompt, sampling) of the burst, 16 new tokens each, and
+    run the engine dry; returns the requests in submission order and the
+    engine's stats with the burst's wall time. With `all_ok` every request
+    must finish "ok" with 16 tokens in the vocab."""
+    vocab = eng.bundle.arch.vocab
+    eng.finished.clear()
+    eng.reset_stats()
+    t0 = time.perf_counter()
+    rids = [eng.submit(prompt, max_tokens=16, sampling=sampling) for prompt, sampling in burst]
     done = {r.rid: r for r in eng.run_until_done()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(sorted(done) == sorted(rids), "not every request finished")
     reqs = [done[rid] for rid in rids]
-    check(all(r.status == "ok" for r in reqs), f"statuses {[r.status for r in reqs]}")
-    check(all(len(r.out_tokens) == 16 and all(0 <= t < vocab for t in r.out_tokens)
-              for r in reqs), "every request must return 16 tokens in the vocab")
-    return [r.out_tokens for r in reqs], dict(eng.stats(), wall=wall)
+    check(all(0 <= t < vocab for r in reqs for t in r.out_tokens), "a token outside the vocab")
+    if all_ok:
+        check(all(r.status == "ok" for r in reqs), f"statuses {[r.status for r in reqs]}")
+        check(all(len(r.out_tokens) == 16 for r in reqs), "every request must return 16 tokens")
+    return reqs, dict(eng.stats(), wall=wall)
 
 
 def tune_encode_records(bundle, counts: list[int], dev) -> int:
@@ -771,11 +801,12 @@ def phase_serve(dev, scratch: Path) -> dict:
     eng.warmup()
     before = counters.launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    runs = [serve_burst(eng, arch.vocab) for _ in range(2)]
+    burst = phase4_burst(arch.vocab)
+    runs = [run_burst(eng, burst) for _ in range(2)]
     total = counters.launches()
     served = {k: total[k] - before[k] for k in total}
-    for i, (_, st) in enumerate(runs):
-        n_tok = sum(len(t) for t in runs[i][0])
+    for i, (reqs, st) in enumerate(runs):
+        n_tok = sum(len(r.out_tokens) for r in reqs)
         log(f"[serve] burst {i + 1}: 8 requests ({len(SAMPLED)} sampled), {n_tok} tokens in "
             f"{st['wall']:.3f}s ({n_tok / st['wall']:.2f} tok/s); prefill "
             f"{st['prefill_tokens']} tok / {st['prefill_forwards']} fwd "
@@ -787,7 +818,7 @@ def phase_serve(dev, scratch: Path) -> dict:
         + " ".join(f"{k}={v}" for k, v in tuner.items())
         + "; in the bursts: " + " ".join(f"{k}={v}" for k, v in served.items())
         + f"; plain-version calls {counters.plain_calls()}")
-    (tok1, _), (tok2, _) = runs
+    tok1, tok2 = ([r.out_tokens for r in reqs] for reqs, _ in runs)
     check(all(tok1[i] == tok2[i] for i in SAMPLED), "sampled tokens differ between the runs")
     log(f"[serve] sampled requests replay identically; greedy requests identical: "
         f"{all(tok1[i] == tok2[i] for i in range(8))}")
@@ -811,14 +842,14 @@ def phase_serve(dev, scratch: Path) -> dict:
         check(total[name] > 0, f"{name} was never launched on the main path")
     check(counters.plain_calls() == 0, "the main path reached a plain version")
     analytic_vs_measured(art.bundle, counts, dev, scratch)
-    profile_decode(eng, arch.vocab, torch.Generator().manual_seed(SEED + 2))
-    shutil.rmtree(scratch / "main")
-    return {"launches": total, "served": served}
+    profile = profile_decode(eng, arch.vocab, torch.Generator().manual_seed(SEED + 2))
+    return {"launches": total, "served": served, "art": art, "engine": eng, "profile": profile}
 
 
-def profile_decode(eng, vocab: int, gen: torch.Generator, n_steps: int = 8) -> None:
+def profile_decode(eng, vocab: int, gen: torch.Generator, n_steps: int = 8) -> tuple[float, float]:
     """Where a decode forward's time goes: torch.profiler's device kernel time
-    over a few decode steps of full slots, against their wall time."""
+    over a few decode steps of full slots, against their wall time. Returns
+    (wall, device busy) per step, in us."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(eng.n_slots):
@@ -841,10 +872,348 @@ def profile_decode(eng, vocab: int, gen: torch.Generator, n_steps: int = 8) -> N
                         if f"{k}_kernel" in e.key), "other")
             by_kernel[key] = by_kernel.get(key, 0.0) + t
     busy = sum(by_kernel.values())
-    log(f"[profile] {n_steps} decode steps (n_slots={eng.n_slots}): wall {wall_us / n_steps:.0f} us "
-        f"per step (profiler on), device busy {busy / n_steps:.0f} us per step "
-        f"({100 * busy / wall_us:.1f}% of wall); device time: "
+    kind = "paged" if eng.paged else "dense"
+    log(f"[profile] {n_steps} decode steps (n_slots={eng.n_slots}, {kind} cache): wall "
+        f"{wall_us / n_steps:.0f} us per step (profiler on), device busy {busy / n_steps:.0f} us "
+        f"per step ({100 * busy / wall_us:.1f}% of wall); device time: "
         + ", ".join(f"{k} {v / n_steps:.0f} us" for k, v in sorted(by_kernel.items())))
+    return wall_us / n_steps, busy / n_steps
+
+
+# ---------------------------------------------------------------------------
+# phase 5: paged KV cache and speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+TOKEN_TIE = 2 * LOGIT_ATOL   # top-2 gap of the plain run's sampler values that explains a flip
+KERNEL_OF_VERSION = {1: "lut_amm_v1", 2: "lut_amm_v2", 3: "fused_decode"}
+
+
+class GapRecorder:
+    """Wraps a plain engine's sampler: for every token it draws, records the
+    top-2 gap of the sampler's decision values (a greedy row's logits, a
+    sampled row's gumbel noise plus filtered scaled logits), keyed (rid,
+    token index). Another path may draw another token only where that gap is
+    at most TOKEN_TIE: its logits come from other shapes (the verify's 20
+    rows, the paged gather, prefix-skipped chunks), equal to float rounding."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.gaps: dict[tuple[int, int], float] = {}
+
+    def __enter__(self):
+        from repro_torch.serving import sampling
+
+        eng, real = self.eng, self.eng._sample
+
+        def sample(rows):
+            params = [r.sampling if r is not None else sampling.GREEDY for r in eng.slots]
+            counts = [len(r.out_tokens) if r is not None else 0 for r in eng.slots]
+            vals = sampling.decision_values(rows, *sampling.batch_arrays(params, counts,
+                                                                         rows.device))
+            top2 = vals.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+            for i, r in enumerate(eng.slots):
+                if r is not None:      # the last draw at an index is the one kept
+                    self.gaps[(r.rid, len(r.out_tokens))] = gap[i]
+            return real(rows)
+
+        eng._sample = sample
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._sample
+        return False
+
+
+class LaunchesByN:
+    """Kernel launches per (kernel, token count N) of an engine's forwards,
+    read from the launch counters around each forward."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.by_n: dict[int, dict[str, int]] = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import counters
+
+        real = self.eng._forward
+
+        def forward(toks, cache_len, write_len, model=None):
+            before = counters.launches()
+            out = real(toks, cache_len, write_len, model)
+            row = self.by_n.setdefault(toks.size, dict.fromkeys(before, 0))
+            for k, v in counters.launches().items():
+                row[k] += v - before[k]
+            return out
+
+        self.eng._forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._forward
+        return False
+
+    def line(self) -> str:
+        return "; ".join(f"N={n}: " + " ".join(f"{k}={v}" for k, v in row.items() if v)
+                         for n, row in sorted(self.by_n.items()))
+
+
+def compare_tokens(label: str, got: list, want: list, gaps: dict) -> int:
+    """Each request's tokens against the plain engine's: equal, or equal up
+    to a first difference at a near-tie of the plain run (then the rest is
+    conditioned on another token and not compared). A shed request is held
+    over the tokens it returned. Returns the number of near-tie differences."""
+    ties = 0
+    for g, w in zip(got, want):
+        j = next((j for j, (a, b) in enumerate(zip(g.out_tokens, w.out_tokens)) if a != b), None)
+        if j is None:
+            check(g.status != "ok" or len(g.out_tokens) == len(w.out_tokens),
+                  f"{label}: request {w.rid} returned {len(g.out_tokens)} tokens, plain "
+                  f"{len(w.out_tokens)}")
+            continue
+        gap = gaps.get((w.rid, j))
+        check(gap is not None and gap <= TOKEN_TIE,
+              f"{label}: request {w.rid} differs from plain decode at token {j}, where the plain "
+              f"run's top-2 gap is {gap} (tie bound {TOKEN_TIE})")
+        log(f"  {label}: request {w.rid} differs from plain decode from token {j} on, at a "
+            f"near-tie (top-2 gap {gap:.3g})")
+        ties += 1
+    return ties
+
+
+def prefix_burst(vocab: int) -> list[tuple[list[int], object]]:
+    """8 requests sharing a 48-token prefix (3 pages of 16) plus 4-20 tokens
+    of their own, 16 new tokens each, requests SAMPLED sampled; the last is a
+    resubmission of the first (16 tokens of its own: 4 full pages, fully
+    cached by then, so its last prompt token's write copies a page)."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    prefix = torch.randint(0, vocab, (48,), generator=gen).tolist()
+    prompts = []
+    for i in range(7):
+        own = 16 if i == 0 else int(torch.randint(4, 21, (1,), generator=gen))
+        prompts.append(prefix + torch.randint(0, vocab, (own,), generator=gen).tolist())
+    prompts.append(list(prompts[0]))
+    return [(p, SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=SEED + 10 + i)
+             if i in SAMPLED else None) for i, p in enumerate(prompts)]
+
+
+def plain_run(eng, burst) -> tuple[list, dict, dict]:
+    """The plain dense engine's requests, stats and sampler gaps on a burst."""
+    with GapRecorder(eng) as rec:
+        reqs, st = run_burst(eng, burst)
+    return reqs, st, rec.gaps
+
+
+def driven(label: str, eng, burst, want: list, gaps: dict, *, all_ok: bool = True):
+    """One path: the launch counts set to 0 just before the burst and read
+    just after (some LUT kernel launched, no plain version called), its
+    tokens held against the plain engine's. Returns (requests, stats,
+    launches per N, near-tie differences)."""
+    from repro_torch.kernels import counters
+    from repro_torch.launch.serve import chosen_versions
+
+    counters.reset()
+    with LaunchesByN(eng) as by_n:
+        reqs, st = run_burst(eng, burst, all_ok=all_ok)
+    check(counters.plain_calls() == 0, f"{label}: a plain version ran on the card")
+    # every kernel the records choose at a forward's N launched at that N
+    bundles = [eng.bundle] + ([eng.spec.draft_bundle] if eng.spec is not None else [])
+    for n, row in by_n.by_n.items():
+        chosen = {KERNEL_OF_VERSION[ver] for b in bundles
+                  for vers in chosen_versions(b, [n], "float32", eng.device).values()
+                  for ver in vers}
+        check(all(row[k] > 0 for k in chosen), f"{label}: at N={n} the records choose "
+                                               f"{sorted(chosen)}; launched {row}")
+    ties = compare_tokens(label, reqs, want, gaps)
+    step_ms = 1e3 * st["decode_s"] / max(st["decode_forwards"], 1)
+    log(f"[paged/spec] {label}: {sum(len(r.out_tokens) for r in reqs)} tokens in "
+        f"{st['wall']:.3f}s; prefill {st['prefill_forwards']} fwd, decode "
+        f"{st['decode_forwards']} fwd ({step_ms:.2f} ms each); tokens equal plain decode's "
+        f"except {ties} near-tie difference(s); launches by N: {by_n.line()}")
+    return reqs, st, by_n.by_n, ties
+
+
+def spec_line(label: str, st: dict, by_n: dict) -> None:
+    log(f"[spec] {label}: acceptance {st['spec_acceptance_rate']:.3f} "
+        f"({st['spec_tokens_accepted']}/{st['spec_tokens_proposed']}), "
+        f"target_forwards_per_token {st['target_forwards_per_token']:.3f}, rounds "
+        f"{st['spec_rounds']}, draft fwd {st['spec_draft_forwards']} (+{st['spec_prefill_forwards']} "
+        f"prefill), verify fwd {st['spec_verify_forwards']}, catch-up fwd "
+        f"{st['spec_catchup_forwards']}, bonus tokens {st['spec_bonus_tokens']}, pages rewound "
+        f"{st['spec_pages_rewound']}")
+    check(any(row for n, row in by_n.items() if n == PATH_N[1] and sum(row.values())),
+          f"{label}: no kernel launched at the verify shape N={PATH_N[1]}")
+
+
+def phase_paged_spec(dev, scratch: Path, art, plain) -> dict:
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.serve import chosen_versions
+    from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures
+
+    vocab = art.bundle.arch.vocab
+    kw = dict(n_slots=plain.n_slots, max_seq=plain.max_seq, prefill_chunk=plain.prefill_chunk,
+              device=dev)
+    out = {"ties": 0}
+
+    def engine(**extra):
+        return ServingEngine(art.bundle, art.params, **kw, **extra)
+
+    # paged, prefix sharing on, the default pool
+    pburst = prefix_burst(vocab)
+    want, st_d, gaps = plain_run(plain, pburst)
+    eng = engine(paged=True, page_size=16)
+    _, st, _, ties = driven("paged, page_size 16, prefix sharing", eng, pburst, want, gaps)
+    out["ties"] += ties
+    check(st["prefix_hits"] > 0 and st["cow_copies"] > 0 and st["shed"] == 0,
+          f"paged: prefix_hits {st['prefix_hits']}, cow_copies {st['cow_copies']}, "
+          f"shed {st['shed']}")
+    dense_ms = 1e3 * st_d["decode_s"] / st_d["decode_forwards"]
+    paged_ms = 1e3 * st["decode_s"] / st["decode_forwards"]
+    log(f"[paged] prefix_hits {st['prefix_hits']} (of {st['prefix_lookups']} lookups), prefill "
+        f"tokens skipped {st['prefill_tokens_skipped']}, prefill forwards {st['prefill_forwards']} "
+        f"against the dense engine's {st_d['prefill_forwards']} "
+        f"({st_d['prefill_forwards'] - st['prefill_forwards']} skipped), cow_copies "
+        f"{st['cow_copies']}, kv_pages_peak {st['kv_pages_peak']} of {st['kv_pages_total']}, "
+        f"kv_bytes_peak {st['kv_bytes_peak']} (dense layout {st['kv_bytes_dense_equiv']}), "
+        f"shed {st['shed']}; decode forward {paged_ms:.2f} ms paged, {dense_ms:.2f} ms dense")
+    out["paged_profile"] = profile_decode(eng, vocab, torch.Generator().manual_seed(SEED + 2))
+    out["paged"] = {k: st[k] for k in ("prefix_hits", "prefill_tokens_skipped", "cow_copies",
+                                       "kv_pages_peak", "kv_bytes_peak", "shed")}
+    fp32_bytes = st["kv_bytes_peak"]
+    del eng
+
+    # a pool too small for the burst: shedding, never an exception
+    eng = engine(paged=True, page_size=16, n_pages=9)
+    reqs, st, _, ties = driven("paged, n_pages 9 (shedding)", eng, pburst, want, gaps,
+                               all_ok=False)
+    out["ties"] += ties
+    statuses = [r.status for r in reqs]
+    check(st["shed"] > 0 and set(statuses) <= {"ok", "shed"} and "ok" in statuses,
+          f"shedding burst: statuses {statuses}")
+    log(f"[paged] n_pages 9: statuses {statuses}, shed {st['shed']}, kv_pages_peak "
+        f"{st['kv_pages_peak']} of {st['kv_pages_total']}")
+    del eng
+
+    # fp8 storage: paged against a dense fp8 engine
+    dense8 = engine(kv_dtype="float8_e4m3fn")
+    want8, _, gaps8 = plain_run(dense8, pburst)
+    del dense8
+    eng = engine(paged=True, page_size=16, kv_dtype="float8_e4m3fn")
+    _, st, _, ties = driven("paged fp8 (float8_e4m3fn) vs dense fp8", eng, pburst, want8, gaps8)
+    out["ties"] += ties
+    # the pool's scatters and gathers index float8_e4m3fn tensors on the card directly
+    log(f"[paged] fp8 pool: kv_bytes_peak {st['kv_bytes_peak']} against fp32's {fp32_bytes} "
+        f"({st['kv_bytes_peak'] / fp32_bytes:.3f}x); dense layout {st['kv_bytes_dense_equiv']}")
+    out["fp8_bytes"], out["fp32_bytes"] = st["kv_bytes_peak"], fp32_bytes
+    del eng
+
+    # speculative decoding, gamma 4, on the phase-4 burst
+    burst4 = phase4_burst(vocab)
+    want4, _, gaps4 = plain_run(plain, burst4)
+    eng = engine(spec_decode=True, spec_gamma=GAMMA)
+    cache = autotune.get_cache()
+    for m, c, k, v in lut_kernel_signatures(art.bundle):
+        rec = cache.get(autotune.shape_key("lut_amm", PATH_N[1], m, c, k, v, "float32",
+                                           autotune.BACKEND_CUDA))
+        check(rec is not None and rec["measured"], f"no measured record at N={PATH_N[1]} "
+                                                   f"{(m, c, k, v)}")
+    versions = chosen_versions(art.bundle, list(PATH_N), "float32", eng.device)
+    mixed = [sig for sig, vs in versions.items() if 1 in vs and len(set(vs)) > 1]
+    log(f"[spec] kernel version per site (M, C, K, V) at N={list(PATH_N)}: "
+        + ", ".join(f"{sig}: {vs}" for sig, vs in versions.items())
+        + (f"; v1 at only some counts at {mixed} (its fp32 sums differ from fused/v2's int32 "
+           f"sums in the last bits)" if mixed else "; no site mixes v1 with fused/v2"))
+    _, st, by_n, ties = driven("spec, self-draft", eng, burst4, want4, gaps4)
+    spec_line("self-draft", st, by_n)
+    # greedy requests accept every draft; the SAMPLED ones draw from the
+    # target at temperature 0.8 where the draft proposes its argmax
+    check(st["spec_bonus_tokens"] > 0 and st["spec_catchup_forwards"] > 0
+          and st["target_forwards_per_token"] < 1.0,
+          f"self-draft: target_forwards_per_token {st['target_forwards_per_token']}, bonus "
+          f"{st['spec_bonus_tokens']}, catch-up {st['spec_catchup_forwards']}")
+    out["ties"] += ties
+    out["self"] = {k: st[k] for k in ("spec_acceptance_rate", "target_forwards_per_token")}
+    del eng
+    t0 = time.perf_counter()
+    draft = art.bundle.init(torch.Generator(device=dev).manual_seed(SEED + 7), device=dev)
+    log(f"[spec] divergent draft: the same arch, params from seed {SEED + 7} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    for paged in (False, True):
+        extra = dict(paged=True, page_size=16) if paged else {}
+        label = "divergent draft, " + ("paged" if paged else "dense")
+        eng = engine(spec_decode=True, spec_gamma=GAMMA, draft_bundle=art.bundle,
+                     draft_params=draft, **extra)
+        _, st, by_n, ties = driven(f"spec, {label}", eng, burst4, want4, gaps4)
+        spec_line(label, st, by_n)
+        check(st["spec_tokens_accepted"] < st["spec_tokens_proposed"],
+              f"{label}: every draft accepted; the rollback never ran")
+        check(not paged or st["spec_pages_rewound"] > 0, f"{label}: no page rewound")
+        out["ties"] += ties
+        out["paged_div" if paged else "dense_div"] = {
+            k: st[k] for k in ("spec_acceptance_rate", "target_forwards_per_token",
+                               "spec_pages_rewound")}
+        del eng
+    del draft
+    torch.cuda.empty_cache()
+    out["two_plan"] = two_plan_artifact(dev, scratch)
+    out["ties"] += out["two_plan"]["ties"]
+    log(f"[paged/spec] tokens differing from plain decode at a near-tie, over phase 5: "
+        f"{out['ties']} (bound: top-2 gap <= {TOKEN_TIE})")
+    return out
+
+
+def two_plan_artifact(dev, scratch: Path) -> dict:
+    """A two-plan artifact at full width and 2 layers, written by the port:
+    target LUTPlan.keeping_dense("mlp/down"), draft all-LUT sharing every
+    other table. Loaded back, served by the launcher with --draft-plan
+    draft, and by a spec engine against plain decode of the target."""
+    from repro_torch.configs import build_model, effective_plan, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.launch import serve
+    from repro_torch.serving.artifact import load_artifact, save_artifact
+    from repro_torch.serving.engine import ServingEngine
+
+    arch = dataclasses.replace(get_arch("qwen3_1p7b"), n_layers=2, lut_use_kernel=True)
+    dbundle = build_model(arch, Mode.LUT_INFER)
+    tbundle = build_model(dataclasses.replace(
+        arch, lut_plan=effective_plan(arch).keeping_dense("mlp/down")), Mode.LUT_INFER)
+    dparams = dbundle.init(torch.Generator(device=dev).manual_seed(SEED + 11), device=dev)
+    tinit = tbundle.init(torch.Generator(device=dev).manual_seed(SEED + 12), device=dev)
+    # the draft's params, but a dense down wherever the target keeps it dense
+    tparams = dict(dparams, segments=[
+        [dict(layer, mlp=dict(layer["mlp"], down=tlayer["mlp"]["down"]))
+         if "w" in tlayer["mlp"]["down"] and "w" not in layer["mlp"]["down"] else layer
+         for layer, tlayer in zip(dseg, tseg)]
+        for dseg, tseg in zip(dparams["segments"], tinit["segments"])])
+    del tinit
+    t0 = time.perf_counter()
+    path = save_artifact(scratch / "two_plan", tbundle, tparams,
+                         extra_plans={"draft": (dbundle, dparams)})
+    manifest = json.loads((path / "manifest.json").read_text())
+    keys = [r["key"] for r in manifest["plans"]["draft"]["leaves"].values()]
+    own = sorted(k for k in keys if k.startswith("plan."))
+    check(own and all("mlp/down" in k for k in own),
+          f"the draft should store only its down tables, stores {own}")
+    target = load_artifact(path, device=dev)
+    draft = load_artifact(path, plan="draft", restore_autotune=False, device=dev)
+    log(f"[two-plan] 2-layer two-plan artifact written and loaded in "
+        f"{time.perf_counter() - t0:.1f}s; the draft stores {len(own)} of {len(keys)} leaves "
+        f"of its own, the rest shared with the target")
+    serve.main(["--artifact", str(path), "--device", str(dev), "--spec-decode", "--draft-plan",
+                "draft", "--spec-gamma", str(GAMMA), "--requests", "8", "--max-tokens", "16"])
+    kw = dict(n_slots=4, max_seq=256, prefill_chunk=32, device=dev)
+    burst = phase4_burst(target.bundle.arch.vocab)
+    plain = ServingEngine(target.bundle, target.params, **kw)
+    want, _, gaps = plain_run(plain, burst)
+    eng = ServingEngine(target.bundle, target.params, **kw, spec_decode=True, spec_gamma=GAMMA,
+                        draft_bundle=draft.bundle, draft_params=draft.params)
+    _, st, by_n, ties = driven("spec, two-plan artifact's draft plan", eng, burst, want, gaps)
+    spec_line("two-plan draft plan", st, by_n)
+    shutil.rmtree(path)
+    return {"ties": ties, "acceptance": st["spec_acceptance_rate"],
+            "tfpt": st["target_forwards_per_token"]}
 
 
 def main() -> int:
@@ -866,7 +1235,9 @@ def main() -> int:
         card = phase_card()
         kern = phase_kernels(dev)
         phase_slice_parity(dev, scratch)
-        launches = phase_serve(dev, scratch)["launches"]
+        served = phase_serve(dev, scratch)
+        launches = served["launches"]
+        phase_paged_spec(dev, scratch, served["art"], served["engine"])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -324,33 +324,58 @@ class ModelBundle:
     def lut_sites(self) -> list[SiteSpec]:
         return [s for s in self.sites() if s.mode != Mode.DENSE]
 
+    def cache_specs(self, b: int, s_max: int, *, dtype=torch.bfloat16,
+                    paged: attn_mod.PagedSpec | None = None) -> list:
+        """ParamSpecs of `init_caches`' tensors, without allocating them."""
+        return tf_mod.cache_specs(self.cfg, b, s_max, dtype, paged)
+
     def init_caches(self, b: int, s_max: int, *, dtype=torch.bfloat16,
-                    device: str | torch.device | None = None) -> list:
-        return tf_mod.init_caches(self.cfg, b, s_max, dtype, resolve_device(device))
+                    device: str | torch.device | None = None,
+                    paged: attn_mod.PagedSpec | None = None) -> list:
+        """Zeroed KV caches: per segment {"k", "v"} (L, B, S_max, KV, Dh), or
+        with `paged` (an attention.PagedSpec) pools {"k_pool", "v_pool"}
+        (L, n_pages, page_size, KV, Dh) shared by the whole batch."""
+        return tf_mod.init_caches(self.cfg, b, s_max, dtype, resolve_device(device), paged)
 
     def forward_step(self, params, batch, caches, *, compute_dtype=torch.float32):
         """One serving step (prefill if S > 1, decode if S == 1).
 
         batch: "tokens" (B, S), "cache_len" (B,), and optionally "write_rows"
-        (the batch rows whose cache may change; all when absent). Returns
-        (logits for the new positions, caches), the caches updated in place.
-        cache_len and write_rows are read on the host: pass CPU tensors to
-        keep the forward free of device-to-host waits."""
-        if "block_tables" in batch:
-            raise NotImplementedError("paged KV caches are not ported yet: ROADMAP Queue A "
-                                      "item 7")
+        (the batch rows whose dense cache may change; all when absent). Paged
+        caches take "block_tables" (B, P) and "write_len" (B,) instead (fresh
+        positions at or past write_len land in the garbage page; all S when
+        absent). Returns (logits for the new positions, caches), the caches
+        updated in place. cache_len, write_rows, block_tables and write_len
+        are read on the host: pass CPU tensors to keep the forward free of
+        device-to-host waits."""
         tokens = batch["tokens"]
         dev = tokens.device
-        s = tokens.shape[1]
-        cache_len = batch["cache_len"].long().to(dev)
+        b, s = tokens.shape
+        paged = caches is not None and "k_pool" in caches[0]
+        if ("block_tables" in batch) != paged:
+            raise ValueError("block_tables go with paged caches, and only with them")
+        block_tables = write_index = None
+        if paged:
+            bt = batch["block_tables"].cpu().long()
+            cl = batch["cache_len"].cpu().long()
+            wl = batch.get("write_len")
+            wl = torch.full((b,), s) if wl is None else wl.cpu().long()
+            flat = attn_mod.paged_write_flat(bt, cl, s, caches[0]["k_pool"].shape[2], wl)
+            # one host-to-device copy carries the cursors, tables and write indices
+            packed = torch.cat([cl, bt.flatten(), flat.flatten()]).to(dev)
+            cache_len = packed[:b]
+            block_tables = packed[b: b + bt.numel()].view(bt.shape)
+            write_index = packed[b + bt.numel():].view(b, s)
+        else:
+            cache_len = batch["cache_len"].long().to(dev)
+            if caches is not None:
+                write_index = attn_mod.cache_write_index(batch["cache_len"],
+                                                         batch.get("write_rows"), s,
+                                                         caches[0]["k"].shape[2], dev)
         pos = cache_len[:, None] + torch.arange(s, device=dev)[None, :]
-        write_index = None
-        if caches is not None:
-            write_index = attn_mod.cache_write_index(batch["cache_len"], batch.get("write_rows"),
-                                                     s, caches[0]["k"].shape[2], dev)
         return tf_mod.lm_apply(self.cfg, params, tokens=tokens, pos=pos, caches=caches,
                                cache_len=cache_len, compute_dtype=compute_dtype,
-                               write_index=write_index)
+                               write_index=write_index, block_tables=block_tables)
 
 
 def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBundle:

@@ -14,14 +14,23 @@ continuous-batching engine with a LUT_INFER (int8 table) model.
   # on the CPU, plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4 --slots 2
 
+  # paged KV cache (prefix sharing, copy-on-write, fp8 storage) and
+  # speculative decoding (a multi-plan artifact's draft plan; random-init
+  # mode drafts with the target itself):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged --page-size 16 \
+      --kv-dtype float8_e4m3fn --spec-decode --spec-gamma 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> --spec-decode \
+      --draft-plan draft
+
 Counterpart of `repro.launch.serve` in batch mode. With --artifact the arch,
 plan and mode come from the manifest and the artifact's autotune snapshot is
 restored; without it the arch is reduced exactly as there (`reduce_arch`;
 --layers/--d-model/--vocab) and initialized from a seeded generator. The
-engine warms the kernel autotuner for every LUT site at its two token shapes
+engine warms the kernel autotuner for every LUT site at its token shapes
 (timed on the card with REPRO_AUTOTUNE_MEASURE=1); a warm-up request runs off
-the clock unless --no-warmup. The HTTP, supervised and multi-replica modes
-follow with ROADMAP Queue A item 9.
+the clock unless --no-warmup. The summary adds a pool line with --paged and a
+spec line with --spec-decode, as the reference's does. The HTTP, supervised
+and multi-replica modes follow with ROADMAP Queue A item 9.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, build_model, get_arch, reduce_arch
 from repro_torch.core.amm import Mode
 from repro_torch.kernels import autotune, counters
-from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures
+from repro_torch.serving.engine import KV_DTYPES, ServingEngine, lut_kernel_signatures
 from repro_torch.serving.sampling import SamplingParams
 
 
@@ -62,6 +71,26 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="engine compute dtype; also keys the autotune records")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: pooled pages and block tables with prefix sharing and "
+                         "copy-on-write; tokens equal the dense engine's")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (must divide --max-seq)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="pool size in pages; default slots*max_seq/page_size + 1 (the dense "
+                         "capacity); fewer overcommit memory (exhaustion sheds, never raises)")
+    ap.add_argument("--kv-dtype", choices=sorted(KV_DTYPES), default=None,
+                    help="KV-cache storage dtype (default: the compute dtype); fp8 halves the "
+                         "cache's bytes, K/V are upcast at use")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="draft/verify speculative decoding: gamma draft forwards per round, one "
+                         "batched target verify; tokens equal plain decode's")
+    ap.add_argument("--draft-plan", default="draft",
+                    help="plan of a multi-plan artifact the draft loads from ('target' = "
+                         "self-draft); random-init mode always self-drafts")
+    ap.add_argument("--spec-gamma", type=int, default=4,
+                    help="draft tokens proposed per verify forward (verify shape (slots, "
+                         "gamma+1))")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature; 0 = greedy")
     ap.add_argument("--top-k", type=int, default=0, help="top-k filter; 0 disables")
@@ -98,7 +127,8 @@ def main(argv: list[str] | None = None) -> None:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     eng = ServingEngine(bundle, params, n_slots=args.slots, max_seq=args.max_seq,
                         prefill_chunk=args.prefill_chunk, compute_dtype=dtype,
-                        device=args.device)
+                        device=args.device, **_paged_kwargs(args),
+                        **_resolve_draft(_spec_kwargs(args), args.artifact, args.device))
     if not args.no_warmup:
         eng.warmup()
 
@@ -126,7 +156,22 @@ def main(argv: list[str] | None = None) -> None:
           f"({st['decode_tok_s']:.1f} tok/s)  "
           f"occupancy={st['decode_occupancy']:.2f}  "
           f"shape_cache_hits={st['shape_cache_hits']}")
+    if args.paged:
+        hits = st["prefix_hits"] / st["prefix_lookups"] if st["prefix_lookups"] else 0.0
+        print(f"  pool: {st['kv_pages_resident']}/{st['kv_pages_total']} pages resident (peak "
+              f"{st['kv_pages_peak']}, util {st['pool_utilization']:.2f}, "
+              f"{st['kv_bytes_resident']} B vs dense {st['kv_bytes_dense_equiv']} B)  "
+              f"prefix: {st['prefix_hits']} hits / {st['prefix_lookups']} lookups "
+              f"({hits:.2f}/req), {st['prefill_tokens_skipped']} prefill tok skipped  "
+              f"cow={st['cow_copies']}  shed={st['shed']}")
+    if eng.spec is not None:
+        print(f"  spec: γ={st['spec_gamma']} acceptance={st['spec_acceptance_rate']:.2f} "
+              f"target_forwards_per_token={st['target_forwards_per_token']:.2f} "
+              f"({st['spec_rounds']} rounds, {st['spec_draft_forwards']} draft fwd, "
+              f"{st['spec_bonus_tokens']} bonus)")
     counts = [args.slots, args.slots * args.prefill_chunk]
+    if eng.spec is not None:
+        counts.append(args.slots * (args.spec_gamma + 1))
     versions = chosen_versions(bundle, counts, args.dtype, eng.device)
     print(f"  kernel version per site (M, C, K, V) at N={counts}: "
           + ", ".join(f"{sig}: {v}" for sig, v in versions.items()))
@@ -134,6 +179,36 @@ def main(argv: list[str] | None = None) -> None:
           f"plain calls: {counters.plain_calls()}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"  req {r.rid}: {r.out_tokens[:8]}...")
+
+
+def _paged_kwargs(args) -> dict:
+    """Engine kwargs of the paged pool and the KV dtype (by name)."""
+    kw: dict = {}
+    if args.paged:
+        kw.update(paged=True, page_size=args.page_size, n_pages=args.n_pages)
+    if args.kv_dtype is not None:
+        kw["kv_dtype"] = args.kv_dtype
+    return kw
+
+
+def _spec_kwargs(args) -> dict:
+    """Speculative-decoding kwargs, the draft still named by its plan."""
+    kw: dict = {}
+    if args.spec_decode:
+        kw.update(spec_decode=True, spec_gamma=args.spec_gamma, draft_plan=args.draft_plan)
+    return kw
+
+
+def _resolve_draft(engine_kwargs: dict, artifact: str | None, device: str) -> dict:
+    """Swap the draft's plan name for its loaded bundle and params. Without
+    an artifact (random init) the engine drafts with the target itself."""
+    plan = engine_kwargs.pop("draft_plan", None)
+    if engine_kwargs.get("spec_decode") and plan is not None and artifact:
+        from repro_torch.serving.artifact import load_artifact
+
+        art = load_artifact(artifact, plan=plan, restore_autotune=False, device=device)
+        engine_kwargs.update(draft_bundle=art.bundle, draft_params=art.params)
+    return engine_kwargs
 
 
 if __name__ == "__main__":

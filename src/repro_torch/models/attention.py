@@ -16,8 +16,15 @@ Two cache paths, as in the reference:
 Unlike the reference, the cache writes are in place, and only into the rows
 the caller lists (`cache_write_index`): the serving engine passes the slots
 of the forward, so a padded or idle row never touches another slot's cache.
-Paged caches (Queue A item 7) and cross-attention (item 10) are not ported
-yet.
+
+A paged cache ({"k_pool", "v_pool"}, DESIGN.md §12) is a pool of pages shared
+by every row, each row mapping its logical positions through a block table
+(B, P) of page ids. The same two paths run over it: the fresh K/V scatter
+into the page-flattened pool at indices computed once per forward on the
+host (`paged_write_flat`, masked positions routed to the garbage page 0), and
+reads gather each row's pages back into the dense logical layout
+(`paged_gather`), so the dense masks apply unchanged and the outputs equal
+the dense cache's. Cross-attention (Queue A item 10) is not ported yet.
 """
 
 from __future__ import annotations
@@ -167,17 +174,85 @@ def write_at(cache: torch.Tensor, vals: torch.Tensor, index) -> None:
     cache[..., bi, pi, :, :] = vals[..., bi, ji, :, :].to(cache.dtype)
 
 
+# ---------------------------------------------------------------------------
+# paged KV cache (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+#
+# Page 0 is the reserved garbage page: masked and out-of-range writes land
+# there instead of being dropped, and allocators never hand it out. Pool
+# content stays finite (zeros at init, activations after), so gathered and
+# then masked garbage contributes exactly 0 to the softmax.
+
+GARBAGE_PAGE = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedSpec:
+    """Layout of a paged KV pool."""
+    n_pages: int
+    page_size: int
+
+
+def paged_cache_specs(spec: PagedSpec, cfg: AttnCfg, dtype=torch.bfloat16) -> Params:
+    shape = (spec.n_pages, spec.page_size, cfg.n_kv_heads, cfg.d_head)
+    return {"k_pool": common.ParamSpec(shape, dtype), "v_pool": common.ParamSpec(shape, dtype)}
+
+
+def paged_init_cache(spec: PagedSpec, cfg: AttnCfg, dtype=torch.bfloat16,
+                     device="cpu") -> Params:
+    return {name: torch.zeros(ps.shape, dtype=dtype, device=device)
+            for name, ps in paged_cache_specs(spec, cfg, dtype).items()}
+
+
+def paged_write_flat(block_tables: torch.Tensor, cache_len: torch.Tensor, s: int,
+                     page_size: int, write_len: torch.Tensor) -> torch.Tensor:
+    """(B, s) int64 indices into the page-flattened pool axis (n_pages *
+    page_size) of the `s` fresh positions of each row, starting at
+    cache_len. Offsets at or past write_len and positions past the table's
+    width land in GARBAGE_PAGE. Computed where its inputs lie: the model
+    step passes host tensors and moves the result to the card once."""
+    n_tables = block_tables.shape[1]
+    off = torch.arange(s, device=cache_len.device)[None, :]
+    write_idx = cache_len.long()[:, None] + off                     # (B, s) logical
+    p_idx = write_idx // page_size
+    ok = (off < write_len.long()[:, None]) & (p_idx < n_tables)
+    pages = torch.gather(block_tables.long(), 1, p_idx.clamp_max(n_tables - 1))
+    pages = torch.where(ok, pages, GARBAGE_PAGE)
+    return pages * page_size + torch.where(ok, write_idx % page_size, 0)
+
+
+def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Each row's logical KV extent, (B, P * page_size, KV, Dh): the dense
+    cache's layout when P * page_size == S_max, which is what makes paged
+    serving give the dense engine's tokens exactly."""
+    b, p = block_tables.shape
+    g = pool[block_tables]                                       # (B, P, page_size, KV, Dh)
+    return g.reshape(b, p * pool.shape[1], *pool.shape[2:])
+
+
+def paged_write(pool: torch.Tensor, vals: torch.Tensor, flat: torch.Tensor) -> None:
+    """In place: the page-flattened pool (..., n_pages * page_size, KV, Dh)
+    takes vals (..., B, s, KV, Dh) at flat (B, s) (`paged_write_flat`). A
+    leading layer axis is written in the same scatter."""
+    lead = pool.shape[:-4]
+    flat_pool = pool.view(*lead, pool.shape[-4] * pool.shape[-3], *pool.shape[-2:])
+    flat_pool[..., flat, :, :] = vals.to(pool.dtype)
+
+
 def attention(cfg: AttnCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
               cache: Params | None = None, cache_len: torch.Tensor | None = None,
-              defer_cache_write: bool = False,
-              write_index=None) -> tuple[torch.Tensor, Params | None]:
+              defer_cache_write: bool = False, write_index=None,
+              block_tables: torch.Tensor | None = None) -> tuple[torch.Tensor, Params | None]:
     """Returns (output (B, S, D), cache or {"k_slab", "v_slab"} or None).
 
     x (B, S, D), pos (B, S) absolute positions, cache_len (B,) tokens already
     in the cache, write_index where the prefill path writes the fresh K/V
-    (cache_write_index). See the module docstring for the two cache paths."""
-    if cache is not None and "k_pool" in cache:
-        raise NotImplementedError("paged KV caches are not ported yet: ROADMAP Queue A item 7")
+    (cache_write_index; for a paged cache the flat indices of
+    paged_write_flat), block_tables (B, P) the page ids of a paged cache. See
+    the module docstring for the cache paths."""
+    paged = cache is not None and "k_pool" in cache
+    if paged and block_tables is None:
+        raise ValueError("a paged cache needs block_tables")
     b, s, _ = x.shape
     q = linear(cfg.q, p["q"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
     k = linear(cfg.k, p["k"], x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
@@ -193,19 +268,35 @@ def attention(cfg: AttnCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
         new_cache = None
     elif defer_cache_write:
         # flash-decoding over (stale cache) + (fresh slab), no cache write here
-        s_max = cache["k"].shape[1]
+        if paged:
+            ck = paged_gather(cache["k_pool"], block_tables)
+            cv = paged_gather(cache["v_pool"], block_tables)
+        else:
+            ck, cv = cache["k"], cache["v"]
         kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
         qg = q.reshape(b, s, kvh, g, cfg.d_head)
-        all_pos = torch.arange(s_max, device=x.device)[None, :].expand(b, -1)
+        all_pos = torch.arange(ck.shape[1], device=x.device)[None, :].expand(b, -1)
         stale_valid = all_pos < cache_len[:, None]
-        part_cache = _attend_stats(qg, cache["k"], cache["v"], q_pos=pos, kv_pos=all_pos,
+        part_cache = _attend_stats(qg, ck, cv, q_pos=pos, kv_pos=all_pos,
                                    causal=cfg.causal, kv_valid=stale_valid)
         slab_pos = cache_len[:, None] + torch.arange(s, device=x.device)[None, :]
         part_slab = _attend_stats(qg, k, v, q_pos=pos, kv_pos=slab_pos, causal=cfg.causal,
                                   kv_valid=None)
         out = _merge_stats([part_cache, part_slab]).reshape(b, s, cfg.n_heads, cfg.d_head)
         out = out.to(q.dtype)
-        new_cache = {"k_slab": k.to(cache["k"].dtype), "v_slab": v.to(cache["v"].dtype)}
+        new_cache = {"k_slab": k.to(ck.dtype), "v_slab": v.to(cv.dtype)}
+    elif paged:
+        # scatter the fresh K/V into the pool (masked positions to the
+        # garbage page), then gather the rows' pages and attend over them
+        paged_write(cache["k_pool"], k, write_index)
+        paged_write(cache["v_pool"], v, write_index)
+        ck = paged_gather(cache["k_pool"], block_tables)
+        cv = paged_gather(cache["v_pool"], block_tables)
+        all_pos = torch.arange(ck.shape[1], device=x.device)[None, :].expand(b, -1)
+        valid = all_pos < (cache_len + s)[:, None]
+        out = flash_attention(q, ck, cv, q_pos=pos, kv_pos=all_pos, causal=cfg.causal,
+                              kv_valid=valid)
+        new_cache = cache
     else:
         # write the fresh K/V at each row's cursor, then attend over the cache
         write_at(cache["k"], k, write_index)

@@ -10,8 +10,11 @@ tensor per K and V, the reference's layout.
 A decode forward (S == 1) attends with deferred cache writes and then writes
 every layer's fresh K/V slab into the segment's stacked cache in one scatter,
 as the reference does. A prefill forward writes each layer's K/V in place
-before attending over the cache. MoE and Mamba blocks are not ported yet
-(ROADMAP Queue A item 10).
+before attending over the cache. A paged cache is one stacked
+(L, n_pages, page_size, KV, Dh) pool per K and V and segment, written the
+same two ways through the flat indices of `attention.paged_write_flat`
+(masked positions to the garbage page). MoE and Mamba blocks are not ported
+yet (ROADMAP Queue A item 10).
 """
 
 from __future__ import annotations
@@ -63,12 +66,13 @@ def block_init(gen: torch.Generator, cfg: BlockCfg, *, dtype=torch.float32,
 
 def block_apply(cfg: BlockCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
                 cache: Params | None = None, cache_len: torch.Tensor | None = None,
-                defer_cache_write: bool = False,
-                write_index=None) -> tuple[torch.Tensor, Params | None]:
+                defer_cache_write: bool = False, write_index=None,
+                block_tables: torch.Tensor | None = None) -> tuple[torch.Tensor, Params | None]:
     """Returns (x, cache or deferred slabs)."""
     a, new_cache = attn_mod.attention(
         cfg.attn, p["attn"], rmsnorm(p["norm1"], x), pos=pos, cache=cache,
         cache_len=cache_len, defer_cache_write=defer_cache_write, write_index=write_index,
+        block_tables=block_tables,
     )
     x = x + a
     return x + mlp_mod.mlp(cfg.mlp, p["mlp"], rmsnorm(p["norm2"], x)), new_cache
@@ -123,49 +127,69 @@ def lm_param_specs(cfg: LMCfg, dtype=torch.float32) -> Params:
     return p
 
 
-def init_caches(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16, device="cpu") -> list:
-    """One {"k", "v"} dict of (L_seg, B, S_max, KV, Dh) zeros per segment."""
+def cache_specs(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16,
+                paged: attn_mod.PagedSpec | None = None) -> list:
+    """ParamSpecs of `init_caches`' tensors: per segment {"k", "v"} of
+    (L_seg, B, S_max, KV, Dh), or with `paged` {"k_pool", "v_pool"} of
+    (L_seg, n_pages, page_size, KV, Dh)."""
     out = []
     for count, bcfg in cfg.segments:
         _require_dense(bcfg)
         a = bcfg.attn
-        shape = (count, b, s_max, a.n_kv_heads, a.d_head)
-        out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+        if paged is not None:
+            one = attn_mod.paged_cache_specs(paged, a, dtype)
+        else:
+            one = {name: ParamSpec((b, s_max, a.n_kv_heads, a.d_head), dtype)
+                   for name in ("k", "v")}
+        out.append({name: ParamSpec((count, *ps.shape), dtype) for name, ps in one.items()})
     return out
+
+
+def init_caches(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16, device="cpu",
+                paged: attn_mod.PagedSpec | None = None) -> list:
+    """Zeros of `cache_specs`' shapes, one dict per segment."""
+    return [{name: torch.zeros(ps.shape, dtype=dtype, device=device) for name, ps in seg.items()}
+            for seg in cache_specs(cfg, b, s_max, dtype, paged)]
 
 
 def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: torch.Tensor,
                caches: Params | None, cache_len: torch.Tensor | None,
-               write_index) -> torch.Tensor:
+               write_index, block_tables: torch.Tensor | None = None) -> torch.Tensor:
     """Run one segment's layers; writes the segment's cache in place."""
     defer = caches is not None and x.shape[1] == 1
     k_slabs, v_slabs = [], []
     for j, lp in enumerate(layers):
-        cl = None if caches is None else {"k": caches["k"][j], "v": caches["v"][j]}
+        cl = None if caches is None else {name: t[j] for name, t in caches.items()}
         x, nc = block_apply(bcfg, lp, x, pos=pos, cache=cl, cache_len=cache_len,
-                            defer_cache_write=defer, write_index=write_index)
+                            defer_cache_write=defer, write_index=write_index,
+                            block_tables=block_tables)
         if defer:
             k_slabs.append(nc["k_slab"])
             v_slabs.append(nc["v_slab"])
     if defer:
         # one scatter of all layers' slabs replaces per-layer cache writes
-        attn_mod.write_at(caches["k"], torch.stack(k_slabs), write_index)
-        attn_mod.write_at(caches["v"], torch.stack(v_slabs), write_index)
+        if "k_pool" in caches:
+            attn_mod.paged_write(caches["k_pool"], torch.stack(k_slabs), write_index)
+            attn_mod.paged_write(caches["v_pool"], torch.stack(v_slabs), write_index)
+        else:
+            attn_mod.write_at(caches["k"], torch.stack(k_slabs), write_index)
+            attn_mod.write_at(caches["v"], torch.stack(v_slabs), write_index)
     return x
 
 
 def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor, pos: torch.Tensor,
              caches: list | None = None, cache_len: torch.Tensor | None = None,
-             compute_dtype=torch.float32,
-             write_index=None) -> tuple[torch.Tensor, list | None]:
+             compute_dtype=torch.float32, write_index=None,
+             block_tables: torch.Tensor | None = None) -> tuple[torch.Tensor, list | None]:
     """Returns (logits (B, S, vocab), caches). The caches are updated in
-    place where `write_index` (attention.cache_write_index) says."""
+    place where `write_index` says (attention.cache_write_index, or for paged
+    caches, which also take `block_tables`, attention.paged_write_flat)."""
     x = embed(params["embed"], tokens).to(compute_dtype)
     for i, (_, bcfg) in enumerate(cfg.segments):
         x = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
                        caches=None if caches is None else caches[i],
-                       cache_len=cache_len, write_index=write_index)
+                       cache_len=cache_len, write_index=write_index,
+                       block_tables=block_tables)
     x = rmsnorm(params["final_norm"], x)
     if cfg.lm_head is not None:
         logits = linear(cfg.lm_head, params["lm_head"], x)

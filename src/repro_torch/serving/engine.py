@@ -22,18 +22,31 @@ scheduler (DESIGN.md §6):
   threefry bits reproduced in torch (serving/sampling.py): the same request
   samples the same tokens here and there, under any slot placement.
 * With `autotune_lut` (the default), construction warms the kernel autotuner
-  for every LUT kernel site at the engine's two token shapes
+  for every LUT kernel site at the engine's token shapes
   (`warm_lut_autotune`): on the card it times v1, v2 and the fused kernel when
   REPRO_AUTOTUNE_MEASURE=1, else the analytic model picks the version.
+* Paged KV cache (DESIGN.md §12): with `paged=True` the caches become one
+  pool of (n_pages, page_size) pages per segment shared by all slots; the
+  scheduler owns the block tables, a refcounted page pool with prefix sharing
+  (`serving/kv_pool.py`) and copy-on-write. Prompt prefixes already resident
+  skip their prefill chunks; pool exhaustion sheds a request (status "shed"),
+  never raises. Tokens equal the dense engine's. `kv_dtype` stores K/V in
+  another dtype (by name, `KV_DTYPES`, fp8 included); attention upcasts at use.
+* Speculative decoding (DESIGN.md §14): with `spec_decode=True` the width-1
+  decode step becomes a draft/verify round (`serving/spec_decode.py`): up to
+  gamma draft forwards, then one target forward of fixed shape
+  (n_slots, gamma+1), a third token shape N = n_slots * (gamma+1). Tokens
+  equal plain decode's, greedy and sampled; prefix sharing is turned off.
 
-Paged caches, speculative decoding, mesh sharding and fault injection are not
-ported yet (ROADMAP Queue A items 7-9).
+Mesh sharding and fault injection are not ported yet (ROADMAP Queue A items 9
+and 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Any
 
@@ -44,9 +57,30 @@ from repro_torch.configs import ModelBundle
 from repro_torch.core.amm import Mode
 from repro_torch.device import resolve_device
 from repro_torch.kernels import autotune, measure
+from repro_torch.models.attention import PagedSpec
+from repro_torch.serving.kv_pool import KVPagePool
 from repro_torch.serving.sampling import GREEDY, SamplingParams, batch_arrays, sample_tokens
+from repro_torch.serving.spec_decode import SpecDecoder
 
 STATUSES = ("ok", "timeout", "cancelled", "shed", "error")
+
+# KV-cache storage dtypes by name; 1-byte entries store K/V in 8 bits and
+# attention upcasts them at use (models/attention.py)
+KV_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
+}
+POOL_LEAVES = ("k_pool", "v_pool")
+
+
+def _all_pool_leaves(specs: list) -> bool:
+    """True when every cache tensor is a page-pool leaf: the whole cache
+    state is position-indexed, which prefix sharing and speculative rollback
+    need (per-slot recurrent state cannot be skipped or rewound)."""
+    return all(name in POOL_LEAVES for seg in specs for name in seg)
 
 
 def lut_kernel_signatures(bundle: ModelBundle) -> list[tuple[int, int, int, int]]:
@@ -113,6 +147,7 @@ class Request:
     submit_t: float = 0.0
     finish_t: float = 0.0
     cancel_requested: bool = False
+    spec_decode: bool | None = None   # per-request override; None = the engine's default
 
     @property
     def prefill_done(self) -> bool:
@@ -140,18 +175,24 @@ class ServingEngine:
         max_seq: int = 256,
         prefill_chunk: int = 32,
         compute_dtype: torch.dtype = torch.float32,
-        kv_dtype: torch.dtype | None = None,
+        kv_dtype: torch.dtype | str | None = None,
         max_queue: int | None = None,
         device: str | torch.device | None = None,
         autotune_lut: bool = True,
         paged: bool = False,
+        page_size: int = 16,
+        n_pages: int | None = None,
+        prefix_sharing: bool = True,
         spec_decode: bool = False,
+        draft_bundle: ModelBundle | None = None,
+        draft_params: Any | None = None,
+        spec_gamma: int = 4,
         mesh: Any | None = None,
         faults: Any | None = None,
     ):
-        if paged or spec_decode or mesh is not None or faults is not None:
-            raise NotImplementedError("paged KV, speculative decoding, mesh sharding and fault "
-                                      "injection are not ported yet: ROADMAP Queue A items 7-9")
+        if mesh is not None or faults is not None:
+            raise NotImplementedError("mesh sharding and fault injection are not ported yet: "
+                                      "ROADMAP Queue A items 9 and 12")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue={max_queue} must be >= 1 (or None)")
         if not 1 <= prefill_chunk <= max_seq:
@@ -163,14 +204,67 @@ class ServingEngine:
         self.max_seq = max_seq
         self.prefill_chunk = prefill_chunk
         self._compute_dtype = compute_dtype
+        # speculative decoding is resolved before the warm-up (its verify
+        # shape is tuned too) and before the pool (it turns prefix sharing
+        # off: a skipped chunk would leave the draft's cache without it)
+        self.spec: SpecDecoder | None = None
+        if (draft_bundle is None) != (draft_params is None):
+            raise ValueError("draft_bundle and draft_params come together")
+        if spec_decode:
+            if not _all_pool_leaves(bundle.cache_specs(n_slots, max_seq,
+                                                       paged=PagedSpec(n_pages=2, page_size=16))):
+                warnings.warn("spec_decode disabled: the bundle carries per-slot recurrent "
+                              "state that cannot roll back rejected tokens; serving continues "
+                              "non-speculatively")
+                spec_decode = False
+            else:
+                prefix_sharing = False
+        # the token shapes the engine issues: decode, a prefill chunk and,
+        # speculating, the verify forward; the draft runs decode and prefill
+        if autotune_lut:
+            dtype = autotune.dtype_name(compute_dtype)
+            counts = [n_slots, n_slots * prefill_chunk]
+            self.n_lut_shapes_tuned = warm_lut_autotune(
+                bundle, counts + ([n_slots * (spec_gamma + 1)] if spec_decode else []),
+                dtype=dtype, device=self.device)
+            if spec_decode and draft_bundle is not None:
+                self.n_lut_shapes_tuned += warm_lut_autotune(draft_bundle, counts, dtype=dtype,
+                                                             device=self.device)
+        else:
+            self.n_lut_shapes_tuned = 0
+        if isinstance(kv_dtype, str):
+            if kv_dtype not in KV_DTYPES:
+                raise ValueError(f"kv_dtype={kv_dtype!r}: pick one of {sorted(KV_DTYPES)}")
+            kv_dtype = KV_DTYPES[kv_dtype]
         self.kv_dtype = compute_dtype if kv_dtype is None else kv_dtype
-        # the engine issues exactly two token shapes: decode and a prefill chunk
-        self.n_lut_shapes_tuned = (
-            warm_lut_autotune(bundle, [n_slots, n_slots * prefill_chunk],
-                              dtype=autotune.dtype_name(compute_dtype),
-                              device=self.device)
-            if autotune_lut else 0)
-        self.caches = bundle.init_caches(n_slots, max_seq, dtype=self.kv_dtype, device=self.device)
+
+        # paged KV pool: the cache tensors become pools shared by all slots,
+        # and the scheduler owns the block tables
+        self.paged = bool(paged)
+        paged_spec = None
+        if self.paged:
+            if max_seq % page_size:
+                raise ValueError(f"page_size={page_size} must divide max_seq={max_seq} (the "
+                                 f"block table covers exactly max_seq positions)")
+            self.n_tables = max_seq // page_size
+            if n_pages is None:
+                # the dense engine's capacity, plus the garbage page
+                n_pages = n_slots * self.n_tables + 1
+            paged_spec = PagedSpec(n_pages=n_pages, page_size=page_size)
+            # prefix sharing skips prefill chunks, sound only when the whole
+            # cache state lives in the pool
+            prefix_sharing = prefix_sharing and _all_pool_leaves(
+                bundle.cache_specs(n_slots, max_seq, dtype=self.kv_dtype, paged=paged_spec))
+            self.pool = KVPagePool(n_pages, page_size, prefix_sharing=prefix_sharing)
+            self.block_tables = np.zeros((n_slots, self.n_tables), np.int32)
+            self.slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
+            self._pending_copies: list[tuple[int, int]] = []
+        self.caches = bundle.init_caches(n_slots, max_seq, dtype=self.kv_dtype, device=self.device,
+                                         paged=paged_spec)
+        if self.paged:
+            # bytes of one page over all layers: the kv_bytes_* gauges
+            self._page_bytes = sum(t.numel() * t.element_size() for seg in self.caches
+                                   for name, t in seg.items() if name in POOL_LEAVES) // n_pages
         self.cache_len = np.zeros((n_slots,), np.int32)
         self.slots: list[Request | None] = [None] * n_slots
         self.queue: deque[Request] = deque()
@@ -178,6 +272,11 @@ class ServingEngine:
         self.max_queue = max_queue
         self._next_rid = 0
         self.reset_stats()
+        if spec_decode:
+            # no draft given: the target drafts for itself (acceptance ~1)
+            self.spec = SpecDecoder(self, bundle if draft_bundle is None else draft_bundle,
+                                    params if draft_params is None else draft_params,
+                                    gamma=spec_gamma, kv_dtype=self.kv_dtype)
 
     # ------------------------------------------------------------------
     def reset_stats(self) -> None:
@@ -195,8 +294,14 @@ class ServingEngine:
             "cancelled": 0,
             "shed": 0,
             "error": 0,
+            # prompt tokens served from the prefix cache (never forwarded)
+            "prefill_tokens_skipped": 0,
         }
-        self._shapes_seen: set[tuple[int, ...]] = set()
+        self._shapes_seen: set[tuple[Any, ...]] = set()
+        if self.paged:
+            self.pool.reset_counters()
+        if self.spec is not None:
+            self.spec.reset_counters()
 
     def stats(self) -> dict[str, Any]:
         """Scheduler counters since construction / the last reset_stats()."""
@@ -208,23 +313,45 @@ class ServingEngine:
         c["prefill_tok_s"] = c["prefill_tokens"] / c["prefill_s"] if c["prefill_s"] else 0.0
         c["decode_tok_s"] = c["decode_tokens"] / c["decode_s"] if c["decode_s"] else 0.0
         c["lut_shapes_tuned"] = self.n_lut_shapes_tuned
+        if self.paged:
+            pool = self.pool
+            c["kv_pages_total"] = pool.n_allocatable
+            c["kv_pages_free"] = pool.n_free
+            c["kv_pages_cached"] = pool.n_cached
+            c["kv_pages_shared"] = pool.n_shared
+            c["kv_pages_resident"] = pool.n_resident
+            c["kv_pages_peak"] = pool.peak_resident
+            c.update(pool.counters)       # prefix_hits/lookups, cow_copies, ...
+            c["kv_bytes_resident"] = pool.n_resident * self._page_bytes
+            c["kv_bytes_peak"] = pool.peak_resident * self._page_bytes
+            # what the dense per-slot layout would hold for the same tensors
+            c["kv_bytes_dense_equiv"] = self._page_bytes * self.n_slots * self.n_tables
+            c["pool_utilization"] = (pool.n_resident / pool.n_allocatable
+                                     if pool.n_allocatable else 0.0)
+        if self.spec is not None:
+            c.update(self.spec.counters())
         return c
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
-        """Run and discard one request that exercises both token shapes (a
-        multi-chunk prefill and a decode forward), then re-arm the counters."""
+        """Run and discard one request that exercises the token shapes (a
+        multi-chunk prefill and a decode forward; speculating, gamma + 2
+        tokens make the first round draft at full depth and verify), then
+        re-arm the counters."""
         wlen = (self.prefill_chunk + 1 if 2 * self.prefill_chunk <= self.max_seq
                 else min(self.prefill_chunk, self.max_seq - 1))
-        self.submit(list(range(1, wlen + 1)), max_tokens=2)
+        max_tok = 2 if self.spec is None else self.spec.gamma + 2
+        self.submit(list(range(1, wlen + 1)), max_tokens=max_tok)
         self.run_until_done()
         self.finished.clear()
         self.reset_stats()
 
     def submit(self, prompt: list[int], *, max_tokens: int = 16, eos_id: int | None = None,
                sampling: SamplingParams | None = None, priority: int = 0,
-               deadline_s: float | None = None) -> int:
-        """Queue a request; returns its rid. `deadline_s` is relative."""
+               deadline_s: float | None = None, spec_decode: bool | None = None) -> int:
+        """Queue a request; returns its rid. `deadline_s` is relative;
+        `spec_decode=False` opts a request out of speculation (it rides the
+        verify forward at depth 0), True needs a speculating engine."""
         prompt = list(prompt) or [0]
         padded = -(-len(prompt) // self.prefill_chunk) * self.prefill_chunk
         if padded > self.max_seq:
@@ -232,12 +359,29 @@ class ServingEngine:
                              f"exceeds max_seq={self.max_seq}")
         if max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {max_tokens}")
-        max_tokens = min(max_tokens, self.max_seq - len(prompt) + 1)
+        if spec_decode and self.spec is None:
+            raise ValueError("spec_decode=True requested but the engine was built without "
+                             "speculative decoding (spec_decode=False or auto-disabled)")
+        if self.paged:
+            # capacity in pool pages: a prompt that could never hold its
+            # pages, even alone, is refused here rather than shed forever
+            ps = self.pool.page_size
+            need = -(-len(prompt) // ps)
+            if need > self.pool.n_allocatable:
+                raise ValueError(f"prompt of {len(prompt)} tokens needs {need} pages; the pool "
+                                 f"only has {self.pool.n_allocatable} allocatable pages of {ps} "
+                                 f"(n_pages={self.pool.n_pages} incl. the reserved garbage page)")
+            # decode writes positions len(prompt) .. len(prompt)+max_tokens-2
+            cap = min(self.max_seq, self.pool.n_allocatable * ps)
+            max_tokens = min(max_tokens, cap - len(prompt) + 1)
+        else:
+            max_tokens = min(max_tokens, self.max_seq - len(prompt) + 1)
         now = time.monotonic()
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid, prompt, max_tokens, eos_id, sampling or GREEDY, priority=priority,
-                      deadline=None if deadline_s is None else now + deadline_s)
+                      deadline=None if deadline_s is None else now + deadline_s,
+                      spec_decode=spec_decode)
         req.submit_t = now
         # bounded queue: past the high-water mark shed the lowest priority,
         # the newest among ties (arrivals lose ties)
@@ -293,21 +437,129 @@ class ServingEngine:
 
     def _admit(self) -> None:
         """Fill free slots from the queue, highest priority first (FIFO within
-        a priority)."""
+        a priority). Paged, the prompt's longest chain of cached full-page
+        prefixes maps straight into the slot's block table and its tokens
+        skip prefill; a fully cached prompt keeps its last token to forward
+        (its logits give the first output token), whose write into the shared
+        last page is a copy-on-write."""
         for i in range(self.n_slots):
             if self.slots[i] is None and self.queue:
                 req = max(self.queue, key=lambda r: (r.priority, -r.rid))
                 self.queue.remove(req)
                 self.slots[i] = req
                 self.cache_len[i] = 0
+                if self.spec is not None:
+                    self.spec.reset_slot(i)
+                if self.paged:
+                    pages = self.pool.lookup_prefix(req.prompt)
+                    shared = min(len(pages) * self.pool.page_size, len(req.prompt) - 1)
+                    self.slot_pages[i] = pages
+                    self.block_tables[i, :] = 0
+                    self.block_tables[i, : len(pages)] = pages
+                    req.n_prefilled = shared
+                    self.cache_len[i] = shared
+                    self._counters["prefill_tokens_skipped"] += shared
 
     def _retire(self, slot: int, req: Request, status: str = "ok") -> None:
         self._finish(req, status)
         self.slots[slot] = None
         self.cache_len[slot] = 0
+        if self.spec is not None:
+            self.spec.reset_slot(slot)
+        if self.paged:
+            for page in self.slot_pages[slot]:
+                self.pool.unref(page)     # registered pages stay resident, evictable
+            self.slot_pages[slot] = []
+            self.block_tables[slot, :] = 0
 
-    def _record(self, tokens: np.ndarray) -> None:
-        shape = tuple(tokens.shape)
+    # ---------------- paged allocation (DESIGN.md §12.3) ----------------
+    def _shed_for_pages(self, needy_slot: int) -> bool:
+        """Free pages by retiring the lowest-priority active request (the
+        newest among ties) as "shed". False when the victim was the needy
+        request itself: the caller stops allocating for it."""
+        live = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        vi, vr = min(live, key=lambda ir: (ir[1].priority, -ir[1].rid))
+        self._retire(vi, vr, "shed")
+        return vi != needy_slot
+
+    def _alloc_page_for(self, slot: int) -> int | None:
+        """One page for `slot`, shedding requests until one frees (`alloc`
+        reclaims evictable prefix pages first). None only when the slot's
+        own request was shed."""
+        while True:
+            page = self.pool.alloc()
+            if page is not None:
+                return page
+            if not self._shed_for_pages(slot):
+                return None
+
+    def _prepare_slot_writes(self, slot: int, n_new: int) -> bool:
+        """Make the slot's next `n_new` positions writable: extend its block
+        table with fresh pages and copy-on-write every page in the range that
+        another request or the prefix cache can see. False when the slot's
+        request was shed while allocating."""
+        ps = self.pool.page_size
+        start = int(self.cache_len[slot])
+        need = -(-(start + n_new) // ps)              # pages covering the write
+        pages = self.slot_pages[slot]
+        while len(pages) < need:
+            page = self._alloc_page_for(slot)
+            if page is None:
+                return False
+            self.block_tables[slot, len(pages)] = page
+            pages.append(page)
+        for pi in range(start // ps, need):
+            if not self.pool.needs_cow(pages[pi]):
+                continue
+            dst = self._alloc_page_for(slot)
+            if dst is None:
+                return False
+            # the device copy waits for _flush_copies; the bookkeeping moves now
+            self._pending_copies.append((pages[pi], dst))
+            self.pool.unref(pages[pi])
+            pages[pi] = dst
+            self.block_tables[slot, pi] = dst
+            self.pool.counters["cow_copies"] += 1
+        return True
+
+    def _flush_copies(self) -> None:
+        """Apply the step's pending copy-on-write page copies: one indexed
+        copy per pool tensor, after one host-to-device copy of the ids."""
+        if not self._pending_copies:
+            return
+        ids = torch.tensor(self._pending_copies, dtype=torch.long).to(self.device)
+        src, dst = ids[:, 0], ids[:, 1]
+        self._pending_copies = []
+        for seg in self.caches:
+            for name in POOL_LEAVES:
+                seg[name][:, dst] = seg[name][:, src]      # (L, n_pages, page_size, KV, Dh)
+
+    def _prepare_pages(self, rows: list[tuple[int, Request]], n_new) -> list[tuple[int, Request]]:
+        """Pages for every row's next write (`n_new(slot, req)` positions),
+        then the pending copies; preparing one slot can shed another, so the
+        rows still owned by their request are returned."""
+        for i, r in rows:
+            if self.slots[i] is r:
+                self._prepare_slot_writes(i, n_new(i, r))
+        rows = [(i, r) for i, r in rows if self.slots[i] is r]
+        self._flush_copies()
+        return rows
+
+    def _register_prefixes(self, slot: int, req: Request) -> None:
+        """Publish the request's fully prefilled prompt pages to the prefix
+        cache: K/V at a position depends only on the tokens up to it, so a
+        page wholly covered by prompt tokens is fixed by the prefix that
+        keys it."""
+        ps = self.pool.page_size
+        for pi in range(req.n_prefilled // ps):
+            if (pi + 1) * ps > len(req.prompt):
+                break
+            self.pool.register_prefix(tuple(req.prompt[: (pi + 1) * ps]),
+                                      self.slot_pages[slot][pi])
+
+    def _record(self, tokens: np.ndarray, tag: str = "target") -> None:
+        # keyed per model: the draft's first forward at a shape is its own
+        shape = (tag, *tokens.shape)
         if shape in self._shapes_seen:
             self._counters["shape_cache_hits"] += 1
         self._shapes_seen.add(shape)
@@ -330,18 +582,28 @@ class ServingEngine:
         if hit_eos or len(req.out_tokens) >= req.max_tokens or out_of_cache:
             self._retire(slot, req)
 
-    def _forward(self, toks: np.ndarray, cache_len: np.ndarray,
-                 rows: list[int]) -> torch.Tensor:
-        """One row-masked forward; only `rows` may change the caches."""
+    def _forward(self, toks: np.ndarray, cache_len: np.ndarray, write_len: np.ndarray,
+                 model: tuple | None = None) -> torch.Tensor:
+        """One row-masked forward of the target, or of `model` = (bundle,
+        params, dense caches); returns its logits. Only rows with
+        write_len > 0 may change the caches: a dense cache takes their whole
+        slab (`write_rows`), the paged pool their first write_len positions
+        (the rest land in the garbage page)."""
+        paged = self.paged and model is None
+        bundle, params, caches = model or (self.bundle, self.params, self.caches)
         batch = {
             "tokens": torch.from_numpy(toks).to(self.device),
             # host tensors: the model plans its cache writes on the host
             "cache_len": torch.from_numpy(cache_len.astype(np.int64)),
-            "write_rows": torch.tensor(rows, dtype=torch.long),
         }
+        if paged:
+            batch["block_tables"] = torch.from_numpy(self.block_tables)
+            batch["write_len"] = torch.from_numpy(write_len)
+        else:
+            batch["write_rows"] = torch.from_numpy(np.flatnonzero(write_len))
         with torch.inference_mode():
-            logits, self.caches = self.bundle.forward_step(
-                self.params, batch, self.caches, compute_dtype=self._compute_dtype)
+            logits, _ = bundle.forward_step(params, batch, caches,
+                                            compute_dtype=self._compute_dtype)
         return logits
 
     def _sync(self) -> None:
@@ -354,33 +616,40 @@ class ServingEngine:
         every prefilling slot's prompt."""
         chunk = self.prefill_chunk
         pre = [(i, r) for i, r in enumerate(self.slots) if r is not None and not r.prefill_done]
+        if self.paged and pre:
+            pre = self._prepare_pages(pre, lambda i, r: min(chunk, len(r.prompt) - r.n_prefilled))
         if not pre:
             return
         toks = np.zeros((self.n_slots, chunk), np.int32)
         cache_len = np.zeros((self.n_slots,), np.int32)
-        n_new = {}
+        write_len = np.zeros((self.n_slots,), np.int32)
         for i, r in pre:
             part = r.prompt[r.n_prefilled: r.n_prefilled + chunk]
             toks[i, : len(part)] = part
             cache_len[i] = r.n_prefilled
-            n_new[i] = len(part)
+            write_len[i] = len(part)
         t0 = time.perf_counter()
-        logits = self._forward(toks, cache_len, [i for i, _ in pre])
+        logits = self._forward(toks, cache_len, write_len)
         self._sync()
         self._record(toks)
         self._counters["prefill_forwards"] += 1
-        self._counters["prefill_tokens"] += sum(n_new.values())
+        self._counters["prefill_tokens"] += int(write_len.sum())
         self._counters["prefill_s"] += time.perf_counter() - t0
+        if self.spec is not None:
+            # the draft's cache sees every prompt token: the same chunk, cursors and rows
+            self.spec.mirror_prefill(toks, cache_len, write_len)
 
         # first output token of every slot whose prompt just completed, from
         # that slot's last valid position in this chunk
         last_idx = np.zeros((self.n_slots,), np.int64)
         finishing = []
         for i, r in pre:
-            r.n_prefilled += n_new[i]
+            r.n_prefilled += int(write_len[i])
             self.cache_len[i] = r.n_prefilled
+            if self.paged:
+                self._register_prefixes(i, r)
             if r.prefill_done:
-                last_idx[i] = n_new[i] - 1
+                last_idx[i] = write_len[i] - 1
                 finishing.append((i, r))
         if not finishing:
             return
@@ -395,13 +664,17 @@ class ServingEngine:
     def _decode_step(self) -> None:
         """One (n_slots, 1) forward advancing every decode-phase slot."""
         dec = [(i, r) for i, r in enumerate(self.slots) if r is not None and r.prefill_done]
+        if self.paged and dec:
+            dec = self._prepare_pages(dec, lambda i, r: 1)
         if not dec:
             return
         toks = np.zeros((self.n_slots, 1), np.int32)
+        write_len = np.zeros((self.n_slots,), np.int32)
         for i, r in dec:
             toks[i, 0] = r.out_tokens[-1] if r.out_tokens else r.prompt[-1]
+            write_len[i] = 1
         t0 = time.perf_counter()
-        logits = self._forward(toks, self.cache_len, [i for i, _ in dec])
+        logits = self._forward(toks, self.cache_len, write_len)
         self._sync()
         self._record(toks)
         self._counters["decode_forwards"] += 1
@@ -417,12 +690,15 @@ class ServingEngine:
 
     def step(self) -> None:
         """One engine step: lifecycle sweep, admit, one prefill chunk, one
-        decode forward."""
+        decode forward (speculating: one draft/verify round)."""
         self._counters["steps"] += 1
         self._sweep()
         self._admit()
         self._prefill_step()
-        self._decode_step()
+        if self.spec is not None:
+            self.spec.decode_round()
+        else:
+            self._decode_step()
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(s is not None for s in self.slots)

@@ -110,12 +110,14 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
-                  top_ps: torch.Tensor, seeds: torch.Tensor,
-                  counters: torch.Tensor) -> torch.Tensor:
-    """One token per row of (B, V) logits; per-row parameters as (B,) tensors
-    on the logits' device. Greedy rows (temperature <= 0) take argmax of the
-    raw logits, so a greedy request through the sampler equals argmax."""
+def decision_values(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                    top_ps: torch.Tensor, seeds: torch.Tensor,
+                    counters: torch.Tensor) -> torch.Tensor:
+    """(B, V) float32 values whose row argmax is `sample_tokens`' token: the
+    raw logits of a greedy row (temperature <= 0), the Gumbel noise plus the
+    filtered scaled logits of a sampled one. Per-row parameters are (B,)
+    tensors on the logits' device. A row's top-2 gap says how near its draw
+    sits to a tie."""
     b, v = logits.shape
     logits = logits.float()
     greedy = temps <= 0.0
@@ -139,8 +141,17 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tenso
     filtered = torch.where(scaled < cutoff, -torch.inf, filtered)
 
     keys = fold_in(prng_keys(seeds), counters)
-    sampled = torch.argmax(gumbel(keys, v) + filtered, dim=-1)
-    return torch.where(greedy, torch.argmax(logits, dim=-1), sampled).to(torch.int32)
+    return torch.where(greedy[:, None], logits, gumbel(keys, v) + filtered)
+
+
+def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                  top_ps: torch.Tensor, seeds: torch.Tensor,
+                  counters: torch.Tensor) -> torch.Tensor:
+    """One token per row of (B, V) logits; per-row parameters as (B,) tensors
+    on the logits' device. Greedy rows (temperature <= 0) take argmax of the
+    raw logits, so a greedy request through the sampler equals argmax."""
+    return torch.argmax(decision_values(logits, temps, top_ks, top_ps, seeds, counters),
+                        dim=-1).to(torch.int32)
 
 
 def batch_arrays(params: list[SamplingParams], counters: list[int],

@@ -257,3 +257,80 @@ def test_v1_and_encode_under_every_candidate_at_path_shapes(dev, n):
             got = enc_mod.encode(x, P, block_n=cfg.block_n, block_c=cfg.block_c)
             torch.cuda.synchronize()
             assert (tie_gaps(x, P, got, codes) <= TIE_EPS).all()
+
+
+def _engine_model(dev):
+    """Reduced qwen3_1p7b in LUT_INFER (kernel sites), target and a divergent
+    draft from seeded generators on the card."""
+    from repro_torch import configs as tcfg
+
+    bundle = tcfg.build_model(tcfg.reduce_arch(tcfg.get_arch("qwen3_1p7b"), n_layers=2,
+                                               d_model=64, vocab=128, d_ff=128,
+                                               lut_use_kernel=True), "lut_infer")
+    return (bundle, bundle.init(torch.Generator().manual_seed(0), device=dev),
+            bundle.init(torch.Generator().manual_seed(9), device=dev))
+
+
+@pytest.mark.parametrize("version", [2, 3])
+def test_paged_and_spec_engines_match_dense_on_the_card(dev, version, tmp_path, monkeypatch):
+    """With every LUT site pinned to one kernel version at every token count
+    (decode, prefill chunk, verify): the paged engine (prefix hits, a COW,
+    fp8 storage) gives the dense engine's tokens, and speculative decoding
+    (self-draft and a divergent draft, dense and paged) plain decode's; every
+    forward launched the pinned kernel and never a plain version."""
+    from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE_MEASURE", raising=False)
+    bundle, params, draft = _engine_model(dev)
+    kw = dict(n_slots=2, max_seq=32, prefill_chunk=4, device=dev)
+    cache = autotune.get_cache()
+    for m, c, k, v in lut_kernel_signatures(bundle):
+        for n in (2, 8, 10):                       # decode, prefill chunk, verify (gamma 4)
+            cache.put(autotune.shape_key("lut_amm", n, m, c, k, v, "float32",
+                                         autotune.BACKEND_CUDA),
+                      {"block_n": 0, "block_m": 0, "block_c": 0, "version": version,
+                       "measured": False, "source": "pinned"})
+    prompts = [[3, 5, 7, 9], [1, 2, 3, 4, 5, 6, 7, 8], [11, 13, 17], [1, 2, 3, 4, 5, 6, 7, 8]]
+
+    def serve(**engine_kw):
+        eng = ServingEngine(bundle, params, **kw, **engine_kw)
+        for p in prompts:
+            eng.submit(p, max_tokens=6)
+        done = sorted(eng.run_until_done(max_steps=500), key=lambda r: r.rid)
+        assert all(r.status == "ok" for r in done)
+        return [r.out_tokens for r in done], eng.stats()
+
+    counters.reset()
+    dense, _ = serve()
+    paged, st = serve(paged=True, page_size=4)
+    assert paged == dense and st["prefix_hits"] > 0 and st["cow_copies"] > 0
+    assert serve(paged=True, page_size=4, kv_dtype="float8_e4m3fn")[0] == \
+        serve(kv_dtype="float8_e4m3fn")[0]
+    spec, st = serve(spec_decode=True)
+    assert spec == dense and st["spec_bonus_tokens"] > 0
+    for paged_kw in ({}, {"paged": True, "page_size": 4}):
+        spec, st = serve(spec_decode=True, draft_bundle=bundle, draft_params=draft, **paged_kw)
+        assert spec == dense and st["spec_tokens_accepted"] < st["spec_tokens_proposed"]
+    launched = counters.launches()
+    name = "fused_decode" if version == 3 else "lut_amm_v2"
+    assert launched[name] > 0 and sum(launched.values()) == launched[name]
+    assert counters.plain_calls() == 0
+
+
+def test_fp8_pool_writes_and_gathers_bits_on_the_card(dev):
+    """The paged write and gather index float8_e4m3fn pools directly: the
+    card's pool and gather equal the CPU's byte for byte."""
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator().manual_seed(0)
+    pool = torch.zeros(6, 4, 2, 8).to(torch.float8_e4m3fn)
+    vals = torch.randn(3, 2, 2, 8, generator=gen)
+    bt = torch.tensor([[1, 4], [5, 2], [3, 0]])
+    flat = attn.paged_write_flat(bt, torch.tensor([0, 3, 6]), 2, 4, torch.tensor([2, 2, 1]))
+    card = pool.to(dev)
+    attn.paged_write(pool, vals, flat)
+    attn.paged_write(card, vals.to(dev), flat.to(dev))
+    assert torch.equal(card.cpu().view(torch.uint8), pool.view(torch.uint8))
+    assert torch.equal(attn.paged_gather(card, bt.to(dev)).cpu().view(torch.uint8),
+                       attn.paged_gather(pool, bt).view(torch.uint8))

@@ -76,7 +76,7 @@ def test_engine_never_runs_on_the_cpu_silently():
 def test_engine_refuses_what_is_not_ported():
     """Sampled requests are served (and replay: the draw is keyed on the
     request's seed and token index only); paged KV and speculative decoding
-    are still refused."""
+    construct, mesh sharding and fault injection are still refused."""
     tb, tparams = _port_model()
     outs = []
     for first in ("sampled", "greedy"):
@@ -91,6 +91,9 @@ def test_engine_refuses_what_is_not_ported():
         outs.append({name: done[rid].out_tokens for name, rid in rids.items()})
     assert outs[0] == outs[1]            # same tokens in either slot placement
     for kw in ({"paged": True}, {"spec_decode": True}):
+        eng = ServingEngine(tb, tparams, device="cpu", **ENGINE, **kw)
+        assert eng.paged == bool(kw.get("paged")) and (eng.spec is not None) == ("spec_decode" in kw)
+    for kw in ({"mesh": object()}, {"faults": object()}):
         with pytest.raises(NotImplementedError):
             ServingEngine(tb, tparams, device="cpu", **kw)
 
