@@ -43,11 +43,30 @@ Phases (any failed check exits non-zero; no phase is skipped):
      (shedding, nothing raises), fp8 paged against dense fp8 (bytes against
      fp32), and the paged decode step profiled beside phase 4's dense one;
      speculative decoding at gamma 4 on the phase-4 burst with a self-draft,
-     then a divergent draft (the same arch from another seed) dense and
-     paged (rollback and page rewind); a two-plan artifact at 2 layers the
+     then a divergent draft (the arch at full width and DRAFT_LAYERS
+     layers, from another seed) dense and paged (rollback and page rewind); a two-plan artifact at 2 layers the
      port writes (target keeps mlp/down dense, the draft all-LUT shares the
      rest), served by `launch.serve --spec-decode --draft-plan draft` and by
-     a spec engine against plain decode.
+     a spec engine against plain decode;
+  6. the process layer: `python -m repro_torch.launch.serve --artifact <phase
+     4's artifact> --port 0 --replicas 2 --routing prefix_affinity --paged
+     --slots 4 --max-seq 256 --prefill-chunk 32` as a subprocess, two
+     supervised worker processes on the one card, each with its own CUDA
+     context, served from the artifact with its autotune records restored:
+     /readyz 200, the kernels' launch counts 0 at ready and read after each
+     burst over /stats (every kernel the records choose launched, no plain
+     version called), each replica's start-up split (interpreter and torch
+     import, CUDA context, artifact load, record restore, engine), device
+     memory per worker (its own allocator's, as it reports it, and the
+     card's used memory as a cross-check); the phase-4 burst from 8 client threads over
+     /generate with "stream": true (tokens equal phase 4's plain run's
+     except at a near-tie; time to first token and the inter-token gap
+     beside the same burst in process), with a transient fault
+     ({"error_steps": [3]}) on replica 0 retried in place; phase 5's
+     shared-prefix burst, all on one replica, prefix_hits > 0 in /metrics;
+     SIGTERM exits 0. A second launch with {"kill_at_step": 4} on replica 0:
+     restarts >= 1, requeued >= 1, the same tokens, the restart's time to
+     ready; SIGTERM exits 0.
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -58,11 +77,18 @@ import dataclasses
 import json
 import math
 import os
+import re
+import select
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import types
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -79,6 +105,7 @@ INT8_OPS = 1979e12      # H100 SXM int8
 SITES = [("q/o", 64, 2048), ("k/v", 64, 1024), ("gate/up", 64, 6144), ("down", 192, 2048)]
 # the path's token counts at 4 slots: decode, verify (gamma 4) and a prefill chunk of 32
 GAMMA = 4
+DRAFT_LAYERS = 2                 # depth of phase 5's divergent draft (full width)
 PATH_N = (4, 4 * (GAMMA + 1), 4 * 32)
 
 
@@ -330,6 +357,7 @@ def phase_kernels(dev) -> dict:
                         note_err("encode", err)
                     ragged += 1
     ragged += sweep_ragged_launches(dev, note_err)
+    wide_sites(dev, flush, note_err)
     log(f"[kernels] ragged sweep: {ragged} kernel calls agree with the plain versions; "
         f"max abs err (float32, off ties): "
         + ", ".join(f"{k} {r['err']:.3g}" for k, r in results.items()))
@@ -478,6 +506,68 @@ def sweep_ragged_launches(dev, note_err) -> int:
                             note_err("encode", err)
                         calls += 1
     return calls
+
+
+def wide_sites(dev, flush, note_err) -> None:
+    """Sites past the kernels' first envelope (V = 64; K = 512, 384 and 300,
+    codes held in two bytes and the table ring in two equal TMA boxes per
+    codebook, or gathered from global memory where such boxes would not
+    start aligned; C = 128 at V = 8) at the path's token counts: fused (where it fits) == v2 ==
+    plain and v1 == plain bytewise on m-shared scales, in float32 and
+    bfloat16, the encode's codes equal off near-ties; the fit rule picks v2
+    where the fused kernel's codebooks do not fit. Logs each kernel's time
+    at N = 4."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import dist_argmin as enc_mod
+    from repro_torch.kernels import fused_decode as fused_mod
+    from repro_torch.kernels import lut_amm as lut_mod
+    from repro_torch.testing import WIDE_SITES, make_amm_inputs, quantize_np
+
+    calls = 0
+    for i, (c, k, v, m) in enumerate(WIDE_SITES):
+        fits = fused_mod.fits(c, k, v)
+        check(autotune.fit_version(c, k, v) == (3 if fits else 2),
+              f"fit rule at (C, K, V) = {(c, k, v)}")
+        for n in PATH_N:
+            xn, pn, tn, _ = make_amm_inputs(n, c * v, m, k, v, seed=SEED + 30 + i)
+            qn, sn = quantize_np(tn, "m_shared")
+            p, q, s = (torch.from_numpy(a).to(dev) for a in (pn, qn, sn))
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.from_numpy(xn).to(dev, dtype)
+                want = ref.fused_decode_plain(x, p, q, s)
+                kernels = [("lut_amm_v2", lut_mod.lut_amm_v2)]
+                if fits:
+                    kernels.append(("fused_decode", fused_mod.fused_decode))
+                outs = []
+                for name, fn in kernels:
+                    out = fn(x, p, q, s)
+                    err = compare(f"{name} wide {(c, k, v, m)} N={n} {dtype}", out, want, x.float(),
+                                  p, exact=True, rtol=0)
+                    outs.append(out)
+                    if dtype == torch.float32:
+                        note_err(name, err)
+                check(all(torch.equal(o, outs[0]) for o in outs),
+                      f"fused != v2 at wide {(c, k, v, m)} N={n}")
+                out1 = lut_mod.lut_amm_v1(x, p, q, s)
+                err = compare(f"lut_amm_v1 wide {(c, k, v, m)} N={n} {dtype}", out1,
+                              ref.lut_amm_v1_plain(x, p, q, s), x.float(), p, exact=True, rtol=0)
+                codes = enc_mod.encode(x, p)
+                err_e = compare_codes(f"encode wide {(c, k, v, m)} N={n} {dtype}", codes,
+                                      ref.encode_plain(x, p), x, p)
+                if dtype == torch.float32:
+                    note_err("lut_amm_v1", err)
+                    note_err("encode", err_e)
+                calls += len(kernels) + 2
+            if n == PATH_N[0]:
+                x = torch.from_numpy(xn).to(dev)
+                times = {name: time_ms(lambda: fn(x, p, q, s), flush, reps=10) * 1e3
+                         for name, fn in kernels + [("lut_amm_v1", lut_mod.lut_amm_v1),
+                                                    ("encode", lambda x, p, q, s:
+                                                     enc_mod.encode(x, p))]}
+                log(f"  wide site (C, K, V, M) = {(c, k, v, m)} N={n}: "
+                    + ", ".join(f"{name} {t:.2f} us" for name, t in times.items()))
+    log(f"[kernels] wide sites: {calls} kernel calls agree with the plain versions "
+        f"(V = 64, K = 512, 384 and 300, C = 128; float32 and bfloat16)")
 
 
 # ---------------------------------------------------------------------------
@@ -927,11 +1017,13 @@ class GapRecorder:
 
 class LaunchesByN:
     """Kernel launches per (kernel, token count N) of an engine's forwards,
-    read from the launch counters around each forward."""
+    read from the launch counters around each forward, and which models
+    (the target, a speculating engine's draft) ran forwards at each N."""
 
     def __init__(self, eng):
         self.eng = eng
         self.by_n: dict[int, dict[str, int]] = {}
+        self.models: dict[int, set[str]] = {}
 
     def __enter__(self):
         from repro_torch.kernels import counters
@@ -942,6 +1034,7 @@ class LaunchesByN:
             before = counters.launches()
             out = real(toks, cache_len, write_len, model)
             row = self.by_n.setdefault(toks.size, dict.fromkeys(before, 0))
+            self.models.setdefault(toks.size, set()).add("target" if model is None else "draft")
             for k, v in counters.launches().items():
                 row[k] += v - before[k]
             return out
@@ -1018,11 +1111,14 @@ def driven(label: str, eng, burst, want: list, gaps: dict, *, all_ok: bool = Tru
     with LaunchesByN(eng) as by_n:
         reqs, st = run_burst(eng, burst, all_ok=all_ok)
     check(counters.plain_calls() == 0, f"{label}: a plain version ran on the card")
-    # every kernel the records choose at a forward's N launched at that N
-    bundles = [eng.bundle] + ([eng.spec.draft_bundle] if eng.spec is not None else [])
+    # every kernel the records choose for the models that ran forwards at an
+    # N launched at that N (the draft never runs the verify's N)
+    bundles = {"target": eng.bundle,
+               "draft": eng.spec.draft_bundle if eng.spec is not None else None}
     for n, row in by_n.by_n.items():
-        chosen = {KERNEL_OF_VERSION[ver] for b in bundles
-                  for vers in chosen_versions(b, [n], "float32", eng.device).values()
+        chosen = {KERNEL_OF_VERSION[ver] for tag in by_n.models[n]
+                  for vers in chosen_versions(bundles[tag], [n], "float32",
+                                              eng.device).values()
                   for ver in vers}
         check(all(row[k] > 0 for k in chosen), f"{label}: at N={n} the records choose "
                                                f"{sorted(chosen)}; launched {row}")
@@ -1048,6 +1144,8 @@ def spec_line(label: str, st: dict, by_n: dict) -> None:
 
 
 def phase_paged_spec(dev, scratch: Path, art, plain) -> dict:
+    from repro_torch.configs import build_model
+    from repro_torch.core.amm import Mode
     from repro_torch.kernels import autotune
     from repro_torch.launch.serve import chosen_versions
     from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures
@@ -1063,6 +1161,7 @@ def phase_paged_spec(dev, scratch: Path, art, plain) -> dict:
     # paged, prefix sharing on, the default pool
     pburst = prefix_burst(vocab)
     want, st_d, gaps = plain_run(plain, pburst)
+    out["prefix_plain"] = (want, gaps)
     eng = engine(paged=True, page_size=16)
     _, st, _, ties = driven("paged, page_size 16, prefix sharing", eng, pburst, want, gaps)
     out["ties"] += ties
@@ -1112,6 +1211,7 @@ def phase_paged_spec(dev, scratch: Path, art, plain) -> dict:
     # speculative decoding, gamma 4, on the phase-4 burst
     burst4 = phase4_burst(vocab)
     want4, _, gaps4 = plain_run(plain, burst4)
+    out["burst_plain"] = (want4, gaps4)
     eng = engine(spec_decode=True, spec_gamma=GAMMA)
     cache = autotune.get_cache()
     for m, c, k, v in lut_kernel_signatures(art.bundle):
@@ -1136,14 +1236,18 @@ def phase_paged_spec(dev, scratch: Path, art, plain) -> dict:
     out["ties"] += ties
     out["self"] = {k: st[k] for k in ("spec_acceptance_rate", "target_forwards_per_token")}
     del eng
+    # the divergent draft: the arch at full width cut to DRAFT_LAYERS layers
+    # (the self-draft above runs all 28), params from another seed
     t0 = time.perf_counter()
-    draft = art.bundle.init(torch.Generator(device=dev).manual_seed(SEED + 7), device=dev)
-    log(f"[spec] divergent draft: the same arch, params from seed {SEED + 7} "
-        f"({time.perf_counter() - t0:.1f}s)")
+    draft_bundle = build_model(dataclasses.replace(art.bundle.arch, n_layers=DRAFT_LAYERS),
+                               Mode.LUT_INFER)
+    draft = draft_bundle.init(torch.Generator(device=dev).manual_seed(SEED + 7), device=dev)
+    log(f"[spec] divergent draft: {art.bundle.arch.name} at full width and {DRAFT_LAYERS} "
+        f"layers, params from seed {SEED + 7} ({time.perf_counter() - t0:.1f}s)")
     for paged in (False, True):
         extra = dict(paged=True, page_size=16) if paged else {}
         label = "divergent draft, " + ("paged" if paged else "dense")
-        eng = engine(spec_decode=True, spec_gamma=GAMMA, draft_bundle=art.bundle,
+        eng = engine(spec_decode=True, spec_gamma=GAMMA, draft_bundle=draft_bundle,
                      draft_params=draft, **extra)
         _, st, by_n, ties = driven(f"spec, {label}", eng, burst4, want4, gaps4)
         spec_line(label, st, by_n)
@@ -1155,7 +1259,7 @@ def phase_paged_spec(dev, scratch: Path, art, plain) -> dict:
             k: st[k] for k in ("spec_acceptance_rate", "target_forwards_per_token",
                                "spec_pages_rewound")}
         del eng
-    del draft
+    del draft, draft_bundle
     torch.cuda.empty_cache()
     out["two_plan"] = two_plan_artifact(dev, scratch)
     out["ties"] += out["two_plan"]["ties"]
@@ -1216,6 +1320,352 @@ def two_plan_artifact(dev, scratch: Path) -> dict:
             "tfpt": st["target_forwards_per_token"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the process layer (HTTP front end, supervisor, router) on the card
+# ---------------------------------------------------------------------------
+
+SERVER_ARGS = ["--port", "0", "--replicas", "2", "--routing", "prefix_affinity", "--paged",
+               "--slots", "4", "--max-seq", "256", "--prefill-chunk", "32"]
+HTTP_WAIT_S = 300         # the longest a launch may take to listen, or a request to end
+
+
+def percentiles(xs: list[float]) -> str:
+    xs = sorted(xs)
+    if not xs:
+        return "n/a"
+    med, p90 = (xs[min(len(xs) - 1, int(q * len(xs)))] for q in (0.5, 0.9))
+    return f"median {1e3 * med:.1f} ms, p90 {1e3 * p90:.1f} ms (n={len(xs)})"
+
+
+def spec_of(prompt, sampling) -> dict:
+    spec = {"prompt": prompt, "max_tokens": 16}
+    if sampling is not None:
+        spec.update(temperature=sampling.temperature, top_k=sampling.top_k,
+                    top_p=sampling.top_p, seed=sampling.seed)
+    return spec
+
+
+def inprocess_timing(eng, burst) -> tuple[list[float], list[float], float]:
+    """The burst on the in-process engine, every request submitted at once:
+    per request the time to its first token, and every gap between its
+    tokens, read by a TokenTap after each step; and the mean decode forward
+    (engine counters: forward and sync)."""
+    from repro_torch.serving.engine import TokenTap
+
+    eng.finished.clear()
+    eng.reset_stats()
+    tap = TokenTap(eng, consume=True)
+    t0 = time.perf_counter()
+    rids = [eng.submit(prompt, max_tokens=16, sampling=sampling) for prompt, sampling in burst]
+    stamps: dict[int, list[float]] = {rid: [] for rid in rids}
+    while eng.has_work():
+        eng.step()
+        now = time.perf_counter()
+        for rid, toks in tap.poll()[0]:
+            stamps[rid].extend([now] * len(toks))
+    ttft = [st[0] - t0 for st in stamps.values()]
+    gaps = [b - a for st in stamps.values() for a, b in zip(st, st[1:])]
+    st = eng.stats()
+    return ttft, gaps, st["decode_s"] / st["decode_forwards"]
+
+
+class Server:
+    """The launcher as a subprocess in its own process group (its workers with it),
+    started at construction; `listen` reads the bound port from its first line."""
+
+    def __init__(self, art_dir: Path, scratch: Path, extra: list[str], tag: str):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.log = scratch / f"server_{tag}.log"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--artifact", str(art_dir),
+             *SERVER_ARGS, *extra], stdout=subprocess.PIPE, stderr=self.log.open("w"),
+            text=True, env=env, start_new_session=True)
+
+    def listen(self) -> "Server":
+        ready, _, _ = select.select([self.proc.stdout], [], [], HTTP_WAIT_S)
+        line = self.proc.stdout.readline() if ready else ""
+        self.listen_s = time.perf_counter() - self.t0
+        m = re.search(r"serving .* on http://([\d.]+):(\d+) ", line)
+        if m is None:
+            self.stop()
+            check(False, f"the launcher printed no address: {line!r}; "
+                         f"stderr: {self.log.read_text()[-3000:]}")
+        self.url = f"http://{m.group(1)}:{m.group(2)}"
+        log(f"[process] {line.strip()} ({self.listen_s:.1f}s after the launch)")
+        return self
+
+    def get(self, path: str) -> tuple[int, bytes]:
+        try:
+            with urllib.request.urlopen(self.url + path, timeout=HTTP_WAIT_S) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def stats(self) -> dict:
+        code, body = self.get("/stats")
+        check(code == 200, f"/stats answered {code}")
+        return json.loads(body)
+
+    def wait_replicas(self, n: int = 2) -> dict:
+        """/readyz turns 200 with the first replica up: wait for all n."""
+        deadline = time.perf_counter() + HTTP_WAIT_S
+        while True:
+            st = self.stats()
+            per = st["per_replica"].values()
+            if st["replicas_live"] == n and all(ps["startups"] for ps in per):
+                return st
+            check(time.perf_counter() < deadline, f"not all {n} replicas came up: {st}")
+            time.sleep(0.1)
+
+    def generate(self, spec: dict) -> dict:
+        """One streamed request: its final line, the tokens as streamed
+        (restart events honoured), the send time and each token's arrival."""
+        req = urllib.request.Request(self.url + "/generate",
+                                     data=json.dumps(dict(spec, stream=True)).encode())
+        t0 = time.perf_counter()
+        streamed, stamps, restarts, final = [], [], 0, None
+        with urllib.request.urlopen(req, timeout=HTTP_WAIT_S) as resp:
+            for raw in resp:
+                line = json.loads(raw)
+                if "token" in line:
+                    streamed.append(line["token"])
+                    stamps.append(time.perf_counter())
+                elif line.get("restart"):
+                    streamed, stamps, restarts = [], [], restarts + 1
+                elif "status" in line:
+                    final = line
+        check(final is not None, "a stream ended without its final line")
+        return {"final": final, "streamed": streamed, "t0": t0, "stamps": stamps,
+                "restarts": restarts}
+
+    def burst(self, specs: list[dict], threads: int) -> list[dict]:
+        with ThreadPoolExecutor(threads) as pool:
+            return list(pool.map(self.generate, specs))
+
+    def stop(self, expect_exit: int | None = None) -> None:
+        """SIGTERM (a drain), then wait; a launcher that outlives the wait
+        is killed with its whole process group."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            code = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait(timeout=30)
+            code = None
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)       # no worker outlives its launcher
+        except ProcessLookupError:
+            pass
+        if expect_exit is not None:
+            check(code == expect_exit, f"the launcher exited {code} on SIGTERM, not "
+                                       f"{expect_exit}; stderr: {self.log.read_text()[-3000:]}")
+
+
+def served_requests(outs: list[dict], want: list) -> list:
+    """The HTTP results as request-like records for compare_tokens; every
+    streamed token list must equal its final line's."""
+    recs = []
+    for o, w in zip(outs, want):
+        check(o["streamed"] == o["final"]["tokens"], "streamed tokens != the final line's")
+        recs.append(types.SimpleNamespace(out_tokens=o["final"]["tokens"],
+                                          status=o["final"]["status"], rid=w.rid))
+    return recs
+
+
+def launch_deltas(before: dict, after: dict) -> dict[str, int]:
+    from repro_torch.kernels import counters
+
+    keys = [f"launches_{k}" for k in counters.KERNELS] + ["plain_calls"]
+    return {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+
+def check_path_launches(label: str, delta: dict, counts: list[int], bundle) -> None:
+    """Every kernel the records choose at the engine's token counts launched
+    in the run; no plain version was called."""
+    from repro_torch.launch.serve import chosen_versions
+
+    chosen = {KERNEL_OF_VERSION[ver] for vers in
+              chosen_versions(bundle, counts, "float32", torch.device("cuda")).values()
+              for ver in vers}
+    check(delta["plain_calls"] == 0, f"{label}: the workers called a plain version")
+    check(all(delta[f"launches_{k}"] > 0 for k in chosen),
+          f"{label}: the records choose {sorted(chosen)}; the workers launched {delta}")
+    log(f"[process] {label}: launches in the workers: "
+        + " ".join(f"{k}={v}" for k, v in delta.items()))
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip()
+
+
+def gpu_used_mib() -> int:
+    return int(smi("--query-gpu=memory.used").splitlines()[0])
+
+
+def phase_process(scratch: Path, plain, refs: dict) -> dict:
+    art_dir = scratch / "main"
+    bundle = plain.bundle
+    counts = [plain.n_slots, plain.n_slots * plain.prefill_chunk]
+    burst = phase4_burst(bundle.arch.vocab)
+    want4, gaps4 = refs["burst_plain"]
+    wantp, gapsp = refs["prefix_plain"]
+    pburst = prefix_burst(bundle.arch.vocab)
+    ttft_in, gaps_in, fwd_in = inprocess_timing(plain, burst)
+    log(f"[process] in process (phase 4's engine, dense), the phase-4 burst: time to first token "
+        f"{percentiles(ttft_in)}; inter-token gap {percentiles(gaps_in)}; decode forward "
+        f"{1e3 * fwd_in:.1f} ms (engine counters)")
+    out = {"ties": 0}
+    torch.cuda.synchronize()
+    base_mib = gpu_used_mib()         # this process's own, idle through phase 6
+
+    # launch 1: the routed deployment, a transient fault on replica 0
+    srv = Server(art_dir, scratch, ["--fault-json", '{"error_steps": [3]}', "--fault-replica",
+                                    "0"], "main").listen()
+    srv2 = None
+    try:
+        check(srv.get("/readyz")[0] == 200, "/readyz is not 200 after the address line")
+        st0 = srv.wait_replicas()
+        check(all(v == 0 for v in launch_deltas({}, st0).values()),
+              f"the workers launched kernels before any request: {launch_deltas({}, st0)}")
+        for rep, ps in sorted(st0["per_replica"].items()):
+            (su,) = ps["startups"]
+            log(f"[process] replica {rep} ready {su['ready_s']:.2f}s after its spawn: "
+                f"interpreter and torch import {su['entered_s']:.2f}s, CUDA context "
+                f"{su['cuda_s'] - su['entered_s']:.2f}s, artifact load "
+                f"{su['loaded_s'] - su['cuda_s']:.2f}s, record restore "
+                f"{su['restored_s'] - su['loaded_s']:.3f}s, engine "
+                f"{su['engine_s'] - su['restored_s']:.3f}s, first report "
+                f"{su['ready_s'] - su['engine_s']:.3f}s")
+        out["startups"] = {rep: ps["startups"][0] for rep, ps in st0["per_replica"].items()}
+        # the burst twice: on cold workers (their first forwards, never warmed:
+        # the reference's workers are not), then warm, as phase 4's engine is
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            outs = srv.burst([spec_of(p, smp) for p, smp in burst], threads=8)
+            wall = time.perf_counter() - t0
+            st1 = srv.stats()
+            check_path_launches(f"phase-4 burst over HTTP ({run})", launch_deltas(st0, st1),
+                                counts, bundle)
+            got = served_requests(outs, want4)
+            check(all(r.status == "ok" and len(r.out_tokens) == 16 for r in got),
+                  f"HTTP burst statuses {[r.status for r in got]}")
+            out["ties"] += compare_tokens(f"phase-4 burst over HTTP ({run})", got, want4, gaps4)
+            ttft = [o["stamps"][0] - o["t0"] for o in outs]
+            gaps = [b - a for o in outs for a, b in zip(o["stamps"], o["stamps"][1:])]
+            per = {r: {k: ps[k] - st0["per_replica"][r][k]
+                       for k in ("routed", "decode_s", "decode_forwards")}
+                   for r, ps in sorted(st1["per_replica"].items())}
+            log(f"[process] over HTTP (2 replicas, paged), the phase-4 burst ({run}) from 8 "
+                f"client threads in {wall:.3f}s: time to first token {percentiles(ttft)}; "
+                f"inter-token gap {percentiles(gaps)}; per replica routed, decode forward "
+                f"(worker counters): "
+                + ", ".join(f"{r}: {d['routed']}, "
+                            f"{1e3 * d['decode_s'] / d['decode_forwards']:.1f} ms"
+                            for r, d in per.items() if d["decode_forwards"]))
+            st0 = st1
+        rep0 = st1["per_replica"]["0"]
+        check(rep0["routed"] > 0 and rep0.get("faults_error", 0) >= 1 and st1["restarts"] == 0,
+              f"the transient fault on replica 0: routed {rep0['routed']}, "
+              f"faults_error {rep0.get('faults_error')}, restarts {st1['restarts']}")
+        log(f"[process] replica 0's transient fault at its step 3 retried in place: "
+            f"faults_error {rep0['faults_error']}, restarts 0, tokens as in process")
+        # each worker reports its own allocator's device memory; the CUDA
+        # contexts and kernel images lie outside it, and inside a container
+        # nvidia-smi's compute apps may show one pid for every process, so
+        # that part is the card's used memory less this process's and the
+        # workers' allocators, split evenly
+        used_mib = gpu_used_mib()
+        check(used_mib > base_mib, f"the workers hold no device memory: {used_mib} MiB")
+        mem = {r: {k: ps[f"device_mem_{k}_bytes"] / 2**20
+                   for k in ("reserved", "peak_reserved", "allocated")}
+               for r, ps in sorted(st1["per_replica"].items())}
+        check(all(m["reserved"] > 0 for m in mem.values()),
+              f"a worker reports no device memory of its own: {mem}")
+        outside = (used_mib - base_mib - sum(m["reserved"] for m in mem.values())) / len(mem)
+        log(f"[process] device memory per worker, its own allocator (reserved, peak reserved, "
+            f"allocated): "
+            + ", ".join(f"replica {r}: {m['reserved']:.0f}, {m['peak_reserved']:.0f}, "
+                        f"{m['allocated']:.0f} MiB" for r, m in mem.items())
+            + f"; cross-check: the card's used memory {used_mib} MiB with the workers serving, "
+            f"{base_mib} MiB before the launch, so {outside:.0f} MiB per worker outside the "
+            f"allocators (CUDA context, kernel images, split evenly); nvidia-smi's compute "
+            f"apps: {smi('--query-compute-apps=pid,used_memory')!r}")
+        out["worker_mib"] = {r: m["reserved"] + outside for r, m in mem.items()}
+        # launch 2 (below) starts up while this one serves the prefix burst
+        # and drains: nothing of launch 1 is timed from here on
+        srv2 = Server(art_dir, scratch, ["--fault-json", '{"kill_at_step": 4}',
+                                         "--fault-replica", "0"], "kill")
+        # phase 5's shared-prefix burst, in waves of 4 (a wave never loads the
+        # favorite past its 4 slots, so nothing spills): one replica serves it
+        outs = []
+        for wave in range(2):
+            outs += srv.burst([spec_of(p, smp) for p, smp in pburst[4 * wave: 4 * wave + 4]],
+                              threads=4)
+            time.sleep(0.5)                 # the workers' load reports catch up
+        st2 = srv.stats()
+        routed = {r: st2["per_replica"][r]["routed"] - st1["per_replica"][r]["routed"]
+                  for r in st2["per_replica"]}
+        check(sorted(routed.values()) == [0, 8], f"the prefix burst spread over replicas: "
+                                                 f"{routed}")
+        check(st2["affinity_hits"] - st1["affinity_hits"] == 8 and st2["spills"] == st1["spills"],
+              "the prefix burst spilled")
+        metrics = srv.get("/metrics")[1].decode()
+        hits = next((float(line.split()[-1]) for line in metrics.splitlines()
+                     if line.startswith("lutnn_serving_prefix_hits ")), 0.0)
+        check(hits > 0, "no prefix hit in /metrics")
+        out["ties"] += compare_tokens("prefix burst over HTTP", served_requests(outs, wantp),
+                                      wantp, gapsp)
+        check_path_launches("prefix burst over HTTP", launch_deltas(st1, st2), counts, bundle)
+        log(f"[process] prefix burst: all 8 on replica "
+            f"{next(r for r, n in routed.items() if n)}, lutnn_serving_prefix_hits {hits:.0f}, "
+            f"affinity_hits {st2['affinity_hits']}, spills {st2['spills']}")
+    except BaseException:
+        if srv2 is not None:
+            srv2.stop()
+        raise
+    finally:
+        srv.stop()
+    check(srv.proc.returncode == 0, f"SIGTERM: the launcher exited {srv.proc.returncode}")
+    log("[process] SIGTERM: the launcher drained and exited 0")
+
+    # launch 2: replica 0's worker killed at its 5th step, restarted, requests requeued
+    srv = srv2
+    try:
+        srv.listen()
+        st0 = srv.wait_replicas()
+        outs = srv.burst([spec_of(p, smp) for p, smp in burst], threads=8)
+        st1 = srv.stats()
+        got = served_requests(outs, want4)
+        check(all(r.status == "ok" for r in got), f"statuses {[r.status for r in got]}")
+        out["ties"] += compare_tokens("phase-4 burst over HTTP, replica 0 killed", got, want4,
+                                      gaps4)
+        check(st1["restarts"] >= 1 and st1["requeued"] >= 1 and st1["lost"] == 0,
+              f"kill: restarts {st1['restarts']}, requeued {st1['requeued']}, lost {st1['lost']}")
+        check_path_launches("burst with a kill", launch_deltas(st0, st1), counts, bundle)
+        sus = st1["per_replica"]["0"]["startups"]
+        check(len(sus) >= 2, f"replica 0 restarted {len(sus) - 1} times")
+        su = sus[1]
+        log(f"[process] kill at replica 0's step 4: restarts {st1['restarts']}, requeued "
+            f"{st1['requeued']}, streams restarted {sum(o['restarts'] for o in outs)}; the "
+            f"restarted worker ready {su['ready_s']:.2f}s after its spawn (import "
+            f"{su['entered_s']:.2f}s, CUDA context {su['cuda_s'] - su['entered_s']:.2f}s, "
+            f"load {su['loaded_s'] - su['cuda_s']:.2f}s, restore "
+            f"{su['restored_s'] - su['loaded_s']:.3f}s); every request ok with the "
+            f"fault-free tokens")
+        out["restart"] = su
+    finally:
+        srv.stop()
+    check(srv.proc.returncode == 0, f"SIGTERM: the launcher exited {srv.proc.returncode}")
+    log(f"[process] SIGTERM: exit 0; tokens differing from plain decode at a near-tie over "
+        f"phase 6: {out['ties']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card",
@@ -1231,13 +1681,20 @@ def main() -> int:
     # a fresh autotune cache inside the scratch directory, and the measured warm-up
     os.environ["REPRO_AUTOTUNE_CACHE"] = str(scratch / "autotune.json")
     os.environ["REPRO_AUTOTUNE_MEASURE"] = "1"
+    def timed(n: int, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        log(f"[time] phase {n}: {time.perf_counter() - t0:.1f}s")
+        return res
+
     try:
-        card = phase_card()
-        kern = phase_kernels(dev)
-        phase_slice_parity(dev, scratch)
-        served = phase_serve(dev, scratch)
+        card = timed(1, phase_card)
+        kern = timed(2, phase_kernels, dev)
+        timed(3, phase_slice_parity, dev, scratch)
+        served = timed(4, phase_serve, dev, scratch)
         launches = served["launches"]
-        phase_paged_spec(dev, scratch, served["art"], served["engine"])
+        refs = timed(5, phase_paged_spec, dev, scratch, served["art"], served["engine"])
+        timed(6, phase_process, scratch, served["engine"], refs)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -26,9 +26,12 @@ SOURCES = {
     "encode": "encode.cu",
 }
 HEADERS = ("lut_common.cuh",)
+# -split-compile runs each source's optimization passes on 4 threads, which
+# cuts the build's wall time (chip_smoke's [build] line, PERF.md)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-split-compile=4",
 )
 
 _LIBS: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}

@@ -29,3 +29,12 @@ def reset() -> None:
 
 def launch_line() -> str:
     return " ".join(f"{k}={v}" for k, v in launches().items())
+
+
+def stats() -> dict[str, int]:
+    """The launch counts as `launches_<kernel>` and the plain-version calls,
+    for a serving process's stats (a worker's counts reach its supervisor,
+    the router and /metrics this way)."""
+    out = {f"launches_{k}": v for k, v in launches().items()}
+    out["plain_calls"] = plain_calls()
+    return out

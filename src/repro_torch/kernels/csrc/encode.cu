@@ -27,13 +27,13 @@
 // round trip for its copies, the norms, the encode and the store.
 //
 // Shared memory: [ chunk centroids (16-byte rows) | their norms | the tile's
-// sub-vectors | chunk x rows code bytes ], sizes from the wrapper
+// sub-vectors | chunk x rows codes (1 byte each, 2 above K = 256) ], sizes from the wrapper
 // (dist_argmin.py, encode_geometry).
 #include "lut_common.cuh"
 
 namespace lutnn {
 
-template <typename T>
+template <typename T, typename CodeT>
 __global__ void __launch_bounds__(kThreads)
     encode_kernel(const T* __restrict__ x, const float* __restrict__ centroids,
                   int32_t* __restrict__ out, int N, int C, int K, int V, int chunk_c, int rows) {
@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(kThreads)
   float* p_s = reinterpret_cast<float*>(smem);
   float* pn_s = p_s + (size_t)chunk_c * (K * rs + 4);
   float* x_s = pn_s + ((chunk_c * (K + 1) + 3) & ~3);  // 16-byte aligned
-  uint8_t* codes_s = reinterpret_cast<uint8_t*>(x_s + (size_t)chunk_c * rows * rs);
+  CodeT* codes_s = reinterpret_cast<CodeT*>(x_s + (size_t)chunk_c * rows * rs);
 
   const int c0 = blockIdx.x * chunk_c;
   const int cc = min(chunk_c, C - c0);
@@ -63,11 +63,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename CodeT>
 cudaError_t launch_encode(const void* x, const void* centroids, void* out, int N, int C, int K,
                           int V, int chunk_c, int rows, int smem_bytes, cudaStream_t stream) {
-  auto kernel = encode_kernel<T>;
-  cudaError_t err = allow_smem<encode_kernel<T>>();
+  auto kernel = encode_kernel<T, CodeT>;
+  cudaError_t err = allow_smem<encode_kernel<T, CodeT>>();
   if (err != cudaSuccess) return err;
   dim3 grid((C + chunk_c - 1) / chunk_c, (N + rows - 1) / rows);
   kernel<<<grid, kThreads, smem_bytes, stream>>>(static_cast<const T*>(x),
@@ -85,11 +85,17 @@ extern "C" int lutnn_encode(const void* x, const void* centroids, void* out, int
                             int V, int x_bf16, int chunk_c, int rows, int smem_bytes,
                             void* stream) {
   using namespace lutnn;
-  if (chunk_c < 1 || rows < 1 || V > kMaxV) return cudaErrorInvalidValue;
+  if (chunk_c < 1 || rows < 1 || V > kMaxV || K > kMaxK) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  // codes held as uint16_t in shared memory above K = kByteK
   if (x_bf16) {
-    return launch_encode<__nv_bfloat16>(x, centroids, out, N, C, K, V, chunk_c, rows,
-                                        smem_bytes, s);
+    return K > kByteK ? launch_encode<__nv_bfloat16, uint16_t>(x, centroids, out, N, C, K, V,
+                                                               chunk_c, rows, smem_bytes, s)
+                      : launch_encode<__nv_bfloat16, uint8_t>(x, centroids, out, N, C, K, V,
+                                                              chunk_c, rows, smem_bytes, s);
   }
-  return launch_encode<float>(x, centroids, out, N, C, K, V, chunk_c, rows, smem_bytes, s);
+  return K > kByteK ? launch_encode<float, uint16_t>(x, centroids, out, N, C, K, V, chunk_c,
+                                                     rows, smem_bytes, s)
+                    : launch_encode<float, uint8_t>(x, centroids, out, N, C, K, V, chunk_c, rows,
+                                                    smem_bytes, s);
 }

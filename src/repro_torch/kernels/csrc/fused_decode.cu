@@ -32,18 +32,22 @@
 
 namespace lutnn {
 
-template <typename T, bool SHARED>
+template <typename T, bool SHARED, typename CodeT>
 __global__ void __launch_bounds__(kThreads) fused_decode_kernel(const __grid_constant__ LutArgs a) {
-  lut_cluster_body<T, SHARED, false>(a);
+  lut_cluster_body<T, SHARED, false, false, CodeT>(a);
 }
 
 }  // namespace lutnn
 
-#define LUTNN_DISPATCH(FN, ...)                                                \
-  (x_bf16 ? (shared ? FN<fused_decode_kernel<__nv_bfloat16, true>>(__VA_ARGS__)  \
-                    : FN<fused_decode_kernel<__nv_bfloat16, false>>(__VA_ARGS__)) \
-          : (shared ? FN<fused_decode_kernel<float, true>>(__VA_ARGS__)          \
-                    : FN<fused_decode_kernel<float, false>>(__VA_ARGS__)))
+#define LUTNN_DISPATCH_CODES(FN, CODE, ...)                                         \
+  (x_bf16 ? (shared ? FN<fused_decode_kernel<__nv_bfloat16, true, CODE>>(__VA_ARGS__)  \
+                    : FN<fused_decode_kernel<__nv_bfloat16, false, CODE>>(__VA_ARGS__)) \
+          : (shared ? FN<fused_decode_kernel<float, true, CODE>>(__VA_ARGS__)          \
+                    : FN<fused_decode_kernel<float, false, CODE>>(__VA_ARGS__)))
+// codes held as uint16_t above K = 256 (lut_common.cuh, lut_cluster_body)
+#define LUTNN_DISPATCH(FN, ...)                                                      \
+  (wide ? LUTNN_DISPATCH_CODES(FN, uint16_t, __VA_ARGS__)                            \
+        : LUTNN_DISPATCH_CODES(FN, uint8_t, __VA_ARGS__))
 
 // Plain C entry point (loaded with ctypes). geo: kGeoInts launch parameters
 // (LutArgs, from S to vec4). Returns a cudaError_t: 0 on a successful launch.
@@ -54,15 +58,16 @@ extern "C" int lutnn_fused_decode(const void* x, const void* centroids, const vo
                                   int act, const int* geo, int smem_bytes, void* stream) {
   using namespace lutnn;
   const bool shared = scale_c == 1;
+  const bool wide = K > kByteK;
   LutArgs a =
       make_args(x, centroids, table_q, scale, bias, out, N, C, K, V, M, scale_m, act, geo);
   return LUTNN_DISPATCH(launch_cluster, a, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of S blocks of `smem_bytes` can be resident at once on
-// this card (0: such a launch cannot run).
-extern "C" int lutnn_fused_decode_clusters(int x_bf16, int scale_c, int S, int smem_bytes,
-                                           int* out) {
+// this card (0: such a launch cannot run); wide: K > kByteK.
+extern "C" int lutnn_fused_decode_clusters(int x_bf16, int scale_c, int wide, int S,
+                                           int smem_bytes, int* out) {
   using namespace lutnn;
   const bool shared = scale_c == 1;
   return LUTNN_DISPATCH(max_clusters, S, smem_bytes, out);

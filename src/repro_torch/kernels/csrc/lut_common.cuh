@@ -32,7 +32,8 @@
 //     [r*C/S, (r+1)*C/S), with their norms, and encodes the N tile's rows for
 //     that share: S-fold less staging and encode per block.
 //  2. The codes go through distributed shared memory: each rank writes its
-//     share into its own code array (rows x C bytes) and pushes it into every
+//     share into its own code array (rows x C codes, one byte each up to
+//     K = 256 and two above, kMaxK = 512) and pushes it into every
 //     peer's array with st.async, whose bytes the peer's mbarrier counts; a
 //     rank looks up once its mbarrier has counted every peer's share. Codes
 //     never reach device memory, and no cluster-wide memory fence is needed
@@ -47,7 +48,8 @@
 //     at once), then a thread holds R rows x 4 centroids in registers, 4
 //     lanes split K, and the lanes' minima merge by shuffles, lowest k on a
 //     tie. Each distance is one fixed fp32 sequence (a_nrm and cross as FMA
-//     chains over v ascending), so every kernel and launch finds the same codes.
+//     chains over v ascending, any V up to kMaxV = 64), so every kernel and
+//     launch finds the same codes.
 //  4. A centroid norm's sum starts at word (c*K + k) % V of its row, a
 //     function of the global row: every rank, chunk and kernel computes the
 //     same fp32 norm, so fused == v2 bytewise whatever cluster and chunk.
@@ -55,6 +57,7 @@
 //     into shared memory, issued at the kernel's start so the table's bytes
 //     arrive while the codes are computed. N tiles of 16 rows and more
 //     (prefill) stage it by TMA, one box of stage_c codebooks per ring stage
+//     (a codebook of more than 256 rows: two equal boxes)
 //     on an mbarrier: the lanes of a warp read along one table row
 //     (conflict-free), warps and lane groups run along rows, each thread
 //     holds whole sums for its rows, and the table is read once per N tile.
@@ -84,7 +87,10 @@ namespace lutnn {
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kBlockN = 8;     // rows per register tile of the direct lookup
-constexpr int kMaxV = 32;      // longest sub-vector (a centroid's norm holds its row in registers)
+constexpr int kMaxV = 64;      // longest sub-vector the kernels take
+constexpr int kMaxK = 512;     // most centroids per codebook the kernels take
+constexpr int kByteK = 256;    // codes are held on chip in one byte up to this K, else two
+constexpr int kNormPiece = 32; // words of a centroid row a norm holds in registers at once
 // reduction buffer: G groups x kBlockN rows x 4Q columns x 4 bytes, G * Q = kThreads
 constexpr int kRedBytes = kThreads * kBlockN * 4 * 4;
 
@@ -151,10 +157,12 @@ __device__ __forceinline__ float apply_act(float y, int act) {
 // lanes of a warp that read one word of 8 rows on 8 bank groups.
 __host__ __device__ __forceinline__ int row_stride16(int V) { return ((V + 3) & ~3) + 4; }
 
-// The norms of `rows` staged centroid rows of codebooks from c_lo on: the
-// row in registers (independent loads), then one FMA chain over words
-// w0, w0 + 1, ..., V - 1, 0, ..., w0 - 1 with w0 = (c_lo*K + row) % V, the
-// row's global index: the same fp32 norm in every block, chunk and kernel.
+// The norms of `rows` staged centroid rows of codebooks from c_lo on: one
+// FMA chain over words w0, w0 + 1, ..., V - 1, 0, ..., w0 - 1 with
+// w0 = (c_lo*K + row) % V, the row's global index: the same fp32 norm in
+// every block, chunk and kernel. The chain runs in pieces of kNormPiece
+// words, each loaded into registers first (independent loads), the sum
+// carried from piece to piece.
 __device__ __forceinline__ void centroid_norms(int c_lo, int rows, int K, int V,
                                                const float* p_s, float* pn_s,
                                                int rs) {
@@ -162,17 +170,18 @@ __device__ __forceinline__ void centroid_norms(int c_lo, int rows, int K, int V,
   for (int i = threadIdx.x; i < rows; i += blockDim.x) {
     const float* p = p_s + (size_t)(i / K) * ps + (i % K) * rs;
     const int w0 = (c_lo * K + i) % V;
-    float r[kMaxV];
-#pragma unroll
-    for (int v = 0; v < kMaxV; ++v) r[v] = v < V ? p[v] : 0.f;
     float nrm = 0.f;
+    for (int base = 0; base < V; base += kNormPiece) {  // word j of the chain: w0 + j mod V
+      float r[kNormPiece];
 #pragma unroll
-    for (int v = 0; v < kMaxV; ++v) {
-      if (v >= w0 && v < V) nrm = fmaf(r[v], r[v], nrm);
-    }
+      for (int j = 0; j < kNormPiece; ++j) {
+        const int w = w0 + base + j;
+        r[j] = base + j < V ? p[w < V ? w : w - V] : 0.f;
+      }
 #pragma unroll
-    for (int v = 0; v < kMaxV; ++v) {
-      if (v < w0) nrm = fmaf(r[v], r[v], nrm);
+      for (int j = 0; j < kNormPiece; ++j) {
+        if (base + j < V) nrm = fmaf(r[j], r[j], nrm);
+      }
     }
     pn_s[(i / K) * (K + 1) + i % K] = nrm;
   }
@@ -310,11 +319,12 @@ __device__ __forceinline__ void stage_share(const T* __restrict__ x,
 // is the reference's fp32 sequence (a_nrm and cross as FMA chains over v
 // ascending, then the expansion ||a||^2 - 2 a.p + ||p||^2), so the codes are
 // the same in every kernel and launch.
-// Writes codes_s[c * rows + n] (codebook-major) for c in [c0, c0 + cc).
-template <int R>
+// Writes codes_s[c * rows + n] (codebook-major) for c in [c0, c0 + cc):
+// CodeT is uint8_t up to K = 256 and uint16_t above (kMaxK).
+template <int R, typename CodeT>
 __device__ __forceinline__ void encode_tile(int n_rows, int rows, int c0, int cc, int K, int V,
                                             const float* p_s, const float* pn_s,
-                                            const float* x_s, uint8_t* codes_s) {
+                                            const float* x_s, CodeT* codes_s) {
   constexpr int KG = 4;  // lanes across k per row group
   constexpr int KT = 4;  // centroids per lane per pass over v
   const int rs = row_stride16(V);
@@ -398,7 +408,7 @@ __device__ __forceinline__ void encode_tile(int n_rows, int rows, int c0, int cc
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int n = rg + i * n_rg;
-        if (n < n_rows) codes_s[(size_t)(c0 + cl) * rows + n] = (uint8_t)best_k[i];
+        if (n < n_rows) codes_s[(size_t)(c0 + cl) * rows + n] = (CodeT)best_k[i];
       }
     }
   }
@@ -425,12 +435,12 @@ __device__ __forceinline__ float s8x4_to_f32(uint32_t w) {
 // otherwise fp32 sums of T * s[c, m|0]. Thread group g takes the codebooks
 // g, g + G, ... Rows past n_rows repeat the last valid row's code (their
 // sums are never stored), so the loop has no branch per row.
-template <bool SHARED, int NR, typename AccT>
+template <bool SHARED, int NR, typename AccT, typename CodeT>
 __device__ __forceinline__ void lookup_rows(AccT (&acc)[NR][4], const int8_t* tbl,
                                             size_t pitch, int col,
                                             const float* __restrict__ scale, int K, int M,
                                             int scale_m, int c_lo, int cc,
-                                            const uint8_t* codes, int ldn, int n_rows, int m,
+                                            const CodeT* codes, int ldn, int n_rows, int m,
                                             int g, int G, bool vec4) {
   if (m >= M) return;
   const bool full4 = vec4 && (m + 3 < M);
@@ -635,23 +645,40 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// Thread 0 fills ring slot i % n_stages with table stage i: one TMA box of
-// stage_c*K table rows x 4Q columns from (row c0*K, column m0); rows past C*K
-// and columns past M arrive as zeros. The slot's mbarrier expects the box.
+// Rows of one TMA box at most (a box dimension is at most 256 elements).
+constexpr int kMaxBoxRows = 256;
+
+// Rows of each TMA box of a ring stage of stage_rows rows: the fewest equal
+// boxes of at most kMaxBoxRows rows (one box up to 256 rows; a codebook of
+// 257-512 rows, two halves). The wrapper stages by TMA only where they split
+// evenly and each box starts 128-byte aligned (lut_amm.py::ring_boxes).
+__host__ __device__ __forceinline__ int box_rows(int stage_rows) {
+  return stage_rows / ((stage_rows + kMaxBoxRows - 1) / kMaxBoxRows);
+}
+
+// Thread 0 fills ring slot i % n_stages with table stage i: stage_c*K table
+// rows x 4Q columns from (row c0*K, column m0), as equal TMA boxes of
+// box_rows rows; rows past C*K and columns past M arrive as zeros. The
+// slot's mbarrier expects the whole stage.
 __device__ __forceinline__ void issue_stage(const LutArgs& a, int i, int m0, uint8_t* ring,
                                             uint64_t* bars) {
-  const int box = a.stage_c * a.K * 4 * a.Q;
+  const int stage_rows = a.stage_c * a.K;
+  const int box = stage_rows * 4 * a.Q;
+  const int br = box_rows(stage_rows);
   const int slot = i % a.n_stages;
   uint64_t* bar = bars + slot;
   // the consumers' generic reads of this slot happen before the async writes
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   mbar_expect_tx(bar, (uint32_t)box);
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(ring + (size_t)slot * box)),
-      "l"(reinterpret_cast<uint64_t>(&a.tmap)), "r"(m0), "r"(i * a.stage_c * a.K),
-      "r"(smem_u32(bar))
-      : "memory");
+  for (int r0 = 0; r0 < stage_rows; r0 += br) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_u32(ring + (size_t)slot * box + (size_t)r0 * 4 * a.Q)),
+        "l"(reinterpret_cast<uint64_t>(&a.tmap)), "r"(m0), "r"(i * stage_rows + r0),
+        "r"(smem_u32(bar))
+        : "memory");
+  }
 }
 
 // Wait for stage i; after the block is done with it (ring_release), refill
@@ -681,9 +708,9 @@ __device__ __forceinline__ void ring_release(const LutArgs& a, int i, int n_chun
 // activation. SHARED then means a (1, ..) scale: the column's, from s_s.
 // NR rows per thread (at most kStagedRows): the fewest that cover the N
 // tile, so that no thread repeats a row.
-template <bool SHARED, typename T, bool V1, int NR>
+template <bool SHARED, typename T, bool V1, int NR, typename CodeT>
 __device__ __forceinline__ void staged_lookup(const LutArgs& a, int n0, int n_rows, int m0,
-                                              const uint8_t* codes_s, const float* s_s,
+                                              const CodeT* codes_s, const float* s_s,
                                               const float* b_s, uint8_t* ring, uint64_t* bars) {
   using AccT = typename std::conditional<SHARED && !V1, int, float>::type;
   const int TW = 4 * a.Q;
@@ -725,7 +752,7 @@ __device__ __forceinline__ void staged_lookup(const LutArgs& a, int n0, int n_ro
           s[j] = a.scale[(size_t)c * a.scale_m + (a.scale_m == 1 ? 0 : min(m + j, a.M - 1))];
         }
       }
-      const uint8_t* code_row = codes_s + (size_t)c * a.rows;
+      const CodeT* code_row = codes_s + (size_t)c * a.rows;
       const uint8_t* tile = st + (size_t)cl * K * TW;
       int code[NR];
 #pragma unroll
@@ -813,10 +840,10 @@ __device__ __forceinline__ void copy_table(const LutArgs& a, int m0, uint8_t* ri
 // tile copied to shared memory (`copy_table`) or straight from global
 // memory, and reduce_store joins the groups. The centroid region is dead by
 // now and holds the reduction buffer (red_s).
-template <bool SHARED, typename T, int NR>
+template <bool SHARED, typename T, int NR, typename CodeT>
 __device__ __forceinline__ void group_lookup(const LutArgs& a, bool staged, int n0, int n_rows,
                                              int mt_begin, int mt_end, int col0,
-                                             const uint8_t* codes_s, const float* s_s,
+                                             const CodeT* codes_s, const float* s_s,
                                              const float* b_s, void* red_s,
                                              const uint8_t* ring) {
   using AccT = typename std::conditional<SHARED, int, float>::type;
@@ -860,10 +887,10 @@ __device__ __forceinline__ void group_lookup(const LutArgs& a, bool staged, int 
 // hidden by issuing ahead: the loads of a run of kRun codebooks (code, table
 // byte from the tile copied to shared memory or from global memory, scale)
 // all go out before the run's ordered multiply-adds.
-template <bool SHARED, typename T>
+template <bool SHARED, typename T, typename CodeT>
 __device__ __forceinline__ void ordered_lookup(const LutArgs& a, bool staged, int n0, int n_rows,
                                                int mt_begin, int mt_end, int col0,
-                                               const uint8_t* codes_s, const float* s_s,
+                                               const CodeT* codes_s, const float* s_s,
                                                const uint8_t* ring) {
   constexpr int kRun = 16;
   const int TW = 4 * a.Q;
@@ -881,7 +908,7 @@ __device__ __forceinline__ void ordered_lookup(const LutArgs& a, bool staged, in
           staged ? ring + col : reinterpret_cast<const uint8_t*>(a.table_q) + m;
       const float* sp = a.scale + (a.scale_m == 1 ? 0 : m);
       const float s_col = SHARED ? s_s[m - col0] : 0.f;
-      const uint8_t* code = codes_s + n;
+      const CodeT* code = codes_s + n;
       float total = 0.f;
       float chunk = 0.f;
       int left = a.block_c;
@@ -917,11 +944,12 @@ __device__ __forceinline__ void ordered_lookup(const LutArgs& a, bool staged, in
 // (v2, v1) stages a rank's share in chunks of chunk_c codebooks; the fused
 // kernel holds its whole share at once. V1 looks up with v1's ordered fp32
 // sums (staged_lookup's V1, ordered_lookup) and no epilogue; SHARED then
-// means a (1, ..) scale.
-template <typename T, bool SHARED, bool CHUNKED, bool V1 = false>
+// means a (1, ..) scale. CodeT holds a code on chip: uint8_t up to K = 256,
+// uint16_t above (the exchange then moves twice the bytes).
+template <typename T, bool SHARED, bool CHUNKED, bool V1, typename CodeT>
 __device__ __forceinline__ void lut_cluster_body(const LutArgs& a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint8_t* codes_s = smem;
+  CodeT* codes_s = reinterpret_cast<CodeT*>(smem);
   float* p_s = reinterpret_cast<float*>(smem + a.cent_off);
   uint8_t* ring = smem + a.ring_off;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + a.bar_off);
@@ -942,7 +970,7 @@ __device__ __forceinline__ void lut_cluster_body(const LutArgs& a) {
   if (threadIdx.x == 0) {
     mbar_init(xbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(xbar, (uint32_t)((a.C - (c_hi - c_lo)) * a.rows));
+    mbar_expect_tx(xbar, (uint32_t)((a.C - (c_hi - c_lo)) * a.rows * sizeof(CodeT)));
   }
   cluster_arrive();
   LUTNN_STAMP(1);
@@ -1010,7 +1038,7 @@ __device__ __forceinline__ void lut_cluster_body(const LutArgs& a) {
   // waits until its own mbarrier has counted every peer's share
   LUTNN_STAMP(6);  // the share encoded
   cluster_wait();
-  const int own = (c_hi - c_lo) * a.rows / 8;
+  const int own = (c_hi - c_lo) * a.rows * (int)sizeof(CodeT) / 8;
   const uint64_t* mine = reinterpret_cast<const uint64_t*>(codes_s + (size_t)c_lo * a.rows);
   for (int i = threadIdx.x; i < own * (S - 1); i += blockDim.x) {
     const int peer = i / own + (i / own >= r);
@@ -1111,13 +1139,15 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // The table as a 2-D tensor of C*K rows x M int8 columns, boxes of one ring
-// stage (stage_c*K rows x 4Q columns).
+// stage (stage_c*K rows x 4Q columns) or, past kMaxBoxRows rows, of an equal
+// part of one. A stage the boxes do not split evenly is refused.
 inline cudaError_t encode_table_map(LutArgs& a) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  if ((a.stage_c * a.K) % box_rows(a.stage_c * a.K) != 0) return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)a.M, (cuuint64_t)a.C * a.K};
   const cuuint64_t strides[1] = {(cuuint64_t)a.M};
-  const cuuint32_t box[2] = {(cuuint32_t)(4 * a.Q), (cuuint32_t)(a.stage_c * a.K)};
+  const cuuint32_t box[2] = {(cuuint32_t)(4 * a.Q), (cuuint32_t)box_rows(a.stage_c * a.K)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(&a.tmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                               const_cast<int8_t*>(a.table_q), dims, strides, box, elem,

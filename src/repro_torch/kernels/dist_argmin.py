@@ -19,10 +19,10 @@ import torch
 from repro_torch.device import require_sm90
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.lut_amm import (
-    MAX_K,
     MAX_SMEM,
-    MAX_V,
     cdiv,
+    check_envelope,
+    code_bytes,
     raise_on_error,
     row_stride16,
     sm_count,
@@ -48,10 +48,11 @@ def _lib():
 
 def smem_bytes(rows: int, chunk_c: int, k: int, v: int) -> int:
     """Shared memory of one block (csrc/encode.cu): the chunk's centroids in
-    16-byte rows, their norms, the tile's sub-vectors and the code bytes."""
+    16-byte rows, their norms, the tile's sub-vectors and the codes (1 byte
+    each, 2 above K = 256)."""
     rs = row_stride16(v)
     return 4 * (chunk_c * (k * rs + 4) + ((chunk_c * (k + 1) + 3) & ~3)
-                + chunk_c * rows * rs) + chunk_c * rows
+                + chunk_c * rows * rs) + chunk_c * rows * code_bytes(k)
 
 
 def encode_geometry(n: int, c: int, k: int, v: int, n_sms: int, *,
@@ -105,9 +106,7 @@ def encode(x: torch.Tensor, centroids: torch.Tensor, *, block_n: int | None = No
     c, k, v = centroids.shape
     if d != c * v:
         raise ValueError(f"D={d} != C*V={c}*{v}")
-    if k > MAX_K or v > MAX_V:
-        raise ValueError(f"K={k} (max {MAX_K}) or V={v} (max {MAX_V}) not supported by the "
-                         f"encode kernel")
+    check_envelope(k, v)
     if centroids.device != x.device:
         raise ValueError(f"all operands must be on {x.device}, found one on {centroids.device}")
     if not (x.is_contiguous() and centroids.is_contiguous()):

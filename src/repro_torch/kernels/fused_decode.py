@@ -22,6 +22,7 @@ from repro_torch.kernels.lut_amm import (
     _align16,
     check_args,
     cluster_lib,
+    code_bytes,
     codebook_smem_bytes,
     launch_cluster_kernel,
 )
@@ -34,8 +35,10 @@ _LIB = None
 def smem_bytes(c: int, k: int, v: int) -> int:
     """Dynamic shared memory of the fused kernel's smallest launch, a cluster
     of one block holding all C codebooks' fp32 centroids and their norms
-    (later the reduction buffer), plus one 8-row N tile's uint8 codes."""
-    return _align16(max(c * codebook_smem_bytes(k, v), RED_BYTES)) + _align16(BLOCK_N * c)
+    (later the reduction buffer), plus one 8-row N tile's codes (uint8, or
+    uint16 above K = 256)."""
+    return (_align16(max(c * codebook_smem_bytes(k, v), RED_BYTES))
+            + _align16(BLOCK_N * c * code_bytes(k)))
 
 
 def fits(c: int, k: int, v: int) -> bool:

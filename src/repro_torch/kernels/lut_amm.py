@@ -31,8 +31,12 @@ ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}   # lut_common.cuh A
 # launch geometry, mirrored from csrc/lut_common.cuh
 THREADS = 256
 BLOCK_N = 8                  # rows per register tile of the direct lookup (kBlockN)
-MAX_V = 32                   # sub-vector length the encoder holds in registers
-MAX_K = 256                  # codes are stored as uint8
+# the kernels' envelope (kMaxV, kMaxK): one codebook of K x V fp32 centroids
+# must fit a block's shared memory with its sub-vectors, and codes are held
+# on chip in one byte up to BYTE_K centroids, in two above
+MAX_V = 64
+MAX_K = 512
+BYTE_K = 256
 RED_BYTES = THREADS * BLOCK_N * 4 * 4
 # column quads per M tile, widest first; Q quads x (THREADS / Q) codebook groups
 QUADS = (64, 32, 16, 8, 4, 2)
@@ -47,7 +51,8 @@ ROW_TILES = (8, 16, 32, 64)          # rows of x per N tile
 STAGED_ROWS = 32                     # N tiles this large stage their table tile
 STAGED_QUADS = (32, 16, 8, 4)        # M tiles a warp's lanes read as one table row
 STAGED_ROWS_PER_THREAD = 8           # kStagedRows: most rows a thread holds in the row split
-MAX_BOX_ROWS = 256                   # table rows of one TMA box (one ring stage)
+MAX_BOX_ROWS = 256                   # table rows of one TMA box (a larger ring stage: two)
+TMA_ALIGN = 128                      # bytes a TMA box's shared-memory address is aligned to
 MAX_STAGES = 8                       # table stages in the ring at most
 RING_BYTES = 96 * 1024               # shared memory of the table ring at most
 # order of the geometry ints the C entry points take (kGeoInts)
@@ -63,7 +68,8 @@ _LIB_V1 = None
 # the geometry ints; smem; stream (csrc/fused_decode.cu, lut_amm_v2.cu, lut_amm_v1.cu)
 CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                     + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
-CLUSTERS_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+# x_bf16 scale_c wide S smem; out
+CLUSTERS_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def codebook_smem_bytes(k: int, v: int) -> int:
@@ -71,6 +77,11 @@ def codebook_smem_bytes(k: int, v: int) -> int:
     centroid rows of V | 1 words, padded by 4 words, and its K norms padded
     by 1 (`fused_decode.fits`)."""
     return 4 * ((k * (v | 1) + 4) + (k + 1))
+
+
+def code_bytes(k: int) -> int:
+    """Bytes of one code held on chip: uint8 up to BYTE_K centroids, else uint16."""
+    return 1 if k <= BYTE_K else 2
 
 
 def row_stride16(v: int) -> int:
@@ -123,8 +134,7 @@ def check_args(x, centroids, table_q, scale, bias, act) -> tuple[int, ...]:
         raise ValueError(f"D={d} != C*V={c}*{v}")
     if tuple(table_q.shape[:2]) != (c, k):
         raise ValueError(f"table_q {tuple(table_q.shape)} does not match centroids (C={c}, K={k})")
-    if k > MAX_K or v > MAX_V:
-        raise ValueError(f"K={k} (max {MAX_K}) or V={v} (max {MAX_V}) not supported by the kernels")
+    check_envelope(k, v)
     if (scale.dtype != torch.float32 or scale.dim() != 3 or scale.shape[1] != 1
             or scale.shape[0] not in (1, c) or scale.shape[2] not in (1, m)):
         raise ValueError(f"scale must be float32 (1|C, 1, 1|M), got {scale.dtype} "
@@ -140,6 +150,14 @@ def check_args(x, centroids, table_q, scale, bias, act) -> tuple[int, ...]:
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
     return n, c, k, v, m, scale.shape[0], scale.shape[2]
+
+
+def check_envelope(k: int, v: int) -> None:
+    """Raise ValueError for a codebook the kernels do not take, naming the limit."""
+    if k > MAX_K or v > MAX_V:
+        raise ValueError(f"K={k} (max {MAX_K}) or V={v} (max {MAX_V}) is outside the LUT "
+                         f"kernels' envelope: one codebook of K x V fp32 centroids must fit a "
+                         f"block's shared memory, and codes are held in at most 2 bytes")
 
 
 def launch_args(x, centroids, table_q, scale, bias, out, dims, act) -> list:
@@ -215,6 +233,16 @@ def _align(b: int, a: int) -> int:
     return -(-b // a) * a
 
 
+def ring_boxes(stage_rows: int, tw: int) -> int:
+    """TMA boxes of one ring stage of `stage_rows` table rows x `tw` columns
+    (csrc/lut_common.cuh box_rows): the fewest equal boxes of at most
+    MAX_BOX_ROWS rows, or 0 where the rows do not split evenly or a box's
+    bytes are no multiple of TMA_ALIGN (every box must start aligned). Such
+    a tile is not staged by TMA: it gathers from global memory."""
+    n = cdiv(stage_rows, MAX_BOX_ROWS)
+    return n if stage_rows % n == 0 and (stage_rows // n) * tw % TMA_ALIGN == 0 else 0
+
+
 def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunked: bool,
                      rows: int | None = None, quads: int | None = None,
                      aligned: bool = True, block_c: int = 0) -> dict[str, int]:
@@ -227,7 +255,8 @@ def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunk
     the table tile is staged by TMA, the table ring, and the shared-memory
     layout. The table tile is staged only for 16-byte aligned table rows
     (`aligned`): by TMA at N tiles of STAGED_ROWS rows and more (and at 16
-    rows where the whole tile fits the ring), and at decode (8-row tiles)
+    rows where the whole tile fits the ring) where a ring stage splits into
+    aligned TMA boxes (`ring_boxes`), and at decode (8-row tiles)
     by cp.async where the whole tile fits RING_BYTES. None picks the
     default; a launch that needs more shared memory than a block has
     raises ValueError."""
@@ -256,7 +285,7 @@ def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunk
 
     def layout(stg: bool) -> dict[str, int]:
         tiles_per_block = 1 if stg else cdiv(n_mtiles, max(1, wave // n_tiles))
-        epi_off = _align16(rows_s * c)
+        epi_off = _align16(rows_s * c * code_bytes(k))
         cent_off = epi_off + 8 * tiles_per_block * tw   # scale and bias per column
         cent = chunk_c * per_cb + 16             # + the sub-vectors' 16-byte alignment
         cent = cent if stg and tma else max(cent, RED_BYTES)
@@ -276,14 +305,18 @@ def cluster_geometry(n: int, c: int, k: int, v: int, m: int, wave: int, *, chunk
                 "n_tiles": n_tiles,
                 "grid_x": cdiv(cdiv(n_mtiles, tiles_per_block), s) * s}
 
-    # the row-split lookup holds at most STAGED_ROWS_PER_THREAD rows per thread
-    row_split_ok = q <= 32 and rows_s <= STAGED_ROWS_PER_THREAD * 8 * (32 // q)
+    # the row-split lookup holds at most STAGED_ROWS_PER_THREAD rows per thread,
+    # and the ring's stages split into aligned TMA boxes
+    ring_ok = q <= 32 and rows_s <= STAGED_ROWS_PER_THREAD * 8 * (32 // q) and \
+        ring_boxes(stage_c * k, tw) > 0
     whole = c * k * tw <= RING_BYTES and (not tma or n_chunks <= MAX_STAGES)
     stg = (rows_s >= STAGED_ROWS or whole) and aligned and tw % 16 == 0 and \
-        (not tma or row_split_ok)
+        (not tma or ring_ok)
     geo = layout(stg)
-    if stg and not tma and geo["smem"] > MAX_SMEM:
-        geo = layout(False)      # decode gathers from global memory instead
+    if stg and geo["smem"] > MAX_SMEM:
+        # the tile (decode) or two ring stages (K = 512) do not fit beside the
+        # centroids: the lookup gathers from global memory instead
+        geo = layout(False)
     if geo["smem"] > MAX_SMEM:
         kernel = "v1" if block_c else "v2" if chunked else "fused"
         raise ValueError(f"{kernel} launch (C={c}, K={k}, V={v}, "
@@ -312,8 +345,8 @@ def cluster_plan(lib: ctypes.CDLL, name: str, dims: tuple[int, ...], x_bf16: int
     s = default_cluster(c)
     resident = ctypes.c_int(0)
     # more than half an SM's shared memory a block: one block per SM
-    err = getattr(lib, f"lutnn_{name}_clusters")(x_bf16, scale_c, s, MAX_SMEM // 2 + 1,
-                                                 ctypes.byref(resident))
+    err = getattr(lib, f"lutnn_{name}_clusters")(x_bf16, scale_c, int(k > BYTE_K), s,
+                                                 MAX_SMEM // 2 + 1, ctypes.byref(resident))
     raise_on_error(err, f"{name} occupancy query")
     if resident.value < 1:
         raise ValueError(f"{name}: a cluster of {s} blocks cannot be resident on this card")

@@ -1,5 +1,5 @@
-"""Serving launcher, batch mode: a timed burst of requests through the
-continuous-batching engine with a LUT_INFER (int8 table) model.
+"""Serving launcher: batch mode (a timed burst of requests) or an HTTP front
+end over the continuous-batching engine with a LUT_INFER (int8 table) model.
 
   # serve a deployment artifact (written by either package), on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir>
@@ -22,20 +22,31 @@ continuous-batching engine with a LUT_INFER (int8 table) model.
   PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> --spec-decode \
       --draft-plan draft
 
-Counterpart of `repro.launch.serve` in batch mode. With --artifact the arch,
-plan and mode come from the manifest and the artifact's autotune snapshot is
+  # HTTP front end (NDJSON streaming, /healthz /readyz /metrics /stats,
+  # SIGTERM drains); --supervise: the engine in a crash-supervised worker
+  # process restarted from the artifact; --replicas N: N supervised workers
+  # behind a router (least_loaded or prefix_affinity):
+  PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> --port 8000
+  PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> --port 0 --replicas 2 \
+      --routing prefix_affinity --paged
+
+Counterpart of `repro.launch.serve`. With --artifact the arch, plan and
+mode come from the manifest and the artifact's autotune snapshot is
 restored; without it the arch is reduced exactly as there (`reduce_arch`;
 --layers/--d-model/--vocab) and initialized from a seeded generator. The
 engine warms the kernel autotuner for every LUT site at its token shapes
 (timed on the card with REPRO_AUTOTUNE_MEASURE=1); a warm-up request runs off
 the clock unless --no-warmup. The summary adds a pool line with --paged and a
-spec line with --spec-decode, as the reference's does. The HTTP, supervised
-and multi-replica modes follow with ROADMAP Queue A item 9.
+spec line with --spec-decode, as the reference's does. In HTTP mode the
+process prints `serving ... on http://host:port` once it listens (with
+--port 0, the port the system gave), and exits 0 after a clean drain and
+`server.EXIT_STRANDED` when the drain timed out with requests unresolved.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import torch
@@ -106,7 +117,55 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--d-model", type=int, default=None, help="random-init: reduced width")
     ap.add_argument("--vocab", type=int, default=None, help="random-init: reduced vocab")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    # HTTP front end
+    ap.add_argument("--port", type=int, default=None,
+                    help="start the HTTP front end on this port (0: any free one) instead of "
+                         "the batch run (/generate streaming, /healthz, /readyz, /metrics; "
+                         "SIGTERM drains)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="admission high-water mark: past it the lowest-priority queued "
+                         "request is shed (HTTP mode)")
+    ap.add_argument("--drain-timeout", type=float, default=30.0,
+                    help="seconds SIGTERM waits for in-flight requests before aborting them "
+                         "and exiting non-zero")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run the engine in a crash-supervised worker process restarted from "
+                         "the artifact (requires --artifact)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="consecutive worker crashes before the supervisor gives up (with "
+                         "--supervise or --replicas)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="run N crash-supervised engine replicas off the one artifact behind a "
+                         "router (requires --artifact and --port)")
+    ap.add_argument("--routing", choices=("least_loaded", "prefix_affinity"),
+                    default="least_loaded",
+                    help="router placement: the least-loaded live replica, or rendezvous "
+                         "hashing of the prompt's first KV page with load-based spill")
+    ap.add_argument("--fault-json", default=None,
+                    help="JSON FaultSpec (e.g. '{\"kill_at_step\": 4}') injected into ONE "
+                         "replica's worker (with --replicas)")
+    ap.add_argument("--fault-replica", type=int, default=0,
+                    help="replica index --fault-json applies to")
     args = ap.parse_args(argv)
+
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.replicas > 1:
+        if not args.artifact:
+            ap.error("--replicas > 1 requires --artifact (each replica's worker restarts from "
+                     "the artifact directory)")
+        if args.port is None:
+            ap.error("--replicas > 1 requires --port")
+    if args.fault_json is not None and args.replicas < 2:
+        ap.error("--fault-json needs --replicas >= 2 (a survivor must exist to fail over to)")
+    if args.supervise and not args.artifact:
+        ap.error("--supervise requires --artifact (the worker restarts from the artifact "
+                 "directory)")
+    if args.supervise and args.port is None:
+        ap.error("--supervise requires --port (supervised batch mode is not wired)")
+    if args.port is not None:
+        return _serve_http(args)
 
     if args.artifact:
         from repro_torch.serving.artifact import load_artifact
@@ -115,15 +174,7 @@ def main(argv: list[str] | None = None) -> None:
         bundle, params = art.bundle, art.params
         source = f"artifact {args.artifact} ({art.arch_name})"
     else:
-        overrides = {"lut_use_kernel": args.use_kernel}
-        for name in ("layers", "d_model", "vocab"):
-            val = getattr(args, name)
-            if val is not None:
-                overrides["n_layers" if name == "layers" else name] = val
-        arch = reduce_arch(get_arch(args.arch), **overrides)
-        bundle = build_model(arch, Mode.LUT_INFER)
-        params = bundle.init(torch.Generator().manual_seed(0), device=args.device)
-        source = f"random init ({arch.name})"
+        bundle, params, source = _random_init(args)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     eng = ServingEngine(bundle, params, n_slots=args.slots, max_seq=args.max_seq,
                         prefill_chunk=args.prefill_chunk, compute_dtype=dtype,
@@ -179,6 +230,85 @@ def main(argv: list[str] | None = None) -> None:
           f"plain calls: {counters.plain_calls()}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"  req {r.rid}: {r.out_tokens[:8]}...")
+
+
+def _random_init(args):
+    """(bundle, params, source) of random-init mode: the arch reduced as the
+    reference's `reduce_arch` does, params from a seeded generator."""
+    overrides = {"lut_use_kernel": args.use_kernel}
+    for name in ("layers", "d_model", "vocab"):
+        val = getattr(args, name)
+        if val is not None:
+            overrides["n_layers" if name == "layers" else name] = val
+    arch = reduce_arch(get_arch(args.arch), **overrides)
+    bundle = build_model(arch, Mode.LUT_INFER)
+    params = bundle.init(torch.Generator().manual_seed(0), device=args.device)
+    return bundle, params, f"random init ({arch.name})"
+
+
+def _serve_http(args) -> None:
+    """HTTP front-end mode: build a backend (a local pump, a supervised
+    worker or a router over supervised replicas), serve until SIGTERM drains
+    it, exit with the drain's code."""
+    import asyncio
+
+    from repro_torch.serving.server import EnginePump, run_server
+
+    # JSON-safe: the supervisor ships these to its worker processes
+    engine_kwargs = dict(n_slots=args.slots, max_seq=args.max_seq,
+                         prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
+                         device=args.device,
+                         **_paged_kwargs(args), **_spec_kwargs(args))
+    if args.replicas > 1:
+        import json
+
+        from repro_torch.serving.faults import FaultSpec
+        from repro_torch.serving.router import EngineRouter
+
+        faults = None
+        if args.fault_json is not None:
+            faults = [None] * args.replicas
+            faults[args.fault_replica] = FaultSpec.from_dict(json.loads(args.fault_json))
+        backend = EngineRouter(args.artifact, replicas=args.replicas, routing=args.routing,
+                               engine_kwargs=engine_kwargs, faults=faults,
+                               supervisor_kwargs={"max_restarts": args.max_restarts})
+        if not backend.wait_ready(timeout=600) or not backend.healthy:
+            print("no router replica came up", file=sys.stderr)
+            sys.exit(1)
+        source = f"artifact {args.artifact} x{args.replicas} replicas ({args.routing})"
+    elif args.supervise:
+        from repro_torch.serving.supervisor import EngineSupervisor
+
+        backend = EngineSupervisor(args.artifact, engine_kwargs=engine_kwargs,
+                                   max_restarts=args.max_restarts)
+        if not backend.wait_ready(timeout=600) or not backend.healthy:
+            print("supervised worker failed to come up", file=sys.stderr)
+            sys.exit(1)
+        source = f"supervised artifact {args.artifact}"
+    else:
+        if args.artifact:
+            from repro_torch.serving.artifact import load_artifact
+
+            art = load_artifact(args.artifact, device=args.device)
+            bundle, params = art.bundle, art.params
+            source = f"artifact {args.artifact} ({art.arch_name})"
+        else:
+            bundle, params, source = _random_init(args)
+        dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+        eng = ServingEngine(bundle, params, compute_dtype=dtype,
+                            **_resolve_draft(engine_kwargs, args.artifact, args.device))
+        if not args.no_warmup:
+            eng.warmup()          # every token shape ran once before /readyz
+        backend = EnginePump(eng)
+
+    def on_started(fe):
+        print(f"serving {source} on http://{fe.host}:{fe.port} "
+              f"({args.slots} slots, max_queue={args.max_queue}; "
+              f"SIGTERM drains, timeout {args.drain_timeout:.0f}s)", flush=True)
+
+    code = asyncio.run(run_server(backend, args.host, args.port,
+                                  drain_timeout_s=args.drain_timeout, on_started=on_started))
+    sys.exit(code)
 
 
 def _paged_kwargs(args) -> dict:

@@ -38,8 +38,13 @@ scheduler (DESIGN.md §6):
   (n_slots, gamma+1), a third token shape N = n_slots * (gamma+1). Tokens
   equal plain decode's, greedy and sampled; prefix sharing is turned off.
 
-Mesh sharding and fault injection are not ported yet (ROADMAP Queue A items 9
-and 12).
+* Fault injection: a `faults.FaultInjector` passed as `faults=` is called at
+  the top of every `step()` (latency spikes, transient errors, a simulated
+  kill). `SPEC_KEYS`, `validate_spec`, `submit_from_spec` and `TokenTap` are
+  the front ends' request format and token observer (serving/server.py,
+  supervisor.py, router.py), as in the reference.
+
+Mesh sharding is not ported yet (ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -190,14 +195,14 @@ class ServingEngine:
         mesh: Any | None = None,
         faults: Any | None = None,
     ):
-        if mesh is not None or faults is not None:
-            raise NotImplementedError("mesh sharding and fault injection are not ported yet: "
-                                      "ROADMAP Queue A items 9 and 12")
+        if mesh is not None:
+            raise NotImplementedError("mesh sharding is not ported yet: ROADMAP Queue A item 5")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue={max_queue} must be >= 1 (or None)")
         if not 1 <= prefill_chunk <= max_seq:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be in [1, max_seq={max_seq}]")
         self.device = resolve_device(device)
+        self.faults = faults
         self.bundle = bundle
         self.params = params
         self.n_slots = n_slots
@@ -689,8 +694,10 @@ class ServingEngine:
             self._check_done_after_token(i, r, tok)
 
     def step(self) -> None:
-        """One engine step: lifecycle sweep, admit, one prefill chunk, one
-        decode forward (speculating: one draft/verify round)."""
+        """One engine step: fault hook, lifecycle sweep, admit, one prefill
+        chunk, one decode forward (speculating: one draft/verify round)."""
+        if self.faults is not None:
+            self.faults.on_step()        # may sleep, or raise Injected{Fault,Kill}
         self._counters["steps"] += 1
         self._sweep()
         self._admit()
@@ -733,3 +740,101 @@ class ServingEngine:
                 self._retire(i, req, status)
                 aborted.append(req)
         return aborted
+
+
+# keys a front-end request spec may carry (HTTP body / supervisor wire format)
+SPEC_KEYS = frozenset({
+    "prompt", "max_tokens", "eos_id", "priority", "deadline_s",
+    "temperature", "top_k", "top_p", "seed", "spec_decode",
+})
+
+
+def validate_spec(spec: dict[str, Any]) -> None:
+    """Type-check a front-end request spec (SPEC_KEYS) without an engine, as
+    the reference does: a malformed field is a ValueError at the door (HTTP
+    400), never a worker crash after the pipe hop."""
+    if not isinstance(spec, dict):
+        raise ValueError("request spec must be a JSON object")
+    unknown = set(spec) - SPEC_KEYS
+    if unknown:
+        raise ValueError(f"unknown request fields: {sorted(unknown)}")
+    prompt = spec.get("prompt")
+    if not isinstance(prompt, (list, tuple)) or not all(
+            isinstance(t, int) and not isinstance(t, bool) for t in prompt):
+        raise ValueError("prompt must be a list of ints")
+    spec_decode = spec.get("spec_decode")
+    if spec_decode is not None and not isinstance(spec_decode, bool):
+        raise ValueError("spec_decode must be a bool")
+    priority = spec.get("priority")
+    if priority is not None and (isinstance(priority, bool) or not isinstance(priority, int)):
+        raise ValueError(f"priority must be an int, got {priority!r}")
+    deadline_s = spec.get("deadline_s")
+    if deadline_s is not None and (isinstance(deadline_s, bool)
+                                   or not isinstance(deadline_s, (int, float))):
+        raise ValueError(f"deadline_s must be a number, got {deadline_s!r}")
+
+
+def submit_from_spec(engine: ServingEngine, spec: dict[str, Any]) -> int:
+    """Submit a front-end request spec (a JSON-safe dict, SPEC_KEYS) to an
+    engine: the one format of the HTTP pump and the supervised worker."""
+    validate_spec(spec)
+    sampling = None
+    if any(k in spec for k in ("temperature", "top_k", "top_p", "seed")):
+        sampling = SamplingParams(
+            temperature=float(spec.get("temperature", 0.0)),
+            top_k=int(spec.get("top_k", 0)),
+            top_p=float(spec.get("top_p", 1.0)),
+            seed=int(spec.get("seed", 0)),
+        )
+    return engine.submit(
+        list(spec["prompt"]),
+        max_tokens=int(spec.get("max_tokens", 16)),
+        eos_id=spec.get("eos_id"),
+        sampling=sampling,
+        priority=spec.get("priority") or 0,
+        deadline_s=spec.get("deadline_s"),
+        spec_decode=spec.get("spec_decode"),
+    )
+
+
+class TokenTap:
+    """Incremental observer of an engine's token output. `poll()`, called
+    after each `step()`, returns `(token_events, finished_requests)`:
+    `token_events` lists `(rid, new_tokens)`, the last tokens of a request
+    that retired this step included, before its entry in
+    `finished_requests`. With `consume=True` reported entries leave
+    `engine.finished`, so a long-running server's memory stays bounded."""
+
+    def __init__(self, engine: ServingEngine, *, consume: bool = False):
+        self.engine = engine
+        self.consume = consume
+        self._emitted: dict[int, int] = {}
+        self._drained = 0                 # index into engine.finished
+
+    def _new_tokens(self, req: Request) -> list[int]:
+        seen = self._emitted.get(req.rid, 0)
+        fresh = req.out_tokens[seen:]
+        if fresh:
+            self._emitted[req.rid] = seen + len(fresh)
+        return fresh
+
+    def poll(self) -> tuple[list[tuple[int, list[int]]], list[Request]]:
+        tokens: list[tuple[int, list[int]]] = []
+        fin = self.engine.finished
+        done = fin[self._drained:]
+        for req in done:
+            fresh = self._new_tokens(req)
+            if fresh:
+                tokens.append((req.rid, fresh))
+            self._emitted.pop(req.rid, None)
+        if self.consume:
+            del fin[self._drained:]
+        else:
+            self._drained = len(fin)
+        for req in self.engine.slots:
+            if req is None:
+                continue
+            fresh = self._new_tokens(req)
+            if fresh:
+                tokens.append((req.rid, fresh))
+        return tokens, done

@@ -26,6 +26,13 @@ RAGGED = [
 # rounded down to a power of two, so C = 5, 6 and 20 do not divide by theirs
 CLUSTER_SHAPES = RAGGED + [(9, 32, 70, 16, 32), (33, 640, 144, 16, 32)]
 LAYOUTS = ("per_codebook", "per_column", "m_shared", "scalar")
+# (C, K, V, M): LUT sites past the kernels' first envelope (V = 64; K = 512,
+# codes in two bytes; C = 128 at V = 8), and two K between 256 and 512 whose
+# codebook's TMA ring stage splits into two equal boxes of 192 and 150 rows
+# (at K = 300 only where a box's bytes stay 128-byte aligned, else the
+# lookup gathers from global memory)
+WIDE_SITES = [(32, 16, 64, 2048), (64, 512, 32, 2048), (128, 16, 8, 2048),
+              (64, 384, 32, 2048), (64, 300, 32, 2048)]
 
 
 def make_amm_inputs(n: int, d: int, m: int, k: int, v: int, seed: int):

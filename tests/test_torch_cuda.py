@@ -19,6 +19,7 @@ from repro_torch.testing import (
     CLUSTER_SHAPES,
     LAYOUTS,
     RAGGED,
+    WIDE_SITES,
     make_amm_inputs,
     quantize_np,
     rows_near_tie,
@@ -111,6 +112,44 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                torch.ones(1, 1, 8, device=dev))
 
 
+@pytest.mark.parametrize("site", WIDE_SITES, ids=[str(s) for s in WIDE_SITES])
+def test_wide_sites_match_plain(dev, site):
+    """Sites past the old V = 32 / K = 256 envelope (V = 64; K = 512, 384
+    and 300, codes held in two bytes and the table ring in two equal TMA
+    boxes per codebook or gathered where they would not start aligned; and
+    C = 128 at V = 8), at decode, the verify shape and a prefill chunk (v2
+    there under every staged M tile too): fused (where it fits) == v2 ==
+    plain bytewise and v1 == plain bytewise
+    on m-shared scales, codes equal off near-ties; and past the envelope the
+    wrappers raise, naming it."""
+    c, k, v, m = site
+    for n in (4, 20, 128):
+        x, P, q, s, _ = _inputs((n, c * v, m, k, v), "m_shared", n + c, dev)
+        want = ref.fused_decode_plain(x, P, q, s)
+        got = [v2_mod.lut_amm_v2(x, P, q, s)]
+        if fused_mod.fits(c, k, v):
+            got.append(fused_mod.fused_decode(x, P, q, s))
+        if n == 128:              # every staged M tile: rings of 2 to 8 stages, or the gather
+            got += [v2_mod.lut_amm_v2(x, P, q, s, quads=qq) for qq in v2_mod.STAGED_QUADS]
+        for out in got:
+            _assert_agree(out, want, x, P, exact=True)
+            assert torch.equal(out, got[0])
+        _assert_agree(v2_mod.lut_amm_v1(x, P, q, s), ref.lut_amm_v1_plain(x, P, q, s), x, P,
+                      exact=True)
+        codes = enc_mod.encode(x, P)
+        torch.cuda.synchronize()
+        assert (tie_gaps(x, P, codes, ref.encode_ref(x, P)) <= TIE_EPS).all()
+    assert autotune.fit_version(c, k, v) == (3 if fused_mod.fits(c, k, v) else 2)
+    for kk, vv in ((2 * v2_mod.MAX_K, v), (k, 2 * v2_mod.MAX_V)):
+        x = torch.zeros(2, c * vv, device=dev)
+        P = torch.zeros(c, kk, vv, device=dev)
+        q = torch.zeros(c, kk, m, dtype=torch.int8, device=dev)
+        with pytest.raises(ValueError, match="envelope"):
+            v2_mod.lut_amm_v2(x, P, q, torch.ones(1, 1, m, device=dev))
+        with pytest.raises(ValueError, match="envelope"):
+            enc_mod.encode(x, P)
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_v1_matches_plain_bytewise(dev, layout):
     """Same fp32 order of the sums in kernel and plain version: equal bytes
@@ -154,7 +193,7 @@ def test_encode_launches_and_geometry(dev):
             assert enc_mod.launches == before + 1
             assert (tie_gaps(x, P, codes, ref.encode_ref(x, P)) <= TIE_EPS).all()
     with pytest.raises(ValueError, match="K="):
-        enc_mod.encode(torch.zeros(2, 64, device=dev), torch.zeros(2, 512, 32, device=dev))
+        enc_mod.encode(torch.zeros(2, 64, device=dev), torch.zeros(2, 1024, 32, device=dev))
     assert enc_mod.encode(x[:0], P).shape == (0, P.shape[0])
 
 

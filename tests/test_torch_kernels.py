@@ -30,6 +30,7 @@ from repro_torch.testing import (
     CLUSTER_SHAPES,
     LAYOUTS,
     RAGGED,
+    WIDE_SITES,
     make_amm_inputs,
     quantize_np,
     tie_gaps,
@@ -246,6 +247,7 @@ def _check_cluster_launch(geo, n, c, m, k=16):
             assert geo["bar_off"] - geo["ring_off"] >= geo["n_stages"] * geo["stage_c"] * k * tw
             assert geo["n_stages"] >= 1 and geo["stage_c"] >= 1
             assert geo["rows"] <= v2_mod.STAGED_ROWS_PER_THREAD * 8 * (32 // geo["quads"])
+            assert v2_mod.ring_boxes(geo["stage_c"] * k, tw) > 0
     else:
         assert geo["ring_off"] - geo["cent_off"] >= v2_mod.RED_BYTES
 
@@ -272,6 +274,55 @@ def test_launch_geometry_fills_the_card(n, c, m):
         assert geo["cluster"] == 16 and geo["staged"] and (geo["n_stages"] > 0) == (n == 128)
         if chunked:
             assert geo["chunk_c"] == v2_mod.cdiv(c, 16)   # down: 12 codebooks, one chunk
+
+
+@pytest.mark.parametrize("site", WIDE_SITES, ids=[str(s) for s in WIDE_SITES])
+def test_launch_geometry_at_wide_sites(site):
+    """Sites past V = 32 / K = 256 (chip_smoke phase 2 runs them): every
+    launch fits a block, the codes region holds two bytes a code above
+    K = 256, a codebook of more than 256 rows stages as one ring stage of
+    two equal TMA boxes (or not by TMA, where they would not start 128-byte
+    aligned), the fit rule sends K > 256 at V = 32 to v2; past the envelope
+    the wrappers' check raises, naming it."""
+    c, k, v, m = site
+    assert v2_mod.code_bytes(k) == (2 if k > 256 else 1)
+    fits = fused_mod.fits(c, k, v)
+    assert autotune.fit_version(c, k, v) == (3 if fits else 2) and fits == (k <= 256)
+    for n in (4, 20, 128):
+        for chunked in (True, False) if fits else (True,):
+            geo = v2_mod.cluster_geometry(n, c, k, v, m, 112, chunked=chunked)
+            _check_cluster_launch(geo, n, c, m, k)
+            assert geo["epi_off"] >= geo["rows"] * c * v2_mod.code_bytes(k)
+            if geo["n_stages"]:
+                assert geo["stage_c"] * k <= max(k, v2_mod.MAX_BOX_ROWS)
+                boxes = v2_mod.ring_boxes(geo["stage_c"] * k, 4 * geo["quads"])
+                assert boxes == (2 if k > v2_mod.MAX_BOX_ROWS else 1)
+                assert geo["stage_c"] * k // boxes * 4 * geo["quads"] % v2_mod.TMA_ALIGN == 0
+        geo = enc_mod.encode_geometry(n, c, k, v, 132)
+        assert geo["smem"] <= v2_mod.MAX_SMEM
+    for kk, vv in ((2 * v2_mod.MAX_K, v), (k, 2 * v2_mod.MAX_V)):
+        with pytest.raises(ValueError, match="envelope"):
+            v2_mod.check_envelope(kk, vv)
+
+
+@pytest.mark.parametrize("k,boxes", [(256, 1), (300, 2), (301, 0), (384, 2), (512, 2)])
+def test_ring_stage_splits_into_equal_tma_boxes(k, boxes):
+    """A codebook of more than 256 rows is one ring stage of two equal TMA
+    boxes (the kernel's box_rows), never a 256-row box that would run past
+    its slot; a stage of an odd row count, or whose boxes would not start
+    128-byte aligned, is not staged by TMA and the lookup gathers from
+    global memory at every N tile and M tile."""
+    assert v2_mod.ring_boxes(k, 128) == boxes      # 32 column quads: 128-byte rows
+    if boxes:
+        assert k % boxes == 0 and k // boxes <= v2_mod.MAX_BOX_ROWS
+    assert v2_mod.ring_boxes(300, 16) == 0       # 150 rows x 16 columns: 2400 B, unaligned
+    for n in (20, 128):
+        for quads in v2_mod.STAGED_QUADS:
+            geo = v2_mod.cluster_geometry(n, 64, k, 32, 2048, 112, chunked=True, quads=quads)
+            _check_cluster_launch(geo, n, 64, 2048, k)
+            assert geo["n_stages"] == 0 or boxes
+    geo = v2_mod.cluster_geometry(128, 64, k, 32, 2048, 112, chunked=True, quads=32)
+    assert (geo["n_stages"] > 0) == (boxes > 0)
 
 
 @pytest.mark.parametrize("wave", [8, 16, 64, 112, 132])
@@ -429,3 +480,53 @@ def test_kernel_modules_import_without_nvcc_or_card():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("policy", [{"v": 64}, {"k": 512}], ids=["v64", "k512"])
+def test_wide_site_plan_matches_reference(policy):
+    """A reduced qwen3_1p7b (2 layers) whose every LUT site takes
+    SitePolicy(v=64) or SitePolicy(k=512), past the kernels' first envelope,
+    served through ops.lut_amm (the plain versions on the CPU) against the
+    reference's Pallas kernels in interpret mode, from the same params: a
+    prefill chunk and a decode step agree in logits and tokens."""
+    import jax
+
+    from repro import configs as jcfg
+    from repro.core.plan import LUTPlan as JPlan
+    from repro_torch import configs as tcfg
+    from repro_torch.core.plan import LUTPlan as TPlan
+    from repro_torch.weights import params_from_numpy
+
+    pol = dict(policy, use_kernel=True)
+    jb = jcfg.build_model(jcfg.reduce_arch(jcfg.get_arch("qwen3_1p7b"), n_layers=2,
+                                           lut_plan=JPlan.all(**pol)), "lut_infer")
+    tb = tcfg.build_model(tcfg.reduce_arch(tcfg.get_arch("qwen3_1p7b"), n_layers=2,
+                                           lut_plan=TPlan.all(**pol)), "lut_infer")
+    sites = tb.lut_sites()
+    assert sites and all(s.lut.use_kernel for s in sites)
+    assert {(s.lut.k, s.lut.v) for s in sites} == {(policy.get("k", 16), policy.get("v", 32))}
+    jparams = jb.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tb, jax.tree.map(np.asarray, jparams), device="cpu")
+    b, chunk, s_max = 2, 4, 16
+    jcache = jb.init_caches(b, s_max, dtype=jnp.float32)
+    tcache = tb.init_caches(b, s_max, dtype=torch.float32, device="cpu")
+    toks = np.random.default_rng(0).integers(1, tb.arch.vocab, (b, chunk), dtype=np.int32)
+    cache_len = np.zeros((b,), np.int32)
+    counters.reset()
+    for step in range(2):
+        jlog, jcache = jb.forward_step(
+            jparams, {"tokens": jnp.asarray(toks), "cache_len": jnp.asarray(cache_len)},
+            jcache, compute_dtype=jnp.float32)
+        tlog, tcache = tb.forward_step(
+            tparams, {"tokens": torch.from_numpy(toks), "cache_len": torch.from_numpy(cache_len)},
+            tcache, compute_dtype=torch.float32)
+        jlog = np.asarray(jlog)
+        np.testing.assert_allclose(tlog.numpy(), jlog, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"step {step}")
+        nxt = jlog[:, -1].argmax(-1)
+        assert (tlog[:, -1].argmax(-1).numpy() == nxt).all()
+        cache_len = cache_len + toks.shape[1]
+        toks = nxt[:, None].astype(np.int32)
+    # every site of both forwards went through ops.lut_amm's plain versions
+    assert sum(ref.calls.values()) == 2 * len(sites)
+    assert sum(counters.launches().values()) == 0

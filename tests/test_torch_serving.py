@@ -75,8 +75,9 @@ def test_engine_never_runs_on_the_cpu_silently():
 
 def test_engine_refuses_what_is_not_ported():
     """Sampled requests are served (and replay: the draw is keyed on the
-    request's seed and token index only); paged KV and speculative decoding
-    construct, mesh sharding and fault injection are still refused."""
+    request's seed and token index only); paged KV, speculative decoding and
+    fault injection construct (the injector's hook runs once per step),
+    mesh sharding is still refused."""
     tb, tparams = _port_model()
     outs = []
     for first in ("sampled", "greedy"):
@@ -93,9 +94,14 @@ def test_engine_refuses_what_is_not_ported():
     for kw in ({"paged": True}, {"spec_decode": True}):
         eng = ServingEngine(tb, tparams, device="cpu", **ENGINE, **kw)
         assert eng.paged == bool(kw.get("paged")) and (eng.spec is not None) == ("spec_decode" in kw)
-    for kw in ({"mesh": object()}, {"faults": object()}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tb, tparams, device="cpu", **kw)
+    from repro_torch.serving.faults import FaultInjector, FaultSpec
+    inj = FaultInjector(FaultSpec())
+    eng = ServingEngine(tb, tparams, device="cpu", faults=inj, **ENGINE)
+    eng.submit([1, 2, 3], max_tokens=2)
+    eng.run_until_done()
+    assert eng.faults is inj and inj.calls == eng.stats()["steps"] > 0
+    with pytest.raises(NotImplementedError):
+        ServingEngine(tb, tparams, device="cpu", mesh=object())
 
 
 def test_engine_lifecycle_cancel_deadline_and_exhaustion():
