@@ -67,6 +67,28 @@ Phases (any failed check exits non-zero; no phase is skipped):
      SIGTERM exits 0. A second launch with {"kill_at_step": 4} on replica 0:
      restarts >= 1, requeued >= 1, the same tokens, the restart's time to
      ready; SIGTERM exits 0.
+  7. training: (a) one soft-PQ step (LUT_TRAIN forward, autograd, AdamW) at
+     full width and 2 layers on the card against the same step on the CPU
+     and the same step in float64 on the CPU as witness
+     (`testing.lut_train_step_parity`: codes off near-ties, fake-quant
+     roundings off half-integers, loss, every gradient, the update); (b) `train.recipe.default_recipe(steps=4)` run
+     by `Recipe.run` on qwen3_1p7b at full width and TRAIN_LAYERS layers
+     (dense pretrain, tape + k-means init, soft-PQ, int8 deploy to an
+     artifact, eval), with per-step, tape/k-means and deploy times,
+     checkpoint and artifact bytes and peak memory; the launch counts read
+     around the run (Eval is its only LUT_INFER forward: one kernel per LUT
+     site, no plain call), Eval's loss held against the plain versions and
+     each of Eval's LUT-site calls (N = 1024 rows) held against the plain
+     version on its own inputs, rows near a tie dropped and counted;
+     the trained artifact loaded with measured warm-up (a fresh autotune
+     cache; the version each record picks printed) and the phase-4 burst
+     served against the same engine over the plain versions; (c) `python -m
+     repro_torch.launch.train --lut --steps LAUNCHER_STEPS` at its default
+     size SIGKILLed after soft-PQ's first commit and re-run (finished stages
+     restored, soft-PQ resumed at the committed step), its artifact served
+     by `launch.serve`; then a `--spec-draft attn/*` run at --steps
+     SPEC_STEPS served with `--spec-decode --draft-plan draft` (acceptance,
+     target forwards per token).
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -1666,6 +1688,420 @@ def phase_process(scratch: Path, plain, refs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 28        # depth of phase 7's recipe run (full width always)
+TRAIN_STEPS = 4          # steps of its dense and soft-PQ stages
+LAUNCHER_STEPS = 60      # the launcher's --steps: ckpt_every = max(50, steps // 4) = 50, so
+                         # soft-PQ commits at step 50 and a kill after it resumes there
+SPEC_STEPS = 20          # the --spec-draft run's --steps (no kill, so no commit needed)
+PARITY_LR = 1e-3         # phase 7(a)'s soft-PQ lr (cosine, 2 warm-up steps)
+
+
+def du(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+class PlainLUT:
+    """Every LUT site's `ops.lut_amm` replaced by the plain version of the
+    v2 kernel on the same device (what fused and v2 compute, exact int32
+    sums dequantized once): the reference the kernels are held against."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self.ops, self.real = ops, ops.lut_amm
+        ops.lut_amm = lambda x, c, q, s, *, bias=None, act="none", **_: \
+            ref.lut_amm_v2_plain(x, c, q, s, bias=bias, act=act)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.lut_amm = self.real
+        return False
+
+
+class SiteCalls:
+    """Keeps every `ops.lut_amm` call made while active: the kernel it
+    launched, its inputs and its output (copies: the model may reuse the
+    buffers)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import counters, ops
+
+        self.ops, self.real, self.calls = ops, ops.lut_amm, []
+
+        def record(x, c, q, s, *, bias=None, act="none", **kw):
+            before = counters.launches()
+            y = self.real(x, c, q, s, bias=bias, act=act, **kw)
+            after = counters.launches()
+            kernel = [k for k in after if after[k] != before[k]]
+            self.calls.append((kernel, x.clone(), c, q, s, bias, act, y.clone()))
+            return y
+
+        ops.lut_amm = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.lut_amm = self.real
+        return False
+
+
+def hold_sites(label: str, calls: list) -> dict:
+    """Each recorded LUT-site call held against the plain versions on its own
+    inputs. The kernels' lookup is exact given the codes, so every row of
+    the output is held against the plain lookup of the codes the encode
+    kernel picks for the same input (bytewise where the epilogue is exact:
+    m-shared or scalar scale, no exp/tanh activation; else within
+    KERNEL_ATOL). Each of those codes that differs from the plain encode's
+    must be a tie of the fp32 expansion |a|^2 - 2 a.p + |p|^2: the float64
+    distances of the two choices within TIE_EPS of the expansion's terms.
+    (A trained site's input lies close to its centroid, so a distance can
+    be far below the terms it is summed from, whose rounding decides a
+    tie.) Returns the counts and the largest error."""
+    from repro_torch.core import pq
+    from repro_torch.kernels import dist_argmin as enc_mod
+    from repro_torch.kernels import ref
+
+    out = {"sites": len(calls), "rows": 0, "codes": 0, "codes_off": 0, "rows_off": 0,
+           "worst_tie": 0.0, "worst_code": (0.0, 0.0, 0.0), "err": 0.0, "kernels": {}}
+    for i, (kernel, x, c, q, s, bias, act, got) in enumerate(calls):
+        name = (f"{label} site call {i} ({'/'.join(kernel)}, N={x.shape[0]}, M={q.shape[-1]}, "
+                f"C={c.shape[0]})")
+        check(len(kernel) == 1 and kernel[0] in ("fused_decode", "lut_amm_v2"),
+              f"{name}: expected one fused or v2 launch")
+        out["kernels"][kernel[0]] = out["kernels"].get(kernel[0], 0) + 1
+        codes, plain = enc_mod.encode(x, c), ref.encode_ref(x, c)
+        want = ref.lookup(codes, q, s, bias=bias, act=act, dtype=x.dtype)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        if s.shape[0] == 1 and act in ("none", "relu", "relu2"):
+            bad = (g != w).any(dim=1)
+        else:
+            bad = ((g - w).abs() > KERNEL_ATOL * max(1.0, w.abs().max().item())).any(dim=1)
+        check(not bad.any().item(), f"{name}: {int(bad.sum())} rows differ from the plain lookup "
+                                    f"of the encode kernel's codes (max err "
+                                    f"{(g - w).abs().max().item():.3g})")
+        out["err"] = max(out["err"], (g - w).abs().max().item())
+        off = codes != plain
+        out["rows"] += x.shape[0]
+        out["codes"] += codes.numel()
+        out["rows_off"] += int(off.any(dim=1).sum())
+        if off.any():
+            n_idx, c_idx = off.nonzero(as_tuple=True)
+            a = pq.split_subvectors(x.double(), c.shape[-1])[n_idx, c_idx]     # (F, V)
+            rows = torch.arange(len(n_idx), device=x.device)
+            p1 = c.double()[c_idx][rows, codes.long()[n_idx, c_idx]]
+            p2 = c.double()[c_idx][rows, plain.long()[n_idx, c_idx]]
+            d2 = ((a - p2) ** 2).sum(-1)
+            gap = ((a - p1) ** 2).sum(-1) - d2
+            terms = (a * a).sum(-1) + (p1 * p1).sum(-1) + 2 * (a * p1).sum(-1).abs()
+            rel = gap.abs() / terms
+            out["codes_off"] += len(n_idx)
+            j = int(rel.argmax())
+            if rel[j].item() >= out["worst_tie"]:
+                out["worst_tie"] = rel[j].item()
+                out["worst_code"] = (d2[j].item(), terms[j].item(), gap[j].item())
+            check(bool((rel <= TIE_EPS).all()),
+                  f"{name}: {int((rel > TIE_EPS).sum())} codes differ from the plain encode's "
+                  f"off a tie of the expansion (worst {rel.max().item():.3g} of its terms)")
+    return out
+
+
+class Timed:
+    """Adds the wall time of every call of `module.name` (the card
+    synchronized after it) to `self.seconds`, while active."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds, self.calls = module, name, 0.0, 0
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def train_step_parity(dev) -> dict:
+    """(a) One soft-PQ step at full width and 2 layers, card against CPU."""
+    from repro_torch import testing
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.data import MarkovLM
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW
+    from repro_torch.optim.schedule import cosine_with_warmup
+
+    arch = dataclasses.replace(get_arch("qwen3_1p7b"), n_layers=2)
+    bundle = build_model(arch, Mode.LUT_TRAIN)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator().manual_seed(SEED), device="cpu")
+    for layer in params["segments"][1]:
+        for site in (*layer["attn"].values(), *layer["mlp"].values()):
+            if "centroids" in site:
+                site["centroids"].mul_(50.0)      # at the activations' scale, as k-means puts them
+    batch = MarkovLM(vocab=arch.vocab, seq_len=32, batch=4).batch_at(0)
+    opt = AdamW(lr=cosine_with_warmup(PARITY_LR, total_steps=4, warmup_steps=2),
+                rules=SOFT_PQ_RULES)
+    res = testing.lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS)
+    errs = res["grad_errs"]
+
+    def worst(key: str, i: int, n: int = 4) -> str:
+        top = sorted(errs.items(), key=lambda kv: -kv[1][key][i])[:n]
+        return ", ".join(f"{k} {e[key][0]:.3g}/{e[key][1]:.3g}" for k, e in top)
+
+    ratio = sorted(((max(e["card_f64"][0] / max(e["cpu_f64"][0], testing.FLOOR_L2),
+                         e["card_f64"][1] / max(e["cpu_f64"][1], testing.FLOOR_MAX)), k)
+                    for k, e in errs.items()), reverse=True)
+    log(f"[train] soft-PQ step, full width, 2 layers, {res['tokens']} tokens, card vs CPU, float64 "
+        f"on the CPU as witness ({time.perf_counter() - t0:.1f}s): loss {res['loss_dev']:.7f} "
+        f"card, {res['loss_cpu']:.7f} CPU, {res['loss_f64']:.7f} float64; sequences dropped for a "
+        f"code differing at a near-tie {res['dropped_sequences']}; fake-quant entries rounded to "
+        f"the other integer at a half-integer (|T/scale| within {testing.HALF_EPS}) of "
+        f"{res['rounded_entries']}: card {res['rounding_flips']['card']}, float64 "
+        f"{res['rounding_flips']['float64']} (the gradient runs take the CPU's)")
+    log(f"[train] {res['grad_leaves']} gradient leaves, gap as a fraction of the leaf's L2 norm / "
+        f"largest entry. Card vs CPU (bounds {testing.GRAD_L2} / {testing.GRAD_MAX}), the "
+        f"largest: {worst('card_cpu', 1)}. CPU fp32 vs float64: {worst('cpu_f64', 1)}. Card vs "
+        f"float64: {worst('card_f64', 1)}. Card's gap over the CPU's (bound {testing.WITNESS}; "
+        f"floors {testing.FLOOR_L2} / {testing.FLOOR_MAX}), the largest: "
+        + ", ".join(f"{k} {r:.3g}" for r, k in ratio[:4]))
+    lt = res["log_t_errs"]
+    log(f"[train] log_t, gap over its terms' magnitudes: card vs CPU {lt['card_cpu']:.3g} (bound "
+        f"1e-6), card vs float64 {lt['card_f64']:.3g}, CPU vs float64 {lt['cpu_f64']:.3g}; grad "
+        f"norm {res['grad_norm'][0]:.6g} card, {res['grad_norm'][1]:.6g} CPU; the card's AdamW "
+        f"update equal to the CPU's rule on the card's moment ({res['updated']} elements moved); "
+        f"t_mean {res['t_mean']:.4f} t_min {res['t_min']:.4f}")
+    check(not res["failures"], "soft-PQ step, card vs CPU: " + "; ".join(res["failures"]))
+    return res
+
+
+def recipe_full_width(dev, scratch: Path) -> dict:
+    """(b) default_recipe at the published width through Recipe.run, the
+    Eval stage through the kernels (held against the plain versions), then
+    the trained artifact served with measured warm-up."""
+    import gc
+
+    from repro_torch.checkpoint import checkpointer as ckpt_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.core import convert, kmeans
+    from repro_torch.data import MarkovLM
+    from repro_torch.kernels import counters
+    from repro_torch.launch.serve import chosen_versions
+    from repro_torch.serving.artifact import load_artifact
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.train.recipe import default_recipe
+
+    # a fresh autotune cache: the trained artifact's warm-up measures its own
+    # records (none from phase 4 ride in its snapshot)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(scratch / "autotune_train.json")
+    free = shutil.disk_usage(scratch).free
+    arch = dataclasses.replace(get_arch("qwen3_1p7b"), n_layers=TRAIN_LAYERS,
+                               lut_use_kernel=True)
+    data = MarkovLM(vocab=arch.vocab, seq_len=256, batch=4)
+    adir = scratch / "trained"
+    recipe = default_recipe(steps=TRAIN_STEPS, lut=True, artifact_dir=str(adir))
+    log(f"[recipe] {arch.name}: d_model {arch.d_model}, d_ff {arch.d_ff}, heads "
+        f"{arch.n_heads}/{arch.n_kv_heads}, vocab {arch.vocab}, {arch.n_layers} layers; {data}; "
+        f"{recipe.describe()}; {free / 1e9:.1f} GB free on the scratch disk")
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    with Timed(convert, "kmeans_init_lut") as t_init, Timed(kmeans, "kmeans_per_codebook") as t_km, \
+            Timed(convert, "deploy_to_artifact") as t_dep, \
+            Timed(ckpt_mod, "reference_arrays") as t_copy, \
+            Timed(ckpt_mod.Checkpointer, "_write") as t_write, SiteCalls() as eval_sites:
+        t0 = time.perf_counter()
+        res = recipe.run(arch, data, ckpt_dir=scratch / "train", device=dev)
+        wall = time.perf_counter() - t0
+    launches, plain = counters.launches(), counters.plain_calls()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_sites = len(res.inf_bundle.lut_sites())
+    deployed = res.stage_result("eval")["deployed_loss"]
+    # the recipe's only LUT_INFER forward is Eval's: one kernel per LUT site
+    check(plain == 0, f"Eval reached a plain version {plain} times")
+    lut = launches["fused_decode"] + launches["lut_amm_v2"] + launches["lut_amm_v1"]
+    check(lut == n_sites and launches["encode"] == 0,
+          f"Eval launched {launches}, expected one LUT kernel per site ({n_sites})")
+    with PlainLUT(), torch.no_grad():
+        batch = {k: v.to(dev) for k, v in data.batch_at(99_999).items()}
+        plain_loss = float(res.inf_bundle.loss(res.inf_params, batch,
+                                               compute_dtype=torch.float32))
+    check(abs(plain_loss - deployed) <= KERNEL_ATOL * abs(plain_loss),
+          f"Eval loss {deployed} through the kernels, {plain_loss} through the plain versions")
+    # and each site's kernel output in Eval against the plain versions on its inputs
+    held = hold_sites("Eval", eval_sites.calls)
+    del eval_sites
+    d_plain, terms, farther = held["worst_code"]
+    log(f"[recipe] Eval's {held['sites']} LUT-site calls ({held['kernels']}), N = "
+        f"{data.batch * data.seq_len} rows each, {held['rows']} rows: every row equal to the "
+        f"plain lookup of the encode kernel's codes (max abs err {held['err']:.3g}); "
+        f"{held['codes_off']} of {held['codes']} codes differ from the plain encode's, on "
+        f"{held['rows_off']} rows, each a tie of the fp32 expansion (float64 gap at most "
+        f"{held['worst_tie']:.3g} of its terms, bound {TIE_EPS}; there the plain choice's "
+        f"distance is {d_plain:.9g}, its terms {terms:.6g}, and the encode kernel's choice "
+        f"is farther by {farther:.3g})")
+    hist = res.histories
+    steps = {name: [round(h["seconds"], 3) for h in hist[name]] for name in ("dense", "soft_pq")}
+    ck_bytes = {p.name: du(p) for p in sorted((scratch / "train").iterdir()) if p.is_dir()}
+    art_bytes = du(adir)
+    sp = res.stage_result("soft_pq")
+    out = {"step_s": steps, "tape_kmeans_s": t_init.seconds, "kmeans_s": t_km.seconds,
+           "kmeans_calls": t_km.calls, "deploy_s": t_dep.seconds, "ckpt_copy_s": t_copy.seconds,
+           "ckpt_write_s": t_write.seconds, "artifact_bytes": art_bytes,
+           "ckpt_bytes": ck_bytes, "peak_bytes": peak, "wall_s": wall,
+           "dense_loss": res.stage_result("dense")["final_loss"], "soft_pq_loss":
+           sp["final_loss"], "deployed_loss": deployed, "plain_loss": plain_loss,
+           "t_mean": sp["t_mean"], "t_min": sp["t_min"], "eval_launches": launches,
+           "eval_sites": held}
+    log(f"[recipe] {wall:.1f}s: step seconds {steps}; tape + k-means {t_init.seconds:.2f}s of which k-means "
+        f"{t_km.seconds:.2f}s over {t_km.calls} sites; deploy (tables + save_artifact) "
+        f"{t_dep.seconds:.2f}s; checkpoints {ck_bytes} bytes, {t_copy.calls} saves: host copy "
+        f"{t_copy.seconds:.2f}s, writes {t_write.seconds:.2f}s (a background thread, waited for "
+        f"at each stage's end); artifact {art_bytes} bytes; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[recipe] losses: dense {out['dense_loss']:.4f}, soft-PQ {out['soft_pq_loss']:.4f}, "
+        f"deployed {deployed:.6f} through the kernels, {plain_loss:.6f} through the plain "
+        f"versions (bound {KERNEL_ATOL} relative); t_mean {sp['t_mean']:.4f} t_min "
+        f"{sp['t_min']:.4f}; Eval launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items()) + f", plain calls {plain}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(scratch / "train")
+
+    # the trained artifact, served: measured warm-up, then the phase-4 burst
+    # against the same engine over the plain versions
+    t0 = time.perf_counter()
+    art = load_artifact(adir, device=dev)
+    kw = dict(n_slots=4, max_seq=256, prefill_chunk=32, device=dev)
+    eng = ServingEngine(art.bundle, art.params, **kw)
+    counts = [4, 4 * 32]
+    versions = chosen_versions(art.bundle, counts, "float32", dev)
+    v1 = sorted(sig for sig, vs in versions.items() if 1 in vs)
+    log(f"[recipe] trained artifact loaded and warmed up in {time.perf_counter() - t0:.1f}s "
+        f"({eng.n_lut_shapes_tuned} lut_amm shapes measured); version per site (M, C, K, V) at "
+        f"N={counts}: " + ", ".join(f"{sig}: {vs}" for sig, vs in versions.items())
+        + (f"; v1 picked at {v1}" if v1 else "; no record picks v1"))
+    check(eng.n_lut_shapes_tuned > 0, "the trained artifact's warm-up measured nothing")
+    burst = phase4_burst(art.bundle.arch.vocab)
+    with PlainLUT():
+        plain_eng = ServingEngine(art.bundle, art.params, **kw)
+        want, _, gaps = plain_run(plain_eng, burst)
+    del plain_eng
+    _, st, _, ties = driven("trained artifact", eng, burst, want, gaps)
+    out.update(versions={str(k): v for k, v in versions.items()}, v1_sites=len(v1),
+               serve_ties=ties)
+    del eng, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(adir)
+    return out
+
+
+def run_logged(cmd: list[str], log_path: Path, timeout: float) -> str:
+    """Run a launcher to its end; fail on a non-zero exit. Returns its output."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with log_path.open("w") as f:
+        proc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, env=env, timeout=timeout)
+    text = log_path.read_text()
+    check(proc.returncode == 0, f"{' '.join(cmd[2:5])} exited {proc.returncode}: {text[-3000:]}")
+    return text
+
+
+def launcher_resume(scratch: Path) -> dict:
+    """(c) The training launcher at its default size: killed mid soft-PQ and
+    re-run, its artifact served; then a two-plan (--spec-draft) run served
+    with speculative decoding."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    py = [sys.executable, "-m"]
+    ck, art = scratch / "launch_ck", scratch / "launch_art"
+    train = py + ["repro_torch.launch.train", "--lut", "--steps", str(LAUNCHER_STEPS),
+                  "--ckpt-dir", str(ck), "--artifact-dir", str(art)]
+    out: dict = {}
+    t0 = time.perf_counter()
+    first = scratch / "train_killed.log"
+    with first.open("w") as f:
+        proc = subprocess.Popen(train, stdout=f, stderr=subprocess.STDOUT, env=env)
+    manifest = ck / "recipe_run.json"
+    deadline = time.perf_counter() + 300
+    stage = {}
+    while proc.poll() is None and time.perf_counter() < deadline:
+        try:
+            stage = {e["name"]: e for e in json.loads(manifest.read_text())["stages"]}
+        except (OSError, ValueError, KeyError):
+            stage = {}
+        if stage.get("soft_pq", {}).get("step") is not None:
+            proc.send_signal(signal.SIGKILL)
+            break
+        time.sleep(0.01)
+    proc.wait(timeout=60)
+    check(proc.returncode == -signal.SIGKILL,
+          f"the launcher was not killed mid soft-PQ (exit {proc.returncode}): "
+          f"{first.read_text()[-2000:]}")
+    stage = {e["name"]: e for e in json.loads(manifest.read_text())["stages"]}
+    committed = stage["soft_pq"]["step"]
+    check(stage["dense"]["status"] == stage["centroid_init"]["status"] == "done"
+          and stage["soft_pq"]["status"] == "running" and committed,
+          f"manifest after the kill: {[(n, e['status'], e['step']) for n, e in stage.items()]}")
+    text = run_logged(train, scratch / "train_resumed.log", 600)
+    softpq = text.split("[soft_pq]", 1)[-1]
+    first_step = re.search(r"step\s+(\d+) loss", softpq)
+    check("[dense] already done — restored" in text
+          and "[centroid_init] already done — restored" in text
+          and first_step is not None and int(first_step.group(1)) == committed
+          and "wrote LUTArtifact" in text,
+          f"the re-run did not resume soft-PQ at step {committed}: {text[-3000:]}")
+    out["killed_at_commit"] = committed
+    log(f"[launcher] --steps {LAUNCHER_STEPS}: SIGKILL after soft-PQ committed step {committed}; "
+        f"the re-run restored dense and centroid_init, resumed soft-PQ at step "
+        f"{first_step.group(1)} and wrote the artifact ({time.perf_counter() - t0:.1f}s)")
+    for line in text.splitlines():
+        if line.startswith(("[eval]", "step ")):
+            log(f"  {line}")
+    text = run_logged(py + ["repro_torch.launch.serve", "--artifact", str(art)],
+                      scratch / "serve.log", 600)
+    check(f"artifact {art}" in text, f"serve did not name its artifact: {text[-2000:]}")
+    log("[launcher] served: " + " | ".join(l.strip() for l in text.splitlines()[:3]))
+
+    ck2, art2 = scratch / "launch_ck2", scratch / "launch_art2"
+    t0 = time.perf_counter()
+    run_logged(py + ["repro_torch.launch.train", "--lut", "--steps", str(SPEC_STEPS),
+                     "--spec-draft", "attn/*", "--ckpt-dir", str(ck2), "--artifact-dir",
+                     str(art2)], scratch / "train_spec.log", 600)
+    text = run_logged(py + ["repro_torch.launch.serve", "--artifact", str(art2),
+                            "--spec-decode", "--draft-plan", "draft"],
+                      scratch / "serve_spec.log", 600)
+    m = re.search(r"acceptance=([\d.]+) target_forwards_per_token=([\d.]+)", text)
+    check(m is not None, f"no spec line: {text[-2000:]}")
+    out["acceptance"], out["tfpt"] = float(m.group(1)), float(m.group(2))
+    log(f"[launcher] two-plan artifact (target keeps attn/* dense, the trained plan as the "
+        f"draft) trained for --steps {SPEC_STEPS} and served with --spec-decode in "
+        f"{time.perf_counter() - t0:.1f}s: "
+        f"acceptance {out['acceptance']}, target forwards per token {out['tfpt']}")
+    for d in (ck, art, ck2, art2):
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def phase_train(dev, scratch: Path) -> dict:
+    out = {"step": train_step_parity(dev)}
+    out["recipe"] = recipe_full_width(dev, scratch)
+    out["launcher"] = launcher_resume(scratch)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card",
@@ -1695,6 +2131,13 @@ def main() -> int:
         launches = served["launches"]
         refs = timed(5, phase_paged_spec, dev, scratch, served["art"], served["engine"])
         timed(6, phase_process, scratch, served["engine"], refs)
+        # phase 7 needs the card's memory and the scratch disk to itself
+        del served, refs
+        shutil.rmtree(scratch / "main", ignore_errors=True)
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(7, phase_train, dev, scratch)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

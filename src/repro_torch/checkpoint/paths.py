@@ -16,11 +16,28 @@ from __future__ import annotations
 
 from typing import Any, Iterator
 
+# NamedTuple types that are tree nodes (their fields named ".<field>", in
+# field order, as jax names a namedtuple's children); any other NamedTuple,
+# such as a ParamSpec, is a leaf
+NODE_TUPLES: list[type] = []
+
+
+def register_node(cls: type) -> type:
+    NODE_TUPLES.append(cls)
+    return cls
+
+
+def is_node_tuple(tree: Any) -> bool:
+    return type(tree) in NODE_TUPLES
+
 
 def _walk(tree: Any, prefix: tuple[str, ...]) -> Iterator[tuple[str, Any]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _walk(tree[k], prefix + (str(k),))
+    elif is_node_tuple(tree):
+        for name in tree._fields:
+            yield from _walk(getattr(tree, name), prefix + ("." + name,))
     elif type(tree) in (list, tuple):           # a NamedTuple (ParamSpec) is a leaf
         for i, v in enumerate(tree):
             yield from _walk(v, prefix + (str(i),))
@@ -62,8 +79,12 @@ def unflatten_tree(flat: dict[str, Any]) -> Any:
 
 def treedef_string(tree: Any) -> str:
     """The tree's structure as `str(jax.tree_util.tree_structure(tree))`
-    prints it, which artifact manifests record (for reading only)."""
+    prints it, which artifact manifests and checkpoints record (for reading
+    only)."""
     def fmt(node: Any) -> str:
+        if is_node_tuple(node):
+            return (f"CustomNode(namedtuple[{type(node).__name__}], ["
+                    + ", ".join(fmt(v) for v in node) + "])")
         if isinstance(node, dict):
             return "{" + ", ".join(f"{k!r}: {fmt(node[k])}" for k in sorted(node)) + "}"
         if type(node) in (list, tuple):

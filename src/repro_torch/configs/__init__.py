@@ -4,7 +4,7 @@ Counterpart of `repro.configs`: each `configs/<id>.py` defines `ARCH:
 ArchSpec` with the published dims, and `build_model(arch, mode)` assembles
 the model with every linear site resolved to dense or LUT by the arch's
 replacement plan. Only the `dense` family is ported (qwen3_1p7b, llama3_8b);
-the other families follow ROADMAP Queue A item 10.
+the other families follow ROADMAP Queue A item 3.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.common import SiteCfg
+from repro_torch.models.common import SiteCfg, cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,6 +324,27 @@ class ModelBundle:
     def lut_sites(self) -> list[SiteSpec]:
         return [s for s in self.sites() if s.mode != Mode.DENSE]
 
+    def train_logits(self, params, batch, *, compute_dtype=torch.bfloat16):
+        """The training forward over whole sequences: (logits (B, S, vocab),
+        aux). The shared forward of `loss` and of both halves of the
+        distillation loss; aux (the MoE penalty of the reference) is 0 for
+        the dense blocks."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        logits, _ = tf_mod.lm_apply(self.cfg, params, tokens=tokens, pos=pos,
+                                    compute_dtype=compute_dtype)
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    def loss_from_logits(self, logits, aux, labels):
+        """Cross-entropy plus the lm family's aux penalty: the one place its
+        weight is applied."""
+        return cross_entropy(logits, labels) + tf_mod.LM_AUX_WEIGHT * aux
+
+    def loss(self, params, batch, *, compute_dtype=torch.bfloat16):
+        logits, aux = self.train_logits(params, batch, compute_dtype=compute_dtype)
+        return self.loss_from_logits(logits, aux, batch["labels"])
+
     def cache_specs(self, b: int, s_max: int, *, dtype=torch.bfloat16,
                     paged: attn_mod.PagedSpec | None = None) -> list:
         """ParamSpecs of `init_caches`' tensors, without allocating them."""
@@ -385,7 +406,7 @@ def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBun
         mode = Mode(mode)
     if arch.family != "dense":
         raise NotImplementedError(f"family {arch.family!r} is not ported yet: ROADMAP Queue A "
-                                  f"item 10")
+                                  f"item 3")
     if arch.takes_embeds or arch.mrope_sections:
         raise NotImplementedError("embedding inputs and M-RoPE are not ported yet")
     res = _PlanResolver(arch, mode)

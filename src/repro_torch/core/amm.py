@@ -7,10 +7,15 @@ Counterpart of `repro.core.amm`: one entry point, `lut_linear`, with modes
              LUT kernels (`use_kernel`), or through plain tensor ops as the
              integer one-hot contraction (`int8_dot`) or the dequantized
              one-hot contraction
-  LUT_TRAIN  soft-PQ training: not ported yet (ROADMAP Queue A item 11)
+  LUT_TRAIN  soft-PQ training (paper section 3): the table rebuilt from the
+             frozen weight on every call and fake-quantized (section 3.3),
+             the encoding the argmin/softmax straight-through estimator
+             (Eq. 6) at the learned temperature (section 3.2); plain tensor
+             ops, autograd for the gradients
 
 Param dicts as in the reference:
   dense  : {"w": (D, M) [, "b": (M,)]}
+  train  : {"centroids": (C, K, V), "log_t": ()} (+ frozen {"w", "b"})
   deploy : {"centroids": (C, K, V), "table_q": int8 (C, K, M),
             "table_scale": (1|C, 1, 1|M) [, "b": (M,)]}
 """
@@ -24,6 +29,7 @@ from typing import Any, Mapping
 import torch
 
 from repro_torch.core import pq, quant
+from repro_torch.core.temperature import temperature
 
 
 class Mode(str, enum.Enum):
@@ -49,17 +55,31 @@ class LUTConfig:
         return d // self.v
 
 
-def lut_linear(cfg: LUTConfig, mode: Mode, params: Mapping[str, Any],
-               x: torch.Tensor) -> torch.Tensor:
-    """Apply one (possibly LUT-replaced) linear layer. x: (..., D) -> (..., M)."""
+def lut_linear(cfg: LUTConfig, mode: Mode, params: Mapping[str, Any], x: torch.Tensor, *,
+               frozen: Mapping[str, Any] | None = None) -> torch.Tensor:
+    """Apply one (possibly LUT-replaced) linear layer. x: (..., D) -> (..., M).
+    LUT_TRAIN takes the frozen dense weight (and bias) as `frozen`."""
     if mode == Mode.DENSE:
         y = x @ params["w"].to(x.dtype)
         b = params.get("b")
         return y + b.to(y.dtype) if b is not None else y
 
     if mode == Mode.LUT_TRAIN:
-        raise NotImplementedError("LUT_TRAIN is not ported to PyTorch yet: ROADMAP Queue A "
-                                  "item 11 (training)")
+        if frozen is None:
+            raise ValueError("LUT_TRAIN needs the frozen dense weight")
+        p = params["centroids"]
+        t = temperature(params["log_t"])
+        table = pq.build_table(p, frozen["w"], stop_weight_grad=True)
+        table = quant.fake_quant(table, bits=cfg.bits, per_column=cfg.per_column,
+                                 m_shared=cfg.int8_dot)
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1])
+        dists = pq.pairwise_sq_dists(pq.split_subvectors(xf, cfg.v), p)
+        enc = pq.ste_encode(dists, t)
+        y = pq.lut_contract(enc.to(x.dtype), table.to(x.dtype))
+        b = frozen.get("b")
+        y = y + b.to(y.dtype) if b is not None else y
+        return y.reshape(*lead, -1).to(x.dtype)
 
     if mode == Mode.LUT_INFER:
         p = params["centroids"]

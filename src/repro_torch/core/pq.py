@@ -9,8 +9,9 @@ Counterpart of `repro.core.pq`, same names and shape conventions:
   enc    : (N, C, K)     one-hot encoding
 
 Distances are fp32 by the same expansion ||a||^2 - 2 a.P + ||P||^2 as the
-reference, so that codes agree with it except on near-ties. The soft/STE
-encodings and `build_table` belong to training, which is not ported yet.
+reference, so that codes agree with it except on near-ties. Training adds
+the soft encoding (Eq. 5), its straight-through form (Eq. 6) and the table
+build (Eq. 3); `.detach()` stands where the reference stops gradients.
 """
 
 from __future__ import annotations
@@ -44,6 +45,35 @@ def hard_encode(dists: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.one_hot(idx, k).to(dists.dtype)
 
 
+def soft_encode(dists: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """softmax(-dists / t) over K, Eq. 5; t > 0 is the (learned) temperature."""
+    return torch.softmax(-dists / t, dim=-1)
+
+
+def ste_encode(dists: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Soft-PQ straight-through encoding, Eq. 6: the forward value is the hard
+    one-hot, the gradient that of the softmax (w.r.t. dists and t)."""
+    soft = soft_encode(dists, t)
+    hard = hard_encode(dists)
+    return soft + (hard - soft).detach()
+
+
+def build_table(p: torch.Tensor, w: torch.Tensor, *,
+                stop_weight_grad: bool = True) -> torch.Tensor:
+    """Lookup tables T[..., c] = P[..., c] @ W_c (Eq. 3).
+
+    P (..., C, K, V), W (..., D, M) with D = C*V -> T (..., C, K, M); leading
+    axes (stacked layers) batch. The replaced weight is frozen in soft-PQ
+    training, so its gradient is stopped unless `stop_weight_grad` is False."""
+    *lead, c, k, v = p.shape
+    d, m = w.shape[-2:]
+    if d != c * v:
+        raise ValueError(f"weight rows {d} != C*V = {c}*{v}")
+    w = w.detach() if stop_weight_grad else w
+    w_sub = w.reshape(*w.shape[:-2], c, v, m)
+    return torch.einsum("...ckv,...cvm->...ckm", p.to(w.dtype), w_sub)
+
+
 def lut_contract(enc: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """sum_c enc[n,c,:] . T[c,:,m] -> (N, M), accumulated in fp32."""
     n = enc.shape[0]
@@ -75,3 +105,11 @@ def gather_lut(idx: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     c = t.shape[0]
     rows = t[torch.arange(c, device=t.device)[None, :], idx.long()]   # (N, C, M)
     return rows.sum(dim=1, dtype=t.dtype)
+
+
+def pq_reconstruct(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize a through its nearest centroids (analysis util)."""
+    a_sub = split_subvectors(a, p.shape[-1])
+    enc = hard_encode(pairwise_sq_dists(a_sub, p))          # (N, C, K)
+    rec = torch.einsum("nck,ckv->ncv", enc.to(p.dtype), p)
+    return rec.reshape(a.shape)

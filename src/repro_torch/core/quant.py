@@ -10,7 +10,9 @@ s = max|r| / (2^(bits-1) - 1), zero-point 0. Scale layouts:
                            accumulate exact int32 and dequantize once
   scalar       (1, 1, 1)   accepted by the kernels like m-shared
 
-`fake_quant` (quantization-aware training) waits for the training port.
+`fake_quant` is the straight-through quantize-dequantize of soft-PQ training.
+The scale's axes count from the end, so a stack of tables (L, C, K, M)
+quantizes table by table in one call.
 """
 
 from __future__ import annotations
@@ -38,11 +40,11 @@ def table_scale(t: torch.Tensor, *, bits: int = 8, per_column: bool = False,
                 m_shared: bool = False) -> torch.Tensor:
     """Symmetric scale in the layout the flags select (see module docstring)."""
     if m_shared:
-        absmax = t.abs().amax(dim=(0, 1), keepdim=True)    # (1, 1, M)
+        absmax = t.abs().amax(dim=(-3, -2), keepdim=True)  # (1, 1, M)
     elif per_column:
-        absmax = t.abs().amax(dim=1, keepdim=True)         # (C, 1, M)
+        absmax = t.abs().amax(dim=-2, keepdim=True)        # (C, 1, M)
     else:
-        absmax = t.abs().amax(dim=(1, 2), keepdim=True)    # (C, 1, 1)
+        absmax = t.abs().amax(dim=(-2, -1), keepdim=True)  # (C, 1, 1)
     return torch.clamp(absmax.float(), min=1e-8) / _qmax(bits)
 
 
@@ -51,3 +53,13 @@ def quantize_table(t: torch.Tensor, *, bits: int = 8, per_column: bool = False,
     scale = table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared)
     q = torch.clamp(torch.round(t.float() / scale), -_qmax(bits), _qmax(bits))
     return QuantizedTable(q=q.to(torch.int8), scale=scale)
+
+
+def fake_quant(t: torch.Tensor, *, bits: int = 8, per_column: bool = False,
+               m_shared: bool = False) -> torch.Tensor:
+    """Quantization-aware training with a straight-through estimator: the
+    forward value is quantize-dequantize(T), the gradient the identity."""
+    scale = table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared)
+    t32 = t.float()
+    qdq = torch.clamp(torch.round(t32 / scale), -_qmax(bits), _qmax(bits)) * scale
+    return (t32 + (qdq - t32).detach()).to(t.dtype)

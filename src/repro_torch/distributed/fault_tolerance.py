@@ -1,8 +1,9 @@
-"""Retry classification and backoff for the serving supervisor.
+"""Retry classification and backoff, straggler detection and a heartbeat
+file, for the serving supervisor and the training loop.
 
-Counterpart of the part of `repro.distributed.fault_tolerance` that serving
-uses: `is_retryable`, `Backoff` and `StepGuard`, under the same names and
-with the same behaviour, plus one rule of the card's own. A CUDA error
+Counterpart of `repro.distributed.fault_tolerance`: `is_retryable`,
+`Backoff`, `StepGuard`, `StragglerMonitor` and `HeartbeatFile`, under the
+same names and with the same behaviour, plus one rule of the card's own. A CUDA error
 (an illegal memory access, a device-side assert, any `CUDA error: ...`)
 leaves the process's CUDA context poisoned: every later call on it fails
 too, so a retry in place cannot succeed. Such an error is fatal here, the
@@ -14,6 +15,8 @@ stays retryable, as the reference classifies it.
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 import time
 from typing import Any, Callable
 
@@ -81,3 +84,46 @@ class StepGuard:
                 if self.backoff_s:
                     time.sleep(self.backoff_s * (attempt + 1))
         raise RuntimeError(f"step failed after {self.max_retries + 1} attempts") from last
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """Per-step wall-time EMA; flags a step slower than `threshold` x EMA
+    (after `warmup_steps`). A flagged step does not move the EMA."""
+
+    threshold: float = 2.0
+    decay: float = 0.9
+    warmup_steps: int = 5
+
+    _ema: float = 0.0
+    _n: int = 0
+    events: list = dataclasses.field(default_factory=list)
+
+    def record(self, step: int, seconds: float) -> bool:
+        self._n += 1
+        if self._n <= self.warmup_steps:
+            self._ema = seconds if self._ema == 0 else (
+                self.decay * self._ema + (1 - self.decay) * seconds)
+            return False
+        slow = seconds > self.threshold * self._ema
+        if slow:
+            self.events.append({"step": step, "seconds": seconds, "ema": self._ema})
+        else:
+            self._ema = self.decay * self._ema + (1 - self.decay) * seconds
+        return slow
+
+    @property
+    def ema(self) -> float:
+        return self._ema
+
+
+class HeartbeatFile:
+    """Liveness breadcrumb for an external supervisor: one JSON record per
+    step, the file rewritten each time."""
+
+    def __init__(self, path: str | pathlib.Path):
+        self.path = pathlib.Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+
+    def beat(self, step: int, **extra: Any) -> None:
+        self.path.write_text(json.dumps({"step": step, "t": time.time(), **extra}))

@@ -93,9 +93,15 @@ def _lookup(x, centroids, table_q, scale, bias, act):
     c, k, v = centroids.shape
     if d != c * v:
         raise ValueError(f"D={d} != C*V={c}*{v}")
+    return lookup(encode_ref(x, centroids), table_q, scale, bias=bias, act=act, dtype=x.dtype)
+
+
+def lookup(idx: torch.Tensor, table_q: torch.Tensor, scale: torch.Tensor, *,
+           bias: torch.Tensor | None = None, act: str = "none",
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The fused and v2 kernels' lookup and epilogue on given (N, C) codes."""
     if act not in ACTIVATIONS:
         raise ValueError(f"act={act!r} not in {ACTIVATIONS}")
-    idx = encode_ref(x, centroids)
     if scale.shape[0] == 1:
         # m-shared / scalar: exact int32 sum, one rounding per element, the
         # bias add fused into it
@@ -106,7 +112,7 @@ def _lookup(x, centroids, table_q, scale, bias, act):
         y = pq.gather_lut(idx, table_q.float() * scale)
         if bias is not None:
             y = y + bias.float()
-    return apply_act(y, act).to(x.dtype)
+    return apply_act(y, act).to(dtype)
 
 
 def fused_decode_plain(x, centroids, table_q, scale, *, bias=None, act="none"):

@@ -1,0 +1,119 @@
+"""Training launcher: a thin CLI over `repro_torch.train.recipe.Recipe`.
+
+Counterpart of `repro.launch.train`, with its flags one for one plus
+`--device`. Runs the LUT-NN lifecycle on a registered arch, reduced
+(`configs.reduce_arch`) to the given width and depth:
+
+  dense pretrain -> convert (k-means init) -> soft-PQ QAT fine-tune
+  [optionally distilling vs the frozen dense teacher] -> int8 deploy ->
+  eval gate -> LUTArtifact written to --artifact-dir
+
+and serves nothing itself: `python -m repro_torch.launch.serve --artifact
+<dir>` serves what it writes. `--recipe recipe.json` runs a custom stage
+list; `--dump-recipe` writes the flag-built default as a starting point. A
+run is resumable: killing the process and re-invoking it with the same
+--ckpt-dir resumes at the recorded stage and checkpoint step. It runs on
+the card unless `--device cpu` asks for the CPU:
+
+  python -m repro_torch.launch.train --lut --steps 20
+  python -m repro_torch.launch.train --device cpu --lut --d-model 64 \\
+      --layers 2 --vocab 128 --seq 32 --batch 8 --steps 6
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+from repro_torch.configs import ARCH_IDS, effective_plan, get_arch, reduce_arch
+from repro_torch.data import MarkovLM
+from repro_torch.train.recipe import Recipe, default_recipe
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3_1p7b")
+    ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--vocab", type=int, default=512)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lut", action="store_true", help="run the full LUT pipeline")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_train_ckpt"))
+    ap.add_argument("--artifact-dir", default=None,
+                    help="where the deployed LUTArtifact is written at the end of the --lut "
+                         "pipeline (default: <ckpt-dir>_artifact); serve it with "
+                         "repro_torch.launch.serve --artifact <dir>")
+    ap.add_argument("--recipe", default=None, metavar="RECIPE_JSON",
+                    help="run this serialized Recipe instead of the flag-built default "
+                         "(stage/optimizer flags are then ignored)")
+    ap.add_argument("--dump-recipe", default=None, metavar="PATH",
+                    help="write the flag-built default recipe as JSON and exit (edit it, "
+                         "then re-run with --recipe)")
+    ap.add_argument("--distill-weight", type=float, default=0.0,
+                    help="> 0 adds a KL term vs the frozen dense teacher to the soft-PQ stage")
+    ap.add_argument("--distill-tau", type=float, default=2.0,
+                    help="distillation softening temperature")
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="int8 error-feedback gradient reduce in the dense stage: not "
+                         "ported yet (ROADMAP Queue A item 5), raises")
+    ap.add_argument("--eval-max-regression", type=float, default=None,
+                    help="fail the run if the deployed loss regresses more than this past "
+                         "the dense teacher's")
+    ap.add_argument("--spec-draft", default=None, metavar="KINDS",
+                    help="deploy a TWO-plan artifact for speculative serving: the trained "
+                         "plan ships as the 'draft' and the target keeps these "
+                         "comma-separated kind patterns dense (e.g. 'attn/*'); serve with "
+                         "repro_torch.launch.serve --spec-decode --draft-plan draft")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without a card)")
+    args = ap.parse_args(argv)
+
+    artifact_dir = args.artifact_dir or args.ckpt_dir + "_artifact"
+    if args.recipe is not None and args.dump_recipe is not None:
+        ap.error("--dump-recipe writes the flag-built default recipe; combining it with "
+                 "--recipe is a no-op copy — drop one")
+    if not args.lut and args.recipe is None and (
+            args.distill_weight > 0.0 or args.eval_max_regression is not None
+            or args.spec_draft is not None):
+        ap.error("--distill-weight/--eval-max-regression/--spec-draft configure the LUT "
+                 "pipeline stages — they require --lut")
+    if args.recipe is not None:
+        recipe = Recipe.load(args.recipe)
+    else:
+        recipe = default_recipe(
+            steps=args.steps, lut=args.lut, artifact_dir=artifact_dir,
+            distill_weight=args.distill_weight, distill_tau=args.distill_tau,
+            grad_compression=args.grad_compression,
+            eval_max_regression=args.eval_max_regression, spec_draft=args.spec_draft)
+    if args.dump_recipe is not None:
+        recipe.save(args.dump_recipe)
+        print(f"wrote recipe ({recipe.describe()}) to {args.dump_recipe}")
+        return
+
+    base = get_arch(args.arch)
+    arch = reduce_arch(base, d_model=args.d_model, n_layers=args.layers, vocab=args.vocab,
+                       d_ff=0 if base.d_ff == 0 else 2 * args.d_model)
+    data = MarkovLM(vocab=arch.vocab, seq_len=args.seq, batch=args.batch)
+    if args.lut or args.recipe:
+        print(f"replacement plan: {effective_plan(arch).describe()}")
+    print(f"recipe: {recipe.describe()}")
+
+    result = recipe.run(arch, data, ckpt_dir=args.ckpt_dir, seed=args.seed,
+                        device=args.device)
+
+    if result.inf_bundle is not None:
+        deploy = next((e["result"] for e in result.manifest["stages"]
+                       if e["kind"] == "deploy" and e["result"]), {})
+        adir = deploy.get("artifact_dir", artifact_dir)
+        print(f"wrote LUTArtifact to {adir} "
+              f"(inspect: python -m repro_torch.serving.artifact {adir}; "
+              f"serve: python -m repro_torch.launch.serve --artifact {adir})")
+
+
+if __name__ == "__main__":
+    main()

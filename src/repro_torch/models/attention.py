@@ -24,7 +24,7 @@ into the page-flattened pool at indices computed once per forward on the
 host (`paged_write_flat`, masked positions routed to the garbage page 0), and
 reads gather each row's pages back into the dense logical layout
 (`paged_gather`), so the dense masks apply unchanged and the outputs equal
-the dense cache's. Cross-attention (Queue A item 10) is not ported yet.
+the dense cache's. Cross-attention (Queue A item 3) is not ported yet.
 """
 
 from __future__ import annotations

@@ -2,8 +2,11 @@
 
 Counterpart of `repro.models.common`. Parameters are plain nested dicts of
 tensors. Every projection goes through `linear`, which runs the dense or the
-LUT path of its site's statically resolved mode. Initializers draw from an
-explicit `torch.Generator` on its own device and move the result to `device`.
+LUT path of its site's statically resolved mode, and records its input on an
+active activation tape (`tape_capture`, the k-means init's sample of a
+site's inputs). Initializers draw from an explicit `torch.Generator` on its
+own device and move the result to `device`; their streams are torch's, not
+the reference's JAX keys.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.amm import LUTConfig, Mode, lut_linear
-from repro_torch.core.lut_layer import ParamSpec, deploy_param_specs
+from repro_torch.core.lut_layer import ParamSpec, deploy_param_specs, init_dense
+from repro_torch.core.temperature import init_log_temperature
 
 Params = dict[str, Any]
 
@@ -38,13 +42,20 @@ def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
 
 def linear_init(gen: torch.Generator, site: SiteCfg, *, dtype=torch.float32,
                 device: torch.device | str = "cpu") -> Params:
-    """Params of a site in its mode (DENSE or LUT_INFER), as in the reference:
+    """Params of a site in its mode, as in the reference:
     DENSE     {"w": N(0, 1/d_in) [, "b": 0]}
+    LUT_TRAIN {"w" (frozen: build_table stops its gradient), "centroids":
+               N(0, 0.02^2), "log_t": 0 [, "b"]}; core.convert puts k-means
+               centroids from activation samples in place of the random ones
     LUT_INFER {"centroids": N(0, 0.02^2), "table_q": uniform int8 in [-127, 126],
                "table_scale": 0.02 [, "b": 0]}
     """
-    if site.mode == Mode.DENSE:
-        p = {"w": (_randn(gen, (site.d_in, site.d_out), device) / site.d_in ** 0.5).to(dtype)}
+    if site.mode in (Mode.DENSE, Mode.LUT_TRAIN):
+        p = init_dense(gen, site.d_in, site.d_out, dtype=dtype, device=device)
+        if site.mode == Mode.LUT_TRAIN:
+            c = site.lut.codebooks(site.d_in)
+            p["centroids"] = _randn(gen, (c, site.lut.k, site.lut.v), device) * 0.02
+            p["log_t"] = init_log_temperature(device=device)
     elif site.mode == Mode.LUT_INFER:
         specs = deploy_param_specs(site.d_in, site.d_out, site.lut, bias=site.bias)
         p = {
@@ -54,7 +65,7 @@ def linear_init(gen: torch.Generator, site: SiteCfg, *, dtype=torch.float32,
             "table_scale": torch.full(specs["table_scale"].shape, 0.02, device=device),
         }
     else:
-        raise NotImplementedError(f"{site.mode} sites are not ported yet: ROADMAP Queue A item 11")
+        raise ValueError(site.mode)
     if site.bias:
         p["b"] = torch.zeros((site.d_out,), dtype=dtype, device=device)
     return p
@@ -62,20 +73,72 @@ def linear_init(gen: torch.Generator, site: SiteCfg, *, dtype=torch.float32,
 
 def linear_specs(site: SiteCfg, dtype=torch.float32) -> Params:
     """ParamSpecs of `linear_init`'s params, without allocating them."""
-    if site.mode == Mode.DENSE:
+    if site.mode in (Mode.DENSE, Mode.LUT_TRAIN):
         p = {"w": ParamSpec((site.d_in, site.d_out), dtype)}
+        if site.mode == Mode.LUT_TRAIN:
+            p["centroids"] = ParamSpec((site.lut.codebooks(site.d_in), site.lut.k, site.lut.v),
+                                       torch.float32)
+            p["log_t"] = ParamSpec((), torch.float32)
     elif site.mode == Mode.LUT_INFER:
         specs = deploy_param_specs(site.d_in, site.d_out, site.lut, bias=site.bias)
         p = {name: specs[name] for name in ("centroids", "table_q", "table_scale")}
     else:
-        raise NotImplementedError(f"{site.mode} sites are not ported yet: ROADMAP Queue A item 11")
+        raise ValueError(site.mode)
     if site.bias:
         p["b"] = ParamSpec((site.d_out,), dtype)
     return p
 
 
+_TAPE: "tape_capture | None" = None        # the active activation tape (core.convert)
+
+
+class tape_capture:
+    """Context manager: record the input of every named linear site, keyed by
+    '<prefix>/<site.name>' (the registry's `SiteSpec.tape_key`), at most
+    `max_rows` rows per call. The layer loop sets the prefix per layer
+    (`set_tape_prefix`)."""
+
+    def __init__(self, max_rows: int = 4096):
+        self.records: dict[str, list[torch.Tensor]] = {}
+        self.prefix = ""
+        self.max_rows = max_rows
+
+    def record(self, site: SiteCfg, x: torch.Tensor) -> None:
+        if not site.name:
+            return
+        key = f"{self.prefix}/{site.name}" if self.prefix else site.name
+        rows = x.detach().reshape(-1, x.shape[-1])[: self.max_rows]
+        self.records.setdefault(key, []).append(rows)
+
+    def __enter__(self) -> "tape_capture":
+        global _TAPE
+        self._prev = _TAPE
+        _TAPE = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _TAPE
+        _TAPE = self._prev
+        return False
+
+
+def tape_active() -> bool:
+    return _TAPE is not None
+
+
+def set_tape_prefix(prefix: str) -> None:
+    """Point later records at this key prefix (no-op without an active tape)."""
+    if _TAPE is not None:
+        _TAPE.prefix = prefix
+
+
 def linear(site: SiteCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Apply one linear site in its statically configured mode."""
+    """Apply one linear site in its statically configured mode. A LUT_TRAIN
+    site's dense weight lives beside its centroids and is its frozen source."""
+    if _TAPE is not None:
+        _TAPE.record(site, x)
+    if site.mode == Mode.LUT_TRAIN:
+        return lut_linear(site.lut, Mode.LUT_TRAIN, p, x, frozen=p)
     return lut_linear(site.lut, site.mode, p, x)
 
 
@@ -123,7 +186,7 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def apply_mrope(*_args, **_kwargs):
-    raise NotImplementedError("M-RoPE (qwen2_vl_7b) is not ported yet: ROADMAP Queue A item 10")
+    raise NotImplementedError("M-RoPE (qwen2_vl_7b) is not ported yet: ROADMAP Queue A item 3")
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
@@ -133,3 +196,11 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
 
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token-level cross-entropy in fp32. logits (..., vocab), labels (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()

@@ -14,7 +14,13 @@ before attending over the cache. A paged cache is one stacked
 (L, n_pages, page_size, KV, Dh) pool per K and V and segment, written the
 same two ways through the flat indices of `attention.paged_write_flat`
 (masked positions to the garbage page). MoE and Mamba blocks are not ported
-yet (ROADMAP Queue A item 10).
+yet (ROADMAP Queue A item 3).
+
+A training forward (no caches, gradients on) recomputes each block in the
+backward pass instead of keeping its activations (`torch.utils.checkpoint`,
+the counterpart of the reference's `remat=True`); the values are the same
+with and without it. Under an activation tape each layer's records are keyed
+'segments/<i>/<j>/<site>', the registry's tape keys.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -36,7 +43,13 @@ from repro_torch.models.common import (
     linear_specs,
     rmsnorm,
     rmsnorm_init,
+    set_tape_prefix,
+    tape_active,
 )
+
+# MoE load-balance penalty weight of the lm family's loss (the dense blocks
+# ported so far have no aux loss: it enters as 0)
+LM_AUX_WEIGHT = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +63,7 @@ class BlockCfg:
 def _require_dense(cfg: BlockCfg) -> None:
     if cfg.kind != "dense":
         raise NotImplementedError(f"{cfg.kind!r} blocks are not ported yet: ROADMAP Queue A "
-                                  f"item 10")
+                                  f"item 3")
 
 
 def block_init(gen: torch.Generator, cfg: BlockCfg, *, dtype=torch.float32,
@@ -84,6 +97,7 @@ class LMCfg:
     d_model: int
     segments: tuple[tuple[int, BlockCfg], ...]   # (n_layers, block cfg) runs
     lm_head: SiteCfg | None = None               # None -> tied to the embedding
+    remat: bool = True                           # recompute blocks in training backward
 
     @property
     def n_layers(self) -> int:
@@ -152,13 +166,25 @@ def init_caches(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16, device="cp
             for seg in cache_specs(cfg, b, s_max, dtype, paged)]
 
 
+def _train_block(bcfg: BlockCfg, lp: Params, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    return block_apply(bcfg, lp, x, pos=pos)[0]
+
+
 def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: torch.Tensor,
                caches: Params | None, cache_len: torch.Tensor | None,
-               write_index, block_tables: torch.Tensor | None = None) -> torch.Tensor:
+               write_index, block_tables: torch.Tensor | None = None,
+               remat: bool = False, prefix: str = "") -> torch.Tensor:
     """Run one segment's layers; writes the segment's cache in place."""
     defer = caches is not None and x.shape[1] == 1
+    # recompute in backward only where there is a backward (and no tape,
+    # which the recomputation would write to a second time)
+    remat = remat and caches is None and torch.is_grad_enabled() and not tape_active()
     k_slabs, v_slabs = [], []
     for j, lp in enumerate(layers):
+        set_tape_prefix(f"{prefix}/{j}")
+        if remat:
+            x = checkpoint(_train_block, bcfg, lp, x, pos, use_reentrant=False)
+            continue
         cl = None if caches is None else {name: t[j] for name, t in caches.items()}
         x, nc = block_apply(bcfg, lp, x, pos=pos, cache=cl, cache_len=cache_len,
                             defer_cache_write=defer, write_index=write_index,
@@ -183,15 +209,17 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor, pos: torch.Ten
              block_tables: torch.Tensor | None = None) -> tuple[torch.Tensor, list | None]:
     """Returns (logits (B, S, vocab), caches). The caches are updated in
     place where `write_index` says (attention.cache_write_index, or for paged
-    caches, which also take `block_tables`, attention.paged_write_flat)."""
+    caches, which also take `block_tables`, attention.paged_write_flat).
+    Without caches this is the training forward over whole sequences."""
     x = embed(params["embed"], tokens).to(compute_dtype)
     for i, (_, bcfg) in enumerate(cfg.segments):
         x = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
                        caches=None if caches is None else caches[i],
                        cache_len=cache_len, write_index=write_index,
-                       block_tables=block_tables)
+                       block_tables=block_tables, remat=cfg.remat, prefix=f"segments/{i}")
     x = rmsnorm(params["final_norm"], x)
     if cfg.lm_head is not None:
+        set_tape_prefix("")                     # registry key: bare "lm_head"
         logits = linear(cfg.lm_head, params["lm_head"], x)
     else:
         # tied head: a plain matmul, left to the library as the reference leaves it to XLA

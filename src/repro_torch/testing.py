@@ -7,6 +7,9 @@ chip_smoke.py; this module itself imports torch and numpy only.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -83,3 +86,306 @@ def rows_near_tie(x: torch.Tensor, centroids: torch.Tensor, eps: float) -> torch
     two = torch.topk(dists, 2, dim=-1, largest=False).values
     gap = (two[..., 1] - two[..., 0]) / (1.0 + two[..., 0].abs())
     return (gap <= eps).any(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# one LUT_TRAIN step on two devices
+# ---------------------------------------------------------------------------
+
+HALF_EPS = 1e-4     # |T/scale| this close to a half-integer may round either way
+# One soft-PQ step's gradients, per leaf (`lut_train_step_parity`). Card
+# against CPU: about WITNESS times the CPU fp32's largest gap from float64
+# on qwen3_1p7b at full width, 2 layers, on an H100's host (1.34e-5 of a
+# leaf's L2 norm, 7.86e-5 of its largest entry, both at LUT centroids,
+# whose fp32 distance expansion cancels).
+GRAD_L2 = 5e-5      # ||card - CPU||_2 / ||CPU||_2
+GRAD_MAX = 3e-4     # max|card - CPU| / max|CPU|
+WITNESS = 4.0       # the card's gap from float64 over the CPU fp32's
+FLOOR_L2 = 1e-6     # the CPU's gap counted as at least this (L2) ...
+FLOOR_MAX = 1e-5    # ... and this (largest entry)
+
+def lut_site_codes(bundle, params, batch, *, compute_dtype=torch.float32) -> dict:
+    """{tape key: (inputs (N, D), centroids, codes (N, C))} of every LUT site
+    of one forward of `bundle` (a LUT_TRAIN or LUT_INFER model)."""
+    from repro_torch.models.common import tape_capture
+
+    with tape_capture(max_rows=1 << 30) as tape, torch.no_grad():
+        bundle.loss(params, batch, compute_dtype=compute_dtype)
+    out = {}
+    for s in bundle.lut_sites():
+        site = params["segments"][int(s.path.split("/")[1])][s.stack_index]
+        for part in s.kind.split("/"):
+            site = site[part]
+        x = torch.cat(tape.records[s.tape_key])
+        out[s.tape_key] = (x, site["centroids"], pq.encode_indices(x, site["centroids"]))
+    return out
+
+
+@contextlib.contextmanager
+def float64_compute():
+    """While active, `Tensor.float()` leaves a float64 tensor in float64.
+
+    The port's forward casts to fp32 where the reference computes in fp32
+    (distances, norms, attention, the table, the loss). A float64 model run
+    under this computes all of those in float64: the witness that a
+    device's fp32 gradients are measured against. Rope's angle table stays
+    fp32 (it is built from an fp32 frequency table), the same table the
+    fp32 run on the CPU uses."""
+    real = torch.Tensor.float
+
+    def keep64(self, *args, **kw):
+        return self if self.dtype == torch.float64 else real(self, *args, **kw)
+
+    torch.Tensor.float = keep64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real
+
+
+def lut_train_grads(bundle, params, batch, *, compute_dtype=torch.float32, pin=None):
+    """One forward and backward of a LUT_TRAIN model: (loss, gradients in the
+    params' layout with None at frozen leaves, log_t terms, rounding).
+
+    * log_t terms, {reference path: [per-layer sum over (row, codebook,
+      centroid) of |d loss / d dists * dists|]}: d loss / d log_t = -sum
+      (d loss / d dists) * dists, whose terms cancel, so its fp32 rounding
+      error scales with their magnitudes, not with itself;
+    * rounding, {site path: [per layer (q, T / scale)]}: the integers each
+      site's fake-quant rounds its table to, and the quotients it rounds.
+      `pin` (the rounding of another run) replaces this run's integers by
+      those. A quotient at a half-integer may round either way under
+      another fp32 order, and an entry rounded the other way moves the
+      forward by a whole quantization step at every row that selects it:
+      a difference of rounding, far larger than the rounding of a sum."""
+    from repro_torch.core import amm
+    from repro_torch.optim import lut_frozen_mask
+    from repro_torch.train.train_step import grads_tree, trainable_view
+    from repro_torch.weights import tree_map_ref
+
+    frozen = lut_frozen_mask(params)
+    live, leaves = trainable_view(params, frozen)
+    site_of: dict[int, tuple[str, int]] = {}
+    layer_of: dict[str, int] = {}
+
+    def name(path, t):
+        if path.endswith("/log_t"):
+            site = path[: -len("/log_t")]
+            layer_of[site] = layer_of.get(site, -1) + 1
+            site_of[id(t)] = (site, layer_of[site])
+
+    tree_map_ref(name, live)
+    terms: dict[int, float] = {}
+    rounding: dict[tuple[str, int], tuple[torch.Tensor, torch.Tensor]] = {}
+    current: list[torch.Tensor] = []
+    real_temp, real_ste, real_fq = amm.temperature, pq.ste_encode, quant.fake_quant
+
+    def temp(log_t, **kw):
+        current.append(log_t)
+        return real_temp(log_t, **kw)
+
+    def ste(dists, t):
+        key = id(current[-1])
+
+        def hook(g):
+            terms[key] = terms.get(key, 0.0) + float((g * dists).abs().sum())
+
+        if dists.requires_grad:
+            dists.register_hook(hook)
+        return real_ste(dists, t)
+
+    def fq(t, *, bits=8, per_column=False, m_shared=False):
+        out = real_fq(t, bits=bits, per_column=per_column, m_shared=m_shared)
+        key = site_of[id(current[-1])]          # a rematerialized block repeats a site
+        scale = quant.table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared)
+        r = t.detach().float() / scale
+        q = torch.clamp(torch.round(r), -quant._qmax(bits), quant._qmax(bits))
+        rounding.setdefault(key, (q.to(torch.int16).cpu(), r.float().cpu()))
+        if pin is not None:
+            want = pin[key[0]][key[1]][0].to(q.device, q.dtype)
+            out = out + ((want - q) * scale).to(out.dtype)     # 0 where they agree
+        return out
+
+    amm.temperature, pq.ste_encode, quant.fake_quant = temp, ste, fq
+    try:
+        loss = bundle.loss(live, batch, compute_dtype=compute_dtype)
+        grads = grads_tree(loss, leaves, params, frozen)
+    finally:
+        amm.temperature, pq.ste_encode, quant.fake_quant = real_temp, real_ste, real_fq
+
+    log_t_terms: dict[str, list[float]] = {}
+    tree_map_ref(lambda path, t: log_t_terms.setdefault(path, []).append(terms.get(id(t), 0.0))
+                 if path.endswith("log_t") else None, live)
+    by_site: dict[str, list] = {}
+    for (site, _), v in sorted(rounding.items()):
+        by_site.setdefault(site, []).append(v)
+    return loss.detach(), grads, log_t_terms, by_site
+
+
+def _flipped_sequences(codes, codes_o, b: int, s: int, tie_eps: float, label: str) -> torch.Tensor:
+    """(B,) bool: the sequences where some LUT site's hard code differs
+    between two runs; each difference must sit on a near-tie of the first
+    run's fp32 distances (relative gap <= tie_eps)."""
+    seqs = torch.zeros(b, dtype=torch.bool)
+    for key, (x, p, c) in codes.items():
+        co = codes_o[key][2].cpu()
+        gaps = tie_gaps(x, p, c, co)
+        assert (gaps <= tie_eps).all(), f"{label} {key}: codes differ off a near-tie, gaps {gaps}"
+        seqs |= (c != co).any(dim=1).reshape(b, s).any(dim=1)
+    return seqs
+
+
+def _rounding_flips(base: dict, other: dict, label: str, failures: list[str]) -> int:
+    """Count the table entries `other` rounded to another integer than
+    `base`; each must be one step off, at a quotient within HALF_EPS of a
+    half-integer."""
+    n = 0
+    for site, layers in base.items():
+        for j, ((qb, r), (qo, _)) in enumerate(zip(layers, other[site])):
+            off = qb != qo
+            if not off.any():
+                continue
+            a = r.double().abs()
+            frac = (a - a.floor() - 0.5).abs()
+            step = (qb.int() - qo.int()).abs()
+            if not ((step[off] == 1).all() and (frac[off] <= HALF_EPS).all()):
+                failures.append(f"{label} {site}[{j}]: table entries rounded otherwise off a "
+                                f"half-integer (worst {float(frac[off].max()):.3g})")
+            n += int(off.sum())
+    return n
+
+
+def _rel(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """||a - ref||_2 / ||ref||_2 and max|a - ref| / max|ref|, in float64."""
+    diff = a.double() - ref.double()
+    return (float(diff.norm()) / max(float(ref.double().norm()), 1e-300),
+            float(diff.abs().max()) / max(float(ref.double().abs().max()), 1e-300))
+
+
+def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1e-6) -> dict:
+    """One soft-PQ step of `bundle` (LUT_TRAIN) from the same params and
+    batch on the CPU and on `dev`, held against each other and against the
+    same step in float64 on the CPU. Returns the counts and errors, with
+    `failures` listing every check that failed.
+
+    * codes: a hard code that differs (card or float64 against the CPU's
+      fp32) must sit on a near-tie of the CPU's fp32 distances (relative gap
+      <= tie_eps); a sequence holding one moves every later token's forward
+      and every gradient through them, so such sequences are dropped from
+      the batch (and the codes checked again);
+    * fake-quant: a table entry rounded to another integer must be one step
+      off at a quotient within HALF_EPS of a half-integer; the gradient runs
+      of the card and of float64 then take the CPU's integers (`pin`), as
+      both roundings are right;
+    * loss within 1e-4 relative;
+    * gradients, per leaf: the card's and the CPU's fp32 gaps from float64
+      are of one size (card <= WITNESS x CPU, each at least FLOOR_L2 /
+      FLOOR_MAX), and card against CPU ||d||_2 <= GRAD_L2 ||CPU||_2 and
+      max|d| <= GRAD_MAX max|CPU|. log_t: within 1e-6 of its terms'
+      magnitudes;
+    * the step (`train_step.make_train_step` with `opt` on the card, its own
+      rounding): its loss metric and t_mean/t_min against the CPU's step
+      (1e-5 relative), and its updated params against AdamW applied on the
+      CPU to the card's own first moment (the card's update rule; its
+      gradients are held above): within 1e-5 of each element's move and 2
+      ulps of its value."""
+    from repro_torch.optim import lut_frozen_mask
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.weights import reference_leaves, tree_map_ref
+
+    params_d = tree_map_ref(lambda _p, t: t.to(dev), params)
+    params_w = tree_map_ref(lambda _p, t: t.double() if t.is_floating_point() else t, params)
+    failures: list[str] = []
+    dropped = 0
+    b, s = batch["tokens"].shape
+    for _ in range(3):
+        batch_d = {k: v.to(dev) for k, v in batch.items()}
+        codes = lut_site_codes(bundle, params, batch)
+        seqs = _flipped_sequences(codes, lut_site_codes(bundle, params_d, batch_d),
+                                  b, s, tie_eps, "card")
+        with float64_compute():
+            codes_w = lut_site_codes(bundle, params_w, batch, compute_dtype=torch.float64)
+        seqs |= _flipped_sequences(codes, codes_w, b, s, tie_eps, "float64")
+        del codes, codes_w
+        if not seqs.any():
+            break
+        dropped += int(seqs.sum())
+        assert not seqs.all(), "every sequence holds a code that differs at a near-tie"
+        batch = {k: v[~seqs] for k, v in batch.items()}
+        b = int(batch["tokens"].shape[0])
+    else:
+        raise AssertionError("codes still differ at near-ties after dropping sequences")
+    out = {"dropped_sequences": dropped, "tokens": int(batch["tokens"].numel())}
+
+    loss_c, g_c, terms, round_c = lut_train_grads(bundle, params, batch)
+    loss_d, g_d, _, round_d = lut_train_grads(bundle, params_d, batch_d, pin=round_c)
+    with float64_compute():
+        loss_w, g_w, _, round_w = lut_train_grads(bundle, params_w, batch,
+                                                  compute_dtype=torch.float64, pin=round_c)
+    out["rounding_flips"] = {"card": _rounding_flips(round_c, round_d, "card", failures),
+                             "float64": _rounding_flips(round_c, round_w, "float64", failures)}
+    out["rounded_entries"] = sum(int(q.numel()) for layers in round_c.values() for q, _ in layers)
+    del round_c, round_d, round_w
+    out["loss_cpu"], out["loss_dev"], out["loss_f64"] = float(loss_c), float(loss_d), float(loss_w)
+    if abs(float(loss_d) - float(loss_c)) > 1e-4 * abs(float(loss_c)):
+        failures.append(f"loss {float(loss_d)} on the card, {float(loss_c)} on the CPU")
+    errs: dict[str, dict[str, tuple[float, float]]] = {}
+    log_t_errs = {"card_cpu": 0.0, "card_f64": 0.0, "cpu_f64": 0.0}
+    n = 0
+    dev_leaves, w_leaves = reference_leaves(g_d), reference_leaves(g_w)
+    for path, leaves in reference_leaves(g_c).items():
+        for j, (gc, gd, gw) in enumerate(zip(leaves, dev_leaves[path], w_leaves[path])):
+            if gc is None:
+                continue
+            n += 1
+            gd = gd.cpu()
+            if path.endswith("log_t"):
+                unit = max(terms[path][j], 1e-30)
+                for key, (a, ref) in (("card_cpu", (gd, gc)), ("card_f64", (gd, gw)),
+                                      ("cpu_f64", (gc, gw))):
+                    log_t_errs[key] = max(log_t_errs[key],
+                                          float((a.double() - ref.double()).abs()) / unit)
+                if float((gd - gc).abs()) > 1e-6 * unit:
+                    failures.append(f"{path}[{j}]: |delta| {float((gd - gc).abs()):.3g}, terms "
+                                    f"{terms[path][j]:.3g}")
+                continue
+            e = {"card_cpu": _rel(gd, gc), "card_f64": _rel(gd, gw), "cpu_f64": _rel(gc, gw)}
+            errs[f"{path}[{j}]"] = e
+            (l2, mx), (wl2, wmx), (cl2, cmx) = e["card_cpu"], e["card_f64"], e["cpu_f64"]
+            if l2 > GRAD_L2 or mx > GRAD_MAX:
+                failures.append(f"{path}[{j}]: gradient differs from the CPU's by {l2:.3g} (L2) "
+                                f"and {mx:.3g} (largest) of its own")
+            if wl2 > WITNESS * max(cl2, FLOOR_L2) or wmx > WITNESS * max(cmx, FLOOR_MAX):
+                failures.append(f"{path}[{j}]: the card's gap from float64 {wl2:.3g}/{wmx:.3g} "
+                                f"(L2/largest) against the CPU's {cl2:.3g}/{cmx:.3g}")
+    out.update(grad_leaves=n, grad_errs=errs, log_t_errs=log_t_errs)
+    del g_c, g_d, g_w, params_w
+
+    frozen = lut_frozen_mask(params)
+    step = make_train_step(bundle, opt, frozen_mask=frozen, compute_dtype=torch.float32)
+    _, _, m_c = step(params, opt.init(params, frozen), batch)
+    frozen_d = lut_frozen_mask(params_d)
+    new_d, st_d, m_d = step(params_d, opt.init(params_d, frozen_d), batch_d)
+    for key in ("loss", "t_mean", "t_min"):
+        if abs(float(m_d[key]) - float(m_c[key])) > 1e-5 * abs(float(m_c[key])) + 1e-6:
+            failures.append(f"step metric {key}: {float(m_d[key])} vs {float(m_c[key])}")
+    # the card's own (clipped) gradient, from its first moment m = (1 - b1) g
+    g_eff = tree_map_ref(lambda _p, m, fz: None if fz else m.cpu() / (1 - opt.b1),
+                         st_d.m, frozen)
+    want, _, _ = dataclasses.replace(opt, clip_norm=None).update(
+        g_eff, opt.init(params, frozen), params, frozen)
+    old, exp_leaves = reference_leaves(params), reference_leaves(want)
+    moved = 0
+    for path, leaves in reference_leaves(new_d).items():
+        for j, pd in enumerate(leaves):
+            pe, po = exp_leaves[path][j], old[path][j]
+            move = (pe - po).abs()
+            ulp = torch.finfo(torch.float32).eps * pe.abs()       # p - lr * delta rounds
+            if not ((pd.cpu() - pe).abs() <= 1e-5 * move + 2 * ulp + 1e-12).all():
+                failures.append(f"{path}[{j}]: the card's AdamW update differs")
+            moved += int((move > 0).sum())
+    out.update(loss_step=float(m_d["loss"]), t_mean=float(m_d["t_mean"]),
+               t_min=float(m_d["t_min"]), grad_norm=(float(m_d["grad_norm"]),
+                                                     float(m_c["grad_norm"])),
+               updated=moved, failures=failures)
+    return out

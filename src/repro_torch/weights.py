@@ -6,16 +6,25 @@ takes the reference's param tree with every leaf a numpy array (as
 `jax.tree.map(np.asarray, params)` gives it) or a CPU tensor, unstacks the
 layer axis and places each leaf on `device` with its dtype unchanged: int8
 tables stay int8, and bfloat16 leaves (ml_dtypes arrays or bfloat16 tensors)
-keep their bits. `params_to_numpy` is its inverse. It imports no JAX.
+keep their bits. `params_to_numpy` is its inverse. Both take LUT_TRAIN trees (a scalar
+`log_t` per layer stacks to an (L,) leaf) and AdamW moment trees, whose
+frozen leaves are empty (0,) tensors: the reference keeps one (0,) leaf for
+a whole stacked frozen weight, the port one per layer.
+
+`tree_map_ref`, `reference_arrays` and `tree_from_reference` do the same for
+any tree of the port's layout (train state: params, AdamW state): each leaf
+named by its path in the reference's stacked tree, which is what
+checkpoints are keyed by and what optimizer rules match. It imports no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.paths import flatten_tree, is_node_tuple, unflatten_tree
 from repro_torch.device import resolve_device
 
 
@@ -29,36 +38,20 @@ def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _map(tree: Any, fn) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_numpy(bundle, tree: dict[str, Any], *,
                       device: str | torch.device | None = None) -> dict[str, Any]:
     """The reference param tree of `bundle` (numpy leaves) -> the port's params."""
-    device = resolve_device(device)
     segs = tree["segments"]
     if len(segs) != len(bundle.cfg.segments):
         raise ValueError(f"tree has {len(segs)} segments, the bundle {len(bundle.cfg.segments)}")
-    out: dict[str, Any] = {
-        "embed": _map(tree["embed"], lambda a: tensor_from_numpy(a, device)),
-        "final_norm": _map(tree["final_norm"], lambda a: tensor_from_numpy(a, device)),
-        "segments": [],
-    }
-    for seg, (count, _) in zip(segs, bundle.cfg.segments):
-        layers = []
-        for j in range(count):
-            def take(a, j=j):
-                if a.shape[0] != count:
-                    raise ValueError(f"leaf of shape {a.shape} is not stacked over {count} layers")
-                return tensor_from_numpy(a[j], device)
-            layers.append(_map(seg, take))
-        out["segments"].append(layers)
-    if "lm_head" in tree:
-        out["lm_head"] = _map(tree["lm_head"], lambda a: tensor_from_numpy(a, device))
-    return out
+    flat = flatten_tree(tree)
+    for path, a in flat.items():
+        if is_stacked(path) and tuple(a.shape) != (0,):
+            count = bundle.cfg.segments[int(path.split("/")[1])][0]
+            if a.shape[0] != count:
+                raise ValueError(f"{path} of shape {tuple(a.shape)} is not stacked over "
+                                 f"{count} layers")
+    return tree_from_reference(layer_specs(bundle), flat, device=device)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -74,31 +67,103 @@ def params_to_numpy(bundle, params: dict[str, Any]) -> dict[str, Any]:
     """The port's params -> the reference's param tree of `bundle`: each
     segment's per-layer dicts stacked on a leading axis, every leaf a numpy
     array (bfloat16 as uint16 bit patterns, see `tensor_to_numpy`)."""
-    out: dict[str, Any] = {
-        "embed": _map(params["embed"], tensor_to_numpy),
-        "final_norm": _map(params["final_norm"], tensor_to_numpy),
-        "segments": [],
-    }
     for layers, (count, _) in zip(params["segments"], bundle.cfg.segments):
         if len(layers) != count:
             raise ValueError(f"segment has {len(layers)} layers, the bundle {count}")
-
-        def stack(path: tuple[str, ...], layers=layers) -> np.ndarray:
-            leaves = []
-            for layer in layers:
-                node = layer
-                for k in path:
-                    node = node[k]
-                leaves.append(node)
-            return tensor_to_numpy(torch.stack(leaves))
-
-        out["segments"].append(_map_paths(layers[0], stack, ()))
-    if "lm_head" in params:
-        out["lm_head"] = _map(params["lm_head"], tensor_to_numpy)
-    return out
+    return unflatten_tree(reference_arrays(params))
 
 
-def _map_paths(tree: Any, fn, path: tuple[str, ...]) -> Any:
+def _stack_to_numpy(leaves: list[torch.Tensor]) -> np.ndarray:
+    """One reference leaf from the per-layer tensors of a segment; the empty
+    (0,) moments of a frozen weight stay one (0,) leaf, as in the reference."""
+    if all(tuple(t.shape) == (0,) for t in leaves):
+        return tensor_to_numpy(leaves[0])
+    return tensor_to_numpy(torch.stack([t.detach() for t in leaves]))
+
+
+def _join(path: str, key: str) -> str:
+    return f"{path}/{key}" if path else key
+
+
+def tree_map_ref(fn: Callable, tree: Any, *rest: Any, _path: str = "") -> Any:
+    """Map `fn(path, leaf, *rest_leaves)` over a tree of the port's layout
+    (and trees of the same structure), where `path` is the leaf's path in the
+    reference's stacked tree: a segment's per-layer dicts drop their layer
+    index, so every layer of a stacked leaf gets the same path. Returns the
+    tree of results; leaves are visited in the reference's flatten order
+    within each segment layer."""
     if isinstance(tree, dict):
-        return {k: _map_paths(v, fn, path + (k,)) for k, v in tree.items()}
-    return fn(path)
+        return {k: tree_map_ref(fn, tree[k], *(r[k] for r in rest), _path=_join(_path, str(k)))
+                for k in sorted(tree)}
+    if is_node_tuple(tree):
+        return type(tree)(*(tree_map_ref(fn, getattr(tree, f), *(getattr(r, f) for r in rest),
+                                         _path=_join(_path, "." + f)) for f in tree._fields))
+    if type(tree) in (list, tuple):
+        if _path.rsplit("/", 1)[-1] == "segments" and tree and type(tree[0]) is list:
+            return [[tree_map_ref(fn, layer, *(r[i][j] for r in rest), _path=_join(_path, str(i)))
+                     for j, layer in enumerate(layers)] for i, layers in enumerate(tree)]
+        return [tree_map_ref(fn, v, *(r[i] for r in rest), _path=_join(_path, str(i)))
+                for i, v in enumerate(tree)]
+    return fn(_path, tree, *rest)
+
+
+def is_stacked(path: str) -> bool:
+    """Whether a reference path names a leaf stacked over a segment's layers."""
+    return "segments" in path.split("/")
+
+
+def reference_leaves(tree: Any) -> dict[str, list]:
+    """{reference path: [its leaves in the port's tree]}, in the reference's
+    flatten order: one leaf per layer for a stacked path, else one."""
+    groups: dict[str, list] = {}
+    tree_map_ref(lambda p, leaf: groups.setdefault(p, []).append(leaf), tree)
+    return groups
+
+
+def reference_arrays(tree: Any) -> dict[str, np.ndarray]:
+    """{reference path: dtype-exact host array} of a tree of the port's layout
+    (tensor leaves): the flat form of the reference's stacked tree."""
+    return {p: _stack_to_numpy(leaves) if is_stacked(p) else tensor_to_numpy(leaves[0])
+            for p, leaves in reference_leaves(tree).items()}
+
+
+def tree_from_reference(like: Any, arrays: Mapping[str, Any], *,
+                        device: str | torch.device | None = None) -> Any:
+    """The tree of `like`'s structure (port layout; leaves tensors or
+    ParamSpecs) holding `arrays[path]` for each reference path: a stacked
+    array is split over the layers (an empty (0,) one gives each layer an
+    empty leaf). Each leaf goes to the device of the tensor it replaces, or
+    to `device` (the card unless the caller asks for the CPU)."""
+    dev = None
+    cursors: dict[str, int] = {}
+
+    def take(path: str, leaf: Any) -> torch.Tensor:
+        nonlocal dev
+        if isinstance(leaf, torch.Tensor):
+            target = leaf.device
+        else:
+            dev = dev if dev is not None else resolve_device(device)
+            target = dev
+        a = arrays[path]
+        if is_stacked(path) and tuple(a.shape) != (0,):
+            j = cursors.get(path, 0)
+            cursors[path] = j + 1
+            a = a[j]
+        return tensor_from_numpy(a, target)
+
+    return tree_map_ref(take, like)
+
+
+def layer_specs(bundle) -> dict[str, Any]:
+    """The bundle's params as ParamSpecs in the port's layout (a list of
+    per-layer spec dicts per segment), without allocating them: the `like`
+    of a restore."""
+    def strip(tree):
+        if isinstance(tree, dict):
+            return {k: strip(v) for k, v in tree.items()}
+        return type(tree)(tuple(tree.shape[1:]), tree.dtype)
+
+    specs = dict(bundle.param_specs())
+    specs["segments"] = [[strip(seg)] * count
+                         for seg, (count, _) in zip(specs["segments"], bundle.cfg.segments)]
+    return specs

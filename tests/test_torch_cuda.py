@@ -373,3 +373,30 @@ def test_fp8_pool_writes_and_gathers_bits_on_the_card(dev):
     assert torch.equal(card.cpu().view(torch.uint8), pool.view(torch.uint8))
     assert torch.equal(attn.paged_gather(card, bt.to(dev)).cpu().view(torch.uint8),
                        attn.paged_gather(pool, bt).view(torch.uint8))
+
+
+def test_lut_train_step_on_the_card_matches_the_cpu(dev):
+    """One soft-PQ step (LUT_TRAIN forward, autograd backward, AdamW) on the
+    card against the same step on the CPU, from the same params and batch:
+    codes equal off near-ties, loss, every gradient and the updated params
+    within `testing.lut_train_step_parity`'s tolerances."""
+    from repro_torch import configs
+    from repro_torch.data import MarkovLM
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW
+    from repro_torch.optim.schedule import cosine_with_warmup
+    from repro_torch.testing import lut_train_step_parity
+
+    arch = configs.reduce_arch(configs.get_arch("qwen3_1p7b"), d_model=256, n_layers=2,
+                               vocab=512, d_ff=512)
+    bundle = configs.build_model(arch, "lut_train")
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    for site in (*params["segments"][1][0]["attn"].values(),
+                 *params["segments"][1][0]["mlp"].values()):
+        if "centroids" in site:
+            site["centroids"].mul_(40.0)          # at the activations' scale
+    opt = AdamW(lr=cosine_with_warmup(1e-2, total_steps=10, warmup_steps=2),
+                rules=SOFT_PQ_RULES)
+    res = lut_train_step_parity(bundle, params, MarkovLM(vocab=512, seq_len=64,
+                                                         batch=4).batch_at(0),
+                                dev, opt, tie_eps=TIE_EPS)
+    assert res["failures"] == [] and res["grad_leaves"] > 0 and res["updated"] > 0

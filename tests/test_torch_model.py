@@ -145,7 +145,7 @@ def test_model_pieces_follow_the_reference_conventions():
         np.asarray(japply_rope(jnp.asarray(xr), jnp.asarray(pos), 10000.0)), atol=1e-5)
     with pytest.raises(NotImplementedError):
         common.apply_mrope(xr, pos, 1e6, (4, 6, 6))
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         tcfg.build_model(dataclasses.replace(tcfg.get_arch("qwen3_1p7b"), family="moe"))
     with pytest.raises(NotImplementedError):
         tcfg.get_arch("mamba2_370m")

@@ -130,7 +130,24 @@ def test_lut_linear_dense_and_train():
                          {"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
                          torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)  # fp32 matmul order
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    # LUT_TRAIN: the fake-quantized table of the frozen weight, read through
+    # the straight-through codes (the gradients: tests/test_torch_train.py)
+    _, P, _, _ = make_amm_inputs(6, 32, 8, 16, 8, seed=4)
+    cfg = dict(k=16, v=8)
+    ref = np.asarray(jamm.lut_linear(jamm.LUTConfig(**cfg), jamm.Mode.LUT_TRAIN,
+                                     {"centroids": jnp.asarray(P), "log_t": jnp.float32(0.0)},
+                                     jnp.asarray(x), frozen={"w": jnp.asarray(w),
+                                                             "b": jnp.asarray(b)}))
+    got = amm.lut_linear(amm.LUTConfig(**cfg), amm.Mode.LUT_TRAIN,
+                         {"centroids": torch.from_numpy(P), "log_t": torch.tensor(0.0)},
+                         torch.from_numpy(x), frozen={"w": torch.from_numpy(w),
+                                                      "b": torch.from_numpy(b)})
+    codes = pq.encode_indices(torch.from_numpy(x), torch.from_numpy(P))
+    codes_ref = torch.from_numpy(np.array(jpq.encode_indices(jnp.asarray(x), jnp.asarray(P))))
+    assert (tie_gaps(torch.from_numpy(x), torch.from_numpy(P), codes, codes_ref) <= TIE_EPS).all()
+    same = (codes == codes_ref).all(dim=1).numpy()
+    np.testing.assert_allclose(got.numpy()[same], ref[same], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="frozen"):
         amm.lut_linear(amm.LUTConfig(), amm.Mode.LUT_TRAIN, {}, torch.from_numpy(x))
 
 

@@ -161,6 +161,9 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
+        "train = ['repro_torch.train.recipe', 'repro_torch.launch.train',\n"
+        "         'repro_torch.core.convert', 'repro_torch.core.kmeans']\n"
+        "assert all(n in sys.modules for n in train), train\n"
         "print(sum(n.startswith('repro_torch.') for n in sys.modules), bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
