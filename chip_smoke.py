@@ -88,7 +88,24 @@ Phases (any failed check exits non-zero; no phase is skipped):
      restored, soft-PQ resumed at the committed step), its artifact served
      by `launch.serve`; then a `--spec-draft attn/*` run at --steps
      SPEC_STEPS served with `--spec-decode --draft-plan draft` (acceptance,
-     target forwards per token).
+     target forwards per token);
+  8. the MoE, SSM and hybrid families at full published width, each served
+     by ServingEngine (4 slots, prefill chunk 32, measured warm-up) on a
+     burst of 8 requests whose prompts are one chunk, two chunks, ragged
+     over two and ragged inside one (2 sampled): mamba2_370m (48 layers)
+     and zamba2_1p2b (38 layers) exported as artifacts and loaded, then
+     arctic_480b with ARCTIC_LAYERS layers (layer 0 dense, layer 1 LUT, 128
+     experts top-2 and the dense residual; ~35 GB of bf16 params built on the
+     card, after the earlier phases' models are freed). For each: the
+     version the tuner picked per site, the burst through the plain
+     versions, then through the kernels with the counts set to 0 before and
+     read after (tokens equal except after a near-tie of the plain run; no
+     plain version called), each LUT site's first launch at N = 4 and 128
+     held against the plain lookup of the encode kernel's codes, decode
+     tokens/s, a profiled decode step's device-busy share, peak memory, each
+     site signature timed (kernel, plain version, bound); on the two
+     recurrent families, speculative decoding and prefix sharing must turn
+     off with their warnings.
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -1061,11 +1078,15 @@ class LaunchesByN:
                 row[k] += v - before[k]
             return out
 
+        self.prev = self.eng.__dict__.get("_forward")     # a wrapper this one nests in
         self.eng._forward = forward
         return self
 
     def __exit__(self, *exc):
-        del self.eng._forward
+        if self.prev is None:
+            del self.eng._forward
+        else:
+            self.eng._forward = self.prev
         return False
 
     def line(self) -> str:
@@ -1121,7 +1142,8 @@ def plain_run(eng, burst) -> tuple[list, dict, dict]:
     return reqs, st, rec.gaps
 
 
-def driven(label: str, eng, burst, want: list, gaps: dict, *, all_ok: bool = True):
+def driven(label: str, eng, burst, want: list, gaps: dict, *, all_ok: bool = True,
+           tag: str = "paged/spec"):
     """One path: the launch counts set to 0 just before the burst and read
     just after (some LUT kernel launched, no plain version called), its
     tokens held against the plain engine's. Returns (requests, stats,
@@ -1146,7 +1168,7 @@ def driven(label: str, eng, burst, want: list, gaps: dict, *, all_ok: bool = Tru
                                                f"{sorted(chosen)}; launched {row}")
     ties = compare_tokens(label, reqs, want, gaps)
     step_ms = 1e3 * st["decode_s"] / max(st["decode_forwards"], 1)
-    log(f"[paged/spec] {label}: {sum(len(r.out_tokens) for r in reqs)} tokens in "
+    log(f"[{tag}] {label}: {sum(len(r.out_tokens) for r in reqs)} tokens in "
         f"{st['wall']:.3f}s; prefill {st['prefill_forwards']} fwd, decode "
         f"{st['decode_forwards']} fwd ({step_ms:.2f} ms each); tokens equal plain decode's "
         f"except {ties} near-tie difference(s); launches by N: {by_n.line()}")
@@ -1769,17 +1791,26 @@ def hold_sites(label: str, calls: list) -> dict:
     for i, (kernel, x, c, q, s, bias, act, got) in enumerate(calls):
         name = (f"{label} site call {i} ({'/'.join(kernel)}, N={x.shape[0]}, M={q.shape[-1]}, "
                 f"C={c.shape[0]})")
-        check(len(kernel) == 1 and kernel[0] in ("fused_decode", "lut_amm_v2"),
-              f"{name}: expected one fused or v2 launch")
+        check(len(kernel) == 1 and kernel[0] in ("fused_decode", "lut_amm_v2", "lut_amm_v1"),
+              f"{name}: expected one LUT kernel launch")
         out["kernels"][kernel[0]] = out["kernels"].get(kernel[0], 0) + 1
         codes, plain = enc_mod.encode(x, c), ref.encode_ref(x, c)
-        want = ref.lookup(codes, q, s, bias=bias, act=act, dtype=x.dtype)
+        if kernel[0] == "lut_amm_v1":
+            # v1 sums fp32-dequantized entries in its own order: its plain
+            # version, on the rows whose codes the two encodes agree on
+            same = (codes == plain).all(dim=1)
+            want = ref.apply_act(ref.lut_amm_v1_plain(x, c, q, s) + (0 if bias is None
+                                                                      else bias), act)
+        else:
+            same = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+            want = ref.lookup(codes, q, s, bias=bias, act=act, dtype=x.dtype)
         torch.cuda.synchronize()
         g, w = got.float(), want.float()
-        if s.shape[0] == 1 and act in ("none", "relu", "relu2"):
+        if kernel[0] != "lut_amm_v1" and s.shape[0] == 1 and act in ("none", "relu", "relu2"):
             bad = (g != w).any(dim=1)
         else:
             bad = ((g - w).abs() > KERNEL_ATOL * max(1.0, w.abs().max().item())).any(dim=1)
+        bad &= same
         check(not bad.any().item(), f"{name}: {int(bad.sum())} rows differ from the plain lookup "
                                     f"of the encode kernel's codes (max err "
                                     f"{(g - w).abs().max().item():.3g})")
@@ -2102,6 +2133,224 @@ def phase_train(dev, scratch: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE, SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+ARCTIC_LAYERS = 2        # arctic_480b's depth in phase 8: layer 0 dense, layer 1 LUT
+# prompt lengths of phase 8's burst at a prefill chunk of 32: exactly one
+# chunk, exactly two, ragged over two chunks and ragged inside one
+FAMILY_PROMPTS = (32, 64, 45, 17, 32, 50, 9, 60)
+
+
+def family_burst(vocab: int) -> list[tuple[list[int], object]]:
+    """8 requests of FAMILY_PROMPTS' lengths, requests SAMPLED sampled."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    return [(torch.randint(0, vocab, (n,), generator=gen).tolist(),
+             SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=SEED + 20 + i)
+             if i in SAMPLED else None) for i, n in enumerate(FAMILY_PROMPTS)]
+
+
+class FirstForwards:
+    """Records (`SiteCalls`) every LUT-site call of an engine's first forward
+    at each token count N: each LUT site's first launch at each shape."""
+
+    def __init__(self, eng):
+        self.eng, self.calls, self.seen = eng, [], set()
+
+    def __enter__(self):
+        real = self.eng._forward
+
+        def forward(toks, cache_len, write_len, model=None):
+            if toks.size in self.seen:
+                return real(toks, cache_len, write_len, model)
+            self.seen.add(toks.size)
+            with SiteCalls() as rec:
+                out = real(toks, cache_len, write_len, model)
+            self.calls += rec.calls
+            return out
+
+        self.eng._forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._forward
+        return False
+
+
+def lut_calls_per_forward(bundle) -> int:
+    """LUT-site calls of one forward through common.linear: the expert sites
+    contract in plain tensor ops, and the hybrid's shared block runs once
+    per invocation."""
+    n_inv = len(bundle.cfg.invocation_points) if bundle.kind == "hybrid" else 1
+    return sum(n_inv if s.path.startswith("shared/") else 1 for s in bundle.lut_sites()
+               if s.kind not in ("moe/gate", "moe/up", "moe/down"))
+
+
+def time_signatures(label: str, bundle, counts: list[int], dev) -> list[dict]:
+    """Each LUT kernel site signature of the bundle at each token count: the
+    kernel its record chooses (through ops.lut_amm) and the plain version,
+    timed on random inputs of the site's shape, with the byte bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import chosen_versions
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
+    rows = []
+    for (m, c, k, v), vers in chosen_versions(bundle, counts, "float32", dev).items():
+        for n, ver in zip(counts, vers):
+            x, p, q, sc = make_site(n, c, m, gen, dev, k=k, v=v)
+            ms = time_ms(lambda: ops.lut_amm(x, p, q, sc), flush)
+            plain = time_ms(lambda: ref.lut_amm_v2_plain(x, p, q, sc), flush)
+            bound, by = bound_ms(n, c, k, v, m, 4, kernel=KERNEL_OF_VERSION[ver])
+            rows.append({"sig": (m, c, k, v), "n": n, "kernel": KERNEL_OF_VERSION[ver],
+                         "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by})
+            log(f"  [{label}] N={n} (M, C, K, V)={(m, c, k, v)}: {KERNEL_OF_VERSION[ver]} "
+                f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
+                f"({by})")
+    return rows
+
+
+def check_auto_disable(label: str, bundle, params, dev) -> None:
+    """A recurrent family turns speculative decoding and prefix sharing off,
+    each with its warning, and serves on."""
+    import warnings
+
+    from repro_torch.serving.engine import ServingEngine
+
+    kw = dict(n_slots=4, max_seq=256, prefill_chunk=32, device=dev, autotune_lut=False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        spec = ServingEngine(bundle, params, **kw, spec_decode=True)
+        paged = ServingEngine(bundle, params, **kw, paged=True, page_size=16)
+    text = [str(w.message) for w in caught]
+    check(spec.spec is None and any(t.startswith("spec_decode disabled") for t in text),
+          f"{label}: speculative decoding did not auto-disable with its warning ({text})")
+    check(not paged.pool.prefix_sharing and any(t.startswith("prefix sharing disabled")
+                                                 for t in text),
+          f"{label}: prefix sharing did not auto-disable with its warning ({text})")
+    log(f"[families] {label}: spec_decode and prefix sharing auto-disabled, warnings: "
+        + " | ".join(t.split(":")[0] for t in text))
+    del spec, paged
+
+
+def serve_family(label: str, bundle, params, dev, *, recurrent: bool) -> dict:
+    """Phase 8's path for one model: the measured warm-up, the burst through
+    the plain versions, then through the kernels (counts set to 0 before,
+    read after) with every LUT site's first launch at each N held against
+    the plain version; a profiled decode step; the new signatures timed."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.serve import chosen_versions
+    from repro_torch.serving.engine import ServingEngine
+
+    kw = dict(n_slots=4, max_seq=256, prefill_chunk=32, device=dev)
+    counts = [4, 4 * 32]
+    t0 = time.perf_counter()
+    eng = ServingEngine(bundle, params, **kw)
+    t_tune = time.perf_counter() - t0
+    versions = chosen_versions(bundle, counts, "float32", dev)
+    cache = autotune.get_cache()
+    for sig in versions:
+        for n in counts:
+            rec = cache.get(autotune.shape_key("lut_amm", n, *sig, "float32",
+                                               autotune.BACKEND_CUDA))
+            check(rec is not None and rec["measured"], f"{label}: no measured record at N={n} "
+                                                       f"{sig}")
+    log(f"[families] {label}: measured warm-up {t_tune:.1f}s, {eng.n_lut_shapes_tuned} lut_amm "
+        f"shapes tuned; version per site (M, C, K, V) at N={counts}: "
+        + ", ".join(f"{sig}: {vs}" for sig, vs in versions.items()))
+    if recurrent:
+        check_auto_disable(label, bundle, params, dev)
+    burst = family_burst(bundle.arch.vocab)
+    with PlainLUT():
+        plain_eng = ServingEngine(bundle, params, **kw, autotune_lut=False)
+        want, st_plain, gaps = plain_run(plain_eng, burst)
+    del plain_eng
+    with FirstForwards(eng) as first:
+        reqs, st, by_n, ties = driven(label, eng, burst, want, gaps, tag="families")
+    held = hold_sites(label, first.calls)
+    n_calls = lut_calls_per_forward(bundle)
+    check(held["sites"] == n_calls * len(counts),
+          f"{label}: {held['sites']} first site calls recorded, expected {n_calls} LUT sites x "
+          f"{len(counts)} token counts")
+    log(f"[families] {label}: each LUT site's first launch at N={counts} ({held['sites']} calls, "
+        f"{held['kernels']}) equal to the plain lookup of the encode kernel's codes (max abs err "
+        f"{held['err']:.3g}); {held['codes_off']} of {held['codes']} codes differ from the plain "
+        f"encode's, each a tie of the fp32 expansion")
+    launches = {k: sum(row[k] for row in by_n.values()) for k in next(iter(by_n.values()))}
+    wall, busy = profile_decode(eng, bundle.arch.vocab, torch.Generator().manual_seed(SEED + 22))
+    log(f"[families] {label}: decode {st['decode_tok_s']:.2f} tok/s ({st['decode_tokens']} tok / "
+        f"{st['decode_forwards']} fwd), prefill {st['prefill_tok_s']:.2f} tok/s, burst "
+        f"{st['wall']:.2f}s (plain versions {st_plain['wall']:.2f}s); launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f"; profiled decode step {wall:.0f} us wall, device busy {busy:.0f} us "
+          f"({100 * busy / wall:.1f}%); near-tie token differences {ties}")
+    sigs = time_signatures(label, bundle, counts, dev)
+    del eng
+    return {"launches": launches, "ties": ties, "decode_tok_s": st["decode_tok_s"],
+            "busy_share": busy / wall, "step_wall_us": wall, "step_busy_us": busy,
+            "versions": {str(k): v for k, v in versions.items()}, "sigs": sigs,
+            "first_sites": held["sites"], "tune_s": t_tune}
+
+
+def phase_families(dev, scratch: Path) -> dict:
+    """Phase 8: mamba2_370m (48 layers) and zamba2_1p2b (38 layers) at full
+    width and depth through artifacts; arctic_480b at full width with
+    ARCTIC_LAYERS layers, its params built on the card."""
+    import gc
+
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.serving import artifact
+
+    out = {}
+    for name in ("mamba2_370m", "zamba2_1p2b", "arctic_480b"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)        # what the earlier phases left
+        t0 = time.perf_counter()
+        arch = dataclasses.replace(get_arch(name), lut_use_kernel=True)
+        if name == "arctic_480b":
+            arch = dataclasses.replace(arch, n_layers=ARCTIC_LAYERS)
+        bundle = build_model(arch, Mode.LUT_INFER)
+        params = bundle.init(torch.Generator(device=dev).manual_seed(SEED + 23), device=dev)
+        n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+        where = "built on the card"
+        if name != "arctic_480b":
+            path = artifact.save_artifact(scratch / name, bundle, params)
+            del params
+            art = artifact.load_artifact(path, device=dev)
+            bundle, params = art.bundle, art.params
+            del art
+            shutil.rmtree(path)
+            where = "exported as an artifact and loaded"
+        log(f"[families] {name}: {arch.n_layers} layers, d_model {arch.d_model}, vocab "
+            f"{arch.vocab}, {len(bundle.lut_sites())} LUT sites, {n_bytes / 1e9:.2f} GB of params "
+            f"({arch.param_dtype}), {where} in {time.perf_counter() - t0:.1f}s")
+        res = serve_family(name, bundle, params, dev, recurrent=name != "arctic_480b")
+        res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        res["param_bytes"] = n_bytes
+        log(f"[families] {name}: peak device memory {res['peak_gib']:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB the earlier phases left allocated")
+        out[name] = res
+        del bundle, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card",
@@ -2138,6 +2387,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(7, phase_train, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(8, phase_families, dev, scratch)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

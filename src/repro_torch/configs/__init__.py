@@ -3,8 +3,12 @@
 Counterpart of `repro.configs`: each `configs/<id>.py` defines `ARCH:
 ArchSpec` with the published dims, and `build_model(arch, mode)` assembles
 the model with every linear site resolved to dense or LUT by the arch's
-replacement plan. Only the `dense` family is ported (qwen3_1p7b, llama3_8b);
-the other families follow ROADMAP Queue A item 3.
+replacement plan. Ported: the dense family (qwen3_1p7b, llama3_8b,
+minitron_8b, command_r_35b, and the paper's bert_base), moe (arctic_480b,
+llama4_maverick_400b), ssm (mamba2_370m) and hybrid (zamba2_1p2b). The
+enc-dec (whisper_tiny) and vision (qwen2_vl_7b: M-RoPE, embedding inputs)
+archs raise NotImplementedError: they are the next slice (ROADMAP Queue A
+item 3).
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ from repro_torch.core.plan import (  # noqa: F401  (re-exported: the plan API su
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import SiteCfg, cross_entropy
 
@@ -92,12 +99,28 @@ class ArchSpec:
         return self.ssm_expand * self.d_model
 
 
-ARCH_IDS = ("llama3_8b", "qwen3_1p7b")      # the dense archs ported so far
+# the reference's ARCH_IDS, in its order, less the two of the next slice
+ARCH_IDS = (
+    "mamba2_370m",
+    "llama3_8b",
+    "minitron_8b",
+    "qwen3_1p7b",
+    "command_r_35b",
+    "llama4_maverick_400b",
+    "arctic_480b",
+    "zamba2_1p2b",
+)
+EXTRA_IDS = ("bert_base",)           # the paper's own model
+NEXT_SLICE = ("qwen2_vl_7b", "whisper_tiny")
+_NEXT_SLICE_MSG = ("is not ported yet: the enc-dec model (whisper_tiny) and M-RoPE with "
+                   "embedding inputs (qwen2_vl_7b) are the next slice, ROADMAP Queue A item 3")
 
 
 def get_arch(name: str) -> ArchSpec:
-    if name not in ARCH_IDS:
-        raise NotImplementedError(f"arch {name!r} is not ported yet (ported: {ARCH_IDS})")
+    if name in NEXT_SLICE:
+        raise NotImplementedError(f"arch {name!r} {_NEXT_SLICE_MSG}")
+    if name not in ARCH_IDS + EXTRA_IDS:
+        raise ValueError(f"unknown arch {name!r} (known: {ARCH_IDS + EXTRA_IDS})")
     return importlib.import_module(f"repro_torch.configs.{name}").ARCH
 
 
@@ -220,6 +243,12 @@ class _PlanResolver:
         return SiteCfg(d_in=d_in, d_out=d_out, mode=mode, lut=cfg,
                        bias=self.arch.use_bias, name=kind)
 
+    def expert_site(self, d_in: int, d_out: int, kind: str, *,
+                    layer: int | None = None) -> moe_mod.ExpertSiteCfg:
+        mode, cfg = self._resolve(layer, kind, d_in, lut_site=True)
+        return moe_mod.ExpertSiteCfg(n_experts=self.arch.n_experts, d_in=d_in, d_out=d_out,
+                                     mode=mode, lut=cfg)
+
 
 def _attn_cfg(res: _PlanResolver, *, layer: int | None = None) -> attn_mod.AttnCfg:
     arch = res.arch
@@ -237,21 +266,63 @@ def _attn_cfg(res: _PlanResolver, *, layer: int | None = None) -> attn_mod.AttnC
     )
 
 
-def _mlp_cfg(res: _PlanResolver, *, layer: int | None = None) -> mlp_mod.MLPCfg:
+def _mlp_cfg(res: _PlanResolver, *, layer: int | None = None,
+             prefix: str = "mlp") -> mlp_mod.MLPCfg:
     arch = res.arch
     d, f = arch.d_model, arch.d_ff
     return mlp_mod.MLPCfg(
         d_model=d, d_ff=f,
-        gate=res.site(d, f, "mlp/gate", layer=layer),
-        up=res.site(d, f, "mlp/up", layer=layer),
-        down=res.site(f, d, "mlp/down", layer=layer),
+        gate=res.site(d, f, f"{prefix}/gate", layer=layer),
+        up=res.site(d, f, f"{prefix}/up", layer=layer),
+        down=res.site(f, d, f"{prefix}/down", layer=layer),
         act=arch.act,
         gated=arch.mlp_gated,
     )
 
 
+def _moe_cfg(res: _PlanResolver, *, layer: int | None = None) -> moe_mod.MoECfg:
+    arch = res.arch
+    d, f, e = arch.d_model, arch.d_ff, arch.n_experts
+    return moe_mod.MoECfg(
+        d_model=d, d_ff=f, n_experts=e, top_k=arch.top_k,
+        # the router stays exact: approximate routing logits destabilize top-k
+        router=res.site(d, e, "moe/router", layer=layer, lut_site=False),
+        gate=res.expert_site(d, f, "moe/gate", layer=layer),
+        up=res.expert_site(d, f, "moe/up", layer=layer),
+        down=res.expert_site(f, d, "moe/down", layer=layer),
+        shared=_mlp_cfg(res, layer=layer, prefix="moe/shared") if arch.moe_shared_expert else None,
+        act=arch.act,
+        group_tokens=arch.moe_group_tokens,
+    )
+
+
+def _mamba_block(res: _PlanResolver, *, layer: int | None = None) -> tf_mod.BlockCfg:
+    arch = res.arch
+    di = arch.d_inner
+    h = di // arch.ssm_head_dim
+    mcfg = mamba_mod.Mamba2Cfg(
+        d_model=arch.d_model, d_inner=di, n_heads=h, head_dim=arch.ssm_head_dim,
+        ssm_state=arch.ssm_state, n_groups=arch.ssm_groups,
+        conv_width=arch.conv_width, chunk=arch.ssd_chunk,
+        in_proj=res.site(arch.d_model, 2 * di + 2 * arch.ssm_groups * arch.ssm_state + h,
+                         "mamba/in_proj", layer=layer),
+        out_proj=res.site(di, arch.d_model, "mamba/out_proj", layer=layer),
+    )
+    return tf_mod.BlockCfg(kind="mamba", d_model=arch.d_model, mamba=mcfg)
+
+
 def _block(res: _PlanResolver, *, layer: int | None = None) -> tf_mod.BlockCfg:
-    return tf_mod.BlockCfg(kind="dense", d_model=res.arch.d_model,
+    arch = res.arch
+    if arch.family == "ssm":
+        return _mamba_block(res, layer=layer)
+    if arch.family == "moe":
+        return tf_mod.BlockCfg(
+            kind="moe", d_model=arch.d_model, attn=_attn_cfg(res, layer=layer),
+            moe=_moe_cfg(res, layer=layer),
+            residual_mlp=(_mlp_cfg(res, layer=layer, prefix="residual_mlp")
+                          if arch.moe_dense_residual else None),
+        )
+    return tf_mod.BlockCfg(kind="dense", d_model=arch.d_model,
                            attn=_attn_cfg(res, layer=layer), mlp=_mlp_cfg(res, layer=layer))
 
 
@@ -270,17 +341,61 @@ def _segments(res: _PlanResolver) -> tuple[tuple[int, tf_mod.BlockCfg], ...]:
     return tuple((n, b) for n, b in segs)
 
 
-def _block_site_list(bcfg: tf_mod.BlockCfg) -> list[tuple[str, SiteCfg]]:
-    a, m = bcfg.attn, bcfg.mlp
-    sites = [a.q, a.k, a.v, a.o] + ([m.gate] if m.gated else []) + [m.up, m.down]
-    return [(s.name, s) for s in sites]
+def _mlp_site_list(m: mlp_mod.MLPCfg) -> list[tuple[str, Any, bool]]:
+    return [(s.name, s, True) for s in ([m.gate] if m.gated else []) + [m.up, m.down]]
+
+
+def _attn_site_list(a: attn_mod.AttnCfg) -> list[tuple[str, Any, bool]]:
+    return [(s.name, s, True) for s in (a.q, a.k, a.v, a.o)]
+
+
+def _block_site_list(bcfg: tf_mod.BlockCfg) -> list[tuple[str, Any, bool]]:
+    """(rel path, site config, goes through common.linear) per site of a
+    block; the rel path is the site kind and its param sub-tree path. MoE
+    expert sites are expert-stacked and never taped."""
+    if bcfg.kind == "mamba":
+        m = bcfg.mamba
+        out = [(m.in_proj.name, m.in_proj, True), (m.out_proj.name, m.out_proj, True)]
+    elif bcfg.kind == "dense":
+        out = _attn_site_list(bcfg.attn) + _mlp_site_list(bcfg.mlp)
+    elif bcfg.kind == "moe":
+        mo = bcfg.moe
+        out = _attn_site_list(bcfg.attn) + [(mo.router.name, mo.router, True)]
+        out += [("moe/gate", mo.gate, False), ("moe/up", mo.up, False),
+                ("moe/down", mo.down, False)]
+        if mo.shared is not None:
+            out += _mlp_site_list(mo.shared)
+    else:
+        raise ValueError(bcfg.kind)
+    if bcfg.residual_mlp is not None:
+        out += _mlp_site_list(bcfg.residual_mlp)
+    return out
+
+
+def _site_spec(path: str, layer, stack_index, kind: str, sc, tape_key) -> SiteSpec:
+    return SiteSpec(path=path, layer=layer, stack_index=stack_index, kind=kind,
+                    d_in=sc.d_in, d_out=sc.d_out, bias=getattr(sc, "bias", False), mode=sc.mode,
+                    lut=sc.lut, tape_key=tape_key)
+
+
+def cache_leaves(tree):
+    """(name, leaf) of every tensor or ParamSpec of a cache tree."""
+    if isinstance(tree, dict):
+        for name, v in tree.items():
+            if isinstance(v, (dict, list)):
+                yield from cache_leaves(v)
+            else:
+                yield name, v
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from cache_leaves(v)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     arch: ArchSpec
     mode: Mode
-    kind: str                    # "lm" (the only kind ported)
+    kind: str                    # "lm" | "hybrid"
     cfg: Any
 
     @property
@@ -293,42 +408,62 @@ class ModelBundle:
         and placed on `device`, which defaults to the card."""
         device = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        if self.kind == "hybrid":
+            return hybrid_mod.hybrid_init(gen, self.cfg, dtype=self.param_dtype, device=device)
         return tf_mod.lm_init(gen, self.cfg, dtype=self.param_dtype, device=device)
 
     def param_specs(self) -> dict[str, Any]:
-        """The reference's param tree of this bundle (segments stacked over
-        their layers), each leaf a ParamSpec(shape, dtype): what an artifact
-        must hold, computed from the configs without allocating params."""
+        """The reference's param tree of this bundle (segments, or the hybrid's
+        mamba stack, stacked over their layers), each leaf a ParamSpec(shape,
+        dtype): what an artifact must hold, computed from the configs
+        without allocating params."""
+        if self.kind == "hybrid":
+            return hybrid_mod.hybrid_param_specs(self.cfg, self.param_dtype)
         return tf_mod.lm_param_specs(self.cfg, self.param_dtype)
 
     def sites(self) -> list[SiteSpec]:
         """One SiteSpec per (site, layer), paths as in the reference registry."""
         out: list[SiteSpec] = []
+        if self.kind == "hybrid":
+            cfg = self.cfg
+            rels = _block_site_list(cfg.mamba_block)
+            for j in range(cfg.n_layers):
+                for rel, sc, taped in rels:
+                    out.append(_site_spec(f"mamba_stack/{rel}", j, j, rel, sc,
+                                          f"mamba_stack/{j}/{rel}" if taped else None))
+            shared = ([(cfg.fuse.name, cfg.fuse, True)] + _attn_site_list(cfg.shared_attn)
+                      + _mlp_site_list(cfg.shared_mlp) + [(cfg.out.name, cfg.out, True)])
+            for rel, sc, taped in shared:
+                out.append(_site_spec(f"shared/{rel}", None, None, rel, sc,
+                                      f"shared/{rel}" if taped else None))
+            return out
         g = 0
         for i, (count, bcfg) in enumerate(self.cfg.segments):
+            rels = _block_site_list(bcfg)
             for j in range(count):
-                for rel, sc in _block_site_list(bcfg):
-                    out.append(SiteSpec(
-                        path=f"segments/{i}/{rel}", layer=g + j, stack_index=j, kind=rel,
-                        d_in=sc.d_in, d_out=sc.d_out, bias=sc.bias, mode=sc.mode, lut=sc.lut,
-                        tape_key=f"segments/{i}/{j}/{rel}",
-                    ))
+                for rel, sc, taped in rels:
+                    out.append(_site_spec(f"segments/{i}/{rel}", g + j, j, rel, sc,
+                                          f"segments/{i}/{j}/{rel}" if taped else None))
             g += count
         if self.cfg.lm_head is not None:
-            sc = self.cfg.lm_head
-            out.append(SiteSpec(path="lm_head", layer=None, stack_index=None, kind="lm_head",
-                                d_in=sc.d_in, d_out=sc.d_out, bias=sc.bias, mode=sc.mode,
-                                lut=sc.lut, tape_key="lm_head"))
+            out.append(_site_spec("lm_head", None, None, "lm_head", self.cfg.lm_head, "lm_head"))
         return out
 
     def lut_sites(self) -> list[SiteSpec]:
         return [s for s in self.sites() if s.mode != Mode.DENSE]
 
+    def _require_trainable(self) -> None:
+        if self.kind != "lm" or any(b.kind != "dense" for _, b in self.cfg.segments):
+            raise NotImplementedError(f"training the {self.arch.family} family (MoE aux loss, "
+                                      f"LUT_TRAIN expert tables, the mamba tape) is not ported "
+                                      f"yet: ROADMAP Queue A item 4")
+
     def train_logits(self, params, batch, *, compute_dtype=torch.bfloat16):
         """The training forward over whole sequences: (logits (B, S, vocab),
         aux). The shared forward of `loss` and of both halves of the
         distillation loss; aux (the MoE penalty of the reference) is 0 for
-        the dense blocks."""
+        the dense blocks, the only ones whose training is ported."""
+        self._require_trainable()
         tokens = batch["tokens"]
         b, s = tokens.shape
         pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -346,57 +481,81 @@ class ModelBundle:
         return self.loss_from_logits(logits, aux, batch["labels"])
 
     def cache_specs(self, b: int, s_max: int, *, dtype=torch.bfloat16,
-                    paged: attn_mod.PagedSpec | None = None) -> list:
+                    paged: attn_mod.PagedSpec | None = None):
         """ParamSpecs of `init_caches`' tensors, without allocating them."""
+        if self.kind == "hybrid":
+            return hybrid_mod.hybrid_cache_specs(self.cfg, b, s_max, dtype, paged)
         return tf_mod.cache_specs(self.cfg, b, s_max, dtype, paged)
 
     def init_caches(self, b: int, s_max: int, *, dtype=torch.bfloat16,
                     device: str | torch.device | None = None,
-                    paged: attn_mod.PagedSpec | None = None) -> list:
-        """Zeroed KV caches: per segment {"k", "v"} (L, B, S_max, KV, Dh), or
-        with `paged` (an attention.PagedSpec) pools {"k_pool", "v_pool"}
-        (L, n_pages, page_size, KV, Dh) shared by the whole batch."""
+                    paged: attn_mod.PagedSpec | None = None):
+        """Zeroed caches. lm: one dict per segment, {"k", "v"} (L, B, S_max,
+        KV, Dh), or with `paged` (an attention.PagedSpec) pools {"k_pool",
+        "v_pool"} (L, n_pages, page_size, KV, Dh) shared by the whole batch;
+        a mamba segment's {"conv", "ssm"} (L, B, ...) per row either way.
+        hybrid: {"mamba": {"conv", "ssm"}, "attn": K/V or pools stacked over
+        the shared block's invocations}."""
+        if self.kind == "hybrid":
+            return hybrid_mod.hybrid_caches(self.cfg, b, s_max, dtype, resolve_device(device),
+                                            paged)
         return tf_mod.init_caches(self.cfg, b, s_max, dtype, resolve_device(device), paged)
 
     def forward_step(self, params, batch, caches, *, compute_dtype=torch.float32):
         """One serving step (prefill if S > 1, decode if S == 1).
 
         batch: "tokens" (B, S), "cache_len" (B,), and optionally "write_rows"
-        (the batch rows whose dense cache may change; all when absent). Paged
-        caches take "block_tables" (B, P) and "write_len" (B,) instead (fresh
-        positions at or past write_len land in the garbage page; all S when
-        absent). Returns (logits for the new positions, caches), the caches
-        updated in place. cache_len, write_rows, block_tables and write_len
-        are read on the host: pass CPU tensors to keep the forward free of
-        device-to-host waits."""
+        (the batch rows whose dense cache and recurrent state may change; all
+        when absent) and "write_len" (B,) (each row's valid positions; all S
+        when absent: a padded row's recurrent state stops at its last valid
+        token). Paged caches take "block_tables" (B, P) and "write_len"
+        instead (fresh positions at or past write_len land in the garbage
+        page; rows with write_len 0 keep their state). Returns (logits for
+        the new positions, caches), the caches updated in place. cache_len,
+        write_rows, block_tables and write_len are read on the host: pass CPU
+        tensors to keep the forward free of device-to-host waits."""
         tokens = batch["tokens"]
         dev = tokens.device
         b, s = tokens.shape
-        paged = caches is not None and "k_pool" in caches[0]
-        if ("block_tables" in batch) != paged:
+        leaves = dict(cache_leaves(caches)) if caches is not None else {}
+        paged = "k_pool" in leaves
+        # a model without attention (the ssm family) has nothing to page: an
+        # engine's block tables pass through unread
+        if paged != ("block_tables" in batch) and (paged or "k" in leaves):
             raise ValueError("block_tables go with paged caches, and only with them")
+        wl = batch.get("write_len")
+        wl = None if wl is None else wl.cpu().long()
         block_tables = write_index = None
         if paged:
             bt = batch["block_tables"].cpu().long()
             cl = batch["cache_len"].cpu().long()
-            wl = batch.get("write_len")
-            wl = torch.full((b,), s) if wl is None else wl.cpu().long()
-            flat = attn_mod.paged_write_flat(bt, cl, s, caches[0]["k_pool"].shape[2], wl)
+            wl = torch.full((b,), s) if wl is None else wl
+            flat = attn_mod.paged_write_flat(bt, cl, s, leaves["k_pool"].shape[2], wl)
             # one host-to-device copy carries the cursors, tables and write indices
             packed = torch.cat([cl, bt.flatten(), flat.flatten()]).to(dev)
             cache_len = packed[:b]
             block_tables = packed[b: b + bt.numel()].view(bt.shape)
             write_index = packed[b + bt.numel():].view(b, s)
+            rows = torch.nonzero(wl).flatten()
         else:
             cache_len = batch["cache_len"].long().to(dev)
-            if caches is not None:
-                write_index = attn_mod.cache_write_index(batch["cache_len"],
-                                                         batch.get("write_rows"), s,
-                                                         caches[0]["k"].shape[2], dev)
+            rows = batch.get("write_rows")
+            if rows is None and wl is not None:
+                rows = torch.nonzero(wl).flatten()
+            if "k" in leaves:
+                write_index = attn_mod.cache_write_index(batch["cache_len"], rows, s,
+                                                         leaves["k"].shape[2], dev)
+        state = None
+        if caches is not None and ("ssm" in leaves):
+            state = tf_mod.StateRows(rows=None if rows is None else rows.to(dev).long(),
+                                     valid=None if wl is None else wl.to(dev))
         pos = cache_len[:, None] + torch.arange(s, device=dev)[None, :]
-        return tf_mod.lm_apply(self.cfg, params, tokens=tokens, pos=pos, caches=caches,
-                               cache_len=cache_len, compute_dtype=compute_dtype,
-                               write_index=write_index, block_tables=block_tables)
+        kw = dict(tokens=tokens, pos=pos, caches=caches, cache_len=cache_len,
+                  compute_dtype=compute_dtype, write_index=write_index,
+                  block_tables=block_tables, state=state)
+        if self.kind == "hybrid":
+            return hybrid_mod.hybrid_apply(self.cfg, params, **kw)
+        return tf_mod.lm_apply(self.cfg, params, **kw)
 
 
 def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBundle:
@@ -404,13 +563,20 @@ def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBun
         arch = get_arch(arch)
     if isinstance(mode, str):
         mode = Mode(mode)
-    if arch.family != "dense":
-        raise NotImplementedError(f"family {arch.family!r} is not ported yet: ROADMAP Queue A "
-                                  f"item 3")
-    if arch.takes_embeds or arch.mrope_sections:
-        raise NotImplementedError("embedding inputs and M-RoPE are not ported yet")
+    if arch.family not in ("dense", "moe", "ssm", "hybrid") or arch.takes_embeds \
+            or arch.mrope_sections:
+        raise NotImplementedError(f"the {arch.family!r} family {_NEXT_SLICE_MSG}")
     res = _PlanResolver(arch, mode)
     d = arch.d_model
+    if arch.family == "hybrid":
+        # the mamba layers share one config and the attention block is one
+        # weight-shared module: sites resolve per kind (layer=None)
+        cfg = hybrid_mod.HybridCfg(
+            vocab=arch.vocab, d_model=d, n_layers=arch.n_layers, attn_every=arch.attn_every,
+            mamba_block=_mamba_block(res), shared_attn=_attn_cfg(res), shared_mlp=_mlp_cfg(res),
+            fuse=res.site(2 * d, d, "fuse", lut_site=False), out=res.site(d, d, "out"),
+        )
+        return ModelBundle(arch=arch, mode=mode, kind="hybrid", cfg=cfg)
     cfg = tf_mod.LMCfg(
         vocab=arch.vocab, d_model=d, segments=_segments(res),
         lm_head=None if arch.tie_embeddings else res.site(d, arch.vocab, "lm_head",

@@ -14,6 +14,10 @@ end over the continuous-batching engine with a LUT_INFER (int8 table) model.
   # on the CPU, plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4 --slots 2
 
+  # the other families, reduced (ssm, hybrid, moe):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --use-kernel \
+      --arch mamba2_370m --layers 2 --d-model 64 --vocab 128
+
   # paged KV cache (prefix sharing, copy-on-write, fp8 storage) and
   # speculative decoding (a multi-plan artifact's draft plan; random-init
   # mode drafts with the target itself):
@@ -51,7 +55,7 @@ import time
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, build_model, get_arch, reduce_arch
+from repro_torch.configs import ARCH_IDS, EXTRA_IDS, build_model, get_arch, reduce_arch
 from repro_torch.core.amm import Mode
 from repro_torch.kernels import autotune, counters
 from repro_torch.serving.engine import KV_DTYPES, ServingEngine, lut_kernel_signatures
@@ -73,7 +77,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--artifact", default=None,
                     help="a LUTArtifact directory: serve its tables (arch, plan and mode from "
                          "the manifest) instead of random ones")
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3_1p7b",
+    ap.add_argument("--arch", choices=ARCH_IDS + EXTRA_IDS, default="qwen3_1p7b",
                     help="arch of random-init mode (ignored with --artifact)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

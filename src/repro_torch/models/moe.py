@@ -1,0 +1,244 @@
+"""Mixture-of-Experts FFN with GShard-style capacity dispatch, in PyTorch.
+
+Counterpart of `repro.models.moe`: llama4-maverick (128 experts top-1 and a
+shared expert) and arctic (128 experts top-2; its dense residual branch
+lives in the block, models/transformer.py). The router stays dense and
+exact; each expert projection is a LUT site whose per-expert int8 tables
+share one set of codebooks per layer.
+
+Routing is the reference's, step for step, so that the same logits drop the
+same tokens: routing groups of `group_tokens` (halved until they divide S),
+capacity max(k, int(1.25 k S / E) + 1) per expert and group, top-k by argmax
+(the lowest index wins a tie) over the fp32 softmax, slots in token order by
+a cumsum.
+
+The expert contraction is plain tensor ops, as in the reference (no Pallas
+kernel there, no CUDA kernel here). Two departures that leave every value
+as the reference computes it: only the experts that received a token run
+(an idle expert's output is multiplied by a combine weight of 0), and they
+run in chunks of experts, so that neither a dense site's weight converted
+to the compute dtype nor a LUT site's gathered table rows are ever
+materialized for all experts at once (arctic at full width: 128 x 7168 x
+4864 per site). A LUT_INFER site reads each token's C table rows by its
+codes and sums them: in int32 and rescaled once with `int8_dot` (the
+reference's int8 one-hot dot, exact), else dequantized in fp32, the
+reference's one-hot product over the dequantized table with its zero terms
+left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import pq
+from repro_torch.core.amm import LUTConfig, Mode
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (
+    ParamSpec,
+    Params,
+    SiteCfg,
+    activation,
+    linear,
+    linear_init,
+    linear_specs,
+)
+
+# bytes of the per-chunk working set (a dense chunk's weights in the compute
+# dtype, a LUT chunk's gathered rows in fp32) that bounds the experts per chunk
+CHUNK_BYTES = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertSiteCfg:
+    """Expert-stacked linear site: (E, Cap, d_in) -> (E, Cap, d_out)."""
+
+    n_experts: int
+    d_in: int
+    d_out: int
+    mode: Mode
+    lut: LUTConfig
+
+
+def _not_ported() -> NotImplementedError:
+    return NotImplementedError("LUT_TRAIN expert sites (soft-PQ over per-expert tables) are not "
+                               "ported yet: ROADMAP Queue A item 4")
+
+
+def _scale_shape(s: ExpertSiteCfg) -> tuple[int, ...]:
+    """The deployed scale layout per the site's policy (the reference's)."""
+    c = s.lut.codebooks(s.d_in)
+    if s.lut.int8_dot or s.lut.use_kernel:
+        return (s.n_experts, 1, 1, s.d_out)
+    if s.lut.per_column:
+        return (s.n_experts, c, 1, s.d_out)
+    return (s.n_experts, c, 1, 1)
+
+
+def expert_linear_specs(s: ExpertSiteCfg, dtype=torch.float32) -> Params:
+    """ParamSpecs of `expert_linear_init`'s params."""
+    if s.mode == Mode.DENSE:
+        return {"w": ParamSpec((s.n_experts, s.d_in, s.d_out), dtype)}
+    if s.mode != Mode.LUT_INFER:
+        raise _not_ported()
+    c = s.lut.codebooks(s.d_in)
+    return {"centroids": ParamSpec((c, s.lut.k, s.lut.v), torch.float32),
+            "table_q": ParamSpec((s.n_experts, c, s.lut.k, s.d_out), torch.int8),
+            "table_scale": ParamSpec(_scale_shape(s), torch.float32)}
+
+
+def expert_linear_init(gen: torch.Generator, s: ExpertSiteCfg, *, dtype=torch.float32,
+                       device="cpu") -> Params:
+    """DENSE {"w": N(0, 1/d_in) (E, d_in, d_out)}; LUT_INFER {"centroids":
+    N(0, 0.02^2) (C, K, V) shared by the experts, "table_q": uniform int8
+    in [-127, 126] (E, C, K, d_out), "table_scale": 0.02}. Drawn one expert
+    at a time (no fp32 copy of every expert's weight)."""
+    specs = expert_linear_specs(s, dtype)
+    if s.mode == Mode.DENSE:
+        w = torch.empty(specs["w"].shape, dtype=dtype, device=device)
+        for e in range(s.n_experts):
+            w[e] = (torch.randn((s.d_in, s.d_out), generator=gen, device=gen.device)
+                    .to(device) * (1.0 / s.d_in ** 0.5)).to(dtype)
+        return {"w": w}
+    return {
+        "centroids": torch.randn(specs["centroids"].shape, generator=gen,
+                                 device=gen.device).to(device) * 0.02,
+        "table_q": torch.randint(-127, 127, specs["table_q"].shape, generator=gen,
+                                 device=gen.device, dtype=torch.int8).to(device),
+        "table_scale": torch.full(specs["table_scale"].shape, 0.02, device=device),
+    }
+
+
+def _chunks(n: int, per_expert_bytes: int):
+    step = max(1, CHUNK_BYTES // max(per_expert_bytes, 1))
+    return [(i, min(n, i + step)) for i in range(0, n, step)]
+
+
+def expert_linear(s: ExpertSiteCfg, p: Params, x: torch.Tensor,
+                  experts: torch.Tensor | None = None) -> torch.Tensor:
+    """x (A, Cap, d_in) -> (A, Cap, d_out) for the experts `experts` (A
+    indices into the site's E; all E when None)."""
+    a, cap, _ = x.shape
+    ids = torch.arange(a, device=x.device) if experts is None else experts
+    out = x.new_empty((a, cap, s.d_out))
+    if s.mode == Mode.DENSE:
+        w = p["w"]
+        for i, j in _chunks(a, s.d_in * s.d_out * x.element_size()):
+            out[i:j] = torch.bmm(x[i:j], w[ids[i:j]].to(x.dtype))
+        return out
+    if s.mode != Mode.LUT_INFER:
+        raise _not_ported()
+
+    cents = p["centroids"]
+    c = cents.shape[0]
+    xf = x.reshape(a * cap, s.d_in)
+    codes = torch.argmin(pq.pairwise_sq_dists(pq.split_subvectors(xf, s.lut.v), cents),
+                         dim=-1).reshape(a, cap, c)
+    tq, scale = p["table_q"], p["table_scale"]
+    cb = torch.arange(c, device=x.device)
+    for i, j in _chunks(a, cap * c * s.d_out * 4):
+        e = ids[i:j]
+        # (A', Cap, C, d_out): row codes[a, n, c] of expert e's table c
+        rows = tq[e[:, None, None], cb[None, None, :], codes[i:j]]
+        if s.lut.int8_dot:
+            acc = rows.to(torch.int32).sum(dim=2)
+            out[i:j] = (acc.float() * scale[e].reshape(j - i, 1, s.d_out)).to(x.dtype)
+        else:
+            sc = scale[e][:, :, 0, :][:, None]                    # (A', 1, C|1, d_out|1)
+            out[i:j] = (rows.float() * sc).to(x.dtype).sum(dim=2)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int
+    router: SiteCfg                      # always DENSE
+    gate: ExpertSiteCfg
+    up: ExpertSiteCfg
+    down: ExpertSiteCfg
+    shared: object | None = None         # an MLPCfg for a shared expert
+    act: str = "silu"
+    capacity_factor: float = 1.25
+    group_tokens: int = 1024
+
+
+def moe_init(gen: torch.Generator, cfg: MoECfg, *, dtype=torch.float32, device="cpu") -> Params:
+    p: Params = {
+        "router": linear_init(gen, cfg.router, dtype=torch.float32, device=device),
+        "gate": expert_linear_init(gen, cfg.gate, dtype=dtype, device=device),
+        "up": expert_linear_init(gen, cfg.up, dtype=dtype, device=device),
+        "down": expert_linear_init(gen, cfg.down, dtype=dtype, device=device),
+    }
+    if cfg.shared is not None:
+        p["shared"] = mlp_mod.mlp_init(gen, cfg.shared, dtype=dtype, device=device)
+    return p
+
+
+def moe_specs(cfg: MoECfg, dtype=torch.float32) -> Params:
+    """ParamSpecs of `moe_init`'s params (the router fp32 whatever `dtype`)."""
+    p: Params = {"router": linear_specs(cfg.router, torch.float32),
+                 "gate": expert_linear_specs(cfg.gate, dtype),
+                 "up": expert_linear_specs(cfg.up, dtype),
+                 "down": expert_linear_specs(cfg.down, dtype)}
+    if cfg.shared is not None:
+        p["shared"] = mlp_mod.mlp_specs(cfg.shared, dtype)
+    return p
+
+
+def moe(cfg: MoECfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y, aux): routing groups are `group_tokens` chunks of
+    the batch-major token stream; aux is the Switch load-balance value
+    E * sum_e f_e P_e / k (training's; serving drops it)."""
+    b0, s0, d = x.shape
+    g_tok = max(1, min(cfg.group_tokens, s0))
+    while s0 % g_tok:
+        g_tok //= 2
+    x = x.reshape(b0 * (s0 // g_tok), g_tok, d)
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(k, int(cfg.capacity_factor * k * s / e) + 1)
+
+    logits = linear(cfg.router, p["router"], x.float())              # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+
+    # top-k routing with per-group capacity (GShard)
+    combine = torch.zeros((b, s, e, cap), dtype=x.dtype, device=x.device)
+    dispatch = torch.zeros((b, s, e, cap), dtype=torch.bool, device=x.device)
+    remaining = probs
+    fill = torch.zeros((b, e), dtype=torch.int32, device=x.device)   # slots used
+    for _ in range(k):
+        idx = torch.argmax(remaining, dim=-1)                         # lowest index on a tie
+        gate = torch.gather(remaining, -1, idx[..., None])[..., 0]
+        onehot_e = F.one_hot(idx, e).to(torch.int32)                  # (B, S, E)
+        pos = fill[:, None, :] + torch.cumsum(onehot_e, dim=1, dtype=torch.int32) - onehot_e
+        slot = (onehot_e * pos).sum(dim=-1)                           # (B, S)
+        keep = slot < cap
+        oh_slot = F.one_hot(slot.clamp_max(cap - 1).long(), cap).to(x.dtype) * keep[..., None]
+        d_k = onehot_e.to(x.dtype)[..., None] * oh_slot[:, :, None, :]
+        dispatch |= d_k.bool()
+        combine = combine + gate.to(x.dtype)[..., None, None] * d_k
+        fill = fill + (onehot_e * keep[..., None].to(torch.int32)).sum(dim=1, dtype=torch.int32)
+        remaining = remaining * (1.0 - F.one_hot(idx, e).to(probs.dtype))
+
+    # load-balance aux value (Switch): E * sum_e f_e * P_e / k
+    frac_tokens = dispatch.sum(dim=-1).float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = e * (frac_tokens * frac_probs).sum() / k
+
+    xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x).reshape(e, b * cap, d)
+    active = dispatch.any(dim=3).any(dim=1).any(dim=0).nonzero()[:, 0]
+    xa = xin[active]
+    g = activation(cfg.act, expert_linear(cfg.gate, p["gate"], xa, active))
+    u = expert_linear(cfg.up, p["up"], xa, active)
+    h = torch.zeros((e, b * cap, d), dtype=x.dtype, device=x.device)
+    h[active] = expert_linear(cfg.down, p["down"], g * u, active)
+    y = torch.einsum("bsec,ebcd->bsd", combine, h.reshape(e, b, cap, d))
+
+    if cfg.shared is not None:
+        y = y + mlp_mod.mlp(cfg.shared, p["shared"], x)
+    return y.reshape(b0, s0, d), aux

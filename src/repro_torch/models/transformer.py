@@ -13,8 +13,14 @@ as the reference does. A prefill forward writes each layer's K/V in place
 before attending over the cache. A paged cache is one stacked
 (L, n_pages, page_size, KV, Dh) pool per K and V and segment, written the
 same two ways through the flat indices of `attention.paged_write_flat`
-(masked positions to the garbage page). MoE and Mamba blocks are not ported
-yet (ROADMAP Queue A item 3).
+(masked positions to the garbage page).
+
+Three block kinds, as in the reference: "dense" (attention + MLP), "moe"
+(attention + the MoE FFN, plus arctic's dense residual MLP beside it) and
+"mamba" (x + mamba2(rmsnorm(x))). A mamba segment's cache is per row, {"conv",
+"ssm"} stacked over its layers; a forward updates the rows it may write in
+place (`mamba2.mamba2`), and keeps the deferred K/V write off, as the
+reference does for mamba segments.
 
 A training forward (no caches, gradients on) recomputes each block in the
 backward pass instead of keeping its activations (`torch.utils.checkpoint`,
@@ -31,7 +37,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -47,48 +55,107 @@ from repro_torch.models.common import (
     tape_active,
 )
 
-# MoE load-balance penalty weight of the lm family's loss (the dense blocks
-# ported so far have no aux loss: it enters as 0)
+# MoE load-balance penalty weight of the lm family's loss (training of the
+# moe family is not ported yet, so the penalty enters as 0)
 LM_AUX_WEIGHT = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
-    kind: str                                  # only "dense" is ported
+    kind: str                                  # "dense" | "moe" | "mamba"
     d_model: int
     attn: attn_mod.AttnCfg | None = None
     mlp: mlp_mod.MLPCfg | None = None
+    moe: moe_mod.MoECfg | None = None
+    mamba: mamba_mod.Mamba2Cfg | None = None
+    residual_mlp: mlp_mod.MLPCfg | None = None  # arctic's parallel dense branch
 
 
-def _require_dense(cfg: BlockCfg) -> None:
-    if cfg.kind != "dense":
-        raise NotImplementedError(f"{cfg.kind!r} blocks are not ported yet: ROADMAP Queue A "
-                                  f"item 3")
+@dataclasses.dataclass(frozen=True)
+class StateRows:
+    """What a serving forward may change in per-row recurrent state: the
+    batch rows to write (`rows`, all when None) and each row's valid
+    positions (`valid` (B,), all S when None), on the forward's device."""
+    rows: torch.Tensor | None = None
+    valid: torch.Tensor | None = None
 
 
 def block_init(gen: torch.Generator, cfg: BlockCfg, *, dtype=torch.float32,
                device="cpu") -> Params:
-    _require_dense(cfg)
-    return {
+    if cfg.kind == "mamba":
+        return {"norm": rmsnorm_init(cfg.d_model, dtype, device),
+                "mamba": mamba_mod.mamba2_init(gen, cfg.mamba, dtype=dtype, device=device)}
+    p: Params = {
         "norm1": rmsnorm_init(cfg.d_model, dtype, device),
         "norm2": rmsnorm_init(cfg.d_model, dtype, device),
         "attn": attn_mod.attn_init(gen, cfg.attn, dtype=dtype, device=device),
-        "mlp": mlp_mod.mlp_init(gen, cfg.mlp, dtype=dtype, device=device),
     }
+    if cfg.kind == "dense":
+        p["mlp"] = mlp_mod.mlp_init(gen, cfg.mlp, dtype=dtype, device=device)
+    elif cfg.kind == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg.moe, dtype=dtype, device=device)
+        if cfg.residual_mlp is not None:
+            p["residual_mlp"] = mlp_mod.mlp_init(gen, cfg.residual_mlp, dtype=dtype,
+                                                 device=device)
+    else:
+        raise ValueError(cfg.kind)
+    return p
+
+
+def block_specs(cfg: BlockCfg, dtype=torch.float32) -> Params:
+    """ParamSpecs of `block_init`'s params."""
+    norm = {"scale": ParamSpec((cfg.d_model,), dtype)}
+    if cfg.kind == "mamba":
+        return {"norm": norm, "mamba": mamba_mod.mamba2_specs(cfg.mamba, dtype)}
+    p: Params = {"norm1": norm, "norm2": norm, "attn": attn_mod.attn_specs(cfg.attn, dtype)}
+    if cfg.kind == "dense":
+        p["mlp"] = mlp_mod.mlp_specs(cfg.mlp, dtype)
+    elif cfg.kind == "moe":
+        p["moe"] = moe_mod.moe_specs(cfg.moe, dtype)
+        if cfg.residual_mlp is not None:
+            p["residual_mlp"] = mlp_mod.mlp_specs(cfg.residual_mlp, dtype)
+    else:
+        raise ValueError(cfg.kind)
+    return p
+
+
+def block_cache_specs(cfg: BlockCfg, b: int, s_max: int, dtype=torch.bfloat16,
+                      paged: attn_mod.PagedSpec | None = None) -> Params:
+    """One layer's cache: mamba state per row (never paged), else K/V."""
+    if cfg.kind == "mamba":
+        return mamba_mod.mamba2_cache_specs(b, cfg.mamba, dtype)
+    if paged is not None:
+        return attn_mod.paged_cache_specs(paged, cfg.attn, dtype)
+    a = cfg.attn
+    return {name: ParamSpec((b, s_max, a.n_kv_heads, a.d_head), dtype) for name in ("k", "v")}
 
 
 def block_apply(cfg: BlockCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
                 cache: Params | None = None, cache_len: torch.Tensor | None = None,
                 defer_cache_write: bool = False, write_index=None,
-                block_tables: torch.Tensor | None = None) -> tuple[torch.Tensor, Params | None]:
-    """Returns (x, cache or deferred slabs)."""
+                block_tables: torch.Tensor | None = None,
+                state: StateRows | None = None) -> tuple[torch.Tensor, Params | None]:
+    """Returns (x, cache or deferred slabs). A mamba block writes its state
+    rows in place (`state`)."""
+    if cfg.kind == "mamba":
+        st = state or StateRows()
+        h = mamba_mod.mamba2(cfg.mamba, p["mamba"], rmsnorm(p["norm"], x), cache=cache,
+                             cache_len=cache_len, valid=st.valid, rows=st.rows)
+        return x + h, cache
     a, new_cache = attn_mod.attention(
         cfg.attn, p["attn"], rmsnorm(p["norm1"], x), pos=pos, cache=cache,
         cache_len=cache_len, defer_cache_write=defer_cache_write, write_index=write_index,
         block_tables=block_tables,
     )
     x = x + a
-    return x + mlp_mod.mlp(cfg.mlp, p["mlp"], rmsnorm(p["norm2"], x)), new_cache
+    h = rmsnorm(p["norm2"], x)
+    if cfg.kind == "dense":
+        f = mlp_mod.mlp(cfg.mlp, p["mlp"], h)
+    else:
+        f, _ = moe_mod.moe(cfg.moe, p["moe"], h)
+        if cfg.residual_mlp is not None:
+            f = f + mlp_mod.mlp(cfg.residual_mlp, p["residual_mlp"], h)
+    return x + f, new_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,13 +191,7 @@ def lm_param_specs(cfg: LMCfg, dtype=torch.float32) -> Params:
             return {k: stacked(v, count) for k, v in tree.items()}
         return ParamSpec((count, *tree.shape), tree.dtype)
 
-    segs = []
-    for count, bcfg in cfg.segments:
-        _require_dense(bcfg)
-        norm = {"scale": ParamSpec((cfg.d_model,), dtype)}
-        segs.append(stacked({"norm1": norm, "norm2": norm,
-                             "attn": attn_mod.attn_specs(bcfg.attn, dtype),
-                             "mlp": mlp_mod.mlp_specs(bcfg.mlp, dtype)}, count))
+    segs = [stacked(block_specs(bcfg, dtype), count) for count, bcfg in cfg.segments]
     p: Params = {
         "embed": {"table": ParamSpec((cfg.vocab, cfg.d_model), dtype)},
         "segments": segs,
@@ -143,27 +204,29 @@ def lm_param_specs(cfg: LMCfg, dtype=torch.float32) -> Params:
 
 def cache_specs(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16,
                 paged: attn_mod.PagedSpec | None = None) -> list:
-    """ParamSpecs of `init_caches`' tensors: per segment {"k", "v"} of
-    (L_seg, B, S_max, KV, Dh), or with `paged` {"k_pool", "v_pool"} of
-    (L_seg, n_pages, page_size, KV, Dh)."""
-    out = []
-    for count, bcfg in cfg.segments:
-        _require_dense(bcfg)
-        a = bcfg.attn
-        if paged is not None:
-            one = attn_mod.paged_cache_specs(paged, a, dtype)
-        else:
-            one = {name: ParamSpec((b, s_max, a.n_kv_heads, a.d_head), dtype)
-                   for name in ("k", "v")}
-        out.append({name: ParamSpec((count, *ps.shape), dtype) for name, ps in one.items()})
-    return out
+    """ParamSpecs of `init_caches`' tensors, one dict per segment, each
+    layer's cache (`block_cache_specs`) stacked over the segment's layers:
+    {"k", "v"} (L_seg, B, S_max, KV, Dh), or with `paged` {"k_pool",
+    "v_pool"} (L_seg, n_pages, page_size, KV, Dh); a mamba segment's
+    {"conv", "ssm"} (L_seg, B, ...) whether paged or not."""
+    return [{name: ParamSpec((count, *ps.shape), ps.dtype)
+             for name, ps in block_cache_specs(bcfg, b, s_max, dtype, paged).items()}
+            for count, bcfg in cfg.segments]
+
+
+def zeros_like_specs(tree, device="cpu"):
+    """Zero tensors of a tree of ParamSpecs (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: zeros_like_specs(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [zeros_like_specs(v, device) for v in tree]
+    return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
 
 
 def init_caches(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16, device="cpu",
                 paged: attn_mod.PagedSpec | None = None) -> list:
     """Zeros of `cache_specs`' shapes, one dict per segment."""
-    return [{name: torch.zeros(ps.shape, dtype=dtype, device=device) for name, ps in seg.items()}
-            for seg in cache_specs(cfg, b, s_max, dtype, paged)]
+    return zeros_like_specs(cache_specs(cfg, b, s_max, dtype, paged), device)
 
 
 def _train_block(bcfg: BlockCfg, lp: Params, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -173,9 +236,10 @@ def _train_block(bcfg: BlockCfg, lp: Params, x: torch.Tensor, pos: torch.Tensor)
 def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: torch.Tensor,
                caches: Params | None, cache_len: torch.Tensor | None,
                write_index, block_tables: torch.Tensor | None = None,
-               remat: bool = False, prefix: str = "") -> torch.Tensor:
+               remat: bool = False, prefix: str = "",
+               state: StateRows | None = None) -> torch.Tensor:
     """Run one segment's layers; writes the segment's cache in place."""
-    defer = caches is not None and x.shape[1] == 1
+    defer = caches is not None and x.shape[1] == 1 and bcfg.kind != "mamba"
     # recompute in backward only where there is a backward (and no tape,
     # which the recomputation would write to a second time)
     remat = remat and caches is None and torch.is_grad_enabled() and not tape_active()
@@ -188,7 +252,7 @@ def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: to
         cl = None if caches is None else {name: t[j] for name, t in caches.items()}
         x, nc = block_apply(bcfg, lp, x, pos=pos, cache=cl, cache_len=cache_len,
                             defer_cache_write=defer, write_index=write_index,
-                            block_tables=block_tables)
+                            block_tables=block_tables, state=state)
         if defer:
             k_slabs.append(nc["k_slab"])
             v_slabs.append(nc["v_slab"])
@@ -206,17 +270,20 @@ def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: to
 def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor, pos: torch.Tensor,
              caches: list | None = None, cache_len: torch.Tensor | None = None,
              compute_dtype=torch.float32, write_index=None,
-             block_tables: torch.Tensor | None = None) -> tuple[torch.Tensor, list | None]:
+             block_tables: torch.Tensor | None = None,
+             state: StateRows | None = None) -> tuple[torch.Tensor, list | None]:
     """Returns (logits (B, S, vocab), caches). The caches are updated in
     place where `write_index` says (attention.cache_write_index, or for paged
-    caches, which also take `block_tables`, attention.paged_write_flat).
-    Without caches this is the training forward over whole sequences."""
+    caches, which also take `block_tables`, attention.paged_write_flat), and
+    mamba state where `state` says. Without caches this is the training
+    forward over whole sequences."""
     x = embed(params["embed"], tokens).to(compute_dtype)
     for i, (_, bcfg) in enumerate(cfg.segments):
         x = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
                        caches=None if caches is None else caches[i],
                        cache_len=cache_len, write_index=write_index,
-                       block_tables=block_tables, remat=cfg.remat, prefix=f"segments/{i}")
+                       block_tables=block_tables, remat=cfg.remat, prefix=f"segments/{i}",
+                       state=state)
     x = rmsnorm(params["final_norm"], x)
     if cfg.lm_head is not None:
         set_tape_prefix("")                     # registry key: bare "lm_head"

@@ -51,7 +51,7 @@ from repro_torch.core.plan import LUTPlan
 from repro_torch.device import resolve_device
 from repro_torch.kernels import autotune
 from repro_torch.serving.engine import lut_kernel_signatures
-from repro_torch.weights import params_from_numpy, params_to_numpy
+from repro_torch.weights import first_layers, params_from_numpy, params_to_numpy
 
 FORMAT = "lut-artifact"
 VERSION = 3
@@ -101,8 +101,8 @@ def _host_leaves(bundle: ModelBundle, params: Any) -> tuple[dict[str, np.ndarray
     """({path: host array}, {path: dtype name}) of the port's params in the
     reference's layer-stacked layout; bfloat16 arrays are uint16 bits."""
     arrays = flatten_tree(params_to_numpy(bundle, params))
-    per_layer = dict(params, segments=[layers[0] for layers in params["segments"]])
-    dtypes = {p: autotune.dtype_name(t.dtype) for p, t in flatten_tree(per_layer).items()}
+    dtypes = {p: autotune.dtype_name(t.dtype)
+              for p, t in flatten_tree(first_layers(params)).items()}
     return arrays, dtypes
 
 

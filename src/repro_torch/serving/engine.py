@@ -14,7 +14,11 @@ scheduler (DESIGN.md §6):
 * The reference merges the new caches row by row with a select
   (`engine.py:415-424`). Here the forward writes the cache in place, and only
   the rows of the slots in that forward (`write_rows`): an idle or padded row
-  never reaches another slot's cache.
+  never reaches another slot's cache. That holds for per-slot recurrent state
+  too (the mamba "conv"/"ssm" leaves of the ssm and hybrid families), at
+  prefill and at decode; each row's state stops at its last valid token
+  (`write_len`), so mamba prompts need not be chunk-aligned, unlike the
+  reference's (its engine.py:40-42; ROADMAP, known reference faults).
 * Every request ends in a terminal status in {ok, timeout, cancelled, shed,
   error}; `run_until_done` raises rather than strand live work.
 
@@ -58,7 +62,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs import ModelBundle
+from repro_torch.configs import ModelBundle, cache_leaves
 from repro_torch.core.amm import Mode
 from repro_torch.device import resolve_device
 from repro_torch.kernels import autotune, measure
@@ -81,11 +85,11 @@ KV_DTYPES = {
 POOL_LEAVES = ("k_pool", "v_pool")
 
 
-def _all_pool_leaves(specs: list) -> bool:
+def _all_pool_leaves(specs) -> bool:
     """True when every cache tensor is a page-pool leaf: the whole cache
     state is position-indexed, which prefix sharing and speculative rollback
     need (per-slot recurrent state cannot be skipped or rewound)."""
-    return all(name in POOL_LEAVES for seg in specs for name in seg)
+    return all(name in POOL_LEAVES for name, _ in cache_leaves(specs))
 
 
 def lut_kernel_signatures(bundle: ModelBundle) -> list[tuple[int, int, int, int]]:
@@ -258,8 +262,12 @@ class ServingEngine:
             paged_spec = PagedSpec(n_pages=n_pages, page_size=page_size)
             # prefix sharing skips prefill chunks, sound only when the whole
             # cache state lives in the pool
-            prefix_sharing = prefix_sharing and _all_pool_leaves(
-                bundle.cache_specs(n_slots, max_seq, dtype=self.kv_dtype, paged=paged_spec))
+            if prefix_sharing and not _all_pool_leaves(
+                    bundle.cache_specs(n_slots, max_seq, dtype=self.kv_dtype, paged=paged_spec)):
+                warnings.warn("prefix sharing disabled: the bundle carries per-slot recurrent "
+                              "state that a skipped prefill chunk would leave uncomputed; paging "
+                              "itself (block tables, copy-on-write, shedding) goes on")
+                prefix_sharing = False
             self.pool = KVPagePool(n_pages, page_size, prefix_sharing=prefix_sharing)
             self.block_tables = np.zeros((n_slots, self.n_tables), np.int32)
             self.slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
@@ -268,8 +276,9 @@ class ServingEngine:
                                          paged=paged_spec)
         if self.paged:
             # bytes of one page over all layers: the kv_bytes_* gauges
-            self._page_bytes = sum(t.numel() * t.element_size() for seg in self.caches
-                                   for name, t in seg.items() if name in POOL_LEAVES) // n_pages
+            self._page_bytes = sum(t.numel() * t.element_size()
+                                   for name, t in cache_leaves(self.caches)
+                                   if name in POOL_LEAVES) // n_pages
         self.cache_len = np.zeros((n_slots,), np.int32)
         self.slots: list[Request | None] = [None] * n_slots
         self.queue: deque[Request] = deque()
@@ -535,9 +544,9 @@ class ServingEngine:
         ids = torch.tensor(self._pending_copies, dtype=torch.long).to(self.device)
         src, dst = ids[:, 0], ids[:, 1]
         self._pending_copies = []
-        for seg in self.caches:
-            for name in POOL_LEAVES:
-                seg[name][:, dst] = seg[name][:, src]      # (L, n_pages, page_size, KV, Dh)
+        for name, t in cache_leaves(self.caches):
+            if name in POOL_LEAVES:
+                t[:, dst] = t[:, src]                     # (L, n_pages, page_size, KV, Dh)
 
     def _prepare_pages(self, rows: list[tuple[int, Request]], n_new) -> list[tuple[int, Request]]:
         """Pages for every row's next write (`n_new(slot, req)` positions),
@@ -593,7 +602,8 @@ class ServingEngine:
         params, dense caches); returns its logits. Only rows with
         write_len > 0 may change the caches: a dense cache takes their whole
         slab (`write_rows`), the paged pool their first write_len positions
-        (the rest land in the garbage page)."""
+        (the rest land in the garbage page), recurrent state their first
+        write_len positions."""
         paged = self.paged and model is None
         bundle, params, caches = model or (self.bundle, self.params, self.caches)
         batch = {
@@ -601,9 +611,9 @@ class ServingEngine:
             # host tensors: the model plans its cache writes on the host
             "cache_len": torch.from_numpy(cache_len.astype(np.int64)),
         }
+        batch["write_len"] = torch.from_numpy(write_len)
         if paged:
             batch["block_tables"] = torch.from_numpy(self.block_tables)
-            batch["write_len"] = torch.from_numpy(write_len)
         else:
             batch["write_rows"] = torch.from_numpy(np.flatnonzero(write_len))
         with torch.inference_mode():

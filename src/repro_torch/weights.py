@@ -1,7 +1,8 @@
 """Carry model params between the reference's layout and the port's.
 
-The JAX package keeps each segment's layers stacked on a leading axis (it
-scans over them); the port keeps a list of per-layer dicts. `params_from_numpy`
+The JAX package keeps each segment's layers (and the hybrid's mamba layers,
+"mamba_stack") stacked on a leading axis (it scans over them); the port
+keeps a list of per-layer dicts. `params_from_numpy`
 takes the reference's param tree with every leaf a numpy array (as
 `jax.tree.map(np.asarray, params)` gives it) or a CPU tensor, unstacks the
 layer axis and places each leaf on `device` with its dtype unchanged: int8
@@ -38,16 +39,42 @@ def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _stack_count(bundle, path: str) -> int:
+    """Layers a stacked reference path is stacked over."""
+    parts = path.split("/")
+    if parts[0] == "mamba_stack":
+        return bundle.cfg.n_layers
+    return bundle.cfg.segments[int(parts[1])][0]
+
+
+def _check_segments(bundle, tree: dict[str, Any]) -> None:
+    if len(tree["segments"]) != len(bundle.cfg.segments):
+        raise ValueError(f"tree has {len(tree['segments'])} segments, the bundle "
+                         f"{len(bundle.cfg.segments)}")
+
+
+def _check_layers(bundle, params: dict[str, Any]) -> None:
+    """The port's per-layer lists against the bundle's layer counts."""
+    if bundle.kind == "hybrid":
+        got = [(len(params["mamba_stack"]), bundle.cfg.n_layers)]
+    else:
+        _check_segments(bundle, params)
+        got = [(len(layers), count) for layers, (count, _) in zip(params["segments"],
+                                                                  bundle.cfg.segments)]
+    for have, want in got:
+        if have != want:
+            raise ValueError(f"a layer stack has {have} layers, the bundle {want}")
+
+
 def params_from_numpy(bundle, tree: dict[str, Any], *,
                       device: str | torch.device | None = None) -> dict[str, Any]:
     """The reference param tree of `bundle` (numpy leaves) -> the port's params."""
-    segs = tree["segments"]
-    if len(segs) != len(bundle.cfg.segments):
-        raise ValueError(f"tree has {len(segs)} segments, the bundle {len(bundle.cfg.segments)}")
+    if bundle.kind != "hybrid":
+        _check_segments(bundle, tree)
     flat = flatten_tree(tree)
     for path, a in flat.items():
         if is_stacked(path) and tuple(a.shape) != (0,):
-            count = bundle.cfg.segments[int(path.split("/")[1])][0]
+            count = _stack_count(bundle, path)
             if a.shape[0] != count:
                 raise ValueError(f"{path} of shape {tuple(a.shape)} is not stacked over "
                                  f"{count} layers")
@@ -67,9 +94,7 @@ def params_to_numpy(bundle, params: dict[str, Any]) -> dict[str, Any]:
     """The port's params -> the reference's param tree of `bundle`: each
     segment's per-layer dicts stacked on a leading axis, every leaf a numpy
     array (bfloat16 as uint16 bit patterns, see `tensor_to_numpy`)."""
-    for layers, (count, _) in zip(params["segments"], bundle.cfg.segments):
-        if len(layers) != count:
-            raise ValueError(f"segment has {len(layers)} layers, the bundle {count}")
+    _check_layers(bundle, params)
     return unflatten_tree(reference_arrays(params))
 
 
@@ -99,17 +124,23 @@ def tree_map_ref(fn: Callable, tree: Any, *rest: Any, _path: str = "") -> Any:
         return type(tree)(*(tree_map_ref(fn, getattr(tree, f), *(getattr(r, f) for r in rest),
                                          _path=_join(_path, "." + f)) for f in tree._fields))
     if type(tree) in (list, tuple):
-        if _path.rsplit("/", 1)[-1] == "segments" and tree and type(tree[0]) is list:
+        last = _path.rsplit("/", 1)[-1]
+        if last == "segments" and tree and type(tree[0]) is list:
             return [[tree_map_ref(fn, layer, *(r[i][j] for r in rest), _path=_join(_path, str(i)))
                      for j, layer in enumerate(layers)] for i, layers in enumerate(tree)]
+        if last == "mamba_stack":
+            return [tree_map_ref(fn, layer, *(r[j] for r in rest), _path=_path)
+                    for j, layer in enumerate(tree)]
         return [tree_map_ref(fn, v, *(r[i] for r in rest), _path=_join(_path, str(i)))
                 for i, v in enumerate(tree)]
     return fn(_path, tree, *rest)
 
 
 def is_stacked(path: str) -> bool:
-    """Whether a reference path names a leaf stacked over a segment's layers."""
-    return "segments" in path.split("/")
+    """Whether a reference path names a leaf stacked over layers (a segment's,
+    or the hybrid's mamba stack)."""
+    parts = path.split("/")
+    return "segments" in parts or parts[0] == "mamba_stack"
 
 
 def reference_leaves(tree: Any) -> dict[str, list]:
@@ -164,6 +195,17 @@ def layer_specs(bundle) -> dict[str, Any]:
         return type(tree)(tuple(tree.shape[1:]), tree.dtype)
 
     specs = dict(bundle.param_specs())
-    specs["segments"] = [[strip(seg)] * count
-                         for seg, (count, _) in zip(specs["segments"], bundle.cfg.segments)]
+    if bundle.kind == "hybrid":
+        specs["mamba_stack"] = [strip(specs["mamba_stack"])] * bundle.cfg.n_layers
+    else:
+        specs["segments"] = [[strip(seg)] * count
+                             for seg, (count, _) in zip(specs["segments"], bundle.cfg.segments)]
     return specs
+
+
+def first_layers(params: dict[str, Any]) -> dict[str, Any]:
+    """The tree with each layer stack replaced by its first layer: the
+    reference's paths, with one layer's leaves (their dtypes, say)."""
+    if "mamba_stack" in params:
+        return dict(params, mamba_stack=params["mamba_stack"][0])
+    return dict(params, segments=[layers[0] for layers in params["segments"]])

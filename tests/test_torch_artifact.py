@@ -51,23 +51,51 @@ def _assert_same_leaves(port_art, ref_params):
         assert got[k].tobytes() == want[k].tobytes(), k
 
 
-@pytest.mark.parametrize("arch_id", ["qwen3_1p7b", "llama3_8b"])
+# every arch the port builds: the dense family, moe, ssm and hybrid
+ARCHS = ["qwen3_1p7b", "llama3_8b", "bert_base", "command_r_35b", "minitron_8b",
+         "mamba2_370m", "zamba2_1p2b", "arctic_480b", "llama4_maverick_400b"]
+EXPERT_KINDS = ("moe/gate", "moe/up", "moe/down")
+
+
+def _site_params(bundle, params, spec):
+    """A site's param dict in the port's layout, from its registry entry."""
+    parts = spec.path.split("/")
+    if parts[0] == "segments":
+        node, rest = params["segments"][int(parts[1])][spec.stack_index], parts[2:]
+    elif parts[0] == "mamba_stack":
+        node, rest = params["mamba_stack"][spec.stack_index], parts[1:]
+    else:
+        node, rest = params, parts
+    for part in rest:
+        node = node[part]
+    return node
+
+
+@pytest.mark.parametrize("arch_id", ARCHS)
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
 def test_reference_artifact_loads_byte_equal(tmp_path, arch_id, param_dtype):
     bundle, params = _ref_bundle(arch_id, param_dtype)
     jart.save_artifact(tmp_path / "art", bundle, params)
     art = artifact.load_artifact(tmp_path / "art", device="cpu")
     assert art.arch_name == arch_id and art.plan_names == ["target"]
-    assert art.bundle.mode.value == "lut_infer" and art.bundle.kind == "lm"
+    assert art.bundle.mode.value == "lut_infer" and art.bundle.kind == bundle.kind
     # the m-shared kernel layout really is what the reference deployed
-    site = art.params["segments"][1][0]["mlp"]["down"]
+    spec = [s for s in art.bundle.lut_sites() if s.kind not in EXPERT_KINDS][-1]
+    site = _site_params(art.bundle, art.params, spec)
     assert site["table_q"].dtype == torch.int8 and site["table_scale"].shape[0] == 1
+    for spec in art.bundle.lut_sites():
+        if spec.kind in EXPERT_KINDS:
+            # per-expert int8 tables over the layer's shared codebooks
+            site = _site_params(art.bundle, art.params, spec)
+            assert site["table_q"].shape[0] == art.bundle.arch.n_experts
+            assert site["table_scale"].shape == (art.bundle.arch.n_experts, 1, 1, spec.d_out)
     _assert_same_leaves(art, jart.load_artifact(tmp_path / "art").params)
 
 
+@pytest.mark.parametrize("arch_id", ARCHS)
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
-def test_port_artifact_loads_in_reference_byte_equal(tmp_path, param_dtype):
-    bundle, params = _ref_bundle("qwen3_1p7b", param_dtype, n_layers=3)
+def test_port_artifact_loads_in_reference_byte_equal(tmp_path, param_dtype, arch_id):
+    bundle, params = _ref_bundle(arch_id, param_dtype, n_layers=3)
     jart.save_artifact(tmp_path / "ref", bundle, params)
     art = artifact.load_artifact(tmp_path / "ref", device="cpu")
     artifact.save_artifact(tmp_path / "port", art.bundle, art.params)

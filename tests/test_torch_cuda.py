@@ -400,3 +400,39 @@ def test_lut_train_step_on_the_card_matches_the_cpu(dev):
                                                          batch=4).batch_at(0),
                                 dev, opt, tie_eps=TIE_EPS)
     assert res["failures"] == [] and res["grad_leaves"] > 0 and res["updated"] > 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_1p2b", "arctic_480b"])
+def test_family_engine_through_kernels_matches_plain(dev, arch, tmp_path, monkeypatch):
+    """One reduced model per family (ssm, hybrid, moe) served on the card:
+    every LUT site through the kernels (launched, no plain version called)
+    gives the tokens of the same engine over the plain versions; prompts of
+    one chunk, two chunks and a ragged one, three requests on two slots."""
+    from repro_torch import configs as tcfg
+    from repro_torch.serving.engine import ServingEngine
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE_MEASURE", raising=False)
+    arch_spec = tcfg.reduce_arch(tcfg.get_arch(arch), n_layers=5 if arch == "zamba2_1p2b" else 2,
+                                 lut_use_kernel=True)
+    bundle = tcfg.build_model(arch_spec, "lut_infer")
+    params = bundle.init(torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, arch_spec.vocab, (n,), generator=gen).tolist() for n in (8, 16, 5)]
+
+    def serve():
+        eng = ServingEngine(bundle, params, n_slots=2, max_seq=32, prefill_chunk=8, device=dev)
+        for p in prompts:
+            eng.submit(p, max_tokens=6)
+        done = sorted(eng.run_until_done(), key=lambda r: r.rid)
+        assert all(r.status == "ok" for r in done)
+        return [r.out_tokens for r in done]
+
+    counters.reset()
+    got = serve()
+    launched = counters.launches()
+    assert counters.plain_calls() == 0
+    assert launched["fused_decode"] + launched["lut_amm_v2"] + launched["lut_amm_v1"] > 0
+    monkeypatch.setattr(ops, "lut_amm", lambda x, c, q, s, *, bias=None, act="none", **_:
+                        ref.lut_amm_v2_plain(x, c, q, s, bias=bias, act=act))
+    assert serve() == got
