@@ -106,6 +106,24 @@ Phases (any failed check exits non-zero; no phase is skipped):
      site signature timed (kernel, plain version, bound); on the two
      recurrent families, speculative decoding and prefix sharing must turn
      off with their warnings.
+  9. the enc-dec and vision-LM families at full published width and depth,
+     each exported as an artifact and loaded, driven by
+     `ModelBundle.forward_step` (ServingEngine refuses both, naming why:
+     checked) after the measured warm-up at the phase's token counts:
+     whisper_tiny (4 + 4 layers, 1500 frames) on ROWS9 rows of seeded stub
+     frames, a WHISPER_PROMPT-token prefill with them (encoder and cross
+     K/V at N = 6000), then GREEDY_STEPS greedy decode steps, on dense
+     caches and on paged ones; qwen2_vl_7b (28 layers) on ROWS9 rows of a
+     VLM_GRID of seeded patch embeddings and VLM_TEXT text tokens'
+     embedding rows, then greedy steps each fed back as its embedding row,
+     and a no-cache forward with the grid's distinct (t, h, w) M-RoPE
+     streams. Each through the plain versions, then through the kernels
+     with the counts set to 0 before and read after (tokens equal except
+     after a near-tie of the plain run's logits; no plain version called);
+     each LUT site's first launch at every N held against the plain lookup
+     of the encode kernel's codes; prefill and decode forward times, a
+     profiled decode forward's device-busy share, peak memory, each site
+     signature timed (kernel, plain version, bound).
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -975,6 +993,19 @@ def phase_serve(dev, scratch: Path) -> dict:
     return {"launches": total, "served": served, "art": art, "engine": eng, "profile": profile}
 
 
+def device_times(prof) -> dict[str, float]:
+    """Device time (us) of a torch.profiler window by LUT kernel, the rest
+    under "other"."""
+    by_kernel: dict[str, float] = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if t > 0:
+            key = next((k for k in ("fused_decode", "lut_amm_v2", "lut_amm_v1", "encode")
+                        if f"{k}_kernel" in e.key), "other")
+            by_kernel[key] = by_kernel.get(key, 0.0) + t
+    return by_kernel
+
+
 def profile_decode(eng, vocab: int, gen: torch.Generator, n_steps: int = 8) -> tuple[float, float]:
     """Where a decode forward's time goes: torch.profiler's device kernel time
     over a few decode steps of full slots, against their wall time. Returns
@@ -993,13 +1024,7 @@ def profile_decode(eng, vocab: int, gen: torch.Generator, n_steps: int = 8) -> t
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     eng.abort_all("cancelled")
-    by_kernel: dict[str, float] = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0)
-        if t > 0:
-            key = next((k for k in ("fused_decode", "lut_amm_v2", "lut_amm_v1", "encode")
-                        if f"{k}_kernel" in e.key), "other")
-            by_kernel[key] = by_kernel.get(key, 0.0) + t
+    by_kernel = device_times(prof)
     busy = sum(by_kernel.values())
     kind = "paged" if eng.paged else "dense"
     log(f"[profile] {n_steps} decode steps (n_slots={eng.n_slots}, {kind} cache): wall "
@@ -1781,13 +1806,15 @@ def hold_sites(label: str, calls: list) -> dict:
     distances of the two choices within TIE_EPS of the expansion's terms.
     (A trained site's input lies close to its centroid, so a distance can
     be far below the terms it is summed from, whose rounding decides a
-    tie.) Returns the counts and the largest error."""
+    tie.) Returns the counts, the largest error, and per call the rows
+    whose codes differ from the plain encode's ("off_rows")."""
     from repro_torch.core import pq
     from repro_torch.kernels import dist_argmin as enc_mod
     from repro_torch.kernels import ref
 
     out = {"sites": len(calls), "rows": 0, "codes": 0, "codes_off": 0, "rows_off": 0,
-           "worst_tie": 0.0, "worst_code": (0.0, 0.0, 0.0), "err": 0.0, "kernels": {}}
+           "worst_tie": 0.0, "worst_code": (0.0, 0.0, 0.0), "err": 0.0, "kernels": {},
+           "off_rows": []}
     for i, (kernel, x, c, q, s, bias, act, got) in enumerate(calls):
         name = (f"{label} site call {i} ({'/'.join(kernel)}, N={x.shape[0]}, M={q.shape[-1]}, "
                 f"C={c.shape[0]})")
@@ -1819,6 +1846,7 @@ def hold_sites(label: str, calls: list) -> dict:
         out["rows"] += x.shape[0]
         out["codes"] += codes.numel()
         out["rows_off"] += int(off.any(dim=1).sum())
+        out["off_rows"].append(off.any(dim=1).nonzero().flatten().tolist())
         if off.any():
             n_idx, c_idx = off.nonzero(as_tuple=True)
             a = pq.split_subvectors(x.double(), c.shape[-1])[n_idx, c_idx]     # (F, V)
@@ -2340,6 +2368,378 @@ def phase_families(dev, scratch: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the enc-dec and vision-LM families at full width
+# ---------------------------------------------------------------------------
+
+ROWS9 = 4                # batch rows of phase 9's forwards
+WHISPER_PROMPT = 8       # decoder tokens of whisper's prefill, beside its frames
+VLM_GRID = (4, 8)        # qwen2_vl's prefill: a 4 x 8 grid of patch embeddings ...
+VLM_TEXT = 8             # ... then 8 text tokens' embedding rows
+GREEDY_STEPS = 16        # greedy decode steps after each prefill
+MAX_SEQ9 = 64            # cache positions per row (4 pages of 16 in the paged run)
+
+
+def greedy_forwards(bundle, params, batch: dict, caches, feed, *,
+                    record: list | None = None) -> dict:
+    """`batch` (a prefill) through `ModelBundle.forward_step`, then
+    GREEDY_STEPS greedy decode steps, each next input `feed(tokens (B, 1))`.
+    Each forward is timed with the card synchronized around it; `record`
+    collects each forward's LUT-site calls (`SiteCalls`), one list per
+    forward. Returns the tokens (B, 1 + steps), the top-2 logit gap of each,
+    and the seconds of the prefill and of each decode forward."""
+    toks, gaps, secs = [], [], []
+    cache_len = batch["cache_len"]
+    with torch.inference_mode():
+        for i in range(1 + GREEDY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if record is not None:
+                with SiteCalls() as rec:
+                    logits, caches = bundle.forward_step(params, batch, caches)
+                record.append(rec.calls)
+            else:
+                logits, caches = bundle.forward_step(params, batch, caches)
+            last = logits[:, -1].float()
+            top2 = last.topk(2, dim=-1).values
+            nxt = last.argmax(-1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all()) and logits.shape[-1] == bundle.arch.vocab,
+                  f"{bundle.arch.name}: forward {i} gave non-finite or misshapen logits")
+            toks.append(nxt.cpu())
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+            cache_len = cache_len + logits.shape[1]
+            batch = {**{k: v for k, v in batch.items() if k == "block_tables"},
+                     "cache_len": cache_len, **feed(nxt[:, None])}
+    return {"tokens": torch.stack(toks, 1), "gaps": torch.stack(gaps, 1), "prefill_s": secs[0],
+            "decode_s": secs[1:], "caches": caches, "last": batch}
+
+
+def held_forwards(label: str, per_forward: list[list]) -> tuple[dict, dict[int, int]]:
+    """Every LUT-site call of a kernel run's forwards (`greedy_forwards`'
+    record) held against the plain versions (`hold_sites`). Returns the
+    counts and, for each batch row with a code the kernels picked otherwise
+    than the plain encode (each at a tie of the fp32 expansion), the first
+    forward that did: from there on the row's values, and its tokens, may
+    leave the plain run's (a code picks a table row of its own, so one
+    flip moves a site's output by a table entry, not by a rounding)."""
+    calls = [c for fwd in per_forward for c in fwd]
+    held = hold_sites(label, calls)
+    taint: dict[int, int] = {}
+    k = 0
+    for i, fwd in enumerate(per_forward):
+        for _, x, *_ in fwd:
+            per_row = x.shape[0] // ROWS9
+            for n in held["off_rows"][k]:
+                taint[n // per_row] = min(taint.get(n // per_row, i), i)
+            k += 1
+    return held, taint
+
+
+def compare_greedy(label: str, got: dict, want: dict, taint: dict[int, int]) -> int:
+    """Each row's greedy tokens against the plain run's: equal, or equal up
+    to a first difference where the plain run's top-2 logit gap is a
+    near-tie, or at or after the forward where the kernels picked a code at
+    a tie in that row (`held_forwards`); the rest follows another token and
+    is not compared. Returns the number of such differences."""
+    ties = 0
+    for r in range(got["tokens"].shape[0]):
+        diff = (got["tokens"][r] != want["tokens"][r]).nonzero()
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        gap = float(want["gaps"][r, j])
+        why = (f"a code picked at a tie in forward {taint[r]}" if taint.get(r, j + 1) <= j
+               else f"a near-tie (top-2 gap {gap:.3g})")
+        check(gap <= TOKEN_TIE or taint.get(r, j + 1) <= j,
+              f"{label}: row {r} differs from the plain run at token {j}, where its top-2 gap "
+              f"is {gap:.3g} (tie bound {TOKEN_TIE}) and no code of the row was picked at a tie")
+        log(f"  {label}: row {r} differs from the plain run from token {j} on, after {why}")
+        ties += 1
+    return ties
+
+
+def kernel_run(label: str, bundle, counts: list[int], dev, fn):
+    """fn() through the kernels, the launch counts set to 0 just before and
+    read just after: every kernel the records choose at these token counts
+    launched, no plain version called. Returns (fn's result, launches)."""
+    from repro_torch.kernels import counters
+    from repro_torch.launch.serve import chosen_versions
+
+    counters.reset()
+    out = fn()
+    launches, plain = counters.launches(), counters.plain_calls()
+    chosen = {KERNEL_OF_VERSION[ver] for vers in chosen_versions(bundle, counts, "float32",
+                                                                 dev).values() for ver in vers}
+    check(plain == 0, f"{label}: a plain version ran on the card ({plain} calls)")
+    check(all(launches[k] > 0 for k in chosen), f"{label}: the records choose {sorted(chosen)} "
+                                                f"at N={counts}; launched {launches}")
+    return out, launches
+
+
+def profile_forward(fn, n_steps: int = 8) -> tuple[float, float, dict]:
+    """(wall us, device-busy us, device us by kernel) per call of fn, over
+    n_steps calls under torch.profiler after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+    by_kernel = device_times(prof)
+    return wall / n_steps, sum(by_kernel.values()) / n_steps, \
+        {k: v / n_steps for k, v in by_kernel.items()}
+
+
+def family_model(name: str, dev, scratch: Path):
+    """(bundle, params, param bytes, build seconds) of `name` at full
+    published width and depth, LUT_INFER through the kernels: built on the
+    card from a seed, exported as an artifact and loaded back."""
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.serving import artifact
+
+    t0 = time.perf_counter()
+    arch = dataclasses.replace(get_arch(name), lut_use_kernel=True)
+    bundle = build_model(arch, Mode.LUT_INFER)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SEED + 30), device=dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    path = artifact.save_artifact(scratch / name, bundle, params)
+    del params
+    art = artifact.load_artifact(path, device=dev)
+    shutil.rmtree(path)
+    log(f"[encdec/vlm] {name}: {art.bundle.kind}, {arch.n_layers} layers"
+        + (f" + {arch.n_enc_layers} encoder layers over {arch.enc_frames} frames"
+           if arch.n_enc_layers else "")
+        + f", d_model {arch.d_model}, vocab {arch.vocab}, {len(art.bundle.lut_sites())} LUT "
+          f"sites, {n_bytes / 1e9:.2f} GB of params, exported as an artifact and loaded in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return art.bundle, art.params, n_bytes
+
+
+def tune_family(label: str, bundle, counts: list[int], dev) -> dict:
+    """The measured warm-up at the phase's token counts (`warm_lut_autotune`,
+    and the encode records), each record checked measured; logs the
+    version per site signature."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.serve import chosen_versions
+    from repro_torch.serving.engine import warm_lut_autotune
+
+    t0 = time.perf_counter()
+    tuned = warm_lut_autotune(bundle, counts, device=dev)
+    n_enc = tune_encode_records(bundle, counts, dev)
+    versions = chosen_versions(bundle, counts, "float32", dev)
+    for sig in versions:
+        for n in counts:
+            rec = autotune.get_cache().get(autotune.shape_key("lut_amm", n, *sig, "float32",
+                                                              autotune.BACKEND_CUDA))
+            check(rec is not None and rec["measured"], f"{label}: no measured record at N={n} "
+                                                       f"{sig}")
+    log(f"[encdec/vlm] {label}: measured warm-up {time.perf_counter() - t0:.1f}s ({tuned} "
+        f"lut_amm and {n_enc} encode shapes); version per site (M, C, K, V) at N={counts}: "
+        + ", ".join(f"{sig}: {vs}" for sig, vs in versions.items()))
+    return {str(k): v for k, v in versions.items()}
+
+
+def check_refused(label: str, bundle, params, dev, reason: str) -> None:
+    """ServingEngine refuses the family at construction, naming why."""
+    from repro_torch.serving.engine import ServingEngine
+
+    try:
+        ServingEngine(bundle, params, device=dev, autotune_lut=False)
+    except ValueError as e:
+        check(reason in str(e), f"{label}: the engine refused with {e}")
+        log(f"[encdec/vlm] {label}: ServingEngine refuses it: {e}")
+        return
+    check(False, f"{label}: ServingEngine did not refuse it")
+
+
+def report_family(label: str, bundle, held: dict, want: dict, got: dict, launches: dict,
+                  ties: int, dev, counts: list[int]) -> dict:
+    """Log the held first site calls, the forwards' times and a profiled
+    decode forward; time the new site signatures. Returns the numbers."""
+    log(f"[encdec/vlm] {label}: every LUT-site call of the kernel run (each site's first "
+        f"launch at N={counts} among them; {held['sites']} calls, {held['kernels']}) equal to "
+        f"the plain lookup of the encode kernel's codes (max abs err {held['err']:.3g}); "
+        f"{held['codes_off']} of {held['codes']} codes differ from the plain encode's, on "
+        f"{held['rows_off']} rows, each a tie of the fp32 expansion (at most "
+        f"{held['worst_tie']:.3g} of its terms)")
+    dec_ms = 1e3 * sum(got["decode_s"]) / len(got["decode_s"])
+    last = got["last"]
+    wall, busy, by_kernel = profile_forward(
+        lambda: bundle.forward_step(got["params"], last, got["caches"]))
+    log(f"[encdec/vlm] {label}: prefill forward {1e3 * got['prefill_s']:.1f} ms (plain versions "
+        f"{1e3 * want['prefill_s']:.1f}), decode forward {dec_ms:.2f} ms mean over "
+        f"{len(got['decode_s'])} (plain {1e3 * sum(want['decode_s']) / len(want['decode_s']):.2f})"
+        f"; launches " + " ".join(f"{k}={v}" for k, v in launches.items())
+        + f"; tokens equal the plain run's except {ties} near-tie difference(s); profiled decode "
+          f"forward {wall:.0f} us wall, device busy {busy:.0f} us ({100 * busy / wall:.1f}%: "
+        + ", ".join(f"{k} {v:.0f} us" for k, v in sorted(by_kernel.items())) + ")")
+    sigs = time_signatures(label, bundle, counts, dev)
+    return {"launches": launches, "ties": ties, "prefill_ms": 1e3 * got["prefill_s"],
+            "decode_ms": dec_ms, "busy_share": busy / wall, "step_wall_us": wall,
+            "step_busy_us": busy, "site_calls_held": held["sites"], "sigs": sigs}
+
+
+def phase9_whisper(dev, scratch: Path) -> dict:
+    """whisper_tiny at full width and depth: 4 rows of stub frames, an
+    8-token prefill with them (the encoder and cross K/V at N = 6000), 16
+    greedy decode steps, through the plain versions and the kernels on
+    dense caches, then the kernels on paged caches."""
+    from repro_torch.models.attention import PagedSpec
+
+    bundle, params, n_bytes = family_model("whisper_tiny", dev, scratch)
+    arch = bundle.arch
+    check_refused("whisper_tiny", bundle, params, dev, "could not run the encoder")
+    counts = [ROWS9, ROWS9 * WHISPER_PROMPT, ROWS9 * arch.enc_frames]
+    versions = tune_family("whisper_tiny", bundle, counts, dev)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    frames = torch.randn(ROWS9, arch.enc_frames, arch.d_model, generator=gen).to(dev)
+    prompt = torch.randint(0, arch.vocab, (ROWS9, WHISPER_PROMPT), generator=gen,
+                           dtype=torch.int32).to(dev)
+    n_tables = MAX_SEQ9 // 16
+
+    def run(paged: bool, record: list | None = None) -> dict:
+        spec = PagedSpec(n_pages=ROWS9 * n_tables + 1, page_size=16) if paged else None
+        caches = bundle.init_caches(ROWS9, MAX_SEQ9, dtype=torch.float32, device=dev,
+                                    paged=spec)
+        batch = {"tokens": prompt, "cache_len": torch.zeros(ROWS9, dtype=torch.long),
+                 "frames": frames}
+        if paged:
+            batch["block_tables"] = torch.arange(1, 1 + ROWS9 * n_tables).view(ROWS9, n_tables)
+        out = greedy_forwards(bundle, params, batch, caches,
+                              lambda t: {"tokens": t.to(torch.int32)}, record=record)
+        return dict(out, params=params)
+
+    with PlainLUT():
+        want = run(False)
+    per_forward: list = []
+    recorded = run(False, per_forward)
+    held, taint = held_forwards("whisper_tiny", per_forward)
+    lut = bundle.lut_sites()
+    n_decode = sum(s.path.startswith("decoder/") and s.kind not in ("cross/k", "cross/v")
+                   for s in lut)
+    check([len(f) for f in per_forward] == [len(lut)] + [n_decode] * GREEDY_STEPS,
+          f"whisper_tiny: site calls per forward {[len(f) for f in per_forward]}, expected "
+          f"{len(lut)} then {n_decode}")
+    check(per_forward[0][0][1].shape[0] == counts[-1], "whisper_tiny: the encoder's first site "
+                                                       "did not run at N=6000")
+    del per_forward
+    ties = compare_greedy("whisper_tiny dense", recorded, want, taint)
+    # the path, timed without the recording: the recorded run's tokens; and
+    # paged, whose gather reads the dense layout back, so the same values
+    got, launches = kernel_run("whisper_tiny", bundle, counts, dev, lambda: run(False))
+    paged, launches_p = kernel_run("whisper_tiny paged", bundle, counts, dev, lambda: run(True))
+    check(torch.equal(got["tokens"], recorded["tokens"]) and
+          torch.equal(paged["tokens"], recorded["tokens"]),
+          "whisper_tiny: the dense or paged kernel run's tokens differ from the recorded run's")
+    log(f"[encdec/vlm] whisper_tiny paged: launches "
+        + " ".join(f"{k}={v}" for k, v in launches_p.items())
+        + "; tokens equal the dense kernel run's")
+    res = report_family("whisper_tiny", bundle, held, want, got, launches, ties, dev,
+                        counts)
+    return dict(res, versions=versions, param_bytes=n_bytes, paged_launches=launches_p)
+
+
+def phase9_vlm(dev, scratch: Path) -> dict:
+    """qwen2_vl_7b at full width and all 28 layers: 4 rows of 32 patch
+    embeddings and 8 text tokens' embedding rows as the prefill, 16 greedy
+    decode steps fed back as embedding rows, through the plain versions and
+    the kernels; then a no-cache forward with the grid's distinct (t, h, w)
+    M-RoPE streams, through both."""
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.testing import grid_positions
+
+    bundle, params, n_bytes = family_model("qwen2_vl_7b", dev, scratch)
+    arch = bundle.arch
+    check_refused("qwen2_vl_7b", bundle, params, dev, "could not give this model the embeddings")
+    n_patch = VLM_GRID[0] * VLM_GRID[1]
+    counts = [ROWS9, ROWS9 * (n_patch + VLM_TEXT)]
+    versions = tune_family("qwen2_vl_7b", bundle, counts, dev)
+    table = params["embed"]["table"]
+    gen = torch.Generator().manual_seed(SEED + 32)
+    patches = torch.randn(ROWS9, n_patch, arch.d_model, generator=gen) * 0.02
+    text = torch.randint(0, arch.vocab, (ROWS9, VLM_TEXT), generator=gen)
+    embeds = torch.cat([patches.to(dev), table[text.to(dev)]], dim=1)
+
+    def run(record: list | None = None) -> dict:
+        caches = bundle.init_caches(ROWS9, MAX_SEQ9, dtype=torch.float32, device=dev)
+        batch = {"embeds": embeds, "cache_len": torch.zeros(ROWS9, dtype=torch.long)}
+        out = greedy_forwards(bundle, params, batch, caches, lambda t: {"embeds": table[t]},
+                              record=record)
+        return dict(out, params=params)
+
+    with PlainLUT():
+        want = run()
+    per_forward: list = []
+    recorded = run(per_forward)
+    held, taint = held_forwards("qwen2_vl_7b", per_forward)
+    check([len(f) for f in per_forward] == [len(bundle.lut_sites())] * (1 + GREEDY_STEPS),
+          f"qwen2_vl_7b: site calls per forward {[len(f) for f in per_forward]}, expected "
+          f"{len(bundle.lut_sites())}")
+    del per_forward
+    ties = compare_greedy("qwen2_vl_7b", recorded, want, taint)
+    # the path, timed without the recording: the recorded run's tokens
+    got, launches = kernel_run("qwen2_vl_7b", bundle, counts, dev, run)
+    check(torch.equal(got["tokens"], recorded["tokens"]),
+          "qwen2_vl_7b: the kernel run's tokens differ from the recorded run's")
+    del recorded
+    res = report_family("qwen2_vl_7b", bundle, held, want, got, launches, ties, dev, counts)
+    del got, want
+
+    # M-RoPE at work: the grid's (t, h, w) streams against the serving
+    # positions (one stream, where M-RoPE is RoPE)
+    pos3 = torch.from_numpy(grid_positions(ROWS9, VLM_TEXT, *VLM_GRID)).to(dev)
+    flat = torch.arange(n_patch + VLM_TEXT, device=dev)[None].expand(ROWS9, -1)
+    with torch.inference_mode():
+        with SiteCalls() as rec:
+            grid, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds, pos=pos3)
+        with PlainLUT():
+            grid_plain, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds, pos=pos3)
+        serving, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds,
+                                     pos=flat[None].expand(3, -1, -1))
+    held_grid = hold_sites("qwen2_vl_7b grid", rec.calls)
+    err = (grid - grid_plain).abs().max().item()
+    moved = (grid - serving).abs().max().item()
+    check(bool(torch.isfinite(grid).all()), "qwen2_vl_7b grid: non-finite logits")
+    check(held_grid["codes_off"] > 0 or err <= LOGIT_ATOL,
+          f"qwen2_vl_7b grid: kernel and plain logits differ by {err:.3g} with every code equal")
+    check(moved > LOGIT_ATOL, f"qwen2_vl_7b grid: the (t, h, w) streams moved the logits by only "
+                              f"{moved:.3g}")
+    log(f"[encdec/vlm] qwen2_vl_7b: no-cache forward over a {VLM_GRID[0]} x {VLM_GRID[1]} patch "
+        f"grid + {VLM_TEXT} text positions in distinct (t, h, w) streams: kernels vs plain "
+        f"versions max logit err {err:.3g} ({held_grid['sites']} site calls held, "
+        f"{held_grid['codes_off']} codes off at ties); the streams move the logits by "
+        f"{moved:.3g} against the serving positions")
+    return dict(res, versions=versions, param_bytes=n_bytes, grid_err=err)
+
+
+def phase_encdec_vlm(dev, scratch: Path) -> dict:
+    """Phase 9: whisper_tiny and qwen2_vl_7b at full width and depth through
+    artifacts, driven by `ModelBundle.forward_step` (the engine refuses both
+    families: it feeds token ids only)."""
+    import gc
+
+    out = {}
+    for name, fn in (("whisper_tiny", phase9_whisper), ("qwen2_vl_7b", phase9_vlm)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)        # what the earlier phases left
+        res = fn(dev, scratch)
+        res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        log(f"[encdec/vlm] {name}: peak device memory {res['peak_gib']:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB the earlier phases left allocated")
+        out[name] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2390,6 +2790,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(8, phase_families, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(9, phase_encdec_vlm, dev, scratch)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

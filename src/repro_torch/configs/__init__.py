@@ -3,12 +3,12 @@
 Counterpart of `repro.configs`: each `configs/<id>.py` defines `ARCH:
 ArchSpec` with the published dims, and `build_model(arch, mode)` assembles
 the model with every linear site resolved to dense or LUT by the arch's
-replacement plan. Ported: the dense family (qwen3_1p7b, llama3_8b,
-minitron_8b, command_r_35b, and the paper's bert_base), moe (arctic_480b,
-llama4_maverick_400b), ssm (mamba2_370m) and hybrid (zamba2_1p2b). The
-enc-dec (whisper_tiny) and vision (qwen2_vl_7b: M-RoPE, embedding inputs)
-archs raise NotImplementedError: they are the next slice (ROADMAP Queue A
-item 3).
+replacement plan. Every arch of the reference: the dense family
+(qwen3_1p7b, llama3_8b, minitron_8b, command_r_35b, and the paper's
+bert_base), moe (arctic_480b, llama4_maverick_400b), ssm (mamba2_370m),
+hybrid (zamba2_1p2b), the audio enc-dec (whisper_tiny: stub frames, encoder,
+cross-attention; bundle kind "encdec") and the vision-LM backbone
+(qwen2_vl_7b: M-RoPE over embedding inputs; kind "lm").
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from repro_torch.core.plan import (  # noqa: F401  (re-exported: the plan API su
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
@@ -99,7 +100,7 @@ class ArchSpec:
         return self.ssm_expand * self.d_model
 
 
-# the reference's ARCH_IDS, in its order, less the two of the next slice
+# the reference's ARCH_IDS, in its order
 ARCH_IDS = (
     "mamba2_370m",
     "llama3_8b",
@@ -108,17 +109,14 @@ ARCH_IDS = (
     "command_r_35b",
     "llama4_maverick_400b",
     "arctic_480b",
+    "qwen2_vl_7b",
+    "whisper_tiny",
     "zamba2_1p2b",
 )
 EXTRA_IDS = ("bert_base",)           # the paper's own model
-NEXT_SLICE = ("qwen2_vl_7b", "whisper_tiny")
-_NEXT_SLICE_MSG = ("is not ported yet: the enc-dec model (whisper_tiny) and M-RoPE with "
-                   "embedding inputs (qwen2_vl_7b) are the next slice, ROADMAP Queue A item 3")
 
 
 def get_arch(name: str) -> ArchSpec:
-    if name in NEXT_SLICE:
-        raise NotImplementedError(f"arch {name!r} {_NEXT_SLICE_MSG}")
     if name not in ARCH_IDS + EXTRA_IDS:
         raise ValueError(f"unknown arch {name!r} (known: {ARCH_IDS + EXTRA_IDS})")
     return importlib.import_module(f"repro_torch.configs.{name}").ARCH
@@ -250,19 +248,21 @@ class _PlanResolver:
                                      mode=mode, lut=cfg)
 
 
-def _attn_cfg(res: _PlanResolver, *, layer: int | None = None) -> attn_mod.AttnCfg:
+def _attn_cfg(res: _PlanResolver, *, layer: int | None = None, causal: bool | None = None,
+              cross: bool = False, prefix: str = "attn") -> attn_mod.AttnCfg:
     arch = res.arch
     d, h, kv, dh = arch.d_model, arch.n_heads, arch.n_kv_heads, arch.d_head
     return attn_mod.AttnCfg(
         d_model=d, n_heads=h, n_kv_heads=kv, d_head=dh,
-        q=res.site(d, h * dh, "attn/q", layer=layer),
-        k=res.site(d, kv * dh, "attn/k", layer=layer),
-        v=res.site(d, kv * dh, "attn/v", layer=layer),
-        o=res.site(h * dh, d, "attn/o", layer=layer),
+        q=res.site(d, h * dh, f"{prefix}/q", layer=layer),
+        k=res.site(d, kv * dh, f"{prefix}/k", layer=layer),
+        v=res.site(d, kv * dh, f"{prefix}/v", layer=layer),
+        o=res.site(h * dh, d, f"{prefix}/o", layer=layer),
         qk_norm=arch.qk_norm,
         rope_theta=arch.rope_theta,
         mrope_sections=arch.mrope_sections,
-        causal=arch.causal,
+        causal=arch.causal if causal is None else causal,
+        use_rope=not cross,
     )
 
 
@@ -395,7 +395,7 @@ def cache_leaves(tree):
 class ModelBundle:
     arch: ArchSpec
     mode: Mode
-    kind: str                    # "lm" | "hybrid"
+    kind: str                    # "lm" | "hybrid" | "encdec"
     cfg: Any
 
     @property
@@ -410,20 +410,39 @@ class ModelBundle:
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         if self.kind == "hybrid":
             return hybrid_mod.hybrid_init(gen, self.cfg, dtype=self.param_dtype, device=device)
+        if self.kind == "encdec":
+            return encdec_mod.encdec_init(gen, self.cfg, dtype=self.param_dtype, device=device)
         return tf_mod.lm_init(gen, self.cfg, dtype=self.param_dtype, device=device)
 
     def param_specs(self) -> dict[str, Any]:
-        """The reference's param tree of this bundle (segments, or the hybrid's
-        mamba stack, stacked over their layers), each leaf a ParamSpec(shape,
-        dtype): what an artifact must hold, computed from the configs
-        without allocating params."""
+        """The reference's param tree of this bundle (segments, the hybrid's
+        mamba stack, or the encoder and decoder, stacked over their layers),
+        each leaf a ParamSpec(shape, dtype): what an artifact must hold,
+        computed from the configs without allocating params."""
         if self.kind == "hybrid":
             return hybrid_mod.hybrid_param_specs(self.cfg, self.param_dtype)
+        if self.kind == "encdec":
+            return encdec_mod.encdec_param_specs(self.cfg, self.param_dtype)
         return tf_mod.lm_param_specs(self.cfg, self.param_dtype)
 
     def sites(self) -> list[SiteSpec]:
-        """One SiteSpec per (site, layer), paths as in the reference registry."""
+        """One SiteSpec per (site, layer), paths as in the reference registry.
+        An enc-dec's encoder layers number 0..E-1 and its decoder's E..E+D-1,
+        so that (layer, kind) is unique model-wide."""
         out: list[SiteSpec] = []
+        if self.kind == "encdec":
+            cfg = self.cfg
+            for j in range(cfg.n_enc_layers):
+                for rel, sc, taped in _block_site_list(cfg.enc_block):
+                    out.append(_site_spec(f"encoder/{rel}", j, j, rel, sc,
+                                          f"encoder/{j}/{rel}" if taped else None))
+            dec = (_attn_site_list(cfg.dec_self) + _attn_site_list(cfg.dec_cross)
+                   + _mlp_site_list(cfg.dec_mlp))
+            for j in range(cfg.n_dec_layers):
+                for rel, sc, taped in dec:
+                    out.append(_site_spec(f"decoder/{rel}", cfg.n_enc_layers + j, j, rel, sc,
+                                          f"decoder/{j}/{rel}" if taped else None))
+            return out
         if self.kind == "hybrid":
             cfg = self.cfg
             rels = _block_site_list(cfg.mamba_block)
@@ -453,10 +472,12 @@ class ModelBundle:
         return [s for s in self.sites() if s.mode != Mode.DENSE]
 
     def _require_trainable(self) -> None:
-        if self.kind != "lm" or any(b.kind != "dense" for _, b in self.cfg.segments):
+        if self.kind != "lm" or self.cfg.takes_embeds or \
+                any(b.kind != "dense" for _, b in self.cfg.segments):
             raise NotImplementedError(f"training the {self.arch.family} family (MoE aux loss, "
-                                      f"LUT_TRAIN expert tables, the mamba tape) is not ported "
-                                      f"yet: ROADMAP Queue A item 4")
+                                      f"LUT_TRAIN expert tables, the mamba tape, the enc-dec "
+                                      f"and embedding-input forwards) is not ported yet: "
+                                      f"ROADMAP Queue A item 4")
 
     def train_logits(self, params, batch, *, compute_dtype=torch.bfloat16):
         """The training forward over whole sequences: (logits (B, S, vocab),
@@ -485,6 +506,8 @@ class ModelBundle:
         """ParamSpecs of `init_caches`' tensors, without allocating them."""
         if self.kind == "hybrid":
             return hybrid_mod.hybrid_cache_specs(self.cfg, b, s_max, dtype, paged)
+        if self.kind == "encdec":
+            return encdec_mod.encdec_cache_specs(self.cfg, b, s_max, dtype, paged)
         return tf_mod.cache_specs(self.cfg, b, s_max, dtype, paged)
 
     def init_caches(self, b: int, s_max: int, *, dtype=torch.bfloat16,
@@ -495,29 +518,38 @@ class ModelBundle:
         "v_pool"} (L, n_pages, page_size, KV, Dh) shared by the whole batch;
         a mamba segment's {"conv", "ssm"} (L, B, ...) per row either way.
         hybrid: {"mamba": {"conv", "ssm"}, "attn": K/V or pools stacked over
-        the shared block's invocations}."""
+        the shared block's invocations}. encdec: {"self": the decoder's K/V
+        or pools, "cross": {"k", "v"} (L, B, enc_frames, KV, Dh) per row}."""
         if self.kind == "hybrid":
             return hybrid_mod.hybrid_caches(self.cfg, b, s_max, dtype, resolve_device(device),
+                                            paged)
+        if self.kind == "encdec":
+            return encdec_mod.encdec_caches(self.cfg, b, s_max, dtype, resolve_device(device),
                                             paged)
         return tf_mod.init_caches(self.cfg, b, s_max, dtype, resolve_device(device), paged)
 
     def forward_step(self, params, batch, caches, *, compute_dtype=torch.float32):
         """One serving step (prefill if S > 1, decode if S == 1).
 
-        batch: "tokens" (B, S), "cache_len" (B,), and optionally "write_rows"
-        (the batch rows whose dense cache and recurrent state may change; all
-        when absent) and "write_len" (B,) (each row's valid positions; all S
-        when absent: a padded row's recurrent state stops at its last valid
-        token). Paged caches take "block_tables" (B, P) and "write_len"
-        instead (fresh positions at or past write_len land in the garbage
-        page; rows with write_len 0 keep their state). Returns (logits for
-        the new positions, caches), the caches updated in place. cache_len,
+        batch: "tokens" (B, S) (or "embeds" (B, S, D) for a model that takes
+        embeddings), "cache_len" (B,), and optionally "write_rows" (the batch
+        rows whose dense cache and per-row state may change; all when absent)
+        and "write_len" (B,) (each row's valid positions; all S when absent:
+        a padded row's recurrent state stops at its last valid token). Paged
+        caches take "block_tables" (B, P) and "write_len" instead (fresh
+        positions at or past write_len land in the garbage page; rows with
+        write_len 0 keep their state). An enc-dec step may carry "frames"
+        (B, enc_frames, D): the encoder runs on the written rows' frames and
+        their cross K/V are replaced. Under M-RoPE the position is broadcast
+        to the three streams, as in the reference. Returns (logits for the
+        new positions, caches), the caches updated in place. cache_len,
         write_rows, block_tables and write_len are read on the host: pass CPU
         tensors to keep the forward free of device-to-host waits."""
-        tokens = batch["tokens"]
-        dev = tokens.device
-        b, s = tokens.shape
-        leaves = dict(cache_leaves(caches)) if caches is not None else {}
+        inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        dev = inp.device
+        b, s = inp.shape[:2]
+        leaves = {} if caches is None else dict(cache_leaves(
+            caches["self"] if self.kind == "encdec" else caches))
         paged = "k_pool" in leaves
         # a model without attention (the ssm family) has nothing to page: an
         # engine's block tables pass through unread
@@ -545,17 +577,35 @@ class ModelBundle:
             if "k" in leaves:
                 write_index = attn_mod.cache_write_index(batch["cache_len"], rows, s,
                                                          leaves["k"].shape[2], dev)
+        pos = cache_len[:, None] + torch.arange(s, device=dev)[None, :]
+        kw = dict(pos=pos, caches=caches, cache_len=cache_len, compute_dtype=compute_dtype,
+                  write_index=write_index, block_tables=block_tables)
+        if self.kind == "encdec":
+            if "frames" in batch:
+                self._write_cross(params, batch["frames"], caches["cross"], rows,
+                                  compute_dtype)
+            return encdec_mod.decode(self.cfg, params, tokens=batch["tokens"], **kw)
         state = None
         if caches is not None and ("ssm" in leaves):
             state = tf_mod.StateRows(rows=None if rows is None else rows.to(dev).long(),
                                      valid=None if wl is None else wl.to(dev))
-        pos = cache_len[:, None] + torch.arange(s, device=dev)[None, :]
-        kw = dict(tokens=tokens, pos=pos, caches=caches, cache_len=cache_len,
-                  compute_dtype=compute_dtype, write_index=write_index,
-                  block_tables=block_tables, state=state)
         if self.kind == "hybrid":
-            return hybrid_mod.hybrid_apply(self.cfg, params, **kw)
-        return tf_mod.lm_apply(self.cfg, params, **kw)
+            return hybrid_mod.hybrid_apply(self.cfg, params, tokens=batch["tokens"], state=state,
+                                           **kw)
+        if self.arch.mrope_sections:
+            kw["pos"] = pos[None].expand(3, b, s)
+        return tf_mod.lm_apply(self.cfg, params, tokens=batch.get("tokens"),
+                               embeds=batch.get("embeds"), state=state, **kw)
+
+    def _write_cross(self, params, frames: torch.Tensor, cross: dict,
+                     rows: torch.Tensor | None, compute_dtype) -> None:
+        """Encode the frames of `rows` (all when None) and write those rows'
+        cross K/V in place: a row of another request keeps its own."""
+        rows = torch.arange(frames.shape[0]) if rows is None else rows
+        rows = rows.to(frames.device).long()
+        enc_out = encdec_mod.encode(self.cfg, params, frames[rows], compute_dtype=compute_dtype)
+        for name, kv in encdec_mod.cross_kv(self.cfg, params, enc_out).items():
+            cross[name][:, rows] = kv.to(cross[name].dtype)
 
 
 def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBundle:
@@ -563,9 +613,6 @@ def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBun
         arch = get_arch(arch)
     if isinstance(mode, str):
         mode = Mode(mode)
-    if arch.family not in ("dense", "moe", "ssm", "hybrid") or arch.takes_embeds \
-            or arch.mrope_sections:
-        raise NotImplementedError(f"the {arch.family!r} family {_NEXT_SLICE_MSG}")
     res = _PlanResolver(arch, mode)
     d = arch.d_model
     if arch.family == "hybrid":
@@ -577,9 +624,23 @@ def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBun
             fuse=res.site(2 * d, d, "fuse", lut_site=False), out=res.site(d, d, "out"),
         )
         return ModelBundle(arch=arch, mode=mode, kind="hybrid", cfg=cfg)
+    if arch.family == "audio":
+        # encoder and decoder layers each share one config: sites resolve per
+        # kind (layer=None), as the reference's stacked layers do
+        cfg = encdec_mod.EncDecCfg(
+            vocab=arch.vocab, d_model=d, n_enc_layers=arch.n_enc_layers,
+            n_dec_layers=arch.n_layers, enc_frames=arch.enc_frames,
+            enc_block=tf_mod.BlockCfg(kind="dense", d_model=d,
+                                      attn=_attn_cfg(res, causal=False), mlp=_mlp_cfg(res)),
+            dec_self=_attn_cfg(res, causal=True, prefix="self"),
+            dec_cross=_attn_cfg(res, causal=False, cross=True, prefix="cross"),
+            dec_mlp=_mlp_cfg(res),
+        )
+        return ModelBundle(arch=arch, mode=mode, kind="encdec", cfg=cfg)
     cfg = tf_mod.LMCfg(
         vocab=arch.vocab, d_model=d, segments=_segments(res),
         lm_head=None if arch.tie_embeddings else res.site(d, arch.vocab, "lm_head",
                                                           lut_site=False),
+        takes_embeds=arch.takes_embeds,
     )
     return ModelBundle(arch=arch, mode=mode, kind="lm", cfg=cfg)

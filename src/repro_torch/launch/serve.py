@@ -45,6 +45,8 @@ spec line with --spec-decode, as the reference's does. In HTTP mode the
 process prints `serving ... on http://host:port` once it listens (with
 --port 0, the port the system gave), and exits 0 after a clean drain and
 `server.EXIT_STRANDED` when the drain timed out with requests unresolved.
+`--arch whisper_tiny` and `--arch qwen2_vl_7b` exit with the engine's reason
+for refusing them (`engine.engine_refusal`: the engine feeds token ids only).
 """
 
 from __future__ import annotations
@@ -58,7 +60,12 @@ import torch
 from repro_torch.configs import ARCH_IDS, EXTRA_IDS, build_model, get_arch, reduce_arch
 from repro_torch.core.amm import Mode
 from repro_torch.kernels import autotune, counters
-from repro_torch.serving.engine import KV_DTYPES, ServingEngine, lut_kernel_signatures
+from repro_torch.serving.engine import (
+    KV_DTYPES,
+    ServingEngine,
+    engine_refusal,
+    lut_kernel_signatures,
+)
 from repro_torch.serving.sampling import SamplingParams
 
 
@@ -168,6 +175,8 @@ def main(argv: list[str] | None = None) -> None:
                  "directory)")
     if args.supervise and args.port is None:
         ap.error("--supervise requires --port (supervised batch mode is not wired)")
+    if not args.artifact and (refusal := engine_refusal(get_arch(args.arch))) is not None:
+        ap.error(refusal)
     if args.port is not None:
         return _serve_http(args)
 

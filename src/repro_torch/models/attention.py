@@ -24,7 +24,14 @@ into the page-flattened pool at indices computed once per forward on the
 host (`paged_write_flat`, masked positions routed to the garbage page 0), and
 reads gather each row's pages back into the dense logical layout
 (`paged_gather`), so the dense masks apply unchanged and the outputs equal
-the dense cache's. Cross-attention (Queue A item 3) is not ported yet.
+the dense cache's.
+
+Positions are (B, S), or (3, B, S) under M-RoPE (the t, h, w streams of
+`common.apply_mrope`); masks and cache writes read the first stream, as in
+the reference. Cross-attention (the enc-dec decoder) attends to a memory's
+K/V (`memory_kv`, computed once per request and cached per row by the
+caller): no RoPE on them (the cross config's `use_rope` is False), no causal
+mask, every memory position visible (`cross_attention`).
 """
 
 from __future__ import annotations
@@ -245,8 +252,9 @@ def attention(cfg: AttnCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
               block_tables: torch.Tensor | None = None) -> tuple[torch.Tensor, Params | None]:
     """Returns (output (B, S, D), cache or {"k_slab", "v_slab"} or None).
 
-    x (B, S, D), pos (B, S) absolute positions, cache_len (B,) tokens already
-    in the cache, write_index where the prefill path writes the fresh K/V
+    x (B, S, D), pos (B, S) absolute positions ((3, B, S) under M-RoPE),
+    cache_len (B,) tokens already in the cache, write_index where the
+    prefill path writes the fresh K/V
     (cache_write_index; for a paged cache the flat indices of
     paged_write_flat), block_tables (B, P) the page ids of a paged cache. See
     the module docstring for the cache paths."""
@@ -262,6 +270,7 @@ def attention(cfg: AttnCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
         k = rmsnorm(p["k_norm"], k)
     q = _rope(cfg, q, pos)
     k = _rope(cfg, k, pos)
+    pos = pos if pos.dim() == 2 else pos[0]          # (B, S): the stream masks read
 
     if cache is None:
         out = flash_attention(q, k, v, q_pos=pos, kv_pos=pos, causal=cfg.causal)
@@ -310,3 +319,24 @@ def attention(cfg: AttnCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
 
     y = linear(cfg.o, p["o"], out.reshape(b, s, cfg.n_heads * cfg.d_head))
     return y, new_cache
+
+
+def memory_kv(cfg: AttnCfg, p: Params, memory: torch.Tensor) -> Params:
+    """K/V of a cross-attention memory (B, T, D): {"k", "v"} (B, T, KV, Dh),
+    without RoPE."""
+    b, t, _ = memory.shape
+    return {name: linear(getattr(cfg, name), p[name], memory).reshape(b, t, cfg.n_kv_heads,
+                                                                      cfg.d_head)
+            for name in ("k", "v")}
+
+
+def cross_attention(cfg: AttnCfg, p: Params, x: torch.Tensor, kv: Params) -> torch.Tensor:
+    """x (B, S, D) attends to every position of a memory's K/V (`memory_kv`,
+    or a cache's rows of them, upcast to x's dtype): non-causal and unmasked,
+    as the reference's decoder cross-attention. Returns (B, S, D)."""
+    b, s, _ = x.shape
+    q = linear(cfg.q, p["q"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
+    zeros = torch.zeros((b, s), dtype=torch.long, device=x.device)
+    out = flash_attention(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype), q_pos=zeros,
+                          kv_pos=zeros, causal=False)
+    return linear(cfg.o, p["o"], out.reshape(b, s, cfg.n_heads * cfg.d_head))

@@ -173,11 +173,10 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
                             / d_head))
 
 
-def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (B, S, H, Dh), pos (B, S) -> x rotated in the half-split layout: the
-    first and second halves of Dh form the pairs (not interleaved)."""
-    inv = rope_freqs(x.shape[-1], theta, device=x.device)
-    ang = pos[:, :, None].float() * inv[None, None, :]          # (B, S, Dh/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, Dh) rotated by the angles (B, S, Dh/2) in the half-split
+    layout: the first and second halves of Dh form the pairs (not
+    interleaved)."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -185,8 +184,26 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def apply_mrope(*_args, **_kwargs):
-    raise NotImplementedError("M-RoPE (qwen2_vl_7b) is not ported yet: ROADMAP Queue A item 3")
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, S, H, Dh), pos (B, S) -> x rotated (`_rotate`)."""
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)
+    return _rotate(x, pos[:, :, None].float() * inv[None, None, :])
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x (B, S, H, Dh), pos3 (3, B, S) the (t, h,
+    w) position streams. The Dh/2 frequencies split into consecutive
+    `sections` (summing to Dh/2), each rotated by its own stream; with three
+    equal streams this is `apply_rope`."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to d_head/2 = {dh // 2}")
+    inv = rope_freqs(dh, theta, device=x.device)
+    sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
+                                     torch.tensor(sections, device=x.device))   # (Dh/2,)
+    ang = pos3.float()[sec_id].movedim(0, -1) * inv                        # (B, S, Dh/2)
+    return _rotate(x, ang)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,

@@ -165,6 +165,7 @@ class LMCfg:
     segments: tuple[tuple[int, BlockCfg], ...]   # (n_layers, block cfg) runs
     lm_head: SiteCfg | None = None               # None -> tied to the embedding
     remat: bool = True                           # recompute blocks in training backward
+    takes_embeds: bool = False                   # input: embeddings (the vlm stub frontend)
 
     @property
     def n_layers(self) -> int:
@@ -267,17 +268,26 @@ def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: to
     return x
 
 
-def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor, pos: torch.Tensor,
+def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
+             embeds: torch.Tensor | None = None, pos: torch.Tensor,
              caches: list | None = None, cache_len: torch.Tensor | None = None,
              compute_dtype=torch.float32, write_index=None,
              block_tables: torch.Tensor | None = None,
              state: StateRows | None = None) -> tuple[torch.Tensor, list | None]:
-    """Returns (logits (B, S, vocab), caches). The caches are updated in
+    """Returns (logits (B, S, vocab), caches). The input is `tokens` (B, S),
+    or `embeds` (B, S, D) when `cfg.takes_embeds` (the embedding table stays
+    in the params, as the reference's `lm_init` keeps it, and goes unread);
+    pos is (B, S), or (3, B, S) under M-RoPE. The caches are updated in
     place where `write_index` says (attention.cache_write_index, or for paged
     caches, which also take `block_tables`, attention.paged_write_flat), and
     mamba state where `state` says. Without caches this is the training
     forward over whole sequences."""
-    x = embed(params["embed"], tokens).to(compute_dtype)
+    if cfg.takes_embeds:
+        if embeds is None:
+            raise ValueError("this model takes embeddings (embeds=), not token ids")
+        x = embeds.to(compute_dtype)
+    else:
+        x = embed(params["embed"], tokens).to(compute_dtype)
     for i, (_, bcfg) in enumerate(cfg.segments):
         x = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
                        caches=None if caches is None else caches[i],

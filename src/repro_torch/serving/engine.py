@@ -48,6 +48,12 @@ scheduler (DESIGN.md §6):
   the front ends' request format and token observer (serving/server.py,
   supervisor.py, router.py), as in the reference.
 
+The engine feeds token ids only, as the reference's does, so it refuses
+the two families that need other inputs (`engine_refusal`): the enc-dec
+(whisper_tiny), whose encoder needs per-request frames, and the vision-LM
+backbone (qwen2_vl_7b), which takes embeddings. Both are served through
+`ModelBundle.forward_step`, which takes them.
+
 Mesh sharding is not ported yet (ROADMAP Queue A item 5).
 """
 
@@ -90,6 +96,29 @@ def _all_pool_leaves(specs) -> bool:
     state is position-indexed, which prefix sharing and speculative rollback
     need (per-slot recurrent state cannot be skipped or rewound)."""
     return all(name in POOL_LEAVES for name, _ in cache_leaves(specs))
+
+
+def engine_refusal(arch) -> str | None:
+    """Why the serving engine cannot serve `arch` (an ArchSpec), or None. Its
+    requests are token ids and its batches carry nothing else, as the
+    reference's (`repro/serving/engine.py`, whose step builds {"tokens",
+    "cache_len"}): there an enc-dec model never runs its encoder and decodes
+    against all-zero cross K/V, and a model that takes embeddings fails at
+    its first forward. The port refuses both rather than copy either fault;
+    per-request frames or embeddings would be a feature the reference
+    lacks."""
+    why = None
+    if arch.family == "audio":
+        why = ("the engine feeds token ids only, so it could not run the encoder on a "
+               "request's audio frames (the reference engine decodes against all-zero cross "
+               "K/V)")
+    elif arch.takes_embeds:
+        why = ("the engine feeds token ids only, so it could not give this model the "
+               "embeddings it takes (the reference engine fails at its first forward)")
+    if why is None:
+        return None
+    return (f"{arch.name} ({arch.family}) is not served by ServingEngine: {why}; drive it "
+            f"through ModelBundle.forward_step with frames or embeds")
 
 
 def lut_kernel_signatures(bundle: ModelBundle) -> list[tuple[int, int, int, int]]:
@@ -201,6 +230,9 @@ class ServingEngine:
     ):
         if mesh is not None:
             raise NotImplementedError("mesh sharding is not ported yet: ROADMAP Queue A item 5")
+        refusal = engine_refusal(bundle.arch)
+        if refusal is not None:
+            raise ValueError(refusal)
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue={max_queue} must be >= 1 (or None)")
         if not 1 <= prefill_chunk <= max_seq:

@@ -77,6 +77,69 @@ def tie_gaps(x: torch.Tensor, centroids: torch.Tensor, codes_a: torch.Tensor,
     return (da - db).abs() / (1.0 + da.abs())
 
 
+def site_params(params: dict, spec) -> dict:
+    """A site's param dict in the port's layout, from its registry entry
+    (`ModelBundle.sites()`): a segment's layer, a layer of a top-level stack
+    (the hybrid's mamba_stack, the enc-dec's encoder and decoder), or a
+    path from the root."""
+    parts = spec.path.split("/")
+    if parts[0] == "segments":
+        node, rest = params["segments"][int(parts[1])][spec.stack_index], parts[2:]
+    elif isinstance(params.get(parts[0]), list):
+        node, rest = params[parts[0]][spec.stack_index], parts[1:]
+    else:
+        node, rest = params, parts
+    for part in rest:
+        node = node[part]
+    return node
+
+
+def hold_lut_sites(bundle, params, records: dict, reference, *, tie_eps: float) -> dict:
+    """Each LUT site of `bundle` held against the reference's on the inputs
+    an activation tape recorded in one forward (`tape_capture().records`):
+    the port's site (`common.linear`, the plain versions on the CPU) and
+    `reference(spec, x)` -> (output, codes), numpy, the reference's site on
+    the same input x (N, d_in). Where the two encoders' codes agree the
+    outputs must be byte-equal (m-shared scales: exact int32 sums, one
+    rounding); a code that differs must sit on a near-tie (`tie_gaps` <=
+    tie_eps). Returns the counts {"sites", "rows", "codes_off"}."""
+    from repro_torch.models.common import SiteCfg, linear
+
+    out = {"sites": 0, "rows": 0, "codes_off": 0}
+    for spec in bundle.lut_sites():
+        x = torch.cat(records[spec.tape_key])
+        p = site_params(params, spec)
+        site = SiteCfg(d_in=spec.d_in, d_out=spec.d_out, mode=spec.mode, lut=spec.lut,
+                       bias=spec.bias, name=spec.kind)
+        got = linear(site, p, x).numpy()
+        want, codes_ref = reference(spec, x.numpy())
+        codes = pq.encode_indices(x, p["centroids"])
+        codes_ref = torch.from_numpy(np.array(codes_ref)).to(codes.dtype)
+        gaps = tie_gaps(x, p["centroids"], codes, codes_ref)
+        if not bool((gaps <= tie_eps).all()):
+            raise AssertionError(f"{spec.tape_key}: codes differ off a near-tie: {gaps}")
+        same = (codes == codes_ref).all(dim=1).numpy()
+        if got.shape != want.shape or got[same].tobytes() != np.asarray(want)[same].tobytes():
+            raise AssertionError(f"{spec.tape_key}: outputs differ where the codes agree")
+        out["sites"] += 1
+        out["rows"] += x.shape[0]
+        out["codes_off"] += int((codes != codes_ref).sum())
+    return out
+
+
+def grid_positions(b: int, n_text: int, rows: int, cols: int) -> np.ndarray:
+    """(3, b, rows * cols + n_text) M-RoPE streams of an image of rows x cols
+    patches followed by text, as Qwen2-VL numbers them: a patch at (r, c)
+    has (t, h, w) = (0, r, c); text continues all three streams from the
+    largest image position plus one."""
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    start = max(rows, cols)
+    text = np.arange(start, start + n_text)
+    pos = np.stack([np.concatenate([np.zeros_like(r), text]),
+                    np.concatenate([r, text]), np.concatenate([c, text])]).astype(np.int32)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, pos.shape[1])))
+
+
 def rows_near_tie(x: torch.Tensor, centroids: torch.Tensor, eps: float) -> torch.Tensor:
     """(N,) bool: rows whose best and second-best fp32 distance in some
     codebook are within eps * (1 + |best|): rows where an fp32 summation

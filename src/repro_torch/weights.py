@@ -1,8 +1,9 @@
 """Carry model params between the reference's layout and the port's.
 
 The JAX package keeps each segment's layers (and the hybrid's mamba layers,
-"mamba_stack") stacked on a leading axis (it scans over them); the port
-keeps a list of per-layer dicts. `params_from_numpy`
+"mamba_stack", and the enc-dec's "encoder" and "decoder" layers) stacked on
+a leading axis (it scans over them); the port keeps a list of per-layer
+dicts. `params_from_numpy`
 takes the reference's param tree with every leaf a numpy array (as
 `jax.tree.map(np.asarray, params)` gives it) or a CPU tensor, unstacks the
 layer axis and places each leaf on `device` with its dtype unchanged: int8
@@ -39,11 +40,16 @@ def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+# the top-level keys of a layer stack that is not under "segments", and the
+# config field that counts its layers
+_STACKS = {"mamba_stack": "n_layers", "encoder": "n_enc_layers", "decoder": "n_dec_layers"}
+
+
 def _stack_count(bundle, path: str) -> int:
     """Layers a stacked reference path is stacked over."""
     parts = path.split("/")
-    if parts[0] == "mamba_stack":
-        return bundle.cfg.n_layers
+    if parts[0] in _STACKS:
+        return getattr(bundle.cfg, _STACKS[parts[0]])
     return bundle.cfg.segments[int(parts[1])][0]
 
 
@@ -55,8 +61,9 @@ def _check_segments(bundle, tree: dict[str, Any]) -> None:
 
 def _check_layers(bundle, params: dict[str, Any]) -> None:
     """The port's per-layer lists against the bundle's layer counts."""
-    if bundle.kind == "hybrid":
-        got = [(len(params["mamba_stack"]), bundle.cfg.n_layers)]
+    if bundle.kind != "lm":
+        got = [(len(params[key]), getattr(bundle.cfg, field))
+               for key, field in _STACKS.items() if key in params]
     else:
         _check_segments(bundle, params)
         got = [(len(layers), count) for layers, (count, _) in zip(params["segments"],
@@ -69,7 +76,7 @@ def _check_layers(bundle, params: dict[str, Any]) -> None:
 def params_from_numpy(bundle, tree: dict[str, Any], *,
                       device: str | torch.device | None = None) -> dict[str, Any]:
     """The reference param tree of `bundle` (numpy leaves) -> the port's params."""
-    if bundle.kind != "hybrid":
+    if bundle.kind == "lm":
         _check_segments(bundle, tree)
     flat = flatten_tree(tree)
     for path, a in flat.items():
@@ -128,7 +135,7 @@ def tree_map_ref(fn: Callable, tree: Any, *rest: Any, _path: str = "") -> Any:
         if last == "segments" and tree and type(tree[0]) is list:
             return [[tree_map_ref(fn, layer, *(r[i][j] for r in rest), _path=_join(_path, str(i)))
                      for j, layer in enumerate(layers)] for i, layers in enumerate(tree)]
-        if last == "mamba_stack":
+        if last in _STACKS:
             return [tree_map_ref(fn, layer, *(r[j] for r in rest), _path=_path)
                     for j, layer in enumerate(tree)]
         return [tree_map_ref(fn, v, *(r[i] for r in rest), _path=_join(_path, str(i)))
@@ -138,9 +145,9 @@ def tree_map_ref(fn: Callable, tree: Any, *rest: Any, _path: str = "") -> Any:
 
 def is_stacked(path: str) -> bool:
     """Whether a reference path names a leaf stacked over layers (a segment's,
-    or the hybrid's mamba stack)."""
+    the hybrid's mamba stack, the enc-dec's encoder or decoder)."""
     parts = path.split("/")
-    return "segments" in parts or parts[0] == "mamba_stack"
+    return "segments" in parts or parts[0] in _STACKS
 
 
 def reference_leaves(tree: Any) -> dict[str, list]:
@@ -195,8 +202,9 @@ def layer_specs(bundle) -> dict[str, Any]:
         return type(tree)(tuple(tree.shape[1:]), tree.dtype)
 
     specs = dict(bundle.param_specs())
-    if bundle.kind == "hybrid":
-        specs["mamba_stack"] = [strip(specs["mamba_stack"])] * bundle.cfg.n_layers
+    if bundle.kind != "lm":
+        for key in _STACKS.keys() & specs.keys():
+            specs[key] = [strip(specs[key])] * _stack_count(bundle, key)
     else:
         specs["segments"] = [[strip(seg)] * count
                              for seg, (count, _) in zip(specs["segments"], bundle.cfg.segments)]
@@ -206,6 +214,6 @@ def layer_specs(bundle) -> dict[str, Any]:
 def first_layers(params: dict[str, Any]) -> dict[str, Any]:
     """The tree with each layer stack replaced by its first layer: the
     reference's paths, with one layer's leaves (their dtypes, say)."""
-    if "mamba_stack" in params:
-        return dict(params, mamba_stack=params["mamba_stack"][0])
+    if "segments" not in params:
+        return dict(params, **{key: params[key][0] for key in _STACKS.keys() & params.keys()})
     return dict(params, segments=[layers[0] for layers in params["segments"]])

@@ -24,6 +24,7 @@ from repro_torch.kernels import autotune, counters, ref
 from repro_torch.serving import artifact
 from repro_torch.serving.engine import ServingEngine, lut_kernel_signatures
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.testing import site_params
 from repro_torch.weights import params_to_numpy
 
 
@@ -51,24 +52,11 @@ def _assert_same_leaves(port_art, ref_params):
         assert got[k].tobytes() == want[k].tobytes(), k
 
 
-# every arch the port builds: the dense family, moe, ssm and hybrid
+# every arch the port builds: the dense family, moe, ssm, hybrid, enc-dec and vlm
 ARCHS = ["qwen3_1p7b", "llama3_8b", "bert_base", "command_r_35b", "minitron_8b",
-         "mamba2_370m", "zamba2_1p2b", "arctic_480b", "llama4_maverick_400b"]
+         "mamba2_370m", "zamba2_1p2b", "arctic_480b", "llama4_maverick_400b",
+         "whisper_tiny", "qwen2_vl_7b"]
 EXPERT_KINDS = ("moe/gate", "moe/up", "moe/down")
-
-
-def _site_params(bundle, params, spec):
-    """A site's param dict in the port's layout, from its registry entry."""
-    parts = spec.path.split("/")
-    if parts[0] == "segments":
-        node, rest = params["segments"][int(parts[1])][spec.stack_index], parts[2:]
-    elif parts[0] == "mamba_stack":
-        node, rest = params["mamba_stack"][spec.stack_index], parts[1:]
-    else:
-        node, rest = params, parts
-    for part in rest:
-        node = node[part]
-    return node
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)
@@ -79,14 +67,17 @@ def test_reference_artifact_loads_byte_equal(tmp_path, arch_id, param_dtype):
     art = artifact.load_artifact(tmp_path / "art", device="cpu")
     assert art.arch_name == arch_id and art.plan_names == ["target"]
     assert art.bundle.mode.value == "lut_infer" and art.bundle.kind == bundle.kind
+    # JSON lists come back as the arch's tuples (M-RoPE's sections)
+    assert art.bundle.arch.mrope_sections == bundle.arch.mrope_sections
+    assert type(art.bundle.arch.mrope_sections) is tuple
     # the m-shared kernel layout really is what the reference deployed
     spec = [s for s in art.bundle.lut_sites() if s.kind not in EXPERT_KINDS][-1]
-    site = _site_params(art.bundle, art.params, spec)
+    site = site_params(art.params, spec)
     assert site["table_q"].dtype == torch.int8 and site["table_scale"].shape[0] == 1
     for spec in art.bundle.lut_sites():
         if spec.kind in EXPERT_KINDS:
             # per-expert int8 tables over the layer's shared codebooks
-            site = _site_params(art.bundle, art.params, spec)
+            site = site_params(art.params, spec)
             assert site["table_q"].shape[0] == art.bundle.arch.n_experts
             assert site["table_scale"].shape == (art.bundle.arch.n_experts, 1, 1, spec.d_out)
     _assert_same_leaves(art, jart.load_artifact(tmp_path / "art").params)

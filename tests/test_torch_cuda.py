@@ -436,3 +436,50 @@ def test_family_engine_through_kernels_matches_plain(dev, arch, tmp_path, monkey
     monkeypatch.setattr(ops, "lut_amm", lambda x, c, q, s, *, bias=None, act="none", **_:
                         ref.lut_amm_v2_plain(x, c, q, s, bias=bias, act=act))
     assert serve() == got
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "qwen2_vl_7b"])
+def test_encdec_and_vlm_forward_steps_through_kernels_match_plain(dev, arch, tmp_path,
+                                                                  monkeypatch):
+    """One reduced model of each family the engine refuses, driven by
+    `forward_step` on the card: a prefill (with frames, or of embeddings)
+    and 6 greedy steps through the kernels (launched, no plain version
+    called) give the greedy tokens of the same steps over the plain
+    versions."""
+    from repro_torch import configs as tcfg
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE_MEASURE", raising=False)
+    bundle = tcfg.build_model(tcfg.reduce_arch(tcfg.get_arch(arch), lut_use_kernel=True),
+                              "lut_infer")
+    params = bundle.init(torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    a = bundle.arch
+    if arch == "whisper_tiny":
+        first = {"tokens": torch.randint(1, a.vocab, (2, 8), generator=gen,
+                                         dtype=torch.int32).to(dev),
+                 "frames": torch.randn(2, a.enc_frames, a.d_model, generator=gen).to(dev)}
+        feed = lambda t: {"tokens": t.to(torch.int32)}                        # noqa: E731
+    else:
+        first = {"embeds": torch.randn(2, 8, a.d_model, generator=gen).to(dev) * 0.02}
+        feed = lambda t: {"embeds": params["embed"]["table"][t]}              # noqa: E731
+
+    def greedy():
+        caches = bundle.init_caches(2, 32, dtype=torch.float32, device=dev)
+        batch, cl, out = dict(first, cache_len=torch.zeros(2, dtype=torch.long)), 0, []
+        with torch.inference_mode():
+            for _ in range(7):
+                logits, caches = bundle.forward_step(params, batch, caches)
+                out.append(logits[:, -1].argmax(-1))
+                cl += logits.shape[1]
+                batch = dict(feed(out[-1][:, None]), cache_len=torch.full((2,), cl))
+        return torch.stack(out, 1).cpu()
+
+    counters.reset()
+    got = greedy()
+    launched = counters.launches()
+    assert counters.plain_calls() == 0
+    assert launched["fused_decode"] + launched["lut_amm_v2"] + launched["lut_amm_v1"] > 0
+    monkeypatch.setattr(ops, "lut_amm", lambda x, c, q, s, *, bias=None, act="none", **_:
+                        ref.lut_amm_v2_plain(x, c, q, s, bias=bias, act=act))
+    assert torch.equal(greedy(), got)

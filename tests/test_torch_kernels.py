@@ -276,6 +276,40 @@ def test_launch_geometry_fills_the_card(n, c, m):
             assert geo["chunk_c"] == v2_mod.cdiv(c, 16)   # down: 12 codebooks, one chunk
 
 
+# the enc-dec and vlm families' sites at the token counts chip_smoke phase 9
+# gives them, (N, C, M): whisper_tiny at decode (4 rows), its prefill (32)
+# and its encoder and cross K/V (4 rows x 1500 frames); qwen2_vl_7b at
+# decode and its prefill of 4 x 40 embeddings (down: C = 592)
+FAMILY_SITES = [(n, c, m) for n in (4, 32, 6000) for c, m in ((12, 384), (12, 1536), (48, 384))]
+FAMILY_SITES += [(n, c, m) for n in (4, 160)
+                 for c, m in ((112, 3584), (112, 512), (112, 18944), (592, 3584))]
+
+
+@pytest.mark.parametrize("n,c,m", FAMILY_SITES, ids=[str(s) for s in FAMILY_SITES])
+def test_launch_geometry_at_family_sites(n, c, m):
+    """Every kernel's default launch and every launch the tuner may pick at
+    the new families' sites fits a block and covers the output once: C = 12
+    (clusters of 8, ranks owning 1-2 codebooks), N = 6000 (94-188 N tiles),
+    C = 592 (cluster of 16, shares of 37)."""
+    wave = 7 * 16
+    for version in (2, 3, 1):
+        if version == 3 and not fused_mod.fits(c, 16, 32):
+            continue
+        for cfg in [None] + autotune.candidates("lut_amm", n, m, c, 16, 32, version=version):
+            if version == 1:
+                geo = v2_mod.v1_geometry(n, c, 16, 32, m, wave,
+                                         **({} if cfg is None else autotune.v1_launch(cfg)))
+            else:
+                geo = v2_mod.cluster_geometry(n, c, 16, 32, m, wave, chunked=version == 2,
+                                              **({} if cfg is None else
+                                                 autotune.cluster_launch(cfg)))
+            _check_cluster_launch(geo, n, c, m)
+    assert v2_mod.default_cluster(c) == {12: 8, 48: 16, 112: 16, 592: 16}[c]
+    for cfg in [None] + autotune.candidates("encode", n, 0, c, 16, 32):
+        kw = {} if cfg is None else autotune.encode_launch(cfg, n, c, 16, 32)
+        assert enc_mod.encode_geometry(n, c, 16, 32, 132, **kw)["smem"] <= v2_mod.MAX_SMEM
+
+
 @pytest.mark.parametrize("site", WIDE_SITES, ids=[str(s) for s in WIDE_SITES])
 def test_launch_geometry_at_wide_sites(site):
     """Sites past V = 32 / K = 256 (chip_smoke phase 2 runs them): every

@@ -2,7 +2,9 @@
 reference's `bundle.init(PRNGKey(0))`, carried over as numpy by
 `repro_torch.weights.params_from_numpy`. Every arch the port builds: the
 dense family, moe, ssm and hybrid (the families also have their own files:
-tests/test_torch_moe.py, test_torch_ssm.py, test_torch_hybrid.py)."""
+tests/test_torch_moe.py, test_torch_ssm.py, test_torch_hybrid.py); the
+enc-dec and vlm archs' configs and sites here, their forwards in
+tests/test_torch_encdec.py and test_torch_vlm.py."""
 
 import dataclasses
 import functools
@@ -25,6 +27,9 @@ from repro_torch.weights import params_from_numpy
 
 ARCHS = ["qwen3_1p7b", "llama3_8b", "bert_base", "command_r_35b", "minitron_8b",
          "mamba2_370m", "zamba2_1p2b", "arctic_480b", "llama4_maverick_400b"]
+# the families whose inputs are not token ids alone (their forwards:
+# tests/test_torch_encdec.py, test_torch_vlm.py)
+OTHER_INPUTS = ["whisper_tiny", "qwen2_vl_7b"]
 MODES = ["dense", "lut_infer"]
 B, S_MAX, CHUNK = 2, 16, 4
 # fp32 everywhere; matmuls, softmax and the fp32 rescale sum in another order
@@ -49,7 +54,7 @@ def _bundles(arch_name, mode):
 def test_arch_spec_fields_match_reference():
     assert [f.name for f in dataclasses.fields(tcfg.ArchSpec)] == \
         [f.name for f in dataclasses.fields(jcfg.ArchSpec)]
-    for name in ARCHS:
+    for name in ARCHS + OTHER_INPUTS:
         j, t = jcfg.get_arch(name), tcfg.get_arch(name)
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
         assert dataclasses.asdict(tcfg.reduce_arch(t, lut_use_kernel=True)) == \
@@ -57,7 +62,7 @@ def test_arch_spec_fields_match_reference():
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("arch_name", ARCHS)
+@pytest.mark.parametrize("arch_name", ARCHS + OTHER_INPUTS)
 def test_sites_match_reference(arch_name, mode):
     """The same sites resolve to the same modes and LUT configs, at full size."""
     jsites = jcfg.build_model(arch_name, mode).sites()
@@ -160,14 +165,22 @@ def test_model_pieces_follow_the_reference_conventions():
     np.testing.assert_allclose(
         common.apply_rope(torch.from_numpy(xr), torch.from_numpy(pos), 10000.0).numpy(),
         np.asarray(japply_rope(jnp.asarray(xr), jnp.asarray(pos), 10000.0)), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        common.apply_mrope(xr, pos, 1e6, (4, 6, 6))
-    # the enc-dec and vision archs are the next slice; every other one builds
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            tcfg.build_model(dataclasses.replace(tcfg.get_arch("qwen3_1p7b"), family=family))
+    # M-RoPE with three equal streams is RoPE (distinct streams:
+    # tests/test_torch_vlm.py)
+    pos3 = np.broadcast_to(pos, (3, *pos.shape))
+    from repro.models.common import apply_mrope as japply_mrope
+    np.testing.assert_allclose(
+        common.apply_mrope(torch.from_numpy(xr), torch.from_numpy(pos3.copy()), 1e6,
+                           (1, 1, 2)).numpy(),
+        np.asarray(japply_mrope(jnp.asarray(xr), jnp.asarray(pos3), 1e6, (1, 1, 2))), atol=1e-5)
+    # every arch of the reference builds, the enc-dec and vision families too,
+    # with the reference's bundle kinds
+    for family, kind in (("audio", "encdec"), ("vlm", "lm")):
+        arch = dataclasses.replace(tcfg.get_arch("qwen3_1p7b"), family=family, n_enc_layers=2,
+                                   enc_frames=8)
+        assert tcfg.build_model(arch).kind == jcfg.build_model(
+            dataclasses.replace(jcfg.get_arch("qwen3_1p7b"), family=family, n_enc_layers=2,
+                                enc_frames=8)).kind == kind
     for name in ("whisper_tiny", "qwen2_vl_7b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tcfg.get_arch(name)
-    assert set(tcfg.ARCH_IDS + tcfg.EXTRA_IDS) == \
-        set(jcfg.ARCH_IDS + jcfg.EXTRA_IDS) - {"whisper_tiny", "qwen2_vl_7b"}
+        assert dataclasses.asdict(tcfg.get_arch(name)) == dataclasses.asdict(jcfg.get_arch(name))
+    assert tcfg.ARCH_IDS == jcfg.ARCH_IDS and tcfg.EXTRA_IDS == jcfg.EXTRA_IDS
