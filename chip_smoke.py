@@ -124,12 +124,39 @@ Phases (any failed check exits non-zero; no phase is skipped):
      of the encode kernel's codes; prefill and decode forward times, a
      profiled decode forward's device-busy share, peak memory, each site
      signature timed (kernel, plain version, bound).
+ 10. training the MoE, SSM, hybrid, enc-dec and vision-LM families, each
+     trained artifact served through the kernels: (a) one soft-PQ step at
+     full published width, card against CPU against float64
+     (`testing.lut_train_step_parity`, as 7 (a)), on `testing.family_batch`
+     batches: mamba2_370m at 2 layers, zamba2_1p2b at 6 (its shared block
+     invoked once), whisper_tiny at full depth over 1500 stub frames,
+     qwen2_vl_7b at 2 layers over patch embeddings with grid positions;
+     (a') arctic_480b on the card alone (ARCTIC_LAYERS layers, every layer
+     LUT, bf16 params): loss finite, aux > 0, the expert sites' shared
+     codebooks a nonzero finite gradient, peak memory (out of memory: the
+     peak printed and the step run at `reduce_arch`); (b)
+     `default_recipe(steps=TRAIN_STEPS)` by `Recipe.run` on mamba2_370m (48
+     layers) and zamba2_1p2b (38 layers) at full width, with 7 (b)'s checks
+     (Eval one kernel per LUT-site call, no plain call, held against the
+     plain versions), then each trained artifact served as phase 8 serves,
+     every LUT-site call of its burst held against the plain versions (a
+     request may leave the plain run only after a near-tie of its logits
+     or a code the kernels picked at a tie);
+     (c) whisper_tiny (full) and qwen2_vl_7b (TRAIN_VLM_LAYERS layers)
+     trained through the functions (dense steps, tape + k-means on frame or
+     embedding sample batches, soft-PQ steps, deploy_to_artifact) and run
+     as phase 9 runs; (d) `launch.train --arch mamba2_370m --lut --steps
+     FAMILY_LAUNCHER_STEPS` at its default size, served by `launch.serve`, and
+     `--arch whisper_tiny`'s
+     refusal. The launches of (b) and (c)'s kernel runs join the kernels
+     line ("phase_launches").
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1119,11 +1146,15 @@ class LaunchesByN:
                          for n, row in sorted(self.by_n.items()))
 
 
-def compare_tokens(label: str, got: list, want: list, gaps: dict) -> int:
+def compare_tokens(label: str, got: list, want: list, gaps: dict, tie_codes: int = 0) -> int:
     """Each request's tokens against the plain engine's: equal, or equal up
     to a first difference at a near-tie of the plain run (then the rest is
     conditioned on another token and not compared). A shed request is held
-    over the tokens it returned. Returns the number of near-tie differences."""
+    over the tokens it returned. `tie_codes`: the (call, row) pairs of the
+    run whose code the kernels picked at a tie of the fp32 expansion (held
+    by `hold_sites`); each may explain one request that leaves the plain run
+    elsewhere (a flipped code reads another table row: a table entry's
+    change, not a rounding). Returns the number of differences."""
     ties = 0
     for g, w in zip(got, want):
         j = next((j for j, (a, b) in enumerate(zip(g.out_tokens, w.out_tokens)) if a != b), None)
@@ -1133,12 +1164,18 @@ def compare_tokens(label: str, got: list, want: list, gaps: dict) -> int:
                   f"{len(w.out_tokens)}")
             continue
         gap = gaps.get((w.rid, j))
-        check(gap is not None and gap <= TOKEN_TIE,
-              f"{label}: request {w.rid} differs from plain decode at token {j}, where the plain "
-              f"run's top-2 gap is {gap} (tie bound {TOKEN_TIE})")
+        ties += 1
+        if gap is None or gap > TOKEN_TIE:
+            check(tie_codes > 0,
+                  f"{label}: request {w.rid} differs from plain decode at token {j}, where the "
+                  f"plain run's top-2 gap is {gap} (tie bound {TOKEN_TIE}), and no code the "
+                  f"kernels picked at a tie is left to explain it")
+            tie_codes -= 1
+            log(f"  {label}: request {w.rid} differs from plain decode from token {j} on (top-2 "
+                f"gap {gap:.3g}), after a code the kernels picked at a tie")
+            continue
         log(f"  {label}: request {w.rid} differs from plain decode from token {j} on, at a "
             f"near-tie (top-2 gap {gap:.3g})")
-        ties += 1
     return ties
 
 
@@ -1168,16 +1205,19 @@ def plain_run(eng, burst) -> tuple[list, dict, dict]:
 
 
 def driven(label: str, eng, burst, want: list, gaps: dict, *, all_ok: bool = True,
-           tag: str = "paged/spec"):
+           tag: str = "paged/spec", hold_all: bool = False):
     """One path: the launch counts set to 0 just before the burst and read
     just after (some LUT kernel launched, no plain version called), its
-    tokens held against the plain engine's. Returns (requests, stats,
-    launches per N, near-tie differences)."""
+    tokens held against the plain engine's. `hold_all` holds every LUT-site
+    call of the burst against the plain versions (`hold_sites`), and lets
+    each code picked at a tie explain one request's difference (a trained
+    model's inputs sit close to its centroids, where ties are found).
+    Returns (requests, stats, launches per N, differences)."""
     from repro_torch.kernels import counters
     from repro_torch.launch.serve import chosen_versions
 
     counters.reset()
-    with LaunchesByN(eng) as by_n:
+    with LaunchesByN(eng) as by_n, (SiteCalls() if hold_all else contextlib.nullcontext()) as rec:
         reqs, st = run_burst(eng, burst, all_ok=all_ok)
     check(counters.plain_calls() == 0, f"{label}: a plain version ran on the card")
     # every kernel the records choose for the models that ran forwards at an
@@ -1191,7 +1231,17 @@ def driven(label: str, eng, burst, want: list, gaps: dict, *, all_ok: bool = Tru
                   for ver in vers}
         check(all(row[k] > 0 for k in chosen), f"{label}: at N={n} the records choose "
                                                f"{sorted(chosen)}; launched {row}")
-    ties = compare_tokens(label, reqs, want, gaps)
+    tie_codes = 0
+    if hold_all:
+        held = hold_sites(label, rec.calls)
+        tie_codes = sum(len(rows) for rows in held["off_rows"])
+        del rec
+        log(f"[{tag}] {label}: all {held['sites']} LUT-site calls of the burst ({held['kernels']}) "
+            f"equal to the plain lookup of the encode kernel's codes (max abs err "
+            f"{held['err']:.3g}); {held['codes_off']} of {held['codes']} codes differ from the "
+            f"plain encode's, on {tie_codes} rows, each a tie of the fp32 expansion (at most "
+            f"{held['worst_tie']:.3g} of its terms)")
+    ties = compare_tokens(label, reqs, want, gaps, tie_codes)
     step_ms = 1e3 * st["decode_s"] / max(st["decode_forwards"], 1)
     log(f"[{tag}] {label}: {sum(len(r.out_tokens) for r in reqs)} tokens in "
         f"{st['wall']:.3f}s; prefill {st['prefill_forwards']} fwd, decode "
@@ -1739,7 +1789,8 @@ def phase_process(scratch: Path, plain, refs: dict) -> dict:
 # phase 7: training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_LAYERS = 28        # depth of phase 7's recipe run (full width always)
+TRAIN_LAYERS = 14        # depth of phase 7's recipe run (full width always; cut from 28 to
+                         # keep the whole run in its time limit: its checkpoints dominate)
 TRAIN_STEPS = 4          # steps of its dense and soft-PQ stages
 LAUNCHER_STEPS = 60      # the launcher's --steps: ckpt_every = max(50, steps // 4) = 50, so
                          # soft-PQ commits at step 50 and a kill after it resumes there
@@ -1926,11 +1977,13 @@ def train_step_parity(dev) -> dict:
                     for k, e in errs.items()), reverse=True)
     log(f"[train] soft-PQ step, full width, 2 layers, {res['tokens']} tokens, card vs CPU, float64 "
         f"on the CPU as witness ({time.perf_counter() - t0:.1f}s): loss {res['loss_dev']:.7f} "
-        f"card, {res['loss_cpu']:.7f} CPU, {res['loss_f64']:.7f} float64; sequences dropped for a "
-        f"code differing at a near-tie {res['dropped_sequences']}; fake-quant entries rounded to "
+        f"card, {res['loss_cpu']:.7f} CPU, {res['loss_f64']:.7f} float64; codes picked otherwise "
+        f"at a near-tie of {res['codes']}: card {res['pinned_codes']['card']}, float64 "
+        f"{res['pinned_codes']['float64']}; fake-quant entries rounded to "
         f"the other integer at a half-integer (|T/scale| within {testing.HALF_EPS}) of "
         f"{res['rounded_entries']}: card {res['rounding_flips']['card']}, float64 "
-        f"{res['rounding_flips']['float64']} (the gradient runs take the CPU's)")
+        f"{res['rounding_flips']['float64']} (the card and float64 take the CPU's codes and "
+        f"integers)")
     log(f"[train] {res['grad_leaves']} gradient leaves, gap as a fraction of the leaf's L2 norm / "
         f"largest entry. Card vs CPU (bounds {testing.GRAD_L2} / {testing.GRAD_MAX}), the "
         f"largest: {worst('card_cpu', 1)}. CPU fp32 vs float64: {worst('cpu_f64', 1)}. Card vs "
@@ -1947,32 +2000,24 @@ def train_step_parity(dev) -> dict:
     return res
 
 
-def recipe_full_width(dev, scratch: Path) -> dict:
-    """(b) default_recipe at the published width through Recipe.run, the
-    Eval stage through the kernels (held against the plain versions), then
-    the trained artifact served with measured warm-up."""
+def run_recipe(label: str, arch, data, dev, scratch: Path, adir: Path) -> dict:
+    """`default_recipe(steps=TRAIN_STEPS)` through `Recipe.run` on `arch`
+    (dense pretrain, tape + k-means init, soft-PQ, int8 deploy to `adir`,
+    Eval), its stage and step times, checkpoint bytes and peak memory; the
+    launch counts read around the run (Eval is its only LUT_INFER forward:
+    one kernel per LUT-site call, no plain call), Eval's loss held against
+    the plain versions and each of Eval's LUT-site calls against the plain
+    version on its own inputs. The stage checkpoints are deleted after."""
     import gc
 
     from repro_torch.checkpoint import checkpointer as ckpt_mod
-    from repro_torch.configs import get_arch
     from repro_torch.core import convert, kmeans
-    from repro_torch.data import MarkovLM
     from repro_torch.kernels import counters
-    from repro_torch.launch.serve import chosen_versions
-    from repro_torch.serving.artifact import load_artifact
-    from repro_torch.serving.engine import ServingEngine
     from repro_torch.train.recipe import default_recipe
 
-    # a fresh autotune cache: the trained artifact's warm-up measures its own
-    # records (none from phase 4 ride in its snapshot)
-    os.environ["REPRO_AUTOTUNE_CACHE"] = str(scratch / "autotune_train.json")
     free = shutil.disk_usage(scratch).free
-    arch = dataclasses.replace(get_arch("qwen3_1p7b"), n_layers=TRAIN_LAYERS,
-                               lut_use_kernel=True)
-    data = MarkovLM(vocab=arch.vocab, seq_len=256, batch=4)
-    adir = scratch / "trained"
     recipe = default_recipe(steps=TRAIN_STEPS, lut=True, artifact_dir=str(adir))
-    log(f"[recipe] {arch.name}: d_model {arch.d_model}, d_ff {arch.d_ff}, heads "
+    log(f"[{label}] {arch.name}: d_model {arch.d_model}, d_ff {arch.d_ff}, heads "
         f"{arch.n_heads}/{arch.n_kv_heads}, vocab {arch.vocab}, {arch.n_layers} layers; {data}; "
         f"{recipe.describe()}; {free / 1e9:.1f} GB free on the scratch disk")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1986,24 +2031,25 @@ def recipe_full_width(dev, scratch: Path) -> dict:
         wall = time.perf_counter() - t0
     launches, plain = counters.launches(), counters.plain_calls()
     peak = torch.cuda.max_memory_allocated(dev)
-    n_sites = len(res.inf_bundle.lut_sites())
+    n_calls = lut_calls_per_forward(res.inf_bundle)
     deployed = res.stage_result("eval")["deployed_loss"]
-    # the recipe's only LUT_INFER forward is Eval's: one kernel per LUT site
-    check(plain == 0, f"Eval reached a plain version {plain} times")
+    # the recipe's only LUT_INFER forward is Eval's: one kernel per LUT-site call
+    check(plain == 0, f"{label}: Eval reached a plain version {plain} times")
     lut = launches["fused_decode"] + launches["lut_amm_v2"] + launches["lut_amm_v1"]
-    check(lut == n_sites and launches["encode"] == 0,
-          f"Eval launched {launches}, expected one LUT kernel per site ({n_sites})")
+    check(lut == n_calls and launches["encode"] == 0,
+          f"{label}: Eval launched {launches}, expected one LUT kernel per site call ({n_calls})")
     with PlainLUT(), torch.no_grad():
         batch = {k: v.to(dev) for k, v in data.batch_at(99_999).items()}
         plain_loss = float(res.inf_bundle.loss(res.inf_params, batch,
                                                compute_dtype=torch.float32))
     check(abs(plain_loss - deployed) <= KERNEL_ATOL * abs(plain_loss),
-          f"Eval loss {deployed} through the kernels, {plain_loss} through the plain versions")
+          f"{label}: Eval loss {deployed} through the kernels, {plain_loss} through the plain "
+          f"versions")
     # and each site's kernel output in Eval against the plain versions on its inputs
-    held = hold_sites("Eval", eval_sites.calls)
+    held = hold_sites(f"{label} Eval", eval_sites.calls)
     del eval_sites
     d_plain, terms, farther = held["worst_code"]
-    log(f"[recipe] Eval's {held['sites']} LUT-site calls ({held['kernels']}), N = "
+    log(f"[{label}] Eval's {held['sites']} LUT-site calls ({held['kernels']}), N = "
         f"{data.batch * data.seq_len} rows each, {held['rows']} rows: every row equal to the "
         f"plain lookup of the encode kernel's codes (max abs err {held['err']:.3g}); "
         f"{held['codes_off']} of {held['codes']} codes differ from the plain encode's, on "
@@ -2024,13 +2070,13 @@ def recipe_full_width(dev, scratch: Path) -> dict:
            sp["final_loss"], "deployed_loss": deployed, "plain_loss": plain_loss,
            "t_mean": sp["t_mean"], "t_min": sp["t_min"], "eval_launches": launches,
            "eval_sites": held}
-    log(f"[recipe] {wall:.1f}s: step seconds {steps}; tape + k-means {t_init.seconds:.2f}s of which k-means "
-        f"{t_km.seconds:.2f}s over {t_km.calls} sites; deploy (tables + save_artifact) "
-        f"{t_dep.seconds:.2f}s; checkpoints {ck_bytes} bytes, {t_copy.calls} saves: host copy "
-        f"{t_copy.seconds:.2f}s, writes {t_write.seconds:.2f}s (a background thread, waited for "
-        f"at each stage's end); artifact {art_bytes} bytes; peak device memory "
-        f"{peak / 2**30:.2f} GiB")
-    log(f"[recipe] losses: dense {out['dense_loss']:.4f}, soft-PQ {out['soft_pq_loss']:.4f}, "
+    log(f"[{label}] {wall:.1f}s: step seconds {steps}; tape + k-means {t_init.seconds:.2f}s of "
+        f"which k-means {t_km.seconds:.2f}s over {t_km.calls} sites; deploy (tables + "
+        f"save_artifact) {t_dep.seconds:.2f}s; checkpoints {ck_bytes} bytes, {t_copy.calls} "
+        f"saves: host copy {t_copy.seconds:.2f}s, writes {t_write.seconds:.2f}s (a background "
+        f"thread, waited for at each stage's end); artifact {art_bytes} bytes; peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    log(f"[{label}] losses: dense {out['dense_loss']:.4f}, soft-PQ {out['soft_pq_loss']:.4f}, "
         f"deployed {deployed:.6f} through the kernels, {plain_loss:.6f} through the plain "
         f"versions (bound {KERNEL_ATOL} relative); t_mean {sp['t_mean']:.4f} t_min "
         f"{sp['t_min']:.4f}; Eval launches "
@@ -2039,6 +2085,29 @@ def recipe_full_width(dev, scratch: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(scratch / "train")
+    return out
+
+
+def recipe_full_width(dev, scratch: Path) -> dict:
+    """(b) default_recipe at the published width through Recipe.run, the
+    Eval stage through the kernels (held against the plain versions), then
+    the trained artifact served with measured warm-up."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import MarkovLM
+    from repro_torch.launch.serve import chosen_versions
+    from repro_torch.serving.artifact import load_artifact
+    from repro_torch.serving.engine import ServingEngine
+
+    # a fresh autotune cache: the trained artifact's warm-up measures its own
+    # records (none from phase 4 ride in its snapshot)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(scratch / "autotune_train.json")
+    arch = dataclasses.replace(get_arch("qwen3_1p7b"), n_layers=TRAIN_LAYERS,
+                               lut_use_kernel=True)
+    data = MarkovLM(vocab=arch.vocab, seq_len=256, batch=4)
+    adir = scratch / "trained"
+    out = run_recipe("recipe", arch, data, dev, scratch, adir)
 
     # the trained artifact, served: measured warm-up, then the phase-4 burst
     # against the same engine over the plain versions
@@ -2264,7 +2333,8 @@ def check_auto_disable(label: str, bundle, params, dev) -> None:
     del spec, paged
 
 
-def serve_family(label: str, bundle, params, dev, *, recurrent: bool) -> dict:
+def serve_family(label: str, bundle, params, dev, *, recurrent: bool,
+                 hold_all: bool = False) -> dict:
     """Phase 8's path for one model: the measured warm-up, the burst through
     the plain versions, then through the kernels (counts set to 0 before,
     read after) with every LUT site's first launch at each N held against
@@ -2297,7 +2367,8 @@ def serve_family(label: str, bundle, params, dev, *, recurrent: bool) -> dict:
         want, st_plain, gaps = plain_run(plain_eng, burst)
     del plain_eng
     with FirstForwards(eng) as first:
-        reqs, st, by_n, ties = driven(label, eng, burst, want, gaps, tag="families")
+        reqs, st, by_n, ties = driven(label, eng, burst, want, gaps, tag="families",
+                                      hold_all=hold_all)
     held = hold_sites(label, first.calls)
     n_calls = lut_calls_per_forward(bundle)
     check(held["sites"] == n_calls * len(counts),
@@ -2587,14 +2658,15 @@ def report_family(label: str, bundle, held: dict, want: dict, got: dict, launche
             "step_busy_us": busy, "site_calls_held": held["sites"], "sigs": sigs}
 
 
-def phase9_whisper(dev, scratch: Path) -> dict:
+def phase9_whisper(dev, scratch: Path, model: tuple | None = None) -> dict:
     """whisper_tiny at full width and depth: 4 rows of stub frames, an
     8-token prefill with them (the encoder and cross K/V at N = 6000), 16
     greedy decode steps, through the plain versions and the kernels on
-    dense caches, then the kernels on paged caches."""
+    dense caches, then the kernels on paged caches. `model` (bundle,
+    params, bytes) replaces the seeded artifact (phase 10's trained one)."""
     from repro_torch.models.attention import PagedSpec
 
-    bundle, params, n_bytes = family_model("whisper_tiny", dev, scratch)
+    bundle, params, n_bytes = model or family_model("whisper_tiny", dev, scratch)
     arch = bundle.arch
     check_refused("whisper_tiny", bundle, params, dev, "could not run the encoder")
     counts = [ROWS9, ROWS9 * WHISPER_PROMPT, ROWS9 * arch.enc_frames]
@@ -2647,16 +2719,17 @@ def phase9_whisper(dev, scratch: Path) -> dict:
     return dict(res, versions=versions, param_bytes=n_bytes, paged_launches=launches_p)
 
 
-def phase9_vlm(dev, scratch: Path) -> dict:
+def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
     """qwen2_vl_7b at full width and all 28 layers: 4 rows of 32 patch
     embeddings and 8 text tokens' embedding rows as the prefill, 16 greedy
     decode steps fed back as embedding rows, through the plain versions and
     the kernels; then a no-cache forward with the grid's distinct (t, h, w)
-    M-RoPE streams, through both."""
+    M-RoPE streams, through both. `model` (bundle, params, bytes) replaces
+    the seeded artifact (phase 10's trained one)."""
     from repro_torch.models import transformer as tf_mod
     from repro_torch.testing import grid_positions
 
-    bundle, params, n_bytes = family_model("qwen2_vl_7b", dev, scratch)
+    bundle, params, n_bytes = model or family_model("qwen2_vl_7b", dev, scratch)
     arch = bundle.arch
     check_refused("qwen2_vl_7b", bundle, params, dev, "could not give this model the embeddings")
     n_patch = VLM_GRID[0] * VLM_GRID[1]
@@ -2699,11 +2772,11 @@ def phase9_vlm(dev, scratch: Path) -> dict:
     flat = torch.arange(n_patch + VLM_TEXT, device=dev)[None].expand(ROWS9, -1)
     with torch.inference_mode():
         with SiteCalls() as rec:
-            grid, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds, pos=pos3)
+            grid, _, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds, pos=pos3)
         with PlainLUT():
-            grid_plain, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds, pos=pos3)
-        serving, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds,
-                                     pos=flat[None].expand(3, -1, -1))
+            grid_plain, _, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds, pos=pos3)
+        serving, _, _ = tf_mod.lm_apply(bundle.cfg, params, embeds=embeds,
+                                        pos=flat[None].expand(3, -1, -1))
     held_grid = hold_sites("qwen2_vl_7b grid", rec.calls)
     err = (grid - grid_plain).abs().max().item()
     moved = (grid - serving).abs().max().item()
@@ -2737,6 +2810,366 @@ def phase_encdec_vlm(dev, scratch: Path) -> dict:
         out[name] = res
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training the MoE, SSM, hybrid, enc-dec and vision-LM families
+# ---------------------------------------------------------------------------
+
+# depth of each family's soft-PQ step parity (full width always): 2 layers,
+# the hybrid the 6 mamba layers that invoke its shared block once, whisper
+# all of its 4 + 4
+PARITY_LAYERS = {"mamba2_370m": 2, "zamba2_1p2b": 6, "whisper_tiny": 4, "qwen2_vl_7b": 2}
+# rows x tokens of each parity batch: qwen2_vl_7b's 152k-row head and 18944-wide
+# MLP make its float64 witness on the CPU the slowest part
+PARITY_BATCH = {"mamba2_370m": (4, 32), "zamba2_1p2b": (4, 32), "whisper_tiny": (4, 32),
+                "qwen2_vl_7b": (2, 16)}
+TRAIN_VLM_LAYERS = 4     # qwen2_vl_7b's depth in (c): 28 layers in fp32 with AdamW are ~122 GB
+FAMILY_STEPS = 2         # (c)'s dense and soft-PQ steps
+FAMILY_ROWS, FAMILY_SEQ = 4, 64
+FAMILY_LAUNCHER_STEPS = 20   # (d)'s --steps: no kill, so no commit needed
+
+
+def family_step_parity(name: str, dev) -> dict:
+    """(a) One soft-PQ step of `name` at full width and PARITY_LAYERS[name]
+    layers, card against CPU against float64 (`lut_train_step_parity`), on
+    the family's batch (`testing.family_batch`: tokens, stub frames, or
+    patch embeddings with grid positions)."""
+    from repro_torch import testing
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW
+    from repro_torch.optim.schedule import cosine_with_warmup
+    from repro_torch.weights import tree_map_ref
+
+    t0 = time.perf_counter()
+    base = get_arch(name)
+    arch = dataclasses.replace(base, n_layers=PARITY_LAYERS[name])
+    bundle = build_model(arch, Mode.LUT_TRAIN)
+    params = bundle.init(torch.Generator().manual_seed(SEED + 40), device="cpu")
+    # at the activations' scale, as k-means puts them
+    tree_map_ref(lambda p, t: t.mul_(50.0) if p.endswith("centroids") else None, params)
+    batch = {k: torch.from_numpy(v) for k, v in
+             testing.family_batch(arch, *PARITY_BATCH[name], seed=SEED + 41).items()}
+    opt = AdamW(lr=cosine_with_warmup(PARITY_LR, total_steps=4, warmup_steps=2),
+                rules=SOFT_PQ_RULES)
+    res = testing.lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS)
+    errs = res["grad_errs"]
+    worst = max(errs.items(), key=lambda kv: kv[1]["card_cpu"][1])
+    ratio = max((max(e["card_f64"][0] / max(e["cpu_f64"][0], testing.FLOOR_L2),
+                     e["card_f64"][1] / max(e["cpu_f64"][1], testing.FLOOR_MAX)), k)
+                for k, e in errs.items())
+    cut = "" if arch.n_layers == base.n_layers else f" (of {base.n_layers})"
+    log(f"[train10] {name} soft-PQ step, full width, {arch.n_layers} layers{cut}, "
+        f"{res['tokens']} tokens"
+        + (f" + {arch.enc_frames} stub frames a row" if arch.enc_frames else "")
+        + f", card vs CPU vs float64 ({time.perf_counter() - t0:.1f}s): loss "
+          f"{res['loss_dev']:.7f} card, {res['loss_cpu']:.7f} CPU, {res['loss_f64']:.7f} float64;"
+          f" codes picked otherwise at a near-tie of {res['codes']}: card "
+          f"{res['pinned_codes']['card']}, float64 {res['pinned_codes']['float64']}; half-integer "
+          f"fake-quant entries of {res['rounded_entries']}: card {res['rounding_flips']['card']}, "
+          f"float64 {res['rounding_flips']['float64']}; {res['grad_leaves']} gradient leaves, "
+          f"largest card-vs-CPU gap {worst[0]} {worst[1]['card_cpu'][0]:.3g}/"
+          f"{worst[1]['card_cpu'][1]:.3g} (bounds {testing.GRAD_L2}/{testing.GRAD_MAX}); card's "
+          f"gap from float64 over the CPU's at most {ratio[0]:.3g} ({ratio[1]}; bound "
+          f"{testing.WITNESS}); log_t card vs CPU {res['log_t_errs']['card_cpu']:.3g} of its "
+          f"terms; {res['updated']} elements moved")
+    check(not res["failures"], f"{name} soft-PQ step, card vs CPU: " + "; ".join(res["failures"]))
+    return {k: res[k] for k in ("loss_dev", "loss_cpu", "loss_f64", "pinned_codes", "codes",
+                                "rounding_flips", "rounded_entries", "grad_leaves", "updated")}
+
+
+def arctic_step(dev) -> dict:
+    """(a') One soft-PQ step of arctic_480b at full width, ARCTIC_LAYERS
+    layers, bf16 params, on the card alone: every layer LUT (a dense expert
+    layer's trainable weights with their fp32 AdamW moments would be ~134 GB
+    more), the routed experts' tables built per chunk and recomputed in
+    backward. The loss finite, the aux value > 0, the expert sites' shared
+    codebooks a nonzero finite gradient, the update finite; peak memory.
+    Should the step not fit in 80 GB, the peak is printed and the step runs
+    at `reduce_arch(arctic_480b)` instead."""
+    import gc
+
+    from repro_torch.configs import build_model, get_arch, reduce_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.data import MarkovLM
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW, lut_frozen_mask
+    from repro_torch.train.train_step import grads_tree, trainable_view
+    from repro_torch.weights import tree_map_ref
+
+    def step(arch, seq: int) -> dict:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        bundle = build_model(arch, Mode.LUT_TRAIN)
+        params = bundle.init(torch.Generator(device=dev).manual_seed(SEED + 42), device=dev)
+        n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+        t_init = time.perf_counter() - t0
+        batch = {k: v.to(dev) for k, v in MarkovLM(vocab=arch.vocab, seq_len=seq,
+                                                   batch=1).batch_at(0).items()}
+        frozen = lut_frozen_mask(params)
+        opt = AdamW(lr=1e-3, rules=SOFT_PQ_RULES)
+        state = opt.init(params, frozen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live, leaves = trainable_view(params, frozen)
+        logits, aux = bundle.train_logits(live, batch, compute_dtype=torch.bfloat16)
+        loss = bundle.loss_from_logits(logits, aux, batch["labels"])
+        del logits
+        grads = grads_tree(loss, leaves, params, frozen)
+        del live, leaves
+        new, _, gnorm = opt.update(grads, state, params, frozen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        cgrads = [grads["segments"][i][j]["moe"][k]["centroids"]
+                  for i, (count, _) in enumerate(bundle.cfg.segments) for j in range(count)
+                  for k in ("gate", "up", "down")]
+        gmax = max(float(g.abs().max()) for g in cgrads)
+        finite = all(bool(torch.isfinite(g).all()) for g in cgrads)
+        # the updated leaves (the frozen expert weights are the same tensors)
+        bad: list[str] = []
+        tree_map_ref(lambda p, t, fz: None if fz or bool(torch.isfinite(t).all())
+                     else bad.append(p), new, frozen)
+        moved = not bad
+        out = {"loss": float(loss), "aux": float(aux), "grad_norm": float(gnorm),
+               "centroid_grad_max": gmax, "step_s": secs, "init_s": t_init,
+               "peak_gib": peak / 2**30, "param_bytes": n_bytes, "layers": arch.n_layers,
+               "d_model": arch.d_model, "experts": arch.n_experts}
+        log(f"[train10] arctic_480b soft-PQ step on the card, {arch.n_layers} layers, d_model "
+            f"{arch.d_model}, {arch.n_experts} experts top-{arch.top_k}, {arch.param_dtype} "
+            f"params ({n_bytes / 1e9:.2f} GB, built in {t_init:.1f}s), 1 x {seq} tokens: loss "
+            f"{out['loss']:.5f}, aux {out['aux']:.5f}, grad norm {out['grad_norm']:.4g}, the "
+            f"expert sites' shared centroids' largest gradient {gmax:.3g}; step {secs:.2f}s; "
+            f"peak device memory {out['peak_gib']:.2f} GiB above the {base / 2**30:.2f} GiB "
+            f"left allocated")
+        check(math.isfinite(out["loss"]) and out["aux"] > 0,
+              f"arctic_480b step: loss {out['loss']}, aux {out['aux']}")
+        check(finite and gmax > 0, f"arctic_480b step: expert centroid gradients finite "
+                                   f"{finite}, largest {gmax}")
+        check(moved, f"arctic_480b step: the update left non-finite params at {bad}")
+        del bundle, params, grads, new, state, cgrads
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    arch = dataclasses.replace(get_arch("arctic_480b"), n_layers=ARCTIC_LAYERS, lut_policy="all")
+    try:
+        return step(arch, 256)
+    except torch.cuda.OutOfMemoryError as e:
+        reason = str(e).splitlines()[0]
+    # out of the handler, so that the failed step's tensors are freed
+    peak = torch.cuda.max_memory_allocated(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train10] arctic_480b at full width does not fit: {reason}; peak "
+        f"{peak / 2**30:.2f} GiB; the step runs at reduce_arch(arctic_480b)")
+    return dict(step(reduce_arch(arch, lut_policy="all"), 64), full_width_oom_gib=peak / 2**30)
+
+
+def family_recipe(name: str, dev, scratch: Path) -> dict:
+    """(b) `Recipe.run` (`run_recipe`) at full width and depth, then the
+    trained artifact loaded and served as phase 8 serves (`serve_family`:
+    measured warm-up, the burst against the plain versions)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import MarkovLM
+    from repro_torch.serving.artifact import load_artifact
+
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(scratch / f"autotune_{name}.json")
+    arch = dataclasses.replace(get_arch(name), lut_use_kernel=True)
+    data = MarkovLM(vocab=arch.vocab, seq_len=256, batch=4)
+    adir = scratch / f"trained_{name}"
+    out = run_recipe(f"recipe10 {name}", arch, data, dev, scratch, adir)
+    t0 = time.perf_counter()
+    art = load_artifact(adir, device=dev)
+    log(f"[recipe10] {name}: trained artifact ({du(adir) / 1e9:.2f} GB) loaded in "
+        f"{time.perf_counter() - t0:.1f}s")
+    out["served"] = serve_family(f"{name} trained", art.bundle, art.params, dev, recurrent=True,
+                                 hold_all=True)
+    del art
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(adir)
+    return out
+
+
+def train_family_by_functions(name: str, dev, scratch: Path) -> dict:
+    """(c) The enc-dec or vision-LM family trained through the functions
+    the launcher refuses to drive without their inputs: FAMILY_STEPS dense
+    steps on family batches (stub frames, or patch embeddings with grid
+    positions), `convert.convert_dense_to_lut_train` (tape + k-means on
+    sample batches of them; M-RoPE's streams built as the reference builds
+    them), FAMILY_STEPS soft-PQ steps, `deploy_to_artifact` and load; then
+    phase 9's forwards on the trained artifact, kernels against plain."""
+    import gc
+
+    from repro_torch import testing
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core import convert
+    from repro_torch.core.amm import Mode
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW, lut_frozen_mask
+    from repro_torch.optim.schedule import constant
+    from repro_torch.serving.artifact import load_artifact
+    from repro_torch.train.train_step import make_train_step
+
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(scratch / f"autotune_{name}.json")
+    base = get_arch(name)
+    arch = dataclasses.replace(base, lut_use_kernel=True)
+    if name == "qwen2_vl_7b":
+        arch = dataclasses.replace(arch, n_layers=TRAIN_VLM_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+
+    def batch_at(i: int, **kw) -> dict:
+        b = testing.family_batch(arch, FAMILY_ROWS, FAMILY_SEQ, seed=SEED + 50 + i,
+                                 grid=VLM_GRID, **kw)
+        return {k: torch.from_numpy(v) for k, v in b.items()}
+
+    t0 = time.perf_counter()
+    dense = build_model(arch, Mode.DENSE)
+    params = dense.init(torch.Generator(device=dev).manual_seed(SEED + 51), device=dev)
+    opt = AdamW(lr=constant(3e-3))
+    step = make_train_step(dense, opt, compute_dtype=torch.float32)
+    state = opt.init(params)
+    dense_loss = []
+    for i in range(FAMILY_STEPS):
+        params, state, m = step(params, state, batch_at(i))
+        dense_loss.append(float(m["loss"]))
+    del state, step
+    t_dense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples = [batch_at(100 + i) for i in range(2)]
+    if arch.mrope_sections:
+        samples = [{k: v for k, v in b.items() if k != "pos"} for b in samples]
+    lut, lparams = convert.convert_dense_to_lut_train(dense, params,
+                                                      samples, torch.Generator(device=dev)
+                                                      .manual_seed(SEED + 52))
+    t_init = time.perf_counter() - t0
+    before = {s.path: convert.site_params(lparams, s)["centroids"].clone()
+              for s in lut.lut_sites() if s.stack_index in (None, 0)}
+    del params
+    t0 = time.perf_counter()
+    frozen = lut_frozen_mask(lparams)
+    opt = AdamW(lr=constant(1e-3), rules=SOFT_PQ_RULES)
+    step = make_train_step(lut, opt, frozen_mask=frozen, compute_dtype=torch.float32)
+    state = opt.init(lparams, frozen)
+    pq_loss, t_stats = [], {}
+    for i in range(FAMILY_STEPS):
+        lparams, state, m = step(lparams, state, batch_at(10 + i))
+        pq_loss.append(float(m["loss"]))
+        t_stats = {"t_mean": float(m["t_mean"]), "t_min": float(m["t_min"])}
+    del state, step
+    t_pq = time.perf_counter() - t0
+    # a site whose soft assignment is saturated (distances far above t) takes
+    # no gradient in fp32: count the sites whose centroids moved
+    moved = sum(not torch.equal(before[s.path], convert.site_params(lparams, s)["centroids"])
+                for s in lut.lut_sites() if s.stack_index in (None, 0))
+    check(moved > 0, f"{name}: soft-PQ moved no site's centroids")
+    t0 = time.perf_counter()
+    adir = scratch / f"trained_{name}"
+    convert.deploy_to_artifact(lut, lparams, adir)
+    del lparams, lut
+    gc.collect()
+    torch.cuda.empty_cache()
+    art = load_artifact(adir, device=dev)
+    n_bytes = du(adir)
+    t_art = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - mem0) / 2**30
+    check(all(math.isfinite(x) for x in dense_loss + pq_loss), f"{name}: non-finite loss")
+    cut = "" if arch.n_layers == base.n_layers else f" of {base.n_layers}"
+    log(f"[train10] {name}: {arch.n_layers} layers{cut}, full width, {FAMILY_ROWS} x "
+        f"{FAMILY_SEQ} rows a batch"
+        + (f" + {arch.enc_frames} stub frames each" if arch.enc_frames else
+           f", embeddings on a {VLM_GRID[0]} x {VLM_GRID[1]} patch grid") + f": dense "
+        f"{FAMILY_STEPS} steps {t_dense:.1f}s (loss {dense_loss}), tape + k-means on 2 sample "
+        f"batches {t_init:.1f}s, soft-PQ {FAMILY_STEPS} steps {t_pq:.1f}s (loss {pq_loss}, "
+        f"{t_stats}), centroids moved at {moved} of {len(before)} sites (layer 0 of each "
+        f"stack); deploy + artifact ({n_bytes / 1e9:.2f}"
+        f" GB) + load {t_art:.1f}s; peak device memory {peak:.2f} GiB")
+    fn = phase9_whisper if name == "whisper_tiny" else phase9_vlm
+    served = fn(dev, scratch, model=(art.bundle, art.params, n_bytes))
+    del art
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(adir)
+    return {"dense_loss": dense_loss, "soft_pq_loss": pq_loss, "dense_s": t_dense,
+            "init_s": t_init, "soft_pq_s": t_pq, "artifact_s": t_art, "peak_gib": peak,
+            "layers": arch.n_layers, "served": served}
+
+
+def family_launcher(scratch: Path) -> dict:
+    """(d) `launch.train --arch mamba2_370m --lut --steps FAMILY_LAUNCHER_STEPS`
+    at its default size on the
+    card, its artifact served by `launch.serve`; `--arch whisper_tiny` exits
+    non-zero with its refusal."""
+    py = [sys.executable, "-m"]
+    ck, art = scratch / "launch10_ck", scratch / "launch10_art"
+    t0 = time.perf_counter()
+    text = run_logged(py + ["repro_torch.launch.train", "--arch", "mamba2_370m", "--lut",
+                            "--steps", str(FAMILY_LAUNCHER_STEPS), "--ckpt-dir", str(ck),
+                            "--artifact-dir", str(art)],
+                      scratch / "train10.log", 600)
+    check("wrote LUTArtifact" in text and "[eval] deployed INT8 LUT eval loss" in text,
+          f"launch.train --arch mamba2_370m: {text[-2000:]}")
+    t_train = time.perf_counter() - t0
+    for line in text.splitlines():
+        if line.startswith(("[eval]", "replacement plan", "recipe:")):
+            log(f"  {line}")
+    t0 = time.perf_counter()
+    served = run_logged(py + ["repro_torch.launch.serve", "--artifact", str(art)],
+                        scratch / "serve10.log", 600)
+    check(f"artifact {art}" in served, f"serve did not name its artifact: {served[-2000:]}")
+    log(f"[launcher10] launch.train --arch mamba2_370m --lut --steps {FAMILY_LAUNCHER_STEPS} (default "
+        f"size) {t_train:.1f}s; "
+        f"served in {time.perf_counter() - t0:.1f}s: "
+        + " | ".join(l.strip() for l in served.splitlines()[:3]))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(py + ["repro_torch.launch.train", "--arch", "whisper_tiny", "--lut",
+                                "--ckpt-dir", str(scratch / "launch10_w")],
+                          capture_output=True, text=True, env=env, timeout=300)
+    check(proc.returncode != 0 and "audio frames" in proc.stderr
+          and not (scratch / "launch10_w").exists(),
+          f"launch.train --arch whisper_tiny exited {proc.returncode}: {proc.stderr[-1500:]}")
+    log(f"[launcher10] launch.train --arch whisper_tiny exits {proc.returncode}: "
+        f"{proc.stderr.strip().splitlines()[-1]}")
+    for d in (ck, art):
+        shutil.rmtree(d, ignore_errors=True)
+    return {"train_s": t_train, "refusal_rc": proc.returncode}
+
+
+def phase_train_families(dev, scratch: Path) -> dict:
+    """Phase 10: the families trained on the card, each trained artifact
+    served through the LUT kernels; the kernels' launches summed over (b)
+    and (c)'s kernel runs."""
+    import gc
+
+    from repro_torch.kernels import counters
+
+    out: dict = {"step": {}}
+    for name in ("mamba2_370m", "zamba2_1p2b", "whisper_tiny", "qwen2_vl_7b"):
+        out["step"][name] = family_step_parity(name, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["arctic"] = arctic_step(dev)
+    launches = dict.fromkeys(counters.launches(), 0)
+    for name in ("mamba2_370m", "zamba2_1p2b"):
+        res = family_recipe(name, dev, scratch)
+        for k in launches:
+            launches[k] += res["eval_launches"][k] + res["served"]["launches"].get(k, 0)
+        out[name] = res
+    for name in ("whisper_tiny", "qwen2_vl_7b"):
+        res = train_family_by_functions(name, dev, scratch)
+        for k in launches:
+            launches[k] += res["served"]["launches"].get(k, 0)
+            launches[k] += res["served"].get("paged_launches", {}).get(k, 0)
+        out[name] = res
+    out["launcher"] = family_launcher(scratch)
+    out["launches"] = launches
+    log("[train10] kernel launches of phase 10's kernel runs (Eval, the served bursts and "
+        "forwards): " + " ".join(f"{k}={v}" for k, v in launches.items()))
     return out
 
 
@@ -2793,6 +3226,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(9, phase_encdec_vlm, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        trained = timed(10, phase_train_families, dev, scratch)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2813,7 +3249,10 @@ def main() -> int:
         # no single PyTorch call computes a LUT-AMM or the encode's argmin over
         # expansion distances: library_ms is null
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": k["err"], "ms": k["ms"],
+                     "launches": launches[name],
+                     "phase_launches": {"4": launches[name],
+                                        "10": trained["launches"][name]},
+                     "max_abs_err": k["err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -471,31 +471,42 @@ class ModelBundle:
     def lut_sites(self) -> list[SiteSpec]:
         return [s for s in self.sites() if s.mode != Mode.DENSE]
 
-    def _require_trainable(self) -> None:
-        if self.kind != "lm" or self.cfg.takes_embeds or \
-                any(b.kind != "dense" for _, b in self.cfg.segments):
-            raise NotImplementedError(f"training the {self.arch.family} family (MoE aux loss, "
-                                      f"LUT_TRAIN expert tables, the mamba tape, the enc-dec "
-                                      f"and embedding-input forwards) is not ported yet: "
-                                      f"ROADMAP Queue A item 4")
-
     def train_logits(self, params, batch, *, compute_dtype=torch.bfloat16):
         """The training forward over whole sequences: (logits (B, S, vocab),
         aux). The shared forward of `loss` and of both halves of the
-        distillation loss; aux (the MoE penalty of the reference) is 0 for
-        the dense blocks, the only ones whose training is ported."""
-        self._require_trainable()
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-        logits, _ = tf_mod.lm_apply(self.cfg, params, tokens=tokens, pos=pos,
-                                    compute_dtype=compute_dtype)
+        distillation loss; aux is the MoE load-balance value of the lm family,
+        0 elsewhere. An lm batch carries "tokens", or "embeds" (B, S, D) for a
+        model that takes embeddings, and optionally "pos" ((3, B, S) under
+        M-RoPE); without it the positions are 0..S-1 (in all three streams
+        under M-RoPE). An enc-dec batch carries "frames" (B, enc_frames, D)
+        beside the decoder's "tokens"."""
+        b, s = batch["labels"].shape[:2]
+        dev = batch["labels"].device
+        pos = torch.arange(s, device=dev)[None, :].expand(b, s)
+        if self.kind == "lm":
+            if "pos" in batch:
+                pos = batch["pos"]
+            elif self.arch.mrope_sections:
+                pos = pos[None].expand(3, b, s)
+            logits, _, aux = tf_mod.lm_apply(self.cfg, params, tokens=batch.get("tokens"),
+                                             embeds=batch.get("embeds"), pos=pos,
+                                             compute_dtype=compute_dtype)
+            return logits, aux
+        if self.kind == "hybrid":
+            logits, _ = hybrid_mod.hybrid_apply(self.cfg, params, tokens=batch["tokens"],
+                                                pos=pos, compute_dtype=compute_dtype)
+        else:
+            enc_out = encdec_mod.encode(self.cfg, params, batch["frames"],
+                                        compute_dtype=compute_dtype)
+            logits, _ = encdec_mod.decode(self.cfg, params, tokens=batch["tokens"], pos=pos,
+                                          enc_out=enc_out, compute_dtype=compute_dtype)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     def loss_from_logits(self, logits, aux, labels):
-        """Cross-entropy plus the lm family's aux penalty: the one place its
-        weight is applied."""
-        return cross_entropy(logits, labels) + tf_mod.LM_AUX_WEIGHT * aux
+        """Cross-entropy, plus the aux penalty for the lm family: the one
+        place its weight is applied."""
+        ce = cross_entropy(logits, labels)
+        return ce + tf_mod.LM_AUX_WEIGHT * aux if self.kind == "lm" else ce
 
     def loss(self, params, batch, *, compute_dtype=torch.bfloat16):
         logits, aux = self.train_logits(params, batch, compute_dtype=compute_dtype)
@@ -594,8 +605,9 @@ class ModelBundle:
                                            **kw)
         if self.arch.mrope_sections:
             kw["pos"] = pos[None].expand(3, b, s)
-        return tf_mod.lm_apply(self.cfg, params, tokens=batch.get("tokens"),
-                               embeds=batch.get("embeds"), state=state, **kw)
+        logits, caches, _ = tf_mod.lm_apply(self.cfg, params, tokens=batch.get("tokens"),
+                                            embeds=batch.get("embeds"), state=state, **kw)
+        return logits, caches
 
     def _write_cross(self, params, frames: torch.Tensor, cross: dict,
                      rows: torch.Tensor | None, compute_dtype) -> None:

@@ -51,9 +51,11 @@ def lut_train_params_from_dense(gen: torch.Generator, dense_params: dict[str, An
 def quantize_for(t: torch.Tensor, cfg: LUTConfig) -> quant.QuantizedTable:
     """The int8 table of a deployed site in the scale layout its serving path
     wants: the kernels and int8_dot take the m-shared (1, 1, M) scale, which
-    factors out of the codebook sum (exact int32 lookups)."""
+    factors out of the codebook sum (exact int32 lookups). The scale is the
+    reference's compiled deploy's, bit for bit (`quant.table_scale`'s
+    `reciprocal`)."""
     return quant.quantize_table(t, bits=cfg.bits, per_column=cfg.per_column,
-                                m_shared=cfg.int8_dot or cfg.use_kernel)
+                                m_shared=cfg.int8_dot or cfg.use_kernel, reciprocal=True)
 
 
 def deploy_params(trainable: dict[str, Any], frozen: dict[str, Any],

@@ -37,20 +37,25 @@ def _qmax(bits: int) -> float:
 
 
 def table_scale(t: torch.Tensor, *, bits: int = 8, per_column: bool = False,
-                m_shared: bool = False) -> torch.Tensor:
-    """Symmetric scale in the layout the flags select (see module docstring)."""
+                m_shared: bool = False, reciprocal: bool = False) -> torch.Tensor:
+    """Symmetric scale in the layout the flags select (see module docstring).
+    `reciprocal` multiplies by the fp32 1 / (2^(bits-1) - 1) instead of
+    dividing, as XLA compiles the reference's division by that constant
+    (its jitted deploy): the two differ by an ulp on some tables."""
     if m_shared:
         absmax = t.abs().amax(dim=(-3, -2), keepdim=True)  # (1, 1, M)
     elif per_column:
         absmax = t.abs().amax(dim=-2, keepdim=True)        # (C, 1, M)
     else:
         absmax = t.abs().amax(dim=(-2, -1), keepdim=True)  # (C, 1, 1)
-    return torch.clamp(absmax.float(), min=1e-8) / _qmax(bits)
+    absmax = torch.clamp(absmax.float(), min=1e-8)
+    return absmax * (1.0 / _qmax(bits)) if reciprocal else absmax / _qmax(bits)
 
 
 def quantize_table(t: torch.Tensor, *, bits: int = 8, per_column: bool = False,
-                   m_shared: bool = False) -> QuantizedTable:
-    scale = table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared)
+                   m_shared: bool = False, reciprocal: bool = False) -> QuantizedTable:
+    scale = table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared,
+                        reciprocal=reciprocal)
     q = torch.clamp(torch.round(t.float() / scale), -_qmax(bits), _qmax(bits))
     return QuantizedTable(q=q.to(torch.int8), scale=scale)
 

@@ -9,7 +9,14 @@ Counterpart of `repro.launch.train`, with its flags one for one plus
   eval gate -> LUTArtifact written to --artifact-dir
 
 and serves nothing itself: `python -m repro_torch.launch.serve --artifact
-<dir>` serves what it writes. `--recipe recipe.json` runs a custom stage
+<dir>` serves what it writes. `--arch` takes the reference's choices (every
+arch of ARCH_IDS and bert_base). Its data source gives token batches only,
+so `--arch whisper_tiny` and `--arch qwen2_vl_7b` exit with the reason
+(`train_refusal`) before anything is built: the enc-dec's encoder needs
+frames and the vision-LM backbone embeddings. The reference's launcher
+dies on both at the first dense step (ROADMAP, known reference faults);
+both families train through the functions (`ModelBundle.loss`,
+`train_step.make_train_step`, `core.convert`) with such batches. `--recipe recipe.json` runs a custom stage
 list; `--dump-recipe` writes the flag-built default as a starting point. A
 run is resumable: killing the process and re-invoking it with the same
 --ckpt-dir resumes at the recorded stage and checkpoint step. It runs on
@@ -26,17 +33,34 @@ import argparse
 import os
 import tempfile
 
-from repro_torch.configs import ARCH_IDS, effective_plan, get_arch, reduce_arch
+from repro_torch.configs import ARCH_IDS, ArchSpec, effective_plan, get_arch, reduce_arch
 from repro_torch.data import MarkovLM
 from repro_torch.train.recipe import Recipe, default_recipe
 
 
+def train_refusal(arch: ArchSpec) -> str | None:
+    """Why the launcher cannot train `arch`, or None. Its data source
+    (MarkovLM) gives {"tokens", "labels"} batches, as the reference's does;
+    there the enc-dec's loss reads batch["frames"] (KeyError) and the
+    vision-LM's forward reads embeds of None. The port refuses both rather
+    than copy either fault; a data source of frames or embeddings would be a
+    feature the reference lacks."""
+    if arch.family == "audio":
+        return (f"--arch {arch.name}: the launcher's data source gives token batches only, "
+                f"so it could not feed the encoder its audio frames (the reference's launcher "
+                f"dies at its first dense step on KeyError 'frames'); train it through "
+                f"ModelBundle.loss / train_step.make_train_step with frame batches")
+    if arch.takes_embeds:
+        return (f"--arch {arch.name}: the launcher's data source gives token batches only, "
+                f"so it could not give this model the embeddings it takes (the reference's "
+                f"launcher dies at its first dense step reading embeds of None); train it "
+                f"through ModelBundle.loss / train_step.make_train_step with embedding batches")
+    return None
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    # training of the moe, ssm and hybrid families is not ported yet (ROADMAP
-    # Queue A item 4): the dense archs only
-    ap.add_argument("--arch", choices=[a for a in ARCH_IDS if get_arch(a).family == "dense"],
-                    default="qwen3_1p7b")
+    ap.add_argument("--arch", choices=ARCH_IDS + ("bert_base",), default="qwen3_1p7b")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--vocab", type=int, default=512)
@@ -76,6 +100,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device (default: cuda; raises without a card)")
     args = ap.parse_args(argv)
 
+    if (refusal := train_refusal(get_arch(args.arch))) is not None:
+        ap.error(refusal)
     artifact_dir = args.artifact_dir or args.ckpt_dir + "_artifact"
     if args.recipe is not None and args.dump_recipe is not None:
         ap.error("--dump-recipe writes the flag-built default recipe; combining it with "

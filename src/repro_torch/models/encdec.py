@@ -19,6 +19,8 @@ nothing)}. A forward writes the self K/V in place where `write_index` says,
 then attends over the cache, as the reference's decoder does (no deferred
 slab write). Under an activation tape the records are keyed
 'encoder/<j>/<site>' and 'decoder/<j>/<site>', the registry's tape keys.
+The training forward is `encode` then `decode` with `enc_out` over whole
+sequences (no caches), each run of autograd.
 """
 
 from __future__ import annotations
@@ -137,7 +139,7 @@ def encode(cfg: EncDecCfg, params: Params, frames: torch.Tensor, *,
     x = frames.to(compute_dtype)
     for j, lp in enumerate(params["encoder"]):
         set_tape_prefix(f"encoder/{j}")
-        x, _ = block_apply(cfg.enc_block, lp, x, pos=pos)
+        x, _, _ = block_apply(cfg.enc_block, lp, x, pos=pos)
     return rmsnorm(params["enc_norm"], x)
 
 

@@ -15,6 +15,12 @@ the paged {"k_pool", "v_pool"}) stacked over the invocations}; a forward
 updates them in place: the mamba state of the rows it may write
 (`transformer.StateRows`), the K/V where `write_index` says. The shared
 block attends as the reference's does, without the deferred slab write.
+
+A training forward (no caches, gradients on) recomputes each mamba layer in
+the backward pass, as the reference's scan does with remat. Under an
+activation tape the mamba layers record as 'mamba_stack/<j>/<site>' and
+every invocation of the shared block under the one prefix 'shared': its
+records pool over the invocations, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
@@ -45,6 +52,8 @@ from repro_torch.models.transformer import (
     block_apply,
     block_init,
     block_specs,
+    remat_active,
+    train_block,
     zeros_like_specs,
 )
 
@@ -155,12 +164,17 @@ def hybrid_apply(cfg: HybridCfg, params: Params, *, tokens: torch.Tensor, pos: t
     x = embed(params["embed"], tokens).to(compute_dtype)
     x0 = x
     inv = 0
+    remat = remat_active(True, caches)
     for lo, hi in cfg.segment_bounds:
         for j in range(lo, hi):
             set_tape_prefix(f"mamba_stack/{j}")
+            lp = params["mamba_stack"][j]
+            if remat:
+                x, _ = checkpoint(train_block, cfg.mamba_block, lp, x, pos, use_reentrant=False)
+                continue
             cl = None if caches is None else {n: t[j] for n, t in caches["mamba"].items()}
-            x, _ = block_apply(cfg.mamba_block, params["mamba_stack"][j], x, pos=pos,
-                               cache=cl, cache_len=cache_len, state=state)
+            x, _, _ = block_apply(cfg.mamba_block, lp, x, pos=pos, cache=cl,
+                                  cache_len=cache_len, state=state)
         if hi in cfg.invocation_points:
             # weight-shared across the invocations: one registry path
             set_tape_prefix("shared")

@@ -174,7 +174,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_: torch.Te
     states = torch.einsum("bcqh,bcqh,bcqhn,bcqhp->bchpn", decay_out, dtc, bc, xc)
     # across chunks: the linear recurrence
     chunk_decay = torch.exp(seg[:, :, -1, :])                     # (B, nc, H)
-    hprev = x.new_zeros((b, h, p, n), dtype=torch.float32) if h0 is None else h0.float()
+    hprev = xc.new_zeros((b, h, p, n)) if h0 is None else h0.float()
     hprevs = []
     for ci in range(nc):
         hprevs.append(hprev)

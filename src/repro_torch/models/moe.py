@@ -15,15 +15,24 @@ a cumsum.
 The expert contraction is plain tensor ops, as in the reference (no Pallas
 kernel there, no CUDA kernel here). Two departures that leave every value
 as the reference computes it: only the experts that received a token run
-(an idle expert's output is multiplied by a combine weight of 0), and they
-run in chunks of experts, so that neither a dense site's weight converted
-to the compute dtype nor a LUT site's gathered table rows are ever
-materialized for all experts at once (arctic at full width: 128 x 7168 x
-4864 per site). A LUT_INFER site reads each token's C table rows by its
-codes and sums them: in int32 and rescaled once with `int8_dot` (the
-reference's int8 one-hot dot, exact), else dequantized in fp32, the
-reference's one-hot product over the dequantized table with its zero terms
-left out.
+(an idle expert's output is multiplied by a combine weight of 0, so it adds
+nothing to any gradient either), and they run in chunks of experts, so that
+neither a dense site's weight converted to the compute dtype nor a LUT
+site's gathered table rows are ever materialized for all experts at once
+(arctic at full width: 128 x 7168 x 4864 per site). A LUT_INFER site reads
+each token's C table rows by its codes and sums them: in int32 and rescaled
+once with `int8_dot` (the reference's int8 one-hot dot, exact), else
+dequantized in fp32, the reference's one-hot product over the dequantized
+table with its zero terms left out.
+
+A LUT_TRAIN site ({"w" frozen, "centroids" shared by the experts, "log_t"})
+rebuilds each routed expert's (C, K, F) table from its frozen weight and
+fake-quantizes it with one symmetric scale per (expert, codebook), the
+straight-through estimator for the encoding, as the reference does. With
+gradients on, each chunk is recomputed in the backward pass instead of
+keeping its tables (`torch.utils.checkpoint`): a layer's saved state is its
+chunks' inputs, not E tables. As in the reference, the expert sites never
+record to an activation tape.
 """
 
 from __future__ import annotations
@@ -32,9 +41,11 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core import pq
+from repro_torch.core import amm, pq, quant
 from repro_torch.core.amm import LUTConfig, Mode
+from repro_torch.core.temperature import init_log_temperature
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
     ParamSpec,
@@ -44,6 +55,7 @@ from repro_torch.models.common import (
     linear,
     linear_init,
     linear_specs,
+    tape_active,
 )
 
 # bytes of the per-chunk working set (a dense chunk's weights in the compute
@@ -62,11 +74,6 @@ class ExpertSiteCfg:
     lut: LUTConfig
 
 
-def _not_ported() -> NotImplementedError:
-    return NotImplementedError("LUT_TRAIN expert sites (soft-PQ over per-expert tables) are not "
-                               "ported yet: ROADMAP Queue A item 4")
-
-
 def _scale_shape(s: ExpertSiteCfg) -> tuple[int, ...]:
     """The deployed scale layout per the site's policy (the reference's)."""
     c = s.lut.codebooks(s.d_in)
@@ -79,11 +86,13 @@ def _scale_shape(s: ExpertSiteCfg) -> tuple[int, ...]:
 
 def expert_linear_specs(s: ExpertSiteCfg, dtype=torch.float32) -> Params:
     """ParamSpecs of `expert_linear_init`'s params."""
+    w = ParamSpec((s.n_experts, s.d_in, s.d_out), dtype)
     if s.mode == Mode.DENSE:
-        return {"w": ParamSpec((s.n_experts, s.d_in, s.d_out), dtype)}
-    if s.mode != Mode.LUT_INFER:
-        raise _not_ported()
+        return {"w": w}
     c = s.lut.codebooks(s.d_in)
+    if s.mode == Mode.LUT_TRAIN:
+        return {"w": w, "centroids": ParamSpec((c, s.lut.k, s.lut.v), torch.float32),
+                "log_t": ParamSpec((), torch.float32)}
     return {"centroids": ParamSpec((c, s.lut.k, s.lut.v), torch.float32),
             "table_q": ParamSpec((s.n_experts, c, s.lut.k, s.d_out), torch.int8),
             "table_scale": ParamSpec(_scale_shape(s), torch.float32)}
@@ -91,17 +100,23 @@ def expert_linear_specs(s: ExpertSiteCfg, dtype=torch.float32) -> Params:
 
 def expert_linear_init(gen: torch.Generator, s: ExpertSiteCfg, *, dtype=torch.float32,
                        device="cpu") -> Params:
-    """DENSE {"w": N(0, 1/d_in) (E, d_in, d_out)}; LUT_INFER {"centroids":
-    N(0, 0.02^2) (C, K, V) shared by the experts, "table_q": uniform int8
-    in [-127, 126] (E, C, K, d_out), "table_scale": 0.02}. Drawn one expert
-    at a time (no fp32 copy of every expert's weight)."""
+    """DENSE {"w": N(0, 1/d_in) (E, d_in, d_out)}; LUT_TRAIN {"w" (frozen),
+    "centroids": N(0, 0.02^2) (C, K, V) shared by the experts, "log_t": 0};
+    LUT_INFER {"centroids", "table_q": uniform int8 in [-127, 126] (E, C,
+    K, d_out), "table_scale": 0.02}. The weight is drawn one expert at a
+    time (no fp32 copy of every expert's weight)."""
     specs = expert_linear_specs(s, dtype)
-    if s.mode == Mode.DENSE:
+    if s.mode in (Mode.DENSE, Mode.LUT_TRAIN):
         w = torch.empty(specs["w"].shape, dtype=dtype, device=device)
         for e in range(s.n_experts):
             w[e] = (torch.randn((s.d_in, s.d_out), generator=gen, device=gen.device)
                     .to(device) * (1.0 / s.d_in ** 0.5)).to(dtype)
-        return {"w": w}
+        if s.mode == Mode.DENSE:
+            return {"w": w}
+        return {"w": w,
+                "centroids": torch.randn(specs["centroids"].shape, generator=gen,
+                                         device=gen.device).to(device) * 0.02,
+                "log_t": init_log_temperature(device=device)}
     return {
         "centroids": torch.randn(specs["centroids"].shape, generator=gen,
                                  device=gen.device).to(device) * 0.02,
@@ -116,39 +131,69 @@ def _chunks(n: int, per_expert_bytes: int):
     return [(i, min(n, i + step)) for i in range(0, n, step)]
 
 
+def _expert_tables_train(p: Params, s: ExpertSiteCfg, experts: torch.Tensor) -> torch.Tensor:
+    """(A, C, K, F) fake-quantized tables of the experts `experts`, rebuilt
+    from their frozen weights (gradient stopped) in the weights' dtype: one
+    symmetric scale per (expert, codebook) over (K, F), the reference's
+    per-codebook policy whatever the site's deploy layout."""
+    t = pq.build_table(p["centroids"], p["w"].detach()[experts], stop_weight_grad=True)
+    return quant.fake_quant(t, bits=s.lut.bits)
+
+
+def _train_chunk(s: ExpertSiteCfg, p: Params, x: torch.Tensor,
+                 experts: torch.Tensor) -> torch.Tensor:
+    """One chunk of a LUT_TRAIN site: x (A', Cap, d_in) -> (A', Cap, d_out),
+    the straight-through encoding at the learned temperature contracted with
+    the chunk's tables."""
+    a, cap, _ = x.shape
+    dists = pq.pairwise_sq_dists(pq.split_subvectors(x.reshape(a * cap, s.d_in), s.lut.v),
+                                 p["centroids"])
+    enc = pq.ste_encode(dists, amm.temperature(p["log_t"])).reshape(a, cap, -1).to(x.dtype)
+    tables = _expert_tables_train(p, s, experts)
+    return torch.bmm(enc, tables.reshape(a, -1, s.d_out).to(x.dtype))
+
+
 def expert_linear(s: ExpertSiteCfg, p: Params, x: torch.Tensor,
                   experts: torch.Tensor | None = None) -> torch.Tensor:
     """x (A, Cap, d_in) -> (A, Cap, d_out) for the experts `experts` (A
     indices into the site's E; all E when None)."""
     a, cap, _ = x.shape
     ids = torch.arange(a, device=x.device) if experts is None else experts
-    out = x.new_empty((a, cap, s.d_out))
     if s.mode == Mode.DENSE:
         w = p["w"]
-        for i, j in _chunks(a, s.d_in * s.d_out * x.element_size()):
-            out[i:j] = torch.bmm(x[i:j], w[ids[i:j]].to(x.dtype))
-        return out
-    if s.mode != Mode.LUT_INFER:
-        raise _not_ported()
+        return torch.cat([torch.bmm(x[i:j], w[ids[i:j]].to(x.dtype))
+                          for i, j in _chunks(a, s.d_in * s.d_out * x.element_size())])
+    c = p["centroids"].shape[0]
+    if s.mode == Mode.LUT_TRAIN:
+        per = (s.d_in * s.d_out * p["w"].element_size() + 3 * c * s.lut.k * s.d_out * 4
+               + 3 * cap * c * s.lut.k * 4)
+        # recompute each chunk in backward, where there is one (and no tape)
+        remat = torch.is_grad_enabled() and not tape_active()
+        out = []
+        for i, j in _chunks(a, per):
+            args = (s, p, x[i:j], ids[i:j])
+            out.append(checkpoint(_train_chunk, *args, use_reentrant=False) if remat
+                       else _train_chunk(*args))
+        return torch.cat(out)
 
     cents = p["centroids"]
-    c = cents.shape[0]
     xf = x.reshape(a * cap, s.d_in)
     codes = torch.argmin(pq.pairwise_sq_dists(pq.split_subvectors(xf, s.lut.v), cents),
                          dim=-1).reshape(a, cap, c)
     tq, scale = p["table_q"], p["table_scale"]
     cb = torch.arange(c, device=x.device)
+    out = []
     for i, j in _chunks(a, cap * c * s.d_out * 4):
         e = ids[i:j]
         # (A', Cap, C, d_out): row codes[a, n, c] of expert e's table c
         rows = tq[e[:, None, None], cb[None, None, :], codes[i:j]]
         if s.lut.int8_dot:
             acc = rows.to(torch.int32).sum(dim=2)
-            out[i:j] = (acc.float() * scale[e].reshape(j - i, 1, s.d_out)).to(x.dtype)
+            out.append((acc.float() * scale[e].reshape(j - i, 1, s.d_out)).to(x.dtype))
         else:
             sc = scale[e][:, :, 0, :][:, None]                    # (A', 1, C|1, d_out|1)
-            out[i:j] = (rows.float() * sc).to(x.dtype).sum(dim=2)
-    return out
+            out.append((rows.float() * sc).to(x.dtype).sum(dim=2))
+    return torch.cat(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,8 +280,8 @@ def moe(cfg: MoECfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     xa = xin[active]
     g = activation(cfg.act, expert_linear(cfg.gate, p["gate"], xa, active))
     u = expert_linear(cfg.up, p["up"], xa, active)
-    h = torch.zeros((e, b * cap, d), dtype=x.dtype, device=x.device)
-    h[active] = expert_linear(cfg.down, p["down"], g * u, active)
+    h = x.new_zeros((e, b * cap, d)).index_copy(
+        0, active, expert_linear(cfg.down, p["down"], g * u, active))
     y = torch.einsum("bsec,ebcd->bsd", combine, h.reshape(e, b, cap, d))
 
     if cfg.shared is not None:

@@ -22,10 +22,12 @@ Three block kinds, as in the reference: "dense" (attention + MLP), "moe"
 place (`mamba2.mamba2`), and keeps the deferred K/V write off, as the
 reference does for mamba segments.
 
-A training forward (no caches, gradients on) recomputes each block in the
-backward pass instead of keeping its activations (`torch.utils.checkpoint`,
-the counterpart of the reference's `remat=True`); the values are the same
-with and without it. Under an activation tape each layer's records are keyed
+Every forward also returns the MoE load-balance value summed over the MoE
+layers (0 without them), the reference's `aux`: the lm family's loss adds
+it at LM_AUX_WEIGHT. A training forward (no caches, gradients on)
+recomputes each block in the backward pass instead of keeping its
+activations (`torch.utils.checkpoint`, the counterpart of the reference's
+`remat=True`); the values are the same with and without it. Under an activation tape each layer's records are keyed
 'segments/<i>/<j>/<site>', the registry's tape keys.
 """
 
@@ -55,8 +57,7 @@ from repro_torch.models.common import (
     tape_active,
 )
 
-# MoE load-balance penalty weight of the lm family's loss (training of the
-# moe family is not ported yet, so the penalty enters as 0)
+# MoE load-balance penalty weight of the lm family's loss
 LM_AUX_WEIGHT = 0.01
 
 
@@ -134,14 +135,17 @@ def block_apply(cfg: BlockCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
                 cache: Params | None = None, cache_len: torch.Tensor | None = None,
                 defer_cache_write: bool = False, write_index=None,
                 block_tables: torch.Tensor | None = None,
-                state: StateRows | None = None) -> tuple[torch.Tensor, Params | None]:
-    """Returns (x, cache or deferred slabs). A mamba block writes its state
-    rows in place (`state`)."""
+                state: StateRows | None = None
+                ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """Returns (x, cache or deferred slabs, aux): aux the MoE block's
+    load-balance value, 0 for the other kinds. A mamba block writes its
+    state rows in place (`state`)."""
+    zero = x.new_zeros((), dtype=torch.float32)
     if cfg.kind == "mamba":
         st = state or StateRows()
         h = mamba_mod.mamba2(cfg.mamba, p["mamba"], rmsnorm(p["norm"], x), cache=cache,
                              cache_len=cache_len, valid=st.valid, rows=st.rows)
-        return x + h, cache
+        return x + h, cache, zero
     a, new_cache = attn_mod.attention(
         cfg.attn, p["attn"], rmsnorm(p["norm1"], x), pos=pos, cache=cache,
         cache_len=cache_len, defer_cache_write=defer_cache_write, write_index=write_index,
@@ -149,13 +153,14 @@ def block_apply(cfg: BlockCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
     )
     x = x + a
     h = rmsnorm(p["norm2"], x)
+    aux = zero
     if cfg.kind == "dense":
         f = mlp_mod.mlp(cfg.mlp, p["mlp"], h)
     else:
-        f, _ = moe_mod.moe(cfg.moe, p["moe"], h)
+        f, aux = moe_mod.moe(cfg.moe, p["moe"], h)
         if cfg.residual_mlp is not None:
             f = f + mlp_mod.mlp(cfg.residual_mlp, p["residual_mlp"], h)
-    return x + f, new_cache
+    return x + f, new_cache, aux
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,30 +235,41 @@ def init_caches(cfg: LMCfg, b: int, s_max: int, dtype=torch.bfloat16, device="cp
     return zeros_like_specs(cache_specs(cfg, b, s_max, dtype, paged), device)
 
 
-def _train_block(bcfg: BlockCfg, lp: Params, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    return block_apply(bcfg, lp, x, pos=pos)[0]
+def train_block(bcfg: BlockCfg, lp: Params, x: torch.Tensor,
+                pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A block's training forward: (x, aux), what a recomputed block returns."""
+    y, _, aux = block_apply(bcfg, lp, x, pos=pos)
+    return y, aux
+
+
+def remat_active(remat: bool, caches) -> bool:
+    """Recompute blocks in backward only where there is a backward (and no
+    tape, which the recomputation would write to a second time)."""
+    return remat and caches is None and torch.is_grad_enabled() and not tape_active()
 
 
 def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: torch.Tensor,
                caches: Params | None, cache_len: torch.Tensor | None,
                write_index, block_tables: torch.Tensor | None = None,
                remat: bool = False, prefix: str = "",
-               state: StateRows | None = None) -> torch.Tensor:
-    """Run one segment's layers; writes the segment's cache in place."""
+               state: StateRows | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run one segment's layers; writes the segment's cache in place.
+    Returns (x, the layers' aux summed)."""
     defer = caches is not None and x.shape[1] == 1 and bcfg.kind != "mamba"
-    # recompute in backward only where there is a backward (and no tape,
-    # which the recomputation would write to a second time)
-    remat = remat and caches is None and torch.is_grad_enabled() and not tape_active()
+    remat = remat_active(remat, caches)
+    aux_total = x.new_zeros((), dtype=torch.float32)
     k_slabs, v_slabs = [], []
     for j, lp in enumerate(layers):
         set_tape_prefix(f"{prefix}/{j}")
         if remat:
-            x = checkpoint(_train_block, bcfg, lp, x, pos, use_reentrant=False)
+            x, aux = checkpoint(train_block, bcfg, lp, x, pos, use_reentrant=False)
+            aux_total = aux_total + aux
             continue
         cl = None if caches is None else {name: t[j] for name, t in caches.items()}
-        x, nc = block_apply(bcfg, lp, x, pos=pos, cache=cl, cache_len=cache_len,
-                            defer_cache_write=defer, write_index=write_index,
-                            block_tables=block_tables, state=state)
+        x, nc, aux = block_apply(bcfg, lp, x, pos=pos, cache=cl, cache_len=cache_len,
+                                 defer_cache_write=defer, write_index=write_index,
+                                 block_tables=block_tables, state=state)
+        aux_total = aux_total + aux
         if defer:
             k_slabs.append(nc["k_slab"])
             v_slabs.append(nc["v_slab"])
@@ -265,7 +281,7 @@ def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: to
         else:
             attn_mod.write_at(caches["k"], torch.stack(k_slabs), write_index)
             attn_mod.write_at(caches["v"], torch.stack(v_slabs), write_index)
-    return x
+    return x, aux_total
 
 
 def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
@@ -273,8 +289,10 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
              caches: list | None = None, cache_len: torch.Tensor | None = None,
              compute_dtype=torch.float32, write_index=None,
              block_tables: torch.Tensor | None = None,
-             state: StateRows | None = None) -> tuple[torch.Tensor, list | None]:
-    """Returns (logits (B, S, vocab), caches). The input is `tokens` (B, S),
+             state: StateRows | None = None
+             ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
+    """Returns (logits (B, S, vocab), caches, aux), aux the MoE layers'
+    load-balance values summed (0 without MoE layers). The input is `tokens` (B, S),
     or `embeds` (B, S, D) when `cfg.takes_embeds` (the embedding table stays
     in the params, as the reference's `lm_init` keeps it, and goes unread);
     pos is (B, S), or (3, B, S) under M-RoPE. The caches are updated in
@@ -288,12 +306,14 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
         x = embeds.to(compute_dtype)
     else:
         x = embed(params["embed"], tokens).to(compute_dtype)
+    aux = x.new_zeros((), dtype=torch.float32)
     for i, (_, bcfg) in enumerate(cfg.segments):
-        x = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
+        x, a = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
                        caches=None if caches is None else caches[i],
                        cache_len=cache_len, write_index=write_index,
                        block_tables=block_tables, remat=cfg.remat, prefix=f"segments/{i}",
                        state=state)
+        aux = aux + a
     x = rmsnorm(params["final_norm"], x)
     if cfg.lm_head is not None:
         set_tape_prefix("")                     # registry key: bare "lm_head"
@@ -301,4 +321,4 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
     else:
         # tied head: a plain matmul, left to the library as the reference leaves it to XLA
         logits = x @ params["embed"]["table"].to(x.dtype).T
-    return logits, caches
+    return logits, caches, aux

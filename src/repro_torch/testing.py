@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import pq, quant
+from repro_torch.core.convert import site_params  # noqa: F401  (the tests' site lookup)
 
 # (N, D, M, K, V): N and M ragged against the kernels' tiles, C ragged against
 # their codebook chunks (the shapes of tests/test_fused_decode.py)
@@ -77,23 +78,6 @@ def tie_gaps(x: torch.Tensor, centroids: torch.Tensor, codes_a: torch.Tensor,
     return (da - db).abs() / (1.0 + da.abs())
 
 
-def site_params(params: dict, spec) -> dict:
-    """A site's param dict in the port's layout, from its registry entry
-    (`ModelBundle.sites()`): a segment's layer, a layer of a top-level stack
-    (the hybrid's mamba_stack, the enc-dec's encoder and decoder), or a
-    path from the root."""
-    parts = spec.path.split("/")
-    if parts[0] == "segments":
-        node, rest = params["segments"][int(parts[1])][spec.stack_index], parts[2:]
-    elif isinstance(params.get(parts[0]), list):
-        node, rest = params[parts[0]][spec.stack_index], parts[1:]
-    else:
-        node, rest = params, parts
-    for part in rest:
-        node = node[part]
-    return node
-
-
 def hold_lut_sites(bundle, params, records: dict, reference, *, tie_eps: float) -> dict:
     """Each LUT site of `bundle` held against the reference's on the inputs
     an activation tape recorded in one forward (`tape_capture().records`):
@@ -140,6 +124,27 @@ def grid_positions(b: int, n_text: int, rows: int, cols: int) -> np.ndarray:
     return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, pos.shape[1])))
 
 
+def family_batch(arch, b: int, s: int, *, seed: int, grid: tuple[int, int] = (2, 4),
+                 scale: float = 1.0) -> dict[str, np.ndarray]:
+    """A training batch of the arch's family, numpy, from one seed: "labels"
+    (B, S) and "tokens" (B, S) int32; for the enc-dec also stub "frames"
+    (B, enc_frames, D); for a model that takes embeddings "embeds" (B, S, D)
+    instead of tokens (a grid of patch rows, then text rows) and "pos", the
+    grid's (t, h, w) M-RoPE streams (`grid_positions`). Frames and
+    embeddings are N(0, scale^2)."""
+    rng = np.random.default_rng(seed)
+    out = {"labels": rng.integers(0, arch.vocab, (b, s)).astype(np.int32)}
+    if arch.takes_embeds:
+        out["embeds"] = rng.standard_normal((b, s, arch.d_model), dtype=np.float32) * scale
+        out["pos"] = grid_positions(b, s - grid[0] * grid[1], *grid)
+    else:
+        out["tokens"] = rng.integers(0, arch.vocab, (b, s)).astype(np.int32)
+    if arch.family == "audio":
+        out["frames"] = rng.standard_normal((b, arch.enc_frames, arch.d_model),
+                                            dtype=np.float32) * scale
+    return out
+
+
 def rows_near_tie(x: torch.Tensor, centroids: torch.Tensor, eps: float) -> torch.Tensor:
     """(N,) bool: rows whose best and second-best fp32 distance in some
     codebook are within eps * (1 + |best|): rows where an fp32 summation
@@ -167,23 +172,6 @@ WITNESS = 4.0       # the card's gap from float64 over the CPU fp32's
 FLOOR_L2 = 1e-6     # the CPU's gap counted as at least this (L2) ...
 FLOOR_MAX = 1e-5    # ... and this (largest entry)
 
-def lut_site_codes(bundle, params, batch, *, compute_dtype=torch.float32) -> dict:
-    """{tape key: (inputs (N, D), centroids, codes (N, C))} of every LUT site
-    of one forward of `bundle` (a LUT_TRAIN or LUT_INFER model)."""
-    from repro_torch.models.common import tape_capture
-
-    with tape_capture(max_rows=1 << 30) as tape, torch.no_grad():
-        bundle.loss(params, batch, compute_dtype=compute_dtype)
-    out = {}
-    for s in bundle.lut_sites():
-        site = params["segments"][int(s.path.split("/")[1])][s.stack_index]
-        for part in s.kind.split("/"):
-            site = site[part]
-        x = torch.cat(tape.records[s.tape_key])
-        out[s.tape_key] = (x, site["centroids"], pq.encode_indices(x, site["centroids"]))
-    return out
-
-
 @contextlib.contextmanager
 def float64_compute():
     """While active, `Tensor.float()` leaves a float64 tensor in float64.
@@ -206,28 +194,36 @@ def float64_compute():
         torch.Tensor.float = real
 
 
-def lut_train_grads(bundle, params, batch, *, compute_dtype=torch.float32, pin=None):
-    """One forward and backward of a LUT_TRAIN model: (loss, gradients in the
-    params' layout with None at frozen leaves, log_t terms, rounding).
+@contextlib.contextmanager
+def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
+                tie_eps: float = 1e-6):
+    """While active, every LUT_TRAIN forward over `params` (the tensors the
+    model reads, or views of them) records, and yields in a dict:
 
-    * log_t terms, {reference path: [per-layer sum over (row, codebook,
-      centroid) of |d loss / d dists * dists|]}: d loss / d log_t = -sum
-      (d loss / d dists) * dists, whose terms cancel, so its fp32 rounding
-      error scales with their magnitudes, not with itself;
-    * rounding, {site path: [per layer (q, T / scale)]}: the integers each
-      site's fake-quant rounds its table to, and the quotients it rounds.
-      `pin` (the rounding of another run) replaces this run's integers by
-      those. A quotient at a half-integer may round either way under
-      another fp32 order, and an entry rounded the other way moves the
-      forward by a whole quantization step at every row that selects it:
-      a difference of rounding, far larger than the rounding of a sum."""
+    * "rounding", {(site path, layer, experts): (q, T / scale)}: the
+      integers each fake-quantized table is rounded to and the quotients
+      rounded; an expert site's tables are built per chunk of routed experts
+      (`experts` the chunk's expert ids, None at the other sites);
+    * "codes", {((site path, layer, experts), call): hard codes}: the codes
+      of each straight-through encoding, `call` counting a site's encodings
+      in this run (a recomputed block or chunk encodes again).
+
+    `pin` (another run's record, the same model and batch) makes this run
+    take that run's integers and codes where its own differ; "pinned"
+    counts the codes taken and "off" lists each differing code that does
+    not sit on a near-tie of this run's distances (relative gap > tie_eps).
+    A quotient at a half-integer, or two distances within rounding, may go
+    either way under another fp32 order; an entry or code taken the other
+    way moves the forward by a whole table entry at every row that reads
+    it, a difference of rounding far larger than the rounding of a sum.
+    `terms`, when given, gathers per log_t (by id) the sum over (row,
+    codebook, centroid) of |d loss / d dists * dists| in a backward."""
     from repro_torch.core import amm
-    from repro_torch.optim import lut_frozen_mask
-    from repro_torch.train.train_step import grads_tree, trainable_view
+    from repro_torch.models import moe
     from repro_torch.weights import tree_map_ref
 
-    frozen = lut_frozen_mask(params)
-    live, leaves = trainable_view(params, frozen)
+    # a site's temperature leaf names it (its storage: a trainable view of
+    # the leaf shares it)
     site_of: dict[int, tuple[str, int]] = {}
     layer_of: dict[str, int] = {}
 
@@ -235,67 +231,110 @@ def lut_train_grads(bundle, params, batch, *, compute_dtype=torch.float32, pin=N
         if path.endswith("/log_t"):
             site = path[: -len("/log_t")]
             layer_of[site] = layer_of.get(site, -1) + 1
-            site_of[id(t)] = (site, layer_of[site])
+            site_of[t.data_ptr()] = (site, layer_of[site])
 
-    tree_map_ref(name, live)
-    terms: dict[int, float] = {}
-    rounding: dict[tuple[str, int], tuple[torch.Tensor, torch.Tensor]] = {}
+    tree_map_ref(name, params)
+    rec: dict = {"rounding": {}, "codes": {}, "pinned": 0, "off": []}
+    calls: dict[tuple, int] = {}
     current: list[torch.Tensor] = []
+    chunk: list = [None]                 # the expert ids whose tables are being built
     real_temp, real_ste, real_fq = amm.temperature, pq.ste_encode, quant.fake_quant
+    real_tables = moe._expert_tables_train
+
+    def tables(p, s, experts):
+        chunk[0] = tuple(experts.tolist())
+        try:
+            return real_tables(p, s, experts)
+        finally:
+            chunk[0] = None
 
     def temp(log_t, **kw):
         current.append(log_t)
         return real_temp(log_t, **kw)
 
+    def key_now() -> tuple:
+        return (*site_of[current[-1].data_ptr()], chunk[0])
+
     def ste(dists, t):
-        key = id(current[-1])
+        if terms is not None and dists.requires_grad:
+            tkey = id(current[-1])
 
-        def hook(g):
-            terms[key] = terms.get(key, 0.0) + float((g * dists).abs().sum())
+            def hook(g):
+                terms[tkey] = terms.get(tkey, 0.0) + float((g * dists).abs().sum())
 
-        if dists.requires_grad:
             dists.register_hook(hook)
-        return real_ste(dists, t)
+        out = real_ste(dists, t)
+        site = key_now()
+        n = calls.get(site, 0)
+        calls[site] = n + 1
+        own = torch.argmin(dists.detach(), dim=-1)
+        rec["codes"][(site, n)] = own.to(torch.int16).cpu()
+        if pin is not None:
+            want = pin["codes"][(site, n)].to(own.device).long()
+            diff = want != own
+            if bool(diff.any()):
+                d = dists.detach()
+                d_own = d.gather(-1, own[..., None])[..., 0][diff]
+                d_want = d.gather(-1, want[..., None])[..., 0][diff]
+                gap = float(((d_want - d_own).abs() / (1.0 + d_own.abs())).max())
+                if gap > tie_eps:
+                    rec["off"].append(f"{site[0]}[{site[1]}]: a code differs off a near-tie "
+                                      f"(relative gap {gap:.3g})")
+                rec["pinned"] += int(diff.sum())
+                k = dists.shape[-1]
+                swap = (torch.nn.functional.one_hot(want, k) - torch.nn.functional.one_hot(own, k))
+                out = out + swap.to(out.dtype)
+        return out
 
     def fq(t, *, bits=8, per_column=False, m_shared=False):
         out = real_fq(t, bits=bits, per_column=per_column, m_shared=m_shared)
-        key = site_of[id(current[-1])]          # a rematerialized block repeats a site
+        key = key_now()                  # a recomputed block or expert chunk repeats a key
         scale = quant.table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared)
         r = t.detach().float() / scale
         q = torch.clamp(torch.round(r), -quant._qmax(bits), quant._qmax(bits))
-        rounding.setdefault(key, (q.to(torch.int16).cpu(), r.float().cpu()))
+        rec["rounding"].setdefault(key, (q.to(torch.int16).cpu(), r.float().cpu()))
         if pin is not None:
-            want = pin[key[0]][key[1]][0].to(q.device, q.dtype)
+            want = pin["rounding"][key][0].to(q.device, q.dtype)
             out = out + ((want - q) * scale).to(out.dtype)     # 0 where they agree
         return out
 
     amm.temperature, pq.ste_encode, quant.fake_quant = temp, ste, fq
+    moe._expert_tables_train = tables
     try:
-        loss = bundle.loss(live, batch, compute_dtype=compute_dtype)
-        grads = grads_tree(loss, leaves, params, frozen)
+        yield rec
     finally:
         amm.temperature, pq.ste_encode, quant.fake_quant = real_temp, real_ste, real_fq
+        moe._expert_tables_train = real_tables
+
+
+def lut_train_grads(bundle, params, batch, *, compute_dtype=torch.float32, pin=None,
+                    tie_eps: float = 1e-6):
+    """One forward and backward of a LUT_TRAIN model: (loss, aux (the MoE
+    load-balance value, in the loss at LM_AUX_WEIGHT), gradients in the
+    params' layout with None at frozen leaves, log_t terms, record).
+
+    * log_t terms, {reference path: [per-layer sum over (row, codebook,
+      centroid) of |d loss / d dists * dists|]}: d loss / d log_t = -sum
+      (d loss / d dists) * dists, whose terms cancel, so its fp32 rounding
+      error scales with their magnitudes, not with itself;
+    * record and `pin`: `table_hooks`'."""
+    from repro_torch.optim import lut_frozen_mask
+    from repro_torch.train.train_step import grads_tree, trainable_view
+    from repro_torch.weights import tree_map_ref
+
+    frozen = lut_frozen_mask(params)
+    live, leaves = trainable_view(params, frozen)
+    terms: dict[int, float] = {}
+    with table_hooks(live, pin=pin, terms=terms, tie_eps=tie_eps) as rec:
+        logits, aux = bundle.train_logits(live, batch, compute_dtype=compute_dtype)
+        loss = bundle.loss_from_logits(logits, aux, batch["labels"])
+        del logits
+        grads = grads_tree(loss, leaves, params, frozen)
 
     log_t_terms: dict[str, list[float]] = {}
     tree_map_ref(lambda path, t: log_t_terms.setdefault(path, []).append(terms.get(id(t), 0.0))
                  if path.endswith("log_t") else None, live)
-    by_site: dict[str, list] = {}
-    for (site, _), v in sorted(rounding.items()):
-        by_site.setdefault(site, []).append(v)
-    return loss.detach(), grads, log_t_terms, by_site
-
-
-def _flipped_sequences(codes, codes_o, b: int, s: int, tie_eps: float, label: str) -> torch.Tensor:
-    """(B,) bool: the sequences where some LUT site's hard code differs
-    between two runs; each difference must sit on a near-tie of the first
-    run's fp32 distances (relative gap <= tie_eps)."""
-    seqs = torch.zeros(b, dtype=torch.bool)
-    for key, (x, p, c) in codes.items():
-        co = codes_o[key][2].cpu()
-        gaps = tie_gaps(x, p, c, co)
-        assert (gaps <= tie_eps).all(), f"{label} {key}: codes differ off a near-tie, gaps {gaps}"
-        seqs |= (c != co).any(dim=1).reshape(b, s).any(dim=1)
-    return seqs
+    return loss.detach(), aux.detach(), grads, log_t_terms, rec
 
 
 def _rounding_flips(base: dict, other: dict, label: str, failures: list[str]) -> int:
@@ -303,18 +342,18 @@ def _rounding_flips(base: dict, other: dict, label: str, failures: list[str]) ->
     `base`; each must be one step off, at a quotient within HALF_EPS of a
     half-integer."""
     n = 0
-    for site, layers in base.items():
-        for j, ((qb, r), (qo, _)) in enumerate(zip(layers, other[site])):
-            off = qb != qo
-            if not off.any():
-                continue
-            a = r.double().abs()
-            frac = (a - a.floor() - 0.5).abs()
-            step = (qb.int() - qo.int()).abs()
-            if not ((step[off] == 1).all() and (frac[off] <= HALF_EPS).all()):
-                failures.append(f"{label} {site}[{j}]: table entries rounded otherwise off a "
-                                f"half-integer (worst {float(frac[off].max()):.3g})")
-            n += int(off.sum())
+    for key, (qb, r) in base.items():
+        qo = other[key][0]
+        off = qb != qo
+        if not off.any():
+            continue
+        a = r.double().abs()
+        frac = (a - a.floor() - 0.5).abs()
+        step = (qb.int() - qo.int()).abs()
+        if not ((step[off] == 1).all() and (frac[off] <= HALF_EPS).all()):
+            failures.append(f"{label} {key[0]}[{key[1]}]: table entries rounded otherwise off a "
+                            f"half-integer (worst {float(frac[off].max()):.3g})")
+        n += int(off.sum())
     return n
 
 
@@ -325,29 +364,35 @@ def _rel(a: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
             float(diff.abs().max()) / max(float(ref.double().abs().max()), 1e-300))
 
 
-def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1e-6) -> dict:
-    """One soft-PQ step of `bundle` (LUT_TRAIN) from the same params and
-    batch on the CPU and on `dev`, held against each other and against the
-    same step in float64 on the CPU. Returns the counts and errors, with
-    `failures` listing every check that failed.
+def batch_w(batch: dict) -> dict:
+    """The batch of the float64 witness: its float inputs (frames,
+    embeddings) in float64."""
+    return {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
 
-    * codes: a hard code that differs (card or float64 against the CPU's
-      fp32) must sit on a near-tie of the CPU's fp32 distances (relative gap
-      <= tie_eps); a sequence holding one moves every later token's forward
-      and every gradient through them, so such sequences are dropped from
-      the batch (and the codes checked again);
+
+def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1e-6) -> dict:
+    """One soft-PQ step of `bundle` (LUT_TRAIN, any family) from the same
+    params and batch (CPU tensors, as `family_batch` gives them) on the CPU
+    and on `dev`, held against each other and against the same step in
+    float64 on the CPU. Returns the counts and errors, with `failures`
+    listing every check that failed.
+
+    * codes: a hard code the card or float64 picks otherwise than the CPU
+      must sit on a near-tie of that run's own distances (relative gap <=
+      tie_eps); the run then takes the CPU's code (`table_hooks`' pin), as
+      both choices are right and one flipped code moves every later value
+      of its sequence by a table entry;
     * fake-quant: a table entry rounded to another integer must be one step
-      off at a quotient within HALF_EPS of a half-integer; the gradient runs
-      of the card and of float64 then take the CPU's integers (`pin`), as
-      both roundings are right;
-    * loss within 1e-4 relative;
+      off at a quotient within HALF_EPS of a half-integer; the card and
+      float64 take the CPU's integers, as both roundings are right;
+    * loss within 1e-4 relative, the MoE aux value within 1e-5;
     * gradients, per leaf: the card's and the CPU's fp32 gaps from float64
       are of one size (card <= WITNESS x CPU, each at least FLOOR_L2 /
       FLOOR_MAX), and card against CPU ||d||_2 <= GRAD_L2 ||CPU||_2 and
       max|d| <= GRAD_MAX max|CPU|. log_t: within 1e-6 of its terms'
       magnitudes;
-    * the step (`train_step.make_train_step` with `opt` on the card, its own
-      rounding): its loss metric and t_mean/t_min against the CPU's step
+    * the step (`train_step.make_train_step` with `opt`, the card's taking
+      the CPU step's codes and integers): its loss metric and t_mean/t_min against the CPU's step
       (1e-5 relative), and its updated params against AdamW applied on the
       CPU to the card's own first moment (the card's update rule; its
       gradients are held above): within 1e-5 of each element's move and 2
@@ -358,40 +403,33 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
 
     params_d = tree_map_ref(lambda _p, t: t.to(dev), params)
     params_w = tree_map_ref(lambda _p, t: t.double() if t.is_floating_point() else t, params)
+    batch_d = {k: v.to(dev) for k, v in batch.items()}
     failures: list[str] = []
-    dropped = 0
-    b, s = batch["tokens"].shape
-    for _ in range(3):
-        batch_d = {k: v.to(dev) for k, v in batch.items()}
-        codes = lut_site_codes(bundle, params, batch)
-        seqs = _flipped_sequences(codes, lut_site_codes(bundle, params_d, batch_d),
-                                  b, s, tie_eps, "card")
-        with float64_compute():
-            codes_w = lut_site_codes(bundle, params_w, batch, compute_dtype=torch.float64)
-        seqs |= _flipped_sequences(codes, codes_w, b, s, tie_eps, "float64")
-        del codes, codes_w
-        if not seqs.any():
-            break
-        dropped += int(seqs.sum())
-        assert not seqs.all(), "every sequence holds a code that differs at a near-tie"
-        batch = {k: v[~seqs] for k, v in batch.items()}
-        b = int(batch["tokens"].shape[0])
-    else:
-        raise AssertionError("codes still differ at near-ties after dropping sequences")
-    out = {"dropped_sequences": dropped, "tokens": int(batch["tokens"].numel())}
+    out = {"tokens": int(batch["labels"].numel())}
 
-    loss_c, g_c, terms, round_c = lut_train_grads(bundle, params, batch)
-    loss_d, g_d, _, round_d = lut_train_grads(bundle, params_d, batch_d, pin=round_c)
+    loss_c, aux_c, g_c, terms, rec_c = lut_train_grads(bundle, params, batch)
+    loss_d, aux_d, g_d, _, rec_d = lut_train_grads(bundle, params_d, batch_d, pin=rec_c,
+                                                   tie_eps=tie_eps)
     with float64_compute():
-        loss_w, g_w, _, round_w = lut_train_grads(bundle, params_w, batch,
-                                                  compute_dtype=torch.float64, pin=round_c)
+        loss_w, aux_w, g_w, _, rec_w = lut_train_grads(bundle, params_w, batch_w(batch),
+                                                       compute_dtype=torch.float64, pin=rec_c,
+                                                       tie_eps=tie_eps)
+    for label, rec in (("card", rec_d), ("float64", rec_w)):
+        failures += [f"{label} {msg}" for msg in rec["off"]]
+    out["pinned_codes"] = {"card": rec_d["pinned"], "float64": rec_w["pinned"]}
+    out["codes"] = sum(int(c.numel()) for c in rec_c["codes"].values())
+    round_c, round_d, round_w = rec_c["rounding"], rec_d["rounding"], rec_w["rounding"]
     out["rounding_flips"] = {"card": _rounding_flips(round_c, round_d, "card", failures),
                              "float64": _rounding_flips(round_c, round_w, "float64", failures)}
-    out["rounded_entries"] = sum(int(q.numel()) for layers in round_c.values() for q, _ in layers)
-    del round_c, round_d, round_w
+    out["rounded_entries"] = sum(int(q.numel()) for q, _ in round_c.values())
+    del rec_c, rec_d, rec_w, round_c, round_d, round_w
     out["loss_cpu"], out["loss_dev"], out["loss_f64"] = float(loss_c), float(loss_d), float(loss_w)
+    out["aux_cpu"], out["aux_dev"], out["aux_f64"] = float(aux_c), float(aux_d), float(aux_w)
     if abs(float(loss_d) - float(loss_c)) > 1e-4 * abs(float(loss_c)):
         failures.append(f"loss {float(loss_d)} on the card, {float(loss_c)} on the CPU")
+    # the MoE routing (its capacity drops included) is the same on both
+    if abs(float(aux_d) - float(aux_c)) > 1e-5 * abs(float(aux_c)) + 1e-7:
+        failures.append(f"aux {float(aux_d)} on the card, {float(aux_c)} on the CPU")
     errs: dict[str, dict[str, tuple[float, float]]] = {}
     log_t_errs = {"card_cpu": 0.0, "card_f64": 0.0, "cpu_f64": 0.0}
     n = 0
@@ -426,9 +464,13 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
 
     frozen = lut_frozen_mask(params)
     step = make_train_step(bundle, opt, frozen_mask=frozen, compute_dtype=torch.float32)
-    _, _, m_c = step(params, opt.init(params, frozen), batch)
+    with table_hooks(params) as rec_c:
+        _, _, m_c = step(params, opt.init(params, frozen), batch)
     frozen_d = lut_frozen_mask(params_d)
-    new_d, st_d, m_d = step(params_d, opt.init(params_d, frozen_d), batch_d)
+    with table_hooks(params_d, pin=rec_c, tie_eps=tie_eps) as rec_d:
+        new_d, st_d, m_d = step(params_d, opt.init(params_d, frozen_d), batch_d)
+    failures += [f"card step {msg}" for msg in rec_d["off"]]
+    del rec_c, rec_d
     for key in ("loss", "t_mean", "t_min"):
         if abs(float(m_d[key]) - float(m_c[key])) > 1e-5 * abs(float(m_c[key])) + 1e-6:
             failures.append(f"step metric {key}: {float(m_d[key])} vs {float(m_c[key])}")

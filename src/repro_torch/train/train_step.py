@@ -81,8 +81,11 @@ def make_distill_loss_fn(bundle, distill: DistillSpec, teacher_bundle, teacher_p
         t_logp = torch.log_softmax(t_logits.float() / tau, dim=-1)
         s_logp = torch.log_softmax(logits.float() / tau, dim=-1)
         kl = (torch.exp(t_logp) * (t_logp - s_logp)).sum(-1).mean() * tau ** 2
-        # the aux penalty rides outside the CE/KL blend
-        loss = (1.0 - w) * ce + w * kl + LM_AUX_WEIGHT * aux
+        loss = (1.0 - w) * ce + w * kl
+        # the lm family's MoE penalty rides outside the CE/KL blend: scaled
+        # by (1-w) it would switch the router's balancing off at w = 1
+        if bundle.kind == "lm":
+            loss = loss + LM_AUX_WEIGHT * aux
         return loss, {"ce": ce, "distill_kl": kl}
 
     return loss_fn
@@ -166,13 +169,16 @@ def make_train_step(bundle, opt: AdamW, *, frozen_mask: Any | None = None,
         if grad_accum == 1:
             loss, aux, grads = grads_of(params, frozen, batch)
         else:
-            b = next(iter(batch.values())).shape[0]
+            b = batch["labels"].shape[0]
             if b % grad_accum:
                 raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
             per = b // grad_accum
             loss, aux, grads = None, None, None
             for i in range(grad_accum):
-                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                rows = slice(i * per, (i + 1) * per)
+                # M-RoPE's pos (3, B, S) splits on its second axis
+                mb = {k: v[:, rows] if k == "pos" and v.dim() == 3 else v[rows]
+                      for k, v in batch.items()}
                 l, a, g = grads_of(params, frozen, mb)
                 if grads is None:
                     loss, aux = l, a

@@ -145,9 +145,9 @@ def tree_map_ref(fn: Callable, tree: Any, *rest: Any, _path: str = "") -> Any:
 
 def is_stacked(path: str) -> bool:
     """Whether a reference path names a leaf stacked over layers (a segment's,
-    the hybrid's mamba stack, the enc-dec's encoder or decoder)."""
-    parts = path.split("/")
-    return "segments" in parts or parts[0] in _STACKS
+    the hybrid's mamba stack, the enc-dec's encoder or decoder), at the root
+    of a param tree or inside a train state's ("params/...", "opt/.m/...")."""
+    return any(part == "segments" or part in _STACKS for part in path.split("/"))
 
 
 def reference_leaves(tree: Any) -> dict[str, list]:

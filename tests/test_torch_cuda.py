@@ -402,6 +402,30 @@ def test_lut_train_step_on_the_card_matches_the_cpu(dev):
     assert res["failures"] == [] and res["grad_leaves"] > 0 and res["updated"] > 0
 
 
+@pytest.mark.parametrize("arch", ["arctic_480b", "mamba2_370m", "zamba2_1p2b", "whisper_tiny",
+                                  "qwen2_vl_7b"])
+def test_family_lut_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One soft-PQ step of a reduced model per family (moe with its LUT_TRAIN
+    expert tables and aux, ssm, hybrid, enc-dec over stub frames, vision-LM
+    over embeddings with grid M-RoPE streams) on the card against the CPU:
+    `testing.lut_train_step_parity`'s checks."""
+    from repro_torch import configs as tcfg
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW
+    from repro_torch.optim.schedule import cosine_with_warmup
+    from repro_torch.testing import family_batch, lut_train_step_parity
+    from repro_torch.weights import tree_map_ref
+
+    arch_spec = tcfg.reduce_arch(tcfg.get_arch(arch))
+    bundle = tcfg.build_model(arch_spec, "lut_train")
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    tree_map_ref(lambda p, t: t.mul_(40.0) if p.endswith("centroids") else None, params)
+    opt = AdamW(lr=cosine_with_warmup(1e-2, total_steps=10, warmup_steps=2), rules=SOFT_PQ_RULES)
+    batch = {k: torch.from_numpy(v) for k, v in family_batch(arch_spec, 4, 32, seed=0).items()}
+    res = lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS)
+    assert res["failures"] == [] and res["grad_leaves"] > 0 and res["updated"] > 0
+    assert (res["aux_dev"] > 0) == bool(arch_spec.n_experts)
+
+
 @pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_1p2b", "arctic_480b"])
 def test_family_engine_through_kernels_matches_plain(dev, arch, tmp_path, monkeypatch):
     """One reduced model per family (ssm, hybrid, moe) served on the card:

@@ -111,8 +111,11 @@ def test_encdec_layout_and_sites():
     kernel = tcfg.build_model(dataclasses.replace(full.arch, lut_use_kernel=True), "lut_infer")
     assert lut_kernel_signatures(kernel) == \
         [(384, 12, 16, 32), (1536, 12, 16, 32), (384, 48, 16, 32)]
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tb.train_logits(tp, {"tokens": torch.zeros((B, 4), dtype=torch.int32)})
+    # the training forward reads the encoder's frames (held against the
+    # reference in tests/test_torch_train_families.py)
+    with pytest.raises(KeyError, match="frames"):
+        tb.train_logits(tp, {"tokens": torch.zeros((B, 4), dtype=torch.int32),
+                             "labels": torch.zeros((B, 4), dtype=torch.int32)})
 
 
 def test_cross_attention_matches_reference():

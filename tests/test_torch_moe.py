@@ -60,12 +60,19 @@ def test_expert_linear_matches_reference(site):
 
 
 def test_expert_lut_train_raises():
+    """A LUT_TRAIN expert site holds the frozen stacked weight beside the
+    shared codebooks and the temperature (the reference's shapes); without
+    its frozen weight it raises. (Its values against the reference:
+    tests/test_torch_train_families.py.)"""
     s = tmoe.ExpertSiteCfg(n_experts=2, d_in=32, d_out=8, mode=Mode.LUT_TRAIN,
                            lut=LUTConfig(k=16, v=16))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmoe.expert_linear_specs(s)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmoe.expert_linear(s, {}, torch.zeros((2, 1, 32)))
+    specs = tmoe.expert_linear_specs(s)
+    assert {k: tuple(v.shape) for k, v in specs.items()} == \
+        {"w": (2, 32, 8), "centroids": (2, 16, 16), "log_t": ()}
+    p = tmoe.expert_linear_init(torch.Generator().manual_seed(0), s)
+    assert tmoe.expert_linear(s, p, torch.zeros((2, 1, 32))).shape == (2, 1, 8)
+    with pytest.raises(KeyError, match="w"):
+        tmoe.expert_linear(s, {k: v for k, v in p.items() if k != "w"}, torch.zeros((2, 1, 32)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -207,8 +207,12 @@ def test_ssm_engine_auto_disables_spec_decode_and_prefix_sharing():
 
 
 def test_training_the_ssm_family_raises():
+    """The ssm family trains (its loss and gradients against the
+    reference: tests/test_torch_train_families.py); a batch without labels
+    raises."""
     _, _, tb, tp = _bundles("dense")
     batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
              "labels": torch.ones((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tb.loss(tp, batch)
+    assert torch.isfinite(tb.loss(tp, batch))
+    with pytest.raises(KeyError, match="labels"):
+        tb.loss(tp, {"tokens": batch["tokens"]})

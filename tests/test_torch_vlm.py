@@ -114,8 +114,12 @@ def test_vlm_layout_and_sites():
     kernel = tcfg.build_model(dataclasses.replace(full.arch, lut_use_kernel=True), "lut_infer")
     assert lut_kernel_signatures(kernel) == [(3584, 112, 16, 32), (512, 112, 16, 32),
                                              (18944, 112, 16, 32), (3584, 592, 16, 32)]
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tb.loss(tp, {"embeds": torch.zeros((B, 4, tb.arch.d_model)),
+    # the embedding-input training forward (held against the reference in
+    # tests/test_torch_train_families.py); token ids alone are refused
+    assert torch.isfinite(tb.loss(tp, {"embeds": torch.zeros((B, 4, tb.arch.d_model)),
+                                       "labels": torch.zeros((B, 4), dtype=torch.long)}))
+    with pytest.raises(ValueError, match="embeddings"):
+        tb.loss(tp, {"tokens": torch.zeros((B, 4), dtype=torch.int32),
                      "labels": torch.zeros((B, 4), dtype=torch.long)})
 
 
@@ -132,8 +136,8 @@ def test_lm_apply_with_embeds_and_grid_positions_matches_reference(mode):
     want, _, _ = jtf.lm_apply(jb.cfg, jp, embeds=jnp.asarray(emb), pos=jnp.asarray(pos3),
                               compute_dtype=jnp.float32)
     with tape_capture() as tape, torch.no_grad():
-        got, _ = ttf.lm_apply(tb.cfg, tp, embeds=torch.from_numpy(emb),
-                              pos=torch.from_numpy(pos3))
+        got, _, _ = ttf.lm_apply(tb.cfg, tp, embeds=torch.from_numpy(emb),
+                                 pos=torch.from_numpy(pos3))
     _close(got, want, mode)
     if mode == "lut_infer":
         held = hold_lut_sites(tb, tp, tape.records, _reference_site(jb, jp), tie_eps=TIE_EPS)
