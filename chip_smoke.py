@@ -69,8 +69,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
      ready; SIGTERM exits 0.
   7. training: (a) one soft-PQ step (LUT_TRAIN forward, autograd, AdamW) at
      full width and 2 layers on the card against the same step on the CPU
-     and the same step in float64 on the CPU as witness
-     (`testing.lut_train_step_parity`: codes off near-ties, fake-quant
+     and the same step in float64 on the card as witness
+     (`testing.lut_train_step_parity(witness=)`: codes off near-ties, fake-quant
      roundings off half-integers, loss, every gradient, the update); (b) `train.recipe.default_recipe(steps=4)` run
      by `Recipe.run` on qwen3_1p7b at full width and TRAIN_LAYERS layers
      (dense pretrain, tape + k-means init, soft-PQ, int8 deploy to an
@@ -92,28 +92,32 @@ Phases (any failed check exits non-zero; no phase is skipped):
   8. the MoE, SSM and hybrid families at full published width, each served
      by ServingEngine (4 slots, prefill chunk 32, measured warm-up) on a
      burst of 8 requests whose prompts are one chunk, two chunks, ragged
-     over two and ragged inside one (2 sampled): mamba2_370m (48 layers)
-     and zamba2_1p2b (38 layers) exported as artifacts and loaded, then
+     over two and ragged inside one (2 sampled): mamba2_370m and
+     zamba2_1p2b (SERVE_FAMILY_LAYERS: 24 of their 48 and 38 layers)
+     exported as artifacts and loaded, then
      arctic_480b with ARCTIC_LAYERS layers (layer 0 dense, layer 1 LUT, 128
      experts top-2 and the dense residual; ~35 GB of bf16 params built on the
      card, after the earlier phases' models are freed). For each: the
      version the tuner picked per site, the burst through the plain
      versions, then through the kernels with the counts set to 0 before and
-     read after (tokens equal except after a near-tie of the plain run; no
+     read after (tokens equal except after a near-tie of the plain run or,
+     on the recurrent two, a code the kernels picked at a tie: every LUT-site
+     call of their burst held against the plain versions; no
      plain version called), each LUT site's first launch at N = 4 and 128
      held against the plain lookup of the encode kernel's codes, decode
      tokens/s, a profiled decode step's device-busy share, peak memory, each
      site signature timed (kernel, plain version, bound); on the two
      recurrent families, speculative decoding and prefix sharing must turn
      off with their warnings.
-  9. the enc-dec and vision-LM families at full published width and depth,
+  9. the enc-dec and vision-LM families at full published width,
      each exported as an artifact and loaded, driven by
      `ModelBundle.forward_step` (ServingEngine refuses both, naming why:
      checked) after the measured warm-up at the phase's token counts:
      whisper_tiny (4 + 4 layers, 1500 frames) on ROWS9 rows of seeded stub
      frames, a WHISPER_PROMPT-token prefill with them (encoder and cross
      K/V at N = 6000), then GREEDY_STEPS greedy decode steps, on dense
-     caches and on paged ones; qwen2_vl_7b (28 layers) on ROWS9 rows of a
+     caches and on paged ones; qwen2_vl_7b (VLM_SERVE_LAYERS of its 28
+     layers) on ROWS9 rows of a
      VLM_GRID of seeded patch embeddings and VLM_TEXT text tokens'
      embedding rows, then greedy steps each fed back as its embedding row,
      and a no-cache forward with the grid's distinct (t, h, w) M-RoPE
@@ -126,17 +130,18 @@ Phases (any failed check exits non-zero; no phase is skipped):
      signature timed (kernel, plain version, bound).
  10. training the MoE, SSM, hybrid, enc-dec and vision-LM families, each
      trained artifact served through the kernels: (a) one soft-PQ step at
-     full published width, card against CPU against float64
+     full published width, card against CPU against float64 on the card
      (`testing.lut_train_step_parity`, as 7 (a)), on `testing.family_batch`
      batches: mamba2_370m at 2 layers, zamba2_1p2b at 6 (its shared block
-     invoked once), whisper_tiny at full depth over 1500 stub frames,
-     qwen2_vl_7b at 2 layers over patch embeddings with grid positions;
+     invoked once), whisper_tiny at full depth over 1500 stub frames
+     (qwen2_vl_7b's step only at reduced size, in `tests/test_torch_cuda.py`:
+     at full width its host side took ~90 s of the time limit);
      (a') arctic_480b on the card alone (ARCTIC_LAYERS layers, every layer
      LUT, bf16 params): loss finite, aux > 0, the expert sites' shared
      codebooks a nonzero finite gradient, peak memory (out of memory: the
      peak printed and the step run at `reduce_arch`); (b)
-     `default_recipe(steps=TRAIN_STEPS)` by `Recipe.run` on mamba2_370m (48
-     layers) and zamba2_1p2b (38 layers) at full width, with 7 (b)'s checks
+     `default_recipe(steps=TRAIN_STEPS)` by `Recipe.run` on mamba2_370m and
+     zamba2_1p2b at full width and RECIPE_LAYERS layers, with 7 (b)'s checks
      (Eval one kernel per LUT-site call, no plain call, held against the
      plain versions), then each trained artifact served as phase 8 serves,
      every LUT-site call of its burst held against the plain versions (a
@@ -150,6 +155,28 @@ Phases (any failed check exits non-zero; no phase is skipped):
      `--arch whisper_tiny`'s
      refusal. The launches of (b) and (c)'s kernel runs join the kernels
      line ("phase_launches").
+ 11. tensor-parallel serving at tp 2 (runs after phase 6, on phase 4's
+     28-layer artifact): two rank processes, over NCCL when the host has two
+     cards, else both on the one card over gloo (each its own CUDA
+     context), each serving through the launcher's rank function
+     (`launch.serve.serve_on_mesh`, the `--tp` path) with phase 11's
+     instruments on its hooks: each loads only its shards
+     (`load_artifact(mesh=)`), rank 0 tunes the rank's site shapes
+     (measured) and broadcasts the records, and a dense and a paged
+     `ServingEngine(mesh=)` serve phase 4's burst (rank 0 schedules, rank 1
+     follows): tokens held against phase 4's plain run (`compare_tokens`),
+     per rank the launch counts read between rank 0's marks (every kernel
+     the records choose at the rank's shapes, exactly as many launches as
+     its LUT-site calls, no plain version); every LUT-site call of the
+     burst's first prefill and first decode forward on each rank held
+     against the plain versions at the rank's shapes (`hold_sites`; the row
+     sites' unit-scale calls too), and each row-parallel site's reduced
+     output held bytewise against the unsharded site on the same input (the
+     ranks' input columns, centroids and tables gathered: the plain lookup
+     of the encode kernel's codes); the decode forward's wall time, a
+     profiled window's device-busy share, the all-reduces per forward and
+     their host time, and device memory. Its launches join the kernels line
+     ("phase_launches").
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -1786,11 +1813,377 @@ def phase_process(scratch: Path, plain, refs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: tensor-parallel serving (tp 2) from phase 4's artifact
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_PROFILE_STEPS = 8
+# the leader's marks between forwards, passed to every follower's on_mark
+MARK_COUNT, MARK_READ, MARK_PROFILE, MARK_PROFILED = 1, 2, 3, 4
+
+
+def tp_expected_launches(local, lay, counts: list[int], prefill_fwd: int, decode_fwd: int,
+                         dev) -> dict[str, int]:
+    """Launches of each kernel that the records choose for a rank's LUT sites
+    (`tensor_parallel.kernel_signatures`: column sites at M / tp, row sites
+    at C / tp in float32) over the given prefill and decode forwards."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.kernels import autotune
+
+    backend = autotune.backend_for(dev)
+    want = dict.fromkeys(KERNEL_OF_VERSION.values(), 0)
+    sig_of = {}
+    for m, c, k, v, dt in tensor_parallel.kernel_signatures(local, lay, "float32"):
+        sig_of[(m, c, k, v)] = dt
+    for site in local.lut_sites():
+        sig = (site.d_out, site.d_in // site.lut.v, site.lut.k, site.lut.v)
+        for n, fwd in ((counts[1], prefill_fwd), (counts[0], decode_fwd)):
+            ver = autotune.kernel_choice(n, *sig, dtype=sig_of[sig], backend=backend)[0]
+            want[KERNEL_OF_VERSION[ver]] += fwd
+    return want
+
+
+class TPProbe:
+    """Phase 11's instruments on one rank's engine, through the hooks of
+    `serve_on_mesh`: every forward timed; the launch counts, collectives and
+    device memory read between the leader's marks; every `ops.lut_amm` call
+    (`SiteCalls`) and each row-parallel LUT site's reduced output of the
+    counted burst's first prefill and first decode forward recorded; a
+    profiled window of decode steps."""
+
+    def __init__(self, mesh):
+        self.mesh, self.dev, self.t0 = mesh, mesh.device, time.perf_counter()
+        self.res: dict = {}
+        self.acc = {"prefill_forwards": 0, "prefill_s": 0.0, "decode_forwards": 0,
+                    "decode_s": 0.0}
+        self.to_record: set[str] = set()
+        self.calls: list = []
+        # (call index in its forward, the rank's params, input, reduced output)
+        self.rows: list = []
+        self.eng = None
+
+    def engine(self, eng) -> None:
+        self.res.update(build_s=time.perf_counter() - self.t0, tuned=eng.n_lut_shapes_tuned)
+        self.eng, real = eng, eng._forward
+
+        def forward(toks, cache_len, write_len, model=None):
+            phase = "decode" if toks.shape[1] == 1 else "prefill"
+            recording = phase in self.to_record
+            self.to_record.discard(phase)
+            t = time.perf_counter()
+            with self.recorder() if recording else contextlib.nullcontext():
+                logits = real(toks, cache_len, write_len, model)
+            torch.cuda.synchronize(self.dev)
+            self.acc[f"{phase}_forwards"] += 1
+            self.acc[f"{phase}_s"] += time.perf_counter() - t
+            return logits
+
+        eng._forward = forward
+
+    @contextlib.contextmanager
+    def recorder(self):
+        from repro_torch.core.amm import Mode
+        from repro_torch.models import sharded
+
+        real, n = sharded.linear, [0]
+
+        def linear(site, p, x):
+            y = real(site, p, x)
+            if site.tp == "row" and site.mode == Mode.LUT_INFER:
+                self.rows.append((n[0], p, x.reshape(-1, x.shape[-1]).clone(),
+                                  y.reshape(-1, y.shape[-1]).clone()))
+                n[0] += 1
+            return y
+
+        sharded.linear = linear
+        try:
+            with SiteCalls() as rec:
+                yield
+        finally:
+            sharded.linear = real
+        self.calls += rec.calls
+
+    def mark(self, code: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.kernels import counters
+
+        mesh, dev, res = self.mesh, self.dev, self.res
+        if code == MARK_COUNT:
+            counters.reset()
+            mesh.reset_counters()
+            for k in self.acc:
+                self.acc[k] = 0 if isinstance(self.acc[k], int) else 0.0
+            torch.cuda.reset_peak_memory_stats(dev)
+            self.to_record = {"prefill", "decode"}
+        elif code == MARK_READ:
+            res.update(launches=counters.launches(), plain=counters.plain_calls(),
+                       coll=dict(mesh.counters), fwd=dict(self.acc),
+                       peak=torch.cuda.max_memory_allocated(dev),
+                       reserved=torch.cuda.memory_reserved(dev))
+        elif code == MARK_PROFILE:
+            torch.cuda.synchronize(dev)
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t_prof = time.perf_counter()
+        elif code == MARK_PROFILED:
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - self.t_prof
+            self.prof.__exit__(None, None, None)
+            busy = sum(device_times(self.prof).values())
+            res["profile"] = {"wall_us": 1e6 * wall / TP_PROFILE_STEPS,
+                              "busy_us": busy / TP_PROFILE_STEPS}
+
+    def lead(self, eng, source: str) -> None:
+        """Rank 0: the warm-up, phase 4's burst between the count marks, then
+        a profiled window of decode steps."""
+        res, vocab = self.res, eng.bundle.arch.vocab
+        eng.warmup()
+        eng.tp_mark(MARK_COUNT)
+        self.mark(MARK_COUNT)
+        reqs, st = run_burst(eng, phase4_burst(vocab))
+        eng.tp_mark(MARK_READ)
+        self.mark(MARK_READ)
+        res["source"] = source
+        res["tokens"] = [(r.rid, r.status, list(r.out_tokens)) for r in reqs]
+        res["stats"] = {k: st[k] for k in ("prefill_forwards", "decode_forwards",
+                                           "prefill_s", "decode_s", "wall")}
+        if eng.paged:
+            res["stats"].update(prefix_hits=st["prefix_hits"], shed=st["shed"])
+        gen = torch.Generator().manual_seed(SEED + 2)
+        for _ in range(eng.n_slots):
+            eng.submit(torch.randint(0, vocab, (16,), generator=gen).tolist(), max_tokens=64)
+        for _ in range(3):
+            eng.step()                # admit, prefill, first decodes
+        eng.tp_mark(MARK_PROFILE)
+        self.mark(MARK_PROFILE)
+        for _ in range(TP_PROFILE_STEPS):
+            eng.step()                # decode only
+        eng.tp_mark(MARK_PROFILED)
+        self.mark(MARK_PROFILED)
+        eng.abort_all("cancelled")
+
+
+def gather_dim0(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's `t` concatenated over dim 0 in rank order, as float32
+    (exact for the int8 tables and the codes)."""
+    return mesh.gather_last(t.float().movedim(0, -1).contiguous()).movedim(-1, 0).contiguous()
+
+
+def hold_rows(label: str, mesh, rows: list, tables: dict) -> dict:
+    """Each recorded row-parallel LUT site's reduced output held against the
+    unsharded site on the same input: the ranks' input columns, centroids
+    and int8 tables gathered (`tables` keeps them by the call's index in its
+    forward, which names the same layer's site in every forward), and the
+    plain lookup of the encode kernel's codes on them. Bytewise on every
+    row whose unsharded codes are the concatenation of the ranks' (the
+    exact int32 sums reduced before the one epilogue); a code that differs
+    must be a tie of the fp32 expansion. Every rank makes the same
+    collectives in the same order."""
+    from repro_torch.kernels import dist_argmin as enc_mod
+    from repro_torch.kernels import ref
+
+    out = {"calls": 0, "rows": 0, "codes_off": 0, "err": 0.0}
+    for k, p, x, y in rows:
+        if k not in tables:
+            tables[k] = (gather_dim0(mesh, p["centroids"]),
+                         gather_dim0(mesh, p["table_q"]).to(torch.int8))
+        c_full, q_full = tables[k]
+        x_full = mesh.gather_last(x.float())
+        shard_codes = mesh.gather_last(enc_mod.encode(x.float(), p["centroids"]).float()).int()
+        codes = enc_mod.encode(x_full, c_full)
+        want = ref.lookup(codes, q_full, p["table_scale"], bias=p.get("b"), dtype=y.dtype)
+        reduced = ref.lookup(shard_codes, q_full, p["table_scale"], bias=p.get("b"),
+                             dtype=y.dtype)
+        torch.cuda.synchronize()
+        name = (f"{label} row site call {k} (N={x.shape[0]}, C={c_full.shape[0]}, "
+                f"M={q_full.shape[-1]})")
+        check(torch.equal(y, reduced), f"{name}: the reduced output differs from the plain "
+                                       f"lookup of the ranks' codes on the whole table")
+        same = (codes == shard_codes).all(dim=1)
+        bad = (y != want).any(dim=1) & same
+        check(not bad.any().item(), f"{name}: {int(bad.sum())} rows differ from the unsharded "
+                                    f"site's (max err {(y - want).abs().max().item():.3g})")
+        out["codes_off"] += tie_codes(name, x_full, c_full, codes, shard_codes)
+        out["calls"] += 1
+        out["rows"] += x.shape[0]
+        out["err"] = max(out["err"], (y - want).abs().max().item())
+    return out
+
+
+def tp_rank(rank: int, art_dir: str, devices: list[str], init: str, q) -> None:
+    """One rank of phase 11, in its own process: a dense and a paged engine
+    from phase 4's artifact, each through the launcher's rank function
+    (`serve_on_mesh`) with a `TPProbe` on its hooks (rank 0 leads phase 4's
+    burst and a profiled window, the other rank follows); then, on every
+    rank, the recorded LUT-site calls held against the plain versions."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (sets the fp32 matmul policy)
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out: dict = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        mesh = make_host_mesh(data=1, model=len(devices), rank=rank, devices=devices,
+                              init_method=init, timeout_s=600)
+        out["mesh_s"] = time.perf_counter() - t0
+        tables: dict = {}
+        for label, flags in (("dense", []), ("paged", ["--paged", "--page-size", "16"])):
+            args = serve.parse_args(["--artifact", art_dir, "--slots", "4", "--max-seq", "256",
+                                     "--prefill-chunk", "32", *flags])
+            probe = TPProbe(mesh)
+            serve.serve_on_mesh(mesh, args, lead=probe.lead, on_mark=probe.mark,
+                                on_engine=probe.engine)
+            res, eng = probe.res, probe.eng
+            res["counts"] = [eng.n_slots, eng.n_slots * eng.prefill_chunk]
+            res["expected"] = tp_expected_launches(eng.bundle, eng.layout, res["counts"],
+                                                   res["fwd"]["prefill_forwards"],
+                                                   res["fwd"]["decode_forwards"], mesh.device)
+            res["sigs"] = sorted({(s.d_out, s.d_in // s.lut.v) for s in eng.bundle.lut_sites()})
+            res["per_forward"] = (len(eng.bundle.lut_sites()),
+                                  sum(eng.layout.roles.get(s.path) == "row"
+                                      for s in eng.bundle.lut_sites()))
+            tag = f"tp {label} rank {rank}"
+            res["rows_held"] = hold_rows(tag, mesh, probe.rows, tables)
+            held = hold_sites(tag, probe.calls)
+            held.pop("off_rows")
+            res["held"] = held
+            out[label] = res
+            del eng, probe
+            torch.cuda.empty_cache()
+        out["backend"] = mesh.backend
+        mesh.close()
+        q.put(("ok", out))
+    except BaseException:                     # noqa: BLE001 — the parent reports it
+        import traceback
+
+        q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
+
+
+def phase_tp(scratch: Path, refs: dict) -> dict:
+    """Tensor-parallel serving at tp 2 from phase 4's 28-layer artifact: over
+    NCCL when the host has two cards, else both ranks on the one card over
+    gloo (two processes, two CUDA contexts). Phase 4's burst, dense and
+    paged, against phase 4's plain run; per rank the launch counts (the
+    kernels the records choose at the rank's shapes, no plain call), the
+    decode forward's wall and busy time, the all-reduces per forward and
+    their host time, and device memory."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    from repro_torch.launch.mesh import backend_for
+
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{r}" for r in range(TP)] if n_cards >= TP else ["cuda:0"] * TP
+    backend = backend_for(devices)
+    log(f"[tp] tp={TP} on {n_cards} card(s): ranks on {devices}, backend {backend}"
+        + ("" if backend == "nccl" else " (both ranks share the card: NCCL is not measured)"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=tp_rank, args=(r, str(scratch / "main"), devices, init, q),
+                         daemon=True) for r in range(TP)]
+    for p in procs:
+        p.start()
+    got: list = []
+    deadline = time.monotonic() + 500
+    try:
+        while len(got) < len(procs):     # a failed rank ends the wait: its peer would hang
+            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
+            if got[-1][0] != "ok":
+                break
+    except queue.Empty:
+        got.append(("error", {"trace": f"no result from {TP - len(got)} rank(s) in 500 s"}))
+    finally:
+        t_results = time.perf_counter() - t0
+        for p in procs:
+            p.join(timeout=30 if got and got[-1][0] == "ok" else 1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    errors = [val["trace"] for status, val in got if status != "ok"]
+    check(not errors, "a tp rank failed:\n" + "\n".join(errors))
+    ranks = sorted((val for _, val in got), key=lambda v: v["rank"])
+    log(f"[tp] both ranks' results in {t_results:.1f}s (spawn, import, mesh, load, warm-up, 2 "
+        f"engines), both exited {time.perf_counter() - t0 - t_results:.1f}s later")
+    want, gaps = refs["burst_plain"]
+    out = {"ties": 0, "launches": dict.fromkeys(ranks[0]["dense"]["launches"], 0),
+           "backend": backend, "cards": n_cards}
+    for label in ("dense", "paged"):
+        lead = ranks[0][label]
+        got_reqs = [types.SimpleNamespace(rid=rid, status=status, out_tokens=toks)
+                    for rid, status, toks in lead["tokens"]]
+        check(all(r.status == "ok" and len(r.out_tokens) == 16 for r in got_reqs),
+              f"tp {label}: statuses {[r.status for r in got_reqs]}")
+        ties = compare_tokens(f"tp {label}", got_reqs, want, gaps)
+        out["ties"] += ties
+        st = lead["stats"]
+        for rank in ranks:
+            res = rank[label]
+            fwd, coll = res["fwd"], res["coll"]
+            check(fwd["prefill_forwards"] == st["prefill_forwards"]
+                  and fwd["decode_forwards"] == st["decode_forwards"],
+                  f"tp {label} rank {rank['rank']}: {fwd} forwards, the leader's {st}")
+            check(res["plain"] == 0, f"tp {label} rank {rank['rank']}: a plain version ran")
+            for name, n in res["expected"].items():
+                check(res["launches"][name] == n,
+                      f"tp {label} rank {rank['rank']}: {name} launched "
+                      f"{res['launches'][name]} times, the records say {n}")
+            for name, n in res["launches"].items():
+                out["launches"][name] += n
+            check(sum(res["launches"].values()) > 0, f"tp {label}: no kernel launched")
+            n_fwd = fwd["prefill_forwards"] + fwd["decode_forwards"]
+            prof = res["profile"]
+            held, rows = res["held"], res["rows_held"]
+            n_lut, n_row = res["per_forward"]
+            check(held["sites"] == 2 * n_lut and rows["calls"] == 2 * n_row > 0,
+                  f"tp {label} rank {rank['rank']}: {held['sites']} LUT-site calls and "
+                  f"{rows['calls']} row-site outputs recorded in two forwards of {n_lut} LUT "
+                  f"sites, {n_row} of them row-parallel")
+            log(f"[tp] {label} rank {rank['rank']}: {held['sites']} LUT-site calls of the first "
+                f"prefill and decode forward ({held['kernels']}) equal to the plain lookup of "
+                f"the encode kernel's codes at the rank's shapes (max abs err {held['err']:.3g}; "
+                f"{held['codes_off']} of {held['codes']} codes off the plain encode's, each a "
+                f"tie); {rows['calls']} row-site outputs ({rows['rows']} rows) bytewise the "
+                f"unsharded site's on the gathered input and tables ({rows['codes_off']} codes "
+                f"of the unsharded encode off the ranks', each a tie; max abs err "
+                f"{rows['err']:.3g})")
+            log(f"[tp] {label} rank {rank['rank']} ({devices[rank['rank']]}): load and engine "
+                f"{res['build_s']:.1f}s ({res['tuned']} shapes "
+                f"tuned); site shapes (M, C) {res['sigs']}; decode forward "
+                f"{1e3 * fwd['decode_s'] / max(fwd['decode_forwards'], 1):.2f} ms "
+                f"({fwd['decode_forwards']} fwd), prefill "
+                f"{1e3 * fwd['prefill_s'] / max(fwd['prefill_forwards'], 1):.2f} ms "
+                f"({fwd['prefill_forwards']} fwd); all_reduce {coll['all_reduce'] / n_fwd:.1f} "
+                f"per forward, {1e6 * coll['all_reduce_s'] / max(coll['all_reduce'], 1):.1f} us "
+                f"host each ({coll['all_reduce_bytes'] / n_fwd / 1e6:.2f} MB per forward); "
+                f"profiled decode step {prof['wall_us']:.0f} us wall, device busy "
+                f"{prof['busy_us']:.0f} us ({100 * prof['busy_us'] / prof['wall_us']:.1f}%); "
+                f"peak {res['peak'] / 2**30:.2f} GiB allocated, {res['reserved'] / 2**30:.2f} "
+                f"GiB reserved; launches "
+                + " ".join(f"{k}={v}" for k, v in res["launches"].items()))
+        n_tok = sum(len(r.out_tokens) for r in got_reqs)
+        log(f"[tp] {label}: {n_tok} tokens in {st['wall']:.3f}s ({n_tok / st['wall']:.2f} "
+            f"tok/s); tokens equal phase 4's plain run except {ties} near-tie difference(s)"
+            + (f"; prefix_hits {st['prefix_hits']}, shed {st['shed']}" if label == "paged"
+               else ""))
+        out[label] = {"decode_ms": 1e3 * st["decode_s"] / st["decode_forwards"],
+                      "tok_s": n_tok / st["wall"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_LAYERS = 14        # depth of phase 7's recipe run (full width always; cut from 28 to
-                         # keep the whole run in its time limit: its checkpoints dominate)
+TRAIN_LAYERS = 8         # depth of phase 7's recipe run (full width always; cut from 28 to
+                         # 14, then to 8 when phase 11 came, to keep the whole run in its
+                         # time limit: its checkpoints dominate)
 TRAIN_STEPS = 4          # steps of its dense and soft-PQ stages
 LAUNCHER_STEPS = 60      # the launcher's --steps: ckpt_every = max(50, steps // 4) = 50, so
                          # soft-PQ commits at step 50 and a kill after it resumes there
@@ -1804,15 +2197,32 @@ def du(path: Path) -> int:
 
 class PlainLUT:
     """Every LUT site's `ops.lut_amm` replaced by the plain version of the
-    v2 kernel on the same device (what fused and v2 compute, exact int32
-    sums dequantized once): the reference the kernels are held against."""
+    kernel its dispatch chooses, on the same device: where the records
+    choose v1, v1's (fp32 sums of the dequantized entries in the record's
+    chunks of the codebook sum, then bias and act, as `ops.lut_amm` adds
+    them), else the v2 kernel's (what fused and v2 compute, exact int32 sums
+    dequantized once): the reference the kernels are held against."""
 
     def __enter__(self):
-        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import autotune, ops, ref
 
         self.ops, self.real = ops, ops.lut_amm
-        ops.lut_amm = lambda x, c, q, s, *, bias=None, act="none", **_: \
-            ref.lut_amm_v2_plain(x, c, q, s, bias=bias, act=act)
+
+        def plain(x, c, q, s, *, bias=None, act="none", version=None, blocks=None):
+            if version is None:
+                version, rec, _ = autotune.kernel_choice(
+                    x.shape[0], q.shape[-1], *c.shape, dtype=autotune.dtype_name(x.dtype),
+                    backend=autotune.backend_of(x))
+                blocks = blocks or rec
+            if version != ops.VERSION_V1:
+                return ref.lut_amm_v2_plain(x, c, q, s, bias=bias, act=act)
+            y = ref.lut_amm_v1_plain(x, c, q, s, block_c=autotune.v1_launch(
+                blocks or autotune.DEFAULT)["block_c"])
+            if bias is not None:
+                y = y + bias.to(y.dtype)
+            return ref.apply_act(y, act).to(y.dtype)
+
+        ops.lut_amm = plain
         return self
 
     def __exit__(self, *exc):
@@ -1859,7 +2269,6 @@ def hold_sites(label: str, calls: list) -> dict:
     be far below the terms it is summed from, whose rounding decides a
     tie.) Returns the counts, the largest error, and per call the rows
     whose codes differ from the plain encode's ("off_rows")."""
-    from repro_torch.core import pq
     from repro_torch.kernels import dist_argmin as enc_mod
     from repro_torch.kernels import ref
 
@@ -1898,25 +2307,37 @@ def hold_sites(label: str, calls: list) -> dict:
         out["codes"] += codes.numel()
         out["rows_off"] += int(off.any(dim=1).sum())
         out["off_rows"].append(off.any(dim=1).nonzero().flatten().tolist())
-        if off.any():
-            n_idx, c_idx = off.nonzero(as_tuple=True)
-            a = pq.split_subvectors(x.double(), c.shape[-1])[n_idx, c_idx]     # (F, V)
-            rows = torch.arange(len(n_idx), device=x.device)
-            p1 = c.double()[c_idx][rows, codes.long()[n_idx, c_idx]]
-            p2 = c.double()[c_idx][rows, plain.long()[n_idx, c_idx]]
-            d2 = ((a - p2) ** 2).sum(-1)
-            gap = ((a - p1) ** 2).sum(-1) - d2
-            terms = (a * a).sum(-1) + (p1 * p1).sum(-1) + 2 * (a * p1).sum(-1).abs()
-            rel = gap.abs() / terms
-            out["codes_off"] += len(n_idx)
-            j = int(rel.argmax())
-            if rel[j].item() >= out["worst_tie"]:
-                out["worst_tie"] = rel[j].item()
-                out["worst_code"] = (d2[j].item(), terms[j].item(), gap[j].item())
-            check(bool((rel <= TIE_EPS).all()),
-                  f"{name}: {int((rel > TIE_EPS).sum())} codes differ from the plain encode's "
-                  f"off a tie of the expansion (worst {rel.max().item():.3g} of its terms)")
+        out["codes_off"] += tie_codes(name, x, c, codes, plain, out)
     return out
+
+
+def tie_codes(name: str, x, c, codes, plain, worst: dict | None = None) -> int:
+    """The number of `codes` that differ from `plain` (both (N, C) for the
+    input x and centroids c); each must be a tie of the fp32 expansion: the
+    float64 distances of the two choices within TIE_EPS of the expansion's
+    terms. `worst` keeps the largest such gap ("worst_tie", "worst_code")."""
+    from repro_torch.core import pq
+
+    off = codes != plain
+    if not off.any():
+        return 0
+    n_idx, c_idx = off.nonzero(as_tuple=True)
+    a = pq.split_subvectors(x.double(), c.shape[-1])[n_idx, c_idx]     # (F, V)
+    rows = torch.arange(len(n_idx), device=x.device)
+    p1 = c.double()[c_idx][rows, codes.long()[n_idx, c_idx]]
+    p2 = c.double()[c_idx][rows, plain.long()[n_idx, c_idx]]
+    d2 = ((a - p2) ** 2).sum(-1)
+    gap = ((a - p1) ** 2).sum(-1) - d2
+    terms = (a * a).sum(-1) + (p1 * p1).sum(-1) + 2 * (a * p1).sum(-1).abs()
+    rel = gap.abs() / terms
+    j = int(rel.argmax())
+    if worst is not None and rel[j].item() >= worst["worst_tie"]:
+        worst["worst_tie"] = rel[j].item()
+        worst["worst_code"] = (d2[j].item(), terms[j].item(), gap[j].item())
+    check(bool((rel <= TIE_EPS).all()),
+          f"{name}: {int((rel > TIE_EPS).sum())} codes differ from the plain encode's "
+          f"off a tie of the expansion (worst {rel.max().item():.3g} of its terms)")
+    return len(n_idx)
 
 
 class Timed:
@@ -1965,7 +2386,8 @@ def train_step_parity(dev) -> dict:
     batch = MarkovLM(vocab=arch.vocab, seq_len=32, batch=4).batch_at(0)
     opt = AdamW(lr=cosine_with_warmup(PARITY_LR, total_steps=4, warmup_steps=2),
                 rules=SOFT_PQ_RULES)
-    res = testing.lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS)
+    res = testing.lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS,
+                                        witness=dev)
     errs = res["grad_errs"]
 
     def worst(key: str, i: int, n: int = 4) -> str:
@@ -1976,7 +2398,7 @@ def train_step_parity(dev) -> dict:
                          e["card_f64"][1] / max(e["cpu_f64"][1], testing.FLOOR_MAX)), k)
                     for k, e in errs.items()), reverse=True)
     log(f"[train] soft-PQ step, full width, 2 layers, {res['tokens']} tokens, card vs CPU, float64 "
-        f"on the CPU as witness ({time.perf_counter() - t0:.1f}s): loss {res['loss_dev']:.7f} "
+        f"on the card as witness ({time.perf_counter() - t0:.1f}s): loss {res['loss_dev']:.7f} "
         f"card, {res['loss_cpu']:.7f} CPU, {res['loss_f64']:.7f} float64; codes picked otherwise "
         f"at a near-tie of {res['codes']}: card {res['pinned_codes']['card']}, float64 "
         f"{res['pinned_codes']['float64']}; fake-quant entries rounded to "
@@ -2224,7 +2646,11 @@ def launcher_resume(scratch: Path) -> dict:
 
 
 def phase_train(dev, scratch: Path) -> dict:
+    import gc
+
     out = {"step": train_step_parity(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
     out["recipe"] = recipe_full_width(dev, scratch)
     out["launcher"] = launcher_resume(scratch)
     return out
@@ -2235,6 +2661,10 @@ def phase_train(dev, scratch: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 ARCTIC_LAYERS = 2        # arctic_480b's depth in phase 8: layer 0 dense, layer 1 LUT
+# depth of phase 8's recurrent families (full width; cut from 48 and 38 so that
+# chip_smoke keeps inside its time limit with phase 11): zamba2_1p2b's shared
+# block runs 4 times
+SERVE_FAMILY_LAYERS = {"mamba2_370m": 24, "zamba2_1p2b": 24, "arctic_480b": ARCTIC_LAYERS}
 # prompt lengths of phase 8's burst at a prefill chunk of 32: exactly one
 # chunk, exactly two, ragged over two chunks and ragged inside one
 FAMILY_PROMPTS = (32, 64, 45, 17, 32, 50, 9, 60)
@@ -2395,9 +2825,9 @@ def serve_family(label: str, bundle, params, dev, *, recurrent: bool,
 
 
 def phase_families(dev, scratch: Path) -> dict:
-    """Phase 8: mamba2_370m (48 layers) and zamba2_1p2b (38 layers) at full
-    width and depth through artifacts; arctic_480b at full width with
-    ARCTIC_LAYERS layers, its params built on the card."""
+    """Phase 8: mamba2_370m and zamba2_1p2b at full width and
+    SERVE_FAMILY_LAYERS layers through artifacts; arctic_480b at full width
+    with ARCTIC_LAYERS layers, its params built on the card."""
     import gc
 
     from repro_torch.configs import build_model, get_arch
@@ -2409,9 +2839,8 @@ def phase_families(dev, scratch: Path) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)        # what the earlier phases left
         t0 = time.perf_counter()
-        arch = dataclasses.replace(get_arch(name), lut_use_kernel=True)
-        if name == "arctic_480b":
-            arch = dataclasses.replace(arch, n_layers=ARCTIC_LAYERS)
+        arch = dataclasses.replace(get_arch(name), lut_use_kernel=True,
+                                   n_layers=SERVE_FAMILY_LAYERS[name])
         bundle = build_model(arch, Mode.LUT_INFER)
         params = bundle.init(torch.Generator(device=dev).manual_seed(SEED + 23), device=dev)
         n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
@@ -2427,7 +2856,11 @@ def phase_families(dev, scratch: Path) -> dict:
         log(f"[families] {name}: {arch.n_layers} layers, d_model {arch.d_model}, vocab "
             f"{arch.vocab}, {len(bundle.lut_sites())} LUT sites, {n_bytes / 1e9:.2f} GB of params "
             f"({arch.param_dtype}), {where} in {time.perf_counter() - t0:.1f}s")
-        res = serve_family(name, bundle, params, dev, recurrent=name != "arctic_480b")
+        # the recurrent families' burst held call by call, as 10 (b) holds
+        # the trained ones: a code picked at a tie inside the kernels is then
+        # counted and may explain a request's difference
+        res = serve_family(name, bundle, params, dev, recurrent=name != "arctic_480b",
+                           hold_all=name != "arctic_480b")
         res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
         res["param_bytes"] = n_bytes
         log(f"[families] {name}: peak device memory {res['peak_gib']:.2f} GiB above the "
@@ -2444,6 +2877,8 @@ def phase_families(dev, scratch: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 ROWS9 = 4                # batch rows of phase 9's forwards
+VLM_SERVE_LAYERS = 8     # qwen2_vl_7b's depth in phase 9 (full width; cut from 28 so
+                         # that chip_smoke keeps inside its time limit with phase 11)
 WHISPER_PROMPT = 8       # decoder tokens of whisper's prefill, beside its frames
 VLM_GRID = (4, 8)        # qwen2_vl's prefill: a 4 x 8 grid of patch embeddings ...
 VLM_TEXT = 8             # ... then 8 text tokens' embedding rows
@@ -2568,16 +3003,19 @@ def profile_forward(fn, n_steps: int = 8) -> tuple[float, float, dict]:
         {k: v / n_steps for k, v in by_kernel.items()}
 
 
-def family_model(name: str, dev, scratch: Path):
+def family_model(name: str, dev, scratch: Path, n_layers: int | None = None):
     """(bundle, params, param bytes, build seconds) of `name` at full
-    published width and depth, LUT_INFER through the kernels: built on the
-    card from a seed, exported as an artifact and loaded back."""
+    published width and depth (or `n_layers`), LUT_INFER through the
+    kernels: built on the card from a seed, exported as an artifact and
+    loaded back."""
     from repro_torch.configs import build_model, get_arch
     from repro_torch.core.amm import Mode
     from repro_torch.serving import artifact
 
     t0 = time.perf_counter()
     arch = dataclasses.replace(get_arch(name), lut_use_kernel=True)
+    if n_layers is not None:
+        arch = dataclasses.replace(arch, n_layers=n_layers)
     bundle = build_model(arch, Mode.LUT_INFER)
     params = bundle.init(torch.Generator(device=dev).manual_seed(SEED + 30), device=dev)
     n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
@@ -2720,7 +3158,7 @@ def phase9_whisper(dev, scratch: Path, model: tuple | None = None) -> dict:
 
 
 def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
-    """qwen2_vl_7b at full width and all 28 layers: 4 rows of 32 patch
+    """qwen2_vl_7b at full width and VLM_SERVE_LAYERS layers: 4 rows of 32 patch
     embeddings and 8 text tokens' embedding rows as the prefill, 16 greedy
     decode steps fed back as embedding rows, through the plain versions and
     the kernels; then a no-cache forward with the grid's distinct (t, h, w)
@@ -2729,7 +3167,8 @@ def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
     from repro_torch.models import transformer as tf_mod
     from repro_torch.testing import grid_positions
 
-    bundle, params, n_bytes = model or family_model("qwen2_vl_7b", dev, scratch)
+    bundle, params, n_bytes = model or family_model("qwen2_vl_7b", dev, scratch,
+                                                    n_layers=VLM_SERVE_LAYERS)
     arch = bundle.arch
     check_refused("qwen2_vl_7b", bundle, params, dev, "could not give this model the embeddings")
     n_patch = VLM_GRID[0] * VLM_GRID[1]
@@ -2794,9 +3233,9 @@ def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
 
 
 def phase_encdec_vlm(dev, scratch: Path) -> dict:
-    """Phase 9: whisper_tiny and qwen2_vl_7b at full width and depth through
-    artifacts, driven by `ModelBundle.forward_step` (the engine refuses both
-    families: it feeds token ids only)."""
+    """Phase 9: whisper_tiny (full depth) and qwen2_vl_7b (VLM_SERVE_LAYERS)
+    at full width through artifacts, driven by `ModelBundle.forward_step`
+    (the engine refuses both families: it feeds token ids only)."""
     import gc
 
     out = {}
@@ -2819,13 +3258,17 @@ def phase_encdec_vlm(dev, scratch: Path) -> dict:
 
 # depth of each family's soft-PQ step parity (full width always): 2 layers,
 # the hybrid the 6 mamba layers that invoke its shared block once, whisper
-# all of its 4 + 4
-PARITY_LAYERS = {"mamba2_370m": 2, "zamba2_1p2b": 6, "whisper_tiny": 4, "qwen2_vl_7b": 2}
-# rows x tokens of each parity batch: qwen2_vl_7b's 152k-row head and 18944-wide
-# MLP make its float64 witness on the CPU the slowest part
-PARITY_BATCH = {"mamba2_370m": (4, 32), "zamba2_1p2b": (4, 32), "whisper_tiny": (4, 32),
-                "qwen2_vl_7b": (2, 16)}
+# all of its 4 + 4. qwen2_vl_7b's step is held at reduced size on the card
+# (`tests/test_torch_cuda.py`), not here: at full width its host side (the
+# CPU step and two AdamW updates over ~1.3e9 trainable entries) took ~90 s
+# of chip_smoke's time limit
+PARITY_LAYERS = {"mamba2_370m": 2, "zamba2_1p2b": 6, "whisper_tiny": 4}
+# rows x tokens of each parity batch
+PARITY_BATCH = {"mamba2_370m": (4, 32), "zamba2_1p2b": (4, 32), "whisper_tiny": (4, 32)}
 TRAIN_VLM_LAYERS = 4     # qwen2_vl_7b's depth in (c): 28 layers in fp32 with AdamW are ~122 GB
+# depth of (b)'s recipe runs (full width; cut from 48 and 38 so that chip_smoke
+# keeps inside its time limit with phase 11): zamba2_1p2b's shared block runs once
+RECIPE_LAYERS = {"mamba2_370m": 6, "zamba2_1p2b": 6}
 FAMILY_STEPS = 2         # (c)'s dense and soft-PQ steps
 FAMILY_ROWS, FAMILY_SEQ = 4, 64
 FAMILY_LAUNCHER_STEPS = 20   # (d)'s --steps: no kill, so no commit needed
@@ -2854,7 +3297,8 @@ def family_step_parity(name: str, dev) -> dict:
              testing.family_batch(arch, *PARITY_BATCH[name], seed=SEED + 41).items()}
     opt = AdamW(lr=cosine_with_warmup(PARITY_LR, total_steps=4, warmup_steps=2),
                 rules=SOFT_PQ_RULES)
-    res = testing.lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS)
+    res = testing.lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS,
+                                        witness=dev)
     errs = res["grad_errs"]
     worst = max(errs.items(), key=lambda kv: kv[1]["card_cpu"][1])
     ratio = max((max(e["card_f64"][0] / max(e["cpu_f64"][0], testing.FLOOR_L2),
@@ -2969,9 +3413,10 @@ def arctic_step(dev) -> dict:
 
 
 def family_recipe(name: str, dev, scratch: Path) -> dict:
-    """(b) `Recipe.run` (`run_recipe`) at full width and depth, then the
-    trained artifact loaded and served as phase 8 serves (`serve_family`:
-    measured warm-up, the burst against the plain versions)."""
+    """(b) `Recipe.run` (`run_recipe`) at full width and RECIPE_LAYERS[name]
+    layers, then the trained artifact loaded and served as phase 8 serves
+    (`serve_family`: measured warm-up, the burst against the plain
+    versions)."""
     import gc
 
     from repro_torch.configs import get_arch
@@ -2979,7 +3424,8 @@ def family_recipe(name: str, dev, scratch: Path) -> dict:
     from repro_torch.serving.artifact import load_artifact
 
     os.environ["REPRO_AUTOTUNE_CACHE"] = str(scratch / f"autotune_{name}.json")
-    arch = dataclasses.replace(get_arch(name), lut_use_kernel=True)
+    arch = dataclasses.replace(get_arch(name), lut_use_kernel=True,
+                               n_layers=RECIPE_LAYERS[name])
     data = MarkovLM(vocab=arch.vocab, seq_len=256, batch=4)
     adir = scratch / f"trained_{name}"
     out = run_recipe(f"recipe10 {name}", arch, data, dev, scratch, adir)
@@ -3149,10 +3595,11 @@ def phase_train_families(dev, scratch: Path) -> dict:
     from repro_torch.kernels import counters
 
     out: dict = {"step": {}}
-    for name in ("mamba2_370m", "zamba2_1p2b", "whisper_tiny", "qwen2_vl_7b"):
+    for name in PARITY_LAYERS:
         out["step"][name] = family_step_parity(name, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+        # reference cycles left by the harness's hooks can hold card tensors
+        gc.collect()
+        torch.cuda.empty_cache()
     out["arctic"] = arctic_step(dev)
     launches = dict.fromkeys(counters.launches(), 0)
     for name in ("mamba2_370m", "zamba2_1p2b"):
@@ -3213,6 +3660,7 @@ def main() -> int:
         launches = served["launches"]
         refs = timed(5, phase_paged_spec, dev, scratch, served["art"], served["engine"])
         timed(6, phase_process, scratch, served["engine"], refs)
+        tp = timed(11, phase_tp, scratch, refs)
         # phase 7 needs the card's memory and the scratch disk to itself
         del served, refs
         shutil.rmtree(scratch / "main", ignore_errors=True)
@@ -3251,7 +3699,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[name],
                      "phase_launches": {"4": launches[name],
-                                        "10": trained["launches"][name]},
+                                        "10": trained["launches"][name],
+                                        "11": tp["launches"][name]},
                      "max_abs_err": k["err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})

@@ -20,6 +20,13 @@ written by either package restores in the other.
     mid-write never leaves a half-readable checkpoint; restore() takes the
     newest committed step;
   * keep_last bounds the disk used.
+
+A bfloat16 leaf is written as the reference writes one: manifest dtype
+"bfloat16", and an `.npy` member whose header says '<V2' (numpy's name for
+an ml_dtypes bfloat16 array) over the values' little-endian bits, so the
+member's bytes are the reference's. `restore` reads such a member, and the
+uint16 members of the port's earlier files, into bfloat16 tensors wherever
+`like` is bfloat16.
 """
 
 from __future__ import annotations
@@ -30,13 +37,35 @@ import pathlib
 import re
 import shutil
 import threading
+import zipfile
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint.paths import treedef_string, unflatten_tree
-from repro_torch.weights import reference_arrays, tree_from_reference
+from repro_torch.weights import reference_arrays, reference_leaves, tree_from_reference
+
+BF16_DESCR = "<V2"
+
+
+def savez(path: str | os.PathLike, arrays: dict[str, np.ndarray],
+          bf16: frozenset[str] | set[str] = frozenset()) -> None:
+    """`np.savez(path, **arrays)`, except that the members named in `bf16`
+    (uint16 arrays of bfloat16 bits) get the header numpy writes for an
+    ml_dtypes bfloat16 array ('<V2'), which `np.savez` cannot write for them
+    without ml_dtypes."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if key not in bf16:
+                    np.lib.format.write_array(fid, np.asanyarray(a), allow_pickle=False)
+                    continue
+                a = np.ascontiguousarray(a, dtype="<u2")
+                np.lib.format.write_array_header_1_0(
+                    fid, {"descr": BF16_DESCR, "fortran_order": False, "shape": a.shape})
+                fid.write(a.tobytes())
 
 
 def atomic_write_json(path: str | os.PathLike, obj: Any) -> None:
@@ -62,9 +91,11 @@ class Checkpointer:
         writer thread right after the commit; its exceptions are swallowed
         (a hook must never fail a committed checkpoint)."""
         flat = reference_arrays(tree)
+        bf16 = {p for p, leaves in reference_leaves(tree).items()
+                if leaves[0].dtype == torch.bfloat16}
         self.wait()
-        self._thread = threading.Thread(target=self._write, args=(step, flat, on_commit),
-                                        daemon=True)
+        self._thread = threading.Thread(target=self._write,
+                                        args=(step, flat, on_commit, bf16), daemon=True)
         self._thread.start()
         if blocking:
             self.wait()
@@ -74,17 +105,19 @@ class Checkpointer:
             self._thread.join()
             self._thread = None
 
-    def _write(self, step: int, flat: dict[str, np.ndarray], on_commit=None) -> None:
+    def _write(self, step: int, flat: dict[str, np.ndarray], on_commit=None,
+               bf16: set[str] = frozenset()) -> None:
         final = self.dir / f"step_{step:08d}"
         tmp = self.dir / f"step_{step:08d}.tmp"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        np.savez(tmp / "arrays.npz", **flat)
+        savez(tmp / "arrays.npz", flat, bf16)
         manifest = {
             "step": step,
             "treedef": treedef_string(unflatten_tree(flat)),
-            "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+            "leaves": {k: {"shape": list(v.shape),
+                           "dtype": "bfloat16" if k in bf16 else str(v.dtype)}
                        for k, v in flat.items()},
         }
         (tmp / "manifest.json").write_text(json.dumps(manifest, indent=2))

@@ -36,6 +36,7 @@ from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharded
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import SiteCfg, cross_entropy
 
@@ -539,7 +540,7 @@ class ModelBundle:
                                             paged)
         return tf_mod.init_caches(self.cfg, b, s_max, dtype, resolve_device(device), paged)
 
-    def forward_step(self, params, batch, caches, *, compute_dtype=torch.float32):
+    def forward_step(self, params, batch, caches, *, compute_dtype=torch.float32, mesh=None):
         """One serving step (prefill if S > 1, decode if S == 1).
 
         batch: "tokens" (B, S) (or "embeds" (B, S, D) for a model that takes
@@ -555,7 +556,16 @@ class ModelBundle:
         to the three streams, as in the reference. Returns (logits for the
         new positions, caches), the caches updated in place. cache_len,
         write_rows, block_tables and write_len are read on the host: pass CPU
-        tensors to keep the forward free of device-to-host waits."""
+        tensors to keep the forward free of device-to-host waits. A tensor-
+        parallel rank's bundle (`distributed.tensor_parallel.local_bundle`)
+        runs its shard of the forward with its collectives on `mesh`; every
+        rank must run the same forwards."""
+        if mesh is not None:
+            with sharded.bound(mesh):
+                return self._forward_step(params, batch, caches, compute_dtype=compute_dtype)
+        return self._forward_step(params, batch, caches, compute_dtype=compute_dtype)
+
+    def _forward_step(self, params, batch, caches, *, compute_dtype):
         inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
         dev = inp.device
         b, s = inp.shape[:2]

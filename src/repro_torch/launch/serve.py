@@ -34,6 +34,12 @@ end over the continuous-batching engine with a LUT_INFER (int8 table) model.
   PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> --port 0 --replicas 2 \
       --routing prefix_affinity --paged
 
+  # tensor-parallel over N ranks (one process each; rank 0 schedules, the
+  # others follow): N cards over NCCL, or on the CPU N gloo ranks:
+  PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> --tp 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tp 2 \
+      --layers 2 --d-model 64 --vocab 128
+
 Counterpart of `repro.launch.serve`. With --artifact the arch, plan and
 mode come from the manifest and the artifact's autotune snapshot is
 restored; without it the arch is reduced exactly as there (`reduce_arch`;
@@ -52,6 +58,7 @@ for refusing them (`engine.engine_refusal`: the engine feeds token ids only).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -79,7 +86,10 @@ def chosen_versions(bundle, token_counts: list[int], dtype: str,
             for sig in lut_kernel_signatures(bundle)}
 
 
-def main(argv: list[str] | None = None) -> None:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The launcher's arguments, checked: a combination it refuses, an arch
+    the engine or `--tp` cannot serve, or too few cards for `--tp` exits 2
+    with the reason."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--artifact", default=None,
                     help="a LUTArtifact directory: serve its tables (arch, plan and mode from "
@@ -91,6 +101,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--max-tokens", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: N rank processes, each holding its shards "
+                         "(ShardingRules) of the model on its own card (NCCL), or with --device "
+                         "cpu N gloo ranks on the CPU")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="engine compute dtype; also keys the autotune records")
     ap.add_argument("--paged", action="store_true",
@@ -162,12 +176,16 @@ def main(argv: list[str] | None = None) -> None:
 
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
     if args.replicas > 1:
         if not args.artifact:
             ap.error("--replicas > 1 requires --artifact (each replica's worker restarts from "
                      "the artifact directory)")
         if args.port is None:
             ap.error("--replicas > 1 requires --port")
+        if args.tp > 1:
+            ap.error("--replicas does not compose with --tp > 1")
     if args.fault_json is not None and args.replicas < 2:
         ap.error("--fault-json needs --replicas >= 2 (a survivor must exist to fail over to)")
     if args.supervise and not args.artifact:
@@ -175,8 +193,32 @@ def main(argv: list[str] | None = None) -> None:
                  "directory)")
     if args.supervise and args.port is None:
         ap.error("--supervise requires --port (supervised batch mode is not wired)")
-    if not args.artifact and (refusal := engine_refusal(get_arch(args.arch))) is not None:
+    if args.supervise and args.tp > 1:
+        ap.error("--supervise does not support --tp > 1 yet")
+    if args.spec_decode and args.tp > 1:
+        ap.error("--spec-decode does not compose with --tp > 1 (the draft caches are "
+                 "host-managed)")
+    served = _served_arch(args)
+    if served is not None and (refusal := engine_refusal(served)) is not None:
         ap.error(refusal)
+    if args.tp > 1:
+        if served is not None:
+            from repro_torch.distributed.tensor_parallel import tp_refusal
+
+            if (refusal := tp_refusal(build_model(served, Mode.LUT_INFER))) is not None:
+                ap.error(refusal)
+        if args.device == "cuda" and torch.cuda.device_count() < args.tp:
+            ap.error(f"--tp {args.tp} needs {args.tp} cards, the host has "
+                     f"{torch.cuda.device_count()}")
+    return args
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = parse_args(argv)
+    if args.tp > 1:
+        devices = ["cpu"] * args.tp if args.device == "cpu" else [f"cuda:{r}"
+                                                                  for r in range(args.tp)]
+        sys.exit(run_tp(args, devices))
     if args.port is not None:
         return _serve_http(args)
 
@@ -193,6 +235,13 @@ def main(argv: list[str] | None = None) -> None:
                         prefill_chunk=args.prefill_chunk, compute_dtype=dtype,
                         device=args.device, **_paged_kwargs(args),
                         **_resolve_draft(_spec_kwargs(args), args.artifact, args.device))
+    _run_batch(args, eng, source)
+
+
+def _run_batch(args, eng: ServingEngine, source: str) -> None:
+    """Batch mode on a built engine: the warm-up, then a timed burst of
+    seeded requests, and the summary lines."""
+    bundle = eng.bundle
     if not args.no_warmup:
         eng.warmup()
 
@@ -245,9 +294,125 @@ def main(argv: list[str] | None = None) -> None:
         print(f"  req {r.rid}: {r.out_tokens[:8]}...")
 
 
-def _random_init(args):
+def run_tp(args, devices: list[str]) -> int:
+    """Serve tensor-parallel over `devices` (rank r on devices[r]): ranks
+    1.. in spawned processes, rank 0 here (it prints the summary, or serves
+    HTTP). A follower that fails ends rank 0's serving: its peers could only
+    wait in their next collective. Returns the exit code: rank 0's, or 1
+    when a follower failed."""
+    import multiprocessing as mp
+    import socket
+    import threading
+    from multiprocessing.connection import wait
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=serve_rank, args=(r, args, devices, init), daemon=True)
+             for r in range(1, len(devices))]
+    for p in procs:
+        p.start()
+    done = threading.Event()
+
+    def watch() -> None:
+        # a follower exits 0 only once rank 0 released it
+        live = {p.sentinel: r for r, p in enumerate(procs, 1)}
+        while live and not done.is_set():
+            for sentinel in wait(list(live), timeout=1.0):
+                r = live.pop(sentinel)
+                procs[r - 1].join()
+                code = procs[r - 1].exitcode
+                if code and not done.is_set():
+                    print(f"tp rank {r} exited with code {code}: ending the server",
+                          file=sys.stderr, flush=True)
+                    for p in procs:
+                        if p.is_alive():
+                            p.kill()
+                    os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+    try:
+        code = serve_rank(0, args, devices, init)
+    finally:
+        done.set()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return code or (1 if any(p.exitcode for p in procs) else 0)
+
+
+def serve_rank(rank: int, args, devices: list[str], init_method: str) -> int:
+    """One rank of `--tp` over `devices` (rank r on devices[r]; the backend
+    follows them): join the mesh at `init_method`, serve on it
+    (`serve_on_mesh`), leave it. Returns rank 0's exit code, 0 elsewhere."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(data=1, model=len(devices), rank=rank, devices=devices,
+                          init_method=init_method)
+    try:
+        code = serve_on_mesh(mesh, args)
+        return code if rank == 0 else 0
+    finally:
+        mesh.close()
+
+
+def serve_on_mesh(mesh, args, *, lead=None, on_mark=None, on_engine=None):
+    """One rank's engine on `mesh`: load this rank's shards (an artifact's,
+    or random init cut on the host), build the engine as `args` say, and
+    show it to `on_engine(eng)` on every rank. Rank 0 leads, with
+    `lead(eng, source)` where given, else in batch or HTTP mode; then it
+    releases the others, which follow it and pass each of its marks to
+    `on_mark(code)`. Returns rank 0's exit code (or what `lead` returned), a
+    follower's `follow()` counters."""
+    if args.artifact:
+        from repro_torch.serving.artifact import load_artifact
+
+        art = load_artifact(args.artifact, mesh=mesh)
+        bundle, params = art.bundle, art.params
+        source = f"artifact {args.artifact} ({art.arch_name})"
+    else:
+        bundle, params, source = _random_init(args, device="cpu")
+    eng = ServingEngine(bundle, params, mesh=mesh, n_slots=args.slots, max_seq=args.max_seq,
+                        prefill_chunk=args.prefill_chunk, compute_dtype=args.dtype,
+                        max_queue=args.max_queue if args.port is not None else None,
+                        **_paged_kwargs(args))
+    if on_engine is not None:
+        on_engine(eng)
+    if mesh.rank:
+        return eng.follow(on_mark=on_mark)
+    source += f", tp={mesh.model} over {mesh.backend}"
+    try:
+        if lead is not None:
+            return lead(eng, source)
+        if args.port is not None:
+            return _serve_local(args, eng, source)
+        _run_batch(args, eng, source)
+        return 0
+    finally:
+        eng.close()
+
+
+def _served_arch(args):
+    """The arch the launcher would serve: the artifact manifest's (read
+    without the arrays; None for a missing or invalid artifact, which fails
+    at its load), else the random-init arch."""
+    if args.artifact:
+        from repro_torch.configs import arch_from_dict
+        from repro_torch.serving.artifact import check_artifact_dir
+
+        try:
+            return arch_from_dict(check_artifact_dir(args.artifact)["arch"])
+        except (FileNotFoundError, ValueError, OSError, KeyError):
+            return None
+    return get_arch(args.arch)
+
+
+def _random_init(args, device: str | None = None):
     """(bundle, params, source) of random-init mode: the arch reduced as the
-    reference's `reduce_arch` does, params from a seeded generator."""
+    reference's `reduce_arch` does, params from a seeded generator (on the
+    CPU; placed on `device`, the launcher's by default)."""
     overrides = {"lut_use_kernel": args.use_kernel}
     for name in ("layers", "d_model", "vocab"):
         val = getattr(args, name)
@@ -255,7 +420,7 @@ def _random_init(args):
             overrides["n_layers" if name == "layers" else name] = val
     arch = reduce_arch(get_arch(args.arch), **overrides)
     bundle = build_model(arch, Mode.LUT_INFER)
-    params = bundle.init(torch.Generator().manual_seed(0), device=args.device)
+    params = bundle.init(torch.Generator().manual_seed(0), device=device or args.device)
     return bundle, params, f"random init ({arch.name})"
 
 
@@ -263,14 +428,12 @@ def _serve_http(args) -> None:
     """HTTP front-end mode: build a backend (a local pump, a supervised
     worker or a router over supervised replicas), serve until SIGTERM drains
     it, exit with the drain's code."""
-    import asyncio
-
-    from repro_torch.serving.server import EnginePump, run_server
-
-    # JSON-safe: the supervisor ships these to its worker processes
+    # JSON-safe: the supervisor ships these to its worker processes. The
+    # compute dtype travels by name, as kv_dtype does: the reference's HTTP
+    # modes drop --dtype (its launch/serve.py:318-336), the port does not
     engine_kwargs = dict(n_slots=args.slots, max_seq=args.max_seq,
                          prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
-                         device=args.device,
+                         device=args.device, compute_dtype=args.dtype,
                          **_paged_kwargs(args), **_spec_kwargs(args))
     if args.replicas > 1:
         import json
@@ -307,21 +470,34 @@ def _serve_http(args) -> None:
             source = f"artifact {args.artifact} ({art.arch_name})"
         else:
             bundle, params, source = _random_init(args)
-        dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-        eng = ServingEngine(bundle, params, compute_dtype=dtype,
+        eng = ServingEngine(bundle, params,
                             **_resolve_draft(engine_kwargs, args.artifact, args.device))
-        if not args.no_warmup:
-            eng.warmup()          # every token shape ran once before /readyz
-        backend = EnginePump(eng)
+        sys.exit(_serve_local(args, eng, source))
+    sys.exit(_run_server(args, backend, source))
+
+
+def _serve_local(args, eng: ServingEngine, source: str) -> int:
+    """HTTP mode over an in-process engine (a local pump); returns the
+    drain's exit code."""
+    from repro_torch.serving.server import EnginePump
+
+    if not args.no_warmup:
+        eng.warmup()          # every token shape ran once before /readyz
+    return _run_server(args, EnginePump(eng), source)
+
+
+def _run_server(args, backend, source: str) -> int:
+    import asyncio
+
+    from repro_torch.serving.server import run_server
 
     def on_started(fe):
         print(f"serving {source} on http://{fe.host}:{fe.port} "
               f"({args.slots} slots, max_queue={args.max_queue}; "
               f"SIGTERM drains, timeout {args.drain_timeout:.0f}s)", flush=True)
 
-    code = asyncio.run(run_server(backend, args.host, args.port,
+    return asyncio.run(run_server(backend, args.host, args.port,
                                   drain_timeout_s=args.drain_timeout, on_started=on_started))
-    sys.exit(code)
 
 
 def _paged_kwargs(args) -> dict:

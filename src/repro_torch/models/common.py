@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.core.amm import LUTConfig, Mode, lut_linear
 from repro_torch.core.lut_layer import ParamSpec, deploy_param_specs, init_dense
 from repro_torch.core.temperature import init_log_temperature
+from repro_torch.models import sharded
 
 Params = dict[str, Any]
 
@@ -34,6 +35,9 @@ class SiteCfg:
     lut: LUTConfig
     bias: bool = False
     name: str = ""
+    # a tensor-parallel rank's role for the site ("col", "col_gather" or
+    # "row": `models/sharded.py`; None: the whole site)
+    tp: str | None = None
 
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -137,6 +141,8 @@ def linear(site: SiteCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     site's dense weight lives beside its centroids and is its frozen source."""
     if _TAPE is not None:
         _TAPE.record(site, x)
+    if site.tp is not None:
+        return sharded.linear(site, p, x)
     if site.mode == Mode.LUT_TRAIN:
         return lut_linear(site.lut, Mode.LUT_TRAIN, p, x, frozen=p)
     return lut_linear(site.lut, site.mode, p, x)

@@ -42,6 +42,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharded
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -171,6 +172,7 @@ class LMCfg:
     lm_head: SiteCfg | None = None               # None -> tied to the embedding
     remat: bool = True                           # recompute blocks in training backward
     takes_embeds: bool = False                   # input: embeddings (the vlm stub frontend)
+    vocab_sharded: bool = False  # a tensor-parallel rank's vocab rows (models/sharded.py)
 
     @property
     def n_layers(self) -> int:
@@ -304,6 +306,8 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
         if embeds is None:
             raise ValueError("this model takes embeddings (embeds=), not token ids")
         x = embeds.to(compute_dtype)
+    elif cfg.vocab_sharded:
+        x = sharded.embed(params["embed"], tokens).to(compute_dtype)
     else:
         x = embed(params["embed"], tokens).to(compute_dtype)
     aux = x.new_zeros((), dtype=torch.float32)
@@ -318,6 +322,8 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
     if cfg.lm_head is not None:
         set_tape_prefix("")                     # registry key: bare "lm_head"
         logits = linear(cfg.lm_head, params["lm_head"], x)
+    elif cfg.vocab_sharded:
+        logits = sharded.tied_logits(x, params["embed"]["table"])
     else:
         # tied head: a plain matmul, left to the library as the reference leaves it to XLA
         logits = x @ params["embed"]["table"].to(x.dtype).T

@@ -241,23 +241,27 @@ def check_artifact_dir(directory: str | os.PathLike) -> dict[str, Any]:
 
 def load_artifact(directory: str | os.PathLike, *, plan: str = TARGET_PLAN,
                   restore_autotune: bool = True,
-                  device: str | torch.device | None = None) -> LUTArtifact:
+                  device: str | torch.device | None = None, mesh: Any = None) -> LUTArtifact:
     """Rebuild the bundle and params of a saved artifact on `device` (the
     card unless the caller asks for the CPU). Every leaf is checked against
     the manifest and the rebuilt model (path, shape, dtype) before use.
-    `plan` picks the target or a named extra plan of a v3 artifact."""
-    device = resolve_device(device)
+    `plan` picks the target or a named extra plan of a v3 artifact. With a
+    tensor-parallel `mesh` (`launch/mesh.py`), the params are this rank's
+    shards only, placed by `ShardingRules` on the mesh's device
+    (`tensor_parallel.RankParams`, what `ServingEngine(..., mesh=)` takes):
+    each leaf is cut on the host before it reaches the device."""
+    device = mesh.device if mesh is not None and device is None else resolve_device(device)
     primary = pathlib.Path(directory)
     resolved = _resolve_artifact_dir(primary)
     try:
         return _load_resolved(resolved, plan=plan, restore_autotune=restore_autotune,
-                              device=device)
+                              device=device, mesh=mesh)
     except FileNotFoundError:
         if resolved == primary:
             raise
         # a re-deploy committed while we read <dir>.old: the new one is at <dir>
         return _load_resolved(primary, plan=plan, restore_autotune=restore_autotune,
-                              device=device)
+                              device=device, mesh=mesh)
 
 
 def _plan_arch(manifest: dict[str, Any], directory, plan: str):
@@ -285,7 +289,7 @@ def _tensor_of(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def _load_resolved(directory: pathlib.Path, *, plan: str, restore_autotune: bool,
-                   device: torch.device) -> LUTArtifact:
+                   device: torch.device, mesh: Any = None) -> LUTArtifact:
     manifest = _read_manifest(directory)
     arch, recorded, keymap = _plan_arch(manifest, directory, plan)
     if manifest["version"] >= 2 and plan == TARGET_PLAN:
@@ -318,7 +322,17 @@ def _load_resolved(directory: pathlib.Path, *, plan: str, restore_autotune: bool
                 raise ValueError(f"{p}: artifact {a.shape}/{stored} != model "
                                  f"{tuple(spec.shape)}/{want}")
             flat[p] = _tensor_of(a, stored)
-    params = params_from_numpy(bundle, unflatten_tree(flat), device=device)
+    if mesh is not None:
+        from repro_torch.distributed import sharding, tensor_parallel
+
+        rules = sharding.ShardingRules.for_mesh(mesh)
+        lay = tensor_parallel.layout(bundle, rules)
+        local = tensor_parallel.local_bundle(bundle, lay)
+        tree = params_from_numpy(local, unflatten_tree(
+            tensor_parallel.shard_arrays(flat, lay, mesh.model_rank)), device=device)
+        params = tensor_parallel.RankParams(tree=tree, rank=mesh.model_rank, tp=rules.tp)
+    else:
+        params = params_from_numpy(bundle, unflatten_tree(flat), device=device)
     if restore_autotune:
         restore_autotune_snapshot(directory)
     return LUTArtifact(bundle=bundle, params=params, manifest=manifest, path=directory,

@@ -54,7 +54,21 @@ the two families that need other inputs (`engine_refusal`): the enc-dec
 backbone (qwen2_vl_7b), which takes embeddings. Both are served through
 `ModelBundle.forward_step`, which takes them.
 
-Mesh sharding is not ported yet (ROADMAP Queue A item 5).
+Tensor parallelism (DESIGN.md §6.4): with `mesh=` (`launch/mesh.py`, one
+process per rank, every rank building the engine with the same arguments)
+each rank holds its shards of the params, placed by
+`distributed.sharding.ShardingRules` (`distributed/tensor_parallel.py`), and
+its KV heads of the cache. Rank 0 runs the scheduler: before each forward it
+broadcasts the forward's token rows, positions, write lengths and page
+table (and the step's copy-on-write page copies), and every other rank runs
+the same forward from them (`follow`) until rank 0's `close()`. No other
+rank makes a scheduling decision, so the ranks' collectives never diverge.
+The logits are whole and identical on every rank; rank 0 samples. The
+autotune warm-up covers the rank's site shapes: rank 0 tunes, then
+broadcasts its records, so every rank launches the same kernels.
+Speculative decoding does not compose with a mesh, as in the reference;
+the families `tensor_parallel.tp_refusal` names wait for ROADMAP Queue A
+item 5.
 """
 
 from __future__ import annotations
@@ -79,6 +93,11 @@ from repro_torch.serving.spec_decode import SpecDecoder
 
 STATUSES = ("ok", "timeout", "cancelled", "shed", "error")
 
+# tensor-parallel control messages from rank 0: a header of _HEADER int64s
+# (op, payload length, then the op's fields), then the payload
+_HEADER = 6
+_FORWARD, _COPY, _MARK, _STOP = 1, 2, 3, 4
+
 # KV-cache storage dtypes by name; 1-byte entries store K/V in 8 bits and
 # attention upcasts them at use (models/attention.py)
 KV_DTYPES = {
@@ -89,6 +108,7 @@ KV_DTYPES = {
     "float8_e5m2": torch.float8_e5m2,
 }
 POOL_LEAVES = ("k_pool", "v_pool")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _all_pool_leaves(specs) -> bool:
@@ -133,7 +153,8 @@ def lut_kernel_signatures(bundle: ModelBundle) -> list[tuple[int, int, int, int]
 
 
 def warm_lut_autotune(bundle: ModelBundle, token_counts: list[int], dtype: str = "float32",
-                      device: str | torch.device = "cuda") -> int:
+                      device: str | torch.device = "cuda",
+                      signatures: list[tuple[int, int, int, int, str]] | None = None) -> int:
     """Tune the kernel version and launch of every (LUT site signature x
     token count); returns the number of lut_amm shapes tuned.
 
@@ -146,12 +167,16 @@ def warm_lut_autotune(bundle: ModelBundle, token_counts: list[int], dtype: str =
 
     Precedence as in the reference: a measured record (from an earlier
     warm-up or an artifact's snapshot) is never re-derived; an analytic one
-    is kept in analytic mode and re-tuned when measuring."""
+    is kept in analytic mode and re-tuned when measuring. `signatures`
+    (M, C, K, V, dtype) replace the bundle's sites at `dtype` (a
+    tensor-parallel rank's, `tensor_parallel.kernel_signatures`)."""
     backend = autotune.backend_for(device)
     measure_live = measure.measure_enabled()
     cache = autotune.get_cache()
     tuned = 0
-    for m, c, k, v in lut_kernel_signatures(bundle):
+    if signatures is None:
+        signatures = [(*sig, dtype) for sig in lut_kernel_signatures(bundle)]
+    for m, c, k, v, dtype in signatures:
         for n in token_counts:
             rec = cache.get(autotune.shape_key("lut_amm", n, m, c, k, v, dtype, backend))
             if rec is not None and (not measure_live or rec.get("measured")):
@@ -212,7 +237,7 @@ class ServingEngine:
         n_slots: int = 4,
         max_seq: int = 256,
         prefill_chunk: int = 32,
-        compute_dtype: torch.dtype = torch.float32,
+        compute_dtype: torch.dtype | str = torch.float32,
         kv_dtype: torch.dtype | str | None = None,
         max_queue: int | None = None,
         device: str | torch.device | None = None,
@@ -228,8 +253,6 @@ class ServingEngine:
         mesh: Any | None = None,
         faults: Any | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported yet: ROADMAP Queue A item 5")
         refusal = engine_refusal(bundle.arch)
         if refusal is not None:
             raise ValueError(refusal)
@@ -237,7 +260,19 @@ class ServingEngine:
             raise ValueError(f"max_queue={max_queue} must be >= 1 (or None)")
         if not 1 <= prefill_chunk <= max_seq:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be in [1, max_seq={max_seq}]")
+        self.mesh = mesh
+        self._closed = False
+        if mesh is not None:
+            device = mesh.device if device is None else device
+            if torch.device(device) != mesh.device:
+                raise ValueError(f"device={device} but this rank's mesh device is {mesh.device}")
         self.device = resolve_device(device)
+        if isinstance(compute_dtype, str):
+            # by name, as kv_dtype: the front ends ship engine kwargs as JSON
+            if compute_dtype not in COMPUTE_DTYPES:
+                raise ValueError(f"compute_dtype={compute_dtype!r}: pick one of "
+                                 f"{sorted(COMPUTE_DTYPES)}")
+            compute_dtype = COMPUTE_DTYPES[compute_dtype]
         self.faults = faults
         self.bundle = bundle
         self.params = params
@@ -251,6 +286,20 @@ class ServingEngine:
         self.spec: SpecDecoder | None = None
         if (draft_bundle is None) != (draft_params is None):
             raise ValueError("draft_bundle and draft_params come together")
+        self.rules = self.layout = None
+        if mesh is not None:
+            from repro_torch.distributed import tensor_parallel
+            from repro_torch.distributed.sharding import ShardingRules
+
+            if spec_decode:
+                raise ValueError("spec_decode does not compose with mesh-sharded construction "
+                                 "yet — the draft caches are host-managed")
+            if mesh.data != 1:
+                raise ValueError(f"a mesh of shape {mesh.shape}: only data=1 (tensor "
+                                 f"parallelism) is served")
+            self.rules = ShardingRules.for_mesh(mesh)
+            bundle, params, self.layout = tensor_parallel.place(bundle, params, self.rules, mesh)
+            self.bundle, self.params = bundle, params
         if spec_decode:
             if not _all_pool_leaves(bundle.cache_specs(n_slots, max_seq,
                                                        paged=PagedSpec(n_pages=2, page_size=16))):
@@ -262,7 +311,10 @@ class ServingEngine:
                 prefix_sharing = False
         # the token shapes the engine issues: decode, a prefill chunk and,
         # speculating, the verify forward; the draft runs decode and prefill
-        if autotune_lut:
+        if autotune_lut and mesh is not None:
+            self.n_lut_shapes_tuned = self._tp_warm_autotune(
+                [n_slots, n_slots * prefill_chunk], autotune.dtype_name(compute_dtype))
+        elif autotune_lut:
             dtype = autotune.dtype_name(compute_dtype)
             counts = [n_slots, n_slots * prefill_chunk]
             self.n_lut_shapes_tuned = warm_lut_autotune(
@@ -573,9 +625,14 @@ class ServingEngine:
         copy per pool tensor, after one host-to-device copy of the ids."""
         if not self._pending_copies:
             return
-        ids = torch.tensor(self._pending_copies, dtype=torch.long).to(self.device)
+        pairs, self._pending_copies = self._pending_copies, []
+        if self.mesh is not None:
+            self._tp_send(_COPY, (), np.asarray(pairs, np.int64).ravel())
+        self._apply_copies(pairs)
+
+    def _apply_copies(self, pairs: list[tuple[int, int]]) -> None:
+        ids = torch.tensor(pairs, dtype=torch.long).to(self.device)
         src, dst = ids[:, 0], ids[:, 1]
-        self._pending_copies = []
         for name, t in cache_leaves(self.caches):
             if name in POOL_LEAVES:
                 t[:, dst] = t[:, src]                     # (L, n_pages, page_size, KV, Dh)
@@ -637,6 +694,10 @@ class ServingEngine:
         (the rest land in the garbage page), recurrent state their first
         write_len positions."""
         paged = self.paged and model is None
+        if self.mesh is not None and self.mesh.rank == 0:
+            parts = [toks.ravel(), cache_len, write_len]
+            self._tp_send(_FORWARD, (*toks.shape, int(paged)),
+                          np.concatenate(parts + ([self.block_tables.ravel()] if paged else [])))
         bundle, params, caches = model or (self.bundle, self.params, self.caches)
         batch = {
             "tokens": torch.from_numpy(toks).to(self.device),
@@ -650,7 +711,8 @@ class ServingEngine:
             batch["write_rows"] = torch.from_numpy(np.flatnonzero(write_len))
         with torch.inference_mode():
             logits, _ = bundle.forward_step(params, batch, caches,
-                                            compute_dtype=self._compute_dtype)
+                                            compute_dtype=self._compute_dtype,
+                                            mesh=self.mesh if model is None else None)
         return logits
 
     def _sync(self) -> None:
@@ -748,6 +810,90 @@ class ServingEngine:
             self.spec.decode_round()
         else:
             self._decode_step()
+
+    # ---------------- tensor parallelism: rank 0 leads, the others follow ----------------
+    def _tp_send(self, op: int, fields: tuple[int, ...], payload: np.ndarray) -> None:
+        head = np.zeros(_HEADER, np.int64)
+        head[0], head[1] = op, payload.size
+        head[2: 2 + len(fields)] = fields
+        self.mesh.broadcast_ints(head, _HEADER)
+        if payload.size:
+            self.mesh.broadcast_ints(payload, payload.size)
+
+    def _tp_warm_autotune(self, counts: list[int], dtype: str) -> int:
+        """Rank 0 tunes every (rank site signature x token count) and
+        broadcasts its records; every rank then holds them. Returns the
+        number of shapes rank 0 tuned."""
+        import json
+
+        from repro_torch.distributed import tensor_parallel
+
+        sigs = tensor_parallel.kernel_signatures(self.bundle, self.layout, dtype)
+        cache = autotune.get_cache()
+        tuned, payload = 0, None
+        if self.mesh.rank == 0:
+            tuned = warm_lut_autotune(self.bundle, counts, device=self.device, signatures=sigs)
+            backend = autotune.backend_for(self.device)
+            keys = [autotune.shape_key(kind, n, mm, c, k, v, dt, backend)
+                    for m, c, k, v, dt in sigs for n in counts
+                    for kind, mm in (("lut_amm", m), ("encode", 0))]
+            payload = json.dumps({key: cache.get(key) for key in keys
+                                  if cache.get(key) is not None}).encode()
+        records = json.loads(self.mesh.broadcast_bytes(payload))
+        if self.mesh.rank != 0:
+            for key, rec in records.items():
+                cache.put(key, rec)
+        return tuned
+
+    def tp_mark(self, code: int) -> None:
+        """Rank 0: pass `code` to every follower's `on_mark` between forwards
+        (e.g. to bracket a profiled window on every rank)."""
+        if self.mesh is not None and self.mesh.rank == 0:
+            self._tp_send(_MARK, (code,), np.zeros(0, np.int64))
+
+    def follow(self, on_mark=None) -> dict[str, Any]:
+        """A follower rank's loop: run every forward (and page copy) rank 0
+        announces, until rank 0's `close()`. Returns the rank's counters:
+        forwards by phase and their wall time (host, to the device's end)."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on a tensor-parallel rank other than 0")
+        st = {"prefill_forwards": 0, "prefill_s": 0.0, "decode_forwards": 0, "decode_s": 0.0,
+              "copies": 0}
+        while True:
+            head = self.mesh.broadcast_ints(None, _HEADER)
+            op, n = int(head[0]), int(head[1])
+            body = self.mesh.broadcast_ints(None, n) if n else np.zeros(0, np.int64)
+            if op == _STOP:
+                return st
+            if op == _MARK:
+                if on_mark is not None:
+                    on_mark(int(head[2]))
+            elif op == _COPY:
+                self._apply_copies([tuple(p) for p in body.reshape(-1, 2).tolist()])
+                st["copies"] += 1
+            elif op == _FORWARD:
+                b, s, paged = (int(x) for x in head[2:5])
+                toks = body[: b * s].reshape(b, s).astype(np.int32)
+                cache_len = body[b * s: b * s + b].astype(np.int32)
+                write_len = body[b * s + b: b * s + 2 * b].astype(np.int32)
+                if paged:
+                    self.block_tables[...] = body[b * s + 2 * b:].reshape(
+                        self.block_tables.shape)
+                t0 = time.perf_counter()
+                self._forward(toks, cache_len, write_len)
+                self._sync()
+                phase = "decode" if s == 1 else "prefill"
+                st[f"{phase}_forwards"] += 1
+                st[f"{phase}_s"] += time.perf_counter() - t0
+            else:
+                raise RuntimeError(f"unknown tensor-parallel message {op}")
+
+    def close(self) -> None:
+        """Rank 0 of a tensor-parallel engine: release the followers (their
+        `follow()` returns). A no-op elsewhere and when called again."""
+        if self.mesh is not None and self.mesh.rank == 0 and not self._closed:
+            self._closed = True
+            self._tp_send(_STOP, (), np.zeros(0, np.int64))
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(s is not None for s in self.slots)

@@ -26,7 +26,8 @@ LUTArtifact path, and supervises it:
     into its engine.
 
 `engine_kwargs` cross the pipe as JSON-safe values: `device` ("cuda", the
-default, or "cpu"), `kv_dtype` by name and the draft by its plan name. On
+default, or "cpu"), `compute_dtype` and `kv_dtype` by name and the draft by
+its plan name. On
 the card the parent builds the kernels once before the first spawn (nvcc, no
 CUDA context), so replicas do not each compile and a worker's time to ready
 holds no compile. The worker reports the monotonic time of each start-up
@@ -50,7 +51,7 @@ import traceback
 from typing import Any, Callable
 
 from repro_torch.distributed.fault_tolerance import Backoff, StepGuard
-from repro_torch.serving.engine import validate_spec
+from repro_torch.serving.engine import engine_refusal, validate_spec
 from repro_torch.serving.faults import KILL_EXIT
 
 _STATS_PERIOD_S = 0.25
@@ -452,15 +453,22 @@ class EngineSupervisor:
         restarts, dies again — a crash loop that burns `max_restarts` on a
         condition no respawn can fix (and the multi-replica router multiplies
         how often this path runs). Catch it here and fail closed with an
-        actionable error instead. Returns the error string, or None when the
+        actionable error instead; an artifact of a family the engine refuses
+        (`engine.engine_refusal`: enc-dec, vision-LM) fails closed the same
+        way. Returns the error string, or None when the
         artifact still looks serveable."""
+        from repro_torch.configs import arch_from_dict
         from repro_torch.serving.artifact import check_artifact_dir
 
         try:
-            check_artifact_dir(self.artifact_path)
-        except (FileNotFoundError, ValueError, OSError) as e:
+            manifest = check_artifact_dir(self.artifact_path)
+            refusal = engine_refusal(arch_from_dict(manifest["arch"]))
+        except (FileNotFoundError, ValueError, OSError, KeyError, TypeError) as e:
             return (f"artifact at {self.artifact_path} is not serveable: {e} "
                     f"— refusing to (re)spawn a worker that cannot load it")
+        if refusal is not None:
+            return (f"artifact at {self.artifact_path} is not serveable: {refusal} "
+                    f"— refusing to (re)spawn a worker whose engine would refuse it")
         return None
 
     def _build_kernels(self) -> str | None:

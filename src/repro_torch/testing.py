@@ -370,12 +370,17 @@ def batch_w(batch: dict) -> dict:
     return {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
 
 
-def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1e-6) -> dict:
+def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1e-6,
+                          witness=None) -> dict:
     """One soft-PQ step of `bundle` (LUT_TRAIN, any family) from the same
     params and batch (CPU tensors, as `family_batch` gives them) on the CPU
     and on `dev`, held against each other and against the same step in
-    float64 on the CPU. Returns the counts and errors, with `failures`
-    listing every check that failed.
+    float64 on `witness` (default the CPU; the card takes the float64 run,
+    the gradients' comparisons and the update's off the host, whose memory
+    traffic sets this harness's time at full width; the few fp32 constants
+    the witness keeps, rope's frequencies and angles, are then the card's).
+    Returns the counts and errors, with `failures` listing every check that
+    failed.
 
     * codes: a hard code the card or float64 picks otherwise than the CPU
       must sit on a near-tie of that run's own distances (relative gap <=
@@ -401,8 +406,11 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
     from repro_torch.train.train_step import make_train_step
     from repro_torch.weights import reference_leaves, tree_map_ref
 
+    wdev = torch.device("cpu" if witness is None else witness)
     params_d = tree_map_ref(lambda _p, t: t.to(dev), params)
-    params_w = tree_map_ref(lambda _p, t: t.double() if t.is_floating_point() else t, params)
+    # moved, then widened on the witness's device
+    params_w = tree_map_ref(lambda _p, t: t.to(wdev).double() if t.is_floating_point()
+                            else t.to(wdev), params)
     batch_d = {k: v.to(dev) for k, v in batch.items()}
     failures: list[str] = []
     out = {"tokens": int(batch["labels"].numel())}
@@ -411,7 +419,9 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
     loss_d, aux_d, g_d, _, rec_d = lut_train_grads(bundle, params_d, batch_d, pin=rec_c,
                                                    tie_eps=tie_eps)
     with float64_compute():
-        loss_w, aux_w, g_w, _, rec_w = lut_train_grads(bundle, params_w, batch_w(batch),
+        loss_w, aux_w, g_w, _, rec_w = lut_train_grads(bundle, params_w,
+                                                       {k: v.to(wdev) for k, v in
+                                                        batch_w(batch).items()},
                                                        compute_dtype=torch.float64, pin=rec_c,
                                                        tie_eps=tie_eps)
     for label, rec in (("card", rec_d), ("float64", rec_w)):
@@ -439,7 +449,7 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
             if gc is None:
                 continue
             n += 1
-            gd = gd.cpu()
+            gc, gd = gc.to(wdev), gd.to(wdev)
             if path.endswith("log_t"):
                 unit = max(terms[path][j], 1e-30)
                 for key, (a, ref) in (("card_cpu", (gd, gc)), ("card_f64", (gd, gw)),
@@ -460,7 +470,8 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
                 failures.append(f"{path}[{j}]: the card's gap from float64 {wl2:.3g}/{wmx:.3g} "
                                 f"(L2/largest) against the CPU's {cl2:.3g}/{cmx:.3g}")
     out.update(grad_leaves=n, grad_errs=errs, log_t_errs=log_t_errs)
-    del g_c, g_d, g_w, params_w
+    # the leaf lists hold the gradients too: the step below needs their room
+    del g_c, g_d, g_w, params_w, dev_leaves, w_leaves, leaves, gc, gd, gw
 
     frozen = lut_frozen_mask(params)
     step = make_train_step(bundle, opt, frozen_mask=frozen, compute_dtype=torch.float32)
@@ -483,10 +494,10 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
     moved = 0
     for path, leaves in reference_leaves(new_d).items():
         for j, pd in enumerate(leaves):
-            pe, po = exp_leaves[path][j], old[path][j]
+            pe, po = exp_leaves[path][j].to(wdev), old[path][j].to(wdev)
             move = (pe - po).abs()
             ulp = torch.finfo(torch.float32).eps * pe.abs()       # p - lr * delta rounds
-            if not ((pd.cpu() - pe).abs() <= 1e-5 * move + 2 * ulp + 1e-12).all():
+            if not ((pd.to(wdev) - pe).abs() <= 1e-5 * move + 2 * ulp + 1e-12).all():
                 failures.append(f"{path}[{j}]: the card's AdamW update differs")
             moved += int((move > 0).sum())
     out.update(loss_step=float(m_d["loss"]), t_mean=float(m_d["t_mean"]),

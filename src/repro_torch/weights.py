@@ -30,12 +30,21 @@ from repro_torch.checkpoint.paths import flatten_tree, is_node_tuple, unflatten_
 from repro_torch.device import resolve_device
 
 
-def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
-    """A dtype-exact copy of one numpy array (or tensor) on `device`."""
+def is_bf16_bits(a: np.ndarray) -> bool:
+    """Whether a host array holds bfloat16 values under another name: an
+    ml_dtypes bfloat16 array, or the 2-byte void ('<V2') that a checkpoint
+    file's bfloat16 member reads back as without ml_dtypes."""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2)
+
+
+def tensor_from_numpy(a: Any, device: torch.device, *, bf16: bool = False) -> torch.Tensor:
+    """A dtype-exact copy of one numpy array (or tensor) on `device`. With
+    `bf16`, uint16 bit patterns (the port's older checkpoint files) are read
+    as the bfloat16 values they hold."""
     if isinstance(a, torch.Tensor):
         return a.to(device, copy=True).contiguous()
     a = np.array(a)                          # own, writable, contiguous
-    if a.dtype.name == "bfloat16":           # numpy has no bfloat16 of its own
+    if is_bf16_bits(a) or (bf16 and a.dtype == np.uint16):   # numpy has no bfloat16
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
@@ -171,7 +180,9 @@ def tree_from_reference(like: Any, arrays: Mapping[str, Any], *,
     ParamSpecs) holding `arrays[path]` for each reference path: a stacked
     array is split over the layers (an empty (0,) one gives each layer an
     empty leaf). Each leaf goes to the device of the tensor it replaces, or
-    to `device` (the card unless the caller asks for the CPU)."""
+    to `device` (the card unless the caller asks for the CPU). A leaf whose
+    `like` is bfloat16 takes bfloat16 bits stored as such, as a 2-byte void
+    or as uint16."""
     dev = None
     cursors: dict[str, int] = {}
 
@@ -187,7 +198,7 @@ def tree_from_reference(like: Any, arrays: Mapping[str, Any], *,
             j = cursors.get(path, 0)
             cursors[path] = j + 1
             a = a[j]
-        return tensor_from_numpy(a, target)
+        return tensor_from_numpy(a, target, bf16=leaf.dtype == torch.bfloat16)
 
     return tree_map_ref(take, like)
 

@@ -426,6 +426,45 @@ def test_family_lut_train_step_on_the_card_matches_the_cpu(dev, arch):
     assert (res["aux_dev"] > 0) == bool(arch_spec.n_experts)
 
 
+@pytest.mark.parametrize("arch", ["qwen3_1p7b", "mamba2_370m", "whisper_tiny", "qwen2_vl_7b"])
+def test_step_parity_float64_witness_on_the_card(dev, arch):
+    """`lut_train_step_parity(witness=dev)` (the float64 run and the
+    comparisons on the card, as chip_smoke runs it) passes where the CPU's
+    witness passes, with the same codes and integers pinned in the float64
+    run. The witness keeps a few fp32 constants computed on its own device
+    (rope's frequencies and angles), so the two witnesses may differ by
+    fp32 roundings: the float64 loss by at most 1e-9 relative, and the CPU
+    fp32 gradients' gap from the witness by at most 5% of that gap (each
+    gap counted as at least the harness's floor; one card run saw 0.7% on
+    qwen3_1p7b's reduced embedding table), against the factor WITNESS the
+    harness allows between the card's gap and the CPU's."""
+    from repro_torch import configs as tcfg
+    from repro_torch import testing
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW
+    from repro_torch.optim.schedule import cosine_with_warmup
+    from repro_torch.testing import family_batch, lut_train_step_parity
+    from repro_torch.weights import tree_map_ref
+
+    arch_spec = tcfg.reduce_arch(tcfg.get_arch(arch))
+    bundle = tcfg.build_model(arch_spec, "lut_train")
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    tree_map_ref(lambda p, t: t.mul_(40.0) if p.endswith("centroids") else None, params)
+    opt = AdamW(lr=cosine_with_warmup(1e-2, total_steps=10, warmup_steps=2), rules=SOFT_PQ_RULES)
+    batch = {k: torch.from_numpy(v) for k, v in family_batch(arch_spec, 4, 32, seed=0).items()}
+    on_cpu = lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS)
+    on_card = lut_train_step_parity(bundle, params, batch, dev, opt, tie_eps=TIE_EPS,
+                                    witness=dev)
+    assert on_cpu["failures"] == [] and on_card["failures"] == []
+    assert abs(on_card["loss_f64"] - on_cpu["loss_f64"]) <= 1e-9 * abs(on_cpu["loss_f64"])
+    assert on_card["grad_leaves"] == on_cpu["grad_leaves"]
+    for key in ("pinned_codes", "rounding_flips"):
+        assert on_card[key]["float64"] == on_cpu[key]["float64"], key
+    floors = (testing.FLOOR_L2, testing.FLOOR_MAX)
+    for leaf, e in on_cpu["grad_errs"].items():
+        for a, b, floor in zip(on_card["grad_errs"][leaf]["cpu_f64"], e["cpu_f64"], floors):
+            assert abs(a - b) <= 0.05 * max(b, floor), (leaf, a, b)
+
+
 @pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_1p2b", "arctic_480b"])
 def test_family_engine_through_kernels_matches_plain(dev, arch, tmp_path, monkeypatch):
     """One reduced model per family (ssm, hybrid, moe) served on the card:
@@ -507,3 +546,34 @@ def test_encdec_and_vlm_forward_steps_through_kernels_match_plain(dev, arch, tmp
     monkeypatch.setattr(ops, "lut_amm", lambda x, c, q, s, *, bias=None, act="none", **_:
                         ref.lut_amm_v2_plain(x, c, q, s, bias=bias, act=act))
     assert torch.equal(greedy(), got)
+
+
+def test_tp2_on_one_card_matches_the_unsharded_engine(dev, tmp_path, monkeypatch):
+    """Tensor parallelism at tp 2 with both ranks on the one card (gloo, two
+    processes): the dense, paged and artifact-loaded engines give the
+    unsharded engine's tokens, logits within 1e-3, every rank launches the
+    kernels and never a plain version."""
+    # by its file's directory, which pytest puts on sys.path: a "tests"
+    # package installed beside torch may shadow this directory's name
+    import numpy as np
+    from _tp_ranks import run_ranks, serve_variant
+
+    from repro_torch.serving.artifact import save_artifact
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE_MEASURE", raising=False)
+    bundle, params, _ = _engine_model(dev)
+    save_artifact(tmp_path / "art", bundle, params)
+    ranks = run_ranks(serve_variant, 2, str(tmp_path / "art"), devices=["cuda:0", "cuda:0"])
+    for case in ("dense", "paged", "artifact"):
+        want = ranks[0]["plain"][case]
+        assert ranks[0]["tp"][case]["tokens"] == want["tokens"], case
+        for rank in ranks:
+            got = rank["tp"][case]
+            assert got["plain_calls"] == 0 and sum(got["launches"].values()) > 0, case
+            assert len(got["logits"]) == len(want["logits"])
+            for (g, lens), (w, _) in zip(got["logits"], want["logits"]):
+                # the positions a forward writes; padding reads the pool's
+                # garbage page, whose contents the two engines do not share
+                valid = np.arange(g.shape[1])[None, :] < lens[:, None]
+                assert abs(g - w)[valid].max() <= 1e-3, case

@@ -77,7 +77,7 @@ def test_engine_refuses_what_is_not_ported():
     """Sampled requests are served (and replay: the draw is keyed on the
     request's seed and token index only); paged KV, speculative decoding and
     fault injection construct (the injector's hook runs once per step),
-    mesh sharding is still refused."""
+    speculative decoding on a mesh is refused."""
     tb, tparams = _port_model()
     outs = []
     for first in ("sampled", "greedy"):
@@ -100,8 +100,13 @@ def test_engine_refuses_what_is_not_ported():
     eng.submit([1, 2, 3], max_tokens=2)
     eng.run_until_done()
     assert eng.faults is inj and inj.calls == eng.stats()["steps"] > 0
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tb, tparams, device="cpu", mesh=object())
+    # a mesh is served now (tests/test_torch_tp.py); speculative decoding on
+    # a mesh is refused, as the reference refuses it
+    from repro_torch.launch.mesh import HostMesh
+
+    mesh = HostMesh(data=1, model=2, rank=0, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="spec_decode does not compose"):
+        ServingEngine(tb, tparams, device="cpu", mesh=mesh, spec_decode=True, **ENGINE)
 
 
 def test_engine_lifecycle_cancel_deadline_and_exhaustion():
