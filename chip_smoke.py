@@ -93,7 +93,7 @@ Phases (any failed check exits non-zero; no phase is skipped):
      by ServingEngine (4 slots, prefill chunk 32, measured warm-up) on a
      burst of 8 requests whose prompts are one chunk, two chunks, ragged
      over two and ragged inside one (2 sampled): mamba2_370m and
-     zamba2_1p2b (SERVE_FAMILY_LAYERS: 24 of their 48 and 38 layers)
+     zamba2_1p2b (SERVE_FAMILY_LAYERS: 12 of their 48 and 38 layers)
      exported as artifacts and loaded, then
      arctic_480b with ARCTIC_LAYERS layers (layer 0 dense, layer 1 LUT, 128
      experts top-2 and the dense residual; ~35 GB of bf16 params built on the
@@ -155,8 +155,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
      `--arch whisper_tiny`'s
      refusal. The launches of (b) and (c)'s kernel runs join the kernels
      line ("phase_launches").
- 11. tensor-parallel serving at tp 2 (runs after phase 6, on phase 4's
-     28-layer artifact): two rank processes, over NCCL when the host has two
+ 11. tensor-parallel serving at tp 2 (runs after phase 6): qwen3_1p7b at
+     full width and TP_LAYERS layers (phase 4's arch and seed, cut from 28
+     layers) written as an artifact, its plain run of phase 4's burst the
+     reference; two rank processes, over NCCL when the host has two
      cards, else both on the one card over gloo (each its own CUDA
      context), each serving through the launcher's rank function
      (`launch.serve.serve_on_mesh`, the `--tp` path) with phase 11's
@@ -164,7 +166,7 @@ Phases (any failed check exits non-zero; no phase is skipped):
      (`load_artifact(mesh=)`), rank 0 tunes the rank's site shapes
      (measured) and broadcasts the records, and a dense and a paged
      `ServingEngine(mesh=)` serve phase 4's burst (rank 0 schedules, rank 1
-     follows): tokens held against phase 4's plain run (`compare_tokens`),
+     follows): tokens held against the plain run (`compare_tokens`),
      per rank the launch counts read between rank 0's marks (every kernel
      the records choose at the rank's shapes, exactly as many launches as
      its LUT-site calls, no plain version); every LUT-site call of the
@@ -177,6 +179,26 @@ Phases (any failed check exits non-zero; no phase is skipped):
      profiled window's device-busy share, the all-reduces per forward and
      their host time, and device memory. Its launches join the kernels line
      ("phase_launches").
+ 12. tensor-parallel serving at tp 2 of phase 8's models (phases 8 and 12
+     run last, after phase 10): mamba2_370m and zamba2_1p2b from phase 8's
+     artifacts (each
+     rank reading its shards), arctic_480b from phase 8's params on the card
+     (each rank receives them as CUDA IPC views: its experts are views of
+     the parent's tensors, nothing copied), both ranks on the one card over
+     gloo unless the host has two; each through the launcher's rank
+     function with phase 11's instruments, dense and, for the two with
+     attention, paged, on phase 8's burst: tokens held against phase 8's
+     plain run (`compare_tokens`), per rank the launch counts (exactly the
+     records' kernels at the rank's shapes, in_proj at its head-aligned
+     selection, no plain version), every LUT-site call of the burst held
+     against the plain versions (`hold_sites`), the row sites of the first
+     prefill and decode forward against the unsharded site (`hold_rows`),
+     arctic's expert calls bytewise against the unsharded sites and its
+     expert combine against the unsharded layer on the same inputs
+     (`hold_moe`: the elements that differ counted); the decode forward's
+     wall time, a profiled window's device-busy share, the all-reduces per
+     forward and their host time, peak memory per rank and the card's used
+     memory. Its launches join the kernels line ("phase_launches").
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -1173,7 +1195,8 @@ class LaunchesByN:
                          for n, row in sorted(self.by_n.items()))
 
 
-def compare_tokens(label: str, got: list, want: list, gaps: dict, tie_codes: int = 0) -> int:
+def compare_tokens(label: str, got: list, want: list, gaps: dict, tie_codes: int = 0,
+                   tied: set = frozenset()) -> int:
     """Each request's tokens against the plain engine's: equal, or equal up
     to a first difference at a near-tie of the plain run (then the rest is
     conditioned on another token and not compared). A shed request is held
@@ -1181,7 +1204,10 @@ def compare_tokens(label: str, got: list, want: list, gaps: dict, tie_codes: int
     run whose code the kernels picked at a tie of the fp32 expansion (held
     by `hold_sites`); each may explain one request that leaves the plain run
     elsewhere (a flipped code reads another table row: a table entry's
-    change, not a rounding). Returns the number of differences."""
+    change, not a rounding). `tied`: the requests shown to have taken a
+    decision at a near-tie otherwise than the unsharded model
+    (`shadow_verdict`); each may leave it. Returns the number of
+    differences."""
     ties = 0
     for g, w in zip(got, want):
         j = next((j for j, (a, b) in enumerate(zip(g.out_tokens, w.out_tokens)) if a != b), None)
@@ -1192,6 +1218,10 @@ def compare_tokens(label: str, got: list, want: list, gaps: dict, tie_codes: int
             continue
         gap = gaps.get((w.rid, j))
         ties += 1
+        if (gap is None or gap > TOKEN_TIE) and g.rid in tied:
+            log(f"  {label}: request {w.rid} differs from plain decode from token {j} on (top-2 "
+                f"gap {gap:.3g}), after a decision taken at a near-tie (shown above)")
+            continue
         if gap is None or gap > TOKEN_TIE:
             check(tie_codes > 0,
                   f"{label}: request {w.rid} differs from plain decode at token {j}, where the "
@@ -1817,16 +1847,27 @@ def phase_process(scratch: Path, plain, refs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 TP = 2
+TP_LAYERS = 4            # phase 11's depth of qwen3_1p7b (full width): cut from phase 4's 28
+                         # layers so that chip_smoke keeps inside its time limit with phase 12
 TP_PROFILE_STEPS = 8
 # the leader's marks between forwards, passed to every follower's on_mark
 MARK_COUNT, MARK_READ, MARK_PROFILE, MARK_PROFILED = 1, 2, 3, 4
+
+
+def tp_devices() -> tuple[int, list[str]]:
+    """(cards on the host, each rank's device): a card per rank where the
+    host has TP of them, else every rank on the one card."""
+    n_cards = torch.cuda.device_count()
+    return n_cards, [f"cuda:{r}" for r in range(TP)] if n_cards >= TP else ["cuda:0"] * TP
 
 
 def tp_expected_launches(local, lay, counts: list[int], prefill_fwd: int, decode_fwd: int,
                          dev) -> dict[str, int]:
     """Launches of each kernel that the records choose for a rank's LUT sites
     (`tensor_parallel.kernel_signatures`: column sites at M / tp, row sites
-    at C / tp in float32) over the given prefill and decode forwards."""
+    at C / tp in float32) over the given prefill and decode forwards: one
+    per site call (the hybrid's shared block once per invocation, the
+    expert sites none)."""
     from repro_torch.distributed import tensor_parallel
     from repro_torch.kernels import autotune
 
@@ -1835,72 +1876,116 @@ def tp_expected_launches(local, lay, counts: list[int], prefill_fwd: int, decode
     sig_of = {}
     for m, c, k, v, dt in tensor_parallel.kernel_signatures(local, lay, "float32"):
         sig_of[(m, c, k, v)] = dt
+    # the hybrid's shared block runs once per invocation; expert sites launch no kernel
+    n_inv = len(local.cfg.invocation_points) if local.kind == "hybrid" else 1
     for site in local.lut_sites():
+        if site.kind in tensor_parallel.EXPERT_KINDS:
+            continue
+        times = n_inv if site.path.startswith("shared/") else 1
         sig = (site.d_out, site.d_in // site.lut.v, site.lut.k, site.lut.v)
         for n, fwd in ((counts[1], prefill_fwd), (counts[0], decode_fwd)):
             ver = autotune.kernel_choice(n, *sig, dtype=sig_of[sig], backend=backend)[0]
-            want[KERNEL_OF_VERSION[ver]] += fwd
+            want[KERNEL_OF_VERSION[ver]] += fwd * times
     return want
 
 
 class TPProbe:
-    """Phase 11's instruments on one rank's engine, through the hooks of
-    `serve_on_mesh`: every forward timed; the launch counts, collectives and
-    device memory read between the leader's marks; every `ops.lut_amm` call
-    (`SiteCalls`) and each row-parallel LUT site's reduced output of the
-    counted burst's first prefill and first decode forward recorded; a
-    profiled window of decode steps."""
+    """The instruments of phases 11 and 12 on one rank's engine, through the
+    hooks of `serve_on_mesh`: every forward timed; the launch counts,
+    collectives and device memory read between the leader's marks; every
+    `ops.lut_amm` call (`SiteCalls`) of the counted burst's first prefill and
+    first decode forward, or with `record_all` of all its forwards,
+    recorded, and each row-parallel LUT site's reduced output and each MoE
+    layer's input, output and expert calls of those two forwards; a
+    profiled window of decode steps. The leader serves `burst(vocab)`."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, burst=None, record_all: bool = False, shadow=None):
         self.mesh, self.dev, self.t0 = mesh, mesh.device, time.perf_counter()
+        self.burst, self.record_all = burst or phase4_burst, record_all
+        # the unsharded model (bundle, whole params) of a `Shadow`, and the
+        # request in each row of each counted forward (the leader's)
+        self.shadow_model, self.shadow, self.rids = shadow, None, []
+        self.tp_peak = 0
         self.res: dict = {}
         self.acc = {"prefill_forwards": 0, "prefill_s": 0.0, "decode_forwards": 0,
                     "decode_s": 0.0}
         self.to_record: set[str] = set()
+        self.counting = False
         self.calls: list = []
         # (call index in its forward, the rank's params, input, reduced output)
         self.rows: list = []
+        # MoE layers: (layer call in its forward, input, output); expert
+        # calls: (layer call, site, the experts' global ids, input, output)
+        self.moe_layers: list = []
+        self.experts: list = []
         self.eng = None
 
     def engine(self, eng) -> None:
         self.res.update(build_s=time.perf_counter() - self.t0, tuned=eng.n_lut_shapes_tuned)
         self.eng, real = eng, eng._forward
+        if self.shadow_model is not None:
+            self.shadow = Shadow(eng, self.shadow_model, self.mesh.model_rank)
 
         def forward(toks, cache_len, write_len, model=None):
             phase = "decode" if toks.shape[1] == 1 else "prefill"
-            recording = phase in self.to_record
+            first = phase in self.to_record
             self.to_record.discard(phase)
+            shadowed = self.shadow is not None and self.counting
+            if shadowed:
+                torch.cuda.reset_peak_memory_stats(self.dev)
             t = time.perf_counter()
-            with self.recorder() if recording else contextlib.nullcontext():
+            with (self.recorder(first) if first or (self.record_all and self.counting)
+                  else contextlib.nullcontext()), \
+                    (Decisions() if shadowed else contextlib.nullcontext()) as dec:
                 logits = real(toks, cache_len, write_len, model)
             torch.cuda.synchronize(self.dev)
             self.acc[f"{phase}_forwards"] += 1
             self.acc[f"{phase}_s"] += time.perf_counter() - t
+            if shadowed:
+                # the rank's own peak, before its twin runs
+                self.tp_peak = max(self.tp_peak, torch.cuda.max_memory_allocated(self.dev))
+                self.rids.append([r.rid if r is not None else None for r in self.eng.slots])
+                self.shadow.step(toks, cache_len, write_len, logits, dec)
             return logits
 
         eng._forward = forward
 
     @contextlib.contextmanager
-    def recorder(self):
+    def recorder(self, first: bool):
         from repro_torch.core.amm import Mode
-        from repro_torch.models import sharded
+        from repro_torch.models import moe, sharded
 
-        real, n = sharded.linear, [0]
+        real, n = (sharded.linear, moe.moe, moe.expert_linear), [0, 0, 0]
 
         def linear(site, p, x):
-            y = real(site, p, x)
+            y = real[0](site, p, x)
             if site.tp == "row" and site.mode == Mode.LUT_INFER:
                 self.rows.append((n[0], p, x.reshape(-1, x.shape[-1]).clone(),
                                   y.reshape(-1, y.shape[-1]).clone()))
                 n[0] += 1
             return y
 
-        sharded.linear = linear
+        def moe_layer(cfg, p, x):
+            n[1:] = n[1] + 1, 0
+            y, aux = real[1](cfg, p, x)
+            self.moe_layers.append((n[1] - 1, x.clone(), y.clone()))
+            return y, aux
+
+        def expert_linear(s, p, x, ids=None):
+            y = real[2](s, p, x, ids)
+            lo = self.mesh.model_rank * s.n_experts
+            self.experts.append((n[1] - 1, ("gate", "up", "down")[n[2]], ids + lo,
+                                 x.clone(), y.clone()))
+            n[2] += 1
+            return y
+
+        if first:
+            sharded.linear, moe.moe, moe.expert_linear = linear, moe_layer, expert_linear
         try:
             with SiteCalls() as rec:
                 yield
         finally:
-            sharded.linear = real
+            sharded.linear, moe.moe, moe.expert_linear = real
         self.calls += rec.calls
 
     def mark(self, code: int) -> None:
@@ -1915,12 +2000,15 @@ class TPProbe:
             for k in self.acc:
                 self.acc[k] = 0 if isinstance(self.acc[k], int) else 0.0
             torch.cuda.reset_peak_memory_stats(dev)
+            self.tp_peak = 0
             self.to_record = {"prefill", "decode"}
+            self.counting = True
         elif code == MARK_READ:
+            self.counting = False
             res.update(launches=counters.launches(), plain=counters.plain_calls(),
                        coll=dict(mesh.counters), fwd=dict(self.acc),
-                       peak=torch.cuda.max_memory_allocated(dev),
-                       reserved=torch.cuda.memory_reserved(dev))
+                       peak=self.tp_peak or torch.cuda.max_memory_allocated(dev),
+                       reserved=torch.cuda.memory_reserved(dev), card_mib=gpu_used_mib())
         elif code == MARK_PROFILE:
             torch.cuda.synchronize(dev)
             self.prof = profile(activities=[ProfilerActivity.CUDA])
@@ -1935,13 +2023,13 @@ class TPProbe:
                               "busy_us": busy / TP_PROFILE_STEPS}
 
     def lead(self, eng, source: str) -> None:
-        """Rank 0: the warm-up, phase 4's burst between the count marks, then
-        a profiled window of decode steps."""
+        """Rank 0: the warm-up, the burst between the count marks, then a
+        profiled window of decode steps."""
         res, vocab = self.res, eng.bundle.arch.vocab
         eng.warmup()
         eng.tp_mark(MARK_COUNT)
         self.mark(MARK_COUNT)
-        reqs, st = run_burst(eng, phase4_burst(vocab))
+        reqs, st = run_burst(eng, self.burst(vocab))
         eng.tp_mark(MARK_READ)
         self.mark(MARK_READ)
         res["source"] = source
@@ -2013,7 +2101,7 @@ def hold_rows(label: str, mesh, rows: list, tables: dict) -> dict:
 
 def tp_rank(rank: int, art_dir: str, devices: list[str], init: str, q) -> None:
     """One rank of phase 11, in its own process: a dense and a paged engine
-    from phase 4's artifact, each through the launcher's rank function
+    from `tp_model`'s artifact, each through the launcher's rank function
     (`serve_on_mesh`) with a `TPProbe` on its hooks (rank 0 leads phase 4's
     burst and a profiled window, the other rank follows); then, on every
     rank, the recorded LUT-site calls held against the plain versions."""
@@ -2061,22 +2149,47 @@ def tp_rank(rank: int, art_dir: str, devices: list[str], init: str, q) -> None:
         q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
 
 
-def phase_tp(scratch: Path, refs: dict) -> dict:
-    """Tensor-parallel serving at tp 2 from phase 4's 28-layer artifact: over
-    NCCL when the host has two cards, else both ranks on the one card over
-    gloo (two processes, two CUDA contexts). Phase 4's burst, dense and
-    paged, against phase 4's plain run; per rank the launch counts (the
-    kernels the records choose at the rank's shapes, no plain call), the
-    decode forward's wall and busy time, the all-reduces per forward and
-    their host time, and device memory."""
+def tp_model(dev, scratch: Path) -> tuple[str, tuple]:
+    """Phase 11's model: qwen3_1p7b at full width and TP_LAYERS layers
+    (phase 4's seed) written as an artifact, and its plain run of phase 4's
+    burst ((requests, sampler gaps): the reference of its tokens)."""
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.serving import artifact
+    from repro_torch.serving.engine import ServingEngine
+
+    arch = dataclasses.replace(get_arch("qwen3_1p7b"), lut_use_kernel=True, n_layers=TP_LAYERS)
+    bundle = build_model(arch, Mode.LUT_INFER)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    path = artifact.save_artifact(scratch / "tp", bundle, params)
+    with PlainLUT():
+        want, _, gaps = plain_run(ServingEngine(bundle, params, n_slots=4, max_seq=256,
+                                                prefill_chunk=32, device=dev,
+                                                autotune_lut=False), phase4_burst(arch.vocab))
+    return str(path), (want, gaps)
+
+
+def phase_tp(dev, scratch: Path) -> dict:
+    """Tensor-parallel serving at tp 2 of `tp_model`'s artifact: over NCCL
+    when the host has two cards, else both ranks on the one card over gloo
+    (two processes, two CUDA contexts). Phase 4's burst, dense and paged,
+    against the model's plain run; per rank the launch counts (the kernels
+    the records choose at the rank's shapes, no plain call), the decode
+    forward's wall and busy time, the all-reduces per forward and their
+    host time, and device memory."""
     import multiprocessing as mp
     import queue
     import socket
 
     from repro_torch.launch.mesh import backend_for
 
-    n_cards = torch.cuda.device_count()
-    devices = [f"cuda:{r}" for r in range(TP)] if n_cards >= TP else ["cuda:0"] * TP
+    t0 = time.perf_counter()
+    art, (want, gaps) = tp_model(dev, scratch)
+    torch.cuda.empty_cache()
+    log(f"[tp] qwen3_1p7b at {TP_LAYERS} layers written and run plain in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    n_cards, devices = tp_devices()
     backend = backend_for(devices)
     log(f"[tp] tp={TP} on {n_cards} card(s): ranks on {devices}, backend {backend}"
         + ("" if backend == "nccl" else " (both ranks share the card: NCCL is not measured)"))
@@ -2086,7 +2199,7 @@ def phase_tp(scratch: Path, refs: dict) -> dict:
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=tp_rank, args=(r, str(scratch / "main"), devices, init, q),
+    procs = [ctx.Process(target=tp_rank, args=(r, art, devices, init, q),
                          daemon=True) for r in range(TP)]
     for p in procs:
         p.start()
@@ -2111,7 +2224,7 @@ def phase_tp(scratch: Path, refs: dict) -> dict:
     ranks = sorted((val for _, val in got), key=lambda v: v["rank"])
     log(f"[tp] both ranks' results in {t_results:.1f}s (spawn, import, mesh, load, warm-up, 2 "
         f"engines), both exited {time.perf_counter() - t0 - t_results:.1f}s later")
-    want, gaps = refs["burst_plain"]
+    shutil.rmtree(art, ignore_errors=True)
     out = {"ties": 0, "launches": dict.fromkeys(ranks[0]["dense"]["launches"], 0),
            "backend": backend, "cards": n_cards}
     for label in ("dense", "paged"):
@@ -2169,7 +2282,7 @@ def phase_tp(scratch: Path, refs: dict) -> dict:
                 + " ".join(f"{k}={v}" for k, v in res["launches"].items()))
         n_tok = sum(len(r.out_tokens) for r in got_reqs)
         log(f"[tp] {label}: {n_tok} tokens in {st['wall']:.3f}s ({n_tok / st['wall']:.2f} "
-            f"tok/s); tokens equal phase 4's plain run except {ties} near-tie difference(s)"
+            f"tok/s); tokens equal the plain run except {ties} near-tie difference(s)"
             + (f"; prefix_hits {st['prefix_hits']}, shed {st['shed']}" if label == "paged"
                else ""))
         out[label] = {"decode_ms": 1e3 * st["decode_s"] / st["decode_forwards"],
@@ -2178,16 +2291,537 @@ def phase_tp(scratch: Path, refs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: tensor-parallel serving (tp 2) of the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+SHADOW_TIE = 1e-4        # a decision's relative margin under which rounding may flip it
+
+
+class Uncounted:
+    """Kernel launches and plain calls made while active are taken back off
+    the counts: a check's own calls never count as the path's."""
+
+    def __enter__(self):
+        from repro_torch.kernels import counters, ref
+
+        self.launches, self.plain = counters.launches(), dict(ref.calls)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import dist_argmin, fused_decode, lut_amm, ref
+
+        n = self.launches
+        fused_decode.launches, lut_amm.launches = n["fused_decode"], n["lut_amm_v2"]
+        lut_amm.launches_v1, dist_argmin.launches = n["lut_amm_v1"], n["encode"]
+        ref.calls.update(self.plain)
+        return False
+
+
+class Decisions:
+    """The discrete decisions of one forward, each with its place in the
+    forward's call order: every LUT kernel call's input and centroids (its
+    codes), every MoE layer's input, config and router (its routing), every
+    LUT expert-site call's input, centroids and experts (global ids)."""
+
+    def __init__(self):
+        self.lut, self.route, self.exp, self.seq = [], [], [], 0
+
+    def _note(self, store: list, *item) -> None:
+        store.append((self.seq, *item))
+        self.seq += 1
+
+    def __enter__(self):
+        from repro_torch.core.amm import Mode
+        from repro_torch.kernels import ops
+        from repro_torch.models import moe, sharded
+
+        self.real = lut_amm, layer, expert_linear = ops.lut_amm, moe.moe, moe.expert_linear
+        site = [0]
+
+        def lut(x, c, q, s, **kw):
+            self._note(self.lut, x.clone(), c)
+            return lut_amm(x, c, q, s, **kw)
+
+        def moe_layer(cfg, p, x):
+            self._note(self.route, x.clone(), cfg, p["router"])
+            site[0] = 0
+            return layer(cfg, p, x)
+
+        def expert(s, p, x, ids=None):
+            if s.mode == Mode.LUT_INFER:
+                cfg = self.route[-1][2]
+                lo = sharded.model_rank() * s.n_experts if cfg.ep > 1 else 0
+                self._note(self.exp, len(self.route) - 1, site[0], p["centroids"], x.clone(),
+                           ids + lo)
+            site[0] += 1
+            return expert_linear(s, p, x, ids)
+
+        ops.lut_amm, moe.moe, moe.expert_linear = lut, moe_layer, expert
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        from repro_torch.models import moe
+
+        ops.lut_amm, moe.moe, moe.expert_linear = self.real
+        return False
+
+
+def expert_codes(x, cents):
+    """An expert site's codes of its input rows, as `moe.expert_linear` picks them."""
+    from repro_torch.core import pq
+
+    return pq.pairwise_sq_dists(pq.split_subvectors(x, cents.shape[-1]), cents).argmin(-1)
+
+
+def first_flips(tp: Decisions, sh: Decisions, rank: int, write_len, s_len: int) -> dict:
+    """{batch row: (order, what, margin)}: each row's first decision (in the
+    unsharded run's call order) at a valid position (< its write length)
+    that a tensor-parallel rank took otherwise than the unsharded model on
+    its own input: its codes at a LUT kernel call (at a row site, the rank's
+    codebooks), its routing at an MoE layer, its codes at a LUT expert site
+    (the rank's experts). The margin is the unsharded run's: a code's
+    distance gap over the expansion's terms (`code_margins`), a routing's
+    gap between the k-th and the next router probability over the k-th."""
+    from repro_torch.kernels import dist_argmin as enc_mod
+    from repro_torch.models import moe
+
+    valid_len = torch.as_tensor(write_len).long()
+    flips: dict = {}
+
+    def note(order: int, tokens: torch.Tensor, margins: torch.Tensor, what: str) -> None:
+        tokens, margins = tokens.cpu(), margins.cpu()
+        keep = tokens % s_len < valid_len[tokens // s_len]
+        for t, m in zip(tokens[keep].tolist(), margins[keep].tolist()):
+            row = t // s_len
+            if row not in flips or (order, m) < flips[row][::2]:
+                flips[row] = (order, what, m)
+
+    for k, ((_, xt, ct), (order, xs, cs)) in enumerate(zip(tp.lut, sh.lut, strict=True)):
+        n_c = ct.shape[0]
+        if n_c != cs.shape[0]:                        # a row site: the rank's codebooks
+            v = cs.shape[-1]
+            xs = xs[:, rank * n_c * v:(rank + 1) * n_c * v].contiguous()
+            cs = cs[rank * n_c:(rank + 1) * n_c].contiguous()
+        rows, rel = code_margins(xs, cs, enc_mod.encode(xt, ct), enc_mod.encode(xs, cs))[:2]
+        note(order, rows, rel, f"codes of LUT call {k} (N={xt.shape[0]}, C={n_c})")
+    routes = []
+    for k, ((_, xt, cfg, pr), (order, xs, _, _)) in enumerate(zip(tp.route, sh.route,
+                                                                   strict=True)):
+        top = cfg.top_k
+        _, pt, dt, _, _ = moe.route(cfg, {"router": pr}, xt)      # each run's own routing
+        _, ps, ds, _, cap = moe.route(cfg, {"router": pr}, xs)
+        vs, js = ps.topk(top + 1, dim=-1)
+        chose = (pt.topk(top, dim=-1).indices.sort(-1).values
+                 != js[..., :top].sort(-1).values).any(-1)         # (G, g)
+        rel = (vs[..., top - 1] - vs[..., top]) / vs[..., top - 1]
+        note(order, chose.flatten().nonzero()[:, 0], rel.flatten()[chose.flatten()],
+             f"routing at MoE layer {k}")
+        # the same choices, another drop: capacity a token of its group (its
+        # request) routed otherwise took. A padded position's routing is no
+        # near-tie (the dense and paged engines compute it from other data):
+        # the known reference fault (ROADMAP); a valid token's is noted above
+        g = ds.shape[1]
+        tok = torch.arange(ds.shape[0] * g, device=ds.device).view(-1, g)
+        padded = tok % s_len >= valid_len.to(ds.device)[tok // s_len]
+        dropped = (dt.any(-1) != ds.any(-1)).any(-1) & ~chose
+        cause = (chose & padded).any(-1, keepdim=True).expand_as(chose)
+        hit = dropped & cause
+        note(order, tok[hit], torch.zeros(int(hit.sum())), f"capacity at MoE layer {k}, taken "
+             f"by a padded position routed otherwise (the known reference fault)")
+        note(order, tok[dropped & ~cause], torch.full((int((dropped & ~cause).sum()),),
+                                                      math.inf),
+             f"capacity at MoE layer {k}, with no choice of its group taken otherwise")
+        routes.append((dt, ds, cap))
+    sh_exp = {(k, site): (xs, ids) for _, k, site, _, xs, ids in sh.exp}
+    order_of = {(k, site): order for order, k, site, *_ in sh.exp}
+    for _, k, site, cents, xt, ids in tp.exp:
+        xs, ids_s = sh_exp[(k, site)]
+        dt, ds, cap = routes[k]
+        g = ds.shape[1]
+        where = {e: j for j, e in enumerate(ids_s.tolist())}
+        for a, e in enumerate(ids.tolist()):
+            if e not in where:                        # routed otherwise: noted there
+                continue
+            # each token kept by expert e in both runs, at its slot in each
+            both = (dt[:, :, e].any(-1) & ds[:, :, e].any(-1)).nonzero()
+            grp, pos = both[:, 0], both[:, 1]
+            row_t = grp * cap + dt[grp, pos, e].float().argmax(-1)
+            row_s = grp * cap + ds[grp, pos, e].float().argmax(-1)
+            x_s = xs[where[e]][row_s]
+            n, rel = code_margins(x_s, cents, expert_codes(xt[a][row_t], cents),
+                                  expert_codes(x_s, cents))[:2]
+            note(order_of[(k, site)], grp[n] * g + pos[n], rel,
+                 f"codes of expert {e} at MoE layer {k} site {site}")
+    return flips
+
+
+class Shadow:
+    """A tensor-parallel rank's unsharded twin: each forward of the counted
+    burst runs again through the whole model (`model`: bundle and whole
+    params) on the same batch, its launches uncounted, with caches of its
+    own of the engine's kind (a paged engine's pool geometry, block tables
+    and page copies). Per written row: the largest logit distance at its
+    valid positions ("dlogit"), and its first decision the rank took
+    otherwise (`first_flips`, "flips"), by forward."""
+
+    def __init__(self, eng, model, rank: int):
+        from repro_torch.models.attention import PagedSpec
+
+        self.eng, (self.bundle, self.params), self.rank = eng, model, rank
+        paged = PagedSpec(eng.pool.n_pages, eng.pool.page_size) if eng.paged else None
+        self.caches = self.bundle.init_caches(eng.n_slots, eng.max_seq, dtype=eng.kv_dtype,
+                                              device=eng.device, paged=paged)
+        self.n, self.seconds = 0, 0.0
+        self.dlogit: list = []
+        self.flips: list = []
+        if eng.paged:
+            from repro_torch.configs import cache_leaves
+
+            real = eng._apply_copies
+
+            def apply_copies(pairs):             # the same page copies in the twin's pool
+                real(pairs)
+                ids = torch.tensor(pairs, dtype=torch.long, device=eng.device)
+                for name, t in cache_leaves(self.caches):
+                    if name in ("k_pool", "v_pool"):
+                        t[:, ids[:, 1]] = t[:, ids[:, 0]]
+
+            eng._apply_copies = apply_copies
+
+    def step(self, toks, cache_len, write_len, logits, dec: Decisions) -> None:
+        import numpy as np
+
+        t0 = time.perf_counter()
+        with Uncounted(), torch.inference_mode():
+            batch = {"tokens": torch.from_numpy(toks).to(self.eng.device),
+                     "cache_len": torch.from_numpy(cache_len.astype(np.int64)),
+                     "write_len": torch.from_numpy(write_len)}
+            if self.eng.paged:
+                batch["block_tables"] = torch.from_numpy(self.eng.block_tables)
+            else:
+                batch["write_rows"] = torch.from_numpy(np.flatnonzero(write_len))
+            with Decisions() as sh:
+                ls, _ = self.bundle.forward_step(self.params, batch, self.caches,
+                                                 compute_dtype=self.eng._compute_dtype)
+            s_len = toks.shape[1]
+            valid = (torch.arange(s_len, device=ls.device)[None, :]
+                     < torch.as_tensor(write_len, device=ls.device)[:, None])
+            d = ((logits.float() - ls.float()).abs().amax(-1) * valid).amax(-1).tolist()
+            self.dlogit += [(self.n, int(r), d[r]) for r in np.flatnonzero(write_len)]
+            self.flips += [(self.n, r, *f) for r, f in
+                           first_flips(dec, sh, self.rank, write_len, s_len).items()]
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.n += 1
+
+
+def shadow_verdict(tag: str, ranks: list, key: str) -> tuple[set, dict]:
+    """The requests of a tensor-parallel run that took a decision otherwise
+    than the unsharded model, each first at a near-tie (its margin within
+    SHADOW_TIE; checked), and the logits of every other written row within
+    LOGIT_ATOL of the unsharded model's (checked). Returns (their rids, a
+    summary)."""
+    rid_of = ranks[0][key]["rids"]
+    first: dict = {}
+    for rank in ranks:
+        for f, row, order, what, m in rank[key]["flips"]:
+            rid = rid_of[f][row]
+            if rid not in first or (f, order) < first[rid][:2]:
+                first[rid] = (f, order, what, m, rank["rank"])
+    for rid, (f, _, what, m, r) in sorted(first.items()):
+        check(m <= SHADOW_TIE, f"{tag}: request {rid} first left the unsharded model at forward "
+                               f"{f}, {what} on rank {r}, with margin {m:.3g} > {SHADOW_TIE}")
+    worst = 0.0
+    for f, row, d in ranks[0][key]["dlogit"]:
+        rid = rid_of[f][row]
+        if rid in first and first[rid][0] <= f:
+            continue
+        check(d <= LOGIT_ATOL, f"{tag}: request {rid}'s logits at forward {f} are {d:.3g} off "
+                               f"the unsharded model's with no decision taken otherwise")
+        worst = max(worst, d)
+    return set(first), {"worst": worst, "first": first,
+                        "forwards": len(rid_of), "seconds": [r[key]["shadow_s"] for r in ranks]}
+
+
+TP_FAMILIES = ("mamba2_370m", "zamba2_1p2b", "arctic_480b")
+TP_PAGED = ("zamba2_1p2b", "arctic_480b")        # the families with attention
+
+
+def hold_moe(label: str, model, layers: list, experts: list) -> dict:
+    """Each recorded expert call of a rank held bytewise against the
+    unsharded site (the whole params) on the same input and experts, and
+    each MoE layer's combined output (the ranks' shares all-reduced in fp32)
+    against the unsharded layer on the same input: the elements that differ
+    and the largest difference, which must stay within fp32 rounding."""
+    from repro_torch.models import moe
+
+    bundle, params = model
+    segs = bundle.cfg.segments
+    where = [(i, j) for i, (count, _) in enumerate(segs) for j in range(count)]
+    out = {"calls": 0, "experts": 0, "layers": 0, "elems": 0, "elems_off": 0, "err": 0.0}
+    for k, site, ids, x, y in experts:
+        i, j = where[k]
+        full = moe.expert_linear(getattr(segs[i][1].moe, site),
+                                 params["segments"][i][j]["moe"][site], x, ids)
+        check(torch.equal(full, y), f"{label}: layer {k} {site} experts {ids.tolist()[:4]}...: "
+                                    f"the rank's output differs from the unsharded site's")
+        out["calls"] += 1
+        out["experts"] += len(ids)
+    for k, x, y in layers:
+        i, j = where[k]
+        full, _ = moe.moe(segs[i][1].moe, params["segments"][i][j]["moe"], x)
+        err = (full - y).abs().max().item()
+        check(err <= 1e-5 * max(1.0, full.abs().max().item()),
+              f"{label}: layer {k}'s combined output is {err:.3g} off the unsharded layer's")
+        out["layers"] += 1
+        out["elems"] += y.numel()
+        out["elems_off"] += int((full != y).sum())
+        out["err"] = max(out["err"], err)
+    return out
+
+
+def tp_family_rank(rank: int, jobs: list, devices: list[str], init: str, q) -> None:
+    """One rank of phase 12, in its own process: each of phase 8's models
+    served through the launcher's rank function (`serve_on_mesh`) with a
+    `TPProbe` that records every LUT-site call of the counted burst, dense
+    and, where the family has attention, paged. The recurrent families load
+    their shards from phase 8's artifacts; arctic_480b's params arrive as
+    CUDA IPC views of the parent's tensors on the card (phase 8's), so a
+    rank's experts are views and nothing of them is copied. Then, on every
+    rank, the calls held against the plain versions (`hold_sites`), the row
+    sites against the unsharded site (`hold_rows`) and arctic's experts and
+    expert combine against the unsharded ones (`hold_moe`)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import gc
+
+    import repro_torch  # noqa: F401  (sets the fp32 matmul policy)
+    from repro_torch.distributed.tensor_parallel import EXPERT_KINDS
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.artifact import load_artifact
+
+    out: dict = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        mesh = make_host_mesh(data=1, model=len(devices), rank=rank, devices=devices,
+                              init_method=init, timeout_s=600)
+        out["mesh_s"] = time.perf_counter() - t0
+        for name, art, model in jobs:
+            tables: dict = {}
+            # the unsharded twin's model: the whole params (arctic's are the
+            # parent's, viewed; the recurrent two's read from the artifact)
+            whole = model
+            if whole is None:
+                loaded = load_artifact(art, device=mesh.device, restore_autotune=False)
+                whole = (loaded.bundle, loaded.params)
+            labels = (("dense", []), ("paged", ["--paged", "--page-size", "16"]))
+            for label, flags in labels[:2 if name in TP_PAGED else 1]:
+                args = serve.parse_args(["--slots", "4", "--max-seq", "256", "--prefill-chunk",
+                                         "32", *flags] + (["--artifact", art] if art else
+                                                          ["--arch", name]))
+                moe_paged = label == "paged" and whole[0].arch.family == "moe"
+                probe = TPProbe(mesh, burst=whole_chunk_burst if moe_paged else family_burst,
+                                record_all=True, shadow=whole)
+                serve.serve_on_mesh(mesh, args, model=model, lead=probe.lead,
+                                    on_mark=probe.mark, on_engine=probe.engine)
+                res, eng = probe.res, probe.eng
+                res["serve_s"] = time.perf_counter() - probe.t0
+                res["counts"] = [eng.n_slots, eng.n_slots * eng.prefill_chunk]
+                res["expected"] = tp_expected_launches(
+                    eng.bundle, eng.layout, res["counts"], res["fwd"]["prefill_forwards"],
+                    res["fwd"]["decode_forwards"], mesh.device)
+                res["sigs"] = sorted({(s.d_out, s.d_in // s.lut.v) for s in eng.bundle.lut_sites()
+                                      if s.kind not in EXPERT_KINDS})
+                n_inv = (len(eng.bundle.cfg.invocation_points) if eng.bundle.kind == "hybrid"
+                         else 1)
+                res["per_forward"] = (lut_calls_per_forward(eng.bundle), sum(
+                    n_inv if s.path.startswith("shared/") else 1
+                    for s in eng.bundle.lut_sites() if eng.layout.roles.get(s.path) == "row"))
+                res["param_gb"] = sum(t.numel() * t.element_size()
+                                      for t in _tensors(eng.params)) / 1e9
+                res["kept"] = eng.layout.kept
+                tag = f"tp12 {name} {label} rank {rank}"
+                res["rows_held"] = hold_rows(tag, mesh, probe.rows, tables)
+                held = hold_sites(tag, probe.calls)
+                res["tie_rows"] = sum(len(r) for r in held.pop("off_rows"))
+                res["held"] = held
+                if model is not None:
+                    res["moe_held"] = hold_moe(tag, model, probe.moe_layers, probe.experts)
+                sh = probe.shadow
+                res.update(rids=probe.rids, flips=sh.flips, dlogit=sh.dlogit,
+                           shadow_s=sh.seconds)
+                out[f"{name}/{label}"] = res
+                del eng, probe
+                gc.collect()
+                torch.cuda.empty_cache()
+        out["backend"] = mesh.backend
+        mesh.close()
+        q.put(("ok", out))
+    except BaseException:                     # noqa: BLE001 — the parent reports it
+        import traceback
+
+        q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
+
+
+def phase_tp_families(scratch: Path, fam: dict) -> dict:
+    """Phase 12: phase 8's models at tp 2 through the launcher's rank
+    function, over NCCL when the host has two cards, else both ranks on the
+    one card over gloo; phase 8's burst against phase 8's plain run, and per
+    rank the launch counts, the holds, the decode forward's wall and busy
+    time, the all-reduces per forward and their host time, and memory."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    from repro_torch.launch.mesh import backend_for
+
+    n_cards, devices = tp_devices()
+    backend = backend_for(devices)
+    log(f"[tp12] tp={TP} on {n_cards} card(s): ranks on {devices}, backend {backend}; "
+        + ", ".join(f"{name} ({'artifact' if fam[name]['art'] else 'the card-resident params'})"
+                    for name in TP_FAMILIES))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    jobs = [(name, str(fam[name]["art"]) if fam[name]["art"] else None, fam[name]["model"])
+            for name in TP_FAMILIES]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=tp_family_rank, args=(r, jobs, devices, init, q), daemon=True)
+             for r in range(TP)]
+    for p in procs:
+        p.start()
+    got: list = []
+    deadline = time.monotonic() + 500
+    try:
+        while len(got) < len(procs):     # a failed rank ends the wait: its peer would hang
+            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
+            if got[-1][0] != "ok":
+                break
+    except queue.Empty:
+        got.append(("error", {"trace": f"no result from {TP - len(got)} rank(s) in 500 s"}))
+    finally:
+        t_results = time.perf_counter() - t0
+        for p in procs:
+            p.join(timeout=30 if got and got[-1][0] == "ok" else 1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    errors = [val["trace"] for status, val in got if status != "ok"]
+    check(not errors, "a tp12 rank failed:\n" + "\n".join(errors))
+    ranks = sorted((val for _, val in got), key=lambda v: v["rank"])
+    log(f"[tp12] both ranks' results in {t_results:.1f}s (spawn, import, mesh, 3 models, 5 "
+        f"engines), both exited {time.perf_counter() - t0 - t_results:.1f}s later")
+    total_mib = int(smi("--query-gpu=memory.total").splitlines()[0])
+    out = {"ties": 0, "launches": dict.fromkeys(ranks[0][f"{TP_FAMILIES[0]}/dense"]["launches"], 0),
+           "backend": backend, "cards": n_cards}
+    for name in TP_FAMILIES:
+        for label in ("dense", "paged")[:2 if name in TP_PAGED else 1]:
+            key, tag = f"{name}/{label}", f"tp12 {name} {label}"
+            # against phase 8's plain run of the same cache kind (MoE paged: of
+            # whole-chunk prompts, where the dense and paged engines agree)
+            want, _, gaps = fam[name]["paged"] if label == "paged" else (
+                fam[name]["want"], None, fam[name]["gaps"])
+            lead = ranks[0][key]
+            got_reqs = [types.SimpleNamespace(rid=rid, status=status, out_tokens=toks)
+                        for rid, status, toks in lead["tokens"]]
+            check(all(r.status == "ok" and len(r.out_tokens) == 16 for r in got_reqs),
+                  f"{tag}: statuses {[r.status for r in got_reqs]}")
+            tied, verdict = shadow_verdict(tag, ranks, key)
+            ties = compare_tokens(tag, got_reqs, want, gaps,
+                                  sum(rank[key]["tie_rows"] for rank in ranks), tied=tied)
+            log(f"[tp12] {name} {label}: every one of {verdict['forwards']} forwards run again by "
+                f"the unsharded model on each rank ("
+                + ", ".join(f"{t:.1f}" for t in verdict["seconds"]) + " s): logits within "
+                f"{verdict['worst']:.3g} of its on every written row of a request that took no "
+                f"decision otherwise; {len(tied)} request(s) took one, each first at a near-tie: "
+                + ("; ".join(f"request {rid} at forward {f}, {what} on rank {r}, margin {m:.3g}"
+                             for rid, (f, _, what, m, r) in sorted(verdict["first"].items()))
+                   or "none"))
+            out["ties"] += ties
+            st = lead["stats"]
+            for rank in ranks:
+                res, r = rank[key], rank["rank"]
+                fwd, coll = res["fwd"], res["coll"]
+                n_fwd = fwd["prefill_forwards"] + fwd["decode_forwards"]
+                check(fwd["prefill_forwards"] == st["prefill_forwards"]
+                      and fwd["decode_forwards"] == st["decode_forwards"],
+                      f"{tag} rank {r}: {fwd} forwards, the leader's {st}")
+                check(res["plain"] == 0, f"{tag} rank {r}: a plain version ran")
+                for kname, n in res["expected"].items():
+                    check(res["launches"][kname] == n,
+                          f"{tag} rank {r}: {kname} launched {res['launches'][kname]} times, "
+                          f"the records say {n}")
+                for kname, n in res["launches"].items():
+                    out["launches"][kname] += n
+                check(sum(res["launches"].values()) > 0, f"{tag}: no kernel launched")
+                held, rows = res["held"], res["rows_held"]
+                n_lut, n_row = res["per_forward"]
+                check(held["sites"] == n_fwd * n_lut and rows["calls"] == 2 * n_row > 0,
+                      f"{tag} rank {r}: {held['sites']} LUT-site calls recorded over {n_fwd} "
+                      f"forwards of {n_lut}, {rows['calls']} row-site outputs in two forwards of "
+                      f"{n_row}")
+                moe_line = ""
+                if "moe_held" in res:
+                    mh = res["moe_held"]
+                    check(mh["calls"] > 0 and mh["layers"] > 0, f"{tag} rank {r}: no MoE held")
+                    moe_line = (f"; {mh['calls']} expert-site calls ({mh['experts']} experts) "
+                                f"bytewise the unsharded sites' on the same inputs; {mh['layers']} "
+                                f"MoE layer outputs (the ranks' shares all-reduced in fp32): "
+                                f"{mh['elems_off']} of {mh['elems']} elements differ from the "
+                                f"unsharded layer's, max abs err {mh['err']:.3g}")
+                log(f"[tp12] {name} {label} rank {r}: all {held['sites']} LUT-site calls of the "
+                    f"burst ({held['kernels']}) equal to the plain lookup of the encode kernel's "
+                    f"codes at the rank's shapes (max abs err {held['err']:.3g}; "
+                    f"{held['codes_off']} of {held['codes']} codes off the plain encode's, on "
+                    f"{res['tie_rows']} rows, each a tie); {rows['calls']} row-site outputs of "
+                    f"the first prefill and decode forward ({rows['rows']} rows) bytewise the "
+                    f"unsharded site's on the gathered input and tables ({rows['codes_off']} "
+                    f"codes of the unsharded encode off the ranks', each a tie)" + moe_line)
+                prof = res["profile"]
+                check(res["card_mib"] < total_mib, f"{tag}: the card's memory is full")
+                log(f"[tp12] {name} {label} rank {r} ({devices[r]}): load and engine "
+                    f"{res['build_s']:.1f}s ({res['tuned']} shapes tuned), served in "
+                    f"{res['serve_s']:.1f}s; kept {res['kept']}; site shapes (M, C) "
+                    f"{res['sigs']}; decode forward "
+                    f"{1e3 * fwd['decode_s'] / max(fwd['decode_forwards'], 1):.2f} ms "
+                    f"({fwd['decode_forwards']} fwd), prefill "
+                    f"{1e3 * fwd['prefill_s'] / max(fwd['prefill_forwards'], 1):.2f} ms "
+                    f"({fwd['prefill_forwards']} fwd); all_reduce "
+                    f"{coll['all_reduce'] / n_fwd:.1f} per forward, "
+                    f"{1e6 * coll['all_reduce_s'] / max(coll['all_reduce'], 1):.1f} us host each "
+                    f"({coll['all_reduce_bytes'] / n_fwd / 1e6:.2f} MB per forward); profiled "
+                    f"decode step {prof['wall_us']:.0f} us wall, device busy "
+                    f"{prof['busy_us']:.0f} us ({100 * prof['busy_us'] / prof['wall_us']:.1f}%); "
+                    f"params {res['param_gb']:.2f} GB, peak {res['peak'] / 2**30:.2f} GiB "
+                    f"allocated, {res['reserved'] / 2**30:.2f} GiB reserved; card memory used "
+                    f"{res['card_mib']} of {total_mib} MiB (every process); launches "
+                    + " ".join(f"{k}={v}" for k, v in res["launches"].items()))
+            n_tok = sum(len(r.out_tokens) for r in got_reqs)
+            log(f"[tp12] {name} {label}: {n_tok} tokens in {st['wall']:.3f}s "
+                f"({n_tok / st['wall']:.2f} tok/s; phase 8 single-process decode forward "
+                f"{fam[name]['decode_ms']:.2f} ms); tokens equal phase 8's plain "
+                f"{'dense run of whole-chunk prompts' if name == 'arctic_480b' and label == 'paged' else label + ' run'} except "
+                f"{ties} near-tie difference(s)")
+            out[key] = {"decode_ms": 1e3 * st["decode_s"] / st["decode_forwards"],
+                        "tok_s": n_tok / st["wall"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_LAYERS = 8         # depth of phase 7's recipe run (full width always; cut from 28 to
-                         # 14, then to 8 when phase 11 came, to keep the whole run in its
-                         # time limit: its checkpoints dominate)
+TRAIN_LAYERS = 4         # depth of phase 7's recipe run (full width always; cut from 28 to
+                         # 14, then to 8 when phase 11 came, then to 4 when phase 12 came, to
+                         # keep the whole run in its time limit: its checkpoints dominate)
 TRAIN_STEPS = 4          # steps of its dense and soft-PQ stages
 LAUNCHER_STEPS = 60      # the launcher's --steps: ckpt_every = max(50, steps // 4) = 50, so
                          # soft-PQ commits at step 50 and a kill after it resumes there
-SPEC_STEPS = 20          # the --spec-draft run's --steps (no kill, so no commit needed)
+SPEC_STEPS = 10          # the --spec-draft run's --steps (no kill, so no commit needed; 20
+                         # until phase 12 came)
 PARITY_LR = 1e-3         # phase 7(a)'s soft-PQ lr (cosine, 2 warm-up steps)
 
 
@@ -2311,25 +2945,31 @@ def hold_sites(label: str, calls: list) -> dict:
     return out
 
 
+def code_margins(x, c, codes, plain):
+    """Where `codes` differ from `plain` (both (N, C) for the input x and
+    centroids c): (their rows, the float64 distance gap of the two choices
+    over the fp32 expansion's terms |a|^2 + |p|^2 + 2|a.p|, the distance to
+    `plain`'s choice, the terms, the gap)."""
+    from repro_torch.core import pq
+
+    n_idx, c_idx = (codes != plain).nonzero(as_tuple=True)
+    a = pq.split_subvectors(x.double(), c.shape[-1])[n_idx, c_idx]     # (F, V)
+    p1 = c.double()[c_idx, codes.long()[n_idx, c_idx]]
+    p2 = c.double()[c_idx, plain.long()[n_idx, c_idx]]
+    d2 = ((a - p2) ** 2).sum(-1)
+    gap = ((a - p1) ** 2).sum(-1) - d2
+    terms = (a * a).sum(-1) + (p1 * p1).sum(-1) + 2 * (a * p1).sum(-1).abs()
+    return n_idx, gap.abs() / terms, d2, terms, gap
+
+
 def tie_codes(name: str, x, c, codes, plain, worst: dict | None = None) -> int:
     """The number of `codes` that differ from `plain` (both (N, C) for the
     input x and centroids c); each must be a tie of the fp32 expansion: the
     float64 distances of the two choices within TIE_EPS of the expansion's
     terms. `worst` keeps the largest such gap ("worst_tie", "worst_code")."""
-    from repro_torch.core import pq
-
-    off = codes != plain
-    if not off.any():
+    if not (codes != plain).any():
         return 0
-    n_idx, c_idx = off.nonzero(as_tuple=True)
-    a = pq.split_subvectors(x.double(), c.shape[-1])[n_idx, c_idx]     # (F, V)
-    rows = torch.arange(len(n_idx), device=x.device)
-    p1 = c.double()[c_idx][rows, codes.long()[n_idx, c_idx]]
-    p2 = c.double()[c_idx][rows, plain.long()[n_idx, c_idx]]
-    d2 = ((a - p2) ** 2).sum(-1)
-    gap = ((a - p1) ** 2).sum(-1) - d2
-    terms = (a * a).sum(-1) + (p1 * p1).sum(-1) + 2 * (a * p1).sum(-1).abs()
-    rel = gap.abs() / terms
+    n_idx, rel, d2, terms, gap = code_margins(x, c, codes, plain)
     j = int(rel.argmax())
     if worst is not None and rel[j].item() >= worst["worst_tie"]:
         worst["worst_tie"] = rel[j].item()
@@ -2660,24 +3300,34 @@ def phase_train(dev, scratch: Path) -> dict:
 # phase 8: the MoE, SSM and hybrid families at full width
 # ---------------------------------------------------------------------------
 
-ARCTIC_LAYERS = 2        # arctic_480b's depth in phase 8: layer 0 dense, layer 1 LUT
+ARCTIC_LAYERS = 2        # arctic_480b's depth in phases 8 and 12: layer 0 dense, layer 1 LUT
 # depth of phase 8's recurrent families (full width; cut from 48 and 38 so that
-# chip_smoke keeps inside its time limit with phase 11): zamba2_1p2b's shared
-# block runs 4 times
-SERVE_FAMILY_LAYERS = {"mamba2_370m": 24, "zamba2_1p2b": 24, "arctic_480b": ARCTIC_LAYERS}
+# chip_smoke keeps inside its time limit with phase 11, then from 24 to 12 so
+# that phase 12 serves the same models at tp 2): zamba2_1p2b's shared block
+# runs twice
+SERVE_FAMILY_LAYERS = {"mamba2_370m": 12, "zamba2_1p2b": 12, "arctic_480b": ARCTIC_LAYERS}
 # prompt lengths of phase 8's burst at a prefill chunk of 32: exactly one
 # chunk, exactly two, ragged over two chunks and ragged inside one
 FAMILY_PROMPTS = (32, 64, 45, 17, 32, 50, 9, 60)
+# whole prefill chunks: the burst of phase 12's paged MoE engine. On a ragged
+# chunk the paged engine's MoE output depends on what its pages held before
+# (padded positions read stale pages and take expert capacity: a known
+# reference fault, ROADMAP), so it is held where the engines are defined
+WHOLE_CHUNK_PROMPTS = (32, 64, 64, 32, 32, 64, 32, 64)
 
 
-def family_burst(vocab: int) -> list[tuple[list[int], object]]:
-    """8 requests of FAMILY_PROMPTS' lengths, requests SAMPLED sampled."""
+def family_burst(vocab: int, lengths=FAMILY_PROMPTS) -> list[tuple[list[int], object]]:
+    """8 requests of `lengths` tokens, requests SAMPLED sampled."""
     from repro_torch.serving.sampling import SamplingParams
 
     gen = torch.Generator().manual_seed(SEED + 20)
     return [(torch.randint(0, vocab, (n,), generator=gen).tolist(),
              SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=SEED + 20 + i)
-             if i in SAMPLED else None) for i, n in enumerate(FAMILY_PROMPTS)]
+             if i in SAMPLED else None) for i, n in enumerate(lengths)]
+
+
+def whole_chunk_burst(vocab: int) -> list[tuple[list[int], object]]:
+    return family_burst(vocab, WHOLE_CHUNK_PROMPTS)
 
 
 class FirstForwards:
@@ -2764,7 +3414,7 @@ def check_auto_disable(label: str, bundle, params, dev) -> None:
 
 
 def serve_family(label: str, bundle, params, dev, *, recurrent: bool,
-                 hold_all: bool = False) -> dict:
+                 hold_all: bool = False, paged_plain: bool = False) -> dict:
     """Phase 8's path for one model: the measured warm-up, the burst through
     the plain versions, then through the kernels (counts set to 0 before,
     read after) with every LUT site's first launch at each N held against
@@ -2795,6 +3445,21 @@ def serve_family(label: str, bundle, params, dev, *, recurrent: bool,
     with PlainLUT():
         plain_eng = ServingEngine(bundle, params, **kw, autotune_lut=False)
         want, st_plain, gaps = plain_run(plain_eng, burst)
+        paged = None
+        if paged_plain:
+            # phase 12's reference for its paged engines: the plain paged run,
+            # or for MoE the plain run of whole-chunk prompts
+            paged = plain_run(ServingEngine(bundle, params, **kw, autotune_lut=False, paged=True,
+                                            page_size=16), burst)
+            n_off = sum(a.out_tokens != b.out_tokens for a, b in zip(paged[0], want))
+            moe = bundle.arch.family == "moe"
+            log(f"[families] {label}: the plain paged engine (page 16): {n_off} of "
+                f"{len(want)} requests' tokens differ from the plain dense engine's"
+                + (" (padded positions of a ragged chunk read stale pages, not the chunk, and "
+                   "take expert capacity before the chunk's second choices: a known reference "
+                   "fault, ROADMAP)" if n_off and moe else ""))
+            if moe:
+                paged = plain_run(plain_eng, whole_chunk_burst(bundle.arch.vocab))
     del plain_eng
     with FirstForwards(eng) as first:
         reqs, st, by_n, ties = driven(label, eng, burst, want, gaps, tag="families",
@@ -2821,13 +3486,18 @@ def serve_family(label: str, bundle, params, dev, *, recurrent: bool,
     return {"launches": launches, "ties": ties, "decode_tok_s": st["decode_tok_s"],
             "busy_share": busy / wall, "step_wall_us": wall, "step_busy_us": busy,
             "versions": {str(k): v for k, v in versions.items()}, "sigs": sigs,
-            "first_sites": held["sites"], "tune_s": t_tune}
+            "first_sites": held["sites"], "tune_s": t_tune, "want": want, "gaps": gaps,
+            "paged": paged,
+            "tokens": reqs, "decode_ms": 1e3 * st["decode_s"] / st["decode_forwards"]}
 
 
 def phase_families(dev, scratch: Path) -> dict:
     """Phase 8: mamba2_370m and zamba2_1p2b at full width and
     SERVE_FAMILY_LAYERS layers through artifacts; arctic_480b at full width
-    with ARCTIC_LAYERS layers, its params built on the card."""
+    with ARCTIC_LAYERS layers, its params built on the card. Phase 12 serves
+    the same models: each result keeps the plain run's requests and gaps,
+    the recurrent families' artifact ("art") and arctic's model ("model",
+    its params on the card)."""
     import gc
 
     from repro_torch.configs import build_model, get_arch
@@ -2845,13 +3515,13 @@ def phase_families(dev, scratch: Path) -> dict:
         params = bundle.init(torch.Generator(device=dev).manual_seed(SEED + 23), device=dev)
         n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
         where = "built on the card"
+        path = None
         if name != "arctic_480b":
             path = artifact.save_artifact(scratch / name, bundle, params)
             del params
             art = artifact.load_artifact(path, device=dev)
             bundle, params = art.bundle, art.params
             del art
-            shutil.rmtree(path)
             where = "exported as an artifact and loaded"
         log(f"[families] {name}: {arch.n_layers} layers, d_model {arch.d_model}, vocab "
             f"{arch.vocab}, {len(bundle.lut_sites())} LUT sites, {n_bytes / 1e9:.2f} GB of params "
@@ -2860,11 +3530,12 @@ def phase_families(dev, scratch: Path) -> dict:
         # the trained ones: a code picked at a tie inside the kernels is then
         # counted and may explain a request's difference
         res = serve_family(name, bundle, params, dev, recurrent=name != "arctic_480b",
-                           hold_all=name != "arctic_480b")
+                           hold_all=name != "arctic_480b", paged_plain=name in TP_PAGED)
         res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
         res["param_bytes"] = n_bytes
         log(f"[families] {name}: peak device memory {res['peak_gib']:.2f} GiB above the "
             f"{base / 2**30:.2f} GiB the earlier phases left allocated")
+        res.update(art=path, model=(bundle, params) if path is None else None)
         out[name] = res
         del bundle, params
         gc.collect()
@@ -3271,7 +3942,7 @@ TRAIN_VLM_LAYERS = 4     # qwen2_vl_7b's depth in (c): 28 layers in fp32 with Ad
 RECIPE_LAYERS = {"mamba2_370m": 6, "zamba2_1p2b": 6}
 FAMILY_STEPS = 2         # (c)'s dense and soft-PQ steps
 FAMILY_ROWS, FAMILY_SEQ = 4, 64
-FAMILY_LAUNCHER_STEPS = 20   # (d)'s --steps: no kill, so no commit needed
+FAMILY_LAUNCHER_STEPS = 10   # (d)'s --steps: no kill, so no commit needed (20 until phase 12)
 
 
 def family_step_parity(name: str, dev) -> dict:
@@ -3660,7 +4331,7 @@ def main() -> int:
         launches = served["launches"]
         refs = timed(5, phase_paged_spec, dev, scratch, served["art"], served["engine"])
         timed(6, phase_process, scratch, served["engine"], refs)
-        tp = timed(11, phase_tp, scratch, refs)
+        tp = timed(11, phase_tp, dev, scratch)
         # phase 7 needs the card's memory and the scratch disk to itself
         del served, refs
         shutil.rmtree(scratch / "main", ignore_errors=True)
@@ -3670,13 +4341,19 @@ def main() -> int:
         timed(7, phase_train, dev, scratch)
         gc.collect()
         torch.cuda.empty_cache()
-        timed(8, phase_families, dev, scratch)
-        gc.collect()
-        torch.cuda.empty_cache()
         timed(9, phase_encdec_vlm, dev, scratch)
         gc.collect()
         torch.cuda.empty_cache()
         trained = timed(10, phase_train_families, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phases 8 and 12 last: arctic's params, shared with phase 12's rank
+        # processes over CUDA IPC, stayed allocated here after the phase
+        # (deleted, collected, `ipc_collect()`: 32.59 GiB before and after),
+        # which phase 10's arctic step cannot spare
+        fam = timed(8, phase_families, dev, scratch)
+        torch.cuda.empty_cache()
+        tp12 = timed(12, phase_tp_families, scratch, fam)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3700,7 +4377,8 @@ def main() -> int:
                      "launches": launches[name],
                      "phase_launches": {"4": launches[name],
                                         "10": trained["launches"][name],
-                                        "11": tp["launches"][name]},
+                                        "11": tp["launches"][name],
+                                        "12": tp12["launches"][name]},
                      "max_abs_err": k["err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})

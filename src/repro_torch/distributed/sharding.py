@@ -25,12 +25,17 @@ sharded train step.
 
 How a rank of the port's tensor-parallel engine holds and runs its shards
 follows these specs (`distributed/tensor_parallel.py`), with the kept
-differences named there. The engine's path reads `param_spec` (the dense
-blocks' sites and the embedding) and `site_roles`. `cache_spec`,
-`batch_dim` and `param_spec`'s expert, SSM and conv branches are held
-against the reference by the tests only, until the MoE and training slices
-place by them: the engine splits its KV caches by heads itself, which is
-`cache_spec` for the paged pool and a kept difference for the dense cache.
+differences named there (`Layout.kept`). The engine's layout reads
+`param_spec` for every site pair, the embedding, the experts and the SSM
+blocks, and `site_roles`; where it departs from a spec (the experts over
+"model" at data = 1, the mamba2 block's head-aligned in_proj and conv
+selections) the difference is named and tested against these rules
+(tests/test_torch_tp_families.py). The caches follow `cache_spec`'s
+rules where they are the engine's: the paged pool by KV heads, the SSM
+state by heads; the dense KV cache by KV heads (the spec: its sequence)
+and the conv window by the rank's channels (the spec: contiguous
+channels) are kept differences. `batch_dim` has no leaf to place at
+data = 1, the only mesh the engine serves.
 """
 
 from __future__ import annotations

@@ -8,29 +8,64 @@ forward; `models/sharded.py`):
 
   * column-parallel sites (q, k, v, gate, up) hold their M shard of
     table_q (and of an m-shared table_scale, and of the bias);
-  * row-parallel sites (o, down; `sharding.site_roles`) hold their C shard
-    of centroids and table_q, and take the rank's columns of the input;
+  * row-parallel sites (o, down, out_proj; `sharding.site_roles`) hold
+    their C shard of centroids and table_q, and take the rank's columns of
+    the input;
   * attention runs on the rank's whole heads: q, k and v arrive as M shards
     that cover H / tp query heads and KV / tp KV heads, so GQA groups stay
     together; qk-norm and RoPE are per head. The KV cache holds the rank's
-    KV heads, dense or paged. The paged pool is the reference's spec (KV
-    heads over "model"); the reference shards the dense cache's sequence
-    instead, a kept difference. Where a shard would split a head or a GQA
+    KV heads, dense or paged. Where a shard would split a head or a GQA
     group, or the specs do not shard a block's sites as column/row pairs,
     the block's sites are replicated (every rank computes them whole);
+  * an MoE block (arctic_480b, llama4_maverick_400b) is expert-parallel
+    over "model": rank r holds experts [r E/tp, (r+1) E/tp) whole
+    (table_q, table_scale, a dense expert's w; the codebooks they share
+    replicated), every rank routes every token with the replicated router,
+    runs the tokens routed to its experts and all-reduces the combined
+    output once (`moe.moe`). Attention, arctic's dense residual MLP and
+    maverick's shared expert take the roles above;
+  * a mamba2 block (mamba2_370m, zamba2_1p2b's backbone) runs the rank's
+    SSD heads. in_proj is one site whose columns are [z | x | B | C | dt]:
+    the rank holds a head-aligned selection of them (its heads' z, x and dt
+    columns, the B and C columns whole), a column site all the same; the
+    conv weights take the same channel selection, dt_bias, A_log and D the
+    rank's heads. The gated norm gathers the gated activations and
+    normalizes the whole d_inner row (`sharded.gated_rmsnorm`); out_proj is
+    row-parallel. The SSM state cache holds the rank's heads, the conv
+    window its channels;
+  * the hybrid (zamba2_1p2b): its mamba stack as above, its shared
+    attention and MLP the attention and MLP roles; fuse and out have no
+    column/row partner and stay replicated;
   * the embedding is vocab-sharded and the tied logits vocab-sharded and
     gathered; an untied head's vocab columns are gathered the same way.
     Where the spec does not shard the vocab, they are replicated. Dense
     sites (layer 0 under "all_but_first") follow the same specs with plain
     matmuls.
 
+Kept differences from `ShardingRules` (`Layout.kept` names the ones a
+layout takes; ROADMAP lists them):
+
+  "experts_over_model"  the experts over "model" (the spec, at data = 1,
+      puts E over "data" and each expert's M over "model"), and the router
+      replicated (the spec splits its E columns): the mesh has all_reduce
+      only; expert parallelism costs one all-reduce per MoE layer and keeps
+      each expert's contraction whole, where the M split would need two
+      gathers;
+  "ssm_heads"  in_proj's head-aligned column selection (the spec splits M
+      contiguously, which cuts through the [z | x | B | C | dt] blocks), the
+      conv weights' and conv window's channel selection (the spec
+      replicates conv_w/conv_b and splits the window's channels
+      contiguously) and the rank's heads of dt_bias, A_log and D (the spec
+      replicates them);
+  and for every model, the dense KV cache by KV heads (the spec shards its
+  sequence).
+
 A rank's bundle (`local_bundle`) names each site's role in its config
-(`common.SiteCfg.tp`, `transformer.LMCfg.vocab_sharded`); the mesh is bound
-per forward (`ModelBundle.forward_step(mesh=)`). Families this slice leaves
-out (`tp_refusal`): MoE (expert-parallel over the data axes), SSM, hybrid,
-enc-dec and the vision-LM, ROADMAP Queue A item 5. The lm kind with dense
-blocks is served: qwen3_1p7b, llama3_8b, minitron_8b, command_r_35b and
-bert_base.
+(`common.SiteCfg.tp`, `moe.MoECfg.ep`, `mamba2.Mamba2Cfg.tp`,
+`transformer.LMCfg.vocab_sharded`, `hybrid.HybridCfg.vocab_sharded`); the
+mesh is bound per forward (`ModelBundle.forward_step(mesh=)`). Families
+left out (`tp_refusal`): the enc-dec and the vision-LM, which the engine
+does not serve (ROADMAP Queue A item 5), and LUT_TRAIN bundles.
 """
 
 from __future__ import annotations
@@ -44,46 +79,67 @@ from repro_torch.checkpoint.paths import flatten_tree
 from repro_torch.configs import ModelBundle
 from repro_torch.core.amm import Mode
 from repro_torch.distributed.sharding import ShardingRules, site_roles
-from repro_torch.weights import tree_map_ref
+from repro_torch.weights import is_stacked, tree_map_ref
+
+# the expert-stacked sites: contracted in plain tensor ops, never a kernel
+EXPERT_KINDS = ("moe/gate", "moe/up", "moe/down")
+
+# how a rank cuts one dim of a leaf: (dim, blocks). blocks None: the dim in
+# tp equal parts; else the dim is the concatenation of blocks (length,
+# split) and the rank takes its tp-th part of each split block and every
+# unsplit block whole
+Cut = tuple[int, "tuple[tuple[int, bool], ...] | None"]
 
 
 def tp_refusal(bundle: ModelBundle) -> str | None:
-    """Why this slice's tensor parallelism cannot serve the bundle, or None."""
+    """Why tensor parallelism cannot serve the bundle, or None."""
     arch = bundle.arch
-    if bundle.kind == "lm" and not arch.takes_embeds and not arch.mrope_sections and all(
-            b.kind == "dense" for _, b in bundle.cfg.segments):
-        if bundle.mode == Mode.LUT_TRAIN:
-            return "tensor parallelism serves DENSE and LUT_INFER bundles, not LUT_TRAIN"
-        return None
-    return (f"tensor-parallel serving of {arch.name} ({arch.family}) is not ported: this slice "
-            f"serves the lm kind with dense blocks; MoE (expert-parallel over the data axes), "
-            f"SSM, hybrid, enc-dec and vision-LM wait for ROADMAP Queue A item 5")
+    if bundle.kind == "encdec" or arch.takes_embeds or arch.mrope_sections:
+        return (f"tensor-parallel serving of {arch.name} ({arch.family}) is not ported: the "
+                f"engine serves neither the enc-dec nor the vision-LM family; both wait for "
+                f"ModelBundle.forward_step(mesh=), ROADMAP Queue A item 5")
+    if bundle.mode == Mode.LUT_TRAIN:
+        return "tensor parallelism serves DENSE and LUT_INFER bundles, not LUT_TRAIN"
+    return None
 
 
 # ---------------------------------------------------------------------------
-# layout: which dim of each leaf a rank holds a shard of
+# layout: which part of each leaf a rank holds
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """A model's tensor-parallel layout at degree `tp`: each sharded site's
-    role ({site path: "col" | "col_gather" | "row"}), whether the embedding
-    is vocab-sharded, and the sharded dim of each param leaf of a layer
-    ({reference path: dim})."""
+    role ({site path: "col" | "col_gather" | "row" | "ep"}), whether the
+    embedding is vocab-sharded, the cut of each sharded param leaf of a
+    layer ({reference path: Cut}) and the kept differences from the specs
+    it takes."""
 
     tp: int
     roles: dict[str, str]
     vocab: bool
-    dims: dict[str, int]
+    cuts: dict[str, Cut]
+    kept: tuple[str, ...] = ()
 
 
-def _site_axes(rules: ShardingRules, path: str, specs: dict, site, roles) -> tuple[bool, bool]:
-    """(output dim over "model", input dim over "model") of a site's spec."""
-    leaf = "table_q" if site.mode == Mode.LUT_INFER else "w"
-    spec = rules.param_spec(f"{path}/{leaf}", tuple(specs[f"{path}/{leaf}"].shape),
-                            site_roles=roles)
-    eff = spec[len(spec) - (3 if leaf == "table_q" else 2):]
-    return eff[-1] == "model", eff[0] == "model"
+def _in_proj_blocks(mc) -> tuple[tuple[int, bool], ...]:
+    """in_proj's columns [z | x | B | C | dt]: the heads' blocks split, B and C whole."""
+    gn = mc.n_groups * mc.ssm_state
+    return ((mc.d_inner, True), (mc.d_inner, True), (gn, False), (gn, False),
+            (mc.n_heads, True))
+
+
+def _conv_blocks(mc) -> tuple[tuple[int, bool], ...]:
+    """The conv's channels [x | B | C]: x split by heads, B and C whole."""
+    gn = mc.n_groups * mc.ssm_state
+    return ((mc.d_inner, True), (gn, False), (gn, False))
+
+
+def _blocks(bundle: ModelBundle) -> list[tuple[str, Any]]:
+    """(path prefix, block config) of every kind of block the model runs."""
+    if bundle.kind == "hybrid":
+        return [("mamba_stack", bundle.cfg.mamba_block)]
+    return [(f"segments/{i}", b) for i, (_, b) in enumerate(bundle.cfg.segments)]
 
 
 def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
@@ -93,31 +149,75 @@ def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
         raise ValueError(why)
     tp = rules.tp
     specs = flatten_tree(bundle.param_specs())
-    roles_reg = site_roles(bundle)
+    reg = site_roles(bundle)
     roles: dict[str, str] = {}
-    for i, (_, bcfg) in enumerate(bundle.cfg.segments):
-        a, m = bcfg.attn, bcfg.mlp
-        att = [(f"segments/{i}/attn/{n}", getattr(a, n)) for n in ("q", "k", "v", "o")]
-        axes = [_site_axes(rules, p, specs, s, roles_reg) for p, s in att]
-        if (all(out for out, _ in axes[:3]) and axes[3][1]
-                and a.n_heads % tp == 0 and a.n_kv_heads % tp == 0):
-            roles.update({p: ("row" if n == 3 else "col") for n, (p, _) in enumerate(att)})
-        mlp = [(f"segments/{i}/{s.name}", s)
-               for s in ([m.gate] if m.gated else []) + [m.up, m.down]]
-        axes = [_site_axes(rules, p, specs, s, roles_reg) for p, s in mlp]
-        if all(out for out, _ in axes[:-1]) and axes[-1][1]:
-            roles.update({p: ("row" if p.endswith("/down") else "col") for p, _ in mlp})
-    if bundle.cfg.lm_head is not None and _site_axes(rules, "lm_head", specs,
-                                                     bundle.cfg.lm_head, roles_reg)[0]:
+    selected: dict[str, tuple] = {}          # a column site's blocks (in_proj)
+    cuts: dict[str, Cut] = {}
+    kept: list[str] = []
+
+    def axes(path: str, site) -> tuple[bool, bool]:
+        """(output dim over "model", input dim over "model") of a site's spec."""
+        leaf = "table_q" if site.mode == Mode.LUT_INFER else "w"
+        spec = rules.param_spec(f"{path}/{leaf}", tuple(specs[f"{path}/{leaf}"].shape),
+                                site_roles=reg)
+        eff = spec[len(spec) - (3 if leaf == "table_q" else 2):]
+        return eff[-1] == "model", eff[0] == "model"
+
+    def pair(prefix: str, cols: list, row, ok: bool = True) -> bool:
+        """The column sites `cols` and the row site `row` take their roles
+        where `ok` and the specs shard them as a pair."""
+        paths = [f"{prefix}/{s.name}" for s in cols]
+        row_path = f"{prefix}/{row.name}"
+        if not (ok and all(axes(p, s)[0] for p, s in zip(paths, cols))
+                and axes(row_path, row)[1]):
+            return False
+        roles.update(dict.fromkeys(paths, "col"))
+        roles[row_path] = "row"
+        return True
+
+    def attn(prefix: str, a) -> None:
+        pair(prefix, [a.q, a.k, a.v], a.o, a.n_heads % tp == 0 and a.n_kv_heads % tp == 0)
+
+    def mlp(prefix: str, m) -> None:
+        if m is not None:
+            pair(prefix, ([m.gate] if m.gated else []) + [m.up], m.down)
+
+    for prefix, b in _blocks(bundle):
+        if b.kind == "mamba":
+            mc = b.mamba
+            if pair(prefix, [mc.in_proj], mc.out_proj,
+                    mc.n_heads % tp == 0 and mc.n_groups == 1):
+                path = f"{prefix}/{mc.in_proj.name}"
+                selected[path] = _in_proj_blocks(mc)
+                leaf = path.rsplit("/", 1)[0]
+                cuts.update({f"{leaf}/conv_w": (1, _conv_blocks(mc)),
+                             f"{leaf}/conv_b": (0, _conv_blocks(mc))})
+                cuts.update({f"{leaf}/{n}": (0, None) for n in ("dt_bias", "A_log", "D")})
+                kept.append("ssm_heads")
+            continue
+        attn(prefix, b.attn)
+        mlp(prefix, b.mlp)
+        mlp(prefix, b.residual_mlp)
+        if b.kind == "moe":
+            mlp(prefix, b.moe.shared)
+            if b.moe.n_experts % tp == 0:
+                roles.update({f"{prefix}/{k}": "ep" for k in EXPERT_KINDS})
+                kept.append("experts_over_model")
+    if bundle.kind == "hybrid":
+        attn("shared", bundle.cfg.shared_attn)
+        mlp("shared", bundle.cfg.shared_mlp)
+    elif bundle.cfg.lm_head is not None and axes("lm_head", bundle.cfg.lm_head)[0]:
         roles["lm_head"] = "col_gather"
     vocab = rules.param_spec("embed/table", tuple(specs["embed/table"].shape))[0] == "model"
 
-    dims: dict[str, int] = {"embed/table": 0} if vocab else {}
+    if vocab:
+        cuts["embed/table"] = (0, None)
     for path, role in roles.items():
-        stacked = path.startswith("segments/")
-        shape = {p.rsplit("/", 1)[1]: tuple(s.shape)[1 if stacked else 0:]
+        shape = {p.rsplit("/", 1)[1]: tuple(s.shape)[1 if is_stacked(p) else 0:]
                  for p, s in specs.items() if p.rsplit("/", 1)[0] == path}
-        if role.startswith("col"):
+        if role == "ep":
+            want = {"w": 0, "table_q": 0, "table_scale": 0}
+        elif role.startswith("col"):
             want = {"table_q": 2, "w": 1, "b": 0}
             if "table_scale" in shape and shape["table_scale"][2] > 1:
                 want["table_scale"] = 2
@@ -125,59 +225,100 @@ def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
             want = {"table_q": 0, "centroids": 0, "w": 0}
             if "table_scale" in shape and shape["table_scale"][0] > 1:
                 want["table_scale"] = 0
-        dims.update({f"{path}/{k}": d for k, d in want.items() if k in shape})
-    return Layout(tp=tp, roles=roles, vocab=vocab, dims=dims)
+        cuts.update({f"{path}/{k}": (d, selected.get(path)) for k, d in want.items()
+                     if k in shape})
+    return Layout(tp=tp, roles=roles, vocab=vocab, cuts=cuts, kept=tuple(dict.fromkeys(kept)))
 
 
 def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
     """The bundle a rank runs: its sites at shard dims with their roles, its
-    attention at its heads."""
-    tp = lay.tp
+    attention at its heads, its experts, its SSD heads."""
+    tp, roles = lay.tp, lay.roles
 
     def local(site, path):
-        role = lay.roles[path]
+        role = roles[path]
         dims = ({"d_out": site.d_out // tp} if role.startswith("col")
                 else {"d_in": site.d_in // tp})
         return dataclasses.replace(site, tp=role, **dims)
 
-    segs = []
-    for i, (count, bcfg) in enumerate(bundle.cfg.segments):
-        a, m = bcfg.attn, bcfg.mlp
-        if f"segments/{i}/attn/q" in lay.roles:
-            a = dataclasses.replace(
-                a, n_heads=a.n_heads // tp, n_kv_heads=a.n_kv_heads // tp,
-                **{n: local(getattr(a, n), f"segments/{i}/attn/{n}") for n in "qkvo"})
-        if f"segments/{i}/mlp/up" in lay.roles:
-            names = (("gate",) if m.gated else ()) + ("up", "down")
-            m = dataclasses.replace(m, d_ff=m.d_ff // tp,
-                                    **{n: local(getattr(m, n), f"segments/{i}/mlp/{n}")
-                                       for n in names})
-        segs.append((count, dataclasses.replace(bcfg, attn=a, mlp=m)))
+    def attn(prefix, a):
+        if f"{prefix}/{a.q.name}" not in roles:
+            return a
+        return dataclasses.replace(
+            a, n_heads=a.n_heads // tp, n_kv_heads=a.n_kv_heads // tp,
+            **{n: local(getattr(a, n), f"{prefix}/{getattr(a, n).name}") for n in "qkvo"})
+
+    def mlp(prefix, m):
+        if m is None or f"{prefix}/{m.up.name}" not in roles:
+            return m
+        names = (("gate",) if m.gated else ()) + ("up", "down")
+        return dataclasses.replace(
+            m, d_ff=m.d_ff // tp,
+            **{n: local(getattr(m, n), f"{prefix}/{getattr(m, n).name}") for n in names})
+
+    def moe(prefix, mo):
+        mo = dataclasses.replace(mo, shared=mlp(prefix, mo.shared))
+        if f"{prefix}/moe/gate" not in roles:
+            return mo
+        return dataclasses.replace(
+            mo, ep=tp, **{n: dataclasses.replace(getattr(mo, n), n_experts=mo.n_experts // tp)
+                          for n in ("gate", "up", "down")})
+
+    def mamba(prefix, mc):
+        if f"{prefix}/{mc.in_proj.name}" not in roles:
+            return mc
+        di, h = mc.d_inner // tp, mc.n_heads // tp
+        return dataclasses.replace(
+            mc, d_inner=di, n_heads=h, tp=tp,
+            in_proj=dataclasses.replace(mc.in_proj, tp="col",
+                                        d_out=2 * di + 2 * mc.n_groups * mc.ssm_state + h),
+            out_proj=local(mc.out_proj, f"{prefix}/{mc.out_proj.name}"))
+
+    def block(prefix, b):
+        if b.kind == "mamba":
+            return dataclasses.replace(b, mamba=mamba(prefix, b.mamba))
+        b = dataclasses.replace(b, attn=attn(prefix, b.attn), mlp=mlp(prefix, b.mlp),
+                                residual_mlp=mlp(prefix, b.residual_mlp))
+        return dataclasses.replace(b, moe=moe(prefix, b.moe)) if b.kind == "moe" else b
+
     cfg = bundle.cfg
-    head = local(cfg.lm_head, "lm_head") if "lm_head" in lay.roles else cfg.lm_head
-    cfg = dataclasses.replace(cfg, segments=tuple(segs), lm_head=head,
-                              vocab_sharded=lay.vocab)
+    if bundle.kind == "hybrid":
+        cfg = dataclasses.replace(cfg, mamba_block=block("mamba_stack", cfg.mamba_block),
+                                  shared_attn=attn("shared", cfg.shared_attn),
+                                  shared_mlp=mlp("shared", cfg.shared_mlp),
+                                  vocab_sharded=lay.vocab)
+    else:
+        segs = tuple((count, block(f"segments/{i}", b))
+                     for i, (count, b) in enumerate(cfg.segments))
+        head = local(cfg.lm_head, "lm_head") if "lm_head" in roles else cfg.lm_head
+        cfg = dataclasses.replace(cfg, segments=segs, lm_head=head, vocab_sharded=lay.vocab)
     return dataclasses.replace(bundle, cfg=cfg)
 
 
-def shard_of(a: torch.Tensor, dim: int | None, rank: int, tp: int) -> torch.Tensor:
-    """Rank `rank`'s part of `a` along `dim` (all of it when None)."""
-    if dim is None:
+def cut(a: torch.Tensor, c: Cut | None, rank: int, tp: int) -> torch.Tensor:
+    """Rank `rank`'s part of `a` by the cut `c` (all of it when None): a
+    view where the part is one block, else the blocks' parts concatenated."""
+    if c is None:
         return a
-    n = a.shape[dim] // tp
-    return a.narrow(dim, rank * n, n)
+    dim, blocks = c
+    if blocks is None:
+        n = a.shape[dim] // tp
+        return a.narrow(dim, rank * n, n)
+    parts, at = [], 0
+    for n, split in blocks:
+        parts.append(a.narrow(dim, at + rank * (n // tp), n // tp) if split
+                     else a.narrow(dim, at, n))
+        at += n
+    return torch.cat(parts, dim)
 
 
-def shard_arrays(flat: dict[str, torch.Tensor], lay: Layout, rank: int) -> dict[str, Any]:
-    """{reference path: rank's part} of the reference's stacked leaves (a
-    stacked leaf's layer axis comes first)."""
-    out = {}
-    for p, a in flat.items():
-        d = lay.dims.get(p)
-        if d is not None and p.startswith("segments/"):
-            d += 1
-        out[p] = shard_of(a, d, rank, lay.tp)
-    return out
+def cut_stacked(path: str, a: torch.Tensor, lay: Layout, rank: int) -> torch.Tensor:
+    """Rank `rank`'s part of the reference's leaf `path` (a stacked leaf's
+    layer axis first)."""
+    c = lay.cuts.get(path)
+    if c is not None and is_stacked(path):
+        c = (c[0] + 1, c[1])
+    return cut(a, c, rank, lay.tp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +335,8 @@ class RankParams:
 def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh
           ) -> tuple[ModelBundle, Any, Layout]:
     """(local bundle, the rank's params on its device, layout) of a full
-    param tree (port layout, any device), or of `RankParams`."""
+    param tree (port layout, any device), or of `RankParams`. A part that
+    is one contiguous block of a leaf on the mesh's device is a view of it."""
     lay = layout(bundle, rules)
     local = local_bundle(bundle, lay)
     if isinstance(params, RankParams):
@@ -204,7 +346,7 @@ def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh
         return local, params.tree, lay
 
     def take(path, leaf):
-        part = shard_of(leaf, lay.dims.get(path), mesh.model_rank, lay.tp)
+        part = cut(leaf, lay.cuts.get(path), mesh.model_rank, lay.tp)
         return part.to(mesh.device).contiguous()
 
     return local, tree_map_ref(take, params), lay
@@ -213,12 +355,15 @@ def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh
 def kernel_signatures(local: ModelBundle, lay: Layout,
                       dtype: str) -> list[tuple[int, int, int, int, str]]:
     """The distinct (M, C, K, V, dtype) at which a rank's LUT kernel sites
-    launch: column sites at M / tp in the compute dtype, row sites at C / tp
-    in float32 (their unit-scale accumulators)."""
+    launch: column sites at their M shard (in_proj at its selection) in the
+    compute dtype, row sites at C / tp in float32 (their unit-scale
+    accumulators), replicated sites whole. The expert sites launch no
+    kernel."""
     sigs: dict[tuple, None] = {}
     for site in local.sites():
         lut = site.lut
-        if site.mode != Mode.LUT_INFER or lut is None or not lut.use_kernel:
+        if (site.mode != Mode.LUT_INFER or lut is None or not lut.use_kernel
+                or site.kind in EXPERT_KINDS):
             continue
         row = lay.roles.get(site.path) == "row"
         sigs[(site.d_out, site.d_in // lut.v, lut.k, lut.v, "float32" if row else dtype)] = None

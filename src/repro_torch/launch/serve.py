@@ -35,10 +35,11 @@ end over the continuous-batching engine with a LUT_INFER (int8 table) model.
       --routing prefix_affinity --paged
 
   # tensor-parallel over N ranks (one process each; rank 0 schedules, the
-  # others follow): N cards over NCCL, or on the CPU N gloo ranks:
+  # others follow): N cards over NCCL, or on the CPU N gloo ranks; every
+  # family the engine serves (dense, moe expert-parallel, ssm, hybrid):
   PYTHONPATH=src python -m repro_torch.launch.serve --artifact <dir> --tp 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tp 2 \
-      --layers 2 --d-model 64 --vocab 128
+      --layers 2 --d-model 64 --vocab 128 [--arch mamba2_370m|zamba2_1p2b|arctic_480b]
 
 Counterpart of `repro.launch.serve`. With --artifact the arch, plan and
 mode come from the manifest and the artifact's autotune snapshot is
@@ -358,15 +359,20 @@ def serve_rank(rank: int, args, devices: list[str], init_method: str) -> int:
         mesh.close()
 
 
-def serve_on_mesh(mesh, args, *, lead=None, on_mark=None, on_engine=None):
+def serve_on_mesh(mesh, args, *, model=None, lead=None, on_mark=None, on_engine=None):
     """One rank's engine on `mesh`: load this rank's shards (an artifact's,
-    or random init cut on the host), build the engine as `args` say, and
+    or random init cut on the host), or take them from `model` = (bundle,
+    whole params, on any device: a part that is one block of a leaf on the
+    rank's device stays a view of it), build the engine as `args` say, and
     show it to `on_engine(eng)` on every rank. Rank 0 leads, with
     `lead(eng, source)` where given, else in batch or HTTP mode; then it
     releases the others, which follow it and pass each of its marks to
     `on_mark(code)`. Returns rank 0's exit code (or what `lead` returned), a
     follower's `follow()` counters."""
-    if args.artifact:
+    if model is not None:
+        bundle, params = model
+        source = f"the caller's model ({bundle.arch.name})"
+    elif args.artifact:
         from repro_torch.serving.artifact import load_artifact
 
         art = load_artifact(args.artifact, mesh=mesh)

@@ -21,6 +21,12 @@ the backward pass, as the reference's scan does with remat. Under an
 activation tape the mamba layers record as 'mamba_stack/<j>/<site>' and
 every invocation of the shared block under the one prefix 'shared': its
 records pool over the invocations, as in the reference.
+
+A tensor-parallel rank (`distributed/tensor_parallel.py`) runs the same
+loop on its shard: the mamba layers on its SSD heads, the shared block on
+its attention heads and MLP columns (its per-invocation KV caches, dense or
+paged, hold its KV heads), the embedding and the tied logits on its vocab
+rows (`HybridCfg.vocab_sharded`).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import sharded
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -69,6 +76,7 @@ class HybridCfg:
     shared_mlp: mlp_mod.MLPCfg
     fuse: SiteCfg                     # 2*d_model -> d_model (dense)
     out: SiteCfg                      # d_model -> d_model
+    vocab_sharded: bool = False  # a tensor-parallel rank's vocab rows (models/sharded.py)
 
     @property
     def invocation_points(self) -> tuple[int, ...]:
@@ -161,7 +169,8 @@ def hybrid_apply(cfg: HybridCfg, params: Params, *, tokens: torch.Tensor, pos: t
                  block_tables: torch.Tensor | None = None,
                  state: StateRows | None = None) -> tuple[torch.Tensor, Params | None]:
     """Returns (logits (B, S, vocab), caches updated in place)."""
-    x = embed(params["embed"], tokens).to(compute_dtype)
+    x = (sharded.embed if cfg.vocab_sharded else embed)(params["embed"], tokens)
+    x = x.to(compute_dtype)
     x0 = x
     inv = 0
     remat = remat_active(True, caches)
@@ -184,4 +193,6 @@ def hybrid_apply(cfg: HybridCfg, params: Params, *, tokens: torch.Tensor, pos: t
                               block_tables=block_tables)
             inv += 1
     x = rmsnorm(params["final_norm"], x)
+    if cfg.vocab_sharded:
+        return sharded.tied_logits(x, params["embed"]["table"]), caches
     return x @ params["embed"]["table"].to(x.dtype).T, caches

@@ -23,6 +23,11 @@ whatever a previous request left there), and stops each row's state at its
 `valid` length: dt is 0 at the padded positions, which leaves the state
 unchanged, and the conv tail is the last W-1 valid inputs. On a prompt of
 exactly one chunk the two agree.
+
+A tensor-parallel rank (`distributed/tensor_parallel.py`) runs its share of
+the SSD heads with the same code: its in_proj columns, conv channels and
+cache rows are its heads' (the B and C columns whole), and only the gated
+norm, which normalizes the whole d_inner row, gathers across the ranks.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharded
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -56,6 +62,10 @@ class Mamba2Cfg:
     chunk: int = 256
     in_proj: SiteCfg = None   # d_model -> 2*d_inner + 2*G*N + H
     out_proj: SiteCfg = None  # d_inner -> d_model
+    # the tensor-parallel degree its heads are split over: d_inner and
+    # n_heads are a rank's share, the gated norm's scale whole
+    # (`sharded.gated_rmsnorm`)
+    tp: int = 1
 
     @property
     def d_xbc(self) -> int:
@@ -85,7 +95,7 @@ def mamba2_init(gen: torch.Generator, cfg: Mamba2Cfg, *, dtype=torch.float32,
         "dt_bias": dt_bias,
         "A_log": torch.log(1.0 + 15.0 * uniform(cfg.n_heads)),
         "D": torch.ones((cfg.n_heads,), dtype=torch.float32, device=device),
-        "norm": rmsnorm_init(cfg.d_inner, dtype, device),
+        "norm": rmsnorm_init(cfg.d_inner * cfg.tp, dtype, device),
     }
 
 
@@ -100,7 +110,7 @@ def mamba2_specs(cfg: Mamba2Cfg, dtype=torch.float32) -> Params:
         "dt_bias": ParamSpec((cfg.n_heads,), f32),
         "A_log": ParamSpec((cfg.n_heads,), f32),
         "D": ParamSpec((cfg.n_heads,), f32),
-        "norm": {"scale": ParamSpec((cfg.d_inner,), dtype)},
+        "norm": {"scale": ParamSpec((cfg.d_inner * cfg.tp,), dtype)},
     }
 
 
@@ -267,5 +277,5 @@ def mamba2(cfg: Mamba2Cfg, p: Params, x: torch.Tensor, *, cache: Params | None =
         write_rows(cache, new_cache, rows)
     y = y.float() + p["D"].float()[None, None, :, None] * xs.float()
     y = y.reshape(b, s, di).to(x.dtype)
-    y = _gated_rmsnorm(p["norm"]["scale"], y, z)
+    y = (sharded.gated_rmsnorm if cfg.tp > 1 else _gated_rmsnorm)(p["norm"]["scale"], y, z)
     return linear(cfg.out_proj, p["out_proj"], y)

@@ -33,6 +33,15 @@ gradients on, each chunk is recomputed in the backward pass instead of
 keeping its tables (`torch.utils.checkpoint`): a layer's saved state is its
 chunks' inputs, not E tables. As in the reference, the expert sites never
 record to an activation tape.
+
+Expert parallelism (`distributed/tensor_parallel.py`): a tensor-parallel
+rank holds E / ep experts whole (`MoECfg.ep`), routes every token with the
+replicated router (so routing and capacity are the same on every rank),
+runs the tokens routed to its experts and all-reduces its share of the
+combine in fp32, once per layer, before the shared expert or the dense
+residual is added. Each expert's output is the unsharded site's on the
+same input; the combined sum may round otherwise (at most top-k nonzero
+terms per token, summed across ranks instead of in one contraction).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from repro_torch.core import amm, pq, quant
 from repro_torch.core.amm import LUTConfig, Mode
 from repro_torch.core.temperature import init_log_temperature
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import sharded
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -210,6 +220,9 @@ class MoECfg:
     act: str = "silu"
     capacity_factor: float = 1.25
     group_tokens: int = 1024
+    # expert parallelism: the tensor-parallel degree the experts are split
+    # over (the expert sites then hold n_experts / ep experts: the rank's)
+    ep: int = 1
 
 
 def moe_init(gen: torch.Generator, cfg: MoECfg, *, dtype=torch.float32, device="cpu") -> Params:
@@ -235,10 +248,12 @@ def moe_specs(cfg: MoECfg, dtype=torch.float32) -> Params:
     return p
 
 
-def moe(cfg: MoECfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (y, aux): routing groups are `group_tokens` chunks of
-    the batch-major token stream; aux is the Switch load-balance value
-    E * sum_e f_e P_e / k (training's; serving drops it)."""
+def route(cfg: MoECfg, p: Params, x: torch.Tensor):
+    """The routing of x (B, S, D): (x in routing groups (G, g, D), the fp32
+    router probabilities (G, g, E), dispatch (G, g, E, cap) bool, combine
+    weights (G, g, E, cap) in x's dtype, cap). Groups are `group_tokens`
+    chunks of the batch-major token stream (halved until they divide S), so
+    a group never spans two batch rows; slots fill in token order."""
     b0, s0, d = x.shape
     g_tok = max(1, min(cfg.group_tokens, s0))
     while s0 % g_tok:
@@ -269,20 +284,40 @@ def moe(cfg: MoECfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Te
         combine = combine + gate.to(x.dtype)[..., None, None] * d_k
         fill = fill + (onehot_e * keep[..., None].to(torch.int32)).sum(dim=1, dtype=torch.int32)
         remaining = remaining * (1.0 - F.one_hot(idx, e).to(probs.dtype))
+    return x, probs, dispatch, combine, cap
+
+
+def moe(cfg: MoECfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y, aux): routed by `route`; aux is the Switch
+    load-balance value E * sum_e f_e P_e / k (training's; serving drops
+    it)."""
+    b0, s0, d = x.shape
+    x, probs, dispatch, combine, cap = route(cfg, p, x)
+    b, e, k = x.shape[0], cfg.n_experts, cfg.top_k
 
     # load-balance aux value (Switch): E * sum_e f_e * P_e / k
     frac_tokens = dispatch.sum(dim=-1).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
     aux = e * (frac_tokens * frac_probs).sum() / k
 
-    xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x).reshape(e, b * cap, d)
-    active = dispatch.any(dim=3).any(dim=1).any(dim=0).nonzero()[:, 0]
-    xa = xin[active]
-    g = activation(cfg.act, expert_linear(cfg.gate, p["gate"], xa, active))
-    u = expert_linear(cfg.up, p["up"], xa, active)
-    h = x.new_zeros((e, b * cap, d)).index_copy(
-        0, active, expert_linear(cfg.down, p["down"], g * u, active))
-    y = torch.einsum("bsec,ebcd->bsd", combine, h.reshape(e, b, cap, d))
+    # the experts held here: all E, or a tensor-parallel rank's E / ep
+    n_e = e // cfg.ep
+    lo = 0 if cfg.ep == 1 else sharded.model_rank() * n_e
+    disp, comb = dispatch[:, :, lo:lo + n_e], combine[:, :, lo:lo + n_e]
+    xin = torch.einsum("bsec,bsd->ebcd", disp.to(x.dtype), x).reshape(n_e, b * cap, d)
+    active = disp.any(dim=3).any(dim=1).any(dim=0).nonzero()[:, 0]
+    h = x.new_zeros((n_e, b * cap, d))
+    if active.numel():                   # a rank's experts may receive no token
+        xa = xin[active]
+        g = activation(cfg.act, expert_linear(cfg.gate, p["gate"], xa, active))
+        u = expert_linear(cfg.up, p["up"], xa, active)
+        h.index_copy_(0, active, expert_linear(cfg.down, p["down"], g * u, active))
+    if cfg.ep == 1:
+        y = torch.einsum("bsec,ebcd->bsd", comb, h.reshape(n_e, b, cap, d))
+    else:
+        # the rank's experts' share of the combine, summed over the ranks in fp32
+        y = sharded.all_reduce(torch.einsum("bsec,ebcd->bsd", comb.float(),
+                                            h.reshape(n_e, b, cap, d).float())).to(x.dtype)
 
     if cfg.shared is not None:
         y = y + mlp_mod.mlp(cfg.shared, p["shared"], x)

@@ -1,5 +1,6 @@
 """A tensor-parallel rank's pieces of the forward: sharded sites, the
-vocab-sharded embedding and the tied logits.
+vocab-sharded embedding and the tied logits, the MoE combine's reduction
+and the mamba2 block's gated norm.
 
 A rank's bundle (`distributed.tensor_parallel.local_bundle`) names each
 sharded site's role in its config (`common.SiteCfg.tp`: "col", "col_gather"
@@ -21,7 +22,12 @@ rank's last-axis block, in rank order).
     as the kernels fuse it, cast): its output is the unsharded site's
     bytewise. Other scale layouts and dense sites reduce fp32 partials;
   * the embedding is vocab-sharded (masked lookup, then all_reduce) and the
-    tied logits vocab-sharded and gathered.
+    tied logits vocab-sharded and gathered;
+  * an expert-parallel MoE layer's combined output is all-reduced in fp32
+    (`all_reduce`, `model_rank` names the rank's experts);
+  * a mamba2 rank's gated norm gathers the gated activations of every
+    rank's heads and normalizes the whole d_inner row, as the unsharded
+    block does, then keeps the rank's columns (`gated_rmsnorm`).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import functools
 from typing import Any, Iterator
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import pq
 from repro_torch.core.amm import Mode, lut_linear
@@ -124,3 +131,28 @@ def embed(p, ids: torch.Tensor) -> torch.Tensor:
 def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits of the tied head from a rank's vocab rows, gathered."""
     return _mesh().gather_last((x @ table.to(x.dtype).T).float()).to(x.dtype)
+
+
+def model_rank() -> int:
+    """The rank's index on the model axis of the bound mesh."""
+    return _mesh().model_rank
+
+
+def all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over the model axis of the bound mesh, in place."""
+    return _mesh().all_reduce(t)
+
+
+def gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """`mamba2._gated_rmsnorm` of a rank's heads: y, z (..., d_inner / tp)
+    the rank's columns, `scale` (d_inner,) whole. The gated activations of
+    every rank are gathered (fp32, each value its rank's exactly) and the
+    whole row normalized as the unsharded block normalizes it; returns the
+    rank's columns, the unsharded block's bytewise."""
+    mesh = _mesh()
+    g = mesh.gather_last((y * F.silu(z)).float())
+    var = (g * g).mean(dim=-1, keepdim=True)
+    full = (g * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+    m = y.shape[-1]
+    return full[..., mesh.model_rank * m: (mesh.model_rank + 1) * m].contiguous()

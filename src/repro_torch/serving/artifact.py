@@ -249,7 +249,8 @@ def load_artifact(directory: str | os.PathLike, *, plan: str = TARGET_PLAN,
     tensor-parallel `mesh` (`launch/mesh.py`), the params are this rank's
     shards only, placed by `ShardingRules` on the mesh's device
     (`tensor_parallel.RankParams`, what `ServingEngine(..., mesh=)` takes):
-    each leaf is cut on the host before it reaches the device."""
+    each leaf is cut to the rank's part as soon as it is read and the rest
+    dropped, so a rank's host peak is its shard plus one leaf."""
     device = mesh.device if mesh is not None and device is None else resolve_device(device)
     primary = pathlib.Path(directory)
     resolved = _resolve_artifact_dir(primary)
@@ -302,6 +303,11 @@ def _load_resolved(directory: pathlib.Path, *, plan: str, restore_autotune: bool
         raise ValueError(f"rebuilt bundle kind {bundle.kind!r} != manifest {manifest['kind']!r}")
 
     specs = flatten_tree(bundle.param_specs())
+    lay = None
+    if mesh is not None:
+        from repro_torch.distributed import sharding, tensor_parallel
+
+        lay = tensor_parallel.layout(bundle, sharding.ShardingRules.for_mesh(mesh))
     flat = {}
     with np.load(directory / _ARRAYS) as data:
         missing = [p for p in specs if p not in recorded or keymap[p] not in data.files]
@@ -321,16 +327,16 @@ def _load_resolved(directory: pathlib.Path, *, plan: str, restore_autotune: bool
             if a.shape != tuple(spec.shape) or stored != want:
                 raise ValueError(f"{p}: artifact {a.shape}/{stored} != model "
                                  f"{tuple(spec.shape)}/{want}")
-            flat[p] = _tensor_of(a, stored)
+            t = _tensor_of(a, stored)
+            if lay is not None and p in lay.cuts:
+                # the rank's part, copied out, so that the whole leaf goes now
+                t = tensor_parallel.cut_stacked(p, t, lay, mesh.model_rank).clone()
+            flat[p] = t
+            del a, t
     if mesh is not None:
-        from repro_torch.distributed import sharding, tensor_parallel
-
-        rules = sharding.ShardingRules.for_mesh(mesh)
-        lay = tensor_parallel.layout(bundle, rules)
         local = tensor_parallel.local_bundle(bundle, lay)
-        tree = params_from_numpy(local, unflatten_tree(
-            tensor_parallel.shard_arrays(flat, lay, mesh.model_rank)), device=device)
-        params = tensor_parallel.RankParams(tree=tree, rank=mesh.model_rank, tp=rules.tp)
+        tree = params_from_numpy(local, unflatten_tree(flat), device=device)
+        params = tensor_parallel.RankParams(tree=tree, rank=mesh.model_rank, tp=lay.tp)
     else:
         params = params_from_numpy(bundle, unflatten_tree(flat), device=device)
     if restore_autotune:

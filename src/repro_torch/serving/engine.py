@@ -66,9 +66,11 @@ rank makes a scheduling decision, so the ranks' collectives never diverge.
 The logits are whole and identical on every rank; rank 0 samples. The
 autotune warm-up covers the rank's site shapes: rank 0 tunes, then
 broadcasts its records, so every rank launches the same kernels.
-Speculative decoding does not compose with a mesh, as in the reference;
-the families `tensor_parallel.tp_refusal` names wait for ROADMAP Queue A
-item 5.
+Every family the engine serves is served on a mesh: the dense, MoE
+(expert-parallel), SSM and hybrid ones, each rank's per-slot SSM state and
+conv window its heads' and channels' (`tensor_parallel`), prefix sharing
+off as without a mesh. Speculative decoding does not compose with a mesh,
+as in the reference.
 """
 
 from __future__ import annotations

@@ -5,6 +5,10 @@ The ranks run on the CPU (tests/test_torch_tp.py) or share one card
 `run_ranks(fn, tp, *args)` spawns `tp` ranks that join a gloo mesh on the
 CPU and call `fn(mesh, *args)`; it returns their results in rank order,
 tensors as numpy arrays.
+`serve_family` (`serve_families`) is the ranks' work in
+tests/test_torch_tp_families.py: the MoE, SSM and hybrid artifacts through
+the unsharded and the tensor-parallel engines, with the experts' outputs
+recorded too.
 `serve_variant` (`serve_variants`) is the ranks' work in tests/test_torch_tp.py: the same
 requests through the unsharded engine (rank 0) and through the dense, paged
 and artifact tensor-parallel engines, every linear site's output and every
@@ -94,15 +98,21 @@ def run_ranks(fn, tp: int, *args, devices: list[str] | None = None,
 
 
 @contextlib.contextmanager
-def recording():
-    """Record (site name, mode, tp role, output) of every attention and MLP
-    site call, and the logits and write lengths (the valid positions of
-    each row) of every forward, in call order."""
+def recording(experts: list | None = None, layers: list | None = None):
+    """Record (site name, mode, tp role, output) of every linear site call
+    (attention, MLP, mamba2, the router and the hybrid's fuse and out), and
+    the logits and write lengths (the valid positions of each row) of every
+    forward, in call order; with `experts`, also ((MoE layer call, expert
+    site call in it), the site's experts held, the experts called, input,
+    output) of every expert site call, and with `layers` (MoE layer call,
+    input, output) of every MoE layer."""
     from repro_torch.configs import ModelBundle
-    from repro_torch.models import attention, mlp
+    from repro_torch.models import attention, hybrid, mamba2, mlp, moe
 
     sites, logits = [], []
-    orig = attention.linear, ModelBundle.forward_step
+    mods = (attention, mlp, mamba2, moe, hybrid)
+    orig = attention.linear, ModelBundle.forward_step, moe.expert_linear, moe.moe
+    at = [0, 0]                       # (MoE layer call, expert site call in it)
 
     def linear(site, p, x):
         y = orig[0](site, p, x)
@@ -115,13 +125,31 @@ def recording():
         logits.append((out[0].detach().cpu(), batch["write_len"].clone()))
         return out
 
-    attention.linear = mlp.linear = linear
+    def moe_layer(cfg, p, x):
+        at[:] = at[0] + 1, 0
+        y, aux = orig[3](cfg, p, x)
+        if layers is not None:
+            layers.append((at[0], x.detach().cpu(), y.detach().cpu()))
+        return y, aux
+
+    def expert_linear(s, p, x, ids=None):
+        y = orig[2](s, p, x, ids)
+        at[1] += 1
+        experts.append((tuple(at), s.n_experts, ids.cpu(), x.detach().cpu(), y.detach().cpu()))
+        return y
+
+    for mod in mods:
+        mod.linear = linear
     ModelBundle.forward_step = forward_step
+    if experts is not None:
+        moe.expert_linear, moe.moe = expert_linear, moe_layer
     try:
         yield sites, logits
     finally:
-        attention.linear = mlp.linear = orig[0]
+        for mod in mods:
+            mod.linear = orig[0]
         ModelBundle.forward_step = orig[1]
+        moe.expert_linear, moe.moe = orig[2], orig[3]
 
 
 def _run(eng, reqs) -> list[list[int]]:
@@ -201,3 +229,69 @@ def _pool_leaves(caches, names=("k_pool", "v_pool")):
     from repro_torch.configs import cache_leaves
 
     return [(n, t) for n, t in cache_leaves(caches) if n in names]
+
+
+FAMILY_ENGINE_KW = dict(n_slots=2, max_seq=32, prefill_chunk=8, autotune_lut=False)
+
+
+def serve_family(mesh, art_dir: str, reqs: list, paged: bool) -> dict:
+    """One family's artifact: rank 0 serves `reqs` through the unsharded
+    engines, then every rank through the tensor-parallel ones, dense and
+    (with `paged`) paged, each with its site, expert and logit records.
+    Returns {"plain": {case: ...}, "tp": {case: ...}}."""
+    from repro_torch.configs import cache_leaves
+    from repro_torch.serving.artifact import load_artifact
+    from repro_torch.serving.engine import ServingEngine
+
+    dev = mesh.device
+    art = load_artifact(art_dir, device=dev, restore_autotune=False)
+    cases = [("dense", {})] + ([("paged", dict(paged=True, page_size=4))] if paged else [])
+    out: dict = {"plain": {}, "tp": {}}
+    if mesh.rank == 0:
+        for name, kw in cases:
+            experts: list = []
+            with recording(experts) as (sites, logits):
+                toks = _run(ServingEngine(art.bundle, art.params, device=dev,
+                                          **FAMILY_ENGINE_KW, **kw), reqs)
+            out["plain"][name] = {"tokens": toks, "sites": sites, "logits": logits,
+                                  "experts": experts}
+    for name, kw in cases:
+        experts, layers = [], []
+        with recording(experts, layers) as (sites, logits):
+            eng = ServingEngine(art.bundle, art.params, mesh=mesh, device=dev,
+                                **FAMILY_ENGINE_KW, **kw)
+            mesh.reset_counters()
+            if mesh.rank == 0:
+                toks, st = _run(eng, reqs), eng.stats()
+                eng.close()
+            else:
+                toks, st = None, eng.follow()
+        if name == "dense":
+            # the rank's shards as load_artifact(mesh=) reads them: place()'s bytewise
+            ranked = load_artifact(art_dir, mesh=mesh, restore_autotune=False).params.tree
+            out["artifact_shards_equal"] = (
+                _leaves(ranked).keys() == _leaves(eng.params).keys()
+                and all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(_leaves(ranked).values(), _leaves(eng.params).values())))
+        kv = [t for n, t in cache_leaves(eng.caches) if n in ("k", "v", "k_pool", "v_pool")]
+        out["tp"][name] = {
+            "tokens": toks, "sites": sites, "logits": logits, "experts": experts,
+            "moe_layers": layers, "stats": st,
+            "counters": dict(mesh.counters), "cuts": dict(eng.layout.cuts),
+            "kept": eng.layout.kept,
+            "kv_written": [bool(t.float().abs().sum() > 0) for t in kv],
+            "cache_shapes": {n: tuple(t.shape) for n, t in cache_leaves(eng.caches)}}
+    return out
+
+
+def _leaves(tree, path: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in _leaves(tree[key], f"{path}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, t in enumerate(tree) for k, v in _leaves(t, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def serve_families(mesh, families: dict) -> dict:
+    """`serve_family` of each {arch: (artifact directory, requests, paged)}."""
+    return {name: serve_family(mesh, *args) for name, args in families.items()}

@@ -11,7 +11,8 @@ requests: greedy tokens equal the reference's unsharded engine's and its
 tp=2 engine's; the logits are within 1e-4 of the port's unsharded engine's;
 with m-shared tables every LUT site's output (a column site's columns, a
 row site's reduced output) is the unsharded site's bytewise. Also the
-launcher's `--tp 2`, its refusals, and the engine's refusals."""
+launcher's `--tp 2`, its refusals, and the engine's refusals (the MoE, SSM
+and hybrid families are served: tests/test_torch_tp_families.py)."""
 
 import json
 import os
@@ -32,6 +33,7 @@ from repro.serving import artifact as jart
 from repro.serving.engine import ServingEngine as JServingEngine
 from repro_torch.configs import build_model, get_arch, reduce_arch
 from repro_torch.core.amm import Mode
+from repro_torch.distributed.tensor_parallel import tp_refusal
 from repro_torch.launch.mesh import HostMesh, backend_for
 from repro_torch.serving.engine import ServingEngine
 from tests._subproc import SRC
@@ -285,15 +287,25 @@ def test_launcher_tp_refusals_exit_2(served, extra, why):
 
 
 def test_left_out_families_are_refused_with_their_reason():
-    r = _launch("--tp", "2", "--arch", "mamba2_370m", "--layers", "2", "--d-model", "64",
+    """Tensor parallelism refuses the enc-dec and vision-LM families (the
+    engine serves neither) and LUT_TRAIN bundles, with their reasons, and
+    builds a tensor-parallel engine for the MoE, SSM and hybrid families."""
+    r = _launch("--tp", "2", "--arch", "whisper_tiny", "--layers", "2", "--d-model", "64",
                 "--vocab", "128", timeout=60)
-    assert r.returncode == 2 and "ROADMAP Queue A item 5" in r.stderr
-    mesh = HostMesh(data=1, model=2, rank=0, device=torch.device("cpu"), backend="gloo")
-    for name in ("arctic_480b", "mamba2_370m", "zamba2_1p2b"):
+    assert r.returncode == 2 and "not served by ServingEngine" in r.stderr
+    for name in ("whisper_tiny", "qwen2_vl_7b"):
         bundle = build_model(reduce_arch(get_arch(name), n_layers=2), Mode.LUT_INFER)
-        params = bundle.init(device="cpu")
-        with pytest.raises(ValueError, match="ROADMAP Queue A item 5"):
-            ServingEngine(bundle, params, mesh=mesh, device="cpu", autotune_lut=False)
+        assert "ROADMAP Queue A item 5" in tp_refusal(bundle)
+    train = build_model(reduce_arch(get_arch("mamba2_370m"), n_layers=2), Mode.LUT_TRAIN)
+    assert "not LUT_TRAIN" in tp_refusal(train)
+    mesh = HostMesh(data=1, model=2, rank=0, device=torch.device("cpu"), backend="gloo")
+    for name, kept in (("arctic_480b", "experts_over_model"), ("mamba2_370m", "ssm_heads"),
+                       ("zamba2_1p2b", "ssm_heads")):
+        bundle = build_model(reduce_arch(get_arch(name), n_layers=2), Mode.LUT_INFER)
+        assert tp_refusal(bundle) is None
+        eng = ServingEngine(bundle, bundle.init(device="cpu"), mesh=mesh, device="cpu",
+                            autotune_lut=False)
+        assert eng.layout.kept == (kept,)
     bundle = build_model(reduce_arch(get_arch("qwen3_1p7b"), n_layers=2), Mode.LUT_INFER)
     with pytest.raises(ValueError, match="spec_decode does not compose with mesh"):
         ServingEngine(bundle, bundle.init(device="cpu"), mesh=mesh, device="cpu",
