@@ -86,14 +86,15 @@ Phases (any failed check exits non-zero; no phase is skipped):
      repro_torch.launch.train --lut --steps LAUNCHER_STEPS` at its default
      size SIGKILLed after soft-PQ's first commit and re-run (finished stages
      restored, soft-PQ resumed at the committed step), its artifact served
-     by `launch.serve`; then a `--spec-draft attn/*` run at --steps
+     by `launch.serve`; and a `--spec-draft attn/*` run at --steps
      SPEC_STEPS served with `--spec-decode --draft-plan draft` (acceptance,
-     target forwards per token);
+     target forwards per token), run beside (a) so that (b) and the rest of
+     (c) are timed with nothing else on the card;
   8. the MoE, SSM and hybrid families at full published width, each served
      by ServingEngine (4 slots, prefill chunk 32, measured warm-up) on a
      burst of 8 requests whose prompts are one chunk, two chunks, ragged
      over two and ragged inside one (2 sampled): mamba2_370m and
-     zamba2_1p2b (SERVE_FAMILY_LAYERS: 12 of their 48 and 38 layers)
+     zamba2_1p2b (SERVE_FAMILY_LAYERS: 6 of 48 and 6 of 38 layers)
      exported as artifacts and loaded, then
      arctic_480b with ARCTIC_LAYERS layers (layer 0 dense, layer 1 LUT, 128
      experts top-2 and the dense residual; ~35 GB of bf16 params built on the
@@ -152,9 +153,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
      embedding sample batches, soft-PQ steps, deploy_to_artifact) and run
      as phase 9 runs; (d) `launch.train --arch mamba2_370m --lut --steps
      FAMILY_LAUNCHER_STEPS` at its default size, served by `launch.serve`, and
-     `--arch whisper_tiny`'s
-     refusal. The launches of (b) and (c)'s kernel runs join the kernels
-     line ("phase_launches").
+     `--arch whisper_tiny`'s refusal, run beside (a) (after (a'), whose
+     full-width try fills the card) so that (b) and (c) are timed and tuned
+     with nothing else on the card. The launches of (b) and (c)'s kernel
+     runs join the kernels line ("phase_launches").
  11. tensor-parallel serving at tp 2 (runs after phase 6): qwen3_1p7b at
      full width and TP_LAYERS layers (phase 4's arch and seed, cut from 28
      layers) written as an artifact, its plain run of phase 4's burst the
@@ -199,6 +201,32 @@ Phases (any failed check exits non-zero; no phase is skipped):
      wall time, a profiled window's device-busy share, the all-reduces per
      forward and their host time, peak memory per rank and the card's used
      memory. Its launches join the kernels line ("phase_launches").
+ 13. data-parallel training at dp 2 (after phase 10, before 8 and 12):
+     qwen3_1p7b DENSE at full width and DP_LAYERS layers, MarkovLM batches
+     over the full vocab; two rank processes, over NCCL when the host has
+     two cards, else both on the one card over gloo. (a) DP_STEPS steps of
+     `data_parallel.make_data_parallel_step` (ZeRO-1 moments) against the
+     single-rank step here on the same global batches: the loss within
+     1e-5 relative at every step, the params after one step within
+     `testing.AdamLeafRule`, after DP_STEPS the params and the gathered
+     moments no further (L2, per leaf) from the same steps in float64 than
+     the single-rank run (`testing.witness_ratio`), both ranks' params bytewise
+     equal, each rank's moment shards by `opt_spec`; (b) the int8
+     compressed gradient step (`grad_compression.make_compressed_grad_fn`):
+     its mean loss against the exact one, its mean gradient within 0.05 of
+     the exact mean's max, each rank's bytewise the plain compressed mean
+     of the ranks' own local vectors (or one final-scale step off at a
+     counted tie), the residual exactly what int8 dropped; (c) the dp-2
+     state committed (rank 0 writes whole arrays) and restored by a dp-1
+     context (`elastic.rescale`) bytewise, then DP_STEPS more steps, the
+     losses falling; (d) `launch.train --grad-compression` at its default
+     size, run and re-run over its ckpt dir (the second restores the
+     committed stage), while the ranks start, so that (a)-(c) run with
+     nothing else on the card. Per step its wall time and each
+     collective's count, bytes and host time; per rank its peak memory;
+     the card's used memory. No LUT kernel launches (read around the
+     phase, here and on each rank), so the phase adds nothing to the
+     kernels line.
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -224,7 +252,18 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import torch
+# This process and every one it starts share one bytecode cache under
+# build/: where the interpreter keeps none of its own (read-only site
+# packages, or PYTHONDONTWRITEBYTECODE), each fresh process would compile
+# torch's modules again, and torch._dynamo's, which activation
+# recomputation imports at a training step's first call.
+PYCACHE = Path(__file__).resolve().parent / "build" / "pycache"
+sys.pycache_prefix = str(PYCACHE)
+sys.dont_write_bytecode = False
+os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -1847,8 +1886,9 @@ def phase_process(scratch: Path, plain, refs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 TP = 2
-TP_LAYERS = 4            # phase 11's depth of qwen3_1p7b (full width): cut from phase 4's 28
-                         # layers so that chip_smoke keeps inside its time limit with phase 12
+TP_LAYERS = 2            # phase 11's depth of qwen3_1p7b (full width): cut from phase 4's 28
+                         # layers so that chip_smoke keeps inside its time limit with phase
+                         # 12, then from 4 with phase 13
 TP_PROFILE_STEPS = 8
 # the leader's marks between forwards, passed to every follower's on_mark
 MARK_COUNT, MARK_READ, MARK_PROFILE, MARK_PROFILED = 1, 2, 3, 4
@@ -2814,9 +2854,10 @@ def phase_tp_families(scratch: Path, fam: dict) -> dict:
 # phase 7: training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_LAYERS = 4         # depth of phase 7's recipe run (full width always; cut from 28 to
-                         # 14, then to 8 when phase 11 came, then to 4 when phase 12 came, to
-                         # keep the whole run in its time limit: its checkpoints dominate)
+TRAIN_LAYERS = 2         # depth of phase 7's recipe run (full width always; cut from 28 to
+                         # 14, then to 8 when phase 11 came, to 4 when phase 12 came and to 2
+                         # when phase 13 came, to keep the whole run in its time limit: its
+                         # checkpoints dominate)
 TRAIN_STEPS = 4          # steps of its dense and soft-PQ stages
 LAUNCHER_STEPS = 60      # the launcher's --steps: ckpt_every = max(50, steps // 4) = 50, so
                          # soft-PQ commits at step 50 and a kill after it resumes there
@@ -3038,7 +3079,7 @@ def train_step_parity(dev) -> dict:
                          e["card_f64"][1] / max(e["cpu_f64"][1], testing.FLOOR_MAX)), k)
                     for k, e in errs.items()), reverse=True)
     log(f"[train] soft-PQ step, full width, 2 layers, {res['tokens']} tokens, card vs CPU, float64 "
-        f"on the card as witness ({time.perf_counter() - t0:.1f}s): loss {res['loss_dev']:.7f} "
+        f"on the card as witness ({time.perf_counter() - t0:.1f}s, beside the two-plan launcher run): loss {res['loss_dev']:.7f} "
         f"card, {res['loss_cpu']:.7f} CPU, {res['loss_f64']:.7f} float64; codes picked otherwise "
         f"at a near-tie of {res['codes']}: card {res['pinned_codes']['card']}, float64 "
         f"{res['pinned_codes']['float64']}; fake-quant entries rounded to "
@@ -3200,9 +3241,15 @@ def recipe_full_width(dev, scratch: Path) -> dict:
     return out
 
 
-def run_logged(cmd: list[str], log_path: Path, timeout: float) -> str:
-    """Run a launcher to its end; fail on a non-zero exit. Returns its output."""
+def run_logged(cmd: list[str], log_path: Path, timeout: float,
+               autotune_cache: Path | None = None) -> str:
+    """Run a launcher to its end; fail on a non-zero exit. Returns its output.
+    `autotune_cache`: the run's own autotune records, for a launcher that
+    runs beside this process's engines (the two would otherwise rewrite one
+    file)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if autotune_cache is not None:
+        env["REPRO_AUTOTUNE_CACHE"] = str(autotune_cache)
     with log_path.open("w") as f:
         proc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, env=env, timeout=timeout)
     text = log_path.read_text()
@@ -3212,8 +3259,7 @@ def run_logged(cmd: list[str], log_path: Path, timeout: float) -> str:
 
 def launcher_resume(scratch: Path) -> dict:
     """(c) The training launcher at its default size: killed mid soft-PQ and
-    re-run, its artifact served; then a two-plan (--spec-draft) run served
-    with speculative decoding."""
+    re-run, its artifact served, alone on the card."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     py = [sys.executable, "-m"]
     ck, art = scratch / "launch_ck", scratch / "launch_art"
@@ -3265,22 +3311,33 @@ def launcher_resume(scratch: Path) -> dict:
     check(f"artifact {art}" in text, f"serve did not name its artifact: {text[-2000:]}")
     log("[launcher] served: " + " | ".join(l.strip() for l in text.splitlines()[:3]))
 
+    for d in (ck, art):
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def launcher_spec(scratch: Path) -> dict:
+    """(c)'s second part, run beside (a): a `--steps SPEC_STEPS --spec-draft
+    attn/*` run (a two-plan artifact) served with speculative decoding; its
+    own autotune records."""
+    py = [sys.executable, "-m"]
     ck2, art2 = scratch / "launch_ck2", scratch / "launch_art2"
+    cache = scratch / "autotune_spec.json"
     t0 = time.perf_counter()
     run_logged(py + ["repro_torch.launch.train", "--lut", "--steps", str(SPEC_STEPS),
                      "--spec-draft", "attn/*", "--ckpt-dir", str(ck2), "--artifact-dir",
-                     str(art2)], scratch / "train_spec.log", 600)
+                     str(art2)], scratch / "train_spec.log", 600, autotune_cache=cache)
     text = run_logged(py + ["repro_torch.launch.serve", "--artifact", str(art2),
                             "--spec-decode", "--draft-plan", "draft"],
-                      scratch / "serve_spec.log", 600)
+                      scratch / "serve_spec.log", 600, autotune_cache=cache)
     m = re.search(r"acceptance=([\d.]+) target_forwards_per_token=([\d.]+)", text)
     check(m is not None, f"no spec line: {text[-2000:]}")
-    out["acceptance"], out["tfpt"] = float(m.group(1)), float(m.group(2))
+    out = {"acceptance": float(m.group(1)), "tfpt": float(m.group(2))}
     log(f"[launcher] two-plan artifact (target keeps attn/* dense, the trained plan as the "
         f"draft) trained for --steps {SPEC_STEPS} and served with --spec-decode in "
-        f"{time.perf_counter() - t0:.1f}s: "
+        f"{time.perf_counter() - t0:.1f}s (beside (a)'s step parity): "
         f"acceptance {out['acceptance']}, target forwards per token {out['tfpt']}")
-    for d in (ck, art, ck2, art2):
+    for d in (ck2, art2):
         shutil.rmtree(d, ignore_errors=True)
     return out
 
@@ -3288,11 +3345,18 @@ def launcher_resume(scratch: Path) -> dict:
 def phase_train(dev, scratch: Path) -> dict:
     import gc
 
+    # (c)'s two-plan run, a process of its own, goes beside (a), whose time
+    # is mostly the CPU's side of the parity; (b) and the rest of (c) are
+    # timed with nothing else on the card
+    pool = ThreadPoolExecutor(max_workers=1)
+    spec = pool.submit(launcher_spec, scratch)
     out = {"step": train_step_parity(dev)}
+    spec_out = spec.result(timeout=900)
+    pool.shutdown()
     gc.collect()
     torch.cuda.empty_cache()
     out["recipe"] = recipe_full_width(dev, scratch)
-    out["launcher"] = launcher_resume(scratch)
+    out["launcher"] = launcher_resume(scratch) | spec_out
     return out
 
 
@@ -3303,9 +3367,9 @@ def phase_train(dev, scratch: Path) -> dict:
 ARCTIC_LAYERS = 2        # arctic_480b's depth in phases 8 and 12: layer 0 dense, layer 1 LUT
 # depth of phase 8's recurrent families (full width; cut from 48 and 38 so that
 # chip_smoke keeps inside its time limit with phase 11, then from 24 to 12 so
-# that phase 12 serves the same models at tp 2): zamba2_1p2b's shared block
-# runs twice
-SERVE_FAMILY_LAYERS = {"mamba2_370m": 12, "zamba2_1p2b": 12, "arctic_480b": ARCTIC_LAYERS}
+# that phase 12 serves the same models at tp 2, then both to 6 with phase 13):
+# zamba2_1p2b's shared block (after every 6th layer) runs once
+SERVE_FAMILY_LAYERS = {"mamba2_370m": 6, "zamba2_1p2b": 6, "arctic_480b": ARCTIC_LAYERS}
 # prompt lengths of phase 8's burst at a prefill chunk of 32: exactly one
 # chunk, exactly two, ragged over two chunks and ragged inside one
 FAMILY_PROMPTS = (32, 64, 45, 17, 32, 50, 9, 60)
@@ -3979,7 +4043,7 @@ def family_step_parity(name: str, dev) -> dict:
     log(f"[train10] {name} soft-PQ step, full width, {arch.n_layers} layers{cut}, "
         f"{res['tokens']} tokens"
         + (f" + {arch.enc_frames} stub frames a row" if arch.enc_frames else "")
-        + f", card vs CPU vs float64 ({time.perf_counter() - t0:.1f}s): loss "
+        + f", card vs CPU vs float64 ({time.perf_counter() - t0:.1f}s, beside (d)): loss "
           f"{res['loss_dev']:.7f} card, {res['loss_cpu']:.7f} CPU, {res['loss_f64']:.7f} float64;"
           f" codes picked otherwise at a near-tie of {res['codes']}: card "
           f"{res['pinned_codes']['card']}, float64 {res['pinned_codes']['float64']}; half-integer "
@@ -4219,16 +4283,17 @@ def train_family_by_functions(name: str, dev, scratch: Path) -> dict:
 
 def family_launcher(scratch: Path) -> dict:
     """(d) `launch.train --arch mamba2_370m --lut --steps FAMILY_LAUNCHER_STEPS`
-    at its default size on the
-    card, its artifact served by `launch.serve`; `--arch whisper_tiny` exits
-    non-zero with its refusal."""
+    at its default size on the card, its artifact served by `launch.serve`
+    (beside (a), with autotune records of their own);
+    `--arch whisper_tiny` exits non-zero with its refusal."""
     py = [sys.executable, "-m"]
     ck, art = scratch / "launch10_ck", scratch / "launch10_art"
     t0 = time.perf_counter()
+    cache = scratch / "autotune10.json"
     text = run_logged(py + ["repro_torch.launch.train", "--arch", "mamba2_370m", "--lut",
                             "--steps", str(FAMILY_LAUNCHER_STEPS), "--ckpt-dir", str(ck),
                             "--artifact-dir", str(art)],
-                      scratch / "train10.log", 600)
+                      scratch / "train10.log", 600, autotune_cache=cache)
     check("wrote LUTArtifact" in text and "[eval] deployed INT8 LUT eval loss" in text,
           f"launch.train --arch mamba2_370m: {text[-2000:]}")
     t_train = time.perf_counter() - t0
@@ -4237,7 +4302,7 @@ def family_launcher(scratch: Path) -> dict:
             log(f"  {line}")
     t0 = time.perf_counter()
     served = run_logged(py + ["repro_torch.launch.serve", "--artifact", str(art)],
-                        scratch / "serve10.log", 600)
+                        scratch / "serve10.log", 600, autotune_cache=cache)
     check(f"artifact {art}" in served, f"serve did not name its artifact: {served[-2000:]}")
     log(f"[launcher10] launch.train --arch mamba2_370m --lut --steps {FAMILY_LAUNCHER_STEPS} (default "
         f"size) {t_train:.1f}s; "
@@ -4266,12 +4331,20 @@ def phase_train_families(dev, scratch: Path) -> dict:
     from repro_torch.kernels import counters
 
     out: dict = {"step": {}}
+    # (a') first: its full-width try fills the card
+    out["arctic"] = arctic_step(dev)
+    # (d) runs beside (a): processes of their own, small on the card, while
+    # (a)'s time is mostly the CPU's side of the parity; (b) and (c) are
+    # timed and tuned with nothing else on the card
+    pool = ThreadPoolExecutor(max_workers=1)
+    launcher = pool.submit(family_launcher, scratch)
     for name in PARITY_LAYERS:
         out["step"][name] = family_step_parity(name, dev)
         # reference cycles left by the harness's hooks can hold card tensors
         gc.collect()
         torch.cuda.empty_cache()
-    out["arctic"] = arctic_step(dev)
+    out["launcher"] = launcher.result(timeout=900)
+    pool.shutdown()
     launches = dict.fromkeys(counters.launches(), 0)
     for name in ("mamba2_370m", "zamba2_1p2b"):
         res = family_recipe(name, dev, scratch)
@@ -4284,10 +4357,506 @@ def phase_train_families(dev, scratch: Path) -> dict:
             launches[k] += res["served"]["launches"].get(k, 0)
             launches[k] += res["served"].get("paged_launches", {}).get(k, 0)
         out[name] = res
-    out["launcher"] = family_launcher(scratch)
     out["launches"] = launches
     log("[train10] kernel launches of phase 10's kernel runs (Eval, the served bursts and "
         "forwards): " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: data-parallel training at dp 2 (ZeRO-1, the int8 compressed
+# reduce, elastic rescale, the launcher's --grad-compression)
+# ---------------------------------------------------------------------------
+
+DP = 2
+DP_LAYERS = 2            # qwen3_1p7b at full width: ~0.41 G params, 0.31 G of them the embedding
+DP_STEPS = 2             # K: the steps of (a), and the steps after the rescale in (c) (4
+                         # asked, cut to keep the whole run in its time limit)
+DP_LR = 1e-3             # constant, so that the leaf rule's bound is 2 lr a step
+DP_BATCH, DP_SEQ = 4, 256
+DP_LOSS_RTOL = 1e-5      # the mean of the ranks' half-batch losses against the batch's
+GC_GRAD_ERR = 0.05       # the reference test's max-abs error over max-abs of the int8 mean
+GC_TIE_STEPS = 1 + 1e-5  # one final-scale step (a requantization tie), and its fp32 rounding
+GC_LAUNCHER_STEPS = 10
+
+
+def dp_setup(dev):
+    """Phase 13's model and optimizer: qwen3_1p7b (DENSE) at full width and
+    DP_LAYERS layers, params drawn on `dev` from SEED (each process draws
+    the same), AdamW at a constant DP_LR with global-norm clipping."""
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.optim import AdamW
+
+    bundle = build_model(dataclasses.replace(get_arch("qwen3_1p7b"), n_layers=DP_LAYERS),
+                         Mode.DENSE)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    return bundle, params, AdamW(lr=DP_LR, clip_norm=1.0)
+
+
+def dp_batch(vocab: int, step: int, dev) -> dict:
+    """The global batch of `step`: MarkovLM over the full vocab."""
+    from repro_torch.data import MarkovLM
+
+    batch = MarkovLM(vocab=vocab, seq_len=DP_SEQ, batch=DP_BATCH).batch_at(step)
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def timed_step(dev, fn, *args):
+    """(fn's result, its wall seconds to the card's last op)."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = fn(*args)
+    torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def dp_rank(rank: int, devices: list[str], init: str, ckdir: str, go, release, q) -> None:
+    """One rank of phase 13, in its own process: join the data mesh, run
+    `dp_rank_work`, hand its results (CUDA tensors as IPC handles) to the
+    parent, and keep them alive until the parent releases it."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(data=DP, rank=rank, devices=devices, init_method=init)
+        try:
+            res = dp_rank_work(mesh, Path(ckdir), go)
+            q.put(("ok", res))
+            release.wait(900)
+            # the parent has dropped its views: free the shared blocks before exit
+            del res
+            import gc as pygc
+            pygc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+        finally:
+            mesh.close()
+    except BaseException:             # noqa: BLE001 — the parent reports it and fails
+        q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
+
+
+def dp_rank_work(mesh, ckdir: Path, go) -> dict:
+    """(a) DP_STEPS data-parallel ZeRO-1 steps on the global batches, each
+    step's wall time and collectives; (c) the state gathered and committed
+    (rank 0 writes); (b) one compressed gradient step
+    (`grad_compression.make_compressed_grad_fn`, the compressed train
+    step's reduce; the launcher runs the whole step in (d)) with the
+    module's reduce watched: the local vector it was given and the mean it
+    returned, and the residual against what int8 drops."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed.data_parallel import Zero1, make_data_parallel_step
+    from repro_torch.kernels import counters
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.train.train_step import make_loss_fn
+    from repro_torch.weights import reference_leaves
+
+    dev = mesh.device
+    counters.reset()
+    bundle, params, opt = dp_setup(dev)
+    layout = Zero1.build(mesh, params)
+    state = layout.init_state(opt, params)
+    step = make_data_parallel_step(bundle, opt, layout, compute_dtype=torch.float32)
+    batches = [dp_batch(bundle.arch.vocab, i, dev) for i in range(DP_STEPS + 1)]
+    check(go.wait(600), "the parent's single-rank run did not finish")
+    out: dict = {"rank": mesh.rank, "steps": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(DP_STEPS):
+        mesh.reset_counters()
+        (params, state, met), wall = timed_step(dev, step, params, state, batches[i])
+        out["steps"].append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                             "wall": wall, "coll": dict(mesh.counters)})
+        if i == 0:
+            out["params_1"] = params
+    out["peak_a"] = torch.cuda.max_memory_allocated(dev)
+    moments = reference_leaves(state.m)
+    out["shards"] = {p: [tuple(t.shape) for t in leaves] for p, leaves in moments.items()}
+    out["shard_bytes"] = 2 * sum(t.numel() * t.element_size()
+                                 for leaves in moments.values() for t in leaves)
+    # (c) every rank gathers the moments, rank 0 commits, all pass a barrier
+    mesh.reset_counters()
+    full, gather_s = timed_step(dev, layout.gather_state, {"params": params, "opt": state})
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        Checkpointer(ckdir).save(DP_STEPS, full, blocking=True)
+    mesh.barrier()
+    out["commit"] = {"gather_s": gather_s, "save_s": time.perf_counter() - t0,
+                     "coll": dict(mesh.counters)}
+    out["params"] = params
+    if mesh.rank == 0:
+        out["m"], out["v"] = full["opt"].m, full["opt"].v
+    del state, full
+    # (b) the compressed gradient step, its reduce and error feedback watched
+    seen: dict = {}
+    mean_1d, correct = gc.compressed_mean_1d, gc.residual_correct
+
+    def watched_mean(vec, m):
+        seen["local"] = vec
+        seen["reduced"] = mean_1d(vec, m)
+        return seen["reduced"]
+
+    def watched_correct(grads, residual):
+        seen["corrected"], seen["residual"] = correct(grads, residual)
+        return seen["corrected"], seen["residual"]
+
+    gc.compressed_mean_1d, gc.residual_correct = watched_mean, watched_correct
+    try:
+        grad_fn = gc.make_compressed_grad_fn(make_loss_fn(bundle, compute_dtype=torch.float32),
+                                             mesh)
+        mesh.reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        (loss, _, _), wall = timed_step(dev, grad_fn, params, gc.init_residual(params),
+                                        batches[DP_STEPS])
+    finally:
+        gc.compressed_mean_1d, gc.residual_correct = mean_1d, correct
+    # the new residual is exactly what int8 drops of each leaf of the
+    # reference's (stacked) tree: one scale over its layers
+    exact, dropped_max = True, 0.0
+    residual = reference_leaves(seen.pop("residual"))
+    for path, leaves in reference_leaves(seen.pop("corrected")).items():
+        scale = gc._scale(torch.stack([gc._absmax(c) for c in leaves]).max())
+        for c, r in zip(leaves, residual[path]):
+            dropped = c - gc._to_int8(c, scale).float() * scale
+            exact = exact and torch.equal(dropped, r)
+            dropped_max = max(dropped_max, float(dropped.abs().max()))
+            del dropped
+    del residual
+    out["compressed"] = {"loss": float(loss), "wall": wall, "coll": dict(mesh.counters),
+                         "residual_exact": exact, "residual_max": dropped_max,
+                         "peak": torch.cuda.max_memory_allocated(dev)}
+    out["local"], out["reduced"] = seen["local"], seen["reduced"]
+    out["launches"], out["plain"] = counters.launches(), counters.plain_calls()
+    del seen, batches
+    torch.cuda.empty_cache()          # only what the parent reads stays on the card
+    return out
+
+
+def coll_line(c: dict) -> str:
+    from repro_torch.launch.mesh import COLLECTIVES
+
+    return ", ".join(f"{name} {c[name]}x {c[name + '_bytes'] / 1e6:.1f} MB "
+                     f"{1e3 * c[name + '_s']:.1f} ms" for name in COLLECTIVES if c[name])
+
+
+def dp_expected_shards(params) -> list[dict]:
+    """Each data rank's moment shard shapes by `opt_spec` (`Zero1` of a rank
+    of a dp-DP mesh): {reference path: [per-layer shapes]}."""
+    from repro_torch.distributed.data_parallel import Zero1
+    from repro_torch.weights import reference_leaves
+
+    out = []
+    for r in range(DP):
+        mesh = types.SimpleNamespace(data_rank=r, model=1, shape={"data": DP, "model": 1})
+        shards = reference_leaves(Zero1.build(mesh, params).shard(params))
+        out.append({p: [tuple(t.shape) for t in leaves] for p, leaves in shards.items()})
+    return out
+
+
+def dp_launcher(scratch: Path) -> dict:
+    """(d) `launch.train --grad-compression` at its default size, run and
+    re-run over its ckpt dir: the second restores the committed stage."""
+    import hashlib
+    import zipfile
+
+    ck = scratch / "gc_ck"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--grad-compression", "--steps",
+           str(GC_LAUNCHER_STEPS), "--ckpt-dir", str(ck)]
+    t1 = time.perf_counter()
+    text = run_logged(cmd, scratch / "gc_train.log", 600)
+    first_s = time.perf_counter() - t1
+    final = ck / "00_dense" / f"step_{GC_LAUNCHER_STEPS:08d}" / "arrays.npz"
+    check(f"recipe: dense[{GC_LAUNCHER_STEPS}]+int8grads" in text
+          and "[int8 compressed grads over 1 rank(s)]" in text and final.exists(),
+          f"launch.train --grad-compression: {text[-2000:]}")
+    digest = hashlib.sha256(final.read_bytes()).hexdigest()
+    t1 = time.perf_counter()
+    text2 = run_logged(cmd, scratch / "gc_train2.log", 600)
+    check("[dense] already done — restored" in text2
+          and hashlib.sha256(final.read_bytes()).hexdigest() == digest,
+          f"the re-run did not restore the committed dense stage: {text2[-2000:]}")
+    with zipfile.ZipFile(final) as zf:
+        residual = [n for n in zf.namelist() if n.startswith("opt/residual/")]
+    check(residual, "the launcher's checkpoint holds no compression residual")
+    shutil.rmtree(ck, ignore_errors=True)
+    return {"first_s": first_s, "second_s": time.perf_counter() - t1,
+            "residual_leaves": len(residual),
+            "lines": [ln for ln in text.splitlines() if ln.startswith(("step ", "[dense]"))]}
+
+
+def trees_equal(a, b) -> bool:
+    """Whether two trees of the same layout hold the same bytes."""
+    from repro_torch.weights import reference_leaves
+
+    al, bl = reference_leaves(a), reference_leaves(b)
+    return al.keys() == bl.keys() and all(
+        len(al[p]) == len(bl[p]) and all(torch.equal(x, y) for x, y in zip(al[p], bl[p]))
+        for p in al)
+
+
+def phase_dp(dev, scratch: Path) -> dict:
+    """Data-parallel training at dp 2: two rank processes, over NCCL when the
+    host has two cards, else both on the one card over gloo (all-to-all and
+    all-gather then all-reduces of zero-padded buffers). (a) the ZeRO-1
+    step against the single-rank step here on the same global batches; (b)
+    the int8 compressed step against its plain version on the ranks' own
+    local vectors; (c) the dp-2 checkpoint restored by a dp-1 context
+    (`elastic.rescale`) and trained on; (d) the launcher's
+    --grad-compression, run and resumed. Reads the kernel counts around the
+    phase: a dense model launches no LUT kernel and calls no plain version."""
+    import gc as pygc
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.lut_layer import ParamSpec
+    from repro_torch.distributed.data_parallel import Zero1, make_data_parallel_step
+    from repro_torch.distributed.elastic import ElasticContext, rescale
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import backend_for
+    from repro_torch.optim import AdamWState
+    from repro_torch.testing import (WITNESS, AdamLeafRule, float64_compute, one_step_off,
+                                     witness_ratio)
+    from repro_torch.train import grad_compression as gcomp
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.weights import reference_leaves, tree_map_ref
+
+    counters.reset()
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{r}" for r in range(DP)] if n_cards >= DP else ["cuda:0"] * DP
+    backend = backend_for(devices)
+    ckdir = scratch / "dp_ck"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    q, go, release = ctx.Queue(), ctx.Event(), ctx.Event()
+    procs = [ctx.Process(target=dp_rank, args=(r, devices, init, str(ckdir), go, release, q),
+                         daemon=True) for r in range(DP)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got: list = []
+    try:
+        # the single-rank step on the same global batches, and the same
+        # steps in float64 (the witness), while the ranks start
+        bundle, start, opt = dp_setup(dev)
+        vocab = bundle.arch.vocab
+        batches = [dp_batch(vocab, i, dev) for i in range(2 * DP_STEPS)]
+        params, state = start, opt.init(start)
+        step = make_train_step(bundle, opt, compute_dtype=torch.float32)
+        # the leaf rule after one step and, for the record, over all K
+        rule, rule_k, single = AdamLeafRule(opt), AdamLeafRule(opt), []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(DP_STEPS):
+            m_old = state.m
+            (params, state, met), wall = timed_step(dev, step, params, state, batches[i])
+            # the step's clipped gradient, up to a factor, from the first moment
+            g = tree_map_ref(lambda _p, m, m0: m - opt.b1 * m0, state.m, m_old)
+            rule_k.note(g, DP_LR)
+            if i == 0:
+                rule.note(g, DP_LR)
+                single_1 = params
+            single.append((float(met["loss"]), wall))
+            del g
+        peak_single = torch.cuda.max_memory_allocated(dev)
+        opt64 = dataclasses.replace(opt, state_dtype=torch.float64)
+        p64 = tree_map_ref(lambda _p, t: t.double(), start)
+        s64 = opt64.init(p64)
+        step64 = make_train_step(bundle, opt64, compute_dtype=torch.float64)
+        t1 = time.perf_counter()
+        with float64_compute():
+            for i in range(DP_STEPS):
+                p64, s64, _ = step64(p64, s64, batches[i])
+        torch.cuda.synchronize(dev)
+        f64_s = time.perf_counter() - t1
+        del step64
+        pygc.collect()
+        torch.cuda.empty_cache()          # the ranks need what the float64 steps held
+        log(f"[dp] single-rank steps here: {', '.join(f'{w:.3f}s' for _, w in single)}; the "
+            f"same steps in float64 {f64_s:.1f}s; peak {peak_single / 2**30:.2f} GiB (fp32), "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (with float64)")
+        # (d) while the ranks start (import, mesh, init): its processes are
+        # gone before the ranks' timed steps, so (a)-(c) run alone
+        out_d = dp_launcher(scratch)
+        go.set()
+        deadline = time.monotonic() + 600
+        while len(got) < DP:            # a failed rank ends the wait: its peer would hang
+            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
+            if got[-1][0] != "ok":
+                break
+    except queue.Empty:
+        got.append(("error", {"trace": f"no result from {DP - len(got)} rank(s) in 600 s"}))
+    errors = [val["trace"] for status, val in got if status != "ok"]
+    if errors:
+        for p in procs:
+            p.kill()
+    check(not errors, "a dp rank failed:\n" + "\n".join(errors))
+    t_ranks = time.perf_counter() - t0
+    # the ranks' tensors (IPC views of their memory) on this process's card
+    r0, r1 = ({k: tree_map_ref(lambda _p, t: t.to(dev), v)
+               if k in ("params_1", "params", "m", "v", "local", "reduced") else v
+               for k, v in val.items()}
+              for val in sorted((val for _, val in got), key=lambda v: v["rank"]))
+    out: dict = {"backend": backend, "cards": n_cards}
+    log(f"[dp] dp={DP} on {n_cards} card(s): ranks on {devices}, backend {backend}"
+        + ("" if backend == "nccl" else " (both ranks share the card: NCCL is not measured; "
+           "all-to-all and all-gather are all-reduces of zero-padded buffers)")
+        + f"; qwen3_1p7b DENSE, full width, {DP_LAYERS} layers, "
+        f"{sum(t.numel() for ls in reference_leaves(start).values() for t in ls) / 1e9:.3f} G "
+        f"params, MarkovLM {DP_BATCH} x {DP_SEQ} over the {vocab}-token vocab")
+
+    # (a) the ZeRO-1 step against the single-rank step
+    for i, (loss, wall) in enumerate(single):
+        for r in (r0, r1):
+            s = r["steps"][i]
+            check(abs(s["loss"] - loss) <= DP_LOSS_RTOL * abs(loss),
+                  f"dp step {i} rank {r['rank']}: loss {s['loss']!r}, single-rank {loss!r}")
+        log(f"[dp] (a) step {i}: loss {r0['steps'][i]['loss']:.7f} (single-rank {loss:.7f}), "
+            f"grad norm {r0['steps'][i]['grad_norm']:.4f}; wall per rank "
+            + " / ".join(f"{r['steps'][i]['wall']:.3f}s" for r in (r0, r1))
+            + f" (single-rank {wall:.3f}s); rank 0's collectives: "
+            + coll_line(r0["steps"][i]["coll"]))
+    # after one step the leaf rule; after K the float64 witness: from the
+    # second step on, each fp32 run's rounding moves the next step's forward
+    worst, where = rule.check(r0["params_1"], single_1, start)
+    check(worst <= 1.0, f"dp params after one step off the single-rank step's: {worst:.3g} of "
+          f"the bound at {where}")
+    w_params, w_where = witness_ratio(r0["params"], params, p64, start)
+    w_m, w_m_where = witness_ratio(r0["m"], state.m, s64.m)
+    w_v, w_v_where = witness_ratio(r0["v"], state.v, s64.v)
+    check(max(w_params, w_m, w_v) <= WITNESS,
+          f"dp after {DP_STEPS} steps further from float64 than the single-rank step: params "
+          f"{w_params:.3g} ({w_where}), m {w_m:.3g} ({w_m_where}), v {w_v:.3g} ({w_v_where})")
+    worst_k, where_k = rule_k.check(r0["params"], params, start)
+    check(trees_equal(r0["params"], r1["params"]), "the two ranks' params differ")
+    want_shards = dp_expected_shards(start)
+    for r in (r0, r1):
+        check(r["shards"] == want_shards[r["rank"]],
+              f"rank {r['rank']}'s moment shards are not opt_spec's")
+    full_bytes = 2 * 4 * sum(t.numel() for ls in reference_leaves(start).values() for t in ls)
+    log(f"[dp] (a) after one step the params within {worst:.3f} of the leaf rule's bound "
+        f"({where}); after {DP_STEPS} the dp run's L2 gap from float64 (single-rank steps, "
+        f"{f64_s:.1f}s) within {w_params:.2f} (params, {w_where}), {w_m:.2f} (m) and {w_v:.2f} "
+        f"(v) of the single-rank run's (bound {WITNESS}), the leaf rule held over "
+        f"{DP_STEPS} steps at {worst_k:.3g} of its bound ({where_k}); both ranks' params "
+        f"bytewise equal; each rank holds its ZeRO-1 shard of m and v (opt_spec's data dim): "
+        f"{r0['shard_bytes'] / 2**30:.2f} and {r1['shard_bytes'] / 2**30:.2f} GiB of "
+        f"{full_bytes / 2**30:.2f}; peak allocated {r0['peak_a'] / 2**30:.2f} / "
+        f"{r1['peak_a'] / 2**30:.2f} GiB per rank, {peak_single / 2**30:.2f} GiB single-rank")
+    del p64, s64, params, state, single_1
+    pygc.collect()
+    torch.cuda.empty_cache()
+    c = r0["commit"]
+    log(f"[dp] (c) commit at step {DP_STEPS}: moments gathered in {c['gather_s']:.2f}s "
+        f"({coll_line(c['coll'])}), rank 0 wrote the checkpoint in {c['save_s']:.2f}s")
+
+    # (b) the compressed step against its plain version on the ranks' own vectors
+    # the vectors the reduce was given: every gradient, zero-padded to a multiple of DP
+    n_el = r0["local"].numel()
+    plain = gcomp.plain_compressed_mean(torch.stack([r0["local"], r1["local"]]))
+    exact = (r0["local"] + r1["local"]) / DP
+    ties = 0
+    for r in (r0, r1):
+        off, worst_b = one_step_off(r["reduced"], plain, DP)
+        check(worst_b <= GC_TIE_STEPS,
+              f"rank {r['rank']}'s int8 mean off its plain version by {worst_b:.3g} steps")
+        ties += off
+        cr = r["compressed"]
+        check(cr["residual_exact"] and cr["residual_max"] > 0,
+              f"rank {r['rank']}'s residual is not what int8 dropped "
+              f"(exact {cr['residual_exact']}, max {cr['residual_max']})")
+    err = float((r0["reduced"] - exact).abs().max() / exact.abs().max())
+    check(err < GC_GRAD_ERR, f"int8 mean gradient off the exact mean by {err:.4f}")
+    with torch.no_grad():
+        exact_loss = float(bundle.loss(r0["params"], batches[DP_STEPS],
+                                       compute_dtype=torch.float32))
+    cl = r0["compressed"]["loss"]
+    check(r1["compressed"]["loss"] == cl and abs(cl - exact_loss) <= DP_LOSS_RTOL * abs(exact_loss),
+          f"compressed gradient step's mean loss {cl!r}, exact {exact_loss!r}")
+    out["gc_ties"] = ties
+    log(f"[dp] (b) compressed gradient step: mean loss {cl:.7f} (exact {exact_loss:.7f}); the int8 mean "
+        f"{err:.4f} of the exact mean gradient's max off it (< {GC_GRAD_ERR}); each rank's bytewise "
+        f"the plain compressed mean of the two local vectors ({n_el} elements) but {ties} "
+        f"element(s) one final-scale step off at a requantization tie; residual exactly what int8 "
+        f"dropped (max {r0['compressed']['residual_max']:.3g}); wall "
+        f"{r0['compressed']['wall']:.3f}s, peak {r0['compressed']['peak'] / 2**30:.2f} GiB; "
+        f"rank 0's collectives: {coll_line(r0['compressed']['coll'])}")
+
+    # (c) a dp-1 context restores the dp-2 checkpoint and trains on
+    made: dict = {}
+
+    def make_step(mesh, rules):
+        made["layout"] = Zero1.build(mesh, start, rules=rules)
+        return make_data_parallel_step(bundle, opt, made["layout"], compute_dtype=torch.float32)
+
+    ectx = ElasticContext.build([f"cuda:{torch.cuda.current_device()}"], make_step)
+    try:
+        layout = made["layout"]
+        t1 = time.perf_counter()
+        # the restore's `like`: shapes and dtypes (the leaves go to the card),
+        # the step counter a host tensor
+        spec = lambda _p, t: ParamSpec(tuple(t.shape), t.dtype)      # noqa: E731
+        like = {"params": tree_map_ref(spec, start),
+                "opt": AdamWState(step=torch.zeros((), dtype=torch.int32),
+                                  m=tree_map_ref(spec, start), v=tree_map_ref(spec, start))}
+        k, tree = rescale(Checkpointer(ckdir), like, ectx, layout.cuts(start))
+        restore_s = time.perf_counter() - t1
+        check(k == DP_STEPS and int(tree["opt"].step) == DP_STEPS,
+              f"restored step {k}, opt step {int(tree['opt'].step)}")
+        for name, want_t in (("params", r0["params"]), ("m", r0["m"]), ("v", r0["v"])):
+            got_t = tree["params"] if name == "params" else getattr(tree["opt"], name)
+            check(trees_equal(got_t, want_t),
+                  f"the restored {name} are not the ranks' gathered ones bytewise")
+        del want_t, got_t
+        p2, s2, after = tree["params"], tree["opt"], []
+        del tree
+        for i in range(DP_STEPS, 2 * DP_STEPS):
+            p2, s2, met = ectx.step_fn(p2, s2, batches[i])
+            after.append(float(met["loss"]))
+    finally:
+        ectx.mesh.close()
+    losses = [s["loss"] for s in r0["steps"]] + after
+    check(all(math.isfinite(x) for x in losses) and sum(losses[-3:]) < sum(losses[:3]),
+          f"losses across the rescale: {losses}")
+    log(f"[dp] (c) rescale dp {DP} -> 1 (a new mesh of the surviving device): restored step {k} "
+        f"in {restore_s:.2f}s, moments and params bytewise the ranks' gathered ones; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    used = gpu_used_mib()
+    out["peaks"] = [r["peak_a"] for r in (r0, r1)]
+    rank_counts = [(r["launches"], r["plain"]) for r in (r0, r1)]
+    del r, r0, r1, got, plain, exact, p2, s2
+    pygc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.ipc_collect()
+    release.set()
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    check(all(p.exitcode == 0 for p in procs),
+          f"dp ranks exited {[p.exitcode for p in procs]}")
+    log(f"[dp] the card's used memory with both ranks alive: {used} MiB; ranks' results "
+        f"{t_ranks:.1f}s after spawn (spawn, import, mesh, init, the wait for the single-rank "
+        f"and float64 steps and (d), then (a)-(b))")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out["launcher"] = d = out_d
+    log(f"[dp] (d) launch.train --grad-compression --steps {GC_LAUNCHER_STEPS} (default size, "
+        f"while the ranks started) {d['first_s']:.1f}s; the re-run restored the committed stage ('already "
+        f"done') in {d['second_s']:.1f}s, its checkpoint ({d['residual_leaves']} residual "
+        f"leaves) unchanged")
+    for line in d["lines"]:
+        log(f"  {line}")
+    launches, plain_calls = counters.launches(), counters.plain_calls()
+    check(all(sum(ln.values()) == 0 and pc == 0 for ln, pc in rank_counts + [(launches,
+                                                                               plain_calls)]),
+          f"phase 13 reached a LUT kernel or a plain version: {rank_counts}, {launches}, "
+          f"{plain_calls}")
+    log("[dp] no LUT kernel launched and no plain LUT version called, here or on a rank")
     return out
 
 
@@ -4345,6 +4914,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         trained = timed(10, phase_train_families, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 13 before 8 and 12: its three processes hold up to ~60 GB
+        # at once, which arctic's params left by phase 12 would not leave free
+        timed(13, phase_dp, dev, scratch)
         gc.collect()
         torch.cuda.empty_cache()
         # phases 8 and 12 last: arctic's params, shared with phase 12's rank

@@ -149,13 +149,17 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, *, step: int | None = None,
-                device: str | torch.device | None = None) -> tuple[int, Any]:
+                device: str | torch.device | None = None,
+                shardings: Any = None) -> tuple[int, Any]:
         """Restore into the structure of `like` (port layout; leaves tensors,
         whose devices the restored leaves take, or ParamSpecs, whose leaves go
-        to `device`: the card unless the caller asks for the CPU)."""
+        to `device`: the card unless the caller asks for the CPU).
+        `shardings` (a tree of `like`'s structure, `data_parallel.Cut`
+        leaves) cuts each leaf to the rank's part as it is read: the elastic
+        path onto a new mesh."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         with np.load(self.dir / f"step_{step:08d}" / "arrays.npz") as data:
-            return step, tree_from_reference(like, data, device=device)
+            return step, tree_from_reference(like, data, device=device, cuts=shardings)

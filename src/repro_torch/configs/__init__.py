@@ -584,11 +584,15 @@ class ModelBundle:
             cl = batch["cache_len"].cpu().long()
             wl = torch.full((b,), s) if wl is None else wl
             flat = attn_mod.paged_write_flat(bt, cl, s, leaves["k_pool"].shape[2], wl)
+            src = attn_mod.paged_write_sources(flat)
             # one host-to-device copy carries the cursors, tables and write indices
-            packed = torch.cat([cl, bt.flatten(), flat.flatten()]).to(dev)
+            packed = torch.cat([cl, bt.flatten(), flat.flatten()]
+                               + ([] if src is None else [src])).to(dev)
             cache_len = packed[:b]
             block_tables = packed[b: b + bt.numel()].view(bt.shape)
-            write_index = packed[b + bt.numel():].view(b, s)
+            write_index = packed[b + bt.numel(): b + bt.numel() + flat.numel()].view(b, s)
+            if src is not None:
+                write_index = (write_index, packed[b + bt.numel() + flat.numel():])
             rows = torch.nonzero(wl).flatten()
         else:
             cache_len = batch["cache_len"].long().to(dev)

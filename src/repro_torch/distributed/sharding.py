@@ -1,7 +1,8 @@
-"""Sharding rules: the partition spec of every param, cache and batch leaf.
+"""Sharding rules: the partition spec of every param, optimizer, cache and
+batch leaf.
 
-Counterpart of `repro.distributed.sharding` for the port's tensor-parallel
-serving. The mesh axes are ("data", "model") (`launch/mesh.py`); "model" is
+Counterpart of `repro.distributed.sharding`, for the port's tensor-parallel
+serving and data-parallel training. The mesh axes are ("data", "model") (`launch/mesh.py`); "model" is
 the tensor-parallel axis. A spec is a tuple with one entry per dim of the
 leaf: None (replicated over the mesh), an axis name, or a tuple of axis
 names. `ShardingRules` is a pure function of (path, shape) and the mesh's
@@ -16,12 +17,17 @@ axis sizes, and gives the reference's `PartitionSpec` entries exactly:
   EP   an MoE expert dim over the data axes, else over "model"
   SP   the dense KV cache's sequence axis over "model"; the paged pool's KV
        heads over "model"
+  DP   the batch dim of every input over "data" (`batch_shardings`)
+  FSDP (`fsdp=True`) weights and tables also over "data"
+  ZeRO-1 (`zero1=True`, the default) the AdamW moments over "data" even where
+       the params are replicated (`opt_spec`)
 
 Only a dim divisible by its axis size is sharded; the rules take the first
-divisible candidate and otherwise replicate. The reference's defaults are
-the port's rules (row-parallel roles on, no FSDP); its `fsdp` variant and
-the optimizer specs (`opt_spec`, ZeRO-1) are not ported: they come with the
-sharded train step.
+divisible candidate and otherwise replicate. The defaults are the
+reference's (row-parallel roles on, no FSDP, ZeRO-1 on). The data-parallel
+train step (`distributed/data_parallel.py`) places each rank's moments by
+`opt_spec`; FSDP's specs are the reference's, but no step runs them yet
+(ROADMAP Queue A item 5).
 
 How a rank of the port's tensor-parallel engine holds and runs its shards
 follows these specs (`distributed/tensor_parallel.py`), with the kept
@@ -34,14 +40,15 @@ selections) the difference is named and tested against these rules
 rules where they are the engine's: the paged pool by KV heads, the SSM
 state by heads; the dense KV cache by KV heads (the spec: its sequence)
 and the conv window by the rank's channels (the spec: contiguous
-channels) are kept differences. `batch_dim` has no leaf to place at
-data = 1, the only mesh the engine serves.
+channels) are kept differences. The engine serves data = 1 meshes only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+from repro_torch.weights import reference_leaves, tree_map_ref
 
 Spec = tuple
 
@@ -59,11 +66,13 @@ class ShardingRules:
 
     model: int = 1
     data: int = 1
+    fsdp: bool = False           # weights over "data" too (ZeRO-3 style)
+    zero1: bool = True           # optimizer moments over "data"
 
     @classmethod
-    def for_mesh(cls, mesh: Any) -> "ShardingRules":
+    def for_mesh(cls, mesh: Any, **kw: Any) -> "ShardingRules":
         """The rules of a mesh with a `shape` mapping ({"data": d, "model": m})."""
-        return cls(model=mesh.shape["model"], data=mesh.shape.get("data", 1))
+        return cls(model=mesh.shape["model"], data=mesh.shape.get("data", 1), **kw)
 
     @property
     def tp(self) -> int:
@@ -83,8 +92,7 @@ class ShardingRules:
         `site_roles` maps site paths to their row-parallel role
         (`site_roles(bundle)`); without it the parent's name decides."""
         name = path.split("/")[-1]
-        stacked = any(seg in path for seg in _STACK_SEGMENTS)
-        off = 1 if stacked else 0
+        off = 1 if is_stacked(path) else 0
         spec: list[Any] = [None] * len(shape)
         eff = shape[off:]
 
@@ -93,6 +101,14 @@ class ShardingRules:
                 spec[off + i_eff] = axis
                 return True
             return False
+
+        def put_fsdp(prefer: tuple[int, ...]) -> None:
+            if not self.fsdp:
+                return
+            for i in prefer:
+                if spec[off + i] is None and eff[i] % self.data == 0:
+                    spec[off + i] = "data"
+                    return
 
         parts = path.split("/")
         parent_path = "/".join(parts[:-1])
@@ -103,11 +119,13 @@ class ShardingRules:
 
         if name == "table" and len(eff) == 2:            # embedding (vocab, d)
             put(0, "model") or put(1, "model")
+            put_fsdp((1, 0))
         elif name == "w" and len(eff) == 2:              # linear (d_in, d_out)
             if row_parallel:
                 put(0, "model") or put(1, "model")
             else:
                 put(1, "model") or put(0, "model")
+            put_fsdp((0, 1) if not row_parallel else (1, 0))
         elif name == "w" and len(eff) == 3:              # experts (E, d_in, d_out)
             put(0, "data") or put(0, "model")
             if spec[off + 0] == "data":
@@ -117,6 +135,7 @@ class ShardingRules:
                 put(0, "model") or put(2, "model")
             else:
                 put(2, "model")
+            put_fsdp((0,) if not row_parallel else (2,))
         elif name == "table_q" and len(eff) == 4:        # MoE LUT (E, C, K, M)
             put(0, "data") or put(0, "model")
             if spec[off + 0] == "data":
@@ -126,6 +145,51 @@ class ShardingRules:
         # table_scale (tiny), other centroids, log_t, norms, conv, ssm
         # scalars: replicated
         return tuple(spec)
+
+    # ------------------------------------------------------------------
+    def opt_spec(self, path: str, shape: tuple[int, ...]) -> Spec:
+        """An AdamW moment of the param at `path` (its reference stacked
+        shape): the param's spec plus ZeRO-1's "data" on the first free dim
+        that divides; the step counter and a frozen leaf's empty (0,)
+        placeholder are replicated."""
+        if tuple(shape) == (0,) or path.endswith("step"):
+            return ()                                     # the reference's P()
+        base = list(self.param_spec(path, shape))
+        if self.zero1 and not self.fsdp and "data" not in base:
+            for i, s in enumerate(base):
+                if s is None and shape[i] % self.data == 0 and shape[i] > 1:
+                    base[i] = "data"
+                    break
+        return tuple(base)
+
+    def opt_shardings(self, opt_state: Any) -> Any:
+        """The spec of every leaf of an AdamWState in the port's layout, as a
+        tree of its structure: each leaf takes `opt_spec` of its param's
+        reference path (the state's own key, ".m" or ".v", stripped) and
+        stacked shape."""
+        counts = {p: len(leaves) for p, leaves in reference_leaves(opt_state).items()}
+
+        def spec(path: str, leaf) -> Spec:
+            shape = tuple(leaf.shape)
+            if is_stacked(path) and shape != (0,):
+                shape = (counts[path], *shape)
+            return self.opt_spec(path.split("/", 1)[1] if "/" in path else path, shape)
+
+        return tree_map_ref(spec, opt_state)
+
+    def batch_shardings(self, batch: dict[str, Any]) -> dict[str, Spec]:
+        """{key: spec} of a global batch (leaves with a `shape`): dim 0 over
+        "data" where it divides, M-RoPE's pos (3, B, S) on its second axis."""
+        out: dict[str, Spec] = {}
+        for k, v in batch.items():
+            shape = tuple(v.shape)
+            if k == "pos" and len(shape) == 3:
+                out[k] = (None, self.batch_dim(shape[1]), None)
+            elif shape:
+                out[k] = (self.batch_dim(shape[0]),) + (None,) * (len(shape) - 1)
+            else:
+                out[k] = ()
+        return out
 
     # ------------------------------------------------------------------
     def cache_spec(self, path: str, shape: tuple[int, ...], batch: int) -> Spec:
@@ -148,6 +212,11 @@ class ShardingRules:
             ch = "model" if shape[3] % self.tp == 0 else None
             return (None, bspec, None, ch)
         return (None,) * len(shape)
+
+
+def is_stacked(path: str) -> bool:
+    """Whether a reference path names a leaf stacked over layers."""
+    return any(seg in path for seg in _STACK_SEGMENTS)
 
 
 def site_roles(bundle: Any) -> dict[str, bool]:

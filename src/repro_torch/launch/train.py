@@ -25,6 +25,17 @@ the card unless `--device cpu` asks for the CPU:
   python -m repro_torch.launch.train --lut --steps 20
   python -m repro_torch.launch.train --device cpu --lut --d-model 64 \\
       --layers 2 --vocab 128 --seq 32 --batch 8 --steps 6
+
+Under `torchrun` (WORLD_SIZE > 1, on one host) every process joins a data
+mesh of WORLD_SIZE ranks, rank RANK on card RANK mod the host's cards (on
+the CPU with `--device cpu`), and the dense stage reduces its gradients in
+int8 over it; rank 0 alone writes the checkpoints and the manifest. Only
+that stage runs over ranks: `--grad-compression` is required and `--lut`
+refused (the data-parallel LUT stages are ROADMAP Queue A item 5's next
+slice):
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --grad-compression --steps 20
 """
 
 from __future__ import annotations
@@ -33,8 +44,11 @@ import argparse
 import os
 import tempfile
 
+import torch
+
 from repro_torch.configs import ARCH_IDS, ArchSpec, effective_plan, get_arch, reduce_arch
 from repro_torch.data import MarkovLM
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.train.recipe import Recipe, default_recipe
 
 
@@ -86,8 +100,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--distill-tau", type=float, default=2.0,
                     help="distillation softening temperature")
     ap.add_argument("--grad-compression", action="store_true",
-                    help="int8 error-feedback gradient reduce in the dense stage: not "
-                         "ported yet (ROADMAP Queue A item 5), raises")
+                    help="EXPERIMENTAL: int8 error-feedback gradient reduce in the dense "
+                         "stage, over the WORLD_SIZE ranks under torchrun, else this "
+                         "process's one device (DESIGN.md §10.4)")
     ap.add_argument("--eval-max-regression", type=float, default=None,
                     help="fail the run if the deployed loss regresses more than this past "
                          "the dense teacher's")
@@ -111,6 +126,11 @@ def main(argv: list[str] | None = None) -> None:
             or args.spec_draft is not None):
         ap.error("--distill-weight/--eval-max-regression/--spec-draft configure the LUT "
                  "pipeline stages — they require --lut")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and (args.lut or (args.recipe is None and not args.grad_compression)):
+        ap.error(f"WORLD_SIZE={world}: over ranks the launcher runs the dense stage with "
+                 f"--grad-compression only; the LUT stages and the uncompressed data-parallel "
+                 f"step are not run by it yet (ROADMAP Queue A item 5)")
     if args.recipe is not None:
         recipe = Recipe.load(args.recipe)
     else:
@@ -132,8 +152,18 @@ def main(argv: list[str] | None = None) -> None:
         print(f"replacement plan: {effective_plan(arch).describe()}")
     print(f"recipe: {recipe.describe()}")
 
-    result = recipe.run(arch, data, ckpt_dir=args.ckpt_dir, seed=args.seed,
-                        device=args.device)
+    mesh = None
+    if world > 1:
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        cards = max(torch.cuda.device_count(), 1)
+        mesh = make_host_mesh(data=world, devices=["cpu"] * world if cpu else
+                              [f"cuda:{r % cards}" for r in range(world)])
+    try:
+        result = recipe.run(arch, data, ckpt_dir=args.ckpt_dir, seed=args.seed,
+                            device=args.device if mesh is None else mesh.device)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
     if result.inf_bundle is not None:
         deploy = next((e["result"] for e in result.manifest["stages"]

@@ -237,12 +237,33 @@ def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor
     return g.reshape(b, p * pool.shape[1], *pool.shape[2:])
 
 
-def paged_write(pool: torch.Tensor, vals: torch.Tensor, flat: torch.Tensor) -> None:
+def paged_write_sources(flat: torch.Tensor) -> torch.Tensor | None:
+    """(B * s,) for `paged_write_flat`'s indices: each fresh position's
+    source, the last position (row-major) that writes its pool slot, as
+    the reference's scatter keeps the last of duplicate writes; None when
+    no slot is written twice. Masked positions all write the garbage
+    page's first slot, and an index_put with duplicate indices keeps any
+    one of them (threads race for it), so the garbage content, which a
+    padded position reads back, would vary from run to run."""
+    f = flat.reshape(-1)
+    if torch.unique(f).numel() == f.numel():
+        return None
+    order = torch.arange(f.numel(), device=f.device)
+    last = torch.full((int(f.max()) + 1,), -1, dtype=torch.long, device=f.device)
+    return last.scatter_reduce_(0, f, order, "amax")[f]
+
+
+def paged_write(pool: torch.Tensor, vals: torch.Tensor, index) -> None:
     """In place: the page-flattened pool (..., n_pages * page_size, KV, Dh)
-    takes vals (..., B, s, KV, Dh) at flat (B, s) (`paged_write_flat`). A
-    leading layer axis is written in the same scatter."""
+    takes vals (..., B, s, KV, Dh) at flat (B, s) (`paged_write_flat`);
+    `index` is flat, or (flat, sources) (`paged_write_sources`), where every
+    duplicate write carries its slot's last value. A leading layer axis is
+    written in the same scatter."""
+    flat, src = index if isinstance(index, tuple) else (index, None)
     lead = pool.shape[:-4]
     flat_pool = pool.view(*lead, pool.shape[-4] * pool.shape[-3], *pool.shape[-2:])
+    if src is not None:
+        vals, flat = vals.flatten(-4, -3).index_select(-3, src), flat.reshape(-1)
     flat_pool[..., flat, :, :] = vals.to(pool.dtype)
 
 

@@ -5,6 +5,7 @@ from repro_torch.optim.adamw import (
     AdamWState,
     GroupRule,
     lut_frozen_mask,
+    no_frozen,
 )
 from repro_torch.optim.schedule import constant, cosine_with_warmup
 
@@ -15,6 +16,7 @@ __all__ = [
     "DISTILL_RULES",
     "SOFT_PQ_RULES",
     "lut_frozen_mask",
+    "no_frozen",
     "cosine_with_warmup",
     "constant",
 ]

@@ -58,7 +58,7 @@ def lut_frozen_mask(params: Any) -> Any:
         if isinstance(node, dict):
             has_c = "centroids" in node
             return {k: walk(v, frozen or (has_c and k in ("w", "b"))) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
+        if type(node) in (list, tuple):           # a ParamSpec (NamedTuple) is a leaf
             return [walk(v, frozen) for v in node]
         return frozen
 
@@ -72,7 +72,8 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def _no_frozen(params: Any) -> Any:
+def no_frozen(params: Any) -> Any:
+    """A frozen mask of `params` with nothing frozen."""
     return tree_map_ref(lambda _p, _leaf: False, params)
 
 
@@ -94,7 +95,7 @@ class AdamW:
         return GroupRule(pattern="")
 
     def init(self, params: Any, frozen: Any | None = None) -> AdamWState:
-        frozen = _no_frozen(params) if frozen is None else frozen
+        frozen = no_frozen(params) if frozen is None else frozen
 
         def mk(_path, p, fz):
             if fz:
@@ -105,23 +106,34 @@ class AdamW:
                           m=tree_map_ref(mk, params, frozen), v=tree_map_ref(mk, params, frozen))
 
     @torch.no_grad()
-    def update(self, grads: Any, state: AdamWState, params: Any, frozen: Any | None = None):
+    def global_norm(self, grads: Any, frozen: Any | None = None) -> torch.Tensor:
+        """The L2 norm of every non-frozen gradient leaf together (fp32)."""
+        frozen = no_frozen(grads) if frozen is None else frozen
+        sq: list[torch.Tensor] = []
+        tree_map_ref(lambda _p, g, fz: None if fz else sq.append((g.float() ** 2).sum()),
+                     grads, frozen)
+        total = sq[0]
+        for t in sq[1:]:
+            total = total + t
+        return torch.sqrt(total)
+
+    @torch.no_grad()
+    def update(self, grads: Any, state: AdamWState, params: Any, frozen: Any | None = None, *,
+               gnorm: torch.Tensor | None = None):
         """(grads, state, params) -> (new params, new state, global grad norm).
         Functional: no input is changed in place. `grads` holds None at
-        frozen leaves."""
-        frozen = _no_frozen(params) if frozen is None else frozen
+        frozen leaves. Every leaf's update is elementwise, so the leaves may
+        be any matching parts of the params, their gradients and moments (a
+        data rank's ZeRO-1 shards, `distributed/data_parallel.py`), with
+        `gnorm` the global norm of the whole gradients, computed outside."""
+        frozen = no_frozen(params) if frozen is None else frozen
         step = state.step + 1
         stepf = step.float()
         lr_t = self.lr(step) if callable(self.lr) else torch.tensor(self.lr, dtype=torch.float32)
 
         if self.clip_norm is not None:
-            sq: list[torch.Tensor] = []
-            tree_map_ref(lambda _p, g, fz: None if fz else sq.append((g.float() ** 2).sum()),
-                         grads, frozen)
-            total = sq[0]
-            for t in sq[1:]:
-                total = total + t
-            gnorm = torch.sqrt(total)
+            if gnorm is None:
+                gnorm = self.global_norm(grads, frozen)
             scale = torch.clamp_max(self.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
         else:
             gnorm = torch.zeros((), dtype=torch.float32)

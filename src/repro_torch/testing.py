@@ -505,3 +505,121 @@ def lut_train_step_parity(bundle, params, batch, dev, opt, *, tie_eps: float = 1
                                                      float(m_c["grad_norm"])),
                updated=moved, failures=failures)
     return out
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training (tests/test_torch_dp.py, chip_smoke phase 13)
+# ---------------------------------------------------------------------------
+
+class AdamLeafRule:
+    """tests/test_torch_train.py's rule for params that Adam moved from
+    gradients known only to fp32 rounding, over several steps: Adam moves an
+    element by about lr per step whatever its gradient, so an element whose
+    gradient was below 1e-3 of its leaf's largest at some step (its
+    direction not settled by the rounding) is held to 2 lr (times its
+    group's lr scale) per step so far; every other element to 1e-5 of the
+    leaf's largest entry or 1e-4 of its own move from `start` (the larger:
+    a temperature at 100x lr moves by ~1 a step, and its gradient's fp32
+    rounding with it); a frozen leaf (no gradient) exactly. `note` each
+    step's reference gradients and learning rate, then `check`."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.ill: dict[tuple[str, int], torch.Tensor] = {}
+        self.moves: dict[tuple[str, int], float] = {}
+
+    def note(self, grads, lr: float) -> None:
+        from repro_torch.weights import reference_leaves
+
+        for path, leaves in reference_leaves(grads).items():
+            for j, g in enumerate(leaves):
+                if g is None:
+                    continue
+                a = g.detach().float().abs()
+                ill = a < 1e-3 * a.max()
+                key = (path, j)
+                self.ill[key] = ill if key not in self.ill else self.ill[key] | ill
+                self.moves[key] = (self.moves.get(key, 0.0)
+                                   + 2 * lr * self.opt._rule(path).lr_scale)
+
+    def check(self, got, want, start) -> tuple[float, str]:
+        """(the worst error over its bound across every param leaf, that
+        leaf): at most 1 holds the rule. `start`: the params before the
+        first step."""
+        from repro_torch.weights import reference_leaves
+
+        worst, where = 0.0, ""
+        wants, starts = reference_leaves(want), reference_leaves(start)
+        for path, leaves in reference_leaves(got).items():
+            for j, g in enumerate(leaves):
+                w = wants[path][j].float()
+                err = (g.float() - w).abs()
+                key = (path, j)
+                if key not in self.ill:                   # frozen: exact
+                    r = float("inf") if bool((err > 0).any()) else 0.0
+                else:
+                    ill = self.ill[key]
+                    well_bound = torch.maximum(
+                        1e-4 * (w - starts[path][j].float()).abs(),
+                        torch.full_like(w, 1e-5 * float(w.abs().max()))).clamp_min(1e-30)
+                    r = float((err / well_bound)[~ill].max()) if bool((~ill).any()) else 0.0
+                    if bool(ill.any()):
+                        r = max(r, float(err[ill].max()) / self.moves[key])
+                if r > worst:
+                    worst, where = r, f"{path}[{j}]"
+        return worst, where
+
+
+def one_step_off(got: torch.Tensor, want: torch.Tensor, n: int) -> tuple[int, float]:
+    """A compressed mean `got` against `want` (its plain version, or the
+    reference's): (the elements that differ, the worst of their differences
+    over one step of their chunk's final scale, max|chunk| / 127). A
+    requantization tie that a 1-ulp difference of the chunk's fp32 sum
+    flips moves an element by one step; at most 1 is that. A vector whose
+    length does not divide by `n` is taken zero-padded, as the reduce pads it."""
+    pad = (-got.numel()) % n                 # the zeros the reduce padded with
+    g, w = (torch.nn.functional.pad(t.reshape(-1).float(), (0, pad)).reshape(n, -1)
+            for t in (got, want))
+    step = w.abs().amax(1, keepdim=True) / 127
+    off = g != w
+    if not bool(off.any()):
+        return 0, 0.0
+    ratio = ((g - w).abs() / step.clamp_min(1e-30)).expand_as(g)[off]
+    return int(off.sum()), float(ratio.max())
+
+
+def witness_ratio(got, ref32, exact, start=None) -> tuple[float, str]:
+    """Two fp32 runs against a float64 one: the worst, over the leaves of
+    `exact`, of `got`'s L2 gap from it over `ref32`'s (counted as at least
+    FLOOR_L2), both as a fraction of the leaf's L2 move from `start` (else
+    of the leaf): at most WITNESS says that `got` is no further from exact
+    than `ref32`'s rounding explains. Not the largest entry: an element
+    whose exact gradient is ~0 takes Adam's step by the sign of its fp32
+    rounding, in either run, so two runs' single worst elements differ
+    several-fold where their L2 gaps agree (the leaf rule of one step,
+    `AdamLeafRule`, exempts such elements likewise). Returns (that ratio,
+    its leaf with both runs' gaps, L2 / largest entry, as fractions of the
+    move)."""
+    from repro_torch.weights import reference_leaves
+
+    gl, rl, el = reference_leaves(got), reference_leaves(ref32), reference_leaves(exact)
+    sl = reference_leaves(start) if start is not None else None
+    worst, where = 0.0, ""
+    for path, leaves in el.items():
+        for j, e in enumerate(leaves):
+            if e.numel() == 0:
+                continue
+            e = e.double()
+            base = e - sl[path][j].double() if sl is not None else e
+            scale = (max(float(base.norm()), 1e-300), max(float(base.abs().max()), 1e-300))
+
+            def gap(a):
+                d = a.double() - e
+                return float(d.norm()) / scale[0], float(d.abs().max()) / scale[1]
+
+            (g2, gm), (r2, rm) = gap(gl[path][j]), gap(rl[path][j])
+            r = g2 / max(r2, FLOOR_L2)
+            if r > worst:
+                worst, where = r, (f"{path}[{j}]: gap {g2:.3g} / {gm:.3g}, the fp32 "
+                                   f"reference's {r2:.3g} / {rm:.3g}")
+    return worst, where

@@ -18,8 +18,13 @@ reads what the other wrote. `Deploy` records the executed recipe in the
 LUTArtifact's manifest.
 
 Stages:
-  * DensePretrain: the dense baseline and teacher (the reference's int8
-    compressed gradients are not ported: ROADMAP Queue A item 5)
+  * DensePretrain: the dense baseline and teacher; `grad_compression=True`
+    (EXPERIMENTAL, DESIGN.md §10.4) reduces its gradients in int8 with
+    error feedback over a data mesh: the ranks of the process group the
+    caller initialized (`launch.train` under torchrun joins one), else
+    this process's one device, where the reference spans every local device
+    of its one controller (a kept difference, ROADMAP). In a process group
+    of several ranks `Recipe.run` runs no other stage
   * CentroidInit: tape capture + k-means, `convert.convert_dense_to_lut_train`
   * SoftPQ: differentiable centroid learning; `distill=` adds a KL term
     against the frozen dense teacher (DistillSpec)
@@ -37,6 +42,7 @@ import shutil
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer, atomic_write_json
 from repro_torch.configs import ArchSpec, arch_to_dict, build_model, effective_plan
@@ -46,7 +52,10 @@ from repro_torch.core.plan import LUTPlan
 from repro_torch.device import resolve_device
 from repro_torch.optim import DISTILL_RULES, SOFT_PQ_RULES, AdamW, lut_frozen_mask
 from repro_torch.optim.schedule import constant, cosine_with_warmup
-from repro_torch.train.train_step import DistillSpec, make_distill_loss_fn, make_train_step
+from repro_torch.launch.mesh import mesh_of_group
+from repro_torch.train.train_step import (DistillSpec, init_compressed_state,
+                                          make_compressed_train_step, make_distill_loss_fn,
+                                          make_train_step)
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.weights import layer_specs, reference_leaves
 
@@ -139,16 +148,14 @@ class DensePretrain(_Stage):
     log_every: int = 25
     grad_accum: int = 1
     compute_dtype: str = "float32"
-    grad_compression: bool = False       # not ported (ROADMAP Queue A item 5)
+    # EXPERIMENTAL (DESIGN.md §10.4): the int8 error-feedback gradient reduce
+    # over a data mesh. Changes the step's numerics.
+    grad_compression: bool = False
 
     def __post_init__(self):
         if self.grad_compression and self.grad_accum > 1:
             raise RecipeError("grad_compression does not support grad_accum > 1 — the "
                               "compressed data-parallel step reduces full-batch grads")
-        if self.grad_compression:
-            raise NotImplementedError("DensePretrain(grad_compression=True), the int8 "
-                                      "error-feedback gradient reduce, is not ported yet: "
-                                      "ROADMAP Queue A item 5")
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "DensePretrain":
@@ -159,20 +166,28 @@ class DensePretrain(_Stage):
     def run(self, ctx: "_RunContext", index: int) -> dict[str, Any]:
         bundle = build_model(ctx.arch, Mode.DENSE)
         opt = self.optim.build(self.steps)
-        step_fn = make_train_step(bundle, opt, compute_dtype=_dtype(self.compute_dtype),
-                                  grad_accum=self.grad_accum)
+        dt = _dtype(self.compute_dtype)
+        mesh = None
+        if self.grad_compression:
+            mesh = mesh_of_group(ctx.device)
+            step_fn = make_compressed_train_step(bundle, opt, mesh, compute_dtype=dt)
+            state_of = lambda p: init_compressed_state(opt, p)      # noqa: E731
+        else:
+            step_fn = make_train_step(bundle, opt, compute_dtype=dt, grad_accum=self.grad_accum)
+            state_of = opt.init
         params = bundle.init(ctx.generator(), device=ctx.device)
         n = sum(t.numel() for leaves in reference_leaves(params).values() for t in leaves)
         ctx.log(f"[{self.name}] {ctx.arch.name}: {n/1e6:.1f}M params, "
-                f"dense pretrain {self.steps} steps")
+                f"dense pretrain {self.steps} steps"
+                + (f" [int8 compressed grads over {mesh.data} rank(s)]" if mesh else ""))
         trainer = Trainer(
             step_fn=step_fn, batch_at=ctx.data.batch_at,
             cfg=TrainerConfig(total_steps=self.steps, ckpt_every=self.ckpt_every,
                               ckpt_dir=str(ctx.stage_dir(index, self)),
                               log_every=self.log_every),
-            on_checkpoint=ctx.step_hook(index),
+            on_checkpoint=ctx.step_hook(index), mesh=mesh,
         )
-        params, _ = trainer.fit(params, opt.init(params))        # resumes if killed
+        params, _ = trainer.fit(params, state_of(params))        # resumes if killed
         ctx.dense_bundle, ctx.dense_params = bundle, params
         ctx.histories[self.name] = trainer.history
         return {"final_loss": trainer.history[-1]["loss"] if trainer.history else None}
@@ -467,7 +482,9 @@ class _RunManifest:
             self._write()
 
     def _write(self) -> None:
-        atomic_write_json(self.path, self.state)
+        # in a process group, rank 0 alone writes (each rank keeps the state)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            atomic_write_json(self.path, self.state)
 
     def _reconcile_recipe(self, recipe: "Recipe") -> None:
         """Accept a recipe that differs from the recorded one only at stages
@@ -589,6 +606,8 @@ class Recipe:
                 extra = f"[{s.steps}]"
                 if isinstance(s, SoftPQ) and s.distill is not None:
                     extra += f"+distill(w={s.distill.weight})"
+                if isinstance(s, DensePretrain) and s.grad_compression:
+                    extra += "+int8grads"
             bits.append(f"{s.name}{extra}")
         return " -> ".join(bits)
 
@@ -600,6 +619,15 @@ class Recipe:
         arguments resumes at the manifest's first unfinished stage, and
         inside a training stage at its newest committed checkpoint."""
         self.validate()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # every rank would run these stages whole and write their files
+            alone = [s.name for s in self.stages
+                     if not (isinstance(s, DensePretrain) and s.grad_compression)]
+            if alone:
+                raise RecipeError(
+                    f"stages {alone} do not run over the {dist.get_world_size()} ranks of "
+                    f"the process group: only DensePretrain(grad_compression=True) does (the "
+                    f"data-parallel LUT stages are ROADMAP Queue A item 5's next slice)")
         dev = resolve_device(device)
         ckpt_dir = pathlib.Path(ckpt_dir)
         ckpt_dir.mkdir(parents=True, exist_ok=True)

@@ -14,8 +14,15 @@ live, and sums their gradients in fp32.
 
 Frozen leaves (the dense weights of LUT sites) take no gradient: only the
 other leaves are handed to autograd, as fresh views with requires_grad, so
-the caller's tensors are never changed. The compressed data-parallel step
-and `make_serve_step` are not ported yet (ROADMAP Queue A item 5).
+the caller's tensors are never changed.
+
+`make_compressed_train_step` is the opt-in data-parallel variant wiring
+`train.grad_compression` (the int8 error-feedback reduce) under the same
+(params, state, batch) step contract: the compression residual rides in the
+opaque optimizer-state slot, so the Trainer checkpoints and restores it
+with no special case. The exact data-parallel step with ZeRO-1 moments is
+`distributed.data_parallel.make_data_parallel_step`. `make_serve_step` is
+`ModelBundle.forward_step` under the step contract.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.optim import AdamW, AdamWState
+from repro_torch.optim import AdamW, AdamWState, no_frozen
 from repro_torch.weights import tree_map_ref
 
 
@@ -145,13 +152,12 @@ def grads_tree(loss: torch.Tensor, leaves: list[torch.Tensor], params: Any, froz
     return tree_map_ref(grad, params, frozen)
 
 
-def make_train_step(bundle, opt: AdamW, *, frozen_mask: Any | None = None,
-                    compute_dtype=torch.bfloat16, grad_accum: int = 1,
-                    loss_fn: Callable | None = None) -> Callable:
-    """The step (params, opt_state, batch) -> (params, opt_state, metrics).
-    `loss_fn` replaces the plain cross-entropy (e.g. `make_distill_loss_fn`);
-    it returns a scalar or (scalar, aux dict), whose entries join the
-    metrics. The batch's tensors go to the params' device."""
+def make_grads_fn(bundle, *, compute_dtype=torch.bfloat16, grad_accum: int = 1,
+                  loss_fn: Callable | None = None) -> Callable:
+    """(params, frozen, batch) -> (loss, aux, grads) of the step: the
+    microbatches one after the other when `grad_accum` > 1, their gradients
+    summed in fp32 and averaged. The batch's tensors must be on the params'
+    device."""
     loss_fn = _with_aux(loss_fn if loss_fn is not None
                         else make_loss_fn(bundle, compute_dtype=compute_dtype))
 
@@ -161,40 +167,100 @@ def make_train_step(bundle, opt: AdamW, *, frozen_mask: Any | None = None,
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, \
             grads_tree(loss, leaves, params, frozen)
 
+    def grads_fn(params, frozen, batch):
+        if grad_accum == 1:
+            return grads_of(params, frozen, batch)
+        b = batch["labels"].shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
+        per = b // grad_accum
+        loss, aux, grads = None, None, None
+        for i in range(grad_accum):
+            rows = slice(i * per, (i + 1) * per)
+            # M-RoPE's pos (3, B, S) splits on its second axis
+            mb = {k: v[:, rows] if k == "pos" and v.dim() == 3 else v[rows]
+                  for k, v in batch.items()}
+            l, a, g = grads_of(params, frozen, mb)
+            if grads is None:
+                loss, aux = l, a
+                grads = tree_map_ref(lambda _p, x: None if x is None else x.float(), g)
+            else:
+                loss = loss + l
+                aux = {k: aux[k] + a[k] for k in aux}
+                grads = tree_map_ref(lambda _p, x, y: None if x is None else x + y.float(),
+                                     grads, g)
+        loss = loss / grad_accum
+        aux = {k: v / grad_accum for k, v in aux.items()}
+        grads = tree_map_ref(lambda _p, x: None if x is None else x / grad_accum, grads)
+        return loss, aux, grads
+
+    return grads_fn
+
+
+def make_train_step(bundle, opt: AdamW, *, frozen_mask: Any | None = None,
+                    compute_dtype=torch.bfloat16, grad_accum: int = 1,
+                    loss_fn: Callable | None = None) -> Callable:
+    """The step (params, opt_state, batch) -> (params, opt_state, metrics).
+    `loss_fn` replaces the plain cross-entropy (e.g. `make_distill_loss_fn`);
+    it returns a scalar or (scalar, aux dict), whose entries join the
+    metrics. The batch's tensors go to the params' device."""
+    grads_fn = make_grads_fn(bundle, compute_dtype=compute_dtype, grad_accum=grad_accum,
+                             loss_fn=loss_fn)
+
     def train_step(params, opt_state: AdamWState, batch):
         dev = _device_of(params)
         batch = {k: v.to(dev) for k, v in batch.items()}
-        frozen = frozen_mask if frozen_mask is not None else \
-            tree_map_ref(lambda _p, _leaf: False, params)
-        if grad_accum == 1:
-            loss, aux, grads = grads_of(params, frozen, batch)
-        else:
-            b = batch["labels"].shape[0]
-            if b % grad_accum:
-                raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
-            per = b // grad_accum
-            loss, aux, grads = None, None, None
-            for i in range(grad_accum):
-                rows = slice(i * per, (i + 1) * per)
-                # M-RoPE's pos (3, B, S) splits on its second axis
-                mb = {k: v[:, rows] if k == "pos" and v.dim() == 3 else v[rows]
-                      for k, v in batch.items()}
-                l, a, g = grads_of(params, frozen, mb)
-                if grads is None:
-                    loss, aux = l, a
-                    grads = tree_map_ref(lambda _p, x: None if x is None else x.float(), g)
-                else:
-                    loss = loss + l
-                    aux = {k: aux[k] + a[k] for k in aux}
-                    grads = tree_map_ref(lambda _p, x, y: None if x is None else x + y.float(),
-                                         grads, g)
-            loss = loss / grad_accum
-            aux = {k: v / grad_accum for k, v in aux.items()}
-            grads = tree_map_ref(lambda _p, x: None if x is None else x / grad_accum, grads)
+        frozen = frozen_mask if frozen_mask is not None else no_frozen(params)
+        loss, aux, grads = grads_fn(params, frozen, batch)
         new_params, new_opt, gnorm = opt.update(grads, opt_state, params, frozen)
-        metrics = {"loss": loss.float(), "grad_norm": gnorm}
-        metrics.update({k: v.float() for k, v in aux.items()})
-        metrics.update(temperature_stats(new_params))
-        return new_params, new_opt, metrics
+        return new_params, new_opt, step_metrics(loss, gnorm, aux, new_params)
 
     return train_step
+
+
+def step_metrics(loss: torch.Tensor, gnorm: torch.Tensor, aux: dict, new_params: Any) -> dict:
+    metrics = {"loss": loss.float(), "grad_norm": gnorm}
+    metrics.update({k: v.float() for k, v in aux.items()})
+    metrics.update(temperature_stats(new_params))
+    return metrics
+
+
+def make_compressed_train_step(bundle, opt: AdamW, mesh, *, axis: str = "data",
+                               frozen_mask: Any | None = None,
+                               compute_dtype=torch.bfloat16) -> Callable:
+    """Data-parallel step with the int8 error-feedback gradient reduce
+    (`train.grad_compression`) in place of an exact all-reduce over `mesh`'s
+    `axis`. EXPERIMENTAL (DESIGN.md §10.4): gradients cross the wire as int8,
+    so the numerics differ from the exact step.
+
+    State contract: `opt_state` is `{"opt": AdamWState, "residual": tree}`
+    (build it with `init_compressed_state`); each rank takes its rows of the
+    global batch (`data_parallel.local_batch`). Otherwise `make_train_step`'s
+    contract, so the Trainer drives and checkpoints it unchanged."""
+    from repro_torch.train.grad_compression import make_compressed_grad_fn
+
+    grad_fn = make_compressed_grad_fn(make_loss_fn(bundle, compute_dtype=compute_dtype), mesh,
+                                      axis=axis)
+
+    def train_step(params, state, batch):
+        dev = _device_of(params)
+        loss, grads, new_residual = grad_fn(params, state["residual"],
+                                            {k: v.to(dev) for k, v in batch.items()})
+        new_params, new_opt, gnorm = opt.update(grads, state["opt"], params, frozen_mask)
+        return (new_params, {"opt": new_opt, "residual": new_residual},
+                step_metrics(loss, gnorm, {}, new_params))
+
+    return train_step
+
+
+def init_compressed_state(opt: AdamW, params: Any, frozen: Any | None = None) -> dict:
+    from repro_torch.train.grad_compression import init_residual
+
+    return {"opt": opt.init(params, frozen), "residual": init_residual(params)}
+
+
+def make_serve_step(bundle, *, compute_dtype=torch.bfloat16) -> Callable:
+    def serve_step(params, batch, caches):
+        return bundle.forward_step(params, batch, caches, compute_dtype=compute_dtype)
+
+    return serve_step

@@ -12,7 +12,13 @@ so that every control-plane feature is visible and testable:
     loop restores the last commit and continues, at most `max_restores`
     times for a step that never completes;
   * StragglerMonitor flags slow steps; a heartbeat file marks liveness;
-  * a failure injection hook for tests (fail_at / fail_exc / fail_times).
+  * a failure injection hook for tests (fail_at / fail_exc / fail_times);
+  * data-parallel ranks (`mesh`): every rank runs the loop; rank 0 alone
+    writes the checkpoints, and every rank passes a barrier once rank 0's
+    last save has committed, before it restores and at the end of `fit`.
+    With a ZeRO-1 `layout` (`distributed.data_parallel.Zero1`) every rank
+    gathers the moments for each save, so that rank 0 writes whole arrays
+    in the reference's format, and each rank restores only its shards.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ class Trainer:
     fail_exc: Exception | None = None
     fail_times: int = 1                      # > max_retries exhausts the StepGuard
     on_checkpoint: Callable[[int], None] | None = None   # after each committed save
+    mesh: Any = None                         # a data mesh (launch.mesh.HostMesh)
+    layout: Any = None                       # its ZeRO-1 layout of the opt state
 
     def __post_init__(self):
         self.ckpt = Checkpointer(self.cfg.ckpt_dir, keep_last=self.cfg.keep_last)
@@ -60,13 +68,33 @@ class Trainer:
         self._fail_count = 0
         self._restores_at_step: dict[int, int] = {}
 
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _committed(self) -> None:
+        """Wait for an in-flight background save to commit (rank 0's), then,
+        on a mesh, for every rank."""
+        self.ckpt.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _save(self, step: int, params: Any, opt_state: Any) -> None:
+        tree = {"params": params, "opt": opt_state}
+        if self.layout is not None:
+            tree = self.layout.gather_state(tree)
+        if self.rank == 0:
+            self.ckpt.save(step, tree, on_commit=self.on_checkpoint)
+
     def resume(self, params: Any, opt_state: Any) -> tuple[int, Any, Any]:
         """Restore the newest committed checkpoint if there is one."""
-        self.ckpt.wait()            # an in-flight background save commits first
+        self._committed()
         latest = self.ckpt.latest_step()
         if latest is None:
             return 0, params, opt_state
-        _, tree = self.ckpt.restore({"params": params, "opt": opt_state})
+        cuts = None if self.layout is None else self.layout.cuts(params)
+        _, tree = self.ckpt.restore({"params": params, "opt": opt_state}, step=latest,
+                                    shardings=cuts)
         return latest, tree["params"], tree["opt"]
 
     def fit(self, params: Any, opt_state: Any, *, start_step: int | None = None):
@@ -108,7 +136,7 @@ class Trainer:
             self.history.append(rec)
             if self.hb:
                 self.hb.beat(step, loss=rec["loss"])
-            if self.cfg.log_every and step % self.cfg.log_every == 0:
+            if self.rank == 0 and self.cfg.log_every and step % self.cfg.log_every == 0:
                 # the learned temperature falls toward 0 (the argmax limit) as
                 # centroid learning sharpens (paper section 3.2)
                 temp = (f" t {rec['t_mean']:.3f}/{rec['t_min']:.3f}"
@@ -119,7 +147,6 @@ class Trainer:
                       + (" [straggler]" if slow else ""), flush=True)
             step += 1
             if step % self.cfg.ckpt_every == 0 or step == self.cfg.total_steps:
-                self.ckpt.save(step, {"params": params, "opt": opt_state},
-                               on_commit=self.on_checkpoint)
-        self.ckpt.wait()
+                self._save(step, params, opt_state)
+        self._committed()
         return params, opt_state

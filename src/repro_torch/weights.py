@@ -174,33 +174,70 @@ def reference_arrays(tree: Any) -> dict[str, np.ndarray]:
             for p, leaves in reference_leaves(tree).items()}
 
 
+def flat_vector(tree: Any) -> torch.Tensor:
+    """Every tensor leaf of a port-layout tree as fp32, concatenated in the
+    reference's flatten order (a layer stack's leaf whole, layer-major);
+    None leaves (a frozen leaf's gradient) add nothing."""
+    return torch.cat([leaf.float().reshape(-1) for leaves in reference_leaves(tree).values()
+                      for leaf in leaves if leaf is not None])
+
+
+def unflatten_vector(vec: torch.Tensor, like: Any) -> Any:
+    """`flat_vector`'s inverse: `like`'s tree with each tensor leaf's values
+    from `vec` (views where the dtype is `vec`'s), None where `like` has None."""
+    parts: dict[str, list] = {}
+    off = 0
+    for path, leaves in reference_leaves(like).items():
+        for leaf in leaves:
+            if leaf is None:
+                parts.setdefault(path, []).append(None)
+                continue
+            parts.setdefault(path, []).append(
+                vec[off:off + leaf.numel()].view(leaf.shape).to(leaf.dtype))
+            off += leaf.numel()
+    cursors = {p: iter(v) for p, v in parts.items()}
+    return tree_map_ref(lambda p, _leaf: next(cursors[p]), like)
+
+
 def tree_from_reference(like: Any, arrays: Mapping[str, Any], *,
-                        device: str | torch.device | None = None) -> Any:
+                        device: str | torch.device | None = None, cuts: Any = None) -> Any:
     """The tree of `like`'s structure (port layout; leaves tensors or
     ParamSpecs) holding `arrays[path]` for each reference path: a stacked
     array is split over the layers (an empty (0,) one gives each layer an
     empty leaf). Each leaf goes to the device of the tensor it replaces, or
     to `device` (the card unless the caller asks for the CPU). A leaf whose
     `like` is bfloat16 takes bfloat16 bits stored as such, as a 2-byte void
-    or as uint16."""
+    or as uint16. `cuts`, a tree of `like`'s structure, keeps only the part
+    `cut.apply(array)` of each leaf (a data rank's ZeRO-1 shard,
+    `distributed.data_parallel.Cut`)."""
     dev = None
     cursors: dict[str, int] = {}
+    counts = {p: len(leaves) for p, leaves in reference_leaves(like).items()}
+    held: dict[str, Any] = {}      # a stacked array, read once for all its layers
+    if cuts is None:
+        cuts = tree_map_ref(lambda _p, _leaf: None, like)
 
-    def take(path: str, leaf: Any) -> torch.Tensor:
+    def take(path: str, leaf: Any, cut: Any) -> torch.Tensor:
         nonlocal dev
         if isinstance(leaf, torch.Tensor):
             target = leaf.device
         else:
             dev = dev if dev is not None else resolve_device(device)
             target = dev
-        a = arrays[path]
+        a = held[path] if path in held else arrays[path]
         if is_stacked(path) and tuple(a.shape) != (0,):
             j = cursors.get(path, 0)
             cursors[path] = j + 1
+            if j + 1 < counts[path]:
+                held[path] = a
+            else:
+                held.pop(path, None)
             a = a[j]
+        if cut is not None:
+            a = cut.apply(a)
         return tensor_from_numpy(a, target, bf16=leaf.dtype == torch.bfloat16)
 
-    return tree_map_ref(take, like)
+    return tree_map_ref(take, like, cuts)
 
 
 def layer_specs(bundle) -> dict[str, Any]:

@@ -577,3 +577,43 @@ def test_tp2_on_one_card_matches_the_unsharded_engine(dev, tmp_path, monkeypatch
                 # garbage page, whose contents the two engines do not share
                 valid = np.arange(g.shape[1])[None, :] < lens[:, None]
                 assert abs(g - w)[valid].max() <= 1e-3, case
+
+
+def test_dp2_on_one_card_matches_the_single_rank_step(dev):
+    """chip_smoke phase 13 (a) at reduced size: the data-parallel step with
+    ZeRO-1 moments at dp 2, both ranks on the one card (gloo, two
+    processes), against the single-rank step on the card: the loss within
+    1e-5 relative at every step, the params after one step within
+    `testing.AdamLeafRule`, after three the params and moments no further
+    from the float64 steps than the single-rank run (`testing.WITNESS`),
+    both ranks' params bytewise equal, no LUT kernel and no plain version
+    (a dense model)."""
+    import numpy as np
+    from _tp_ranks import dp_model, dp_single, dp_train, run_ranks
+
+    from repro_torch.testing import WITNESS, witness_ratio
+    from repro_torch.weights import tree_from_reference, tree_map_ref
+
+    spec = dict(arch="qwen3_1p7b", layers=2, vocab=512, d=256, d_ff=512, mode="dense",
+                lr=1e-3, clip=1.0, batch=4, seq=64, device="cuda:0")
+    steps = 3
+    ranks = run_ranks(dp_train, 2, spec, None, steps, devices=["cuda:0", "cuda:0"], axis="data")
+    losses, states, rule, start = dp_single(spec, None, steps)
+    _, exact, _, _ = dp_single(spec, None, steps, float64=True)
+    _, params, opt, _ = dp_model(spec)
+    like = {"params": params, "opt": opt.init(params)}
+    single = tree_from_reference(like, states[-1])
+    witness = tree_from_reference({"params": tree_map_ref(lambda _p, t: t.double(), params),
+                                   "opt": like["opt"]}, exact[-1])
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], losses, rtol=1e-5)
+        worst, where = rule.check(tree_from_reference(params, r["params_1"]),
+                                  tree_from_reference(like, states[0])["params"], start)
+        assert worst <= 1.0, (worst, where)
+        got = tree_from_reference(like, r["arrays"])
+        for key, base in (("params", start), ("opt", None)):
+            ratio, where = witness_ratio(got[key], single[key], witness[key], base)
+            assert ratio <= WITNESS, (key, ratio, where)
+        assert r["plain"] == 0 and sum(r["launches"].values()) == 0
+    for path, a in ranks[0]["params"].items():
+        np.testing.assert_array_equal(a, ranks[1]["params"][path], err_msg=path)

@@ -160,6 +160,33 @@ def test_paged_write_flat_and_gather_match_reference(s, page_size):
         np.asarray(jattn.paged_gather(jnp.asarray(pool), jnp.asarray(bt))))
 
 
+def test_paged_write_keeps_the_last_duplicate_as_the_reference():
+    """Masked positions all write the garbage page's first slot. The
+    reference's scatter keeps the last of them (row-major); the port's
+    write, given `paged_write_sources`, keeps it on every run (an
+    index_put of duplicates alone keeps whichever thread wrote last)."""
+    rng = np.random.default_rng(3)
+    # 64k values: past the size at which the CPU's index_put runs in threads
+    n_layers, b, s, page_size, n_pages, kv, dh = 2, 4, 32, 16, 16, 4, 64
+    bt = np.stack([rng.permutation(np.arange(1, n_pages))[:2] for _ in range(b)])
+    cache_len = np.array([0, 3, 5, 9], np.int32)
+    write_len = np.array([10, 0, 32, 7], np.int32)      # ragged rows, a masked one
+    vals = rng.standard_normal((n_layers, b, s, kv, dh)).astype(np.float32)
+    flat = tattn.paged_write_flat(torch.from_numpy(bt), torch.from_numpy(cache_len), s,
+                                  page_size, torch.from_numpy(write_len))
+    src = tattn.paged_write_sources(flat)
+    assert src is not None and tattn.paged_write_sources(flat[2:3, :20]) is None
+    pool0 = np.zeros((n_layers, n_pages, page_size, kv, dh), np.float32)
+    jflat = jattn.paged_write_flat(jnp.asarray(bt), jnp.asarray(cache_len), s, page_size,
+                                   jnp.asarray(write_len))
+    want = np.asarray(jnp.asarray(pool0).reshape(n_layers, -1, kv, dh).at[:, jflat].set(
+        jnp.asarray(vals)).reshape(pool0.shape))
+    for _ in range(20):
+        pool = torch.from_numpy(pool0.copy())
+        tattn.paged_write(pool, torch.from_numpy(vals), (flat, src))
+        np.testing.assert_array_equal(pool.numpy(), want)
+
+
 def test_forward_step_paged_matches_reference():
     """A prefill chunk and two decode steps through a paged cache with seeded,
     scattered block tables and a masked row: logits and every page but the

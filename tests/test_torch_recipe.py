@@ -332,8 +332,12 @@ def test_recipe_json_loads_across_the_packages(tmp_path):
         trecipe.Recipe(stages=(trecipe.SoftPQ(),)).validate()
     with pytest.raises(trecipe.RecipeError, match="unknown rule set"):
         trecipe.OptimSpec(rules="nope")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        trecipe.DensePretrain(grad_compression=True)
+    # the compressed dense stage builds and round-trips in both packages
+    jr = jrecipe.default_recipe(grad_compression=True, lut=False)
+    tr = trecipe.default_recipe(grad_compression=True, lut=False)
+    assert tr.to_dict() == jr.to_dict() and tr.describe() == jr.describe() == "dense[200]+int8grads"
+    assert trecipe.Recipe.from_json(jr.to_json()).stages[0].grad_compression
+    assert jrecipe.Recipe.from_json(tr.to_json()).to_dict() == jr.to_dict()
     with pytest.raises(trecipe.RecipeError, match="grad_accum"):
         trecipe.DensePretrain(grad_accum=2, grad_compression=True)
 
