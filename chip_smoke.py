@@ -227,6 +227,24 @@ Phases (any failed check exits non-zero; no phase is skipped):
      the card's used memory. No LUT kernel launches (read around the
      phase, here and on each rank), so the phase adds nothing to the
      kernels line.
+ 14. tensor-parallel training on a (data, model) = (2, 2) mesh (after 13,
+     before 8 and 12): qwen3_1p7b at full width and TPT_LAYERS layers
+     (layer 0 dense, layer 1 LUT under all_but_first), MarkovLM 4 x 128;
+     four rank processes on the one card over gloo (a card each over NCCL
+     where the host has four), each holding its `ShardingRules(2, 2)` cut
+     (`tensor_parallel.place(train=True)`, ZeRO-1 inside its model
+     shard). (a) two DENSE steps and (b) one soft-PQ step (SOFT_PQ_RULES,
+     `lut_frozen_mask`) against the single-rank step here on the same
+     global batches, run before the ranks' steps: the loss within 1e-5
+     relative; after one step every param leaf, gathered to whole leaves,
+     within `testing.AdamLeafRule` (a log_t by AdamW of its rank's own
+     gradient, held against the single rank's by its terms); replicated
+     leaves bytewise equal across each model group and params across each
+     data group; each rank's param and moment shapes its spec cut; the
+     soft-PQ step takes the single-rank step's codes and table integers
+     where its own differ at a tie, each difference checked. Per rank each
+     step's wall time, peak memory and collectives per axis; the card's
+     used memory. No LUT kernel launches ("phase_launches" reads 0).
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -4860,6 +4878,465 @@ def phase_dp(dev, scratch: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor-parallel training on a (data, model) = (2, 2) mesh (the
+# dense decoder LMs; DENSE and soft-PQ steps; ZeRO-1 inside model shards)
+# ---------------------------------------------------------------------------
+
+TPT_MESH = (2, 2)
+TPT_LAYERS = 2           # qwen3_1p7b at full width: layer 0 dense, layer 1 LUT under all_but_first
+TPT_BATCH, TPT_SEQ = 4, 128
+TPT_LR = 1e-3            # constant: the leaf rule's bound is 2 lr a step (100x for log_t)
+TPT_LOSS_RTOL = 1e-5     # the mean of the data ranks' losses against the batch's
+LOG_T_TERMS = 1e-6       # a log_t gradient against its terms' magnitudes (a cancelling sum)
+
+
+def tpt_setup(mode: str, dev):
+    """Phase 14's model: qwen3_1p7b at full width and TPT_LAYERS layers,
+    params drawn on `dev` from SEED (each process draws the same), the
+    LUT_TRAIN centroids at the activations' scale as in phase 7(a); AdamW
+    at TPT_LR with global-norm clipping (SOFT_PQ_RULES for soft-PQ).
+    Returns (bundle, params, opt, frozen mask or None)."""
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW, lut_frozen_mask
+
+    bundle = build_model(dataclasses.replace(get_arch("qwen3_1p7b"), n_layers=TPT_LAYERS),
+                         Mode(mode))
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    if mode == "dense":
+        return bundle, params, AdamW(lr=TPT_LR), None
+    for layer in params["segments"][1]:
+        for site in (*layer["attn"].values(), *layer["mlp"].values()):
+            if "centroids" in site:
+                site["centroids"].mul_(50.0)
+    return bundle, params, AdamW(lr=TPT_LR, rules=SOFT_PQ_RULES), lut_frozen_mask(params)
+
+
+def tpt_batch(vocab: int, step: int, dev) -> dict:
+    from repro_torch.data import MarkovLM
+
+    batch = MarkovLM(vocab=vocab, seq_len=TPT_SEQ, batch=TPT_BATCH).batch_at(step)
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def tpt_cut_record(rec: dict, lay, mesh, n_rows: int) -> dict:
+    """The single-rank step's `testing.table_hooks` record cut to a rank's
+    part: its rows of every code, a row site's codebooks of them, and each
+    table's M shard (column site) or C shard (row site)."""
+    r, tp = mesh.model_rank, lay.tp
+    per = n_rows // mesh.data
+    lo = mesh.data_rank * per
+
+    def part(site: str, t):
+        role = lay.roles.get(site)
+        if role is None:
+            return t
+        if role.startswith("col"):
+            m = t.shape[-1] // tp
+            return t[..., r * m:(r + 1) * m]
+        c = t.shape[0] // tp
+        return t[r * c:(r + 1) * c]
+
+    codes = {}
+    for (key, call), cds in rec["codes"].items():
+        cds = cds[lo:lo + per]
+        if lay.roles.get(key[0]) == "row":
+            c = cds.shape[1] // tp
+            cds = cds[:, r * c:(r + 1) * c]
+        codes[(key, call)] = cds
+    return {"codes": codes,
+            "rounding": {k: (part(k[0], q), part(k[0], x)) for k, (q, x) in
+                         rec["rounding"].items()}}
+
+
+def tpt_devices(world: int) -> tuple[int, list[str]]:
+    """(cards on the host, each rank's device): a card per rank where there
+    are enough, else every rank on the first."""
+    n = torch.cuda.device_count()
+    return n, ([f"cuda:{r}" for r in range(world)] if n >= world else ["cuda:0"] * world)
+
+
+def tpt_rank(rank: int, devices: list[str], init: str, pin_path: str, go, release, q) -> None:
+    """One rank of phase 14, in its own process: join the (2, 2) mesh, run
+    `tpt_rank_work`, hand its results (CUDA tensors as IPC handles) to the
+    parent, and keep them alive until the parent releases it."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(data=TPT_MESH[0], model=TPT_MESH[1], rank=rank, devices=devices,
+                              init_method=init)
+        try:
+            res = tpt_rank_work(mesh, pin_path, go)
+            q.put(("ok", res))
+            release.wait(900)
+            del res
+            import gc as pygc
+            pygc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+        finally:
+            mesh.close()
+    except BaseException:             # noqa: BLE001 — the parent reports it and fails
+        q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
+
+
+def tpt_rank_work(mesh, pin_path: str, go) -> dict:
+    """(a) two DENSE steps and (b) one soft-PQ step of the rank's shard
+    (`tensor_parallel.place(train=True)`, ZeRO-1 inside it), each step's
+    wall time, peak memory and collectives per axis; the params after the
+    first DENSE step and after the soft-PQ step (the rank's shards), the
+    soft-PQ step taking the single-rank step's codes and table integers
+    where its own differ at a tie (`testing.table_hooks`' pin), each
+    difference checked; each rank's param and moment shapes against its
+    spec cut."""
+    from repro_torch import testing
+    from repro_torch.distributed.data_parallel import Zero1, make_data_parallel_step
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import place
+    from repro_torch.kernels import counters
+    from repro_torch.optim import lut_frozen_mask
+    from repro_torch.weights import reference_leaves
+
+    dev = mesh.device
+    counters.reset()
+    rules = ShardingRules.for_mesh(mesh)
+    out: dict = {"rank": (mesh.data_rank, mesh.model_rank)}
+
+    def build(mode: str):
+        bundle, params, opt, frozen = tpt_setup(mode, dev)
+        local, lp, lay = place(bundle, params, rules, mesh, train=True)
+        del params
+        lfrozen = lut_frozen_mask(lp) if frozen is not None else None
+        layout = Zero1.build(mesh, lp, lfrozen, rules, tp=lay)
+        state = layout.init_state(opt, lp, lfrozen)
+        frozen_paths = {p for p, ls in reference_leaves(lfrozen or {}).items() if ls[0]}
+        want_p, want_m = testing.expected_rank_shapes(bundle, rules, mesh.data_rank,
+                                                      frozen_paths)
+        got_p = {p: [tuple(t.shape) for t in ls] for p, ls in reference_leaves(lp).items()}
+        got_m = {p: [tuple(t.shape) for t in ls] for p, ls in reference_leaves(state.m).items()}
+        out[f"shapes_{mode}"] = [p for p in want_p if got_p.get(p) != want_p[p]] + \
+            [f"moment {p}" for p in want_m if got_m.get(p) != want_m[p]]
+        step = make_data_parallel_step(local, opt, layout, frozen_mask=lfrozen,
+                                       compute_dtype=torch.float32)
+        return bundle, lp, lay, state, step
+
+    def timed(label, step, params, state, batch):
+        mesh.reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        (params, state, met), wall = timed_step(dev, step, params, state, batch)
+        out.setdefault("steps", []).append({
+            "label": label, "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "wall": wall, "peak": torch.cuda.max_memory_allocated(dev),
+            "coll": {a: dict(c) for a, c in mesh.axis_counters.items()}})
+        return params, state
+
+    bundle, params, lay, state, step = build("dense")
+    batches = [tpt_batch(bundle.arch.vocab, i, dev) for i in range(2)]
+    check(go.wait(600), "the parent's single-rank steps did not finish")
+    params, state = timed("dense 1", step, params, state, batches[0])
+    out["dense_1"] = params
+    params, state = timed("dense 2", step, params, state, batches[1])
+    out["dense_roles"] = len(lay.roles)
+    del state, step, batches
+    # (b) the soft-PQ step, pinned to the single-rank step's codes and integers
+    bundle, lparams, lay, state, step = build("lut_train")
+    rec_c = torch.load(pin_path, weights_only=False)
+    pin = tpt_cut_record(rec_c, lay, mesh, TPT_BATCH * TPT_SEQ)
+    del rec_c
+    hooks = testing.table_hooks(lparams, pin=pin, tie_eps=TIE_EPS)
+    with hooks as rec:
+        lparams, state = timed("soft-PQ", step, lparams, state,
+                               tpt_batch(bundle.arch.vocab, 0, dev))
+    failures = [f"rank {mesh.rank} {m}" for m in rec["off"]]
+    out["lut_pinned"] = rec["pinned"]
+    out["lut_flips"] = testing._rounding_flips(pin["rounding"], rec["rounding"],
+                                               f"rank {mesh.rank}", failures)
+    out["lut_failures"] = failures
+    out["lut_1"] = lparams
+    out["lut_m_log_t"] = {p: [float(t) for t in ls] for p, ls in reference_leaves(state.m).items()
+                          if p.endswith("log_t")}
+    out["partial"] = sorted(lay.partial)
+    del rec, pin, state, step
+    out["launches"], out["plain"] = counters.launches(), counters.plain_calls()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpt_assemble(ranks: dict, lay, data_rank: int = 0):
+    """The whole params (port layout) from the shards of the ranks of one
+    data row: each cut leaf concatenated over its model ranks, the others
+    the first rank's."""
+    from repro_torch.weights import tree_map_ref
+
+    row = [ranks[(data_rank, m)] for m in range(lay.tp)]
+
+    def whole(path, t, *others):
+        if path not in lay.cuts:
+            return t
+        return torch.cat([t, *others], dim=lay.cuts[path][0])
+
+    return tree_map_ref(whole, row[0], *row[1:])
+
+
+def tpt_replicas(ranks: dict, lay) -> list[str]:
+    """What breaks the replica rule: a rank's params differ from its data
+    group's peer, or a replicated leaf from its model group's peer."""
+    from repro_torch.weights import reference_leaves
+
+    bad = []
+    for (d, m), tree in ranks.items():
+        mine = reference_leaves(tree)
+        for peer, which in (((1 - d, m), "data"), ((d, 1 - m), "model")):
+            theirs = reference_leaves(ranks[peer])
+            for path, ls in mine.items():
+                if which == "model" and path in lay.cuts:
+                    continue
+                if not all(torch.equal(a, b) for a, b in zip(ls, theirs[path])):
+                    bad.append(f"{(d, m)} vs {peer} ({which} group): {path}")
+    return bad
+
+
+def tpt_coll_line(c: dict) -> str:
+    return "; ".join(f"{axis}: {coll_line(c[axis]) or 'none'}" for axis in ("model", "data"))
+
+
+def tpt_hold(results: list, dev, bundle, single, single_1, start, rule, lbundle, lstart,
+             lsingle_1, lmet, lwall, lopt, lrule, single_m_log_t, terms) -> dict:
+    """Phase 14's holds of the ranks' `results` (their params as IPC views)
+    against the single-rank steps: the losses, the leaf rule after one
+    step, log_t by AdamW of its own gradient, the replicas, the pins, the
+    spec cuts; logs them and each rank's step lines. Returns the steps
+    and the ranks' kernel counts."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import layout as tp_layout
+    from repro_torch.weights import reference_leaves, tree_map_ref
+
+    ranks = {tuple(val["rank"]): {k: tree_map_ref(lambda _p, t: t.to(dev), v)
+                                  if k in ("dense_1", "lut_1") else v
+                                  for k, v in val.items()} for val in results}
+    rules = ShardingRules(data=TPT_MESH[0], model=TPT_MESH[1])
+    out: dict = {"rank_counts": [(r["launches"], r["plain"]) for r in ranks.values()]}
+    for r in ranks.values():
+        check(not r["shapes_dense"] and not r["shapes_lut_train"],
+              f"rank {r['rank']}'s shards are not its spec cut: "
+              f"{(r['shapes_dense'] + r['shapes_lut_train'])[:5]}")
+
+    # (a) DENSE: two steps' losses, the first step's params by the leaf rule
+    lay = tp_layout(bundle, rules, train=True)
+    for i, (loss, wall) in enumerate(single):
+        for r in ranks.values():
+            s = r["steps"][i]
+            check(abs(s["loss"] - loss) <= TPT_LOSS_RTOL * abs(loss),
+                  f"tp-train DENSE step {i} rank {r['rank']}: loss {s['loss']!r}, single-rank "
+                  f"{loss!r}")
+        log(f"[tpt] (a) DENSE step {i}: loss {ranks[(0, 0)]['steps'][i]['loss']:.7f} "
+            f"(single-rank {loss:.7f}, {wall:.3f}s)")
+    worst, where = rule.check(tpt_assemble({k: r["dense_1"] for k, r in ranks.items()}, lay),
+                              single_1, start)
+    check(worst <= 1.0, f"tp-train DENSE params after one step off the single-rank step's: "
+          f"{worst:.3g} of the bound at {where}")
+    bad = tpt_replicas({k: r["dense_1"] for k, r in ranks.items()}, lay)
+    check(not bad, "tp-train DENSE replicas differ: " + "; ".join(bad[:5]))
+    log(f"[tpt] (a) after one step every param leaf within {worst:.3f} of the leaf rule's bound "
+        f"({where}); replicated leaves bytewise equal across each model group, params across "
+        f"each data group; each rank's params and ZeRO-1 moments its "
+        f"ShardingRules{TPT_MESH} cut ({len(lay.roles)} sites sharded)")
+    # (b) soft-PQ: the loss, the pins, the leaf rule, log_t by its own gradient
+    llay = tp_layout(lbundle, rules, train=True)
+    lloss = float(lmet["loss"])
+    failures = [f for r in ranks.values() for f in r["lut_failures"]]
+    check(not failures, "tp-train soft-PQ ties: " + "; ".join(failures[:5]))
+    for r in ranks.values():
+        s = r["steps"][2]
+        check(abs(s["loss"] - lloss) <= TPT_LOSS_RTOL * abs(lloss),
+              f"tp-train soft-PQ rank {r['rank']}: loss {s['loss']!r}, single-rank {lloss!r}")
+    got_1 = tpt_assemble({k: r["lut_1"] for k, r in ranks.items()}, llay)
+    start_l, want_l = reference_leaves(lstart), reference_leaves(lsingle_1)
+    n_log_t = 0
+    for path, ls in reference_leaves(got_1).items():
+        if not path.endswith("log_t"):
+            continue
+        for j, p1 in enumerate(ls):
+            g_tp = ranks[(0, 0)]["lut_m_log_t"][path][j] / (1 - lopt.b1)
+            g_1 = single_m_log_t[path][j] / (1 - lopt.b1)
+            check(abs(g_tp - g_1) <= LOG_T_TERMS * max(terms[path][j], 1e-30),
+                  f"{path}[{j}]: log_t gradient {g_tp!r} against {g_1!r} (terms "
+                  f"{terms[path][j]:.3g})")
+            p0 = start_l[path][j]
+            tree = {"site": {"log_t": p0}}
+            want, _, _ = dataclasses.replace(lopt, clip_norm=None).update(
+                {"site": {"log_t": torch.full_like(p0, g_tp)}}, lopt.init(tree), tree)
+            want = want["site"]["log_t"]
+            ulp = torch.finfo(torch.float32).eps * float(want.abs())
+            check(float((p1 - want).abs()) <= 1e-5 * float((want - p0).abs()) + 2 * ulp,
+                  f"{path}[{j}]: log_t after the step {float(p1)!r}, AdamW of its own gradient "
+                  f"{float(want)!r}")
+            n_log_t += 1
+    got_1 = tree_map_ref(lambda p, g, w: w if p.endswith("log_t") else g, got_1, lsingle_1)
+    lworst, lwhere = lrule.check(got_1, lsingle_1, lstart)
+    check(lworst <= 1.0, f"tp-train soft-PQ params after the step off the single-rank step's: "
+          f"{lworst:.3g} of the bound at {lwhere}")
+    bad = tpt_replicas({k: r["lut_1"] for k, r in ranks.items()}, llay)
+    check(not bad, "tp-train soft-PQ replicas differ: " + "; ".join(bad[:5]))
+    pinned = sum(r["lut_pinned"] for r in ranks.values())
+    flips = sum(r["lut_flips"] for r in ranks.values())
+    log(f"[tpt] (b) soft-PQ step (layer 1 LUT): loss {ranks[(0, 0)]['steps'][2]['loss']:.7f} "
+        f"(single-rank {lloss:.7f}, {lwall:.3f}s); codes taken from the single-rank step at a "
+        f"near-tie: {pinned} over the 4 ranks; fake-quant entries one step off at a "
+        f"half-integer: {flips}; every other param leaf within {lworst:.3f} of the leaf rule's "
+        f"bound ({lwhere}); {n_log_t} log_t within {LOG_T_TERMS} of their terms and equal to "
+        f"AdamW of their own gradient; replicas bytewise equal; partial leaves summed over "
+        f"\"model\": {len(ranks[(0, 0)]['partial'])}")
+    for (d, m), r in sorted(ranks.items()):
+        log(f"[tpt] rank ({d}, {m}): " + "; ".join(
+            f"{s['label']} {s['wall']:.3f}s, peak {s['peak'] / 2**30:.2f} GiB, "
+            + tpt_coll_line(s["coll"]) for s in r["steps"]))
+    out["steps"] = {k: r["steps"] for k, r in ranks.items()}
+    return out
+
+
+def phase_tp_train(dev, scratch: Path) -> dict:
+    """Tensor-parallel training at (data, model) = (2, 2): four rank
+    processes on the one card over gloo (four cards would take NCCL, not
+    measured here). (a) two DENSE steps and (b) one soft-PQ step of
+    qwen3_1p7b at full width and TPT_LAYERS layers against the single-rank
+    step here on the same global batches, run before the ranks' steps and
+    freed: the loss within TPT_LOSS_RTOL, after one step every param leaf
+    (gathered to whole leaves) within the leaf rule (a log_t by AdamW of
+    its rank's own gradient, which is held against the single rank's by its
+    terms), replicated leaves bytewise equal across each model group and
+    params across each data group, each rank's shapes its spec cut; the
+    soft-PQ step's ties pinned and checked. No float64 witness on the card
+    (4 ranks leave it no room): multi-step holds are the CPU tests' work.
+    Reads the kernel counts around the phase: LUT_TRAIN runs plain tensor
+    ops, no LUT kernel."""
+    import gc as pygc
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    from repro_torch import testing
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import layout as tp_layout
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import backend_for
+    from repro_torch.testing import AdamLeafRule
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.weights import reference_leaves, tree_map_ref
+
+    counters.reset()
+    world = TPT_MESH[0] * TPT_MESH[1]
+    n_cards, devices = tpt_devices(world)
+    backend = backend_for(devices)
+    pin_path = scratch / "tpt_pin.pt"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    q, go, release = ctx.Queue(), ctx.Event(), ctx.Event()
+    procs = [ctx.Process(target=tpt_rank,
+                         args=(r, devices, init, str(pin_path), go, release, q), daemon=True)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got: list = []
+    try:
+        # the single-rank steps on the same global batches, while the ranks start
+        bundle, start, opt, _ = tpt_setup("dense", dev)
+        vocab = bundle.arch.vocab
+        batches = [tpt_batch(vocab, i, dev) for i in range(2)]
+        step = make_train_step(bundle, opt, compute_dtype=torch.float32)
+        rule, single, params, state = AdamLeafRule(opt), [], start, opt.init(start)
+        for i in range(2):
+            m_old = state.m
+            (params, state, met), wall = timed_step(dev, step, params, state, batches[i])
+            if i == 0:
+                rule.note(tree_map_ref(lambda _p, m, m0: m - opt.b1 * m0, state.m, m_old),
+                          TPT_LR)
+                single_1 = params
+            single.append((float(met["loss"]), wall))
+        del state, step, m_old, params
+        lbundle, lstart, lopt, lfrozen = tpt_setup("lut_train", dev)
+        lstep = make_train_step(lbundle, lopt, frozen_mask=lfrozen, compute_dtype=torch.float32)
+        with testing.table_hooks(lstart) as rec_c:
+            (lsingle_1, lstate, lmet), lwall = timed_step(dev, lstep, lstart,
+                                                          lopt.init(lstart, lfrozen), batches[0])
+        lrule = AdamLeafRule(lopt)
+        lrule.note(tree_map_ref(lambda _p, m: None if m.numel() == 0 else m, lstate.m), TPT_LR)
+        single_m_log_t = {p: [float(t) for t in ls] for p, ls in
+                          reference_leaves(lstate.m).items() if p.endswith("log_t")}
+        del lstate, lstep
+        torch.save({"codes": rec_c["codes"], "rounding": rec_c["rounding"]}, pin_path)
+        n_codes = sum(int(c.numel()) for c in rec_c["codes"].values())
+        n_entries = sum(int(x.numel()) for x, _ in rec_c["rounding"].values())
+        del rec_c
+        # the log_t terms' magnitudes (`testing.lut_train_grads`) of the same batch
+        _, _, _, terms, _ = testing.lut_train_grads(lbundle, lstart, batches[0])
+        pygc.collect()
+        torch.cuda.empty_cache()          # the ranks' steps have the card to themselves
+        log(f"[tpt] single-rank steps here: DENSE {', '.join(f'{w:.3f}s' for _, w in single)}, "
+            f"soft-PQ {lwall:.3f}s; {n_codes} codes and {n_entries} table entries recorded "
+            f"for the pins")
+        go.set()
+        deadline = time.monotonic() + 600
+        while len(got) < world:          # a failed rank ends the wait: its peers would hang
+            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
+            if got[-1][0] != "ok":
+                break
+    except queue.Empty:
+        got.append(("error", {"trace": f"no result from {world - len(got)} rank(s) in 600 s"}))
+    errors = [val["trace"] for status, val in got if status != "ok"]
+    if errors:
+        for p in procs:
+            p.kill()
+    check(not errors, "a tp-train rank failed:\n" + "\n".join(errors))
+    t_ranks = time.perf_counter() - t0
+    log(f"[tpt] (data, model) = {TPT_MESH} on {n_cards} card(s): ranks on {devices}, backend "
+        f"{backend}" + ("" if backend == "nccl" else " (four ranks share the card: NCCL is not "
+                        "measured; gathers and the all-max are all-reduces of zero-padded "
+                        "buffers)")
+        + f"; qwen3_1p7b at full width, {TPT_LAYERS} layers, MarkovLM {TPT_BATCH} x {TPT_SEQ} "
+        f"over the {vocab}-token vocab")
+    # the ranks' tensors are IPC views of their memory: every reference to
+    # them dies with `tpt_hold`'s frame, before the ranks are released
+    out = tpt_hold([val for _, val in got], dev, bundle, single, single_1, start, rule,
+                   lbundle, lstart, lsingle_1, lmet, lwall, lopt, lrule, single_m_log_t, terms)
+    out.update(backend=backend, cards=n_cards)
+    rank_counts = out.pop("rank_counts")
+    del got, single_1, start, lsingle_1, lstart
+    used = gpu_used_mib()
+    pygc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.ipc_collect()
+    release.set()
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    check(all(p.exitcode == 0 for p in procs), f"tp-train ranks exited {[p.exitcode for p in procs]}")
+    pin_path.unlink(missing_ok=True)
+    log(f"[tpt] the card's used memory with the four ranks alive: {used} MiB; ranks' results "
+        f"{t_ranks:.1f}s after spawn (spawn, import, mesh, init, the wait for the single-rank "
+        f"steps, then (a)-(b)); counts per axis read the recomputed blocks' forward reduces "
+        f"twice (activation recomputation runs the forward's collectives again)")
+    launches, plain_calls = counters.launches(), counters.plain_calls()
+    check(all(sum(ln.values()) == 0 and pc == 0 for ln, pc in rank_counts + [(launches,
+                                                                               plain_calls)]),
+          f"phase 14 reached a LUT kernel or a plain version: {rank_counts}, {launches}, "
+          f"{plain_calls}")
+    out["launches"] = {name: 0 for name in launches} | launches
+    log("[tpt] no LUT kernel launched and no plain LUT version called, here or on a rank")
+    out["used_mib"] = used
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4921,6 +5398,9 @@ def main() -> int:
         timed(13, phase_dp, dev, scratch)
         gc.collect()
         torch.cuda.empty_cache()
+        tpt = timed(14, phase_tp_train, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
         # phases 8 and 12 last: arctic's params, shared with phase 12's rank
         # processes over CUDA IPC, stayed allocated here after the phase
         # (deleted, collected, `ipc_collect()`: 32.59 GiB before and after),
@@ -4952,7 +5432,8 @@ def main() -> int:
                      "phase_launches": {"4": launches[name],
                                         "10": trained["launches"][name],
                                         "11": tp["launches"][name],
-                                        "12": tp12["launches"][name]},
+                                        "12": tp12["launches"][name],
+                                        "14": tpt["launches"].get(name, 0)},
                      "max_abs_err": k["err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})

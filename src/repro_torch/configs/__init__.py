@@ -472,7 +472,7 @@ class ModelBundle:
     def lut_sites(self) -> list[SiteSpec]:
         return [s for s in self.sites() if s.mode != Mode.DENSE]
 
-    def train_logits(self, params, batch, *, compute_dtype=torch.bfloat16):
+    def train_logits(self, params, batch, *, compute_dtype=torch.bfloat16, mesh=None):
         """The training forward over whole sequences: (logits (B, S, vocab),
         aux). The shared forward of `loss` and of both halves of the
         distillation loss; aux is the MoE load-balance value of the lm family,
@@ -480,7 +480,16 @@ class ModelBundle:
         model that takes embeddings, and optionally "pos" ((3, B, S) under
         M-RoPE); without it the positions are 0..S-1 (in all three streams
         under M-RoPE). An enc-dec batch carries "frames" (B, enc_frames, D)
-        beside the decoder's "tokens"."""
+        beside the decoder's "tokens". A tensor-parallel training rank's
+        bundle (`distributed.tensor_parallel.local_bundle(train=True)`) runs
+        its shard with its collectives on `mesh`; its logits are then the
+        rank's vocab columns (B, S, vocab / tp) where the vocab is sharded."""
+        if mesh is not None:
+            with sharded.bound(mesh):
+                return self._train_logits(params, batch, compute_dtype=compute_dtype)
+        return self._train_logits(params, batch, compute_dtype=compute_dtype)
+
+    def _train_logits(self, params, batch, *, compute_dtype):
         b, s = batch["labels"].shape[:2]
         dev = batch["labels"].device
         pos = torch.arange(s, device=dev)[None, :].expand(b, s)
@@ -503,15 +512,28 @@ class ModelBundle:
                                           enc_out=enc_out, compute_dtype=compute_dtype)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
-    def loss_from_logits(self, logits, aux, labels):
+    @property
+    def vocab_parallel(self) -> bool:
+        """Whether the training logits are a rank's vocab columns."""
+        return (self.kind == "lm" and self.cfg.vocab_sharded
+                and not self.cfg.gather_logits)
+
+    def loss_from_logits(self, logits, aux, labels, *, mesh=None):
         """Cross-entropy, plus the aux penalty for the lm family: the one
-        place its weight is applied."""
-        ce = cross_entropy(logits, labels)
+        place its weight is applied. A tensor-parallel rank's vocab-sharded
+        logits take the vocab-parallel cross-entropy over `mesh`."""
+        if self.vocab_parallel:
+            if mesh is None:
+                raise ValueError("vocab-sharded logits take their loss on a mesh (mesh=)")
+            with sharded.bound(mesh):
+                ce = sharded.vocab_cross_entropy(logits, labels)
+        else:
+            ce = cross_entropy(logits, labels)
         return ce + tf_mod.LM_AUX_WEIGHT * aux if self.kind == "lm" else ce
 
-    def loss(self, params, batch, *, compute_dtype=torch.bfloat16):
-        logits, aux = self.train_logits(params, batch, compute_dtype=compute_dtype)
-        return self.loss_from_logits(logits, aux, batch["labels"])
+    def loss(self, params, batch, *, compute_dtype=torch.bfloat16, mesh=None):
+        logits, aux = self.train_logits(params, batch, compute_dtype=compute_dtype, mesh=mesh)
+        return self.loss_from_logits(logits, aux, batch["labels"], mesh=mesh)
 
     def cache_specs(self, b: int, s_max: int, *, dtype=torch.bfloat16,
                     paged: attn_mod.PagedSpec | None = None):

@@ -56,9 +56,10 @@ class LUTConfig:
 
 
 def lut_linear(cfg: LUTConfig, mode: Mode, params: Mapping[str, Any], x: torch.Tensor, *,
-               frozen: Mapping[str, Any] | None = None) -> torch.Tensor:
+               frozen: Mapping[str, Any] | None = None, reduce_absmax=None) -> torch.Tensor:
     """Apply one (possibly LUT-replaced) linear layer. x: (..., D) -> (..., M).
-    LUT_TRAIN takes the frozen dense weight (and bias) as `frozen`."""
+    LUT_TRAIN takes the frozen dense weight (and bias) as `frozen`, and a
+    tensor-parallel shard its `reduce_absmax` (`lut_train_contract`)."""
     if mode == Mode.DENSE:
         y = x @ params["w"].to(x.dtype)
         b = params.get("b")
@@ -67,16 +68,9 @@ def lut_linear(cfg: LUTConfig, mode: Mode, params: Mapping[str, Any], x: torch.T
     if mode == Mode.LUT_TRAIN:
         if frozen is None:
             raise ValueError("LUT_TRAIN needs the frozen dense weight")
-        p = params["centroids"]
-        t = temperature(params["log_t"])
-        table = pq.build_table(p, frozen["w"], stop_weight_grad=True)
-        table = quant.fake_quant(table, bits=cfg.bits, per_column=cfg.per_column,
-                                 m_shared=cfg.int8_dot)
         lead = x.shape[:-1]
         xf = x.reshape(-1, x.shape[-1])
-        dists = pq.pairwise_sq_dists(pq.split_subvectors(xf, cfg.v), p)
-        enc = pq.ste_encode(dists, t)
-        y = pq.lut_contract(enc.to(x.dtype), table.to(x.dtype))
+        y = lut_train_contract(cfg, params, frozen["w"], xf, reduce_absmax=reduce_absmax)
         b = frozen.get("b")
         y = y + b.to(y.dtype) if b is not None else y
         return y.reshape(*lead, -1).to(x.dtype)
@@ -103,3 +97,19 @@ def lut_linear(cfg: LUTConfig, mode: Mode, params: Mapping[str, Any], x: torch.T
         return y.reshape(*lead, -1).to(x.dtype)
 
     raise ValueError(f"unknown mode {mode}")
+
+
+def lut_train_contract(cfg: LUTConfig, params: Mapping[str, Any], w: torch.Tensor,
+                       xf: torch.Tensor, *, reduce_absmax=None) -> torch.Tensor:
+    """LUT_TRAIN's contraction without the bias: the fake-quantized table
+    of the centroids and the frozen `w`, the straight-through encoding of
+    the rows xf (N, D); (N, M) fp32. A tensor-parallel rank passes its
+    shards and `reduce_absmax` (`quant.table_scale`)."""
+    p = params["centroids"]
+    t = temperature(params["log_t"])
+    table = pq.build_table(p, w, stop_weight_grad=True)
+    table = quant.fake_quant(table, bits=cfg.bits, per_column=cfg.per_column,
+                             m_shared=cfg.int8_dot, reduce_absmax=reduce_absmax)
+    dists = pq.pairwise_sq_dists(pq.split_subvectors(xf, cfg.v), p)
+    enc = pq.ste_encode(dists, t)
+    return pq.lut_contract(enc.to(xf.dtype), table.to(xf.dtype))

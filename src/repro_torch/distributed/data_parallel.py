@@ -1,32 +1,41 @@
-"""The data-parallel train step with ZeRO-1 optimizer moments.
+"""The data-parallel train step with ZeRO-1 optimizer moments, on a data
+mesh or, with a rank's tensor-parallel shard, on a ("data", "model") mesh.
 
 Counterpart of the reference's sharded step, `jax.jit(make_train_step(...),
-in_shardings=(params, opt_shardings, batch_shardings))` on a data mesh
+in_shardings=(params, opt_shardings, batch_shardings))` on a mesh
 (tests/test_sharded.py), which GSPMD partitions; here the partition is
-written out. On each of the mesh's data ranks:
+written out. On each rank:
 
   1. take the rank's rows of the global batch (`local_batch`: dim 0 by
      `ShardingRules.batch_dim`, M-RoPE's pos on its second axis; where the
      batch does not divide, every rank takes all of it, as a replicated spec
      would);
   2. compute the gradients as the single-rank step does (`train_step.
-     make_grads_fn`: frozen leaves, grad_accum) and mean-reduce them in fp32
-     over "data", all leaves in one bucket;
-  3. take the global norm of the reduced, full gradients;
+     make_grads_fn`: frozen leaves, grad_accum), on a model mesh through the
+     rank's shard of the forward and the vocab-parallel loss
+     (`ModelBundle.loss(mesh=)`); sum the replicated leaves that hold only
+     the shard's part of their gradient over "model" (`tensor_parallel.
+     Layout.partial`, one bucket), then mean-reduce every gradient in fp32
+     over "data", all leaves in one bucket (`make_sharded_grads_fn`);
+  3. take the global norm of the reduced gradients: on a model mesh the
+     sum of squares of the leaves split over "model" is summed over it,
+     and each replicated leaf counted once (`AdamW.global_norm(sharded=)`);
   4. update only the rank's ZeRO-1 shard of `m`, `v` and the matching slice
-     of each param (`ShardingRules.opt_spec`'s "data" dim: `Zero1`), with
-     that norm (`AdamW.update(gnorm=)`), then all-gather the param slices,
-     so that every rank holds the same params.
+     of each param (`ShardingRules.opt_spec`'s "data" dim, taken inside the
+     rank's model shard: `Zero1`), with that norm (`AdamW.update(gnorm=)`),
+     then all-gather the param slices over "data", so that every rank of a
+     model shard holds the same params.
 
 The port keeps a layer stack as a list of per-layer leaves. Where the
 spec's "data" dim is the stack's layer axis, a rank holds whole layers of
 that leaf (the others' placeholders are empty) and the layer's owner
 broadcasts it; elsewhere a rank holds a contiguous slice of every layer.
 `Zero1.gather_state` gathers a train state into the reference's layout for
-a checkpoint (rank 0 writes it: `train/trainer.py`), and `Zero1.cuts`
-tells `Checkpointer.restore(shardings=)` which part of each leaf a rank
-reads. Tensor-parallel training and FSDP execution (meshes with model > 1,
-`fsdp=True`) are not ported yet (ROADMAP Queue A item 5).
+a checkpoint (the ZeRO-1 shards over "data", then the model shards over
+"model"; rank 0 writes it: `train/trainer.py`), and `Zero1.cuts` tells
+`Checkpointer.restore(shardings=)` which part of each whole leaf a rank
+reads (its model shard, then its data shard). FSDP execution
+(`fsdp=True`) is not ported yet (`NEXT_SLICE`, ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -40,8 +49,8 @@ from repro_torch.distributed.sharding import ShardingRules, is_stacked
 from repro_torch.optim import AdamW, AdamWState, no_frozen
 from repro_torch.weights import flat_vector, reference_leaves, tree_map_ref, unflatten_vector
 
-NEXT_SLICE = ("tensor-parallel training and FSDP execution (a mesh with model > 1, "
-              "ShardingRules(fsdp=True)) are not ported yet: ROADMAP Queue A item 5")
+NEXT_SLICE = ("FSDP execution (ShardingRules(fsdp=True): weights over \"data\" too) is not "
+              "ported yet: ROADMAP Queue A item 5")
 
 
 def local_batch(batch: dict[str, torch.Tensor], mesh, rules: ShardingRules | None = None
@@ -62,19 +71,22 @@ def local_batch(batch: dict[str, torch.Tensor], mesh, rules: ShardingRules | Non
 
 
 class Cut(NamedTuple):
-    """The part of one port-layout leaf a data rank holds: the whole leaf
-    (`dim` None), [start, stop) along `dim`, or, for a layer owned by one
-    rank (`owner`), the whole layer where `held`, else nothing."""
+    """The part of one port-layout leaf a rank holds: of a tensor-parallel
+    shard, [start, stop) of `model`'s dim (`model` = (dim, start, stop),
+    None: the whole leaf); of that, the data part: all of it (`dim` None),
+    [start, stop) along `dim`, or, for a layer owned by one rank (`owner`),
+    the whole layer where `held`, else nothing."""
 
     dim: int | None = None
     start: int = 0
     stop: int = 0
     owner: int | None = None
     held: bool = True
+    model: tuple[int, int, int] | None = None
 
-    def apply(self, a):
-        """The held part of `a` (a tensor or a numpy array); an empty (0,)
-        one where nothing is held."""
+    def part(self, a):
+        """The data part of the rank's model shard `a` (a tensor or a numpy
+        array); an empty (0,) one where nothing is held."""
         if not self.held:
             return a.reshape(-1)[:0]
         if self.dim is None:
@@ -83,74 +95,121 @@ class Cut(NamedTuple):
         idx[self.dim] = slice(self.start, self.stop)
         return a[tuple(idx)]
 
+    def apply(self, a):
+        """The rank's part of the whole leaf `a`: its model shard, then the
+        data part of that. A frozen leaf's empty (0,) moment stays empty."""
+        if self.model is not None and tuple(a.shape) != (0,):
+            d, lo, hi = self.model
+            idx = [slice(None)] * a.ndim
+            idx[d] = slice(lo, hi)
+            a = a[tuple(idx)]
+        return self.part(a)
+
 
 WHOLE = Cut()
 
 
 @dataclasses.dataclass
 class Zero1:
-    """One data rank's ZeRO-1 layout of the params `like` (port layout;
-    only shapes are read) on `mesh`: `plan` is the `Cut` of every leaf, by
-    `rules.opt_spec` of its reference path and stacked shape. Frozen leaves
-    are held whole and never updated."""
+    """One rank's ZeRO-1 layout of the params `like` (port layout, the
+    rank's tensor-parallel shard on a model mesh; only shapes are read) on
+    `mesh`: `plan` is the `Cut` of every leaf, by `rules.opt_spec` of its
+    reference path and whole stacked shape, taken inside the rank's model
+    shard (`tp`, a `tensor_parallel.Layout(train=True)`). Frozen leaves are
+    held whole (their model shard) and never updated. `sharded` and
+    `partial` mark the leaves split over "model" and the replicated leaves
+    whose gradient the step sums over it."""
 
     mesh: Any
     rules: ShardingRules
     plan: Any
+    tp: Any = None
+    sharded: Any = None
+    partial: Any = None
 
     @classmethod
     def build(cls, mesh, like: Any, frozen: Any | None = None,
-              rules: ShardingRules | None = None) -> "Zero1":
+              rules: ShardingRules | None = None, tp: Any = None) -> "Zero1":
         rules = rules or ShardingRules.for_mesh(mesh)
-        if rules.model > 1 or rules.fsdp:
+        if rules.fsdp:
             raise NotImplementedError(NEXT_SLICE)
+        if rules.model > 1 and (tp is None or not tp.train or tp.tp != rules.model):
+            raise ValueError("a mesh with model > 1 trains a rank's tensor-parallel shard: "
+                             "pass tp=, the layout of tensor_parallel.place(..., train=True)")
         frozen = frozen if frozen is not None else no_frozen(like)
         counts = {p: len(leaves) for p, leaves in reference_leaves(like).items()}
         seen: dict[str, int] = {}
         n, rank = rules.data, mesh.data_rank
+        m_rank = 0 if tp is None else mesh.model_rank
+        cuts = {} if tp is None else tp.cuts
 
         def cut(path: str, leaf, fz: bool) -> Cut:
+            model, full = None, list(leaf.shape)
+            if path in cuts:
+                d, blocks = cuts[path]
+                if blocks is not None:
+                    raise NotImplementedError(f"{path}: a block-selected shard does not train")
+                size = leaf.shape[d]
+                full[d] = size * tp.tp
+                model = (d, m_rank * size, (m_rank + 1) * size)
             if fz:
-                return WHOLE
+                return Cut(model=model)
             stacked = is_stacked(path)
-            shape = (counts[path], *leaf.shape) if stacked else tuple(leaf.shape)
+            shape = (counts[path], *full) if stacked else tuple(full)
             spec = rules.opt_spec(path, shape)
             if "data" not in spec:
-                return WHOLE
+                return Cut(model=model)
             d = spec.index("data")
             if stacked and d == 0:                     # whole layers per rank
                 j = seen[path] = seen.get(path, -1) + 1
                 owner = j // (counts[path] // n)
-                return Cut(owner=owner, held=owner == rank)
-            d -= stacked
+                return Cut(owner=owner, held=owner == rank, model=model)
+            d -= stacked            # a dim the spec leaves whole: the shard's is the leaf's
             size = leaf.shape[d] // n
-            return Cut(dim=d, start=rank * size, stop=(rank + 1) * size)
+            return Cut(dim=d, start=rank * size, stop=(rank + 1) * size, model=model)
 
-        return cls(mesh=mesh, rules=rules, plan=tree_map_ref(cut, like, frozen))
+        partial = frozenset() if tp is None else tp.partial
+        return cls(mesh=mesh, rules=rules, plan=tree_map_ref(cut, like, frozen), tp=tp,
+                   sharded=tree_map_ref(lambda p, _l: p in cuts, like),
+                   partial=tree_map_ref(lambda p, _l: p in partial, like))
 
     # ------------------------------------------------------------------
     def shard(self, tree: Any) -> Any:
-        """The rank's part of each leaf of a tree of the params' layout (None
-        leaves, a frozen leaf's gradient, stay None)."""
-        return tree_map_ref(lambda _p, t, c: None if t is None else c.apply(t), tree, self.plan)
+        """The rank's data part of each leaf of a tree of its params' layout
+        (None leaves, a frozen leaf's gradient, stay None)."""
+        return tree_map_ref(lambda _p, t, c: None if t is None else c.part(t), tree, self.plan)
 
     def gather(self, shards: Any, like: Any) -> Any:
-        """The whole leaves from every rank's `shards` (the params' layout;
-        `like` gives each leaf's whole shape): a slice by all-gather, a
-        layer by its owner's broadcast. Every rank calls it, in the same
-        order."""
+        """The rank's model shards of the leaves from every data rank's
+        `shards` (the params' layout; `like` gives each leaf's shape): a
+        slice by all-gather, a layer by its owner's broadcast, over "data".
+        Every rank calls it, in the same order."""
         mesh = self.mesh
 
         def whole(_p, t, c: Cut, ref):
             if c.owner is not None:
                 buf = t if c.held else t.new_empty(ref.shape)
-                return mesh.broadcast(buf.contiguous(), c.owner)
+                return mesh.broadcast(buf.contiguous(), c.owner, "data")
             if c.dim is None:
                 return t
-            out = mesh.all_gather(t.contiguous())      # (n, *slice)
+            out = mesh.all_gather(t.contiguous(), "data")      # (n, *slice)
             return out.movedim(0, c.dim).flatten(c.dim, c.dim + 1).contiguous()
 
         return tree_map_ref(whole, shards, self.plan, like)
+
+    def gather_model(self, tree: Any) -> Any:
+        """The whole leaves from every model rank's shards (the params'
+        layout, each leaf the rank's model shard): a concatenation over the
+        cut dim by an all_reduce of a zero-padded buffer on "model". A
+        frozen leaf's empty moment (or None gradient) stays as it is."""
+        mesh = self.mesh
+
+        def whole(_p, t, c: Cut):
+            if t is None or c.model is None or tuple(t.shape) == (0,):
+                return t
+            return mesh.gather_dim(t.contiguous(), c.model[0], "model")
+
+        return tree_map_ref(whole, tree, self.plan)
 
     def init_state(self, opt: AdamW, params: Any, frozen: Any | None = None) -> AdamWState:
         """The rank's AdamW state: zero moments of its shards."""
@@ -158,43 +217,95 @@ class Zero1:
 
     def gather_state(self, tree: dict[str, Any]) -> dict[str, Any]:
         """{"params", "opt": the rank's AdamWState} -> the same with whole
-        moments (every rank calls it; rank 0 checkpoints the result)."""
+        leaves in the reference's layout: the moments gathered over "data",
+        then (on a model mesh) params and moments over "model". Every rank
+        calls it; rank 0 checkpoints the result."""
         params, opt = tree["params"], tree["opt"]
-        return {"params": params,
-                "opt": AdamWState(step=opt.step, m=self.gather(opt.m, params),
-                                  v=self.gather(opt.v, params))}
+        out = {"params": params,
+               "opt": AdamWState(step=opt.step, m=self.gather(opt.m, params),
+                                 v=self.gather(opt.v, params))}
+        if self.tp is None:
+            return out
+        return {"params": self.gather_model(out["params"]),
+                "opt": AdamWState(step=opt.step, m=self.gather_model(out["opt"].m),
+                                  v=self.gather_model(out["opt"].v))}
 
     def cuts(self, params_like: Any) -> dict[str, Any]:
         """The `Checkpointer.restore(shardings=)` tree of {"params", "opt"}:
-        the params whole, each moment cut as its param is."""
-        return {"params": tree_map_ref(lambda _p, _l: WHOLE, params_like),
+        each param the rank's model shard, each moment cut as its param is,
+        then to its data part."""
+        return {"params": tree_map_ref(lambda _p, _l, c: Cut(model=c.model), params_like,
+                                       self.plan),
                 "opt": AdamWState(step=WHOLE, m=self.plan, v=self.plan)}
+
+    def global_norm(self, opt: AdamW, grads: Any, frozen: Any) -> torch.Tensor:
+        """The global norm of the whole model's reduced gradients, from the
+        rank's shards."""
+        if self.tp is None:
+            return opt.global_norm(grads, frozen)
+        return opt.global_norm(grads, frozen, sharded=self.sharded,
+                               reduce=lambda t: self.mesh.all_reduce(t, "model"))
+
+
+def make_sharded_grads_fn(bundle, layout: Zero1, *, compute_dtype=torch.bfloat16,
+                          grad_accum: int = 1, loss_fn: Callable | None = None) -> Callable:
+    """(params, frozen, global batch) -> (loss, aux, grads) of one rank: the
+    gradients of the rank's rows (`local_batch`) through its shard of the
+    model (`bundle` the rank's `tensor_parallel.local_bundle` on a model
+    mesh), the partial leaves summed over "model", then every gradient
+    mean-reduced over "data", as are the loss and aux; each leaf the whole
+    model's gradient of the rank's shard of that leaf."""
+    from repro_torch.train.train_step import _device_of, make_grads_fn
+
+    mesh, rules = layout.mesh, layout.rules
+    if layout.tp is not None:
+        if loss_fn is not None:
+            raise NotImplementedError("a tensor-parallel step takes the plain cross-entropy "
+                                      "(vocab-parallel); a loss_fn over whole logits does not "
+                                      "shard")
+        loss_fn = lambda p, b: bundle.loss(p, b, compute_dtype=compute_dtype,   # noqa: E731
+                                           mesh=mesh)
+    grads_fn = make_grads_fn(bundle, compute_dtype=compute_dtype, grad_accum=grad_accum,
+                             loss_fn=loss_fn)
+
+    def fn(params, frozen, batch):
+        dev = _device_of(params)
+        loss, aux, grads = grads_fn(
+            params, frozen, local_batch({k: v.to(dev) for k, v in batch.items()}, mesh, rules))
+        if layout.tp is not None and layout.tp.partial:
+            # one fp32 bucket of the partial leaves, summed over "model"
+            part = tree_map_ref(lambda _p, g, pt: g if pt else None, grads, layout.partial)
+            summed = unflatten_vector(mesh.all_reduce(flat_vector(part), "model"), part)
+            grads = tree_map_ref(lambda _p, g, s: g if s is None else s, grads, summed)
+        # one fp32 bucket of every gradient, mean-reduced over "data"
+        grads = unflatten_vector(mesh.all_mean(flat_vector(grads), "data"), grads)
+        scalars = mesh.all_mean(torch.stack([loss.float(), *(v.float() for v in aux.values())]),
+                                "data")
+        return scalars[0], dict(zip(aux, scalars[1:])), grads
+
+    return fn
 
 
 def make_data_parallel_step(bundle, opt: AdamW, layout: Zero1, *,
                             frozen_mask: Any | None = None, compute_dtype=torch.bfloat16,
                             grad_accum: int = 1, loss_fn: Callable | None = None) -> Callable:
     """The step (params, opt_state, batch) -> (params, opt_state, metrics) of
-    one data rank, `make_train_step`'s contract with `opt_state` the rank's
-    ZeRO-1 state (`layout.init_state`) and `batch` the global batch. Every
-    rank of `layout.mesh` calls it with the same params and batch; the loss
-    and the metrics are the means over the ranks."""
-    from repro_torch.train.train_step import _device_of, make_grads_fn, step_metrics
+    one rank, `make_train_step`'s contract with `opt_state` the rank's
+    ZeRO-1 state (`layout.init_state`), `batch` the global batch and, on a
+    model mesh, `bundle` and `params` the rank's tensor-parallel shard
+    (`tensor_parallel.place(..., train=True)`). Every rank of
+    `layout.mesh` calls it with the same batch, and every rank of a model
+    shard with the same params; the loss and the metrics are the means over
+    the data ranks."""
+    from repro_torch.train.train_step import step_metrics
 
-    mesh, rules = layout.mesh, layout.rules
-    grads_fn = make_grads_fn(bundle, compute_dtype=compute_dtype, grad_accum=grad_accum,
-                             loss_fn=loss_fn)
+    grads_fn = make_sharded_grads_fn(bundle, layout, compute_dtype=compute_dtype,
+                                     grad_accum=grad_accum, loss_fn=loss_fn)
 
     def step(params, opt_state: AdamWState, batch):
-        dev = _device_of(params)
         frozen = frozen_mask if frozen_mask is not None else no_frozen(params)
-        loss, aux, grads = grads_fn(
-            params, frozen, local_batch({k: v.to(dev) for k, v in batch.items()}, mesh, rules))
-        # one fp32 bucket of every gradient, mean-reduced over "data"
-        grads = unflatten_vector(mesh.all_mean(flat_vector(grads)), grads)
-        scalars = mesh.all_mean(torch.stack([loss.float(), *(v.float() for v in aux.values())]))
-        loss, aux = scalars[0], dict(zip(aux, scalars[1:]))
-        gnorm = opt.global_norm(grads, frozen) if opt.clip_norm is not None else None
+        loss, aux, grads = grads_fn(params, frozen, batch)
+        gnorm = layout.global_norm(opt, grads, frozen) if opt.clip_norm is not None else None
         new_sh, new_opt, gnorm = opt.update(layout.shard(grads), opt_state,
                                             layout.shard(params), frozen, gnorm=gnorm)
         new_params = layout.gather(new_sh, params)

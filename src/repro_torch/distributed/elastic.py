@@ -8,11 +8,11 @@ rescale is a new process group of the surviving ranks (each calls
 `ElasticContext.build` with the new device list, its rank and a fresh
 rendezvous, after every old rank has left the old group), which restores
 the newest checkpoint cut for its mesh (`rescale`: each rank reads only its
-ZeRO-1 shards, `data_parallel.Zero1.cuts`). The checkpoint holds whole
-arrays in the reference's format, so any data-parallel degree reads it.
-
-Meshes with model > 1 (tensor-parallel training) are not ported yet:
-`build` refuses them (ROADMAP Queue A item 5).
+ZeRO-1 shards, `data_parallel.Zero1.cuts`: on a mesh with model > 1, its
+tensor-parallel shard's data part). The checkpoint holds whole arrays in
+the reference's format, so any (data, model) shape reads it. FSDP
+(`fsdp=True`) is not ported yet: `build` refuses it (ROADMAP Queue A item
+5).
 """
 
 from __future__ import annotations
@@ -51,12 +51,14 @@ class ElasticContext:
               init_method: str | None = None) -> "ElasticContext":
         """Join the mesh of `devices` (best_mesh_shape's factorization) as
         `rank` at `init_method` (as `launch.mesh.make_host_mesh` takes them)
-        and build its step."""
-        data, model = best_mesh_shape(len(devices), prefer_model=prefer_model)
-        if model > 1:
+        and build its step. `make_step(mesh, rules)` builds the step of a
+        rank of that mesh (on a model mesh, of its tensor-parallel shard)."""
+        if fsdp:
             raise NotImplementedError(NEXT_SLICE)
-        mesh = mesh_from_devices([[d] for d in list(devices)[:data * model]], rank=rank,
-                                 init_method=init_method)
+        data, model = best_mesh_shape(len(devices), prefer_model=prefer_model)
+        devs = list(devices)[:data * model]
+        mesh = mesh_from_devices([devs[i * model:(i + 1) * model] for i in range(data)],
+                                 rank=rank, init_method=init_method)
         rules = ShardingRules.for_mesh(mesh, fsdp=fsdp)
         return cls(mesh=mesh, rules=rules, step_fn=make_step(mesh, rules))
 

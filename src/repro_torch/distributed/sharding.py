@@ -26,7 +26,9 @@ Only a dim divisible by its axis size is sharded; the rules take the first
 divisible candidate and otherwise replicate. The defaults are the
 reference's (row-parallel roles on, no FSDP, ZeRO-1 on). The data-parallel
 train step (`distributed/data_parallel.py`) places each rank's moments by
-`opt_spec`; FSDP's specs are the reference's, but no step runs them yet
+`opt_spec`, inside its model shard on a (data, model) mesh, where the
+training layout (`tensor_parallel.layout(train=True)`) cuts each param by
+`param_spec`; FSDP's specs are the reference's, but no step runs them yet
 (ROADMAP Queue A item 5).
 
 How a rank of the port's tensor-parallel engine holds and runs its shards

@@ -1,4 +1,5 @@
-"""Tensor-parallel serving: how a rank holds its shard of a model.
+"""Tensor parallelism: how a rank holds its shard of a model, to serve it
+or (`train=True`) to train it.
 
 The reference shards with GSPMD (`repro.serving.engine`, mesh=, DESIGN.md
 §6.4): it places params on `ShardingRules`' specs and lets XLA insert the
@@ -64,8 +65,24 @@ A rank's bundle (`local_bundle`) names each site's role in its config
 (`common.SiteCfg.tp`, `moe.MoECfg.ep`, `mamba2.Mamba2Cfg.tp`,
 `transformer.LMCfg.vocab_sharded`, `hybrid.HybridCfg.vocab_sharded`); the
 mesh is bound per forward (`ModelBundle.forward_step(mesh=)`). Families
-left out (`tp_refusal`): the enc-dec and the vision-LM, which the engine
-does not serve (ROADMAP Queue A item 5), and LUT_TRAIN bundles.
+left out of serving (`tp_refusal`): the enc-dec and the vision-LM, which
+the engine does not serve (ROADMAP Queue A item 5), and LUT_TRAIN bundles.
+
+Training (`layout(..., train=True)`, the reference's sharded step under
+`ShardingRules(mesh)` with fsdp off): the dense decoder LMs (kind "lm"
+without experts or mamba blocks), DENSE and LUT_TRAIN. A LUT_TRAIN column
+site holds its M shard of the frozen `w` and `b`, its `centroids` and
+`log_t` whole; a row site its C shard of `centroids` and the matching C·V
+rows of `w`, `b` and `log_t` whole (the specs' cuts). The vocab head stays
+vocab-sharded ("col", never "col_gather"; `LMCfg.gather_logits` off) and
+the loss is vocab-parallel (`sharded.vocab_cross_entropy`). A replicated
+leaf that a rank uses inside its shard of the forward takes only that
+shard's part of the gradient, which the step sums over "model"
+(`Layout.partial`): a sharded attention's qk-norm scales, a LUT_TRAIN
+column site's centroids and log_t, a row site's log_t. A replicated leaf
+in front of a `sharded.copy` (the layer norms, final_norm) has its whole
+gradient already. Families left out of training (`tp_refusal(train=True)`):
+MoE, SSM, hybrid, enc-dec and vision-LM (ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -91,9 +108,20 @@ EXPERT_KINDS = ("moe/gate", "moe/up", "moe/down")
 Cut = tuple[int, "tuple[tuple[int, bool], ...] | None"]
 
 
-def tp_refusal(bundle: ModelBundle) -> str | None:
-    """Why tensor parallelism cannot serve the bundle, or None."""
+def tp_refusal(bundle: ModelBundle, *, train: bool = False) -> str | None:
+    """Why tensor parallelism cannot serve (or, with `train`, train) the
+    bundle, or None."""
     arch = bundle.arch
+    if train:
+        blocks = [b for _, b in bundle.cfg.segments] if bundle.kind == "lm" else []
+        if (bundle.kind != "lm" or arch.takes_embeds or arch.mrope_sections
+                or any(b.kind != "dense" for b in blocks)):
+            return (f"tensor-parallel training of {arch.name} ({arch.family}) is not ported: "
+                    f"it trains the dense decoder LMs only; the MoE, SSM, hybrid, enc-dec "
+                    f"and vision-LM families wait, ROADMAP Queue A item 5")
+        if bundle.mode == Mode.LUT_INFER:
+            return "tensor-parallel training takes DENSE and LUT_TRAIN bundles, not LUT_INFER"
+        return None
     if bundle.kind == "encdec" or arch.takes_embeds or arch.mrope_sections:
         return (f"tensor-parallel serving of {arch.name} ({arch.family}) is not ported: the "
                 f"engine serves neither the enc-dec nor the vision-LM family; both wait for "
@@ -120,6 +148,10 @@ class Layout:
     vocab: bool
     cuts: dict[str, Cut]
     kept: tuple[str, ...] = ()
+    train: bool = False
+    # reference paths of the replicated leaves whose gradient a rank holds
+    # only its shard's part of (summed over "model" by the step)
+    partial: frozenset[str] = frozenset()
 
 
 def _in_proj_blocks(mc) -> tuple[tuple[int, bool], ...]:
@@ -142,11 +174,12 @@ def _blocks(bundle: ModelBundle) -> list[tuple[str, Any]]:
     return [(f"segments/{i}", b) for i, (_, b) in enumerate(bundle.cfg.segments)]
 
 
-def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
-    """The layout `rules` gives `bundle` (a `tp_refusal`-free bundle)."""
-    why = tp_refusal(bundle)
+def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) -> Layout:
+    """The layout `rules` gives `bundle` (a `tp_refusal`-free bundle), to
+    serve it or (`train`) to train it."""
+    why = tp_refusal(bundle, train=train)
     if why is not None:
-        raise ValueError(why)
+        raise (NotImplementedError if train else ValueError)(why)
     tp = rules.tp
     specs = flatten_tree(bundle.param_specs())
     reg = site_roles(bundle)
@@ -154,6 +187,7 @@ def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
     selected: dict[str, tuple] = {}          # a column site's blocks (in_proj)
     cuts: dict[str, Cut] = {}
     kept: list[str] = []
+    partial: set[str] = set()
 
     def axes(path: str, site) -> tuple[bool, bool]:
         """(output dim over "model", input dim over "model") of a site's spec."""
@@ -168,6 +202,8 @@ def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
         where `ok` and the specs shard them as a pair."""
         paths = [f"{prefix}/{s.name}" for s in cols]
         row_path = f"{prefix}/{row.name}"
+        if row.mode == Mode.LUT_TRAIN:       # its centroids' C shard aligns with w's rows
+            ok = ok and row.lut.codebooks(row.d_in) % tp == 0
         if not (ok and all(axes(p, s)[0] for p, s in zip(paths, cols))
                 and axes(row_path, row)[1]):
             return False
@@ -176,7 +212,10 @@ def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
         return True
 
     def attn(prefix: str, a) -> None:
-        pair(prefix, [a.q, a.k, a.v], a.o, a.n_heads % tp == 0 and a.n_kv_heads % tp == 0)
+        if (pair(prefix, [a.q, a.k, a.v], a.o, a.n_heads % tp == 0 and a.n_kv_heads % tp == 0)
+                and a.qk_norm):
+            base = f"{prefix}/{a.q.name}".rsplit("/", 1)[0]      # the attention's params
+            partial.update(f"{base}/{n}/scale" for n in ("q_norm", "k_norm"))
 
     def mlp(prefix: str, m) -> None:
         if m is not None:
@@ -207,7 +246,7 @@ def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
         attn("shared", bundle.cfg.shared_attn)
         mlp("shared", bundle.cfg.shared_mlp)
     elif bundle.cfg.lm_head is not None and axes("lm_head", bundle.cfg.lm_head)[0]:
-        roles["lm_head"] = "col_gather"
+        roles["lm_head"] = "col" if train else "col_gather"
     vocab = rules.param_spec("embed/table", tuple(specs["embed/table"].shape))[0] == "model"
 
     if vocab:
@@ -227,7 +266,12 @@ def layout(bundle: ModelBundle, rules: ShardingRules) -> Layout:
                 want["table_scale"] = 0
         cuts.update({f"{path}/{k}": (d, selected.get(path)) for k, d in want.items()
                      if k in shape})
-    return Layout(tp=tp, roles=roles, vocab=vocab, cuts=cuts, kept=tuple(dict.fromkeys(kept)))
+        if "log_t" in shape:                 # LUT_TRAIN: the shared temperature ...
+            partial.add(f"{path}/log_t")
+            if role.startswith("col"):       # ... and a column site's whole codebooks
+                partial.add(f"{path}/centroids")
+    return Layout(tp=tp, roles=roles, vocab=vocab, cuts=cuts, kept=tuple(dict.fromkeys(kept)),
+                  train=train, partial=frozenset(partial))
 
 
 def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
@@ -291,7 +335,8 @@ def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
         segs = tuple((count, block(f"segments/{i}", b))
                      for i, (count, b) in enumerate(cfg.segments))
         head = local(cfg.lm_head, "lm_head") if "lm_head" in roles else cfg.lm_head
-        cfg = dataclasses.replace(cfg, segments=segs, lm_head=head, vocab_sharded=lay.vocab)
+        cfg = dataclasses.replace(cfg, segments=segs, lm_head=head, vocab_sharded=lay.vocab,
+                                  gather_logits=not lay.train)
     return dataclasses.replace(bundle, cfg=cfg)
 
 
@@ -332,12 +377,14 @@ class RankParams:
     tp: int
 
 
-def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh
+def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh, *, train: bool = False
           ) -> tuple[ModelBundle, Any, Layout]:
     """(local bundle, the rank's params on its device, layout) of a full
-    param tree (port layout, any device), or of `RankParams`. A part that
-    is one contiguous block of a leaf on the mesh's device is a view of it."""
-    lay = layout(bundle, rules)
+    param tree (port layout, any device), or of `RankParams`, to serve or
+    (`train`) to train. A serving rank's part that is one contiguous block
+    of a leaf on the mesh's device is a view of it; a training rank's parts
+    are copies, so that the whole tree can be freed."""
+    lay = layout(bundle, rules, train=train)
     local = local_bundle(bundle, lay)
     if isinstance(params, RankParams):
         if (params.rank, params.tp) != (mesh.model_rank, rules.tp):
@@ -346,8 +393,8 @@ def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh
         return local, params.tree, lay
 
     def take(path, leaf):
-        part = cut(leaf, lay.cuts.get(path), mesh.model_rank, lay.tp)
-        return part.to(mesh.device).contiguous()
+        part = cut(leaf, lay.cuts.get(path), mesh.model_rank, lay.tp).to(mesh.device)
+        return part.clone(memory_format=torch.contiguous_format) if train else part.contiguous()
 
     return local, tree_map_ref(take, params), lay
 

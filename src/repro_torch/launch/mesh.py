@@ -1,5 +1,5 @@
-"""The host mesh of a tensor- or data-parallel run, over `torch.distributed`
-ranks.
+"""The host mesh of a tensor-, data- or (data, model)-parallel run, over
+`torch.distributed` ranks.
 
 Counterpart of `repro.launch.mesh.make_host_mesh` and `mesh_from_devices`.
 One process per rank; each rank calls `make_host_mesh(data=dp, model=tp,
@@ -10,26 +10,35 @@ ranks on one card (each rank its own process and CUDA context).
 `HostMesh.backend` says which. A mesh of one rank joins no process group:
 its collectives are the identity. `mesh_of_group` is the mesh of a process
 group that the caller initialized (under `torchrun`'s RANK / WORLD_SIZE,
-say), all of it on the "data" axis. A mesh has "data" ranks (data-parallel
-training) or "model" ranks (tensor-parallel serving), not both yet: the two
-together are ROADMAP Queue A item 5's next slice.
+say), all of it on the "data" axis.
+
+Rank r sits at (data_rank, model_rank) = (r // model, r % model). A mesh
+with both axes above 1 (tensor-parallel training) makes one process
+subgroup per row and per column of that grid, in the same order on every
+rank (`dist.new_group` is collective): a "model" collective spans the
+ranks of one data row, a "data" collective the ranks of one model column.
+Every collective takes its `axis`; on a 1-D mesh `axis=None` (the default)
+is the whole mesh, as it always was, and on a 2-D mesh the axis must be
+named.
 
 Gloo takes CUDA tensors only for `all_reduce` and `broadcast`, so every
 collective of the tensor-parallel path is one of those two: a gather is an
-`all_reduce` of a zero-padded buffer (`gather_last`). The data axis adds a
-mean all-reduce (`all_mean`), an all-to-all (`all_to_all`) and an all-gather
-(`all_gather`): NCCL's `all_to_all_single` and `all_gather_into_tensor`, and
-gloo's on the CPU; on CUDA tensors under gloo both are an `all_reduce` of a
-zero-padded buffer, exact since each element has one non-zero contributor,
-but n times the bytes. The engine's control messages (the scheduler's token
-rows, positions, slot masks, page tables) are int64 host tensors broadcast
-over a gloo control group of their own (`broadcast_ints`), beside the
-default group that carries the forward's collectives. A follower waits in
-the control group until the leader's next message, so that group never
-times out an idle server (`CONTROL_TIMEOUT_S`); the other collectives fail
-within `timeout_s` (`DATA_TIMEOUT_S`) when a peer stops answering. The mesh
-counts each collective, the bytes it was given and the host time spent in
-it (`counters`).
+`all_reduce` of a zero-padded buffer (`gather_last`, `gather_dim`), and so
+is the max (`all_max`) of a CUDA tensor under gloo. The data axis adds a
+mean all-reduce (`all_mean`), an all-to-all (`all_to_all`) and an
+all-gather (`all_gather`): NCCL's `all_to_all_single` and
+`all_gather_into_tensor`, and gloo's on the CPU; on CUDA tensors under gloo
+both are an `all_reduce` of a zero-padded buffer, exact since each element
+has one non-zero contributor, but n times the bytes. The engine's control
+messages (the scheduler's token rows, positions, slot masks, page tables)
+are int64 host tensors broadcast over a gloo control group of their own
+(`broadcast_ints`), beside the default group that carries the forward's
+collectives. A follower waits in the control group until the leader's next
+message, so that group never times out an idle server
+(`CONTROL_TIMEOUT_S`); the other collectives fail within `timeout_s`
+(`DATA_TIMEOUT_S`) when a peer stops answering. The mesh counts each
+collective, the bytes it was given and the host time spent in it, in all
+(`counters`) and per axis (`axis_counters`).
 """
 
 from __future__ import annotations
@@ -61,7 +70,8 @@ def backend_for(devices: Sequence[torch.device | str]) -> str:
     return "gloo"
 
 
-COLLECTIVES = ("all_reduce", "all_mean", "all_to_all", "all_gather", "broadcast")
+COLLECTIVES = ("all_reduce", "all_max", "all_mean", "all_to_all", "all_gather", "broadcast")
+AXES = ("data", "model")
 
 
 def _zero_counters() -> dict:
@@ -69,11 +79,6 @@ def _zero_counters() -> dict:
     for name in COLLECTIVES:
         out.update({name: 0, f"{name}_s": 0.0, f"{name}_bytes": 0})
     return out
-
-
-# the next slice of ROADMAP Queue A item 5: a data axis beside the model axis
-DATA_AND_MODEL = ("a mesh with both data > 1 and model > 1 (tensor-parallel training, FSDP) "
-                  "is not ported yet: ROADMAP Queue A item 5")
 
 
 @dataclasses.dataclass
@@ -88,6 +93,10 @@ class HostMesh:
     backend: str
     control_group: Any = None
     counters: dict = dataclasses.field(default_factory=_zero_counters)
+    # {"data" | "model": this rank's process subgroup of that axis} on a 2-D mesh
+    groups: dict = dataclasses.field(default_factory=dict)
+    axis_counters: dict = dataclasses.field(
+        default_factory=lambda: {a: _zero_counters() for a in AXES})
 
     @property
     def shape(self) -> dict[str, int]:
@@ -106,13 +115,53 @@ class HostMesh:
         return self.rank // self.model
 
     def reset_counters(self) -> None:
-        for k in self.counters:
-            self.counters[k] = 0 if isinstance(self.counters[k], int) else 0.0
+        for c in (self.counters, *self.axis_counters.values()):
+            for k in c:
+                c[k] = 0 if isinstance(c[k], int) else 0.0
 
-    def _count(self, name: str, t0: float, nbytes: int) -> None:
-        self.counters[f"{name}_s"] += time.perf_counter() - t0
-        self.counters[name] += 1
-        self.counters[f"{name}_bytes"] += nbytes
+    def _axis(self, axis: str | None) -> str:
+        """The axis a collective runs on: `axis`, or on a 1-D mesh (None) the
+        one the mesh has."""
+        if axis is None:
+            if self.data > 1 and self.model > 1:
+                raise ValueError("a collective of a (data, model) mesh names its axis")
+            return "model" if self.model > 1 else "data"
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}")
+        return axis
+
+    def size(self, axis: str | None = None) -> int:
+        """The ranks a collective on `axis` spans (the whole mesh for None)."""
+        return self.world if axis is None else self.shape[self._axis(axis)]
+
+    def index(self, axis: str | None = None) -> int:
+        """This rank's index along `axis` (its rank for None)."""
+        if axis is None:
+            return self.rank
+        return self.model_rank if self._axis(axis) == "model" else self.data_rank
+
+    def _group(self, axis: str | None):
+        """The process group of a collective on `axis`: None (the default
+        group) where the axis spans the whole mesh."""
+        if axis is None or self.size(axis) == self.world:
+            self._axis(axis)
+            return None
+        return self.groups[self._axis(axis)]
+
+    def _src(self, axis: str | None, i: int) -> int:
+        """The global rank of index `i` along `axis` in this rank's group."""
+        if axis is None:
+            return i
+        if self._axis(axis) == "model":
+            return self.data_rank * self.model + i
+        return i * self.model + self.model_rank
+
+    def _count(self, name: str, t0: float, nbytes: int, axis: str | None = None) -> None:
+        dt = time.perf_counter() - t0
+        for c in (self.counters, self.axis_counters[self._axis(axis)]):
+            c[f"{name}_s"] += dt
+            c[name] += 1
+            c[f"{name}_bytes"] += nbytes
 
     def _emulated(self, t: torch.Tensor) -> bool:
         """Whether this collective goes through a zero-padded all_reduce: gloo
@@ -120,84 +169,115 @@ class HostMesh:
         return self.backend == "gloo" and t.is_cuda
 
     # ------------------------------------------------------------------
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the mesh, in place; returns it."""
-        t0 = time.perf_counter()
-        if self.world > 1:
-            dist.all_reduce(t)
-        self._count("all_reduce", t0, t.numel() * t.element_size())
-        return t
-
-    def all_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean of `t` over the data axis, in place (a sum, then / data);
+    def all_reduce(self, t: torch.Tensor, axis: str | None = None) -> torch.Tensor:
+        """Sum `t` over `axis` (the whole 1-D mesh for None), in place;
         returns it."""
         t0 = time.perf_counter()
-        if self.world > 1:
-            dist.all_reduce(t)
-            t.div_(self.data)
-        self._count("all_mean", t0, t.numel() * t.element_size())
+        if self.size(axis) > 1:
+            dist.all_reduce(t, group=self._group(axis))
+        self._count("all_reduce", t0, t.numel() * t.element_size(), axis)
         return t
 
-    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
-        """`t` (data, ...): row p goes to data rank p; returns (data, ...)
-        whose row p came from data rank p (`jax.lax.all_to_all`, split and
-        concat axis 0, tiled)."""
+    def all_max(self, t: torch.Tensor, axis: str | None = None) -> torch.Tensor:
+        """The elementwise max of `t` over `axis` (a new tensor): a MAX
+        all-reduce, or under gloo on a CUDA tensor the max of every rank's
+        `t` gathered by an all_reduce of a zero-padded buffer; exact both
+        ways."""
         t0 = time.perf_counter()
-        n, r = self.data, self.data_rank
+        n, r = self.size(axis), self.index(axis)
+        if n == 1:
+            out = t.clone()
+        elif self._emulated(t):
+            buf = t.new_zeros((n, *t.shape))
+            buf[r] = t
+            dist.all_reduce(buf, group=self._group(axis))
+            out = buf.amax(dim=0)
+        else:
+            out = t.clone()
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self._group(axis))
+        self._count("all_max", t0, t.numel() * t.element_size(), axis)
+        return out
+
+    def all_mean(self, t: torch.Tensor, axis: str | None = None) -> torch.Tensor:
+        """The mean of `t` over the data axis (or `axis`), in place (a sum,
+        then / the axis' size); returns it."""
+        t0 = time.perf_counter()
+        if self.size(axis) > 1:
+            dist.all_reduce(t, group=self._group(axis))
+            t.div_(self.data if axis is None else self.size(axis))
+        self._count("all_mean", t0, t.numel() * t.element_size(), axis)
+        return t
+
+    def all_to_all(self, t: torch.Tensor, axis: str | None = None) -> torch.Tensor:
+        """`t` (n, ...), n the ranks of `axis`: row p goes to rank p; returns
+        (n, ...) whose row p came from rank p (`jax.lax.all_to_all`, split
+        and concat axis 0, tiled)."""
+        t0 = time.perf_counter()
+        n, r = self.size(axis), self.index(axis)
         if t.shape[0] != n:
             raise ValueError(f"all_to_all: {t.shape[0]} rows for {n} ranks")
-        if self.world == 1:
+        if n == 1:
             out = t.clone()
         elif self._emulated(t):
             buf = t.new_zeros((n, *t.shape))           # [sender, receiver, ...]
             buf[r] = t
-            dist.all_reduce(buf)
+            dist.all_reduce(buf, group=self._group(axis))
             out = buf[:, r].contiguous()
         else:
             out = torch.empty_like(t)
-            dist.all_to_all_single(out, t.contiguous())
-        self._count("all_to_all", t0, t.numel() * t.element_size())
+            dist.all_to_all_single(out, t.contiguous(), group=self._group(axis))
+        self._count("all_to_all", t0, t.numel() * t.element_size(), axis)
         return out
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every data rank's `t`, stacked in rank order: (data, *t.shape)."""
+    def all_gather(self, t: torch.Tensor, axis: str | None = None) -> torch.Tensor:
+        """Every rank's `t` along `axis`, stacked in rank order: (n, *t.shape)."""
         t0 = time.perf_counter()
-        n, r = self.data, self.data_rank
-        if self.world == 1:
+        n, r = self.size(axis), self.index(axis)
+        if n == 1:
             out = t.unsqueeze(0).clone()
         elif self._emulated(t):
             out = t.new_zeros((n, *t.shape))
             out[r] = t
-            dist.all_reduce(out)
+            dist.all_reduce(out, group=self._group(axis))
         else:
             out = t.new_empty((n * t.numel(),))
             # all_gather_single is all_gather_into_tensor's newer name
             gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-            gather(out, t.reshape(-1).contiguous())
+            gather(out, t.reshape(-1).contiguous(), group=self._group(axis))
             out = out.view(n, *t.shape)
-        self._count("all_gather", t0, t.numel() * t.element_size())
+        self._count("all_gather", t0, t.numel() * t.element_size(), axis)
         return out
 
-    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
-        """Rank `src`'s `t` on every rank, in place; returns it."""
+    def broadcast(self, t: torch.Tensor, src: int, axis: str | None = None) -> torch.Tensor:
+        """The `t` of index `src` along `axis` (rank `src` for None) on
+        every rank of it, in place; returns it."""
         t0 = time.perf_counter()
-        if self.world > 1:
-            dist.broadcast(t, src)
-        self._count("broadcast", t0, t.numel() * t.element_size())
+        if self.size(axis) > 1:
+            dist.broadcast(t, self._src(axis, src), group=self._group(axis))
+        self._count("broadcast", t0, t.numel() * t.element_size(), axis)
         return t
 
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier()
 
-    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
+    def gather_dim(self, t: torch.Tensor, dim: int, axis: str | None = None) -> torch.Tensor:
+        """Every rank's `t` along `axis` concatenated over `dim` in rank
+        order: an all_reduce of a zero-padded buffer, so each value is its
+        rank's exactly."""
+        n, r = self.size(axis), self.index(axis)
+        dim = dim % t.dim()
+        m = t.shape[dim]
+        shape = list(t.shape)
+        shape[dim] = n * m
+        buf = t.new_zeros(shape)
+        buf.narrow(dim, r * m, m).copy_(t)
+        return self.all_reduce(buf, axis)
+
+    def gather_last(self, t: torch.Tensor, axis: str | None = None) -> torch.Tensor:
         """Every rank's `t` (..., m) concatenated over the last axis in rank
-        order, (..., model * m): an all_reduce of a zero-padded buffer, so
-        each value is its rank's exactly."""
-        m = t.shape[-1]
-        buf = t.new_zeros((*t.shape[:-1], self.model * m))
-        buf[..., self.model_rank * m: (self.model_rank + 1) * m] = t
-        return self.all_reduce(buf)
+        order, (..., model * m) on the model axis (`gather_dim`)."""
+        return self.gather_dim(t, -1, axis)
 
     def broadcast_ints(self, values: np.ndarray | None, n: int) -> np.ndarray:
         """Rank 0's `n` int64 values on every rank, over the control group
@@ -232,10 +312,8 @@ def make_host_mesh(*, data: int = 1, model: int = 1, rank: int | None = None,
     per rank, cuda:0..); `init_method` the rendezvous (default: the
     MASTER_ADDR / MASTER_PORT environment); `rank` defaults to $RANK. The
     backend follows the devices (`backend_for`); `timeout_s` bounds the
-    collectives. A mesh of one rank joins no group. `data` and `model` may
-    not both exceed 1 (`DATA_AND_MODEL`)."""
-    if data > 1 and model > 1:
-        raise NotImplementedError(DATA_AND_MODEL)
+    collectives. A mesh of one rank joins no group; a mesh with both axes
+    above 1 makes the subgroups of its rows and columns."""
     world = data * model
     if rank is None:
         rank = int(os.environ.get("RANK", "0"))
@@ -265,8 +343,22 @@ def make_host_mesh(*, data: int = 1, model: int = 1, rank: int | None = None,
                          f"({data}, {model}) {world}")
     control = dist.new_group(backend="gloo",
                              timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
+    groups: dict[str, Any] = {}
+    if data > 1 and model > 1:
+        # every rank makes every group, rows then columns, in one order
+        tmo = datetime.timedelta(seconds=timeout_s)
+        for d in range(data):
+            ranks = [d * model + m for m in range(model)]
+            g = dist.new_group(ranks, timeout=tmo)
+            if rank in ranks:
+                groups["model"] = g
+        for m in range(model):
+            ranks = [d * model + m for d in range(data)]
+            g = dist.new_group(ranks, timeout=tmo)
+            if rank in ranks:
+                groups["data"] = g
     return HostMesh(data=data, model=model, rank=rank, device=device, backend=backend,
-                    control_group=control)
+                    control_group=control, groups=groups)
 
 
 def mesh_from_devices(devices: Sequence[Sequence[torch.device | str]], *, rank: int | None = None,

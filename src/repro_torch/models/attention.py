@@ -40,7 +40,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import common
+from repro_torch.models import common, sharded
 from repro_torch.models.common import Params, SiteCfg, linear, linear_init, rmsnorm, rmsnorm_init
 
 MASK_VALUE = -1e30
@@ -283,6 +283,8 @@ def attention(cfg: AttnCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
     if paged and block_tables is None:
         raise ValueError("a paged cache needs block_tables")
     b, s, _ = x.shape
+    if cfg.q.tp is not None:              # a tensor-parallel rank's q/k/v: one copy
+        x = sharded.copy(x)
     q = linear(cfg.q, p["q"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
     k = linear(cfg.k, p["k"], x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
     v = linear(cfg.v, p["v"], x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)

@@ -9,6 +9,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.models import sharded
 from repro_torch.models.common import (
     Params,
     SiteCfg,
@@ -48,6 +49,8 @@ def mlp_specs(cfg: MLPCfg, dtype=torch.float32) -> Params:
 
 
 def mlp(cfg: MLPCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.up.tp is not None:             # a tensor-parallel rank's gate/up: one copy
+        x = sharded.copy(x)
     up = linear(cfg.up, p["up"], x)
     if cfg.gated:
         h = activation(cfg.act, linear(cfg.gate, p["gate"], x)) * up

@@ -1,33 +1,54 @@
 """A tensor-parallel rank's pieces of the forward: sharded sites, the
-vocab-sharded embedding and the tied logits, the MoE combine's reduction
-and the mamba2 block's gated norm.
+vocab-sharded embedding, the tied logits and the vocab-parallel loss, the
+MoE combine's reduction and the mamba2 block's gated norm.
 
 A rank's bundle (`distributed.tensor_parallel.local_bundle`) names each
 sharded site's role in its config (`common.SiteCfg.tp`: "col", "col_gather"
 or "row") and whether the embedding is vocab-sharded
 (`transformer.LMCfg.vocab_sharded`); the configs stay pure data. The mesh
 the collectives run on is bound for the length of one forward
-(`ModelBundle.forward_step(mesh=)`, `bound`); it needs `model_rank`,
-`all_reduce` (a sum over the model axis, in place) and `gather_last` (every
-rank's last-axis block, in rank order).
+(`ModelBundle.forward_step(mesh=)`, `ModelBundle.loss(mesh=)`, `bound`); it
+needs `model_rank`, `all_reduce` (a sum, in place), `all_max` and
+`gather_last`, each on the "model" axis.
 
   * a column-parallel site ("col") runs on its M shard of table_q (and of
-    an m-shared table_scale and of the bias): its output columns stay on the
-    rank; "col_gather" gathers them (an untied head's vocab columns);
+    an m-shared table_scale and of the bias), or of a LUT_TRAIN or DENSE
+    site's `w` and `b`: its output columns stay on the rank; "col_gather"
+    gathers them (an untied head's vocab columns, in serving);
   * a row-parallel site ("row": o, down) runs on its C shard of centroids
-    and table_q, and takes the rank's columns of the input. A LUT site with
-    an m-shared scale runs its kernel with unit scales and no bias, which
+    and table_q (or of a LUT_TRAIN site's centroids and `w` rows), and
+    takes the rank's columns of the input. A LUT_INFER site with an
+    m-shared scale runs its kernel with unit scales and no bias, which
     gives float(int32) accumulators exactly (|acc| <= C * 127),
     all_reduces them, and applies the unsharded epilogue (scale, bias fused
     as the kernels fuse it, cast): its output is the unsharded site's
-    bytewise. Other scale layouts and dense sites reduce fp32 partials;
-  * the embedding is vocab-sharded (masked lookup, then all_reduce) and the
-    tied logits vocab-sharded and gathered;
+    bytewise. Other scale layouts, LUT_TRAIN and dense sites reduce fp32
+    partials and add the bias once, after the reduce;
+  * a LUT_TRAIN shard fake-quantizes with the unsharded table's scale: the
+    layouts whose max runs over the split axis (the per-codebook (C, 1, 1)
+    scale of a column site, the m-shared (1, 1, M) scale of a row site)
+    take the max of every rank's absmax (`all_max`); per-column scales are
+    local to either role;
+  * the embedding is vocab-sharded (masked lookup, then all_reduce); the
+    tied logits are vocab-sharded and gathered in serving, and stay
+    vocab-sharded in training, where `vocab_cross_entropy` reduces the row
+    max, the sum of exponentials and the target logit over the model axis;
   * an expert-parallel MoE layer's combined output is all-reduced in fp32
     (`all_reduce`, `model_rank` names the rank's experts);
   * a mamba2 rank's gated norm gathers the gated activations of every
     rank's heads and normalizes the whole d_inner row, as the unsharded
     block does, then keeps the rank's columns (`gated_rmsnorm`).
+
+Training differentiates through the model axis with two autograd
+functions, as Megatron places them: `copy` (identity forward, model-axis
+all-reduce backward) in front of every column-parallel consumer (q/k/v
+together, gate/up together, the vocab head), and `reduce` (model-axis
+all-reduce forward, identity backward) after every row-parallel site and
+the vocab-sharded lookup. Both are the identity / the plain all_reduce
+where no gradient is taken, so a serving forward runs as before. Each
+keeps the mesh it was built with for its backward, which runs on the
+autograd engine's device thread, where `bound`'s context variable is not
+set; a recomputed block re-binds the mesh (`transformer._seg_apply`).
 """
 
 from __future__ import annotations
@@ -41,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import pq
-from repro_torch.core.amm import Mode, lut_linear
+from repro_torch.core.amm import Mode, lut_linear, lut_train_contract
 from repro_torch.kernels.ref import fma_f32
 
 _MESH: contextvars.ContextVar[Any] = contextvars.ContextVar("repro_torch_tp_mesh",
@@ -58,12 +79,77 @@ def bound(mesh: Any) -> Iterator[None]:
         _MESH.reset(token)
 
 
+def current() -> Any:
+    """The bound mesh, or None."""
+    return _MESH.get()
+
+
 def _mesh() -> Any:
     mesh = _MESH.get()
     if mesh is None:
         raise RuntimeError("a tensor-parallel rank's bundle runs under "
-                           "ModelBundle.forward_step(mesh=)")
+                           "ModelBundle.forward_step(mesh=) or ModelBundle.loss(mesh=)")
     return mesh
+
+
+AXIS = "model"
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous().clone(), AXIS), None
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum over the model axis forward; the gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.contiguous().clone(), AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _differentiated(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def copy(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """`x` in front of column-parallel consumers: its gradient is the sum of
+    every rank's (the identity where no gradient is taken)."""
+    if not _differentiated(x):
+        return x
+    return _Copy.apply(x, mesh or _mesh())
+
+
+def reduce(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """The sum of every rank's `x` over the model axis (in place where no
+    gradient is taken); the gradient passes through to each rank's part."""
+    mesh = mesh or _mesh()
+    if not _differentiated(x):
+        return mesh.all_reduce(x, AXIS)
+    return _Reduce.apply(x, mesh)
+
+
+def _absmax_over_model(site, mesh):
+    """The `reduce_absmax` of a LUT_TRAIN shard (`quant.table_scale`): the
+    max over the model axis where the scale layout's max runs over the
+    split axis (M for a column site's per-codebook scale, C for a row
+    site's m-shared one), else None."""
+    lut, col = site.lut, site.tp.startswith("col")
+    # m-shared (1, 1, M) first, as `quant.table_scale` takes it
+    over_split = (not col) if lut.int8_dot else (col and not lut.per_column)
+    return (lambda a: mesh.all_max(a, AXIS)) if over_split else None
 
 
 @functools.lru_cache(maxsize=64)
@@ -86,7 +172,7 @@ def _row_lut(site, p, x: torch.Tensor, mesh) -> torch.Tensor:
         else:
             idx = pq.encode_indices(x, p["centroids"])
             acc = pq.gather_lut(idx, p["table_q"].to(torch.int32)).float()
-        mesh.all_reduce(acc)
+        mesh.all_reduce(acc, AXIS)
         s = scale.reshape(1, -1).expand_as(acc)
         if b is None:
             return acc * s
@@ -94,22 +180,32 @@ def _row_lut(site, p, x: torch.Tensor, mesh) -> torch.Tensor:
             return fma_f32(acc, s, b.float().expand_as(acc))
         return acc * s + b.float()
     part = lut_linear(lut, Mode.LUT_INFER, {k: v for k, v in p.items() if k != "b"}, x.float())
-    mesh.all_reduce(part)
+    mesh.all_reduce(part, AXIS)
     return part + b.float() if b is not None else part
 
 
 def linear(site, p, x: torch.Tensor) -> torch.Tensor:
-    """One sharded site on a rank, by its role (`SiteCfg.tp`)."""
+    """One sharded site on a rank, by its role (`SiteCfg.tp`). A column
+    site's caller has put `copy` in front of its input."""
     mesh = _mesh()
     if site.tp.startswith("col"):
-        y = lut_linear(site.lut, site.mode, p, x)
-        return mesh.gather_last(y.float()).to(y.dtype) if site.tp == "col_gather" else y
+        if site.mode == Mode.LUT_TRAIN:
+            y = lut_linear(site.lut, site.mode, p, x, frozen=p,
+                           reduce_absmax=_absmax_over_model(site, mesh))
+        else:
+            y = lut_linear(site.lut, site.mode, p, x)
+        return mesh.gather_last(y.float(), AXIS).to(y.dtype) if site.tp == "col_gather" else y
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
     if site.mode == Mode.LUT_INFER:
         y = _row_lut(site, p, xf, mesh)
     else:
-        y = mesh.all_reduce(xf.float() @ p["w"].float())
+        if site.mode == Mode.LUT_TRAIN:
+            part = lut_train_contract(site.lut, p, p["w"], xf,
+                                      reduce_absmax=_absmax_over_model(site, mesh))
+        else:
+            part = xf.float() @ p["w"].float()
+        y = reduce(part, mesh)
         if p.get("b") is not None:
             y = y + p["b"].float()
     return y.reshape(*lead, -1).to(x.dtype)
@@ -118,19 +214,43 @@ def linear(site, p, x: torch.Tensor) -> torch.Tensor:
 def embed(p, ids: torch.Tensor) -> torch.Tensor:
     """The embedding lookup from a rank's vocab rows: the other ranks' ids
     give zeros, and the sum over ranks is each row of the unsharded lookup
-    exactly."""
+    exactly. Its gradient reaches only the rank's rows."""
     mesh, table = _mesh(), p["table"]
     n = table.shape[0]
     local = ids.long() - mesh.model_rank * n
     ok = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)].float()
     x = torch.where(ok[..., None], rows, torch.zeros((), device=rows.device))
-    return mesh.all_reduce(x).to(table.dtype)
+    return reduce(x, mesh).to(table.dtype)
 
 
-def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits of the tied head from a rank's vocab rows, gathered."""
-    return _mesh().gather_last((x @ table.to(x.dtype).T).float()).to(x.dtype)
+def tied_logits(x: torch.Tensor, table: torch.Tensor, *, gather: bool = True) -> torch.Tensor:
+    """Logits of the tied head from a rank's vocab rows: gathered, or (in
+    training) the rank's vocab columns."""
+    mesh = _mesh()
+    logits = copy(x, mesh) @ table.to(x.dtype).T
+    if not gather:
+        return logits
+    return mesh.gather_last(logits.float(), AXIS).to(x.dtype)
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """`common.cross_entropy` of vocab-sharded logits (..., vocab / tp), the
+    rank's columns in rank order: the row max (detached), the sum of
+    exponentials and the target logit (nonzero on the rank that holds it)
+    summed over the model axis. No rank holds a whole row. Every rank gets
+    the same mean loss; the gradient reaches each rank's columns."""
+    mesh = _mesh()
+    lf = logits.float()
+    n = lf.shape[-1]
+    with torch.no_grad():
+        m = mesh.all_max(lf.amax(dim=-1), AXIS)
+    sum_exp = reduce(torch.exp(lf - m[..., None]).sum(dim=-1), mesh)
+    local = labels.long() - mesh.model_rank * n
+    ok = (local >= 0) & (local < n)
+    gold = lf.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = reduce(torch.where(ok, gold, torch.zeros((), device=lf.device)), mesh)
+    return (torch.log(sum_exp) + m - gold).mean()
 
 
 def model_rank() -> int:
@@ -140,7 +260,7 @@ def model_rank() -> int:
 
 def all_reduce(t: torch.Tensor) -> torch.Tensor:
     """The sum of `t` over the model axis of the bound mesh, in place."""
-    return _mesh().all_reduce(t)
+    return _mesh().all_reduce(t, AXIS)
 
 
 def gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
@@ -151,7 +271,7 @@ def gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     whole row normalized as the unsharded block normalizes it; returns the
     rank's columns, the unsharded block's bytewise."""
     mesh = _mesh()
-    g = mesh.gather_last((y * F.silu(z)).float())
+    g = mesh.gather_last((y * F.silu(z)).float(), AXIS)
     var = (g * g).mean(dim=-1, keepdim=True)
     full = (g * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
     m = y.shape[-1]

@@ -173,6 +173,7 @@ class LMCfg:
     remat: bool = True                           # recompute blocks in training backward
     takes_embeds: bool = False                   # input: embeddings (the vlm stub frontend)
     vocab_sharded: bool = False  # a tensor-parallel rank's vocab rows (models/sharded.py)
+    gather_logits: bool = True   # False: a training rank's logits stay vocab-sharded
 
     @property
     def n_layers(self) -> int:
@@ -244,6 +245,18 @@ def train_block(bcfg: BlockCfg, lp: Params, x: torch.Tensor,
     return y, aux
 
 
+def _train_block_on(mesh, bcfg: BlockCfg, lp: Params, x: torch.Tensor,
+                    pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`train_block` with a tensor-parallel rank's mesh bound: the
+    recomputation in the backward runs where the forward's binding is gone
+    (the autograd engine's thread), and runs the forward's collectives
+    again, in the same order on every rank."""
+    if mesh is None:
+        return train_block(bcfg, lp, x, pos)
+    with sharded.bound(mesh):
+        return train_block(bcfg, lp, x, pos)
+
+
 def remat_active(remat: bool, caches) -> bool:
     """Recompute blocks in backward only where there is a backward (and no
     tape, which the recomputation would write to a second time)."""
@@ -264,7 +277,8 @@ def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: to
     for j, lp in enumerate(layers):
         set_tape_prefix(f"{prefix}/{j}")
         if remat:
-            x, aux = checkpoint(train_block, bcfg, lp, x, pos, use_reentrant=False)
+            x, aux = checkpoint(_train_block_on, sharded.current(), bcfg, lp, x, pos,
+                                use_reentrant=False)
             aux_total = aux_total + aux
             continue
         cl = None if caches is None else {name: t[j] for name, t in caches.items()}
@@ -321,9 +335,11 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
     x = rmsnorm(params["final_norm"], x)
     if cfg.lm_head is not None:
         set_tape_prefix("")                     # registry key: bare "lm_head"
+        if cfg.lm_head.tp is not None:
+            x = sharded.copy(x)
         logits = linear(cfg.lm_head, params["lm_head"], x)
     elif cfg.vocab_sharded:
-        logits = sharded.tied_logits(x, params["embed"]["table"])
+        logits = sharded.tied_logits(x, params["embed"]["table"], gather=cfg.gather_logits)
     else:
         # tied head: a plain matmul, left to the library as the reference leaves it to XLA
         logits = x @ params["embed"]["table"].to(x.dtype).T

@@ -286,10 +286,14 @@ def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
                 out = out + swap.to(out.dtype)
         return out
 
-    def fq(t, *, bits=8, per_column=False, m_shared=False):
-        out = real_fq(t, bits=bits, per_column=per_column, m_shared=m_shared)
+    def fq(t, *, bits=8, per_column=False, m_shared=False, reduce_absmax=None):
+        out = real_fq(t, bits=bits, per_column=per_column, m_shared=m_shared,
+                      reduce_absmax=reduce_absmax)
         key = key_now()                  # a recomputed block or expert chunk repeats a key
-        scale = quant.table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared)
+        # a tensor-parallel shard's scale is the whole table's: its peers'
+        # max again (the same collective, in the same order on every rank)
+        scale = quant.table_scale(t, bits=bits, per_column=per_column, m_shared=m_shared,
+                                  reduce_absmax=reduce_absmax)
         r = t.detach().float() / scale
         q = torch.clamp(torch.round(r), -quant._qmax(bits), quant._qmax(bits))
         rec["rounding"].setdefault(key, (q.to(torch.int16).cpu(), r.float().cpu()))
@@ -623,3 +627,51 @@ def witness_ratio(got, ref32, exact, start=None) -> tuple[float, str]:
                 worst, where = r, (f"{path}[{j}]: gap {g2:.3g} / {gm:.3g}, the fp32 "
                                    f"reference's {r2:.3g} / {rm:.3g}")
     return worst, where
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training (tests/test_torch_tp_train.py, chip_smoke phase 14)
+# ---------------------------------------------------------------------------
+
+def spec_part_shape(shape: tuple, spec: tuple, sizes: dict[str, int]) -> tuple:
+    """The shape of a rank's part of a leaf of `shape` under the
+    PartitionSpec entries `spec` on a mesh of `sizes` ({"data", "model"})."""
+    out = []
+    for n, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        for a in (() if e is None else (e,) if isinstance(e, str) else e):
+            n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+def expected_rank_shapes(bundle, rules, data_rank: int, frozen_paths=frozenset()
+                         ) -> tuple[dict, dict]:
+    """({reference path: [per-layer param shape]}, {reference path:
+    [per-layer moment shape]}) of a rank of data index `data_rank` under
+    `rules` (`param_spec` with the site roles, `opt_spec`): a stacked
+    leaf whose moment spec puts "data" on the layer axis is held in whole
+    layers by their owner ((0,) elsewhere), a frozen leaf's moment is (0,)."""
+    from repro_torch.checkpoint.paths import flatten_tree
+    from repro_torch.distributed.sharding import is_stacked, site_roles
+
+    sizes = {"data": rules.data, "model": rules.model}
+    roles = site_roles(bundle)
+    params, moments = {}, {}
+    for path, ps in flatten_tree(bundle.param_specs()).items():
+        shape = tuple(ps.shape)
+        stacked = is_stacked(path)
+        layers = shape[0] if stacked else 1
+        pspec = rules.param_spec(path, shape, site_roles=roles)
+        pshape = spec_part_shape(shape, pspec, sizes)[stacked:]
+        params[path] = [pshape] * layers
+        if path in frozen_paths:
+            moments[path] = [(0,)] * layers
+            continue
+        ospec = rules.opt_spec(path, shape)
+        if stacked and ospec and ospec[0] == "data":
+            per = layers // rules.data
+            moments[path] = [spec_part_shape(shape[1:], ospec[1:], sizes)
+                             if j // per == data_rank else (0,) for j in range(layers)]
+        else:
+            moments[path] = [spec_part_shape(shape, ospec, sizes)[stacked:]] * layers
+    return params, moments

@@ -7,6 +7,8 @@ CPU and call `fn(mesh, *args)`; it returns their results in rank order,
 tensors as numpy arrays. The mesh's ranks are on its "model" axis, or with
 `axis="data"` on its "data" axis (tests/test_torch_dp.py); with `axis=None`
 the ranks join no mesh and `fn(rank, init, *args)` joins one itself.
+With `axis=(data, model)` the ranks join that 2-D mesh
+(tests/test_torch_tp_train.py).
 `serve_family` (`serve_families`) is the ranks' work in
 tests/test_torch_tp_families.py: the MoE, SSM and hybrid artifacts through
 the unsharded and the tensor-parallel engines, with the experts' outputs
@@ -51,7 +53,9 @@ def _rank_main(rank, devices, init, fn, args, q, axis="model"):
             q.put((rank, "ok", _host(fn(rank, init, *args))))
             return
         n = len(devices)
-        mesh = make_host_mesh(data=n if axis == "data" else 1, model=n if axis == "model" else 1,
+        data, model = (axis if isinstance(axis, tuple)
+                       else (n if axis == "data" else 1, n if axis == "model" else 1))
+        mesh = make_host_mesh(data=data, model=model,
                               rank=rank, devices=devices, init_method=init, timeout_s=300)
         try:
             q.put((rank, "ok", _host(fn(mesh, *args))))
@@ -524,3 +528,172 @@ def dp_launcher(rank: int, init: str, n: int, argv: list[str]) -> str:
     with contextlib.redirect_stdout(out):
         train.main(argv)
     return out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training ranks (tests/test_torch_tp_train.py, test_torch_dp.py)
+# ---------------------------------------------------------------------------
+
+def tp_rank_state(mesh, spec: dict, flat: dict | None = None):
+    """(local bundle, the rank's params, opt, its frozen mask or None, its
+    Zero1 layout) of `dp_model(spec, flat)` on a (data, model) mesh."""
+    from repro_torch.distributed.data_parallel import Zero1
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import place
+    from repro_torch.optim import lut_frozen_mask
+
+    bundle, params, opt, frozen = dp_model(spec, flat)
+    rules = ShardingRules.for_mesh(mesh)
+    local, lp, lay = place(bundle, params, rules, mesh, train=True)
+    lfrozen = lut_frozen_mask(lp) if frozen is not None else None
+    return local, lp, opt, lfrozen, Zero1.build(mesh, lp, lfrozen, rules, tp=lay)
+
+
+def grad_arrays(grads) -> dict:
+    """{reference path: host array} of a gradient tree (frozen leaves, None,
+    left out)."""
+    from repro_torch.weights import reference_leaves, tensor_to_numpy
+
+    import numpy as np
+
+    out = {}
+    for p, leaves in reference_leaves(grads).items():
+        if leaves[0] is None:
+            continue
+        out[p] = (np.stack([tensor_to_numpy(g) for g in leaves]) if len(leaves) > 1
+                  or p.startswith("segments/") else tensor_to_numpy(leaves[0]))
+    return out
+
+
+def tp_train(mesh, spec: dict, flat: dict | None, steps: int) -> dict:
+    """On a rank of a (data, model) mesh: its gradients of the first global
+    batch before any update (whole leaves, gathered over "model"), their
+    global norm, then `steps` steps: the losses and grad norms, the whole
+    params after the first step, the rank's own param and moment shard
+    shapes and arrays, the gathered state's reference arrays, the
+    collective counts per axis and the kernel counts."""
+    from repro_torch.distributed.data_parallel import make_data_parallel_step, make_sharded_grads_fn
+    from repro_torch.kernels import counters
+    from repro_torch.optim import no_frozen
+    from repro_torch.weights import reference_arrays, reference_leaves
+
+    counters.reset()
+    local, params, opt, frozen, layout = tp_rank_state(mesh, spec, flat)
+    accum = spec.get("accum", 1)
+    fz = frozen if frozen is not None else no_frozen(params)
+    grads_fn = make_sharded_grads_fn(local, layout, compute_dtype=torch.float32, grad_accum=accum)
+    mesh.reset_counters()
+    loss0, _, grads = grads_fn(params, fz, dp_batch(spec, 0))
+    out: dict = {"grad_loss": float(loss0),
+                 "grad_counters": {a: dict(c) for a, c in mesh.axis_counters.items()},
+                 "grad_norm0": float(layout.global_norm(opt, grads, fz)),
+                 "grads": grad_arrays(layout.gather_model(grads)),
+                 "rank": (mesh.data_rank, mesh.model_rank), "loss": [], "grad_norm": []}
+    del grads
+    state = layout.init_state(opt, params, frozen)
+    step = make_data_parallel_step(local, opt, layout, frozen_mask=frozen,
+                                   compute_dtype=torch.float32, grad_accum=accum)
+    mesh.reset_counters()
+    for i in range(steps):
+        params, state, m = step(params, state, dp_batch(spec, i))
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:
+            out["params_1"] = reference_arrays(layout.gather_model(params))
+    out["axis_counters"] = {a: dict(c) for a, c in mesh.axis_counters.items()}
+    out["param_shapes"] = {p: [tuple(t.shape) for t in ls]
+                           for p, ls in reference_leaves(params).items()}
+    out["moment_shapes"] = {p: [tuple(t.shape) for t in ls]
+                            for p, ls in reference_leaves(state.m).items()}
+    out["local"] = reference_arrays(params)
+    out["arrays"] = reference_arrays(layout.gather_state({"params": params, "opt": state}))
+    out["launches"], out["plain"] = counters.launches(), counters.plain_calls()
+    return out
+
+
+def tp_single_grads(spec: dict, flat: dict | None = None) -> dict:
+    """The single-rank step's gradients of the first batch (whole leaves),
+    its loss and global norm, on spec's device (the CPU by default)."""
+    from repro_torch.optim import no_frozen
+    from repro_torch.train.train_step import make_grads_fn
+
+    bundle, params, opt, frozen = dp_model(spec, flat)
+    fz = frozen if frozen is not None else no_frozen(params)
+    batch = {k: v.to(spec.get("device", "cpu")) for k, v in dp_batch(spec, 0).items()}
+    loss, _, grads = make_grads_fn(bundle, compute_dtype=torch.float32,
+                                   grad_accum=spec.get("accum", 1))(params, fz, batch)
+    return {"loss": float(loss), "norm": float(opt.global_norm(grads, fz)),
+            "grads": grad_arrays(grads)}
+
+
+def tp_trainer(mesh, spec: dict, ckdir: str, steps: int) -> dict:
+    """The Trainer over a rank's tensor-parallel ZeRO-1 step: `steps` steps
+    committing every steps // 2 (rank 0 writes the gathered state); the
+    rank's final params and moment shards (its arrays) and the gathered
+    state's reference arrays."""
+    from repro_torch.distributed.data_parallel import make_data_parallel_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.weights import reference_arrays
+
+    local, params, opt, frozen, layout = tp_rank_state(mesh, spec)
+    step = make_data_parallel_step(local, opt, layout, frozen_mask=frozen,
+                                   compute_dtype=torch.float32)
+    tr = Trainer(step_fn=step, batch_at=lambda i: dp_batch(spec, i),
+                 cfg=TrainerConfig(total_steps=steps, ckpt_every=max(1, steps // 2), log_every=0,
+                                   ckpt_dir=ckdir), mesh=mesh, layout=layout)
+    params, state = tr.fit(params, layout.init_state(opt, params, frozen))
+    return {"rank": (mesh.data_rank, mesh.model_rank),
+            "own": layer_arrays({"params": params, "opt": state}),
+            "whole": reference_arrays(layout.gather_state({"params": params, "opt": state}))}
+
+
+def layer_arrays(tree) -> dict:
+    """{reference path: [host array of each layer's leaf]} of a port-layout
+    tree: a rank's shards, whose layers may differ in shape."""
+    from repro_torch.weights import reference_leaves, tensor_to_numpy
+
+    return {p: [tensor_to_numpy(t) for t in ls] for p, ls in reference_leaves(tree).items()}
+
+
+def tp_scales(mesh, cases: list) -> list:
+    """Each (role, per_column, int8_dot, table (C, K, M)) case: the rank's
+    shard of the table (its M columns for "col", its C codebooks for
+    "row"), fake-quantized with the shard's `reduce_absmax`, and its scale."""
+    from repro_torch.core import quant
+    from repro_torch.core.amm import LUTConfig, Mode
+    from repro_torch.models import sharded
+    from repro_torch.models.common import SiteCfg
+
+    out = []
+    for role, per_column, int8_dot, table in cases:
+        t = torch.as_tensor(table)
+        c, _, m = t.shape
+        r, tp = mesh.model_rank, mesh.model
+        part = (t[:, :, r * m // tp:(r + 1) * m // tp] if role == "col"
+                else t[r * c // tp:(r + 1) * c // tp])
+        lut = LUTConfig(k=t.shape[1], v=4, per_column=per_column, int8_dot=int8_dot)
+        site = SiteCfg(d_in=4 * c, d_out=m, mode=Mode.LUT_TRAIN, lut=lut, tp=role)
+        red = sharded._absmax_over_model(site, mesh)
+        kw = dict(per_column=per_column, m_shared=int8_dot, reduce_absmax=red)
+        out.append({"fq": quant.fake_quant(part.clone(), **kw),
+                    "scale": quant.table_scale(part, **kw), "reduced": red is not None})
+    return out
+
+
+def tp_jobs(mesh, jobs: list) -> list:
+    """Run each (function name, args) of this module on the rank, in order."""
+    return [globals()[name](mesh, *args) for name, args in jobs]
+
+
+def tp_elastic_jobs(rank: int, init: str, n: int, prefer_model: int, jobs: list) -> list:
+    """`tp_jobs` on the mesh an `ElasticContext` builds from `n` CPU devices
+    with `prefer_model`, then its (data, model) shape and rules."""
+    from repro_torch.distributed.elastic import ElasticContext
+
+    ctx = ElasticContext.build(["cpu"] * n, lambda mesh, rules: None, prefer_model=prefer_model,
+                               rank=rank, init_method=init)
+    try:
+        return tp_jobs(ctx.mesh, jobs) + [{"mesh": (ctx.mesh.data, ctx.mesh.model),
+                                           "rules": (ctx.rules.data, ctx.rules.model)}]
+    finally:
+        ctx.mesh.close()

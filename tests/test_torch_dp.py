@@ -18,8 +18,10 @@ its bound, loss 1e-4, params rtol 1e-2 / atol 1e-3), and two steps against
 the port's single-rank step within `testing.AdamLeafRule` (the rule of
 tests/test_torch_train.py over several steps), dense and LUT_TRAIN with
 grad_accum 2 (frozen leaves untouched); each rank's ZeRO-1 shards by
-`opt_spec`; both ranks' params bytewise equal. Elastic rescale and the
-Trainer's rank-0 commits: tests/test_torch_elastic.py."""
+`opt_spec`; both ranks' params bytewise equal. The same reference step
+against the port's (2, 2) tensor-parallel step with ZeRO-1 inside its model
+shards (the rest of that slice: tests/test_torch_tp_train.py). Elastic
+rescale and the Trainer's rank-0 commits: tests/test_torch_elastic.py."""
 
 import json
 import textwrap
@@ -37,7 +39,7 @@ from repro_torch.optim import AdamWState, lut_frozen_mask
 from repro_torch.testing import WITNESS, witness_ratio
 from repro_torch.weights import layer_specs, reference_leaves, tree_from_reference, tree_map_ref
 from tests._subproc import run_with_devices
-from tests._tp_ranks import dp_model, dp_single, dp_train, run_ranks
+from tests._tp_ranks import dp_model, dp_single, dp_train, run_ranks, tp_jobs
 
 ARCHS = ARCH_IDS + EXTRA_IDS
 MODES = ("dense", "lut_train", "lut_infer")
@@ -213,6 +215,19 @@ def test_dp2_step_matches_the_reference_sharded_step(reference_sharded_step):
         for path, want in ref["params"].items():
             np.testing.assert_allclose(r["params"][path], want, rtol=REF_RTOL, atol=REF_ATOL,
                                        err_msg=path)
+
+
+def test_tp22_step_matches_the_reference_sharded_step(reference_sharded_step):
+    """The port's (data, model) = (2, 2) DENSE step (tensor-parallel shards,
+    ZeRO-1 inside them, `tests/_tp_ranks.tp_train`) from the reference's
+    init, against the reference's (2, 4) sharded step within its bound."""
+    ref = reference_sharded_step
+    ranks = run_ranks(tp_jobs, 4, [("tp_train", (SHARDED, ref["init"], 1))], axis=(2, 2))
+    for (r,) in ranks:
+        assert abs(r["loss"][0] - ref["loss"]) < REF_LOSS_TOL
+        for path, want in ref["params"].items():
+            np.testing.assert_allclose(r["arrays"][f"params/{path}"], want, rtol=REF_RTOL,
+                                       atol=REF_ATOL, err_msg=path)
 
 
 # the leaf rule holds the first step: from the second on, each fp32 run's

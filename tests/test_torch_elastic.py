@@ -17,7 +17,6 @@ from repro.core.amm import Mode as JMode
 from repro.distributed import elastic as jelastic
 from repro.optim import AdamW as JAdamW
 from repro_torch.distributed import elastic
-from repro_torch.launch.mesh import make_host_mesh
 from tests._tp_ranks import dp_elastic, dp_trainer, run_ranks
 
 # the reference test's reduced model (tests/test_sharded.py)
@@ -30,10 +29,9 @@ def test_best_mesh_shape_matches_the_reference():
         for pm in (1, 2, 4, 8):
             assert elastic.best_mesh_shape(n, prefer_model=pm) == \
                 jelastic.best_mesh_shape(n, prefer_model=pm), (n, pm)
+    # FSDP stays refused; (data, model) meshes build (tests/test_torch_tp_train.py)
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        elastic.ElasticContext.build(["cpu"] * 4, lambda m, r: None, prefer_model=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        make_host_mesh(data=2, model=2, devices=["cpu"] * 4)
+        elastic.ElasticContext.build(["cpu"] * 4, lambda m, r: None, prefer_model=2, fsdp=True)
 
 
 def test_elastic_rescale_4_to_2(tmp_path):
