@@ -245,6 +245,29 @@ Phases (any failed check exits non-zero; no phase is skipped):
      where its own differ at a tie, each difference checked. Per rank each
      step's wall time, peak memory and collectives per axis; the card's
      used memory. No LUT kernel launches ("phase_launches" reads 0).
+ 15. tensor-parallel training of the MoE, SSM and hybrid families on the
+     same (2, 2) mesh (after 14, before 8 and 12: arctic's IPC-shared
+     params stay allocated after phase 12), four rank processes on the one
+     card over gloo (NCCL where the host has four): mamba2_370m at 2 layers
+     and zamba2_1p2b at 6 (one invocation of the shared block), each two
+     DENSE steps and one soft-PQ step, and arctic_480b at 1 layer, every
+     layer LUT, one soft-PQ step (its experts over both axes, tokens by the
+     data all-to-all), all at full width on MarkovLM 4 x 128. Each job's
+     single-rank steps run here first on the same global batches, its
+     frozen leaves are freed, and each rank draws its part of the same
+     init from the same seed (`tensor_parallel.init_rank`: an expert stack
+     keeps the rank's experts as it is drawn). Held: the losses within 1e-5
+     relative; after one step every trainable leaf, gathered whole, within
+     `testing.AdamLeafRule` (a log_t by AdamW of its own gradient, that
+     gradient by its terms); replicas bytewise equal (the experts differ by
+     data rank); each rank's shapes its cut (`testing.expected_rank_shapes`
+     with the layout's kept differences); the soft-PQ steps pinned to the
+     single-rank step's codes and integers at ties, each checked (expert
+     tables built one expert at a time and held by digest); arctic's
+     routing decisions on each rank bytewise the single rank's. Per rank
+     each step's wall time, peak memory and collectives per axis (the data
+     all-to-all's count, bytes and host time among them); the card's used
+     memory. No LUT kernel launches ("phase_launches" reads 0).
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -5337,6 +5360,588 @@ def phase_tp_train(dev, scratch: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel training of the MoE, SSM and hybrid families on
+# a (data, model) = (2, 2) mesh: experts over both axes with the token
+# all-to-all, SSD heads, the shared block
+# ---------------------------------------------------------------------------
+
+TPF_MESH = (2, 2)
+# (arch, layers, mode, steps) at full width: mamba2_370m at 2 layers,
+# zamba2_1p2b at 6 (one invocation of the shared block), arctic_480b at 1
+# (every layer LUT; its DENSE step, ~107 GB of experts, gradients and AdamW
+# moments, and llama4_maverick_400b are held by the CPU tests)
+TPF_JOBS = (("mamba2_370m", 2, "dense", 2), ("mamba2_370m", 2, "lut_train", 1),
+            ("zamba2_1p2b", 6, "dense", 2), ("zamba2_1p2b", 6, "lut_train", 1),
+            ("arctic_480b", 1, "lut_train", 1))
+TPF_LR = 1e-3            # constant: the leaf rule's bound is 2 lr a step (100x for log_t)
+# under bf16 weights (arctic_480b) a bf16 leaf's gradient is rounded to bf16,
+# and a codebook's gradient through its bf16 table is a contraction rounded
+# to bf16 (on a column site's rank over its half of the table's columns): the
+# fp32-level differences of the model axis' reductions move them by bf16
+# ulps, and a bf16 leaf's update lands on a bf16 value, far coarser than the
+# fp32 rounding the leaf rule assumes. Those leaves are held by their
+# gradient, max|d grad| <= BF16_GRAD max|grad| (two bf16 roundings), and by
+# AdamW of the rank's own gradient (within one ulp of the leaf's dtype)
+BF16_GRAD = 2.0 ** -7
+# the soft-PQ steps run unclipped: at the activations' scale the
+# temperatures' gradients (~1e8 at these sites) would clip every other
+# leaf's far below Adam's eps, where its first update is proportional to its
+# gradient and carries that gradient's rounding, which the leaf rule (Adam
+# moves an element by about lr) does not describe. The DENSE steps clip at 1.0.
+
+
+def tpf_bundle(name: str, layers: int, mode: str):
+    """Phase 15's model of `name` at full width and `layers` layers (arctic
+    with every layer LUT), and its AdamW (SOFT_PQ_RULES for soft-PQ)."""
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.optim import SOFT_PQ_RULES, AdamW
+
+    arch = dataclasses.replace(get_arch(name), n_layers=layers)
+    if name == "arctic_480b":
+        arch = dataclasses.replace(arch, lut_policy="all")
+    opt = (AdamW(lr=TPF_LR, rules=SOFT_PQ_RULES, clip_norm=None) if mode == "lut_train"
+           else AdamW(lr=TPF_LR))
+    return build_model(arch, Mode(mode)), opt
+
+
+@contextlib.contextmanager
+def tpf_routes():
+    """Record the dispatch (routing decisions and kept slots) of every MoE
+    routing call while active (a recomputed block routes again)."""
+    from repro_torch.models import moe
+
+    real, got = moe.route, []
+
+    def route(cfg, p, x):
+        out = real(cfg, p, x)
+        got.append(out[2].clone())
+        return out
+
+    moe.route = route
+    try:
+        yield got
+    finally:
+        moe.route = real
+
+
+@contextlib.contextmanager
+def tpf_one_expert_chunks():
+    """Expert tables built one expert at a time (`moe.CHUNK_BYTES`): the
+    single rank and each rank then build every expert's table by the same
+    call, so that its integers are the same on both sides."""
+    from repro_torch.models import moe
+
+    real = moe.CHUNK_BYTES
+    moe.CHUNK_BYTES = 1
+    try:
+        yield
+    finally:
+        moe.CHUNK_BYTES = real
+
+
+def tpf_cut_pin(rec: dict, lay, mesh, n_rows: int, n_local: int) -> dict:
+    """The single-rank step's `testing.table_hooks` record cut to a rank's
+    part: its data rows of every code (a row site's codebooks of them), an
+    expert site's codes and table digests of the rank's experts (renamed to
+    its local ids), and each table's M part (a column site's, in_proj's by
+    its blocks) or C shard (a row site)."""
+    from repro_torch.distributed.tensor_parallel import cut
+
+    r, tp, d = mesh.model_rank, lay.tp, mesh.data_rank
+    per = n_rows // mesh.data
+    first = (r * lay.data + (d if lay.data > 1 else 0)) * n_local
+
+    def table(site: str, t):
+        role = lay.roles.get(site)
+        if role is None or role == "ep":
+            return t
+        if role.startswith("col"):
+            return cut(t, (t.dim() - 1, lay.cuts.get(f"{site}/w", (None, None))[1]), r, tp)
+        return cut(t, (0, None), r, tp)
+
+    def local(key):
+        """The rank's key of a record key, None where it is another rank's expert."""
+        site, layer, experts = key
+        if experts is None:
+            return key
+        if lay.roles.get(site) != "ep":
+            return key
+        (g,) = experts
+        return (site, layer, (g - first,)) if first <= g < first + n_local else None
+
+    codes, rounding = {}, {}
+    for (key, call), cds in rec["codes"].items():
+        k = local(key)
+        if k is None:
+            continue
+        if key[2] is None:
+            cds = cds[d * per:(d + 1) * per]
+            if lay.roles.get(key[0]) == "row":
+                c = cds.shape[1] // tp
+                cds = cds[:, r * c:(r + 1) * c]
+        codes[(k, call)] = cds
+    for key, val in rec["rounding"].items():
+        k = local(key)
+        if k is not None:
+            rounding[k] = val if isinstance(val[0], str) else tuple(table(key[0], t) for t in val)
+    return {"codes": codes, "rounding": rounding}
+
+
+def tpf_rank(rank: int, devices: list[str], init: str, jobs, q) -> None:
+    """One rank of phase 15, in its own process: join the (2, 2) mesh, then
+    run each job the parent sends (`tpf_rank_work`) and hand its results
+    (CUDA tensors as IPC handles) to the parent, keeping them alive until
+    the next job (or None, the end) arrives."""
+    import gc as pygc
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(data=TPF_MESH[0], model=TPF_MESH[1], rank=rank, devices=devices,
+                              init_method=init)
+        try:
+            held = None
+            while True:
+                job = jobs.get(timeout=900)
+                del held
+                held = None
+                pygc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+                if job is None:
+                    break
+                held = tpf_rank_work(mesh, job)
+                del job
+                q.put(("ok", held))
+        finally:
+            mesh.close()
+    except BaseException:             # noqa: BLE001 — the parent reports it and fails
+        q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
+
+
+def tpf_rank_work(mesh, job: dict) -> dict:
+    """One job on a rank: its part of the model drawn from the seed the
+    parent drew it from (`tensor_parallel.init_rank`: an expert stack keeps
+    the rank's experts as it is drawn, no whole stack on a rank),
+    `job["steps"]` steps of its ZeRO-1 step
+    (a soft-PQ step pinned to the single-rank step's codes and integers at
+    ties, each difference checked), each step's wall time, peak memory and
+    collectives per axis; after the first step its params (the trainable
+    leaves: its own, and rank (0, 0) the gathered whole ones), its routing
+    decisions, its shapes against the expected cut and its log_t moments."""
+    from repro_torch import testing
+    from repro_torch.distributed.data_parallel import Zero1, make_data_parallel_step
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import init_rank
+    from repro_torch.kernels import counters
+    from repro_torch.optim import lut_frozen_mask
+    from repro_torch.weights import reference_leaves, tree_map_ref
+
+    dev = mesh.device
+    counters.reset()
+    rules = ShardingRules.for_mesh(mesh)
+    bundle, opt = tpf_bundle(job["name"], job["layers"], job["mode"])
+    t0 = time.perf_counter()
+    local, lp, lay = init_rank(bundle, rules, mesh,
+                               torch.Generator(device=dev).manual_seed(SEED + 50))
+    lut = job["mode"] == "lut_train"
+    if lut:             # as the parent scaled them
+        tree_map_ref(lambda p, t: t.mul_(50.0) if p.endswith("centroids") else None, lp)
+    init_s = time.perf_counter() - t0
+    lfrozen = lut_frozen_mask(lp) if lut else None
+    layout = Zero1.build(mesh, lp, lfrozen, rules, tp=lay)
+    state = layout.init_state(opt, lp, lfrozen)
+    frozen_paths = {p for p, ls in reference_leaves(lfrozen or {}).items() if ls[0]}
+    want_p, want_m = testing.expected_rank_shapes(bundle, rules, mesh.data_rank, frozen_paths,
+                                                  lay.kept)
+    got_p = {p: [tuple(t.shape) for t in ls] for p, ls in reference_leaves(lp).items()}
+    got_m = {p: [tuple(t.shape) for t in ls] for p, ls in reference_leaves(state.m).items()}
+    out: dict = {"rank": (mesh.data_rank, mesh.model_rank), "steps": [],
+                 "shapes": [p for p in want_p if got_p.get(p) != want_p[p]]
+                 + [f"moment {p}" for p in want_m if got_m.get(p) != want_m[p]],
+                 "kept": lay.kept, "failures": [], "pinned": 0, "flips": 0, "init_s": init_s,
+                 "param_bytes": sum(t.numel() * t.element_size() for t in _tensors(lp))}
+    step = make_data_parallel_step(local, opt, layout, frozen_mask=lfrozen,
+                                   compute_dtype=torch.float32)
+    pin = None
+    if lut:
+        n_local = next((b.moe.gate.n_experts for _, b in getattr(local.cfg, "segments", ())
+                        if b.kind == "moe"), 1)
+        rec_c = torch.load(job["pin"], weights_only=False)
+        pin = tpf_cut_pin(rec_c, lay, mesh, TPT_BATCH * TPT_SEQ, n_local)
+        del rec_c
+    for i in range(job["steps"]):
+        batch = tpt_batch(bundle.arch.vocab, i, dev)
+        mesh.reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with contextlib.ExitStack() as stack:
+            routes = stack.enter_context(tpf_routes())
+            if lut:
+                stack.enter_context(tpf_one_expert_chunks())
+                rec = stack.enter_context(testing.table_hooks(lp, pin=pin, tie_eps=TIE_EPS,
+                                                              digest_experts=True))
+            (lp, state, met), wall = timed_step(dev, step, lp, state, batch)
+        out["steps"].append({
+            "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]), "wall": wall,
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "coll": {a: dict(c) for a, c in mesh.axis_counters.items()}})
+        if i == 0:
+            n_moe = len(routes) // 2         # each MoE layer routes again in its recomputation
+            out["routes"] = routes[:n_moe]
+            trainable = tree_map_ref(lambda p, t: None if p in frozen_paths else t, lp)
+            out["local_1"] = trainable
+            whole = layout.gather_model(trainable)
+            if mesh.rank == 0:
+                out["whole_1"] = whole
+            del whole
+        if lut:
+            out["failures"] += [f"rank {mesh.rank} {m}" for m in rec["off"]]
+            out["pinned"] += rec["pinned"]
+            out["flips"] += testing._rounding_flips(pin["rounding"], rec["rounding"],
+                                                    f"rank {mesh.rank}", out["failures"])
+            del rec
+    if lut:     # whole moments: a stacked leaf's may be held in whole layers by their
+        # data rank, a row site's codebooks are split over "model"
+        m = layout.gather_model(layout.gather(state.m, lp))
+        out["m_log_t"] = {p: [float(t) for t in ls] for p, ls in reference_leaves(m).items()
+                          if p.endswith("log_t")}
+        if mesh.rank == 0:
+            out["m_trainable"] = {p: ls for p, ls in reference_leaves(m).items()
+                                  if ls[0].numel()}
+        del m
+    out["partial"] = len(lay.partial)
+    out["launches"], out["plain"] = counters.launches(), counters.plain_calls()
+    del state, step, pin
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpf_single(name: str, layers: int, mode: str, steps: int, dev) -> dict:
+    """The single-rank steps of a job here, on the global batches: the
+    params before them, the losses and
+    times, the params after the first step, the leaf rule noted from its
+    gradient, the routing decisions of the first step's forward; for
+    soft-PQ the pin record and the log_t moments and terms."""
+    from repro_torch import testing
+    from repro_torch.optim import lut_frozen_mask
+    from repro_torch.testing import AdamLeafRule
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.weights import reference_leaves, tree_map_ref
+
+    bundle, opt = tpf_bundle(name, layers, mode)
+    t0 = time.perf_counter()
+    start = bundle.init(torch.Generator(device=dev).manual_seed(SEED + 50), device=dev)
+    lut = mode == "lut_train"
+    if lut:             # at the activations' scale, as k-means puts them
+        tree_map_ref(lambda p, t: t.mul_(50.0) if p.endswith("centroids") else None, start)
+    frozen = lut_frozen_mask(start) if lut else None
+    init_s = time.perf_counter() - t0
+    step = make_train_step(bundle, opt, frozen_mask=frozen, compute_dtype=torch.float32)
+    out: dict = {"bundle": bundle, "opt": opt, "start": start, "frozen": frozen, "single": [],
+                 "rule": AdamLeafRule(opt), "init_s": init_s}
+    params, state = start, opt.init(start, frozen)
+    for i in range(steps):
+        batch = tpt_batch(bundle.arch.vocab, i, dev)
+        m_old = state.m
+        with contextlib.ExitStack() as stack:
+            routes = stack.enter_context(tpf_routes())
+            if lut:
+                stack.enter_context(tpf_one_expert_chunks())
+                rec = stack.enter_context(testing.table_hooks(start, digest_experts=True))
+            (params, state, met), wall = timed_step(dev, step, params, state, batch)
+        out["single"].append((float(met["loss"]), wall))
+        out.setdefault("norm", float(met["grad_norm"]))
+        if i == 0:
+            out["rule"].note(tree_map_ref(lambda _p, m, m0: None if m.numel() == 0
+                                          else m - opt.b1 * m0, state.m, m_old), TPF_LR)
+            out["single_1"] = params
+            out["routes"] = routes[:len(routes) // 2]
+            if lut:
+                out["pin"] = {"codes": rec["codes"],
+                              "rounding": {k: v if isinstance(v[0], str)
+                                           else tuple(t.detach() for t in v)
+                                           for k, v in rec["rounding"].items()}}
+                del rec
+        del m_old
+    if lut:
+        out["m_log_t"] = {p: [float(t) for t in ls] for p, ls in
+                          reference_leaves(state.m).items() if p.endswith("log_t")}
+        out["m_trainable"] = {p: ls for p, ls in reference_leaves(state.m).items()
+                              if ls[0].numel()}
+        with tpf_one_expert_chunks():
+            out["terms"] = testing.lut_train_grads(bundle, start, tpt_batch(bundle.arch.vocab, 0,
+                                                                            dev),
+                                                   digest_experts=True)[3]
+    del state, step, params
+    return out
+
+
+def tpf_free_frozen(s: dict, dev) -> None:
+    """Free the job's frozen leaves here (a soft-PQ model's weights,
+    arctic's ~27 GB of experts) before the ranks draw theirs: the steps
+    leave them as they are, and the holds compare the trainable leaves."""
+    import gc as pygc
+
+    from repro_torch.weights import tree_map_ref
+
+    if s["frozen"] is None:
+        return
+    before = torch.cuda.memory_allocated(dev)
+    none = torch.zeros((), device=dev)
+    for key in ("start", "single_1"):
+        s[key] = tree_map_ref(lambda _p, t, fz: none if fz else t, s[key], s["frozen"])
+    pygc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.ipc_collect()
+    log(f"[tpf] the single rank's frozen leaves freed before the ranks draw theirs: "
+        f"{(before - torch.cuda.memory_allocated(dev)) / 2**30:.2f} GiB; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB left allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} reserved; the card {gpu_used_mib()} MiB "
+        f"used")
+
+
+def tpf_hold(label: str, s: dict, results: list, dev) -> dict:
+    """Phase 15's holds of one job's rank `results` against its single-rank
+    steps `s`: the losses, the pins, the leaf rule after one step (a log_t
+    by AdamW of its own gradient, that gradient by its terms), the
+    replicas, the shapes, the routing; logs them and each rank's step
+    lines."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import layout as tp_layout
+    from repro_torch.weights import reference_leaves, tree_map_ref
+
+    ranks = {tuple(r["rank"]): r for r in results}
+    rules = ShardingRules(data=TPF_MESH[0], model=TPF_MESH[1])
+    lay = tp_layout(s["bundle"], rules, train=True)
+    opt = s["opt"]
+    for r in ranks.values():
+        check(not r["shapes"], f"{label}: rank {r['rank']}'s shards are not its cut: "
+              f"{r['shapes'][:5]}")
+        check(not r["failures"], f"{label}: " + "; ".join(r["failures"][:5]))
+        for i, (loss, _) in enumerate(s["single"]):
+            got = r["steps"][i]["loss"]
+            check(abs(got - loss) <= TPT_LOSS_RTOL * abs(loss),
+                  f"{label} step {i} rank {r['rank']}: loss {got!r}, single-rank {loss!r}")
+        for j, (got, want) in enumerate(zip(r["routes"], s["routes"])):
+            g = want.shape[0] // TPF_MESH[0]
+            d = r["rank"][0]
+            check(torch.equal(got.to(dev), want[d * g:(d + 1) * g]),
+                  f"{label}: rank {r['rank']}'s routing of MoE layer {j} is not the single "
+                  f"rank's")
+        check(len(r["routes"]) == len(s["routes"]), f"{label}: MoE layers routed")
+    # after one step: the trainable leaves gathered whole (the frozen, left
+    # as they were and freed here, as the single rank's placeholders)
+    got_1 = tree_map_ref(lambda _p, g, w: w if g is None else g.to(dev),
+                         ranks[(0, 0)]["whole_1"], s["single_1"])
+    n_log_t = 0
+    if "terms" in s:
+        start_l = reference_leaves(s["start"])
+        for path, ls in reference_leaves(got_1).items():
+            if not path.endswith("log_t"):
+                continue
+            for j, p1 in enumerate(ls):
+                g_tp = ranks[(0, 0)]["m_log_t"][path][j] / (1 - opt.b1)
+                g_1 = s["m_log_t"][path][j] / (1 - opt.b1)
+                check(abs(g_tp - g_1) <= LOG_T_TERMS * max(s["terms"][path][j], 1e-30),
+                      f"{label} {path}[{j}]: log_t gradient {g_tp!r} against {g_1!r} (terms "
+                      f"{s['terms'][path][j]:.3g})")
+                p0 = start_l[path][j]
+                tree = {"site": {"log_t": p0}}
+                want, _, _ = opt.update({"site": {"log_t": torch.full_like(p0, g_tp)}},
+                                        opt.init(tree), tree)
+                want = want["site"]["log_t"]
+                ulp = torch.finfo(torch.float32).eps * float(want.abs())
+                check(float((p1 - want).abs()) <= 1e-5 * float((want - p0).abs()) + 2 * ulp,
+                      f"{label} {path}[{j}]: log_t after the step {float(p1)!r}, AdamW of its "
+                      f"own gradient {float(want)!r}")
+                n_log_t += 1
+        got_1 = tree_map_ref(lambda p, g, w: w if p.endswith("log_t") else g, got_1,
+                             s["single_1"])
+    start_l = reference_leaves(s["start"])
+    split16 = ({p for p in s.get("m_trainable", {})
+                if p.endswith("centroids") or start_l[p][0].dtype == torch.bfloat16}
+               if s["bundle"].arch.param_dtype == "bfloat16" else set())
+    worst16, where16 = 0.0, ""
+    for path, ls in reference_leaves(got_1).items():
+        if path not in split16 or path.endswith("log_t"):
+            continue
+        for j, p1 in enumerate(ls):
+            g_tp = ranks[(0, 0)]["m_trainable"][path][j].to(dev) / (1 - opt.b1)
+            g_1 = s["m_trainable"][path][j] / (1 - opt.b1)
+            gap = float((g_tp - g_1).abs().max() / g_1.abs().max().clamp_min(1e-30))
+            if gap > worst16:
+                worst16, where16 = gap, f"{path}[{j}]"
+            check(gap <= BF16_GRAD, f"{label} {path}[{j}]: the gradient {gap:.3g} of its "
+                  f"largest entry off the single rank's (bound {BF16_GRAD})")
+            p0 = start_l[path][j]
+            name = path.rsplit("/", 1)[1]
+            tree = {"site": {name: p0}}
+            want, _, _ = opt.update({"site": {name: g_tp}}, opt.init(tree), tree)
+            want = want["site"][name].float()
+            ulp = torch.finfo(p0.dtype).eps * want.abs()
+            check(bool(((p1.float() - want).abs()
+                        <= 1e-5 * (want - p0.float()).abs() + 2 * ulp).all()),
+                  f"{label} {path}[{j}]: the leaf after the step is not AdamW of its own "
+                  f"gradient")
+    got_1 = tree_map_ref(lambda p, g, w: w if p in split16 else g, got_1, s["single_1"])
+    worst, where = s["rule"].check(got_1, s["single_1"], s["start"])
+    check(worst <= 1.0, f"{label}: params after one step off the single-rank step's: "
+          f"{worst:.3g} of the bound at {where}")
+    # replicas: the trainable leaves of each data row's model ranks, and of
+    # each model column's data ranks but for the experts, which differ
+    bad = []
+    for (d, m), r in ranks.items():
+        mine = reference_leaves(r["local_1"])
+        for peer, which in (((1 - d, m), "data"), ((d, 1 - m), "model")):
+            theirs = reference_leaves(ranks[peer]["local_1"])
+            for path, ls in mine.items():
+                if ls[0] is None or (which == "model" and path in lay.cuts) or \
+                        (which == "data" and path in lay.over_data):
+                    continue
+                if not all(torch.equal(a, b) for a, b in zip(ls, theirs[path])):
+                    bad.append(f"{(d, m)} vs {peer} ({which} group): {path}")
+    check(not bad, f"{label} replicas differ: " + "; ".join(bad[:5]))
+    pinned = sum(r["pinned"] for r in ranks.values())
+    flips = sum(r["flips"] for r in ranks.values())
+    r0 = ranks[(0, 0)]
+    log(f"[tpf] {label}: losses {', '.join(f'{st['loss']:.7f}' for st in r0['steps'])} "
+        f"(single-rank {', '.join(f'{l:.7f} ({w:.3f}s)' for l, w in s['single'])})"
+        + (f", first grad norm {r0['steps'][0]['grad_norm']:.7g} (single-rank {s['norm']:.7g})"
+           if opt.clip_norm is not None else ", unclipped") + "; after one "
+        f"step every param leaf within {worst:.3f} of the leaf rule's bound ({where})"
+        + (f", {n_log_t} log_t within {LOG_T_TERMS} of their terms and equal to AdamW of their "
+           f"own gradient; codes taken from the single-rank step at a near-tie: {pinned} over "
+           f"the 4 ranks; fake-quant entries one step off at a half-integer: {flips}"
+           if "terms" in s else "")
+        + (f"; under bf16 weights {len(split16)} leaves (the bf16 ones and the codebooks) "
+           f"held by their gradient, within {worst16:.3g} of its largest entry (bound "
+           f"{BF16_GRAD}; {where16}), and by AdamW of it" if split16 else "")
+        + f"; replicas bytewise equal; shapes the cut (kept: {', '.join(r0['kept'])}); "
+        f"{len(s['routes'])} MoE layer(s) routed as the single rank; {r0['partial']} partial "
+        f"leaves or blocks summed over \"model\"")
+    for (d, m), r in sorted(ranks.items()):
+        log(f"[tpf] {label} rank ({d}, {m}): its part drawn in {r['init_s']:.2f}s "
+            f"({r['param_bytes'] / 1e9:.2f} GB); " + "; ".join(
+            f"step {i} {st['wall']:.3f}s, peak {st['peak'] / 2**30:.2f} GiB, "
+            + tpt_coll_line(st["coll"]) for i, st in enumerate(r["steps"])))
+    return {"steps": {k: r["steps"] for k, r in ranks.items()}, "worst": worst,
+            "counts": [(r["launches"], r["plain"]) for r in ranks.values()]}
+
+
+def phase_tp_train_families(dev, scratch: Path) -> dict:
+    """Tensor-parallel training of the MoE, SSM and hybrid families at
+    (data, model) = (2, 2): four rank processes on the one card over gloo
+    (a card each over NCCL where the host has four). Each job of TPF_JOBS
+    runs its single-rank steps here first on the same global batches and
+    frees its frozen leaves; each rank then draws its part of the same
+    init (`tensor_parallel.init_rank`: no rank holds a whole expert stack)
+    and its steps are held against the single rank's (`tpf_hold`); the
+    job's tensors are freed before the next. The soft-PQ pins go through a
+    file, so that no large tensor is shared from here over CUDA IPC (whose
+    memory phase 12 found still allocated after the ranks let go).
+    Reads the kernel counts around the phase: no LUT kernel, no plain LUT
+    version."""
+    import gc as pygc
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import backend_for
+
+    counters.reset()
+    world = TPF_MESH[0] * TPF_MESH[1]
+    n_cards, devices = tpt_devices(world)
+    backend = backend_for(devices)
+    pin_path = scratch / "tpf_pin.pt"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    jobs = [ctx.Queue() for _ in range(world)]
+    procs = [ctx.Process(target=tpf_rank, args=(r, devices, init, jobs[r], q), daemon=True)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    out: dict = {"jobs": {}}
+    counts: list = []
+    try:
+        for name, layers, mode, steps in TPF_JOBS:
+            label = f"{name} {mode} ({layers} layer{'s' if layers > 1 else ''})"
+            t_job = time.perf_counter()
+            s = tpf_single(name, layers, mode, steps, dev)
+            pygc.collect()
+            torch.cuda.empty_cache()
+            t_single = time.perf_counter() - t_job
+            tpf_free_frozen(s, dev)
+            job = {"name": name, "layers": layers, "mode": mode, "steps": steps, "pin": None}
+            if "pin" in s:
+                job["pin"] = str(pin_path)
+                torch.save(s.pop("pin"), pin_path)
+            for jq in jobs:
+                jq.put(job)
+            got: list = []
+            deadline = time.monotonic() + 600
+            try:
+                while len(got) < world:      # a failed rank ends the wait: its peers would hang
+                    got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
+                    if got[-1][0] != "ok":
+                        break
+            except queue.Empty:
+                got.append(("error", {"trace": f"no result from {world - len(got)} rank(s) in "
+                                               f"600 s"}))
+            errors = [val["trace"] for status, val in got if status != "ok"]
+            check(not errors, f"a tp-train rank failed on {label}:\n" + "\n".join(errors))
+            t_ranks = time.perf_counter() - t_job - t_single
+            out["used_mib"] = max(out.get("used_mib", 0), gpu_used_mib())
+            # the ranks' tensors are IPC views of their memory: every reference
+            # to them dies with `tpf_hold`'s frame, before the next job
+            held = tpf_hold(label, s, [val for _, val in got], dev)
+            counts += held.pop("counts")
+            held.update(single_s=t_single, ranks_s=t_ranks, init_s=s["init_s"])
+            out["jobs"][label] = held
+            log(f"[tpf] {label}: single-rank here {t_single:.1f}s (params built in "
+                f"{s['init_s']:.1f}s), the ranks' parts, steps and results {t_ranks:.1f}s")
+            del got, s
+            pygc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.ipc_collect()
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    for jq in jobs:
+        jq.put(None)
+    for p in procs:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    check(all(p.exitcode == 0 for p in procs), f"tp-train ranks exited {[p.exitcode for p in procs]}")
+    pin_path.unlink(missing_ok=True)
+    log(f"[tpf] (data, model) = {TPF_MESH} on {n_cards} card(s): ranks on {devices}, backend "
+        f"{backend}" + ("" if backend == "nccl" else " (four ranks share the card: NCCL is not "
+                        "measured; the data all-to-all, the gathers and the all-max are "
+                        "all-reduces of zero-padded buffers)")
+        + f"; MarkovLM {TPT_BATCH} x {TPT_SEQ}; the card's used memory at most "
+        f"{out['used_mib']} MiB with the ranks' results alive; {time.perf_counter() - t0:.1f}s "
+        f"from spawn to the ranks' exit")
+    launches, plain_calls = counters.launches(), counters.plain_calls()
+    check(all(sum(ln.values()) == 0 and pc == 0 for ln, pc in counts + [(launches, plain_calls)]),
+          f"phase 15 reached a LUT kernel or a plain version: {counts}, {launches}, {plain_calls}")
+    out["launches"] = {name: 0 for name in launches} | launches
+    log("[tpf] no LUT kernel launched and no plain LUT version called, here or on a rank")
+    out.update(backend=backend, cards=n_cards)
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5401,6 +6006,9 @@ def main() -> int:
         tpt = timed(14, phase_tp_train, dev, scratch)
         gc.collect()
         torch.cuda.empty_cache()
+        tpf = timed(15, phase_tp_train_families, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
         # phases 8 and 12 last: arctic's params, shared with phase 12's rank
         # processes over CUDA IPC, stayed allocated here after the phase
         # (deleted, collected, `ipc_collect()`: 32.59 GiB before and after),
@@ -5433,7 +6041,8 @@ def main() -> int:
                                         "10": trained["launches"][name],
                                         "11": tp["launches"][name],
                                         "12": tp12["launches"][name],
-                                        "14": tpt["launches"].get(name, 0)},
+                                        "14": tpt["launches"].get(name, 0),
+                                        "15": tpf["launches"].get(name, 0)},
                      "max_abs_err": k["err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})

@@ -515,7 +515,7 @@ class ModelBundle:
     @property
     def vocab_parallel(self) -> bool:
         """Whether the training logits are a rank's vocab columns."""
-        return (self.kind == "lm" and self.cfg.vocab_sharded
+        return (self.kind in ("lm", "hybrid") and self.cfg.vocab_sharded
                 and not self.cfg.gather_logits)
 
     def loss_from_logits(self, logits, aux, labels, *, mesh=None):

@@ -7,26 +7,34 @@ in_shardings=(params, opt_shardings, batch_shardings))` on a mesh
 written out. On each rank:
 
   1. take the rank's rows of the global batch (`local_batch`: dim 0 by
-     `ShardingRules.batch_dim`, M-RoPE's pos on its second axis; where the
-     batch does not divide, every rank takes all of it, as a replicated spec
-     would);
+     `ShardingRules.batch_dim`, M-RoPE's pos on its second axis; with
+     gradient accumulation the rank's rows of each microbatch, so that its
+     k-th microbatch is its part of the global k-th; where the batch does
+     not divide, every rank takes all of it, as a replicated spec would);
   2. compute the gradients as the single-rank step does (`train_step.
      make_grads_fn`: frozen leaves, grad_accum), on a model mesh through the
      rank's shard of the forward and the vocab-parallel loss
-     (`ModelBundle.loss(mesh=)`); sum the replicated leaves that hold only
-     the shard's part of their gradient over "model" (`tensor_parallel.
-     Layout.partial`, one bucket), then mean-reduce every gradient in fp32
-     over "data", all leaves in one bucket (`make_sharded_grads_fn`);
+     (`ModelBundle.loss(mesh=)`); sum the replicated leaves, and the
+     replicated blocks of leaves, that hold only the shard's part of their
+     gradient over "model" (`tensor_parallel.Layout.partial`, one bucket),
+     then mean-reduce every gradient in fp32 over "data", all leaves in one
+     bucket, but for the expert leaves split over "data" too, each rank's
+     own experts' (`Layout.over_data`): their gradient already sums every
+     data rank's tokens (the all-to-all's backward), and is scaled by 1 / dp
+     instead (`make_sharded_grads_fn`);
   3. take the global norm of the reduced gradients: on a model mesh the
-     sum of squares of the leaves split over "model" is summed over it,
-     and each replicated leaf counted once (`AdamW.global_norm(sharded=)`);
+     sum of squares of the leaves split over "model" is summed over it (of
+     the expert leaves, over both axes), and each replicated leaf or block
+     counted once (`Zero1.global_norm`);
   4. update only the rank's ZeRO-1 shard of `m`, `v` and the matching slice
      of each param (`ShardingRules.opt_spec`'s "data" dim, taken inside the
      rank's model shard: `Zero1`), with that norm (`AdamW.update(gnorm=)`),
      then all-gather the param slices over "data", so that every rank of a
      model shard holds the same params.
 
-The port keeps a layer stack as a list of per-layer leaves. Where the
+An expert leaf split over both axes holds no ZeRO-1 cut: the spec's
+"data" dim of its moments is the experts' own, which the rank already
+holds alone. The port keeps a layer stack as a list of per-layer leaves. Where the
 spec's "data" dim is the stack's layer axis, a rank holds whole layers of
 that leaf (the others' placeholders are empty) and the layer's owner
 broadcasts it; elsewhere a rank holds a contiguous slice of every layer.
@@ -43,9 +51,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import ShardingRules, is_stacked
+from repro_torch.models import sharded
 from repro_torch.optim import AdamW, AdamWState, no_frozen
 from repro_torch.weights import flat_vector, reference_leaves, tree_map_ref, unflatten_vector
 
@@ -53,10 +63,15 @@ NEXT_SLICE = ("FSDP execution (ShardingRules(fsdp=True): weights over \"data\" t
               "ported yet: ROADMAP Queue A item 5")
 
 
-def local_batch(batch: dict[str, torch.Tensor], mesh, rules: ShardingRules | None = None
-                ) -> dict[str, torch.Tensor]:
+def local_batch(batch: dict[str, torch.Tensor], mesh, rules: ShardingRules | None = None,
+                accum: int = 1) -> dict[str, torch.Tensor]:
     """The rows of the global `batch` that `mesh`'s data rank takes, by
-    `rules.batch_shardings` (the mesh's own rules by default)."""
+    `rules.batch_shardings` (the mesh's own rules by default). With `accum`
+    microbatches (`make_grads_fn`'s contiguous splits) that divide over the
+    ranks, the rank's rows of each microbatch in turn: its k-th microbatch
+    is then its part of the global batch's k-th, so that a value taken
+    over a whole microbatch (the MoE's load-balance fractions, averaged
+    over "data") is the single rank's."""
     rules = rules or ShardingRules.for_mesh(mesh)
     n, r = rules.data, mesh.data_rank
     out = {}
@@ -65,7 +80,12 @@ def local_batch(batch: dict[str, torch.Tensor], mesh, rules: ShardingRules | Non
         if "data" in spec:
             d = spec.index("data")
             size = v.shape[d] // n
-            v = v.narrow(d, r * size, size)
+            if accum > 1 and v.shape[d] % (n * accum) == 0:
+                mb = v.shape[d] // accum
+                v = torch.cat([v.narrow(d, i * mb + r * (mb // n), mb // n)
+                               for i in range(accum)], d)
+            else:
+                v = v.narrow(d, r * size, size)
         out[k] = v
     return out
 
@@ -73,9 +93,13 @@ def local_batch(batch: dict[str, torch.Tensor], mesh, rules: ShardingRules | Non
 class Cut(NamedTuple):
     """The part of one port-layout leaf a rank holds: of a tensor-parallel
     shard, [start, stop) of `model`'s dim (`model` = (dim, start, stop),
-    None: the whole leaf); of that, the data part: all of it (`dim` None),
-    [start, stop) along `dim`, or, for a layer owned by one rank (`owner`),
-    the whole layer where `held`, else nothing."""
+    None: the whole leaf; with `blocks`, `model` = (dim, model rank, tp)
+    and the shard the rank's part of each split block and every unsplit
+    block whole, `tensor_parallel.cut`; with `experts`, [start, stop) is
+    the rank's part over both axes, gathered over "data" and then
+    "model"); of that, the data part: all of it (`dim` None), [start,
+    stop) along `dim`, or, for a layer owned by one rank (`owner`), the
+    whole layer where `held`, else nothing."""
 
     dim: int | None = None
     start: int = 0
@@ -83,6 +107,8 @@ class Cut(NamedTuple):
     owner: int | None = None
     held: bool = True
     model: tuple[int, int, int] | None = None
+    blocks: tuple[tuple[int, bool], ...] | None = None
+    experts: bool = False
 
     def part(self, a):
         """The data part of the rank's model shard `a` (a tensor or a numpy
@@ -99,10 +125,22 @@ class Cut(NamedTuple):
         """The rank's part of the whole leaf `a`: its model shard, then the
         data part of that. A frozen leaf's empty (0,) moment stays empty."""
         if self.model is not None and tuple(a.shape) != (0,):
-            d, lo, hi = self.model
-            idx = [slice(None)] * a.ndim
-            idx[d] = slice(lo, hi)
-            a = a[tuple(idx)]
+            d = self.model[0]
+            if self.blocks is None:
+                ranges = [self.model[1:]]
+            else:
+                (_, rank, tp), ranges, at = self.model, [], 0
+                for n, split in self.blocks:
+                    ranges.append((at + rank * (n // tp), at + (rank + 1) * (n // tp)) if split
+                                  else (at, at + n))
+                    at += n
+            parts = []
+            for lo, hi in ranges:
+                idx = [slice(None)] * a.ndim
+                idx[d] = slice(lo, hi)
+                parts.append(a[tuple(idx)])
+            a = parts[0] if len(parts) == 1 else (
+                torch.cat(parts, d) if isinstance(a, torch.Tensor) else np.concatenate(parts, d))
         return self.part(a)
 
 
@@ -116,9 +154,11 @@ class Zero1:
     `mesh`: `plan` is the `Cut` of every leaf, by `rules.opt_spec` of its
     reference path and whole stacked shape, taken inside the rank's model
     shard (`tp`, a `tensor_parallel.Layout(train=True)`). Frozen leaves are
-    held whole (their model shard) and never updated. `sharded` and
-    `partial` mark the leaves split over "model" and the replicated leaves
-    whose gradient the step sums over it."""
+    held whole (their model shard) and never updated. `sharded` marks the
+    leaves split over "model", `experts` those split over "data" too, and
+    `partial` what of each leaf the step sums over "model": False
+    (nothing), True (the whole leaf) or (dim, ((start, stop), ...)) its
+    replicated blocks."""
 
     mesh: Any
     rules: ShardingRules
@@ -126,6 +166,7 @@ class Zero1:
     tp: Any = None
     sharded: Any = None
     partial: Any = None
+    experts: Any = None
 
     @classmethod
     def build(cls, mesh, like: Any, frozen: Any | None = None,
@@ -144,34 +185,43 @@ class Zero1:
         cuts = {} if tp is None else tp.cuts
 
         def cut(path: str, leaf, fz: bool) -> Cut:
-            model, full = None, list(leaf.shape)
+            model, full, extra = None, list(leaf.shape), {}
             if path in cuts:
                 d, blocks = cuts[path]
-                if blocks is not None:
-                    raise NotImplementedError(f"{path}: a block-selected shard does not train")
                 size = leaf.shape[d]
-                full[d] = size * tp.tp
-                model = (d, m_rank * size, (m_rank + 1) * size)
-            if fz:
-                return Cut(model=model)
+                if blocks is not None:
+                    full[d] = sum(n for n, _ in blocks)
+                    model, extra = (d, m_rank, tp.tp), {"blocks": blocks}
+                elif path in tp.over_data:
+                    j = m_rank * tp.data + rank
+                    full[d] = size * tp.tp * tp.data
+                    model, extra = (d, j * size, (j + 1) * size), {"experts": True}
+                else:
+                    full[d] = size * tp.tp
+                    model = (d, m_rank * size, (m_rank + 1) * size)
+            if fz or extra.get("experts"):   # an expert's moments: the rank's experts whole
+                return Cut(model=model, **extra)
             stacked = is_stacked(path)
             shape = (counts[path], *full) if stacked else tuple(full)
             spec = rules.opt_spec(path, shape)
             if "data" not in spec:
-                return Cut(model=model)
+                return Cut(model=model, **extra)
             d = spec.index("data")
             if stacked and d == 0:                     # whole layers per rank
                 j = seen[path] = seen.get(path, -1) + 1
                 owner = j // (counts[path] // n)
-                return Cut(owner=owner, held=owner == rank, model=model)
+                return Cut(owner=owner, held=owner == rank, model=model, **extra)
             d -= stacked            # a dim the spec leaves whole: the shard's is the leaf's
             size = leaf.shape[d] // n
-            return Cut(dim=d, start=rank * size, stop=(rank + 1) * size, model=model)
+            return Cut(dim=d, start=rank * size, stop=(rank + 1) * size, model=model, **extra)
 
-        partial = frozenset() if tp is None else tp.partial
+        partial = {} if tp is None else tp.partial
+        over = frozenset() if tp is None else tp.over_data
         return cls(mesh=mesh, rules=rules, plan=tree_map_ref(cut, like, frozen), tp=tp,
                    sharded=tree_map_ref(lambda p, _l: p in cuts, like),
-                   partial=tree_map_ref(lambda p, _l: p in partial, like))
+                   partial=tree_map_ref(lambda p, _l: (p in partial and (
+                       partial[p] if partial[p] is not None else True)), like),
+                   experts=tree_map_ref(lambda p, _l: p in over, like))
 
     # ------------------------------------------------------------------
     def shard(self, tree: Any) -> Any:
@@ -200,14 +250,28 @@ class Zero1:
     def gather_model(self, tree: Any) -> Any:
         """The whole leaves from every model rank's shards (the params'
         layout, each leaf the rank's model shard): a concatenation over the
-        cut dim by an all_reduce of a zero-padded buffer on "model". A
-        frozen leaf's empty moment (or None gradient) stays as it is."""
+        cut dim by an all_reduce of a zero-padded buffer on "model" (each
+        split block's in turn for a block-selected shard; over "data" first
+        for an expert leaf split over both axes). A frozen leaf's empty
+        moment (or None gradient) stays as it is."""
         mesh = self.mesh
 
         def whole(_p, t, c: Cut):
             if t is None or c.model is None or tuple(t.shape) == (0,):
                 return t
-            return mesh.gather_dim(t.contiguous(), c.model[0], "model")
+            d = c.model[0]
+            if c.blocks is not None:
+                parts, at = [], 0
+                for n, split in c.blocks:
+                    size = n // c.model[2] if split else n
+                    piece = t.narrow(d, at, size)
+                    parts.append(mesh.gather_dim(piece.contiguous(), d, "model") if split
+                                 else piece)
+                    at += size
+                return torch.cat(parts, d)
+            if c.experts:
+                t = mesh.gather_dim(t.contiguous(), d, "data")
+            return mesh.gather_dim(t.contiguous(), d, "model")
 
         return tree_map_ref(whole, tree, self.plan)
 
@@ -234,17 +298,47 @@ class Zero1:
         """The `Checkpointer.restore(shardings=)` tree of {"params", "opt"}:
         each param the rank's model shard, each moment cut as its param is,
         then to its data part."""
-        return {"params": tree_map_ref(lambda _p, _l, c: Cut(model=c.model), params_like,
-                                       self.plan),
+        return {"params": tree_map_ref(lambda _p, _l, c: Cut(model=c.model, blocks=c.blocks,
+                                                             experts=c.experts),
+                                       params_like, self.plan),
                 "opt": AdamWState(step=WHOLE, m=self.plan, v=self.plan)}
 
     def global_norm(self, opt: AdamW, grads: Any, frozen: Any) -> torch.Tensor:
         """The global norm of the whole model's reduced gradients, from the
-        rank's shards."""
+        rank's shards: the sum of squares of what is split over "model"
+        summed over it (of the expert leaves, over "data" too), each
+        replicated leaf or block counted once."""
         if self.tp is None:
             return opt.global_norm(grads, frozen)
-        return opt.global_norm(grads, frozen, sharded=self.sharded,
-                               reduce=lambda t: self.mesh.all_reduce(t, "model"))
+        sq: dict[str, list[torch.Tensor]] = {"once": [], "model": [], "both": []}
+
+        def add(_p, g, fz, sh, pt, ex):
+            if fz or g is None:
+                return
+            if ex:
+                sq["both"].append((g.float() ** 2).sum())
+            elif isinstance(pt, tuple):      # replicated blocks once, the rest split
+                dim, ranges = pt
+                at = 0
+                for lo, hi in ranges:
+                    if lo > at:
+                        sq["model"].append((g.narrow(dim, at, lo - at).float() ** 2).sum())
+                    sq["once"].append((g.narrow(dim, lo, hi - lo).float() ** 2).sum())
+                    at = hi
+                if g.shape[dim] > at:
+                    sq["model"].append((g.narrow(dim, at, g.shape[dim] - at).float() ** 2).sum())
+            else:
+                sq["model" if sh else "once"].append((g.float() ** 2).sum())
+
+        tree_map_ref(add, grads, frozen, self.sharded, self.partial, self.experts)
+        zero = torch.zeros((), dtype=torch.float32, device=self.mesh.device)
+        split = sum(sq["model"], zero)
+        if self.tp.over_data:
+            parts = self.mesh.all_reduce(torch.stack([split, sum(sq["both"], zero)]), "model")
+            split = parts[0] + self.mesh.all_reduce(parts[1:], "data")[0]
+        else:
+            split = self.mesh.all_reduce(split.reshape(1), "model")[0]
+        return torch.sqrt(split + sum(sq["once"], zero))
 
 
 def make_sharded_grads_fn(bundle, layout: Zero1, *, compute_dtype=torch.bfloat16,
@@ -258,6 +352,8 @@ def make_sharded_grads_fn(bundle, layout: Zero1, *, compute_dtype=torch.bfloat16
     from repro_torch.train.train_step import _device_of, make_grads_fn
 
     mesh, rules = layout.mesh, layout.rules
+    experts = layout.experts is not None and any(
+        e for es in reference_leaves(layout.experts).values() for e in es)
     if layout.tp is not None:
         if loss_fn is not None:
             raise NotImplementedError("a tensor-parallel step takes the plain cross-entropy "
@@ -270,15 +366,43 @@ def make_sharded_grads_fn(bundle, layout: Zero1, *, compute_dtype=torch.bfloat16
 
     def fn(params, frozen, batch):
         dev = _device_of(params)
-        loss, aux, grads = grads_fn(
-            params, frozen, local_batch({k: v.to(dev) for k, v in batch.items()}, mesh, rules))
+        # the mesh bound for the forward: an MoE layer's load-balance
+        # fractions are the data axis' means, the global batch's
+        with sharded.bound(mesh):
+            loss, aux, grads = grads_fn(
+                params, frozen, local_batch({k: v.to(dev) for k, v in batch.items()}, mesh,
+                                            rules, accum=grad_accum))
         if layout.tp is not None and layout.tp.partial:
-            # one fp32 bucket of the partial leaves, summed over "model"
-            part = tree_map_ref(lambda _p, g, pt: g if pt else None, grads, layout.partial)
-            summed = unflatten_vector(mesh.all_reduce(flat_vector(part), "model"), part)
-            grads = tree_map_ref(lambda _p, g, s: g if s is None else s, grads, summed)
-        # one fp32 bucket of every gradient, mean-reduced over "data"
-        grads = unflatten_vector(mesh.all_mean(flat_vector(grads), "data"), grads)
+            # one fp32 bucket of the partial leaves and blocks, summed over "model"
+            views: list[torch.Tensor] = []
+
+            def add(_p, g, pt):
+                if g is None or pt is False:
+                    return
+                if pt is True:
+                    views.append(g)
+                else:
+                    views.extend(g.narrow(pt[0], lo, hi - lo) for lo, hi in pt[1])
+
+            tree_map_ref(add, grads, layout.partial)
+            if views:
+                flat = mesh.all_reduce(torch.cat([v.float().reshape(-1) for v in views]),
+                                       "model")
+                at = 0
+                for v in views:
+                    v.copy_(flat[at:at + v.numel()].view(v.shape))
+                    at += v.numel()
+        if experts:
+            # a rank's own experts: their gradient sums every data rank's
+            # tokens already; the data mean's division alone
+            n = mesh.size("data")
+            rest = tree_map_ref(lambda _p, g, e: None if e else g, grads, layout.experts)
+            rest = unflatten_vector(mesh.all_mean(flat_vector(rest), "data"), rest)
+            grads = tree_map_ref(lambda _p, g, r, e: r if not e or g is None
+                                 else g.float().div(n).to(g.dtype), grads, rest, layout.experts)
+        else:
+            # one fp32 bucket of every gradient, mean-reduced over "data"
+            grads = unflatten_vector(mesh.all_mean(flat_vector(grads), "data"), grads)
         scalars = mesh.all_mean(torch.stack([loss.float(), *(v.float() for v in aux.values())]),
                                 "data")
         return scalars[0], dict(zip(aux, scalars[1:])), grads

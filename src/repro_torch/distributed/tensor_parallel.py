@@ -58,6 +58,13 @@ layout takes; ROADMAP lists them):
       replicates conv_w/conv_b and splits the window's channels
       contiguously) and the rank's heads of dt_bias, A_log and D (the spec
       replicates them);
+  "experts_over_data_and_model"  in training on a ("data", "model") mesh,
+      each model column's experts split over the data ranks too: rank (d,
+      m) holds E / (dp tp) experts whole, experts (m dp + d) E / (dp tp)
+      onwards, and tokens reach them by an all-to-all over "data" (the spec
+      puts E over "data" and each expert's M over "model", which would need
+      an all-max of each expert's fake-quant scale and two gathers); the
+      router replicated as above;
   and for every model, the dense KV cache by KV heads (the spec shards its
   sequence).
 
@@ -69,8 +76,8 @@ left out of serving (`tp_refusal`): the enc-dec and the vision-LM, which
 the engine does not serve (ROADMAP Queue A item 5), and LUT_TRAIN bundles.
 
 Training (`layout(..., train=True)`, the reference's sharded step under
-`ShardingRules(mesh)` with fsdp off): the dense decoder LMs (kind "lm"
-without experts or mamba blocks), DENSE and LUT_TRAIN. A LUT_TRAIN column
+`ShardingRules(mesh)` with fsdp off): the decoder LMs of every block kind
+(dense, MoE, mamba) and the hybrid, DENSE and LUT_TRAIN. A LUT_TRAIN column
 site holds its M shard of the frozen `w` and `b`, its `centroids` and
 `log_t` whole; a row site its C shard of `centroids` and the matching C·V
 rows of `w`, `b` and `log_t` whole (the specs' cuts). The vocab head stays
@@ -79,14 +86,23 @@ the loss is vocab-parallel (`sharded.vocab_cross_entropy`). A replicated
 leaf that a rank uses inside its shard of the forward takes only that
 shard's part of the gradient, which the step sums over "model"
 (`Layout.partial`): a sharded attention's qk-norm scales, a LUT_TRAIN
-column site's centroids and log_t, a row site's log_t. A replicated leaf
-in front of a `sharded.copy` (the layer norms, final_norm) has its whole
-gradient already. Families left out of training (`tp_refusal(train=True)`):
-MoE, SSM, hybrid, enc-dec and vision-LM (ROADMAP Queue A item 5).
+column site's centroids and log_t, a row site's log_t, an expert-parallel
+layer's router and its expert sites' shared codebooks and log_t, a mamba2
+block's gated-norm scale; and blocks of a leaf: the B and C columns of
+in_proj and channels of conv_w and conv_b, whole on every rank and used by
+its heads. A replicated leaf in front of a `sharded.copy` (the layer norms,
+final_norm) has its whole gradient already. An expert leaf held by one
+data rank takes its gradient from every data rank's tokens (`Layout.
+over_data`): the step scales it by 1 / dp instead of the data mean.
+LUT_TRAIN expert, mamba and shared-block sites cut their frozen `w` with
+their site. `place` copies only the rank's part of each leaf. Families left
+out of training (`tp_refusal(train=True)`): the enc-dec and the vision-LM
+(ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -113,11 +129,9 @@ def tp_refusal(bundle: ModelBundle, *, train: bool = False) -> str | None:
     bundle, or None."""
     arch = bundle.arch
     if train:
-        blocks = [b for _, b in bundle.cfg.segments] if bundle.kind == "lm" else []
-        if (bundle.kind != "lm" or arch.takes_embeds or arch.mrope_sections
-                or any(b.kind != "dense" for b in blocks)):
+        if bundle.kind not in ("lm", "hybrid") or arch.takes_embeds or arch.mrope_sections:
             return (f"tensor-parallel training of {arch.name} ({arch.family}) is not ported: "
-                    f"it trains the dense decoder LMs only; the MoE, SSM, hybrid, enc-dec "
+                    f"it trains the decoder LMs (dense, MoE, SSM) and the hybrid; the enc-dec "
                     f"and vision-LM families wait, ROADMAP Queue A item 5")
         if bundle.mode == Mode.LUT_INFER:
             return "tensor-parallel training takes DENSE and LUT_TRAIN bundles, not LUT_INFER"
@@ -149,9 +163,27 @@ class Layout:
     cuts: dict[str, Cut]
     kept: tuple[str, ...] = ()
     train: bool = False
-    # reference paths of the replicated leaves whose gradient a rank holds
-    # only its shard's part of (summed over "model" by the step)
-    partial: frozenset[str] = frozenset()
+    # the leaves whose gradient a rank holds only its shard's part of, summed
+    # over "model" by the step: {reference path: None (the whole leaf) or
+    # (dim, ((start, stop), ...)): only these ranges of the rank's leaf}
+    partial: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # training on a ("data", "model") mesh: the data degree `over_data`'s
+    # leaves (the expert sites') are cut over too, rank (d, m) taking part
+    # m * data + d of tp * data along their cut dim
+    data: int = 1
+    over_data: frozenset[str] = frozenset()
+
+    def part(self, path: str, a: torch.Tensor, data_rank: int, model_rank: int,
+             *, stacked: bool = False) -> torch.Tensor:
+        """Rank (data_rank, model_rank)'s part of the whole leaf `a` at the
+        reference path `path` (a stacked leaf's layer axis first where
+        `stacked`)."""
+        c = self.cuts.get(path)
+        if c is not None and stacked:
+            c = (c[0] + 1, c[1])
+        if path in self.over_data:
+            return cut(a, c, model_rank * self.data + data_rank, self.tp * self.data)
+        return cut(a, c, model_rank, self.tp)
 
 
 def _in_proj_blocks(mc) -> tuple[tuple[int, bool], ...]:
@@ -165,6 +197,17 @@ def _conv_blocks(mc) -> tuple[tuple[int, bool], ...]:
     """The conv's channels [x | B | C]: x split by heads, B and C whole."""
     gn = mc.n_groups * mc.ssm_state
     return ((mc.d_inner, True), (gn, False), (gn, False))
+
+
+def _unsplit_ranges(blocks, tp: int) -> tuple[tuple[int, int], ...]:
+    """The ranges of a rank's block-selected part that hold unsplit blocks."""
+    out, at = [], 0
+    for n, split in blocks:
+        size = n // tp if split else n
+        if not split:
+            out.append((at, at + size))
+        at += size
+    return tuple(out)
 
 
 def _blocks(bundle: ModelBundle) -> list[tuple[str, Any]]:
@@ -181,13 +224,17 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
     if why is not None:
         raise (NotImplementedError if train else ValueError)(why)
     tp = rules.tp
+    # training splits the experts over "data" too, where they divide
+    dp = rules.data if train else 1
     specs = flatten_tree(bundle.param_specs())
     reg = site_roles(bundle)
     roles: dict[str, str] = {}
     selected: dict[str, tuple] = {}          # a column site's blocks (in_proj)
     cuts: dict[str, Cut] = {}
     kept: list[str] = []
-    partial: set[str] = set()
+    partial: dict[str, Any] = {}
+    over_data: set[str] = set()
+    ep_data = 1
 
     def axes(path: str, site) -> tuple[bool, bool]:
         """(output dim over "model", input dim over "model") of a site's spec."""
@@ -215,7 +262,7 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
         if (pair(prefix, [a.q, a.k, a.v], a.o, a.n_heads % tp == 0 and a.n_kv_heads % tp == 0)
                 and a.qk_norm):
             base = f"{prefix}/{a.q.name}".rsplit("/", 1)[0]      # the attention's params
-            partial.update(f"{base}/{n}/scale" for n in ("q_norm", "k_norm"))
+            partial.update(dict.fromkeys(f"{base}/{n}/scale" for n in ("q_norm", "k_norm")))
 
     def mlp(prefix: str, m) -> None:
         if m is not None:
@@ -233,15 +280,29 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
                              f"{leaf}/conv_b": (0, _conv_blocks(mc))})
                 cuts.update({f"{leaf}/{n}": (0, None) for n in ("dt_bias", "A_log", "D")})
                 kept.append("ssm_heads")
+                # B and C whole on every rank, used by its heads; the norm's
+                # scale whole, used at the rank's columns
+                for name, (dim, blocks) in (("in_proj/w", (1, selected[path])),
+                                            ("in_proj/b", (0, selected[path])),
+                                            ("conv_w", (1, _conv_blocks(mc))),
+                                            ("conv_b", (0, _conv_blocks(mc)))):
+                    if f"{leaf}/{name}" in specs:
+                        partial[f"{leaf}/{name}"] = (dim, _unsplit_ranges(blocks, tp))
+                partial[f"{leaf}/norm/scale"] = None
             continue
         attn(prefix, b.attn)
         mlp(prefix, b.mlp)
         mlp(prefix, b.residual_mlp)
         if b.kind == "moe":
             mlp(prefix, b.moe.shared)
-            if b.moe.n_experts % tp == 0:
+            split = tp * dp if b.moe.n_experts % (tp * dp) == 0 else tp
+            if b.moe.n_experts % split == 0:
                 roles.update({f"{prefix}/{k}": "ep" for k in EXPERT_KINDS})
-                kept.append("experts_over_model")
+                kept.append("experts_over_model" if split == tp else "experts_over_data_and_model")
+                ep_data = split // tp
+                if train:                    # the router's gradient: the rank's column's
+                    partial.update(dict.fromkeys(
+                        p for p in specs if p.startswith(f"{prefix}/moe/router/")))
     if bundle.kind == "hybrid":
         attn("shared", bundle.cfg.shared_attn)
         mlp("shared", bundle.cfg.shared_mlp)
@@ -256,6 +317,8 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
                  for p, s in specs.items() if p.rsplit("/", 1)[0] == path}
         if role == "ep":
             want = {"w": 0, "table_q": 0, "table_scale": 0}
+            if ep_data > 1:
+                over_data.update(f"{path}/{k}" for k in want if k in shape)
         elif role.startswith("col"):
             want = {"table_q": 2, "w": 1, "b": 0}
             if "table_scale" in shape and shape["table_scale"][2] > 1:
@@ -267,11 +330,12 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
         cuts.update({f"{path}/{k}": (d, selected.get(path)) for k, d in want.items()
                      if k in shape})
         if "log_t" in shape:                 # LUT_TRAIN: the shared temperature ...
-            partial.add(f"{path}/log_t")
-            if role.startswith("col"):       # ... and a column site's whole codebooks
-                partial.add(f"{path}/centroids")
+            partial[f"{path}/log_t"] = None
+            if role != "row":                # ... and a column or expert site's codebooks
+                partial[f"{path}/centroids"] = None
     return Layout(tp=tp, roles=roles, vocab=vocab, cuts=cuts, kept=tuple(dict.fromkeys(kept)),
-                  train=train, partial=frozenset(partial))
+                  train=train, partial=partial, data=ep_data,
+                  over_data=frozenset(over_data))
 
 
 def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
@@ -304,9 +368,10 @@ def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
         mo = dataclasses.replace(mo, shared=mlp(prefix, mo.shared))
         if f"{prefix}/moe/gate" not in roles:
             return mo
+        n = mo.n_experts // (tp * lay.data)
         return dataclasses.replace(
-            mo, ep=tp, **{n: dataclasses.replace(getattr(mo, n), n_experts=mo.n_experts // tp)
-                          for n in ("gate", "up", "down")})
+            mo, ep=tp, ep_data=lay.data,
+            **{k: dataclasses.replace(getattr(mo, k), n_experts=n) for k in ("gate", "up", "down")})
 
     def mamba(prefix, mc):
         if f"{prefix}/{mc.in_proj.name}" not in roles:
@@ -330,7 +395,7 @@ def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
         cfg = dataclasses.replace(cfg, mamba_block=block("mamba_stack", cfg.mamba_block),
                                   shared_attn=attn("shared", cfg.shared_attn),
                                   shared_mlp=mlp("shared", cfg.shared_mlp),
-                                  vocab_sharded=lay.vocab)
+                                  vocab_sharded=lay.vocab, gather_logits=not lay.train)
     else:
         segs = tuple((count, block(f"segments/{i}", b))
                      for i, (count, b) in enumerate(cfg.segments))
@@ -357,13 +422,11 @@ def cut(a: torch.Tensor, c: Cut | None, rank: int, tp: int) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
-def cut_stacked(path: str, a: torch.Tensor, lay: Layout, rank: int) -> torch.Tensor:
-    """Rank `rank`'s part of the reference's leaf `path` (a stacked leaf's
-    layer axis first)."""
-    c = lay.cuts.get(path)
-    if c is not None and is_stacked(path):
-        c = (c[0] + 1, c[1])
-    return cut(a, c, rank, lay.tp)
+def cut_stacked(path: str, a: torch.Tensor, lay: Layout, rank: int,
+                data_rank: int = 0) -> torch.Tensor:
+    """Rank `rank`'s part (on the model axis; `data_rank` on the data axis)
+    of the reference's leaf `path` (a stacked leaf's layer axis first)."""
+    return lay.part(path, a, data_rank, rank, stacked=is_stacked(path))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,7 +446,9 @@ def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh, *, train
     param tree (port layout, any device), or of `RankParams`, to serve or
     (`train`) to train. A serving rank's part that is one contiguous block
     of a leaf on the mesh's device is a view of it; a training rank's parts
-    are copies, so that the whole tree can be freed."""
+    are copies of its parts alone (never of a whole leaf), so that the whole
+    tree, which may be another process's memory (CUDA IPC views), can be
+    freed."""
     lay = layout(bundle, rules, train=train)
     local = local_bundle(bundle, lay)
     if isinstance(params, RankParams):
@@ -393,10 +458,35 @@ def place(bundle: ModelBundle, params: Any, rules: ShardingRules, mesh, *, train
         return local, params.tree, lay
 
     def take(path, leaf):
-        part = cut(leaf, lay.cuts.get(path), mesh.model_rank, lay.tp).to(mesh.device)
+        part = lay.part(path, leaf, mesh.data_rank, mesh.model_rank).to(mesh.device)
         return part.clone(memory_format=torch.contiguous_format) if train else part.contiguous()
 
     return local, tree_map_ref(take, params), lay
+
+
+def init_rank(bundle: ModelBundle, rules: ShardingRules, mesh, gen: torch.Generator, *,
+              device: Any = None) -> tuple[ModelBundle, Any, Layout]:
+    """(local bundle, the rank's params, layout) of `bundle.init(gen)` to
+    train on `mesh`, `place(train=True)`'s of the whole init: every value
+    drawn in the init's order, the rank keeping its parts. An expert stack
+    keeps the rank's experts as it is drawn (`moe.expert_part`), so that no
+    rank holds a whole stack (arctic_480b: 26.8 GB a layer); the other
+    leaves are drawn whole, then cut."""
+    from repro_torch.models import moe
+
+    lay = layout(bundle, rules, train=True)
+    d, m = mesh.data_rank, mesh.model_rank
+    ep = {p for p, r in lay.roles.items() if r == "ep"}
+    j, n = (m * lay.data + d, lay.tp * lay.data) if lay.over_data else (m, lay.tp)
+    with moe.expert_part(j, n) if ep else contextlib.nullcontext():
+        params = bundle.init(gen, device=device or mesh.device)
+
+    def keep(path, leaf):
+        if path.rsplit("/", 1)[0] in ep:             # already the rank's experts
+            return leaf
+        return lay.part(path, leaf, d, m).clone(memory_format=torch.contiguous_format)
+
+    return local_bundle(bundle, lay), tree_map_ref(keep, params), lay
 
 
 def kernel_signatures(local: ModelBundle, lay: Layout,

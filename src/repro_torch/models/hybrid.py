@@ -26,7 +26,10 @@ A tensor-parallel rank (`distributed/tensor_parallel.py`) runs the same
 loop on its shard: the mamba layers on its SSD heads, the shared block on
 its attention heads and MLP columns (its per-invocation KV caches, dense or
 paged, hold its KV heads), the embedding and the tied logits on its vocab
-rows (`HybridCfg.vocab_sharded`).
+rows (`HybridCfg.vocab_sharded`). A training rank keeps its vocab columns
+of the logits (`HybridCfg.gather_logits` off; `sharded.vocab_cross_entropy`),
+its recomputed mamba layers re-bind the mesh, and the shared block's heads
+and MLP columns take their gradient from every invocation.
 """
 
 from __future__ import annotations
@@ -59,8 +62,8 @@ from repro_torch.models.transformer import (
     block_apply,
     block_init,
     block_specs,
+    _train_block_on,
     remat_active,
-    train_block,
     zeros_like_specs,
 )
 
@@ -77,6 +80,7 @@ class HybridCfg:
     fuse: SiteCfg                     # 2*d_model -> d_model (dense)
     out: SiteCfg                      # d_model -> d_model
     vocab_sharded: bool = False  # a tensor-parallel rank's vocab rows (models/sharded.py)
+    gather_logits: bool = True   # False: a training rank's logits stay vocab-sharded
 
     @property
     def invocation_points(self) -> tuple[int, ...]:
@@ -179,7 +183,8 @@ def hybrid_apply(cfg: HybridCfg, params: Params, *, tokens: torch.Tensor, pos: t
             set_tape_prefix(f"mamba_stack/{j}")
             lp = params["mamba_stack"][j]
             if remat:
-                x, _ = checkpoint(train_block, cfg.mamba_block, lp, x, pos, use_reentrant=False)
+                x, _ = checkpoint(_train_block_on, sharded.current(), cfg.mamba_block, lp, x,
+                                  pos, use_reentrant=False)
                 continue
             cl = None if caches is None else {n: t[j] for n, t in caches["mamba"].items()}
             x, _, _ = block_apply(cfg.mamba_block, lp, x, pos=pos, cache=cl,
@@ -194,5 +199,5 @@ def hybrid_apply(cfg: HybridCfg, params: Params, *, tokens: torch.Tensor, pos: t
             inv += 1
     x = rmsnorm(params["final_norm"], x)
     if cfg.vocab_sharded:
-        return sharded.tied_logits(x, params["embed"]["table"]), caches
+        return sharded.tied_logits(x, params["embed"]["table"], gather=cfg.gather_logits), caches
     return x @ params["embed"]["table"].to(x.dtype).T, caches

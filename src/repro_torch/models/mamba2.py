@@ -27,7 +27,9 @@ exactly one chunk the two agree.
 A tensor-parallel rank (`distributed/tensor_parallel.py`) runs its share of
 the SSD heads with the same code: its in_proj columns, conv channels and
 cache rows are its heads' (the B and C columns whole), and only the gated
-norm, which normalizes the whole d_inner row, gathers across the ranks.
+norm, which normalizes the whole d_inner row, gathers across the ranks. In
+training the B and C columns and channels, and the norm's scale, take a
+gradient from the rank's heads only (`tensor_parallel.Layout.partial`).
 """
 
 from __future__ import annotations
@@ -224,7 +226,8 @@ def mamba2(cfg: Mamba2Cfg, p: Params, x: torch.Tensor, *, cache: Params | None =
     change (all when None); see the module docstring."""
     b, s, _ = x.shape
     h, pd, di = cfg.n_heads, cfg.head_dim, cfg.d_inner
-    zxbcdt = linear(cfg.in_proj, p["in_proj"], x)
+    # a tensor-parallel rank's in_proj is a column site: one copy in front
+    zxbcdt = linear(cfg.in_proj, p["in_proj"], sharded.copy(x) if cfg.tp > 1 else x)
     z, xbc, dt_raw = torch.split(zxbcdt, [di, cfg.d_xbc, h], dim=-1)
     v = dt_raw.float() + p["dt_bias"][None, None, :]
     dt = torch.logaddexp(v, torch.zeros_like(v))                  # jax.nn.softplus

@@ -42,11 +42,28 @@ combine in fp32, once per layer, before the shared expert or the dense
 residual is added. Each expert's output is the unsharded site's on the
 same input; the combined sum may round otherwise (at most top-k nonzero
 terms per token, summed across ranks instead of in one contraction).
-"""
+
+Training on a ("data", "model") mesh splits each model column's E / ep
+experts over the data ranks too (`MoECfg.ep_data`): rank (d, m) holds
+experts (m ep_data + d) E / (ep ep_data) onwards. Each rank routes its
+data rows' tokens (routing groups never span two rows, so the routing and
+the capacity drops are the single rank's), builds the dispatch of its
+column's experts, sends each data rank the slots of its experts by an
+all-to-all over "data", contracts its experts on every data rank's tokens,
+sends the outputs back by the inverse all-to-all, combines its column's
+share and sums it over "model". The layer's input passes a `sharded.copy`
+(the router and the experts take their gradient through the rank's column
+only); the load-balance value, which every model rank computes whole,
+passes its gradient scaled by 1 / ep, so that the step's model-axis sum of
+the router's gradient counts it once; its token and probability fractions
+are the data axis' means, the global batch's, as the single rank's."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+from typing import Iterator
 
 import torch
 import torch.nn.functional as F
@@ -108,19 +125,41 @@ def expert_linear_specs(s: ExpertSiteCfg, dtype=torch.float32) -> Params:
             "table_scale": ParamSpec(_scale_shape(s), torch.float32)}
 
 
+_PART: contextvars.ContextVar[tuple[int, int] | None] = contextvars.ContextVar(
+    "repro_torch_expert_part", default=None)
+
+
+@contextlib.contextmanager
+def expert_part(j: int, n: int) -> Iterator[None]:
+    """While active, `expert_linear_init` keeps the j-th of n equal parts of
+    each expert stack (a tensor-parallel training rank's experts,
+    `distributed.tensor_parallel.init_rank`), drawing every expert all the
+    same: the kept experts are the whole init's."""
+    token = _PART.set((j, n))
+    try:
+        yield
+    finally:
+        _PART.reset(token)
+
+
 def expert_linear_init(gen: torch.Generator, s: ExpertSiteCfg, *, dtype=torch.float32,
                        device="cpu") -> Params:
     """DENSE {"w": N(0, 1/d_in) (E, d_in, d_out)}; LUT_TRAIN {"w" (frozen),
     "centroids": N(0, 0.02^2) (C, K, V) shared by the experts, "log_t": 0};
     LUT_INFER {"centroids", "table_q": uniform int8 in [-127, 126] (E, C,
     K, d_out), "table_scale": 0.02}. The weight is drawn one expert at a
-    time (no fp32 copy of every expert's weight)."""
+    time (no fp32 copy of every expert's weight); under `expert_part` (the
+    trained modes) only the part's experts are kept."""
     specs = expert_linear_specs(s, dtype)
+    part = _PART.get()
+    lo, hi = (0, s.n_experts) if part is None else (
+        part[0] * s.n_experts // part[1], (part[0] + 1) * s.n_experts // part[1])
     if s.mode in (Mode.DENSE, Mode.LUT_TRAIN):
-        w = torch.empty(specs["w"].shape, dtype=dtype, device=device)
+        w = torch.empty((hi - lo, *specs["w"].shape[1:]), dtype=dtype, device=device)
         for e in range(s.n_experts):
-            w[e] = (torch.randn((s.d_in, s.d_out), generator=gen, device=gen.device)
-                    .to(device) * (1.0 / s.d_in ** 0.5)).to(dtype)
+            draw = torch.randn((s.d_in, s.d_out), generator=gen, device=gen.device)
+            if lo <= e < hi:
+                w[e - lo] = (draw.to(device) * (1.0 / s.d_in ** 0.5)).to(dtype)
         if s.mode == Mode.DENSE:
             return {"w": w}
         return {"w": w,
@@ -223,6 +262,10 @@ class MoECfg:
     # expert parallelism: the tensor-parallel degree the experts are split
     # over (the expert sites then hold n_experts / ep experts: the rank's)
     ep: int = 1
+    # in training on a ("data", "model") mesh: the data-parallel degree each
+    # model column's experts are split over (the sites then hold n_experts /
+    # (ep * ep_data)); tokens reach them by an all-to-all over "data"
+    ep_data: int = 1
 
 
 def moe_init(gen: torch.Generator, cfg: MoECfg, *, dtype=torch.float32, device="cpu") -> Params:
@@ -287,38 +330,84 @@ def route(cfg: MoECfg, p: Params, x: torch.Tensor):
     return x, probs, dispatch, combine, cap
 
 
+def _load_balance(cfg: MoECfg, probs: torch.Tensor, dispatch: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balance value E * sum_e f_e P_e / k; on a mesh with a
+    data axis, f and P the data ranks' means (every rank's rows hold the
+    same number of routing groups: the global batch's fractions)."""
+    frac = torch.stack([dispatch.sum(dim=-1).float().mean(dim=(0, 1)),
+                        probs.mean(dim=(0, 1))])
+    mesh = sharded.current()
+    if mesh is not None and mesh.data > 1:
+        frac = sharded.mean_over_data(frac, mesh)
+    aux = cfg.n_experts * (frac[0] * frac[1]).sum() / cfg.top_k
+    # computed whole on every model rank: its gradient once over the model sum
+    return sharded.scale_grad(aux, 1.0 / cfg.ep)
+
+
+def _contract(cfg: MoECfg, p: Params, xin: torch.Tensor, sent: torch.Tensor) -> torch.Tensor:
+    """The expert FFN of the site params' experts on their slots xin (n,
+    rows, D): gate, up, act and down of the experts `sent` marks, zero for
+    the others (an expert may receive no token)."""
+    active = sent.nonzero()[:, 0]
+    h = xin.new_zeros(xin.shape)
+    if active.numel():
+        xa = xin[active]
+        g = activation(cfg.act, expert_linear(cfg.gate, p["gate"], xa, active))
+        u = expert_linear(cfg.up, p["up"], xa, active)
+        h = h.index_copy(0, active, expert_linear(cfg.down, p["down"], g * u, active))
+    return h
+
+
+def _experts(cfg: MoECfg, p: Params, x: torch.Tensor, disp: torch.Tensor,
+             cap: int) -> torch.Tensor:
+    """The outputs (n, G*cap, D) of the n experts of `disp` (G, g, n, cap)
+    (a column's, or all E) on their slots of x (G, g, D); zero for an expert
+    that receives no token. With `ep_data` > 1 the column's experts live on
+    its data ranks: the slots go to their expert's rank and back by
+    all-to-alls over "data"."""
+    b, _, d = x.shape
+    n = disp.shape[2]
+    xin = torch.einsum("bsec,bsd->ebcd", disp.to(x.dtype), x).reshape(n, b * cap, d)
+    sent = disp.any(dim=3).any(dim=1).any(dim=0)
+    dd = cfg.ep_data
+    if dd > 1:
+        mesh = sharded.current()
+        n_e = n // dd
+        # which of the column's experts any data rank sends a token to
+        sent = mesh.all_reduce(sent.to(torch.int32), sharded.DATA) > 0
+        sent = sent.reshape(dd, n_e)[mesh.data_rank]
+        # (dd, n_e, G*cap, D): row p the slots of data rank p's experts
+        xin = sharded.all_to_all_data(xin.reshape(dd, n_e, b * cap, d), mesh)
+        xin = xin.transpose(0, 1).reshape(n_e, dd * b * cap, d)
+    h = _contract(cfg, p, xin, sent)
+    if dd > 1:
+        # back to the slots' data ranks: row p the outputs of data rank p's experts
+        h = h.reshape(n_e, dd, b * cap, d).transpose(0, 1)
+        h = sharded.all_to_all_data(h, mesh).reshape(n, b * cap, d)
+    return h
+
+
 def moe(cfg: MoECfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y, aux): routed by `route`; aux is the Switch
     load-balance value E * sum_e f_e P_e / k (training's; serving drops
     it)."""
     b0, s0, d = x.shape
-    x, probs, dispatch, combine, cap = route(cfg, p, x)
-    b, e, k = x.shape[0], cfg.n_experts, cfg.top_k
+    # an expert-parallel layer's router and experts see the rank's column only
+    xs, probs, dispatch, combine, cap = route(cfg, p, sharded.copy(x) if cfg.ep > 1 else x)
+    b, e = xs.shape[0], cfg.n_experts
+    aux = _load_balance(cfg, probs, dispatch)
 
-    # load-balance aux value (Switch): E * sum_e f_e * P_e / k
-    frac_tokens = dispatch.sum(dim=-1).float().mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
-    aux = e * (frac_tokens * frac_probs).sum() / k
-
-    # the experts held here: all E, or a tensor-parallel rank's E / ep
-    n_e = e // cfg.ep
-    lo = 0 if cfg.ep == 1 else sharded.model_rank() * n_e
-    disp, comb = dispatch[:, :, lo:lo + n_e], combine[:, :, lo:lo + n_e]
-    xin = torch.einsum("bsec,bsd->ebcd", disp.to(x.dtype), x).reshape(n_e, b * cap, d)
-    active = disp.any(dim=3).any(dim=1).any(dim=0).nonzero()[:, 0]
-    h = x.new_zeros((n_e, b * cap, d))
-    if active.numel():                   # a rank's experts may receive no token
-        xa = xin[active]
-        g = activation(cfg.act, expert_linear(cfg.gate, p["gate"], xa, active))
-        u = expert_linear(cfg.up, p["up"], xa, active)
-        h.index_copy_(0, active, expert_linear(cfg.down, p["down"], g * u, active))
+    # the experts held here: all E, or a tensor-parallel rank's column of E / ep
+    n_col = e // cfg.ep
+    lo = 0 if cfg.ep == 1 else sharded.model_rank() * n_col
+    disp, comb = dispatch[:, :, lo:lo + n_col], combine[:, :, lo:lo + n_col]
+    h = _experts(cfg, p, xs, disp, cap).reshape(n_col, b, cap, d)
     if cfg.ep == 1:
-        y = torch.einsum("bsec,ebcd->bsd", comb, h.reshape(n_e, b, cap, d))
+        y = torch.einsum("bsec,ebcd->bsd", comb, h)
     else:
-        # the rank's experts' share of the combine, summed over the ranks in fp32
-        y = sharded.all_reduce(torch.einsum("bsec,ebcd->bsd", comb.float(),
-                                            h.reshape(n_e, b, cap, d).float())).to(x.dtype)
+        # the column's share of the combine, summed over the model ranks in fp32
+        y = sharded.reduce(torch.einsum("bsec,ebcd->bsd", comb.float(), h.float())).to(x.dtype)
 
-    if cfg.shared is not None:
-        y = y + mlp_mod.mlp(cfg.shared, p["shared"], x)
+    if cfg.shared is not None:           # its own column/row pair: the layer's input
+        y = y + mlp_mod.mlp(cfg.shared, p["shared"], x.reshape(xs.shape))
     return y.reshape(b0, s0, d), aux

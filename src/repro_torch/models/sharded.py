@@ -9,7 +9,8 @@ or "row") and whether the embedding is vocab-sharded
 the collectives run on is bound for the length of one forward
 (`ModelBundle.forward_step(mesh=)`, `ModelBundle.loss(mesh=)`, `bound`); it
 needs `model_rank`, `all_reduce` (a sum, in place), `all_max` and
-`gather_last`, each on the "model" axis.
+`gather_last`, each on the "model" axis, and for experts over both axes
+`data_rank`, `all_to_all` and `all_mean` on the "data" axis.
 
   * a column-parallel site ("col") runs on its M shard of table_q (and of
     an m-shared table_scale and of the bias), or of a LUT_TRAIN or DENSE
@@ -34,7 +35,9 @@ needs `model_rank`, `all_reduce` (a sum, in place), `all_max` and
     vocab-sharded in training, where `vocab_cross_entropy` reduces the row
     max, the sum of exponentials and the target logit over the model axis;
   * an expert-parallel MoE layer's combined output is all-reduced in fp32
-    (`all_reduce`, `model_rank` names the rank's experts);
+    (`reduce`, `model_rank` names the rank's experts; in training on a
+    ("data", "model") mesh the column's experts are split over the data
+    ranks too, `moe.moe`);
   * a mamba2 rank's gated norm gathers the gated activations of every
     rank's heads and normalizes the whole d_inner row, as the unsharded
     block does, then keeps the rank's columns (`gated_rmsnorm`).
@@ -42,13 +45,22 @@ needs `model_rank`, `all_reduce` (a sum, in place), `all_max` and
 Training differentiates through the model axis with two autograd
 functions, as Megatron places them: `copy` (identity forward, model-axis
 all-reduce backward) in front of every column-parallel consumer (q/k/v
-together, gate/up together, the vocab head), and `reduce` (model-axis
-all-reduce forward, identity backward) after every row-parallel site and
-the vocab-sharded lookup. Both are the identity / the plain all_reduce
-where no gradient is taken, so a serving forward runs as before. Each
-keeps the mesh it was built with for its backward, which runs on the
-autograd engine's device thread, where `bound`'s context variable is not
-set; a recomputed block re-binds the mesh (`transformer._seg_apply`).
+together, gate/up together, a mamba2 block's in_proj, an expert-parallel
+MoE layer, the vocab head), and `reduce` (model-axis all-reduce forward,
+identity backward) after every row-parallel site, the MoE combine and the
+vocab-sharded lookup. Both are the identity / the plain all_reduce where no
+gradient is taken, so a serving forward runs as before. The gated norm's
+gather has the reduce-scatter for its backward (`gated_rmsnorm`). On a
+("data", "model") mesh the experts are split over both axes: an autograd
+all-to-all over "data" (`all_to_all_data`, its own inverse backward) takes
+each token to its expert's rank and the expert's output back, and the MoE
+load-balance statistics are the data axis' mean (`mean_over_data`, an
+identity backward: each data rank's step is then the global step's part,
+and the step's data mean of the gradients completes it). Each keeps the
+mesh it was built with for its backward, which runs on the autograd
+engine's device thread, where `bound`'s context variable is not set; a
+recomputed block re-binds the mesh (`transformer._seg_apply`,
+`hybrid.hybrid_apply`).
 """
 
 from __future__ import annotations
@@ -93,6 +105,7 @@ def _mesh() -> Any:
 
 
 AXIS = "model"
+DATA = "data"
 
 
 class _Copy(torch.autograd.Function):
@@ -120,6 +133,62 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all over the data axis forward, and backward (it is its own
+    inverse: row p goes to data rank p, and comes back from it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_to_all(x.contiguous(), DATA)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g.contiguous(), DATA), None
+
+
+class _MeanData(torch.autograd.Function):
+    """The mean over the data axis forward; the gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_mean(x.contiguous().clone(), DATA)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """Every model rank's columns gathered forward; backward, the sum over
+    the model axis of every rank's gradient of the whole row, then the
+    rank's columns (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.m = mesh, x.shape[-1]
+        return mesh.gather_last(x.contiguous(), AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = ctx.mesh.all_reduce(g.contiguous().clone(), AXIS)
+        r, m = ctx.mesh.model_rank, ctx.m
+        return full[..., r * m:(r + 1) * m].contiguous(), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times `s`."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
 def _differentiated(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
@@ -139,6 +208,32 @@ def reduce(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
     if not _differentiated(x):
         return mesh.all_reduce(x, AXIS)
     return _Reduce.apply(x, mesh)
+
+
+def all_to_all_data(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """`x` (data, ...): row p to data rank p; returns (data, ...) whose row p
+    came from data rank p. Its gradient takes the way back."""
+    mesh = mesh or _mesh()
+    if not _differentiated(x):
+        return mesh.all_to_all(x.contiguous(), DATA)
+    return _AllToAll.apply(x, mesh)
+
+
+def mean_over_data(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """The mean of every data rank's `x`; the gradient reaches each rank's
+    own `x` whole (the step's data mean of the gradients divides it)."""
+    mesh = mesh or _mesh()
+    if not _differentiated(x):
+        return mesh.all_mean(x.contiguous().clone(), DATA)
+    return _MeanData.apply(x, mesh)
+
+
+def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
+    """`x`, its gradient times `s` (a value every model rank computes whole,
+    whose gradient the step sums over the model axis: s = 1 / tp)."""
+    if not _differentiated(x) or s == 1:
+        return x
+    return _ScaleGrad.apply(x, s)
 
 
 def _absmax_over_model(site, mesh):
@@ -269,10 +364,15 @@ def gated_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     the rank's columns, `scale` (d_inner,) whole. The gated activations of
     every rank are gathered (fp32, each value its rank's exactly) and the
     whole row normalized as the unsharded block normalizes it; returns the
-    rank's columns, the unsharded block's bytewise."""
+    rank's columns, the unsharded block's bytewise. In training the
+    gather's backward is a reduce-scatter (each rank's output depends on
+    the whole row), and `scale` takes a gradient at the rank's columns
+    only: a partial leaf, summed over the model axis by the step."""
     mesh = _mesh()
-    g = mesh.gather_last((y * F.silu(z)).float(), AXIS)
+    gated = (y * F.silu(z)).float()
+    g = (_GatherModel.apply(gated, mesh) if _differentiated(gated)
+         else mesh.gather_last(gated, AXIS))
     var = (g * g).mean(dim=-1, keepdim=True)
-    full = (g * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
     m = y.shape[-1]
-    return full[..., mesh.model_rank * m: (mesh.model_rank + 1) * m].contiguous()
+    cols = slice(mesh.model_rank * m, (mesh.model_rank + 1) * m)
+    return (g[..., cols] * torch.rsqrt(var + eps) * scale[cols].float()).to(y.dtype)

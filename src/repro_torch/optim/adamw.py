@@ -106,32 +106,17 @@ class AdamW:
                           m=tree_map_ref(mk, params, frozen), v=tree_map_ref(mk, params, frozen))
 
     @torch.no_grad()
-    def global_norm(self, grads: Any, frozen: Any | None = None, *, sharded: Any = None,
-                    reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
-                    ) -> torch.Tensor:
-        """The L2 norm of every non-frozen gradient leaf together (fp32).
-        On a tensor-parallel rank, `sharded` (a tree of bools) marks the
-        leaves it holds a shard of: their sum of squares goes through
-        `reduce` (a sum over the model axis), and every other leaf, the same
-        on every rank, is counted once."""
+    def global_norm(self, grads: Any, frozen: Any | None = None) -> torch.Tensor:
+        """The L2 norm of every non-frozen gradient leaf together (fp32); a
+        tensor-parallel rank's is `data_parallel.Zero1.global_norm`."""
         frozen = no_frozen(grads) if frozen is None else frozen
-        sharded = tree_map_ref(lambda _p, _g: False, grads) if sharded is None else sharded
-        sq: dict[bool, list[torch.Tensor]] = {False: [], True: []}
-        tree_map_ref(lambda _p, g, fz, sh: None if fz else sq[bool(sh)].append(
-            (g.float() ** 2).sum()), grads, frozen, sharded)
-
-        def total(ts):
-            out = ts[0]
-            for t in ts[1:]:
-                out = out + t
-            return out
-
-        if not sq[True]:
-            return torch.sqrt(total(sq[False]))
-        if reduce is None:
-            raise ValueError("a norm over sharded leaves needs their reduce")
-        part = reduce(total(sq[True]).reshape(1))[0]
-        return torch.sqrt(part + total(sq[False]) if sq[False] else part)
+        sq: list[torch.Tensor] = []
+        tree_map_ref(lambda _p, g, fz: None if fz else sq.append((g.float() ** 2).sum()),
+                     grads, frozen)
+        total = sq[0]
+        for t in sq[1:]:
+            total = total + t
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def update(self, grads: Any, state: AdamWState, params: Any, frozen: Any | None = None, *,

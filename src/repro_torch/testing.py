@@ -196,17 +196,19 @@ def float64_compute():
 
 @contextlib.contextmanager
 def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
-                tie_eps: float = 1e-6):
+                tie_eps: float = 1e-6, digest_experts: bool = False):
     """While active, every LUT_TRAIN forward over `params` (the tensors the
     model reads, or views of them) records, and yields in a dict:
 
     * "rounding", {(site path, layer, experts): (q, T / scale)}: the
       integers each fake-quantized table is rounded to and the quotients
-      rounded; an expert site's tables are built per chunk of routed experts
-      (`experts` the chunk's expert ids, None at the other sites);
+      rounded; an expert site's tables and encodings run per chunk of routed
+      experts (`experts` the chunk's expert ids in the site's params, None
+      at the other sites);
     * "codes", {((site path, layer, experts), call): hard codes}: the codes
-      of each straight-through encoding, `call` counting a site's encodings
-      in this run (a recomputed block or chunk encodes again).
+      of each straight-through encoding, `call` counting a site's (or an
+      expert chunk's) encodings in this run (a recomputed block or chunk
+      encodes again).
 
     `pin` (another run's record, the same model and batch) makes this run
     take that run's integers and codes where its own differ; "pinned"
@@ -217,7 +219,15 @@ def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
     way moves the forward by a whole table entry at every row that reads
     it, a difference of rounding far larger than the rounding of a sum.
     `terms`, when given, gathers per log_t (by id) the sum over (row,
-    codebook, centroid) of |d loss / d dists * dists| in a backward."""
+    codebook, centroid) of |d loss / d dists * dists| in a backward.
+
+    `digest_experts` records an expert site's integers as a digest (two
+    int64 sums, `rounding_digest`) instead of the tables: at full width a
+    layer's tables are tens of GB. A pinned run then checks each expert
+    table's digest against the pin's ("off" where they differ: an expert
+    table can be held, not pinned); tables built one expert at a time
+    (`moe.CHUNK_BYTES` below an expert's working set) from the same
+    weights are the same tables on either side."""
     from repro_torch.core import amm
     from repro_torch.models import moe
     from repro_torch.weights import tree_map_ref
@@ -237,14 +247,14 @@ def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
     rec: dict = {"rounding": {}, "codes": {}, "pinned": 0, "off": []}
     calls: dict[tuple, int] = {}
     current: list[torch.Tensor] = []
-    chunk: list = [None]                 # the expert ids whose tables are being built
+    chunk: list = [None]                 # the expert ids of the chunk being run
     real_temp, real_ste, real_fq = amm.temperature, pq.ste_encode, quant.fake_quant
-    real_tables = moe._expert_tables_train
+    real_chunk = moe._train_chunk
 
-    def tables(p, s, experts):
+    def train_chunk(s, p, x, experts):
         chunk[0] = tuple(experts.tolist())
         try:
-            return real_tables(p, s, experts)
+            return real_chunk(s, p, x, experts)
         finally:
             chunk[0] = None
 
@@ -257,10 +267,14 @@ def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
 
     def ste(dists, t):
         if terms is not None and dists.requires_grad:
-            tkey = id(current[-1])
+            tkey, d = id(current[-1]), dists.detach()
 
+            # the hook holds the detached values: a hook that holds the
+            # tensor it is registered on is a cycle through autograd's C++
+            # graph, which Python's collector cannot free (with it the
+            # graph, the recomputed blocks' inputs and the params they read)
             def hook(g):
-                terms[tkey] = terms.get(tkey, 0.0) + float((g * dists).abs().sum())
+                terms[tkey] = terms.get(tkey, 0.0) + float((g * d).abs().sum())
 
             dists.register_hook(hook)
         out = real_ste(dists, t)
@@ -296,6 +310,13 @@ def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
                                   reduce_absmax=reduce_absmax)
         r = t.detach().float() / scale
         q = torch.clamp(torch.round(r), -quant._qmax(bits), quant._qmax(bits))
+        if digest_experts and key[2] is not None:
+            dig = rounding_digest(q)
+            rec["rounding"].setdefault(key, ("digest", dig))
+            if pin is not None and pin["rounding"][key] != ("digest", dig):
+                rec["off"].append(f"{key[0]}[{key[1]}] experts {key[2]}: a table rounded "
+                                  f"otherwise than the pin's")
+            return out
         rec["rounding"].setdefault(key, (q.to(torch.int16).cpu(), r.float().cpu()))
         if pin is not None:
             want = pin["rounding"][key][0].to(q.device, q.dtype)
@@ -303,16 +324,25 @@ def table_hooks(params, *, pin: dict | None = None, terms: dict | None = None,
         return out
 
     amm.temperature, pq.ste_encode, quant.fake_quant = temp, ste, fq
-    moe._expert_tables_train = tables
+    moe._train_chunk = train_chunk
     try:
         yield rec
     finally:
         amm.temperature, pq.ste_encode, quant.fake_quant = real_temp, real_ste, real_fq
-        moe._expert_tables_train = real_tables
+        moe._train_chunk = real_chunk
+
+
+def rounding_digest(q: torch.Tensor) -> tuple[int, int]:
+    """Two int64 sums of a fake-quantized table's integers (plain, and
+    weighted by position mod 65521): tables that round one entry otherwise
+    differ in both but by a chance of ~1e-5."""
+    flat = q.reshape(-1).long()
+    w = torch.arange(flat.numel(), device=q.device) % 65521 + 1
+    return int(flat.sum()), int((flat * w).sum())
 
 
 def lut_train_grads(bundle, params, batch, *, compute_dtype=torch.float32, pin=None,
-                    tie_eps: float = 1e-6):
+                    tie_eps: float = 1e-6, digest_experts: bool = False):
     """One forward and backward of a LUT_TRAIN model: (loss, aux (the MoE
     load-balance value, in the loss at LM_AUX_WEIGHT), gradients in the
     params' layout with None at frozen leaves, log_t terms, record).
@@ -321,7 +351,7 @@ def lut_train_grads(bundle, params, batch, *, compute_dtype=torch.float32, pin=N
       centroid) of |d loss / d dists * dists|]}: d loss / d log_t = -sum
       (d loss / d dists) * dists, whose terms cancel, so its fp32 rounding
       error scales with their magnitudes, not with itself;
-    * record and `pin`: `table_hooks`'."""
+    * record, `pin` and `digest_experts`: `table_hooks`'."""
     from repro_torch.optim import lut_frozen_mask
     from repro_torch.train.train_step import grads_tree, trainable_view
     from repro_torch.weights import tree_map_ref
@@ -329,7 +359,8 @@ def lut_train_grads(bundle, params, batch, *, compute_dtype=torch.float32, pin=N
     frozen = lut_frozen_mask(params)
     live, leaves = trainable_view(params, frozen)
     terms: dict[int, float] = {}
-    with table_hooks(live, pin=pin, terms=terms, tie_eps=tie_eps) as rec:
+    with table_hooks(live, pin=pin, terms=terms, tie_eps=tie_eps,
+                     digest_experts=digest_experts) as rec:
         logits, aux = bundle.train_logits(live, batch, compute_dtype=compute_dtype)
         loss = bundle.loss_from_logits(logits, aux, batch["labels"])
         del logits
@@ -347,7 +378,12 @@ def _rounding_flips(base: dict, other: dict, label: str, failures: list[str]) ->
     half-integer."""
     n = 0
     for key, (qb, r) in base.items():
-        qo = other[key][0]
+        if isinstance(qb, str):          # a digest (`table_hooks(digest_experts=)`)
+            if other[key] != (qb, r):
+                failures.append(f"{label} {key[0]}[{key[1]}] experts {key[2]}: a table "
+                                f"rounded otherwise")
+            continue
+        qo = other[key][0].to(qb.device)
         off = qb != qo
         if not off.any():
             continue
@@ -644,13 +680,59 @@ def spec_part_shape(shape: tuple, spec: tuple, sizes: dict[str, int]) -> tuple:
     return tuple(out)
 
 
-def expected_rank_shapes(bundle, rules, data_rank: int, frozen_paths=frozenset()
-                         ) -> tuple[dict, dict]:
+def kept_rank_shape(bundle, kept: tuple, path: str, shape: tuple, sizes: dict[str, int]
+                    ) -> tuple | None:
+    """A rank's per-layer shape of the leaf `path` (whole shape `shape`,
+    stacked leaves' layer axis first) where the port's layout departs from
+    the spec by one of its kept differences (`tensor_parallel.Layout.kept`),
+    from the config alone; else None:
+
+      * experts over "model" (or over "data" and "model"): an expert leaf
+        holds E / tp (E / (dp tp)) experts, each whole; the router and the
+        expert sites' shared codebooks stay whole;
+      * SSD heads: in_proj's columns and the conv's channels of the rank's
+        heads, B and C whole; dt_bias, A_log and D the rank's heads;
+      * the hybrid's fuse and out sites, which have no column/row partner,
+        stay whole (the spec splits their columns)."""
+    from repro_torch.distributed.sharding import is_stacked
+
+    stacked = is_stacked(path)
+    one = shape[stacked:]
+    t, d = sizes["model"], sizes["data"]
+    parts = path.split("/")
+    if "moe" in parts and any(k.startswith("experts_over") for k in kept):
+        site = parts[parts.index("moe") + 1]
+        if site == "router" or (site in ("gate", "up", "down") and parts[-1] != "w"):
+            return one
+        if site in ("gate", "up", "down"):
+            split = t * (d if "experts_over_data_and_model" in kept else 1)
+            return (one[0] // split, *one[1:])
+    if "mamba" in parts and "ssm_heads" in kept:
+        mc = (bundle.cfg.mamba_block if bundle.kind == "hybrid"
+              else bundle.cfg.segments[int(parts[1])][1]).mamba
+        gn = 2 * mc.n_groups * mc.ssm_state
+        leaf = "/".join(parts[parts.index("mamba") + 1:])
+        heads = {"in_proj/w": 2 * mc.d_inner // t + gn + mc.n_heads // t,
+                 "in_proj/b": 2 * mc.d_inner // t + gn + mc.n_heads // t,
+                 "conv_w": mc.d_inner // t + gn, "conv_b": mc.d_inner // t + gn,
+                 "dt_bias": mc.n_heads // t, "A_log": mc.n_heads // t, "D": mc.n_heads // t}
+        if leaf in heads:
+            return (*one[:-1], heads[leaf])
+    if bundle.kind == "hybrid" and parts[:2] in (["shared", "fuse"], ["shared", "out"]):
+        return one
+    return None
+
+
+def expected_rank_shapes(bundle, rules, data_rank: int, frozen_paths=frozenset(),
+                         kept: tuple = ()) -> tuple[dict, dict]:
     """({reference path: [per-layer param shape]}, {reference path:
     [per-layer moment shape]}) of a rank of data index `data_rank` under
-    `rules` (`param_spec` with the site roles, `opt_spec`): a stacked
-    leaf whose moment spec puts "data" on the layer axis is held in whole
-    layers by their owner ((0,) elsewhere), a frozen leaf's moment is (0,)."""
+    `rules` (`param_spec` with the site roles, `opt_spec`), the leaves of
+    the `kept` differences by `kept_rank_shape`: a stacked leaf whose moment
+    spec puts "data" on the layer axis is held in whole layers by their
+    owner ((0,) elsewhere), a moment's other "data" dim divides the rank's
+    param (an expert leaf over both axes has none: its "data" is the
+    experts'), a frozen leaf's moment is (0,)."""
     from repro_torch.checkpoint.paths import flatten_tree
     from repro_torch.distributed.sharding import is_stacked, site_roles
 
@@ -662,16 +744,22 @@ def expected_rank_shapes(bundle, rules, data_rank: int, frozen_paths=frozenset()
         stacked = is_stacked(path)
         layers = shape[0] if stacked else 1
         pspec = rules.param_spec(path, shape, site_roles=roles)
-        pshape = spec_part_shape(shape, pspec, sizes)[stacked:]
+        own = kept_rank_shape(bundle, kept, path, shape, sizes)
+        pshape = own if own is not None else spec_part_shape(shape, pspec, sizes)[stacked:]
         params[path] = [pshape] * layers
         if path in frozen_paths:
             moments[path] = [(0,)] * layers
             continue
-        ospec = rules.opt_spec(path, shape)
-        if stacked and ospec and ospec[0] == "data":
+        ospec = tuple(rules.opt_spec(path, shape))
+        pfull = tuple(pspec) + (None,) * (len(shape) - len(pspec))
+        extra = [i for i, e in enumerate(ospec) if e == "data" and pfull[i] != "data"]
+        if not extra:
+            moments[path] = [pshape] * layers
+        elif stacked and extra[0] == 0:
             per = layers // rules.data
-            moments[path] = [spec_part_shape(shape[1:], ospec[1:], sizes)
-                             if j // per == data_rank else (0,) for j in range(layers)]
+            moments[path] = [pshape if j // per == data_rank else (0,) for j in range(layers)]
         else:
-            moments[path] = [spec_part_shape(shape, ospec, sizes)[stacked:]] * layers
+            dim = extra[0] - stacked
+            moments[path] = [tuple(n // rules.data if i == dim else n
+                                   for i, n in enumerate(pshape))] * layers
     return params, moments

@@ -9,6 +9,8 @@ tensors as numpy arrays. The mesh's ranks are on its "model" axis, or with
 the ranks join no mesh and `fn(rank, init, *args)` joins one itself.
 With `axis=(data, model)` the ranks join that 2-D mesh
 (tests/test_torch_tp_train.py).
+`tp_train`, `tp_trainer` and `tp_route_record` are the ranks' work in
+tests/test_torch_tp_train.py and tests/test_torch_tp_train_families.py.
 `serve_family` (`serve_families`) is the ranks' work in
 tests/test_torch_tp_families.py: the MoE, SSM and hybrid artifacts through
 the unsharded and the tensor-parallel engines, with the experts' outputs
@@ -678,6 +680,46 @@ def tp_scales(mesh, cases: list) -> list:
         out.append({"fq": quant.fake_quant(part.clone(), **kw),
                     "scale": quant.table_scale(part, **kw), "reduced": red is not None})
     return out
+
+
+def tp_route_record(mesh, spec: dict) -> dict:
+    """A no-gradient forward of the rank's shard on its rows of the first
+    batch, recording each MoE layer's routing decisions (the dispatch of
+    the rank's routing groups over all E experts) and its expert
+    contraction: the slots its experts received (from every data rank),
+    which experts received a token, their outputs, and their ids in the
+    whole model (tests/test_torch_tp_train_families.py)."""
+    from repro_torch.distributed.data_parallel import local_batch
+    from repro_torch.models import moe
+
+    local, params, _, _, layout = tp_rank_state(mesh, spec)
+    rec: dict = {"dispatch": [], "experts": []}
+    route, contract = moe.route, moe._contract
+
+    def record_route(cfg, p, x):
+        out = route(cfg, p, x)
+        rec["dispatch"].append(out[2].clone())
+        return out
+
+    def record_contract(cfg, p, xin, sent):
+        h = contract(cfg, p, xin, sent)
+        first = (mesh.model_rank * cfg.ep_data + (mesh.data_rank if cfg.ep_data > 1 else 0)
+                 ) * xin.shape[0] if cfg.ep > 1 else 0
+        rec["experts"].append({"x": xin.clone(), "sent": sent.clone(), "h": h.clone(),
+                               "ids": torch.arange(first, first + xin.shape[0])})
+        return h
+
+    moe.route, moe._contract = record_route, record_contract
+    mesh.reset_counters()
+    try:
+        with torch.no_grad():
+            local.train_logits(params, local_batch(dp_batch(spec, 0), mesh, layout.rules),
+                               compute_dtype=torch.float32, mesh=mesh)
+    finally:
+        moe.route, moe._contract = route, contract
+    rec["rank"] = (mesh.data_rank, mesh.model_rank)
+    rec["axis_counters"] = {a: dict(c) for a, c in mesh.axis_counters.items()}
+    return rec
 
 
 def tp_jobs(mesh, jobs: list) -> list:

@@ -20,7 +20,8 @@ tests/test_torch_train.py over several steps), dense and LUT_TRAIN with
 grad_accum 2 (frozen leaves untouched); each rank's ZeRO-1 shards by
 `opt_spec`; both ranks' params bytewise equal. The same reference step
 against the port's (2, 2) tensor-parallel step with ZeRO-1 inside its model
-shards (the rest of that slice: tests/test_torch_tp_train.py). Elastic
+shards (the rest of that slice: tests/test_torch_tp_train.py), and of
+reduced arctic_480b and mamba2_370m (tests/test_torch_tp_train_families.py). Elastic
 rescale and the Trainer's rank-0 commits: tests/test_torch_elastic.py."""
 
 import json
@@ -158,12 +159,20 @@ def test_batch_shardings_match_the_reference(reference_specs, mesh):
 # the step
 # ---------------------------------------------------------------------------
 
+# the MoE and SSM families' steps against the same reference step: experts
+# over both axes with the token all-to-all, and the SSD heads
+FAMILY_STEPS = {"arctic_480b": dict(SHARDED, arch="arctic_480b"),
+                "mamba2_370m": dict(SHARDED, arch="mamba2_370m", d_ff=0)}
+
+
 @pytest.fixture(scope="module")
 def reference_sharded_step(tmp_path_factory) -> dict:
     """The reference's init and its sharded step on the (2, 4) mesh
     (tests/test_sharded.py's setup): {"init": flat arrays, "params":
-    flat arrays after one step, "loss"}."""
+    flat arrays after one step, "loss"}, of SHARDED, and the same under
+    "families" for each of FAMILY_STEPS (one subprocess)."""
     d = tmp_path_factory.mktemp("sharded")
+    specs = {"sharded": SHARDED, **FAMILY_STEPS}
     run_with_devices(textwrap.dedent(f"""
         import jax, jax.numpy as jnp, numpy as np
         from repro.checkpoint.checkpointer import flatten_tree
@@ -175,32 +184,38 @@ def reference_sharded_step(tmp_path_factory) -> dict:
         from repro.optim import AdamW
         from repro.train.train_step import make_train_step
 
-        s = {SHARDED!r}
-        arch = reduce_arch(get_arch(s["arch"]), n_layers=s["layers"], vocab=s["vocab"],
-                           d_model=s["d"], d_ff=s["d_ff"])
-        data = MarkovLM(vocab=arch.vocab, seq_len=s["seq"], batch=s["batch"])
-        bundle = build_model(arch, Mode.DENSE)
-        params = bundle.init(jax.random.PRNGKey(0))
-        opt = AdamW(lr=s["lr"], clip_norm=s["clip"])
-        ostate = opt.init(params)
-        batch = data.batch_at(0)
-        step = make_train_step(bundle, opt, compute_dtype=jnp.float32)
-        mesh = make_mesh((2, 4), ("data", "model"))
-        rules = ShardingRules(mesh)
-        ps = rules.params_shardings(jax.eval_shape(lambda: params))
-        os_ = rules.opt_shardings(jax.eval_shape(lambda: ostate))
-        bs = rules.batch_shardings({{k: jax.eval_shape(lambda v=v: v) for k, v in batch.items()}})
-        with mesh:
-            p_sh, _, m_sh = jax.jit(step, in_shardings=(ps, os_, bs),
-                                    out_shardings=(ps, os_, None))(
-                jax.device_put(params, ps), jax.device_put(ostate, os_),
-                {{k: jax.device_put(v, bs[k]) for k, v in batch.items()}})
-        np.savez("{d / 'init.npz'}", **flatten_tree(params))
-        np.savez("{d / 'step.npz'}", loss=np.float32(m_sh["loss"]), **flatten_tree(p_sh))
+        for name, s in {specs!r}.items():
+            arch = reduce_arch(get_arch(s["arch"]), n_layers=s["layers"], vocab=s["vocab"],
+                               d_model=s["d"], d_ff=s["d_ff"])
+            data = MarkovLM(vocab=arch.vocab, seq_len=s["seq"], batch=s["batch"])
+            bundle = build_model(arch, Mode.DENSE)
+            params = bundle.init(jax.random.PRNGKey(0))
+            opt = AdamW(lr=s["lr"], clip_norm=s["clip"])
+            ostate = opt.init(params)
+            batch = data.batch_at(0)
+            step = make_train_step(bundle, opt, compute_dtype=jnp.float32)
+            mesh = make_mesh((2, 4), ("data", "model"))
+            rules = ShardingRules(mesh)
+            ps = rules.params_shardings(jax.eval_shape(lambda: params))
+            os_ = rules.opt_shardings(jax.eval_shape(lambda: ostate))
+            bs = rules.batch_shardings({{k: jax.eval_shape(lambda v=v: v)
+                                        for k, v in batch.items()}})
+            with mesh:
+                p_sh, _, m_sh = jax.jit(step, in_shardings=(ps, os_, bs),
+                                        out_shardings=(ps, os_, None))(
+                    jax.device_put(params, ps), jax.device_put(ostate, os_),
+                    {{k: jax.device_put(v, bs[k]) for k, v in batch.items()}})
+            np.savez(f"{d}/{{name}}_init.npz", **flatten_tree(params))
+            np.savez(f"{d}/{{name}}_step.npz", loss=np.float32(m_sh["loss"]),
+                     **flatten_tree(p_sh))
         """), n_devices=8)
-    with np.load(d / "init.npz") as f, np.load(d / "step.npz") as g:
-        return {"init": dict(f), "params": {k: g[k] for k in g.files if k != "loss"},
-                "loss": float(g["loss"])}
+
+    def read(name: str) -> dict:
+        with np.load(d / f"{name}_init.npz") as f, np.load(d / f"{name}_step.npz") as g:
+            return {"init": dict(f), "params": {k: g[k] for k in g.files if k != "loss"},
+                    "loss": float(g["loss"])}
+
+    return {**read("sharded"), "families": {n: read(n) for n in FAMILY_STEPS}}
 
 
 def _as_tree(flat: dict, like) -> dict:
@@ -228,6 +243,45 @@ def test_tp22_step_matches_the_reference_sharded_step(reference_sharded_step):
         for path, want in ref["params"].items():
             np.testing.assert_allclose(r["arrays"][f"params/{path}"], want, rtol=REF_RTOL,
                                        atol=REF_ATOL, err_msg=path)
+
+
+def test_tp22_family_steps_match_the_reference_sharded_step(reference_sharded_step):
+    """The port's (2, 2) DENSE step of reduced arctic_480b (its experts over
+    both axes, tokens by the data all-to-all) and reduced mamba2_370m (its
+    SSD heads) from the reference's init, against the reference's (2, 4)
+    sharded step (the specs' placement: E over "data", each expert's M and
+    in_proj's columns over "model") within its bound."""
+    fams = reference_sharded_step["families"]
+    jobs = [("tp_train", (spec, fams[name]["init"], 1)) for name, spec in FAMILY_STEPS.items()]
+    ranks = run_ranks(tp_jobs, 4, jobs, axis=(2, 2))
+    for got in ranks:
+        for (name, spec), r in zip(FAMILY_STEPS.items(), got):
+            ref = fams[name]
+            assert abs(r["loss"][0] - ref["loss"]) < REF_LOSS_TOL, name
+            assert {p for p in r["arrays"] if p.startswith("params/")} == \
+                {f"params/{p}" for p in ref["params"]}, name
+            for path, want in ref["params"].items():
+                np.testing.assert_allclose(r["arrays"][f"params/{path}"], want, rtol=REF_RTOL,
+                                           atol=REF_ATOL, err_msg=f"{name} {path}")
+            if name == "arctic_480b":
+                assert r["axis_counters"]["data"]["all_to_all"] > 0
+
+
+def test_dp2_moe_step_matches_the_single_rank_step():
+    """An MoE step at dp 2 (reduced arctic_480b, top-2 with capacity drops):
+    the load-balance fractions are the data axis' means, the global
+    batch's, so the loss is the single-rank step's within
+    SINGLE_LOSS_RTOL and the params after it within the leaf rule (each
+    rank's own fractions put the loss 4.6e-5 off)."""
+    spec = dict(FAMILY_STEPS["arctic_480b"], clip=1.0)
+    ranks = run_ranks(dp_train, 2, spec, None, 1, axis="data")
+    losses, states, rule, params = dp_single(spec, None, 1)
+    _, _, opt, frozen = dp_model(spec)
+    want = _as_tree(states[0], {"params": params, "opt": opt.init(params, frozen)})["params"]
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], losses, rtol=SINGLE_LOSS_RTOL)
+        worst, where = rule.check(_as_tree(r["params_1"], params), want, params)
+        assert worst <= 1.0, (worst, where)
 
 
 # the leaf rule holds the first step: from the second on, each fp32 run's

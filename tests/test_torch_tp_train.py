@@ -29,8 +29,9 @@ fake-quant scales of row and column shards. Held here:
   * a Trainer commit from (2, 2) that the reference's Checkpointer
     restores, and that the port restores bytewise at (2, 2), (1, 2) and one
     rank;
-  * the refusals that remain: FSDP, and the MoE, SSM, hybrid, enc-dec and
-    vision-LM families under tensor-parallel training.
+  * the refusals that remain: FSDP, and the enc-dec and vision-LM families
+    under tensor-parallel training (the MoE, SSM and hybrid families:
+    tests/test_torch_tp_train_families.py).
 
 The reference's (2, 4) sharded step against the port's (2, 2) step is in
 tests/test_torch_dp.py, beside its module-scoped reference fixture."""
@@ -320,10 +321,11 @@ def test_trainer_commit_is_the_reference_layout_and_restores_at_any_mesh(ranks):
 
 
 def test_remaining_refusals_name_their_reason():
-    """FSDP, and tensor-parallel training of the MoE, SSM, hybrid, enc-dec
-    and vision-LM families, are refused with a reason naming ROADMAP Queue A
-    item 5; a model mesh without a tensor-parallel layout and a
-    whole-logits loss on one are refused too."""
+    """FSDP, and tensor-parallel training of the enc-dec and vision-LM
+    families, are refused with a reason naming ROADMAP Queue A item 5; a
+    model mesh without a tensor-parallel layout and a whole-logits loss on
+    one are refused too. The decoder LMs and the MoE, SSM and hybrid
+    families train (tests/test_torch_tp_train_families.py)."""
     bundle, params, _, _ = dp_model(DENSE)
     mesh = HostMesh(data=2, model=2, rank=0, device=torch.device("cpu"), backend="gloo")
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
@@ -337,15 +339,15 @@ def test_remaining_refusals_name_their_reason():
     layout = Zero1.build(mesh, lp, None, rules, tp=lay)
     with pytest.raises(NotImplementedError, match="vocab-parallel"):
         make_sharded_grads_fn(bundle, layout, loss_fn=lambda p, b: None)
-    for name in ("arctic_480b", "llama4_maverick_400b", "mamba2_370m", "zamba2_1p2b",
-                 "whisper_tiny", "qwen2_vl_7b"):
+    for name in ("whisper_tiny", "qwen2_vl_7b"):
         for mode in (Mode.DENSE, Mode.LUT_TRAIN):
             b = build_model(reduce_arch(get_arch(name), n_layers=2), mode)
             why = tensor_parallel.tp_refusal(b, train=True)
             assert why and "Queue A item 5" in why and name in why, (name, why)
             with pytest.raises(NotImplementedError, match="Queue A item 5"):
                 tensor_parallel.layout(b, rules, train=True)
-    for name in ("qwen3_1p7b", "llama3_8b"):
+    for name in ("qwen3_1p7b", "llama3_8b", "arctic_480b", "llama4_maverick_400b",
+                 "mamba2_370m", "zamba2_1p2b"):
         for mode in (Mode.DENSE, Mode.LUT_TRAIN):
             assert tensor_parallel.tp_refusal(build_model(reduce_arch(get_arch(name)), mode),
                                               train=True) is None
