@@ -233,24 +233,36 @@ Phases (any failed check exits non-zero; no phase is skipped):
      four rank processes on the one card over gloo (a card each over NCCL
      where the host has four), each holding its `ShardingRules(2, 2)` cut
      (`tensor_parallel.place(train=True)`, ZeRO-1 inside its model
-     shard). (a) two DENSE steps and (b) one soft-PQ step (SOFT_PQ_RULES,
+     shard). (a) a DENSE step and (b) a soft-PQ step (SOFT_PQ_RULES,
      `lut_frozen_mask`) against the single-rank step here on the same
-     global batches, run before the ranks' steps: the loss within 1e-5
-     relative; after one step every param leaf, gathered to whole leaves,
+     global batch, run before the ranks' steps: the loss within 1e-5
+     relative; after the step every param leaf, gathered to whole leaves,
      within `testing.AdamLeafRule` (a log_t by AdamW of its rank's own
      gradient, held against the single rank's by its terms); replicated
      leaves bytewise equal across each model group and params across each
      data group; each rank's param and moment shapes its spec cut; the
      soft-PQ step takes the single-rank step's codes and table integers
-     where its own differ at a tie, each difference checked. Per rank each
-     step's wall time, peak memory and collectives per axis; the card's
-     used memory. No LUT kernel launches ("phase_launches" reads 0).
+     where its own differ at a tie, each difference checked. Then, in the
+     same ranks from the same start, FSDP (`ShardingRules(fsdp=True)`: each
+     rank its data part of every leaf the spec splits over "data" too,
+     gathered per block, the gradient reduce-scattered): (c) a DENSE step
+     and (d) a soft-PQ step, held the same way (the leaf rule on
+     the model shards gathered on the ranks), each rank's parts its
+     `param_spec(fsdp=True)` cut, its param and moment bytes beside
+     ZeRO-1's, the data gathers and reduce-scatters on lines of their own.
+     Per rank each step's wall time, peak memory (beside what the rank
+     held before the step: the earlier runs' results stay alive for the
+     parent's holds) and collectives per axis;
+     the card's used memory. No LUT kernel launches ("phase_launches"
+     reads 0, "14_fsdp" for the FSDP runs alone, counted from 0). One step
+     of each: the leaf rule after it holds the update, and multi-step
+     holds are the CPU tests' work.
  15. tensor-parallel training of the MoE, SSM and hybrid families on the
      same (2, 2) mesh (after 14, before 8 and 12: arctic's IPC-shared
      params stay allocated after phase 12), four rank processes on the one
      card over gloo (NCCL where the host has four): mamba2_370m at 2 layers
-     and zamba2_1p2b at 6 (one invocation of the shared block), each two
-     DENSE steps and one soft-PQ step, and arctic_480b at 1 layer, every
+     and zamba2_1p2b at 6 (one invocation of the shared block), each a
+     DENSE step and a soft-PQ step, and arctic_480b at 1 layer, every
      layer LUT, one soft-PQ step (its experts over both axes, tokens by the
      data all-to-all), all at full width on MarkovLM 4 x 128. Each job's
      single-rank steps run here first on the same global batches, its
@@ -267,7 +279,9 @@ Phases (any failed check exits non-zero; no phase is skipped):
      routing decisions on each rank bytewise the single rank's. Per rank
      each step's wall time, peak memory and collectives per axis (the data
      all-to-all's count, bytes and host time among them); the card's used
-     memory. No LUT kernel launches ("phase_launches" reads 0).
+     memory. Then one FSDP DENSE step of mamba2_370m, held against the same
+     single-rank steps. No LUT kernel launches ("phase_launches" reads 0,
+     "15_fsdp" for the FSDP run alone).
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -5009,8 +5023,9 @@ def tpt_rank(rank: int, devices: list[str], init: str, pin_path: str, go, releas
 
 
 def tpt_rank_work(mesh, pin_path: str, go) -> dict:
-    """(a) two DENSE steps and (b) one soft-PQ step of the rank's shard
-    (`tensor_parallel.place(train=True)`, ZeRO-1 inside it), each step's
+    """(a) a DENSE step and (b) a soft-PQ step of the rank's shard
+    (`tensor_parallel.place(train=True)`, ZeRO-1 inside it), then (c)-(d)
+    the same under FSDP (`ShardingRules(fsdp=True)`), each step's
     wall time, peak memory and collectives per axis; the params after the
     first DENSE step and after the soft-PQ step (the rank's shards), the
     soft-PQ step taking the single-rank step's codes and table integers
@@ -5030,7 +5045,7 @@ def tpt_rank_work(mesh, pin_path: str, go) -> dict:
     rules = ShardingRules.for_mesh(mesh)
     out: dict = {"rank": (mesh.data_rank, mesh.model_rank)}
 
-    def build(mode: str):
+    def build(mode: str, rules=rules, tag: str = ""):
         bundle, params, opt, frozen = tpt_setup(mode, dev)
         local, lp, lay = place(bundle, params, rules, mesh, train=True)
         del params
@@ -5042,50 +5057,77 @@ def tpt_rank_work(mesh, pin_path: str, go) -> dict:
                                                       frozen_paths)
         got_p = {p: [tuple(t.shape) for t in ls] for p, ls in reference_leaves(lp).items()}
         got_m = {p: [tuple(t.shape) for t in ls] for p, ls in reference_leaves(state.m).items()}
-        out[f"shapes_{mode}"] = [p for p in want_p if got_p.get(p) != want_p[p]] + \
+        out[f"shapes_{tag}{mode}"] = [p for p in want_p if got_p.get(p) != want_p[p]] + \
             [f"moment {p}" for p in want_m if got_m.get(p) != want_m[p]]
+        out[f"bytes_{tag}{mode}"] = (sum(t.numel() * t.element_size() for t in _tensors(lp)),
+                                     sum(t.numel() * t.element_size()
+                                         for t in _tensors([state.m, state.v])))
         step = make_data_parallel_step(local, opt, layout, frozen_mask=lfrozen,
                                        compute_dtype=torch.float32)
-        return bundle, lp, lay, state, step
+        return bundle, lp, lay, state, step, layout
 
     def timed(label, step, params, state, batch):
         mesh.reset_counters()
         torch.cuda.reset_peak_memory_stats(dev)
+        # what the rank holds before the step: its params and moments, and
+        # the earlier runs' results kept for the parent's holds
+        held = torch.cuda.memory_allocated(dev)
         (params, state, met), wall = timed_step(dev, step, params, state, batch)
         out.setdefault("steps", []).append({
             "label": label, "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
-            "wall": wall, "peak": torch.cuda.max_memory_allocated(dev),
+            "wall": wall, "peak": torch.cuda.max_memory_allocated(dev), "held": held,
             "coll": {a: dict(c) for a, c in mesh.axis_counters.items()}})
         return params, state
 
-    bundle, params, lay, state, step = build("dense")
-    batches = [tpt_batch(bundle.arch.vocab, i, dev) for i in range(2)]
+    bundle, params, lay, state, step, _ = build("dense")
+    batch = tpt_batch(bundle.arch.vocab, 0, dev)
     check(go.wait(600), "the parent's single-rank steps did not finish")
-    params, state = timed("dense 1", step, params, state, batches[0])
+    params, state = timed("dense 1", step, params, state, batch)
     out["dense_1"] = params
-    params, state = timed("dense 2", step, params, state, batches[1])
     out["dense_roles"] = len(lay.roles)
-    del state, step, batches
-    # (b) the soft-PQ step, pinned to the single-rank step's codes and integers
-    bundle, lparams, lay, state, step = build("lut_train")
-    rec_c = torch.load(pin_path, weights_only=False)
-    pin = tpt_cut_record(rec_c, lay, mesh, TPT_BATCH * TPT_SEQ)
-    del rec_c
-    hooks = testing.table_hooks(lparams, pin=pin, tie_eps=TIE_EPS)
-    with hooks as rec:
-        lparams, state = timed("soft-PQ", step, lparams, state,
-                               tpt_batch(bundle.arch.vocab, 0, dev))
-    failures = [f"rank {mesh.rank} {m}" for m in rec["off"]]
-    out["lut_pinned"] = rec["pinned"]
-    out["lut_flips"] = testing._rounding_flips(pin["rounding"], rec["rounding"],
-                                               f"rank {mesh.rank}", failures)
-    out["lut_failures"] = failures
-    out["lut_1"] = lparams
-    out["lut_m_log_t"] = {p: [float(t) for t in ls] for p, ls in reference_leaves(state.m).items()
-                          if p.endswith("log_t")}
-    out["partial"] = sorted(lay.partial)
-    del rec, pin, state, step
-    out["launches"], out["plain"] = counters.launches(), counters.plain_calls()
+    del state, step
+    def soft_pq(tag: str, rules=rules):
+        """The soft-PQ step, pinned to the single-rank step's codes and integers."""
+        bundle, lparams, lay, state, step, layout = build("lut_train", rules, tag)
+        rec_c = torch.load(pin_path, weights_only=False)
+        pin = tpt_cut_record(rec_c, lay, mesh, TPT_BATCH * TPT_SEQ)
+        del rec_c
+        hooks = testing.table_hooks(lparams, pin=pin, tie_eps=TIE_EPS)
+        with hooks as rec:
+            lparams, state = timed(f"{tag}soft-PQ", step, lparams, state,
+                                   tpt_batch(bundle.arch.vocab, 0, dev))
+        failures = [f"rank {mesh.rank} {m}" for m in rec["off"]]
+        out[f"{tag}lut_pinned"] = rec["pinned"]
+        out[f"{tag}lut_flips"] = testing._rounding_flips(pin["rounding"], rec["rounding"],
+                                                         f"rank {mesh.rank}", failures)
+        out[f"{tag}lut_failures"] = failures
+        out[f"{tag}lut_1"] = layout.model_shards(lparams)
+        out[f"{tag}lut_m_log_t"] = {p: [float(t) for t in ls]
+                                    for p, ls in reference_leaves(state.m).items()
+                                    if p.endswith("log_t")}
+        out["partial"] = sorted(lay.partial)
+
+    # (b) the soft-PQ step
+    soft_pq("")
+    torch.cuda.empty_cache()
+    zero1 = counters.launches(), counters.plain_calls()
+    counters.reset()
+    # (c) FSDP (ShardingRules(fsdp=True)): a DENSE step from the same start,
+    # each rank its data part of every leaf the spec splits over "data" too
+    fsdp = ShardingRules.for_mesh(mesh, fsdp=True)
+    bundle, params, lay, state, step, layout = build("dense", fsdp, "fsdp ")
+    params, state = timed("fsdp dense 1", step, params, state, batch)
+    out["fsdp dense_1"] = layout.model_shards(params)
+    out["fsdp_split"] = len(lay.fsdp)
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+    # (d) FSDP's soft-PQ step
+    soft_pq("fsdp ", fsdp)
+    out["fsdp_launches"], out["fsdp_plain"] = counters.launches(), counters.plain_calls()
+    # the phase's counts: (a)-(b)'s and (c)-(d)'s
+    out["launches"] = {k: zero1[0].get(k, 0) + out["fsdp_launches"].get(k, 0)
+                       for k in zero1[0].keys() | out["fsdp_launches"].keys()}
+    out["plain"] = zero1[1] + out["fsdp_plain"]
     torch.cuda.empty_cache()
     return out
 
@@ -5140,7 +5182,8 @@ def tpt_hold(results: list, dev, bundle, single, single_1, start, rule, lbundle,
     from repro_torch.weights import reference_leaves, tree_map_ref
 
     ranks = {tuple(val["rank"]): {k: tree_map_ref(lambda _p, t: t.to(dev), v)
-                                  if k in ("dense_1", "lut_1") else v
+                                  if k in ("dense_1", "lut_1", "fsdp dense_1", "fsdp lut_1")
+                                  else v
                                   for k, v in val.items()} for val in results}
     rules = ShardingRules(data=TPT_MESH[0], model=TPT_MESH[1])
     out: dict = {"rank_counts": [(r["launches"], r["plain"]) for r in ranks.values()]}
@@ -5149,7 +5192,7 @@ def tpt_hold(results: list, dev, bundle, single, single_1, start, rule, lbundle,
               f"rank {r['rank']}'s shards are not its spec cut: "
               f"{(r['shapes_dense'] + r['shapes_lut_train'])[:5]}")
 
-    # (a) DENSE: two steps' losses, the first step's params by the leaf rule
+    # (a) DENSE: the step's loss, the params after it by the leaf rule
     lay = tp_layout(bundle, rules, train=True)
     for i, (loss, wall) in enumerate(single):
         for r in ranks.values():
@@ -5172,52 +5215,113 @@ def tpt_hold(results: list, dev, bundle, single, single_1, start, rule, lbundle,
     # (b) soft-PQ: the loss, the pins, the leaf rule, log_t by its own gradient
     llay = tp_layout(lbundle, rules, train=True)
     lloss = float(lmet["loss"])
-    failures = [f for r in ranks.values() for f in r["lut_failures"]]
-    check(not failures, "tp-train soft-PQ ties: " + "; ".join(failures[:5]))
-    for r in ranks.values():
-        s = r["steps"][2]
-        check(abs(s["loss"] - lloss) <= TPT_LOSS_RTOL * abs(lloss),
-              f"tp-train soft-PQ rank {r['rank']}: loss {s['loss']!r}, single-rank {lloss!r}")
-    got_1 = tpt_assemble({k: r["lut_1"] for k, r in ranks.items()}, llay)
-    start_l, want_l = reference_leaves(lstart), reference_leaves(lsingle_1)
-    n_log_t = 0
-    for path, ls in reference_leaves(got_1).items():
-        if not path.endswith("log_t"):
-            continue
-        for j, p1 in enumerate(ls):
-            g_tp = ranks[(0, 0)]["lut_m_log_t"][path][j] / (1 - lopt.b1)
-            g_1 = single_m_log_t[path][j] / (1 - lopt.b1)
-            check(abs(g_tp - g_1) <= LOG_T_TERMS * max(terms[path][j], 1e-30),
-                  f"{path}[{j}]: log_t gradient {g_tp!r} against {g_1!r} (terms "
-                  f"{terms[path][j]:.3g})")
-            p0 = start_l[path][j]
-            tree = {"site": {"log_t": p0}}
-            want, _, _ = dataclasses.replace(lopt, clip_norm=None).update(
-                {"site": {"log_t": torch.full_like(p0, g_tp)}}, lopt.init(tree), tree)
-            want = want["site"]["log_t"]
-            ulp = torch.finfo(torch.float32).eps * float(want.abs())
-            check(float((p1 - want).abs()) <= 1e-5 * float((want - p0).abs()) + 2 * ulp,
-                  f"{path}[{j}]: log_t after the step {float(p1)!r}, AdamW of its own gradient "
-                  f"{float(want)!r}")
-            n_log_t += 1
-    got_1 = tree_map_ref(lambda p, g, w: w if p.endswith("log_t") else g, got_1, lsingle_1)
-    lworst, lwhere = lrule.check(got_1, lsingle_1, lstart)
-    check(lworst <= 1.0, f"tp-train soft-PQ params after the step off the single-rank step's: "
-          f"{lworst:.3g} of the bound at {lwhere}")
-    bad = tpt_replicas({k: r["lut_1"] for k, r in ranks.items()}, llay)
-    check(not bad, "tp-train soft-PQ replicas differ: " + "; ".join(bad[:5]))
-    pinned = sum(r["lut_pinned"] for r in ranks.values())
-    flips = sum(r["lut_flips"] for r in ranks.values())
-    log(f"[tpt] (b) soft-PQ step (layer 1 LUT): loss {ranks[(0, 0)]['steps'][2]['loss']:.7f} "
+
+    def hold_lut(tag: str) -> tuple:
+        failures = [f for r in ranks.values() for f in r[f"{tag}lut_failures"]]
+        check(not failures, f"tp-train {tag}soft-PQ ties: " + "; ".join(failures[:5]))
+        for r in ranks.values():
+            s = next(st for st in r["steps"] if st["label"] == f"{tag}soft-PQ")
+            check(abs(s["loss"] - lloss) <= TPT_LOSS_RTOL * abs(lloss),
+                  f"tp-train {tag}soft-PQ rank {r['rank']}: loss {s['loss']!r}, single-rank "
+                  f"{lloss!r}")
+        got_1 = tpt_assemble({k: r[f"{tag}lut_1"] for k, r in ranks.items()}, llay)
+        start_l = reference_leaves(lstart)
+        n_log_t = 0
+        for path, ls in reference_leaves(got_1).items():
+            if not path.endswith("log_t"):
+                continue
+            for j, p1 in enumerate(ls):
+                g_tp = ranks[(0, 0)][f"{tag}lut_m_log_t"][path][j] / (1 - lopt.b1)
+                g_1 = single_m_log_t[path][j] / (1 - lopt.b1)
+                check(abs(g_tp - g_1) <= LOG_T_TERMS * max(terms[path][j], 1e-30),
+                      f"{tag}{path}[{j}]: log_t gradient {g_tp!r} against {g_1!r} (terms "
+                      f"{terms[path][j]:.3g})")
+                p0 = start_l[path][j]
+                tree = {"site": {"log_t": p0}}
+                want, _, _ = dataclasses.replace(lopt, clip_norm=None).update(
+                    {"site": {"log_t": torch.full_like(p0, g_tp)}}, lopt.init(tree), tree)
+                want = want["site"]["log_t"]
+                ulp = torch.finfo(torch.float32).eps * float(want.abs())
+                check(float((p1 - want).abs()) <= 1e-5 * float((want - p0).abs()) + 2 * ulp,
+                      f"{tag}{path}[{j}]: log_t after the step {float(p1)!r}, AdamW of its own "
+                      f"gradient {float(want)!r}")
+                n_log_t += 1
+        got_1 = tree_map_ref(lambda p, g, w: w if p.endswith("log_t") else g, got_1, lsingle_1)
+        lworst, lwhere = lrule.check(got_1, lsingle_1, lstart)
+        check(lworst <= 1.0, f"tp-train {tag}soft-PQ params after the step off the single-rank "
+              f"step's: {lworst:.3g} of the bound at {lwhere}")
+        bad = tpt_replicas({k: r[f"{tag}lut_1"] for k, r in ranks.items()}, llay)
+        check(not bad, f"tp-train {tag}soft-PQ replicas differ: " + "; ".join(bad[:5]))
+        return (sum(r[f"{tag}lut_pinned"] for r in ranks.values()),
+                sum(r[f"{tag}lut_flips"] for r in ranks.values()), lworst, lwhere, n_log_t)
+
+    pinned, flips, lworst, lwhere, n_log_t = hold_lut("")
+    zl_loss = next(st for st in ranks[(0, 0)]["steps"] if st["label"] == "soft-PQ")["loss"]
+    log(f"[tpt] (b) soft-PQ step (layer 1 LUT): loss {zl_loss:.7f} "
         f"(single-rank {lloss:.7f}, {lwall:.3f}s); codes taken from the single-rank step at a "
         f"near-tie: {pinned} over the 4 ranks; fake-quant entries one step off at a "
         f"half-integer: {flips}; every other param leaf within {lworst:.3f} of the leaf rule's "
         f"bound ({lwhere}); {n_log_t} log_t within {LOG_T_TERMS} of their terms and equal to "
         f"AdamW of their own gradient; replicas bytewise equal; partial leaves summed over "
         f"\"model\": {len(ranks[(0, 0)]['partial'])}")
+    # (c) FSDP DENSE: the loss, the leaf rule after the step (the rank's
+    # data parts gathered to its model shard on the rank), the spec cut
+    for r in ranks.values():
+        check(not r["shapes_fsdp dense"] and not r["shapes_fsdp lut_train"],
+              f"rank {r['rank']}'s FSDP parts are not its spec cut: "
+              f"{(r['shapes_fsdp dense'] + r['shapes_fsdp lut_train'])[:5]}")
+        for i, (loss, _) in enumerate(single):
+            s = next(st for st in r["steps"] if st["label"] == f"fsdp dense {i + 1}")
+            check(abs(s["loss"] - loss) <= TPT_LOSS_RTOL * abs(loss),
+                  f"FSDP DENSE step {i} rank {r['rank']}: loss {s['loss']!r}, single-rank "
+                  f"{loss!r}")
+    fworst, fwhere = rule.check(tpt_assemble({k: r["fsdp dense_1"] for k, r in ranks.items()},
+                                             lay), single_1, start)
+    check(fworst <= 1.0, f"FSDP DENSE params after one step off the single-rank step's: "
+          f"{fworst:.3g} of the bound at {fwhere}")
+    bad = tpt_replicas({k: r["fsdp dense_1"] for k, r in ranks.items()}, lay)
+    check(not bad, "FSDP DENSE model shards differ: " + "; ".join(bad[:5]))
+    flosses = [next(st for st in ranks[(0, 0)]["steps"] if st["label"] == f"fsdp dense {i}")
+               ["loss"] for i in range(1, len(single) + 1)]
+    log(f"[tpt] (c) FSDP DENSE step (ShardingRules{TPT_MESH}, fsdp=True: "
+        f"{ranks[(0, 0)]['fsdp_split']} leaves over \"data\" too): loss "
+        f"{', '.join(f'{x:.7f}' for x in flosses)} (single-rank "
+        f"{', '.join(f'{x:.7f}' for x, _ in single)}); after the step every param leaf within "
+        f"{fworst:.3f} of the leaf rule's bound ({fwhere}); each rank's parts and moments its "
+        f"ShardingRules{TPT_MESH}(fsdp=True) cut, its model shards gathered bytewise equal "
+        f"across each data group")
+    pinned, flips, fl_worst, fl_where, n_log_t = hold_lut("fsdp ")
+    fl_loss = next(st for st in ranks[(0, 0)]["steps"] if st["label"] == "fsdp soft-PQ")["loss"]
+    log(f"[tpt] (d) FSDP soft-PQ step: loss {fl_loss:.7f} (single-rank {lloss:.7f}); codes "
+        f"pinned at a near-tie {pinned}, entries one step off {flips}; every other param leaf "
+        f"within {fl_worst:.3f} of the leaf rule's bound ({fl_where}); {n_log_t} log_t held")
+    for (d, m), r in sorted(ranks.items()):
+        zb, fb = r["bytes_dense"], r["bytes_fsdp dense"]
+        log(f"[tpt] rank ({d}, {m}) bytes: ZeRO-1 params {zb[0] / 2**30:.3f} GiB + moments "
+            f"{zb[1] / 2**30:.3f} GiB; FSDP params {fb[0] / 2**30:.3f} GiB + moments "
+            f"{fb[1] / 2**30:.3f} GiB (DENSE); soft-PQ ZeRO-1 "
+            f"{r['bytes_lut_train'][0] / 2**30:.3f} + {r['bytes_lut_train'][1] / 2**30:.3f}, "
+            f"FSDP {r['bytes_fsdp lut_train'][0] / 2**30:.3f} + "
+            f"{r['bytes_fsdp lut_train'][1] / 2**30:.3f} GiB")
+        for st in r["steps"]:
+            if st["label"].startswith("fsdp"):
+                c = st["coll"]["data"]
+                for name in ("all_gather", "reduce_scatter"):
+                    log(f"[tpt] rank ({d}, {m}) {st['label']}: data {name} {c[name]}x "
+                        f"{c[name + '_bytes'] / 1e6:.1f} MB {1e3 * c[name + '_s']:.1f} ms")
+    fsdp_launches = {k: sum(r["fsdp_launches"].get(k, 0) for r in ranks.values())
+                     for r0 in ranks.values() for k in r0["fsdp_launches"]}
+    check(sum(fsdp_launches.values()) == 0 and all(r["fsdp_plain"] == 0
+                                                   for r in ranks.values()),
+          f"phase 14's FSDP runs reached a LUT kernel or a plain version: {fsdp_launches}")
+    out["fsdp"] = {"launches": fsdp_launches, "worst": fworst, "lut_worst": fl_worst,
+                   "losses": flosses,
+                   "bytes": {str(k): (r["bytes_dense"], r["bytes_fsdp dense"])
+                             for k, r in ranks.items()}}
     for (d, m), r in sorted(ranks.items()):
         log(f"[tpt] rank ({d}, {m}): " + "; ".join(
-            f"{s['label']} {s['wall']:.3f}s, peak {s['peak'] / 2**30:.2f} GiB, "
+            f"{s['label']} {s['wall']:.3f}s, peak {s['peak'] / 2**30:.2f} GiB "
+            f"({s['held'] / 2**30:.2f} held before the step), "
             + tpt_coll_line(s["coll"]) for s in r["steps"]))
     out["steps"] = {k: r["steps"] for k, r in ranks.items()}
     return out
@@ -5226,10 +5330,11 @@ def tpt_hold(results: list, dev, bundle, single, single_1, start, rule, lbundle,
 def phase_tp_train(dev, scratch: Path) -> dict:
     """Tensor-parallel training at (data, model) = (2, 2): four rank
     processes on the one card over gloo (four cards would take NCCL, not
-    measured here). (a) two DENSE steps and (b) one soft-PQ step of
-    qwen3_1p7b at full width and TPT_LAYERS layers against the single-rank
-    step here on the same global batches, run before the ranks' steps and
-    freed: the loss within TPT_LOSS_RTOL, after one step every param leaf
+    measured here). (a) a DENSE step and (b) a soft-PQ step of qwen3_1p7b
+    at full width and TPT_LAYERS layers, then (c)-(d) the same under FSDP,
+    against the single-rank step here on the same global batch, run
+    before the ranks' steps and freed: the loss within TPT_LOSS_RTOL,
+    after the step every param leaf
     (gathered to whole leaves) within the leaf rule (a log_t by AdamW of
     its rank's own gradient, which is held against the single rank's by its
     terms), replicated leaves bytewise equal across each model group and
@@ -5273,18 +5378,13 @@ def phase_tp_train(dev, scratch: Path) -> dict:
         # the single-rank steps on the same global batches, while the ranks start
         bundle, start, opt, _ = tpt_setup("dense", dev)
         vocab = bundle.arch.vocab
-        batches = [tpt_batch(vocab, i, dev) for i in range(2)]
+        batches = [tpt_batch(vocab, 0, dev)]
         step = make_train_step(bundle, opt, compute_dtype=torch.float32)
-        rule, single, params, state = AdamLeafRule(opt), [], start, opt.init(start)
-        for i in range(2):
-            m_old = state.m
-            (params, state, met), wall = timed_step(dev, step, params, state, batches[i])
-            if i == 0:
-                rule.note(tree_map_ref(lambda _p, m, m0: m - opt.b1 * m0, state.m, m_old),
-                          TPT_LR)
-                single_1 = params
-            single.append((float(met["loss"]), wall))
-        del state, step, m_old, params
+        rule = AdamLeafRule(opt)
+        (single_1, state, met), wall = timed_step(dev, step, start, opt.init(start), batches[0])
+        rule.note(state.m, TPT_LR)                     # m = (1 - b1) g after the first step
+        single = [(float(met["loss"]), wall)]
+        del state, step
         lbundle, lstart, lopt, lfrozen = tpt_setup("lut_train", dev)
         lstep = make_train_step(lbundle, lopt, frozen_mask=lfrozen, compute_dtype=torch.float32)
         with testing.table_hooks(lstart) as rec_c:
@@ -5371,9 +5471,14 @@ TPF_MESH = (2, 2)
 # zamba2_1p2b at 6 (one invocation of the shared block), arctic_480b at 1
 # (every layer LUT; its DENSE step, ~107 GB of experts, gradients and AdamW
 # moments, and llama4_maverick_400b are held by the CPU tests)
-TPF_JOBS = (("mamba2_370m", 2, "dense", 2), ("mamba2_370m", 2, "lut_train", 1),
-            ("zamba2_1p2b", 6, "dense", 2), ("zamba2_1p2b", 6, "lut_train", 1),
-            ("arctic_480b", 1, "lut_train", 1))
+# (arch, layers, mode, steps, fsdp): the FSDP job (ShardingRules(fsdp=True))
+# follows the ZeRO-1 job of the same model and is held against its single-rank steps.
+# One step each: the leaf rule after it holds the update (multi-step holds,
+# the float64 witness among them, are the CPU tests' work)
+TPF_JOBS = (("mamba2_370m", 2, "dense", 1, False), ("mamba2_370m", 2, "dense", 1, True),
+            ("mamba2_370m", 2, "lut_train", 1, False),
+            ("zamba2_1p2b", 6, "dense", 1, False), ("zamba2_1p2b", 6, "lut_train", 1, False),
+            ("arctic_480b", 1, "lut_train", 1, False))
 TPF_LR = 1e-3            # constant: the leaf rule's bound is 2 lr a step (100x for log_t)
 # under bf16 weights (arctic_480b) a bf16 leaf's gradient is rounded to bf16,
 # and a codebook's gradient through its bf16 table is a contraction rounded
@@ -5544,7 +5649,7 @@ def tpf_rank_work(mesh, job: dict) -> dict:
 
     dev = mesh.device
     counters.reset()
-    rules = ShardingRules.for_mesh(mesh)
+    rules = ShardingRules.for_mesh(mesh, fsdp=job["fsdp"])
     bundle, opt = tpf_bundle(job["name"], job["layers"], job["mode"])
     t0 = time.perf_counter()
     local, lp, lay = init_rank(bundle, rules, mesh,
@@ -5565,7 +5670,10 @@ def tpf_rank_work(mesh, job: dict) -> dict:
                  "shapes": [p for p in want_p if got_p.get(p) != want_p[p]]
                  + [f"moment {p}" for p in want_m if got_m.get(p) != want_m[p]],
                  "kept": lay.kept, "failures": [], "pinned": 0, "flips": 0, "init_s": init_s,
-                 "param_bytes": sum(t.numel() * t.element_size() for t in _tensors(lp))}
+                 "param_bytes": sum(t.numel() * t.element_size() for t in _tensors(lp)),
+                 "moment_bytes": sum(t.numel() * t.element_size()
+                                     for t in _tensors([state.m, state.v])),
+                 "fsdp_split": len(lay.fsdp)}
     step = make_data_parallel_step(local, opt, layout, frozen_mask=lfrozen,
                                    compute_dtype=torch.float32)
     pin = None
@@ -5593,7 +5701,9 @@ def tpf_rank_work(mesh, job: dict) -> dict:
         if i == 0:
             n_moe = len(routes) // 2         # each MoE layer routes again in its recomputation
             out["routes"] = routes[:n_moe]
-            trainable = tree_map_ref(lambda p, t: None if p in frozen_paths else t, lp)
+            # the model shards (an FSDP rank's data parts gathered over "data")
+            trainable = layout.model_shards(
+                tree_map_ref(lambda p, t: None if p in frozen_paths else t, lp))
             out["local_1"] = trainable
             whole = layout.gather_model(trainable)
             if mesh.rank == 0:
@@ -5705,7 +5815,7 @@ def tpf_free_frozen(s: dict, dev) -> None:
         f"used")
 
 
-def tpf_hold(label: str, s: dict, results: list, dev) -> dict:
+def tpf_hold(label: str, s: dict, results: list, steps: int, dev) -> dict:
     """Phase 15's holds of one job's rank `results` against its single-rank
     steps `s`: the losses, the pins, the leaf rule after one step (a log_t
     by AdamW of its own gradient, that gradient by its terms), the
@@ -5723,8 +5833,10 @@ def tpf_hold(label: str, s: dict, results: list, dev) -> dict:
         check(not r["shapes"], f"{label}: rank {r['rank']}'s shards are not its cut: "
               f"{r['shapes'][:5]}")
         check(not r["failures"], f"{label}: " + "; ".join(r["failures"][:5]))
-        for i, (loss, _) in enumerate(s["single"]):
-            got = r["steps"][i]["loss"]
+        check(len(r["steps"]) == steps, f"{label}: rank {r['rank']} ran {len(r['steps'])} "
+              f"step(s), not {steps}")
+        for i, ((loss, _), st) in enumerate(zip(s["single"][:steps], r["steps"])):
+            got = st["loss"]
             check(abs(got - loss) <= TPT_LOSS_RTOL * abs(loss),
                   f"{label} step {i} rank {r['rank']}: loss {got!r}, single-rank {loss!r}")
         for j, (got, want) in enumerate(zip(r["routes"], s["routes"])):
@@ -5826,9 +5938,15 @@ def tpf_hold(label: str, s: dict, results: list, dev) -> dict:
         f"leaves or blocks summed over \"model\"")
     for (d, m), r in sorted(ranks.items()):
         log(f"[tpf] {label} rank ({d}, {m}): its part drawn in {r['init_s']:.2f}s "
-            f"({r['param_bytes'] / 1e9:.2f} GB); " + "; ".join(
+            f"({r['param_bytes'] / 1e9:.2f} GB of params, {r['moment_bytes'] / 1e9:.2f} GB of "
+            f"moments; {r['fsdp_split']} leaves over \"data\" too); " + "; ".join(
             f"step {i} {st['wall']:.3f}s, peak {st['peak'] / 2**30:.2f} GiB, "
             + tpt_coll_line(st["coll"]) for i, st in enumerate(r["steps"])))
+        for i, st in enumerate(r["steps"]) if r["fsdp_split"] else ():
+            c = st["coll"]["data"]
+            for name in ("all_gather", "reduce_scatter"):
+                log(f"[tpf] {label} rank ({d}, {m}) step {i}: data {name} {c[name]}x "
+                    f"{c[name + '_bytes'] / 1e6:.1f} MB {1e3 * c[name + '_s']:.1f} ms")
     return {"steps": {k: r["steps"] for k, r in ranks.items()}, "worst": worst,
             "counts": [(r["launches"], r["plain"]) for r in ranks.values()]}
 
@@ -5870,18 +5988,24 @@ def phase_tp_train_families(dev, scratch: Path) -> dict:
     t0 = time.perf_counter()
     for p in procs:
         p.start()
-    out: dict = {"jobs": {}}
+    out: dict = {"jobs": {}, "fsdp_launches": {}}
     counts: list = []
     try:
-        for name, layers, mode, steps in TPF_JOBS:
-            label = f"{name} {mode} ({layers} layer{'s' if layers > 1 else ''})"
+        s, s_key = None, None
+        for name, layers, mode, steps, fsdp in TPF_JOBS:
+            label = (f"{name} {mode} ({layers} layer{'s' if layers > 1 else ''}"
+                     + (", FSDP)" if fsdp else ")"))
             t_job = time.perf_counter()
-            s = tpf_single(name, layers, mode, steps, dev)
-            pygc.collect()
-            torch.cuda.empty_cache()
+            if s_key != (name, layers, mode):     # an FSDP job reuses its model's single rank
+                s = None
+                pygc.collect()
+                s, s_key = tpf_single(name, layers, mode, steps, dev), (name, layers, mode)
+                pygc.collect()
+                torch.cuda.empty_cache()
+                tpf_free_frozen(s, dev)
             t_single = time.perf_counter() - t_job
-            tpf_free_frozen(s, dev)
-            job = {"name": name, "layers": layers, "mode": mode, "steps": steps, "pin": None}
+            job = {"name": name, "layers": layers, "mode": mode, "steps": steps, "pin": None,
+                   "fsdp": fsdp}
             if "pin" in s:
                 job["pin"] = str(pin_path)
                 torch.save(s.pop("pin"), pin_path)
@@ -5903,13 +6027,21 @@ def phase_tp_train_families(dev, scratch: Path) -> dict:
             out["used_mib"] = max(out.get("used_mib", 0), gpu_used_mib())
             # the ranks' tensors are IPC views of their memory: every reference
             # to them dies with `tpf_hold`'s frame, before the next job
-            held = tpf_hold(label, s, [val for _, val in got], dev)
-            counts += held.pop("counts")
+            held = tpf_hold(label, s, [val for _, val in got], steps, dev)
+            job_counts = held.pop("counts")
+            counts += job_counts
+            if fsdp:
+                for ln, _ in job_counts:
+                    for k, v in ln.items():
+                        out["fsdp_launches"][k] = out["fsdp_launches"].get(k, 0) + v
+                check(all(sum(ln.values()) == 0 and pc == 0 for ln, pc in job_counts),
+                      f"phase 15's FSDP run reached a LUT kernel or a plain version: "
+                      f"{job_counts}")
             held.update(single_s=t_single, ranks_s=t_ranks, init_s=s["init_s"])
             out["jobs"][label] = held
             log(f"[tpf] {label}: single-rank here {t_single:.1f}s (params built in "
                 f"{s['init_s']:.1f}s), the ranks' parts, steps and results {t_ranks:.1f}s")
-            del got, s
+            del got
             pygc.collect()
             torch.cuda.empty_cache()
             torch.cuda.ipc_collect()
@@ -6042,7 +6174,9 @@ def main() -> int:
                                         "11": tp["launches"][name],
                                         "12": tp12["launches"][name],
                                         "14": tpt["launches"].get(name, 0),
-                                        "15": tpf["launches"].get(name, 0)},
+                                        "14_fsdp": tpt["fsdp"]["launches"].get(name, 0),
+                                        "15": tpf["launches"].get(name, 0),
+                                        "15_fsdp": tpf["fsdp_launches"].get(name, 0)},
                      "max_abs_err": k["err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})

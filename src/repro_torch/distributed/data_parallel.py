@@ -42,8 +42,23 @@ broadcasts it; elsewhere a rank holds a contiguous slice of every layer.
 a checkpoint (the ZeRO-1 shards over "data", then the model shards over
 "model"; rank 0 writes it: `train/trainer.py`), and `Zero1.cuts` tells
 `Checkpointer.restore(shardings=)` which part of each whole leaf a rank
-reads (its model shard, then its data shard). FSDP execution
-(`fsdp=True`) is not ported yet (`NEXT_SLICE`, ROADMAP Queue A item 5).
+reads (its model shard, then its data shard).
+
+FSDP (`ShardingRules(fsdp=True)`, the reference's ZeRO-3 style rules) runs
+on the same class. A rank holds only its part of each param that
+`param_spec(fsdp=True)` splits over "data" too (the embedding, every 2-D
+`w`, a frozen one included), inside its model shard: `tensor_parallel.
+place` and `init_rank` cut it (`Layout.fsdp`), on a data mesh too (a
+layout with no model axis). The forward gathers a block's data-split
+leaves inside the block's recomputed function and reduce-scatters their
+gradient in its backward (`models/sharded.py`, `gather_data`), so that in
+step 2 those leaves take no part in the data all-mean; the norm of step 3
+sums their squares over "data" (and over "model" where they are split
+there too); step 4 updates each leaf's part and its moments of the same
+shape (`opt_spec` adds no ZeRO-1 cut under fsdp), and no all-gather
+follows. `gather_state` gathers the params over "data" as well, and
+`cuts` gives each param its data part, so that a commit is the reference's
+layout with fsdp on or off, and restores under either.
 """
 
 from __future__ import annotations
@@ -58,10 +73,6 @@ from repro_torch.distributed.sharding import ShardingRules, is_stacked
 from repro_torch.models import sharded
 from repro_torch.optim import AdamW, AdamWState, no_frozen
 from repro_torch.weights import flat_vector, reference_leaves, tree_map_ref, unflatten_vector
-
-NEXT_SLICE = ("FSDP execution (ShardingRules(fsdp=True): weights over \"data\" too) is not "
-              "ported yet: ROADMAP Queue A item 5")
-
 
 def local_batch(batch: dict[str, torch.Tensor], mesh, rules: ShardingRules | None = None,
                 accum: int = 1) -> dict[str, torch.Tensor]:
@@ -149,16 +160,21 @@ WHOLE = Cut()
 
 @dataclasses.dataclass
 class Zero1:
-    """One rank's ZeRO-1 layout of the params `like` (port layout, the
-    rank's tensor-parallel shard on a model mesh; only shapes are read) on
-    `mesh`: `plan` is the `Cut` of every leaf, by `rules.opt_spec` of its
-    reference path and whole stacked shape, taken inside the rank's model
-    shard (`tp`, a `tensor_parallel.Layout(train=True)`). Frozen leaves are
-    held whole (their model shard) and never updated. `sharded` marks the
-    leaves split over "model", `experts` those split over "data" too, and
-    `partial` what of each leaf the step sums over "model": False
-    (nothing), True (the whole leaf) or (dim, ((start, stop), ...)) its
-    replicated blocks."""
+    """One rank's ZeRO-1 or FSDP layout (the one class carries both:
+    `rules.fsdp`, the `fsdp` property, says which) of the params `like`
+    (port layout, the rank's tensor-parallel shard on a model mesh,
+    under FSDP its part of that; only shapes are read) on `mesh`: `plan` is
+    the `Cut` of every leaf's moments, by `rules.opt_spec` of its reference
+    path and whole stacked shape, taken inside the rank's model shard (`tp`,
+    a `tensor_parallel.Layout(train=True)`), and `params_plan` the `Cut` of
+    every param: its model shard, and under FSDP its data part of that
+    (`tp.fsdp`). Frozen leaves' moments are empty, and frozen leaves are
+    never updated. `sharded` marks the leaves split over "model", `experts`
+    those split over "data" too, `split` (from `params_plan`) those an FSDP
+    rank holds its data part of, and `partial` what of each leaf the step
+    sums over "model":
+    False (nothing), True (the whole leaf) or (dim, ((start, stop), ...))
+    its replicated blocks."""
 
     mesh: Any
     rules: ShardingRules
@@ -167,13 +183,16 @@ class Zero1:
     sharded: Any = None
     partial: Any = None
     experts: Any = None
+    params_plan: Any = None
 
     @classmethod
     def build(cls, mesh, like: Any, frozen: Any | None = None,
               rules: ShardingRules | None = None, tp: Any = None) -> "Zero1":
         rules = rules or ShardingRules.for_mesh(mesh)
-        if rules.fsdp:
-            raise NotImplementedError(NEXT_SLICE)
+        if rules.fsdp and (tp is None or not tp.train or tp.tp != rules.model):
+            raise ValueError("FSDP trains a rank's parts: pass tp=, the layout of "
+                             "tensor_parallel.place(..., train=True) or init_rank (a data "
+                             "mesh's too)")
         if rules.model > 1 and (tp is None or not tp.train or tp.tp != rules.model):
             raise ValueError("a mesh with model > 1 trains a rank's tensor-parallel shard: "
                              "pass tp=, the layout of tensor_parallel.place(..., train=True)")
@@ -183,8 +202,9 @@ class Zero1:
         n, rank = rules.data, mesh.data_rank
         m_rank = 0 if tp is None else mesh.model_rank
         cuts = {} if tp is None else tp.cuts
+        fsdp = {} if tp is None else tp.fsdp
 
-        def cut(path: str, leaf, fz: bool) -> Cut:
+        def cut(path: str, leaf, fz: bool, of_params: bool) -> Cut:
             model, full, extra = None, list(leaf.shape), {}
             if path in cuts:
                 d, blocks = cuts[path]
@@ -199,7 +219,13 @@ class Zero1:
                 else:
                     full[d] = size * tp.tp
                     model = (d, m_rank * size, (m_rank + 1) * size)
-            if fz or extra.get("experts"):   # an expert's moments: the rank's experts whole
+            if path in fsdp and not (fz and not of_params):   # the rank's data part already
+                d, size = fsdp[path], leaf.shape[fsdp[path]]
+                return Cut(dim=d, start=rank * size, stop=(rank + 1) * size, model=model,
+                           **extra)
+            # ZeRO-1's params, a frozen leaf's (empty) moments, an expert's
+            # moments (the rank's experts whole) and FSDP's unsplit leaves: whole
+            if of_params or fz or extra.get("experts") or rules.fsdp:
                 return Cut(model=model, **extra)
             stacked = is_stacked(path)
             shape = (counts[path], *full) if stacked else tuple(full)
@@ -217,26 +243,46 @@ class Zero1:
 
         partial = {} if tp is None else tp.partial
         over = frozenset() if tp is None else tp.over_data
-        return cls(mesh=mesh, rules=rules, plan=tree_map_ref(cut, like, frozen), tp=tp,
+        return cls(mesh=mesh, rules=rules,
+                   plan=tree_map_ref(lambda p, leaf, fz: cut(p, leaf, fz, False), like, frozen),
+                   tp=tp,
                    sharded=tree_map_ref(lambda p, _l: p in cuts, like),
                    partial=tree_map_ref(lambda p, _l: (p in partial and (
                        partial[p] if partial[p] is not None else True)), like),
-                   experts=tree_map_ref(lambda p, _l: p in over, like))
+                   experts=tree_map_ref(lambda p, _l: p in over, like),
+                   params_plan=tree_map_ref(lambda p, leaf, fz: cut(p, leaf, fz, True), like,
+                                            frozen))
+
+    @property
+    def fsdp(self) -> bool:
+        """Whether a rank holds its data part of the params (FSDP)."""
+        return self.rules.fsdp
+
+    @property
+    def split(self) -> Any:
+        """Whether the rank holds a data part of each param (`params_plan`
+        cuts it over "data": FSDP's split leaves, frozen ones too)."""
+        return tree_map_ref(lambda _p, _s, c: c.dim is not None, self.sharded, self.params_plan)
 
     # ------------------------------------------------------------------
     def shard(self, tree: Any) -> Any:
-        """The rank's data part of each leaf of a tree of its params' layout
-        (None leaves, a frozen leaf's gradient, stay None)."""
+        """The rank's part of each leaf of a tree of its params' layout that
+        its moments hold (None leaves, a frozen leaf's gradient, stay None):
+        the tree itself under FSDP, where the params are parts already."""
+        if self.fsdp:
+            return tree
         return tree_map_ref(lambda _p, t, c: None if t is None else c.part(t), tree, self.plan)
 
-    def gather(self, shards: Any, like: Any) -> Any:
+    def gather(self, shards: Any, like: Any, plan: Any = None) -> Any:
         """The rank's model shards of the leaves from every data rank's
-        `shards` (the params' layout; `like` gives each leaf's shape): a
-        slice by all-gather, a layer by its owner's broadcast, over "data".
-        Every rank calls it, in the same order."""
+        `shards` (cut by `plan`, the moments' by default; `like` gives each
+        leaf's shape): a slice by all-gather, a layer by its owner's
+        broadcast, over "data". Every rank calls it, in the same order."""
         mesh = self.mesh
 
         def whole(_p, t, c: Cut, ref):
+            if t is None:
+                return t
             if c.owner is not None:
                 buf = t if c.held else t.new_empty(ref.shape)
                 return mesh.broadcast(buf.contiguous(), c.owner, "data")
@@ -245,7 +291,12 @@ class Zero1:
             out = mesh.all_gather(t.contiguous(), "data")      # (n, *slice)
             return out.movedim(0, c.dim).flatten(c.dim, c.dim + 1).contiguous()
 
-        return tree_map_ref(whole, shards, self.plan, like)
+        return tree_map_ref(whole, shards, self.plan if plan is None else plan, like)
+
+    def model_shards(self, params: Any) -> Any:
+        """The rank's model shards of its params (their data parts gathered
+        over "data" under FSDP; the params themselves otherwise)."""
+        return self.gather(params, params, self.params_plan) if self.fsdp else params
 
     def gather_model(self, tree: Any) -> Any:
         """The whole leaves from every model rank's shards (the params'
@@ -281,11 +332,12 @@ class Zero1:
 
     def gather_state(self, tree: dict[str, Any]) -> dict[str, Any]:
         """{"params", "opt": the rank's AdamWState} -> the same with whole
-        leaves in the reference's layout: the moments gathered over "data",
-        then (on a model mesh) params and moments over "model". Every rank
-        calls it; rank 0 checkpoints the result."""
+        leaves in the reference's layout: the moments (and under FSDP the
+        params) gathered over "data", then (on a model mesh) params and
+        moments over "model". Every rank calls it; rank 0 checkpoints the
+        result."""
         params, opt = tree["params"], tree["opt"]
-        out = {"params": params,
+        out = {"params": self.model_shards(params),
                "opt": AdamWState(step=opt.step, m=self.gather(opt.m, params),
                                  v=self.gather(opt.v, params))}
         if self.tp is None:
@@ -295,26 +347,27 @@ class Zero1:
                                   v=self.gather_model(out["opt"].v))}
 
     def cuts(self, params_like: Any) -> dict[str, Any]:
-        """The `Checkpointer.restore(shardings=)` tree of {"params", "opt"}:
-        each param the rank's model shard, each moment cut as its param is,
-        then to its data part."""
-        return {"params": tree_map_ref(lambda _p, _l, c: Cut(model=c.model, blocks=c.blocks,
-                                                             experts=c.experts),
-                                       params_like, self.plan),
+        """The `Checkpointer.restore(shardings=)` tree of {"params", "opt"}
+        (`params_like` the rank's params): each param the rank's model shard
+        (under FSDP its data part of that), each moment cut as its param's
+        model shard is, then to its data part."""
+        return {"params": tree_map_ref(lambda _p, _l, c: c, params_like, self.params_plan),
                 "opt": AdamWState(step=WHOLE, m=self.plan, v=self.plan)}
 
     def global_norm(self, opt: AdamW, grads: Any, frozen: Any) -> torch.Tensor:
         """The global norm of the whole model's reduced gradients, from the
         rank's shards: the sum of squares of what is split over "model"
-        summed over it (of the expert leaves, over "data" too), each
-        replicated leaf or block counted once."""
+        summed over it, of what an FSDP rank holds its data part of over
+        "data" (of the expert leaves and of data parts of model shards, over
+        both axes), each replicated leaf or block counted once."""
         if self.tp is None:
             return opt.global_norm(grads, frozen)
-        sq: dict[str, list[torch.Tensor]] = {"once": [], "model": [], "both": []}
+        sq: dict[str, list[torch.Tensor]] = {"once": [], "model": [], "data": [], "both": []}
 
-        def add(_p, g, fz, sh, pt, ex):
+        def add(_p, g, fz, sh, pt, ex, ds):
             if fz or g is None:
                 return
+            rep, cut = ("data", "both") if ds else ("once", "model")
             if ex:
                 sq["both"].append((g.float() ** 2).sum())
             elif isinstance(pt, tuple):      # replicated blocks once, the rest split
@@ -322,20 +375,23 @@ class Zero1:
                 at = 0
                 for lo, hi in ranges:
                     if lo > at:
-                        sq["model"].append((g.narrow(dim, at, lo - at).float() ** 2).sum())
-                    sq["once"].append((g.narrow(dim, lo, hi - lo).float() ** 2).sum())
+                        sq[cut].append((g.narrow(dim, at, lo - at).float() ** 2).sum())
+                    sq[rep].append((g.narrow(dim, lo, hi - lo).float() ** 2).sum())
                     at = hi
                 if g.shape[dim] > at:
-                    sq["model"].append((g.narrow(dim, at, g.shape[dim] - at).float() ** 2).sum())
+                    sq[cut].append((g.narrow(dim, at, g.shape[dim] - at).float() ** 2).sum())
             else:
-                sq["model" if sh else "once"].append((g.float() ** 2).sum())
+                sq[cut if sh else rep].append((g.float() ** 2).sum())
 
-        tree_map_ref(add, grads, frozen, self.sharded, self.partial, self.experts)
+        tree_map_ref(add, grads, frozen, self.sharded, self.partial, self.experts, self.split)
         zero = torch.zeros((), dtype=torch.float32, device=self.mesh.device)
         split = sum(sq["model"], zero)
-        if self.tp.over_data:
-            parts = self.mesh.all_reduce(torch.stack([split, sum(sq["both"], zero)]), "model")
-            split = parts[0] + self.mesh.all_reduce(parts[1:], "data")[0]
+        if self.tp.over_data or sq["data"] or sq["both"]:
+            parts = torch.stack([split, sum(sq["both"], zero)])
+            if self.mesh.size("model") > 1:
+                parts = self.mesh.all_reduce(parts, "model")
+            split = parts[0] + self.mesh.all_reduce(
+                (parts[1] + sum(sq["data"], zero)).reshape(1), "data")[0]
         else:
             split = self.mesh.all_reduce(split.reshape(1), "model")[0]
         return torch.sqrt(split + sum(sq["once"], zero))
@@ -354,7 +410,9 @@ def make_sharded_grads_fn(bundle, layout: Zero1, *, compute_dtype=torch.bfloat16
     mesh, rules = layout.mesh, layout.rules
     experts = layout.experts is not None and any(
         e for es in reference_leaves(layout.experts).values() for e in es)
-    if layout.tp is not None:
+    split_tree = layout.split
+    split = any(e for es in reference_leaves(split_tree).values() for e in es)
+    if layout.tp is not None and layout.tp.tp > 1:
         if loss_fn is not None:
             raise NotImplementedError("a tensor-parallel step takes the plain cross-entropy "
                                       "(vocab-parallel); a loss_fn over whole logits does not "
@@ -392,14 +450,17 @@ def make_sharded_grads_fn(bundle, layout: Zero1, *, compute_dtype=torch.bfloat16
                 for v in views:
                     v.copy_(flat[at:at + v.numel()].view(v.shape))
                     at += v.numel()
-        if experts:
+        if experts or split:
             # a rank's own experts: their gradient sums every data rank's
-            # tokens already; the data mean's division alone
+            # tokens already; the data mean's division alone. An FSDP rank's
+            # data parts: the data mean already (the gather's backward)
             n = mesh.size("data")
-            rest = tree_map_ref(lambda _p, g, e: None if e else g, grads, layout.experts)
+            rest = tree_map_ref(lambda _p, g, e, ds: None if e or ds else g, grads,
+                                layout.experts, split_tree)
             rest = unflatten_vector(mesh.all_mean(flat_vector(rest), "data"), rest)
-            grads = tree_map_ref(lambda _p, g, r, e: r if not e or g is None
-                                 else g.float().div(n).to(g.dtype), grads, rest, layout.experts)
+            grads = tree_map_ref(lambda _p, g, r, e, ds: r if not (e or ds) or g is None
+                                 else g if ds else g.float().div(n).to(g.dtype),
+                                 grads, rest, layout.experts, split_tree)
         else:
             # one fp32 bucket of every gradient, mean-reduced over "data"
             grads = unflatten_vector(mesh.all_mean(flat_vector(grads), "data"), grads)
@@ -416,8 +477,8 @@ def make_data_parallel_step(bundle, opt: AdamW, layout: Zero1, *,
     """The step (params, opt_state, batch) -> (params, opt_state, metrics) of
     one rank, `make_train_step`'s contract with `opt_state` the rank's
     ZeRO-1 state (`layout.init_state`), `batch` the global batch and, on a
-    model mesh, `bundle` and `params` the rank's tensor-parallel shard
-    (`tensor_parallel.place(..., train=True)`). Every rank of
+    model mesh or under FSDP, `bundle` and `params` the rank's local bundle
+    and its parts (`tensor_parallel.place(..., train=True)`). Every rank of
     `layout.mesh` calls it with the same batch, and every rank of a model
     shard with the same params; the loss and the metrics are the means over
     the data ranks."""
@@ -432,7 +493,8 @@ def make_data_parallel_step(bundle, opt: AdamW, layout: Zero1, *,
         gnorm = layout.global_norm(opt, grads, frozen) if opt.clip_norm is not None else None
         new_sh, new_opt, gnorm = opt.update(layout.shard(grads), opt_state,
                                             layout.shard(params), frozen, gnorm=gnorm)
-        new_params = layout.gather(new_sh, params)
+        # FSDP: the rank's parts are its params; ZeRO-1: every data rank's slices
+        new_params = new_sh if layout.fsdp else layout.gather(new_sh, params)
         return new_params, new_opt, step_metrics(loss, gnorm, aux, new_params)
 
     return step

@@ -10,9 +10,9 @@ rendezvous, after every old rank has left the old group), which restores
 the newest checkpoint cut for its mesh (`rescale`: each rank reads only its
 ZeRO-1 shards, `data_parallel.Zero1.cuts`: on a mesh with model > 1, its
 tensor-parallel shard's data part). The checkpoint holds whole arrays in
-the reference's format, so any (data, model) shape reads it. FSDP
-(`fsdp=True`) is not ported yet: `build` refuses it (ROADMAP Queue A item
-5).
+the reference's format, so any (data, model) shape reads it, with FSDP
+(`build(fsdp=True)`: the rules a step gets, under which each rank reads its
+data part of every param the spec splits over "data") or without.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.distributed.data_parallel import NEXT_SLICE
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.launch.mesh import HostMesh, mesh_from_devices
 
@@ -52,9 +51,8 @@ class ElasticContext:
         """Join the mesh of `devices` (best_mesh_shape's factorization) as
         `rank` at `init_method` (as `launch.mesh.make_host_mesh` takes them)
         and build its step. `make_step(mesh, rules)` builds the step of a
-        rank of that mesh (on a model mesh, of its tensor-parallel shard)."""
-        if fsdp:
-            raise NotImplementedError(NEXT_SLICE)
+        rank of that mesh (on a model mesh, of its tensor-parallel shard;
+        under `fsdp`, of its parts)."""
         data, model = best_mesh_shape(len(devices), prefer_model=prefer_model)
         devs = list(devices)[:data * model]
         mesh = mesh_from_devices([devs[i * model:(i + 1) * model] for i in range(data)],

@@ -18,7 +18,8 @@ axis sizes, and gives the reference's `PartitionSpec` entries exactly:
   SP   the dense KV cache's sequence axis over "model"; the paged pool's KV
        heads over "model"
   DP   the batch dim of every input over "data" (`batch_shardings`)
-  FSDP (`fsdp=True`) weights and tables also over "data"
+  FSDP (`fsdp=True`) weights and tables also over "data": a rank holds its
+       part, the forward gathers it per block (`data_parallel.py`)
   ZeRO-1 (`zero1=True`, the default) the AdamW moments over "data" even where
        the params are replicated (`opt_spec`)
 
@@ -28,8 +29,9 @@ reference's (row-parallel roles on, no FSDP, ZeRO-1 on). The data-parallel
 train step (`distributed/data_parallel.py`) places each rank's moments by
 `opt_spec`, inside its model shard on a (data, model) mesh, where the
 training layout (`tensor_parallel.layout(train=True)`) cuts each param by
-`param_spec`; FSDP's specs are the reference's, but no step runs them yet
-(ROADMAP Queue A item 5).
+`param_spec`; under `fsdp=True` that layout also cuts each param the spec
+splits over "data" (`tensor_parallel.Layout.fsdp`), which the forward
+gathers per block (`models/sharded.py`).
 
 How a rank of the port's tensor-parallel engine holds and runs its shards
 follows these specs (`distributed/tensor_parallel.py`), with the kept

@@ -76,7 +76,7 @@ left out of serving (`tp_refusal`): the enc-dec and the vision-LM, which
 the engine does not serve (ROADMAP Queue A item 5), and LUT_TRAIN bundles.
 
 Training (`layout(..., train=True)`, the reference's sharded step under
-`ShardingRules(mesh)` with fsdp off): the decoder LMs of every block kind
+`ShardingRules(mesh)`, fsdp off or on): the decoder LMs of every block kind
 (dense, MoE, mamba) and the hybrid, DENSE and LUT_TRAIN. A LUT_TRAIN column
 site holds its M shard of the frozen `w` and `b`, its `centroids` and
 `log_t` whole; a row site its C shard of `centroids` and the matching C·V
@@ -98,6 +98,17 @@ LUT_TRAIN expert, mamba and shared-block sites cut their frozen `w` with
 their site. `place` copies only the rank's part of each leaf. Families left
 out of training (`tp_refusal(train=True)`): the enc-dec and the vision-LM
 (ROADMAP Queue A item 5).
+
+FSDP (`ShardingRules(fsdp=True)`): inside its model shard a rank holds its
+part over "data" of each leaf the spec splits over "data" too (`Layout.
+fsdp`: the embedding, every 2-D `w`, a frozen one too, along the spec's
+"data" dim), but an expert leaf the rank already holds alone and a leaf
+whose "data" dim is the one its model shard is cut along (experts over
+"model": they stay whole over "data"). `place` and `init_rank` cut it; the
+local bundle names the leaves (`LMCfg.fsdp`, `HybridCfg.fsdp`) and the
+forward gathers them per block (`models/sharded.py`). On a data mesh
+(model = 1) the training layout has no roles and no model cuts: the data
+cuts alone.
 """
 
 from __future__ import annotations
@@ -172,18 +183,27 @@ class Layout:
     # m * data + d of tp * data along their cut dim
     data: int = 1
     over_data: frozenset[str] = frozenset()
+    # FSDP (`ShardingRules(fsdp=True)`): {reference path: dim} of the leaves a
+    # rank holds only its part of over the `dp` data ranks, along that dim of
+    # its per-layer model shard (the spec's "data" dim)
+    fsdp: dict[str, int] = dataclasses.field(default_factory=dict)
+    dp: int = 1
 
     def part(self, path: str, a: torch.Tensor, data_rank: int, model_rank: int,
              *, stacked: bool = False) -> torch.Tensor:
         """Rank (data_rank, model_rank)'s part of the whole leaf `a` at the
         reference path `path` (a stacked leaf's layer axis first where
-        `stacked`)."""
+        `stacked`): its model shard, then under FSDP its data part of that."""
         c = self.cuts.get(path)
         if c is not None and stacked:
             c = (c[0] + 1, c[1])
         if path in self.over_data:
-            return cut(a, c, model_rank * self.data + data_rank, self.tp * self.data)
-        return cut(a, c, model_rank, self.tp)
+            a = cut(a, c, model_rank * self.data + data_rank, self.tp * self.data)
+        else:
+            a = cut(a, c, model_rank, self.tp)
+        if path in self.fsdp:
+            a = cut(a, (self.fsdp[path] + stacked, None), data_rank, self.dp)
+        return a
 
 
 def _in_proj_blocks(mc) -> tuple[tuple[int, bool], ...]:
@@ -226,6 +246,8 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
     tp = rules.tp
     # training splits the experts over "data" too, where they divide
     dp = rules.data if train else 1
+    # a data mesh's training layout: no model axis, FSDP's data cuts alone
+    data_only = train and tp == 1
     specs = flatten_tree(bundle.param_specs())
     reg = site_roles(bundle)
     roles: dict[str, str] = {}
@@ -268,7 +290,7 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
         if m is not None:
             pair(prefix, ([m.gate] if m.gated else []) + [m.up], m.down)
 
-    for prefix, b in _blocks(bundle):
+    for prefix, b in [] if data_only else _blocks(bundle):
         if b.kind == "mamba":
             mc = b.mamba
             if pair(prefix, [mc.in_proj], mc.out_proj,
@@ -303,12 +325,15 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
                 if train:                    # the router's gradient: the rank's column's
                     partial.update(dict.fromkeys(
                         p for p in specs if p.startswith(f"{prefix}/moe/router/")))
-    if bundle.kind == "hybrid":
+    if data_only:
+        pass
+    elif bundle.kind == "hybrid":
         attn("shared", bundle.cfg.shared_attn)
         mlp("shared", bundle.cfg.shared_mlp)
     elif bundle.cfg.lm_head is not None and axes("lm_head", bundle.cfg.lm_head)[0]:
         roles["lm_head"] = "col" if train else "col_gather"
-    vocab = rules.param_spec("embed/table", tuple(specs["embed/table"].shape))[0] == "model"
+    vocab = (not data_only
+             and rules.param_spec("embed/table", tuple(specs["embed/table"].shape))[0] == "model")
 
     if vocab:
         cuts["embed/table"] = (0, None)
@@ -333,9 +358,22 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
             partial[f"{path}/log_t"] = None
             if role != "row":                # ... and a column or expert site's codebooks
                 partial[f"{path}/centroids"] = None
+    fsdp: dict[str, int] = {}
+    if train and rules.fsdp and rules.data > 1:
+        # the spec's "data" dim of every leaf it splits over "data" too, but
+        # the experts a rank already holds alone and a dim the rank's model
+        # shard is cut along (the experts over "model": they stay whole)
+        for path, ps in specs.items():
+            if path in over_data:
+                continue
+            spec = rules.param_spec(path, tuple(ps.shape), site_roles=reg)
+            if "data" in spec:
+                d = spec.index("data") - is_stacked(path)
+                if path not in cuts or cuts[path][0] != d:
+                    fsdp[path] = d
     return Layout(tp=tp, roles=roles, vocab=vocab, cuts=cuts, kept=tuple(dict.fromkeys(kept)),
                   train=train, partial=partial, data=ep_data,
-                  over_data=frozenset(over_data))
+                  over_data=frozenset(over_data), fsdp=fsdp, dp=rules.data if fsdp else 1)
 
 
 def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
@@ -395,13 +433,15 @@ def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
         cfg = dataclasses.replace(cfg, mamba_block=block("mamba_stack", cfg.mamba_block),
                                   shared_attn=attn("shared", cfg.shared_attn),
                                   shared_mlp=mlp("shared", cfg.shared_mlp),
-                                  vocab_sharded=lay.vocab, gather_logits=not lay.train)
+                                  vocab_sharded=lay.vocab, gather_logits=not lay.train,
+                                  fsdp=tuple(sorted(lay.fsdp.items())))
     else:
         segs = tuple((count, block(f"segments/{i}", b))
                      for i, (count, b) in enumerate(cfg.segments))
         head = local(cfg.lm_head, "lm_head") if "lm_head" in roles else cfg.lm_head
         cfg = dataclasses.replace(cfg, segments=segs, lm_head=head, vocab_sharded=lay.vocab,
-                                  gather_logits=not lay.train)
+                                  gather_logits=not lay.train,
+                                  fsdp=tuple(sorted(lay.fsdp.items())))
     return dataclasses.replace(bundle, cfg=cfg)
 
 
@@ -471,22 +511,28 @@ def init_rank(bundle: ModelBundle, rules: ShardingRules, mesh, gen: torch.Genera
     drawn in the init's order, the rank keeping its parts. An expert stack
     keeps the rank's experts as it is drawn (`moe.expert_part`), so that no
     rank holds a whole stack (arctic_480b: 26.8 GB a layer); the other
-    leaves are drawn whole, then cut."""
+    leaves are drawn whole, one layer (or the embedding, the head, the
+    shared block) at a time, and cut at once (`transformer.init_keeping`):
+    under FSDP too, a rank holds no more than one whole layer."""
     from repro_torch.models import moe
+    from repro_torch.models.transformer import init_keeping
 
     lay = layout(bundle, rules, train=True)
     d, m = mesh.data_rank, mesh.model_rank
     ep = {p for p, r in lay.roles.items() if r == "ep"}
     j, n = (m * lay.data + d, lay.tp * lay.data) if lay.over_data else (m, lay.tp)
-    with moe.expert_part(j, n) if ep else contextlib.nullcontext():
-        params = bundle.init(gen, device=device or mesh.device)
 
     def keep(path, leaf):
         if path.rsplit("/", 1)[0] in ep:             # already the rank's experts
             return leaf
         return lay.part(path, leaf, d, m).clone(memory_format=torch.contiguous_format)
 
-    return local_bundle(bundle, lay), tree_map_ref(keep, params), lay
+    def keep_group(prefix, tree):
+        return tree_map_ref(lambda rel, leaf: keep(f"{prefix}/{rel}", leaf), tree)
+
+    with moe.expert_part(j, n) if ep else contextlib.nullcontext(), init_keeping(keep_group):
+        params = bundle.init(gen, device=device or mesh.device)
+    return local_bundle(bundle, lay), params, lay
 
 
 def kernel_signatures(local: ModelBundle, lay: Layout,

@@ -25,11 +25,14 @@ Gloo takes CUDA tensors only for `all_reduce` and `broadcast`, so every
 collective of the tensor-parallel path is one of those two: a gather is an
 `all_reduce` of a zero-padded buffer (`gather_last`, `gather_dim`), and so
 is the max (`all_max`) of a CUDA tensor under gloo. The data axis adds a
-mean all-reduce (`all_mean`), an all-to-all (`all_to_all`) and an
-all-gather (`all_gather`): NCCL's `all_to_all_single` and
-`all_gather_into_tensor`, and gloo's on the CPU; on CUDA tensors under gloo
-both are an `all_reduce` of a zero-padded buffer, exact since each element
-has one non-zero contributor, but n times the bytes. The engine's control
+mean all-reduce (`all_mean`), an all-to-all (`all_to_all`), an
+all-gather (`all_gather`) and a reduce-scatter (`reduce_scatter`, FSDP's
+gradient of a gathered weight): NCCL's `all_to_all_single`,
+`all_gather_into_tensor` and `reduce_scatter_tensor`, and gloo's on the
+CPU; on CUDA tensors under gloo the first two are an `all_reduce` of a
+zero-padded buffer, exact since each element has one non-zero
+contributor, but n times the bytes, and the reduce-scatter an `all_reduce`
+of the whole tensor followed by the rank's slice. The engine's control
 messages (the scheduler's token rows, positions, slot masks, page tables)
 are int64 host tensors broadcast over a gloo control group of their own
 (`broadcast_ints`), beside the default group that carries the forward's
@@ -70,7 +73,8 @@ def backend_for(devices: Sequence[torch.device | str]) -> str:
     return "gloo"
 
 
-COLLECTIVES = ("all_reduce", "all_max", "all_mean", "all_to_all", "all_gather", "broadcast")
+COLLECTIVES = ("all_reduce", "all_max", "all_mean", "all_to_all", "all_gather",
+               "reduce_scatter", "broadcast")
 AXES = ("data", "model")
 
 
@@ -241,11 +245,35 @@ class HostMesh:
             dist.all_reduce(out, group=self._group(axis))
         else:
             out = t.new_empty((n * t.numel(),))
-            # all_gather_single is all_gather_into_tensor's newer name
-            gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-            gather(out, t.reshape(-1).contiguous(), group=self._group(axis))
+            dist.all_gather_into_tensor(out, t.reshape(-1).contiguous(), group=self._group(axis))
             out = out.view(n, *t.shape)
         self._count("all_gather", t0, t.numel() * t.element_size(), axis)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int, axis: str | None = None) -> torch.Tensor:
+        """The sum of every rank's `t` along `axis`, of which this rank keeps
+        its part along `dim` (the i-th of n equal parts on index i): a new
+        tensor. Under gloo on a CUDA tensor, an all_reduce of the whole
+        tensor, then the rank's slice."""
+        t0 = time.perf_counter()
+        n, r = self.size(axis), self.index(axis)
+        dim = dim % t.dim()
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} over {n} ranks")
+        m = t.shape[dim] // n
+        if n == 1:
+            out = t.clone()
+        elif self._emulated(t):
+            buf = t.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(buf, group=self._group(axis))
+            # a copy: a dim-0 part would be a view pinning the n-x buffer
+            out = buf.narrow(dim, r * m, m).clone(memory_format=torch.contiguous_format)
+        else:
+            inp = t.movedim(dim, 0).contiguous()         # rank i's part: rows [i m, (i+1) m)
+            part = inp.new_empty((m, *inp.shape[1:]))
+            dist.reduce_scatter_tensor(part, inp, group=self._group(axis))
+            out = part.movedim(0, dim).contiguous()
+        self._count("reduce_scatter", t0, t.numel() * t.element_size(), axis)
         return out
 
     def broadcast(self, t: torch.Tensor, src: int, axis: str | None = None) -> torch.Tensor:

@@ -29,7 +29,10 @@ paged, hold its KV heads), the embedding and the tied logits on its vocab
 rows (`HybridCfg.vocab_sharded`). A training rank keeps its vocab columns
 of the logits (`HybridCfg.gather_logits` off; `sharded.vocab_cross_entropy`),
 its recomputed mamba layers re-bind the mesh, and the shared block's heads
-and MLP columns take their gradient from every invocation.
+and MLP columns take their gradient from every invocation. An FSDP rank
+(`HybridCfg.fsdp`) gathers a mamba layer's data-split leaves inside its
+recomputed function, and the embedding's and the shared block's once per
+forward (`sharded.gather_data`).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from repro_torch.models.transformer import (
     block_apply,
     block_init,
     block_specs,
+    kept,
     _train_block_on,
     remat_active,
     zeros_like_specs,
@@ -81,6 +85,8 @@ class HybridCfg:
     out: SiteCfg                      # d_model -> d_model
     vocab_sharded: bool = False  # a tensor-parallel rank's vocab rows (models/sharded.py)
     gather_logits: bool = True   # False: a training rank's logits stay vocab-sharded
+    # FSDP: ((reference path, dim), ...) of the leaves a rank holds its "data" part of
+    fsdp: tuple[tuple[str, int], ...] = ()
 
     @property
     def invocation_points(self) -> tuple[int, ...]:
@@ -98,17 +104,18 @@ class HybridCfg:
 def hybrid_init(gen: torch.Generator, cfg: HybridCfg, *, dtype=torch.float32,
                 device="cpu") -> Params:
     return {
-        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device),
-        "mamba_stack": [block_init(gen, cfg.mamba_block, dtype=dtype, device=device)
+        "embed": kept("embed", embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)),
+        "mamba_stack": [kept("mamba_stack", block_init(gen, cfg.mamba_block, dtype=dtype,
+                                                       device=device))
                         for _ in range(cfg.n_layers)],
-        "shared": {
+        "shared": kept("shared", {
             "fuse": linear_init(gen, cfg.fuse, dtype=dtype, device=device),
             "norm1": rmsnorm_init(cfg.d_model, dtype, device),
             "attn": attn_mod.attn_init(gen, cfg.shared_attn, dtype=dtype, device=device),
             "norm2": rmsnorm_init(cfg.d_model, dtype, device),
             "mlp": mlp_mod.mlp_init(gen, cfg.shared_mlp, dtype=dtype, device=device),
             "out": linear_init(gen, cfg.out, dtype=dtype, device=device),
-        },
+        }),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
     }
 
@@ -173,19 +180,24 @@ def hybrid_apply(cfg: HybridCfg, params: Params, *, tokens: torch.Tensor, pos: t
                  block_tables: torch.Tensor | None = None,
                  state: StateRows | None = None) -> tuple[torch.Tensor, Params | None]:
     """Returns (logits (B, S, vocab), caches updated in place)."""
-    x = (sharded.embed if cfg.vocab_sharded else embed)(params["embed"], tokens)
+    emb = sharded.gather_data(params["embed"], sharded.data_dims(cfg.fsdp, "embed/"))
+    x = (sharded.embed if cfg.vocab_sharded else embed)(emb, tokens)
     x = x.to(compute_dtype)
     x0 = x
     inv = 0
     remat = remat_active(True, caches)
+    fsdp = sharded.data_dims(cfg.fsdp, "mamba_stack/")
+    shared = (sharded.gather_data(params["shared"], sharded.data_dims(cfg.fsdp, "shared/"))
+              if cfg.invocation_points else params["shared"])
     for lo, hi in cfg.segment_bounds:
         for j in range(lo, hi):
             set_tape_prefix(f"mamba_stack/{j}")
             lp = params["mamba_stack"][j]
             if remat:
                 x, _ = checkpoint(_train_block_on, sharded.current(), cfg.mamba_block, lp, x,
-                                  pos, use_reentrant=False)
+                                  pos, fsdp, use_reentrant=False)
                 continue
+            lp = sharded.gather_data(lp, fsdp)
             cl = None if caches is None else {n: t[j] for n, t in caches["mamba"].items()}
             x, _, _ = block_apply(cfg.mamba_block, lp, x, pos=pos, cache=cl,
                                   cache_len=cache_len, state=state)
@@ -193,11 +205,11 @@ def hybrid_apply(cfg: HybridCfg, params: Params, *, tokens: torch.Tensor, pos: t
             # weight-shared across the invocations: one registry path
             set_tape_prefix("shared")
             ac = None if caches is None else {n: t[inv] for n, t in caches["attn"].items()}
-            x = _shared_block(cfg, params["shared"], x, x0, pos=pos, cache=ac,
+            x = _shared_block(cfg, shared, x, x0, pos=pos, cache=ac,
                               cache_len=cache_len, write_index=write_index,
                               block_tables=block_tables)
             inv += 1
     x = rmsnorm(params["final_norm"], x)
     if cfg.vocab_sharded:
-        return sharded.tied_logits(x, params["embed"]["table"], gather=cfg.gather_logits), caches
-    return x @ params["embed"]["table"].to(x.dtype).T, caches
+        return sharded.tied_logits(x, emb["table"], gather=cfg.gather_logits), caches
+    return x @ emb["table"].to(x.dtype).T, caches

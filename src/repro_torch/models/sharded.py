@@ -61,6 +61,17 @@ mesh it was built with for its backward, which runs on the autograd
 engine's device thread, where `bound`'s context variable is not set; a
 recomputed block re-binds the mesh (`transformer._seg_apply`,
 `hybrid.hybrid_apply`).
+
+Under FSDP (`ShardingRules(fsdp=True)`) a rank holds only its "data" part
+of the leaves the spec splits over "data" too (`tensor_parallel.Layout.
+fsdp`; a rank's config names them, `transformer.LMCfg.fsdp`,
+`hybrid.HybridCfg.fsdp`). `gather_data` gathers them where they are read:
+a block's inside its recomputed function, so that the recomputation
+gathers them again and no block's gathered weights are kept for the
+backward, the embedding once per forward (the lookup and the tied
+logits), the hybrid's shared block once per forward. Its backward is a
+reduce-scatter over "data" scaled by 1 / dp: each rank's slice of the data
+axis' mean gradient, as the step's data mean gives a replicated leaf.
 """
 
 from __future__ import annotations
@@ -176,6 +187,30 @@ class _GatherModel(torch.autograd.Function):
         return full[..., r * m:(r + 1) * m].contiguous(), None
 
 
+class _GatherData(torch.autograd.Function):
+    """Every data rank's part of a weight gathered along `dim` forward;
+    backward, the data axis' mean of the whole weight's gradient, the
+    rank's part of it (a reduce-scatter in fp32, or float64 for a float64
+    gradient, then / dp)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _all_gather_dim(mesh, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = ctx.mesh.reduce_scatter(g.to(torch.promote_types(g.dtype, torch.float32)),
+                                       ctx.dim, DATA)
+        return part.div_(ctx.mesh.size(DATA)).to(g.dtype), None, None
+
+
+def _all_gather_dim(mesh, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every data rank's `t` concatenated along `dim` in rank order."""
+    out = mesh.all_gather(t.contiguous(), DATA)                 # (n, *t.shape)
+    return out.movedim(0, dim).flatten(dim, dim + 1)
+
+
 class _ScaleGrad(torch.autograd.Function):
     """Identity forward; the gradient times `s`."""
 
@@ -226,6 +261,32 @@ def mean_over_data(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
     if not _differentiated(x):
         return mesh.all_mean(x.contiguous().clone(), DATA)
     return _MeanData.apply(x, mesh)
+
+
+def data_dims(fsdp: tuple | dict, prefix: str) -> dict[str, int]:
+    """{path under `prefix`: dim} of the data-split leaves `fsdp` ({reference
+    path: dim of the rank's per-layer leaf}) names under `prefix`."""
+    return {p[len(prefix):]: d for p, d in dict(fsdp).items() if p.startswith(prefix)}
+
+
+def gather_data(p, dims: dict[str, int], mesh: Any = None):
+    """The tree `p` (nested dicts) with each leaf at a path of `dims`
+    gathered over the data axis along its dim (`_GatherData` where a
+    gradient is taken); the other leaves as they are."""
+    if not dims:
+        return p
+    mesh = mesh or _mesh()
+
+    def walk(t, path: str):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k) for k, v in t.items()}
+        d = dims.get(path)
+        if d is None or t is None:
+            return t
+        return _GatherData.apply(t, mesh, d) if _differentiated(t) else \
+            _all_gather_dim(mesh, t, d)
+
+    return walk(p, "")
 
 
 def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:

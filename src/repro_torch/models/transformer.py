@@ -28,12 +28,18 @@ it at LM_AUX_WEIGHT. A training forward (no caches, gradients on)
 recomputes each block in the backward pass instead of keeping its
 activations (`torch.utils.checkpoint`, the counterpart of the reference's
 `remat=True`); the values are the same with and without it. Under an activation tape each layer's records are keyed
-'segments/<i>/<j>/<site>', the registry's tape keys.
+'segments/<i>/<j>/<site>', the registry's tape keys. An FSDP rank's
+config names the leaves it holds only its "data" part of (`LMCfg.fsdp`):
+each block gathers its own inside the recomputed function, the embedding
+and the head theirs once per forward (`sharded.gather_data`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+from typing import Callable, Iterator
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -174,21 +180,47 @@ class LMCfg:
     takes_embeds: bool = False                   # input: embeddings (the vlm stub frontend)
     vocab_sharded: bool = False  # a tensor-parallel rank's vocab rows (models/sharded.py)
     gather_logits: bool = True   # False: a training rank's logits stay vocab-sharded
+    # FSDP: ((reference path, dim), ...) of the leaves a rank holds its "data" part of
+    fsdp: tuple[tuple[str, int], ...] = ()
 
     @property
     def n_layers(self) -> int:
         return sum(n for n, _ in self.segments)
 
 
+_KEEP: contextvars.ContextVar[Callable[[str, Params], Params] | None] = contextvars.ContextVar(
+    "repro_torch_init_keep", default=None)
+
+
+@contextlib.contextmanager
+def init_keeping(keep: Callable[[str, Params], Params]) -> Iterator[None]:
+    """While active, `lm_init` and `hybrid.hybrid_init` pass each group of
+    leaves to `keep(prefix, params)` as soon as it is drawn and hold what
+    it returns: the embedding ("embed"), each layer ("segments/<i>",
+    "mamba_stack"), the shared block ("shared") and the head ("lm_head").
+    A training rank keeps its parts (`tensor_parallel.init_rank`), so that
+    it never holds more than one whole layer."""
+    token = _KEEP.set(keep)
+    try:
+        yield
+    finally:
+        _KEEP.reset(token)
+
+
+def kept(prefix: str, p: Params) -> Params:
+    keep = _KEEP.get()
+    return p if keep is None else keep(prefix, p)
+
+
 def lm_init(gen: torch.Generator, cfg: LMCfg, *, dtype=torch.float32, device="cpu") -> Params:
     p: Params = {
-        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device),
-        "segments": [[block_init(gen, bcfg, dtype=dtype, device=device) for _ in range(count)]
-                     for count, bcfg in cfg.segments],
+        "embed": kept("embed", embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)),
+        "segments": [[kept(f"segments/{i}", block_init(gen, bcfg, dtype=dtype, device=device))
+                      for _ in range(count)] for i, (count, bcfg) in enumerate(cfg.segments)],
         "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
     }
     if cfg.lm_head is not None:
-        p["lm_head"] = linear_init(gen, cfg.lm_head, dtype=dtype, device=device)
+        p["lm_head"] = kept("lm_head", linear_init(gen, cfg.lm_head, dtype=dtype, device=device))
     return p
 
 
@@ -246,15 +278,17 @@ def train_block(bcfg: BlockCfg, lp: Params, x: torch.Tensor,
 
 
 def _train_block_on(mesh, bcfg: BlockCfg, lp: Params, x: torch.Tensor,
-                    pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                    pos: torch.Tensor, fsdp: dict[str, int] | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """`train_block` with a tensor-parallel rank's mesh bound: the
     recomputation in the backward runs where the forward's binding is gone
     (the autograd engine's thread), and runs the forward's collectives
-    again, in the same order on every rank."""
+    again, in the same order on every rank; an FSDP rank's data-split
+    leaves (`fsdp`, {path in the block: dim}) gathered first."""
     if mesh is None:
         return train_block(bcfg, lp, x, pos)
     with sharded.bound(mesh):
-        return train_block(bcfg, lp, x, pos)
+        return train_block(bcfg, sharded.gather_data(lp, fsdp, mesh), x, pos)
 
 
 def remat_active(remat: bool, caches) -> bool:
@@ -267,9 +301,11 @@ def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: to
                caches: Params | None, cache_len: torch.Tensor | None,
                write_index, block_tables: torch.Tensor | None = None,
                remat: bool = False, prefix: str = "",
-               state: StateRows | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               state: StateRows | None = None,
+               fsdp: dict[str, int] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Run one segment's layers; writes the segment's cache in place.
-    Returns (x, the layers' aux summed)."""
+    Returns (x, the layers' aux summed). `fsdp`: the leaves of a layer
+    that an FSDP rank gathers over "data" ({path in the block: dim})."""
     defer = caches is not None and x.shape[1] == 1 and bcfg.kind != "mamba"
     remat = remat_active(remat, caches)
     aux_total = x.new_zeros((), dtype=torch.float32)
@@ -277,10 +313,11 @@ def _seg_apply(bcfg: BlockCfg, layers: list[Params], x: torch.Tensor, *, pos: to
     for j, lp in enumerate(layers):
         set_tape_prefix(f"{prefix}/{j}")
         if remat:
-            x, aux = checkpoint(_train_block_on, sharded.current(), bcfg, lp, x, pos,
+            x, aux = checkpoint(_train_block_on, sharded.current(), bcfg, lp, x, pos, fsdp,
                                 use_reentrant=False)
             aux_total = aux_total + aux
             continue
+        lp = sharded.gather_data(lp, fsdp)
         cl = None if caches is None else {name: t[j] for name, t in caches.items()}
         x, nc, aux = block_apply(bcfg, lp, x, pos=pos, cache=cl, cache_len=cache_len,
                                  defer_cache_write=defer, write_index=write_index,
@@ -316,31 +353,33 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
     caches, which also take `block_tables`, attention.paged_write_flat), and
     mamba state where `state` says. Without caches this is the training
     forward over whole sequences."""
+    emb = sharded.gather_data(params["embed"], sharded.data_dims(cfg.fsdp, "embed/"))
     if cfg.takes_embeds:
         if embeds is None:
             raise ValueError("this model takes embeddings (embeds=), not token ids")
         x = embeds.to(compute_dtype)
     elif cfg.vocab_sharded:
-        x = sharded.embed(params["embed"], tokens).to(compute_dtype)
+        x = sharded.embed(emb, tokens).to(compute_dtype)
     else:
-        x = embed(params["embed"], tokens).to(compute_dtype)
+        x = embed(emb, tokens).to(compute_dtype)
     aux = x.new_zeros((), dtype=torch.float32)
     for i, (_, bcfg) in enumerate(cfg.segments):
         x, a = _seg_apply(bcfg, params["segments"][i], x, pos=pos,
                        caches=None if caches is None else caches[i],
                        cache_len=cache_len, write_index=write_index,
                        block_tables=block_tables, remat=cfg.remat, prefix=f"segments/{i}",
-                       state=state)
+                       state=state, fsdp=sharded.data_dims(cfg.fsdp, f"segments/{i}/"))
         aux = aux + a
     x = rmsnorm(params["final_norm"], x)
     if cfg.lm_head is not None:
         set_tape_prefix("")                     # registry key: bare "lm_head"
         if cfg.lm_head.tp is not None:
             x = sharded.copy(x)
-        logits = linear(cfg.lm_head, params["lm_head"], x)
+        logits = linear(cfg.lm_head, sharded.gather_data(
+            params["lm_head"], sharded.data_dims(cfg.fsdp, "lm_head/")), x)
     elif cfg.vocab_sharded:
-        logits = sharded.tied_logits(x, params["embed"]["table"], gather=cfg.gather_logits)
+        logits = sharded.tied_logits(x, emb["table"], gather=cfg.gather_logits)
     else:
         # tied head: a plain matmul, left to the library as the reference leaves it to XLA
-        logits = x @ params["embed"]["table"].to(x.dtype).T
+        logits = x @ emb["table"].to(x.dtype).T
     return logits, caches, aux

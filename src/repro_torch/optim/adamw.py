@@ -125,8 +125,8 @@ class AdamW:
         Functional: no input is changed in place. `grads` holds None at
         frozen leaves. Every leaf's update is elementwise, so the leaves may
         be any matching parts of the params, their gradients and moments (a
-        data rank's ZeRO-1 shards, `distributed/data_parallel.py`), with
-        `gnorm` the global norm of the whole gradients, computed outside."""
+        data rank's ZeRO-1 shards or FSDP parts, `distributed/data_parallel.py`),
+        with `gnorm` the global norm of the whole gradients, computed outside."""
         frozen = no_frozen(params) if frozen is None else frozen
         step = state.step + 1
         stepf = step.float()

@@ -728,7 +728,9 @@ def expected_rank_shapes(bundle, rules, data_rank: int, frozen_paths=frozenset()
     """({reference path: [per-layer param shape]}, {reference path:
     [per-layer moment shape]}) of a rank of data index `data_rank` under
     `rules` (`param_spec` with the site roles, `opt_spec`), the leaves of
-    the `kept` differences by `kept_rank_shape`: a stacked leaf whose moment
+    the `kept` differences by `kept_rank_shape` (under FSDP their data part
+    along the spec's "data" dim, but an expert leaf's, whose "data" is the
+    experts'): a stacked leaf whose moment
     spec puts "data" on the layer axis is held in whole layers by their
     owner ((0,) elsewhere), a moment's other "data" dim divides the rank's
     param (an expert leaf over both axes has none: its "data" is the
@@ -745,6 +747,11 @@ def expected_rank_shapes(bundle, rules, data_rank: int, frozen_paths=frozenset()
         layers = shape[0] if stacked else 1
         pspec = rules.param_spec(path, shape, site_roles=roles)
         own = kept_rank_shape(bundle, kept, path, shape, sizes)
+        parts = path.split("/")
+        expert = "moe" in parts and parts[parts.index("moe") + 1] in ("gate", "up", "down")
+        if own is not None and rules.fsdp and "data" in pspec and not expert:
+            d = pspec.index("data") - stacked
+            own = tuple(n // rules.data if i == d else n for i, n in enumerate(own))
         pshape = own if own is not None else spec_part_shape(shape, pspec, sizes)[stacked:]
         params[path] = [pshape] * layers
         if path in frozen_paths:

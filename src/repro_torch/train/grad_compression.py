@@ -142,14 +142,26 @@ def init_residual(params: Any) -> Any:
                                                   device=p.device), params)
 
 
+# the reference's compressed reduce is a data-axis shard_map over replicated
+# params and a flat gradient vector, with no FSDP rules
+# (src/repro/train/grad_compression.py, make_compressed_grad_fn)
+FSDP_REFUSAL = ("the int8 compressed gradient reduce takes replicated params: it reduces "
+                "every rank's whole gradient over \"data\", as the reference's data-axis "
+                "shard_map does, which has no FSDP rules; FSDP's gradients are reduce-scattered "
+                "per block instead (ShardingRules(fsdp=True) without grad_compression)")
+
+
 def make_compressed_grad_fn(loss_fn: Callable[[Any, Any], torch.Tensor], mesh, *,
-                            axis: str = "data") -> Callable:
+                            axis: str = "data", rules: Any = None) -> Callable:
     """Data-parallel value-and-grad with the int8 compressed reduce over
     `mesh`'s data ranks. Returns step(params, residual, batch) -> (mean loss,
     mean grads, new residual): params replicated, each rank taking its rows
-    of the global batch (`local_batch`)."""
+    of the global batch (`local_batch`). FSDP rules (`rules.fsdp`) are
+    refused (`FSDP_REFUSAL`)."""
     if axis != "data":
         raise ValueError(f"the port's meshes reduce gradients over 'data', not {axis!r}")
+    if rules is not None and rules.fsdp:
+        raise NotImplementedError(FSDP_REFUSAL)
 
     def step(params, residual, batch):
         live, leaves = trainable_view(params, no_frozen(params))

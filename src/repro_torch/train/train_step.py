@@ -227,7 +227,7 @@ def step_metrics(loss: torch.Tensor, gnorm: torch.Tensor, aux: dict, new_params:
 
 def make_compressed_train_step(bundle, opt: AdamW, mesh, *, axis: str = "data",
                                frozen_mask: Any | None = None,
-                               compute_dtype=torch.bfloat16) -> Callable:
+                               compute_dtype=torch.bfloat16, rules: Any = None) -> Callable:
     """Data-parallel step with the int8 error-feedback gradient reduce
     (`train.grad_compression`) in place of an exact all-reduce over `mesh`'s
     `axis`. EXPERIMENTAL (DESIGN.md §10.4): gradients cross the wire as int8,
@@ -236,11 +236,12 @@ def make_compressed_train_step(bundle, opt: AdamW, mesh, *, axis: str = "data",
     State contract: `opt_state` is `{"opt": AdamWState, "residual": tree}`
     (build it with `init_compressed_state`); each rank takes its rows of the
     global batch (`data_parallel.local_batch`). Otherwise `make_train_step`'s
-    contract, so the Trainer drives and checkpoints it unchanged."""
+    contract, so the Trainer drives and checkpoints it unchanged. `rules`
+    with fsdp on are refused (`grad_compression.FSDP_REFUSAL`)."""
     from repro_torch.train.grad_compression import make_compressed_grad_fn
 
     grad_fn = make_compressed_grad_fn(make_loss_fn(bundle, compute_dtype=compute_dtype), mesh,
-                                      axis=axis)
+                                      axis=axis, rules=rules)
 
     def train_step(params, state, batch):
         dev = _device_of(params)

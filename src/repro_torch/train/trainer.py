@@ -17,8 +17,9 @@ so that every control-plane feature is visible and testable:
     writes the checkpoints, and every rank passes a barrier once rank 0's
     last save has committed, before it restores and at the end of `fit`.
     With a ZeRO-1 `layout` (`distributed.data_parallel.Zero1`) every rank
-    gathers the moments for each save, so that rank 0 writes whole arrays
-    in the reference's format, and each rank restores only its shards.
+    gathers the moments (under FSDP the params too) for each save, so that
+    rank 0 writes whole arrays in the reference's format, and each rank
+    restores only its shards.
 """
 
 from __future__ import annotations

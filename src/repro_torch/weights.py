@@ -208,8 +208,8 @@ def tree_from_reference(like: Any, arrays: Mapping[str, Any], *,
     to `device` (the card unless the caller asks for the CPU). A leaf whose
     `like` is bfloat16 takes bfloat16 bits stored as such, as a 2-byte void
     or as uint16. `cuts`, a tree of `like`'s structure, keeps only the part
-    `cut.apply(array)` of each leaf (a data rank's ZeRO-1 shard,
-    `distributed.data_parallel.Cut`)."""
+    `cut.apply(array)` of each leaf (a data rank's ZeRO-1 shard or FSDP
+    part, `distributed.data_parallel.Cut`)."""
     dev = None
     cursors: dict[str, int] = {}
     counts = {p: len(leaves) for p, leaves in reference_leaves(like).items()}

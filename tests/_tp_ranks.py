@@ -10,7 +10,9 @@ the ranks join no mesh and `fn(rank, init, *args)` joins one itself.
 With `axis=(data, model)` the ranks join that 2-D mesh
 (tests/test_torch_tp_train.py).
 `tp_train`, `tp_trainer` and `tp_route_record` are the ranks' work in
-tests/test_torch_tp_train.py and tests/test_torch_tp_train_families.py.
+tests/test_torch_tp_train.py and tests/test_torch_tp_train_families.py,
+ZeRO-1 or (spec["fsdp"]) FSDP, and `fsdp_collectives` the FSDP collectives'
+checks in tests/test_torch_dp.py.
 `serve_family` (`serve_families`) is the ranks' work in
 tests/test_torch_tp_families.py: the MoE, SSM and hybrid artifacts through
 the unsharded and the tensor-parallel engines, with the experts' outputs
@@ -419,22 +421,31 @@ def dp_single(spec: dict, flat: dict | None, steps: int, *, float64: bool = Fals
 def dp_elastic(rank: int, init: str, n: int, spec: dict, ckdir: str, steps: int,
                restore: bool) -> dict:
     """One rank of an elastic run on `n` CPU ranks: build the context (its
-    own mesh), restore the newest checkpoint cut for it (`rescale`) if
-    `restore`, run `steps` steps, then commit (rank 0) and leave."""
+    own mesh; FSDP with spec["fsdp"]: the rank's parts), restore the newest
+    checkpoint cut for it (`rescale`) if `restore`, run `steps` steps, then
+    commit (rank 0) and leave."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.distributed.data_parallel import Zero1, make_data_parallel_step
     from repro_torch.distributed.elastic import ElasticContext, rescale
+    from repro_torch.weights import reference_leaves
+
+    from repro_torch.distributed.tensor_parallel import place
 
     bundle, params, opt, frozen = dp_model(spec)
     made: dict = {}
 
     def make_step(mesh, rules):
-        made["layout"] = Zero1.build(mesh, params, frozen, rules)
-        return make_data_parallel_step(bundle, opt, made["layout"], frozen_mask=frozen,
+        local, lp, lay = bundle, params, None
+        if rules.fsdp:                   # the rank's parts
+            local, lp, lay = place(bundle, params, rules, mesh, train=True)
+        made["params"] = lp
+        made["layout"] = Zero1.build(mesh, lp, frozen, rules, tp=lay)
+        return make_data_parallel_step(local, opt, made["layout"], frozen_mask=frozen,
                                        compute_dtype=torch.float32)
 
-    ctx = ElasticContext.build(["cpu"] * n, make_step, rank=rank, init_method=init)
-    layout, ck = made["layout"], Checkpointer(ckdir)
+    ctx = ElasticContext.build(["cpu"] * n, make_step, fsdp=spec.get("fsdp", False), rank=rank,
+                               init_method=init)
+    layout, ck, params = made["layout"], Checkpointer(ckdir), made["params"]
     state = layout.init_state(opt, params, frozen)
     start = 0
     try:
@@ -453,7 +464,9 @@ def dp_elastic(rank: int, init: str, n: int, spec: dict, ckdir: str, steps: int,
     finally:
         ctx.mesh.close()
     return {"start": start, "step": int(state.step), "loss": losses,
-            "mesh": (ctx.mesh.data, ctx.mesh.model)}
+            "mesh": (ctx.mesh.data, ctx.mesh.model), "fsdp": ctx.rules.fsdp,
+            "shapes": {p: [tuple(t.shape) for t in ls]
+                       for p, ls in reference_leaves(params).items()}}
 
 
 def dp_compress(mesh, vecs, trees, toy: dict) -> dict:
@@ -538,14 +551,15 @@ def dp_launcher(rank: int, init: str, n: int, argv: list[str]) -> str:
 
 def tp_rank_state(mesh, spec: dict, flat: dict | None = None):
     """(local bundle, the rank's params, opt, its frozen mask or None, its
-    Zero1 layout) of `dp_model(spec, flat)` on a (data, model) mesh."""
+    Zero1 layout) of `dp_model(spec, flat)` on a (data, model) mesh, or
+    with spec["fsdp"] its FSDP parts (on a data mesh too)."""
     from repro_torch.distributed.data_parallel import Zero1
     from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.distributed.tensor_parallel import place
     from repro_torch.optim import lut_frozen_mask
 
     bundle, params, opt, frozen = dp_model(spec, flat)
-    rules = ShardingRules.for_mesh(mesh)
+    rules = ShardingRules.for_mesh(mesh, fsdp=spec.get("fsdp", False))
     local, lp, lay = place(bundle, params, rules, mesh, train=True)
     lfrozen = lut_frozen_mask(lp) if frozen is not None else None
     return local, lp, opt, lfrozen, Zero1.build(mesh, lp, lfrozen, rules, tp=lay)
@@ -589,19 +603,22 @@ def tp_train(mesh, spec: dict, flat: dict | None, steps: int) -> dict:
     out: dict = {"grad_loss": float(loss0),
                  "grad_counters": {a: dict(c) for a, c in mesh.axis_counters.items()},
                  "grad_norm0": float(layout.global_norm(opt, grads, fz)),
-                 "grads": grad_arrays(layout.gather_model(grads)),
+                 "grads": grad_arrays(layout.gather_model(layout.model_shards(grads))),
                  "rank": (mesh.data_rank, mesh.model_rank), "loss": [], "grad_norm": []}
     del grads
     state = layout.init_state(opt, params, frozen)
     step = make_data_parallel_step(local, opt, layout, frozen_mask=frozen,
                                    compute_dtype=torch.float32, grad_accum=accum)
     mesh.reset_counters()
+    out["step_gathers"] = []           # the data all-gathers of each step
     for i in range(steps):
+        before = mesh.axis_counters["data"]["all_gather"]
         params, state, m = step(params, state, dp_batch(spec, i))
+        out["step_gathers"].append(mesh.axis_counters["data"]["all_gather"] - before)
         out["loss"].append(float(m["loss"]))
         out["grad_norm"].append(float(m["grad_norm"]))
         if i == 0:
-            out["params_1"] = reference_arrays(layout.gather_model(params))
+            out["params_1"] = reference_arrays(layout.gather_model(layout.model_shards(params)))
     out["axis_counters"] = {a: dict(c) for a, c in mesh.axis_counters.items()}
     out["param_shapes"] = {p: [tuple(t.shape) for t in ls]
                            for p, ls in reference_leaves(params).items()}
@@ -610,6 +627,53 @@ def tp_train(mesh, spec: dict, flat: dict | None, steps: int) -> dict:
     out["local"] = reference_arrays(params)
     out["arrays"] = reference_arrays(layout.gather_state({"params": params, "opt": state}))
     out["launches"], out["plain"] = counters.launches(), counters.plain_calls()
+    return out
+
+
+def fsdp_collectives(mesh, seed: int) -> dict:
+    """On a data rank: `reduce_scatter` of integer-valued tensors (sums
+    exact) along dims 0 and 1, native and through the emulation that a CUDA
+    tensor under gloo takes, whether each owns no more storage than its
+    own elements, and the sum then the rank's slice; and the
+    data gather (`sharded.gather_data`) in float64: its forward and its
+    gradient against the whole leaf's gradient of every rank's loss,
+    averaged over the ranks and sliced."""
+    import numpy as np
+
+    from repro_torch.models import sharded
+
+    n, r = mesh.size("data"), mesh.data_rank
+    rng = np.random.default_rng(seed)
+    ts = torch.as_tensor(rng.integers(-50, 50, (n, 4 * n, 6 * n)).astype(np.float32))
+    out: dict = {"rs": [], "want": [], "rs_own": []}
+    for dim in (0, 1):
+        native = mesh.reduce_scatter(ts[r].clone(), dim, "data")
+        mesh._emulated = lambda t: True
+        try:
+            emulated = mesh.reduce_scatter(ts[r].clone(), dim, "data")
+        finally:
+            del mesh._emulated
+        m = ts.shape[1 + dim] // n
+        out["rs"].append((native, emulated))
+        out["rs_own"].append([t.untyped_storage().nbytes() == t.numel() * t.element_size()
+                              for t in (native, emulated)])
+        out["want"].append(ts.sum(0).narrow(dim, r * m, m))
+    w = torch.as_tensor(rng.standard_normal((4 * n, 6 * n)))
+    xs = torch.as_tensor(rng.standard_normal((n, 5, 4 * n)))
+    out["gather"] = []
+    for dim in (0, 1):
+        m = w.shape[dim] // n
+        part = w.narrow(dim, r * m, m).clone().requires_grad_(True)
+        with sharded.bound(mesh):
+            whole = sharded.gather_data({"w": part}, {"w": dim})["w"]
+        ((xs[r] @ whole) ** 2).sum().backward()
+        ref = torch.zeros_like(w)
+        for j in range(n):                      # every rank's loss on the whole leaf
+            wj = w.clone().requires_grad_(True)
+            ((xs[j] @ wj) ** 2).sum().backward()
+            ref += wj.grad
+        out["gather"].append({"forward_equal": bool(torch.equal(whole.detach(), w)),
+                              "grad": part.grad, "want": (ref / n).narrow(dim, r * m, m)})
     return out
 
 

@@ -1,8 +1,9 @@
 """Elastic rescale and the Trainer on a data mesh, against the reference:
 `best_mesh_shape` equal to the reference's; the reference's 8 -> 4 elastic
 test (tests/test_sharded.py) at 4 -> 2 gloo ranks on the CPU, the dp-4
-checkpoint restored by the reference too; the Trainer over the ZeRO-1 step
-at dp 2, committing on rank 0 and resuming each rank's shards bytewise."""
+checkpoint restored by the reference too, with ZeRO-1 and with FSDP
+(`ElasticContext.build(fsdp=True)`); the Trainer over the ZeRO-1 step at
+dp 2, committing on rank 0 and resuming each rank's shards bytewise."""
 
 import jax
 import numpy as np
@@ -29,9 +30,10 @@ def test_best_mesh_shape_matches_the_reference():
         for pm in (1, 2, 4, 8):
             assert elastic.best_mesh_shape(n, prefer_model=pm) == \
                 jelastic.best_mesh_shape(n, prefer_model=pm), (n, pm)
-    # FSDP stays refused; (data, model) meshes build (tests/test_torch_tp_train.py)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        elastic.ElasticContext.build(["cpu"] * 4, lambda m, r: None, prefer_model=2, fsdp=True)
+    # FSDP builds: the step gets FSDP's rules; (data, model) meshes build
+    # (tests/test_torch_tp_train.py)
+    ctx = elastic.ElasticContext.build(["cpu"], lambda m, r: r, fsdp=True)
+    assert ctx.rules.fsdp and ctx.step_fn is ctx.rules
 
 
 def test_elastic_rescale_4_to_2(tmp_path):
@@ -59,6 +61,44 @@ def test_elastic_rescale_4_to_2(tmp_path):
     got = jflatten(tree)
     assert step == 6 and sorted(got) == sorted(files)
     for path, a in got.items():
+        np.testing.assert_array_equal(a, files[path], err_msg=path)
+
+
+def test_elastic_rescale_4_to_2_under_fsdp(tmp_path):
+    """The same rescale under FSDP: 6 steps at dp 4, each rank holding its
+    quarter of every leaf `param_spec(fsdp=True)` splits over "data", a
+    commit (the reference's layout, which the reference restores), all four
+    leave; a group of 2 restores its halves and runs 6 more, both ranks
+    with the same losses."""
+    from repro_torch.configs import build_model, get_arch, reduce_arch
+    from repro_torch.core.amm import Mode
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.testing import expected_rank_shapes
+
+    spec = dict(SMALL, arch="qwen3_1p7b", lr=3e-3, fsdp=True)
+    ck = str(tmp_path / "ck")
+    four = run_ranks(dp_elastic, 4, 4, spec, ck, 6, False, axis=None)
+    two = run_ranks(dp_elastic, 2, 2, spec, ck, 6, True, axis=None)
+    assert all(r["fsdp"] for r in four + two)
+    assert all(r["start"] == 6 and r["step"] == 12 for r in two)
+    losses = four[0]["loss"] + two[0]["loss"]
+    assert all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    assert two[0]["loss"] == two[1]["loss"]
+    bundle = build_model(reduce_arch(get_arch("qwen3_1p7b"), n_layers=2, vocab=64, d_model=64,
+                                     d_ff=128), Mode.DENSE)
+    for ranks, n in ((four, 4), (two, 2)):
+        for i, r in enumerate(ranks):
+            want, _ = expected_rank_shapes(bundle, ShardingRules(data=n, fsdp=True), i)
+            assert r["shapes"] == want, (n, i)
+    jb = jbuild(jreduce(jget("qwen3_1p7b"), n_layers=2, vocab=64, d_model=64, d_ff=128),
+                JMode.DENSE)
+    jp = jax.eval_shape(jb.init, jax.random.PRNGKey(0))
+    step, tree = JCheckpointer(ck).restore({"params": jp, "opt": jax.eval_shape(JAdamW().init,
+                                                                                  jp)}, step=6)
+    with np.load(tmp_path / "ck" / "step_00000006" / "arrays.npz") as f:
+        files = dict(f)
+    assert step == 6 and sorted(jflatten(tree)) == sorted(files)
+    for path, a in jflatten(tree).items():
         np.testing.assert_array_equal(a, files[path], err_msg=path)
 
 

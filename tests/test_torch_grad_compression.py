@@ -323,3 +323,20 @@ def test_reference_compressed_state_restores_in_the_port(tmp_path):
     for path, a in want.items():
         assert got[path].dtype == a.dtype, path
         np.testing.assert_array_equal(got[path], a, err_msg=path)
+
+
+def test_grad_compression_refuses_fsdp():
+    """The int8 compressed reduce takes replicated params (the reference's
+    data-axis shard_map over a flat gradient, with no FSDP rules): FSDP's
+    rules are refused with that reason, by the grad fn and by the step."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import HostMesh
+
+    mesh = HostMesh(data=2, model=1, rank=0, device=torch.device("cpu"), backend="gloo")
+    fsdp = ShardingRules(data=2, fsdp=True)
+    with pytest.raises(NotImplementedError, match="replicated params") as err:
+        gc.make_compressed_grad_fn(lambda p, b: None, mesh, rules=fsdp)
+    assert "shard_map" in str(err.value) and "FSDP" in str(err.value)
+    with pytest.raises(NotImplementedError, match="replicated params"):
+        make_compressed_train_step(build_model(_arch(), Mode.DENSE), AdamW(), mesh, rules=fsdp)
+    gc.make_compressed_grad_fn(lambda p, b: None, mesh, rules=ShardingRules(data=2))

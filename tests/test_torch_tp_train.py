@@ -8,8 +8,8 @@ with prefer_model=2 (`tests/_tp_ranks.py`), at the reduced sizes of the
 reference's sharded test (tests/test_sharded.py: llama3_8b, 2 layers, width
 64, vocab 64) and its qwen3_1p7b LUT_TRAIN variant (layer 0 dense, layer 1
 LUT): 3 DENSE steps (clip 1.0), one LUT_TRAIN step with grad_accum 2, each
-rank's gradients before the update, the Trainer's commits, and the
-fake-quant scales of row and column shards. Held here:
+rank's gradients before the update, the Trainer's commits, the fake-quant
+scales of row and column shards, and the FSDP steps and commit. Held here:
 
   * the losses against the single-rank step within SINGLE_LOSS_RTOL, the
     first step's params by the leaf rule (`testing.AdamLeafRule`), the last
@@ -29,8 +29,13 @@ fake-quant scales of row and column shards. Held here:
   * a Trainer commit from (2, 2) that the reference's Checkpointer
     restores, and that the port restores bytewise at (2, 2), (1, 2) and one
     rank;
-  * the refusals that remain: FSDP, and the enc-dec and vision-LM families
-    under tensor-parallel training (the MoE, SSM and hybrid families:
+  * FSDP (`ShardingRules(fsdp=True)`) at (2, 2): three DENSE steps held as
+    the ZeRO-1 steps are, each rank's parts by `param_spec(fsdp=True)`, no
+    all-gather after the update, and a Trainer commit in the reference's
+    layout that restores under ZeRO-1 and FSDP at other meshes (and the
+    ZeRO-1 commit under FSDP);
+  * the refusals that remain: the enc-dec and vision-LM families under
+    tensor-parallel training (the MoE, SSM and hybrid families:
     tests/test_torch_tp_train_families.py).
 
 The reference's (2, 4) sharded step against the port's (2, 2) step is in
@@ -68,8 +73,9 @@ SHARDED = dict(arch="llama3_8b", layers=2, vocab=64, d=64, d_ff=128, mode="dense
                clip=None, batch=8, seq=16)
 DENSE = dict(SHARDED, clip=1.0)
 LUT = dict(SHARDED, arch="qwen3_1p7b", mode="lut_train", accum=2, wd=0.01)
+FSDP = dict(DENSE, fsdp=True)        # weights and tables over "data" too
 MESH = (2, 2)
-DENSE_STEPS, TRAINER_STEPS = 3, 4
+DENSE_STEPS, TRAINER_STEPS, FSDP_STEPS = 3, 4, 3
 SINGLE_LOSS_RTOL = 1e-5
 NORM_RTOL = 1e-6
 LOG_T_TERMS = 1e-6
@@ -87,16 +93,19 @@ def _scale_cases() -> list:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory) -> dict:
-    ck = tmp_path_factory.mktemp("tp_ck")
+    ck, ck_fsdp = tmp_path_factory.mktemp("tp_ck"), tmp_path_factory.mktemp("tp_ck_fsdp")
     cases = _scale_cases()
     jobs = [("tp_train", (DENSE, None, DENSE_STEPS)), ("tp_train", (LUT, None, 1)),
-            ("tp_trainer", (DENSE, str(ck), TRAINER_STEPS)), ("tp_scales", (cases,))]
+            ("tp_trainer", (DENSE, str(ck), TRAINER_STEPS)), ("tp_scales", (cases,)),
+            ("tp_train", (FSDP, None, FSDP_STEPS)),
+            ("tp_trainer", (FSDP, str(ck_fsdp), TRAINER_STEPS))]
     # the mesh of an elastic context over 4 devices that prefers model 2: (2, 2)
     out = run_ranks(tp_elastic_jobs, 4, 4, MESH[1], jobs, axis=None)
-    assert all(r[4] == {"mesh": MESH, "rules": MESH} for r in out)
+    assert all(r[-1] == {"mesh": MESH, "rules": MESH} for r in out)
     return {"dense": [r[0] for r in out], "lut": [r[1] for r in out],
             "trainer": [r[2] for r in out], "scales": [r[3] for r in out], "ck": ck,
-            "cases": cases}
+            "cases": cases, "fsdp": [r[4] for r in out], "fsdp_trainer": [r[5] for r in out],
+            "ck_fsdp": ck_fsdp}
 
 
 def _as_tree(flat: dict, like) -> dict:
@@ -252,15 +261,15 @@ def test_fake_quant_scales_of_row_and_column_shards_are_the_unsharded_ones(ranks
             np.testing.assert_array_equal(got["fq"], part_fq, err_msg=f"{role} {pc} {m8}")
 
 
-def _restore_on(spec, ck: str, data: int, model: int, rank: int):
+def _restore_on(spec, ck: str, data: int, model: int, rank: int, fsdp: bool = False):
     """The port's restore of the newest commit as rank `rank` of a (data,
-    model) mesh (shapes and cuts only: no process group): its params and
-    moments."""
+    model) mesh (shapes and cuts only: no process group), under ZeRO-1 or
+    FSDP: its params and moments."""
     bundle, params, opt, frozen = dp_model(spec)
     mesh = HostMesh(data=data, model=model, rank=rank, device=torch.device("cpu"),
                     backend="gloo")
-    rules = ShardingRules(data=data, model=model)
-    if model > 1:
+    rules = ShardingRules(data=data, model=model, fsdp=fsdp)
+    if model > 1 or fsdp:
         _, lp, lay = tensor_parallel.place(bundle, params, rules, mesh, train=True)
         layout = Zero1.build(mesh, lp, frozen, rules, tp=lay)
     else:
@@ -321,17 +330,30 @@ def test_trainer_commit_is_the_reference_layout_and_restores_at_any_mesh(ranks):
 
 
 def test_remaining_refusals_name_their_reason():
-    """FSDP, and tensor-parallel training of the enc-dec and vision-LM
-    families, are refused with a reason naming ROADMAP Queue A item 5; a
-    model mesh without a tensor-parallel layout and a whole-logits loss on
-    one are refused too. The decoder LMs and the MoE, SSM and hybrid
-    families train (tests/test_torch_tp_train_families.py)."""
+    """Tensor-parallel training of the enc-dec and vision-LM families is
+    refused with a reason naming ROADMAP Queue A item 5; a model mesh (or
+    FSDP) without a training layout and a whole-logits loss on a model mesh
+    are refused too. FSDP builds: `Zero1.build` under
+    `ShardingRules(fsdp=True)` on the layout of its parts (a data cut of
+    every leaf the spec splits over "data" too), and
+    `ElasticContext.build(fsdp=True)` hands its step FSDP's rules. The
+    decoder LMs and the MoE, SSM and hybrid families train
+    (tests/test_torch_tp_train_families.py)."""
     bundle, params, _, _ = dp_model(DENSE)
     mesh = HostMesh(data=2, model=2, rank=0, device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        Zero1.build(mesh, params, rules=ShardingRules(data=2, model=2, fsdp=True))
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        elastic.ElasticContext.build(["cpu"] * 4, lambda m, r: None, prefer_model=2, fsdp=True)
+    fsdp = ShardingRules(data=2, model=2, fsdp=True)
+    with pytest.raises(ValueError, match="FSDP trains a rank's parts"):
+        Zero1.build(mesh, params, rules=fsdp)
+    _, fp, flay = tensor_parallel.place(bundle, params, fsdp, mesh, train=True)
+    built = Zero1.build(mesh, fp, None, fsdp, tp=flay)
+    assert built.fsdp and flay.fsdp and flay.dp == 2
+    cut = {p: c for p, cs in reference_leaves(built.params_plan).items() for c in cs}
+    assert {p for p, c in cut.items() if c.dim is not None} == set(flay.fsdp)
+    made = {}
+    ctx = elastic.ElasticContext.build(["cpu"], lambda m, r: made.setdefault("rules", r),
+                                       fsdp=True)
+    assert ctx.rules.fsdp and made["rules"] is ctx.rules and (ctx.mesh.data, ctx.mesh.model) \
+        == (1, 1)
     with pytest.raises(ValueError, match="tensor-parallel shard"):
         Zero1.build(mesh, params, rules=ShardingRules(data=2, model=2))
     rules = ShardingRules(data=2, model=2)
@@ -351,3 +373,123 @@ def test_remaining_refusals_name_their_reason():
         for mode in (Mode.DENSE, Mode.LUT_TRAIN):
             assert tensor_parallel.tp_refusal(build_model(reduce_arch(get_arch(name)), mode),
                                               train=True) is None
+
+
+# ---------------------------------------------------------------------------
+# FSDP at (2, 2): weights and tables over "data" too, inside the model shards
+# ---------------------------------------------------------------------------
+
+def test_fsdp_tp_steps_match_the_single_rank_step(ranks):
+    """Three FSDP DENSE steps at (2, 2) (each rank its data part of its model
+    shard of every leaf `param_spec(fsdp=True)` splits over "data", gathered
+    per block): the losses, the first step by the leaf rule, the last by
+    the float64 witness, as the ZeRO-1 steps are held, the gradients before
+    the update (gathered to whole leaves) and their global norm against the
+    single rank's."""
+    losses, states, rule, params = dp_single(FSDP, None, FSDP_STEPS)
+    _, exact, _, _ = dp_single(FSDP, None, FSDP_STEPS, float64=True)
+    _, _, opt, frozen = dp_model(FSDP)
+    like = {"params": params, "opt": opt.init(params, frozen)}
+    single, witness = _as_tree(states[-1], like), _as_tree(exact[-1], like)
+    grads = tp_single_grads(FSDP)
+    for r in ranks["fsdp"]:
+        np.testing.assert_allclose(r["loss"], losses, rtol=SINGLE_LOSS_RTOL)
+        worst, where = rule.check(_as_tree(r["params_1"], params),
+                                  _as_tree(states[0], like)["params"], params)
+        assert worst <= 1.0, (r["rank"], worst, where)
+        got = _as_tree(r["arrays"], like)
+        for key, start in (("params", params), ("opt", None)):
+            ratio, where = witness_ratio(got[key], single[key], witness[key], start)
+            assert ratio <= WITNESS, (key, ratio, where)
+        assert abs(r["grad_norm0"] - grads["norm"]) <= NORM_RTOL * grads["norm"]
+        for path, want in grads["grads"].items():
+            l2, mx = _rel(torch.as_tensor(r["grads"][path]), torch.as_tensor(want))
+            assert l2 <= GRAD_L2 and mx <= GRAD_MAX, (r["rank"], path, l2, mx)
+        assert sum(r["launches"].values()) == 0 and r["plain"] == 0
+
+
+def test_fsdp_tp_rank_shapes_and_replicas(ranks):
+    """Each rank holds exactly its `ShardingRules(data=2, model=2,
+    fsdp=True)` part of every param, its moments the same; a leaf the spec
+    keeps whole over "data" is bytewise equal across each data group (and,
+    kept whole over "model" too, across each model group); the data gathers
+    and their reduce-scatters ran, and a step gathers nothing after its
+    update (its gathers are its gradient fn's)."""
+    bundle = dp_model(FSDP)[0]
+    rules = ShardingRules(data=2, model=2, fsdp=True)
+    lay = tensor_parallel.layout(bundle, rules, train=True)
+    assert lay.fsdp and "embed/table" in lay.fsdp
+    by = {tuple(r["rank"]): r for r in ranks["fsdp"]}
+    for (d, m), r in by.items():
+        want_p, want_m = expected_rank_shapes(bundle, rules, d)
+        assert r["param_shapes"] == {p: [tuple(s) for s in v] for p, v in want_p.items()}
+        assert r["moment_shapes"] == {p: [tuple(s) for s in v] for p, v in want_m.items()}
+        for path, a in r["local"].items():
+            if path in lay.fsdp:
+                continue
+            np.testing.assert_array_equal(a, by[(1 - d, m)]["local"][path], err_msg=path)
+            if path not in lay.cuts:
+                np.testing.assert_array_equal(a, by[(d, 1 - m)]["local"][path], err_msg=path)
+        c = r["axis_counters"]
+        assert c["data"]["all_gather"] > 0 and c["data"]["reduce_scatter"] > 0
+        assert c["model"]["all_reduce"] > 0 and c["data"]["all_mean"] > 0
+        assert r["step_gathers"] == [r["grad_counters"]["data"]["all_gather"]] * FSDP_STEPS
+
+
+def test_fsdp_commit_is_the_reference_layout_and_restores_under_zero1_and_fsdp(ranks):
+    """The Trainer under FSDP at (2, 2): rank 0 commits the gathered state,
+    which the reference's Checkpointer restores bytewise; every rank
+    restores its own parts at the commit; the commit restores under ZeRO-1
+    at (2, 2) and (1, 2) and under FSDP at (2, 1), and the ZeRO-1 commit of
+    `test_trainer_commit_is_the_reference_layout_and_restores_at_any_mesh`
+    under FSDP at (2, 2): each param its part of the committed array, each
+    moment of its rank's shape."""
+    ck = ranks["ck_fsdp"]
+    jb = jbuild(jreduce(jget("llama3_8b"), n_layers=2, vocab=64, d_model=64, d_ff=128),
+                JMode.DENSE)
+    jp = jax.eval_shape(jb.init, jax.random.PRNGKey(0))
+    step, tree = JCheckpointer(str(ck)).restore(
+        {"params": jp, "opt": jax.eval_shape(JAdamW().init, jp)})
+    with np.load(ck / f"step_{TRAINER_STEPS:08d}" / "arrays.npz") as f:
+        files = dict(f)
+    got = jflatten(tree)
+    assert step == TRAINER_STEPS and sorted(got) == sorted(files)
+    for path, a in got.items():
+        np.testing.assert_array_equal(a, files[path], err_msg=path)
+    for r in ranks["fsdp_trainer"]:
+        for path, a in r["whole"].items():
+            np.testing.assert_array_equal(a, files[path], err_msg=path)
+    bundle = dp_model(FSDP)[0]
+    for source, commit in ((ck, files), (ranks["ck"], None)):
+        if commit is None:
+            with np.load(source / f"step_{TRAINER_STEPS:08d}" / "arrays.npz") as f:
+                commit = dict(f)
+        meshes = ([(2, 2, False), (1, 2, False), (2, 1, True), (2, 2, True)] if source == ck
+                  else [(2, 2, True)])
+        for d, m, fsdp in meshes:
+            rules = ShardingRules(data=d, model=m, fsdp=fsdp)
+            lay = (tensor_parallel.layout(bundle, rules, train=True) if m > 1 or fsdp
+                   else None)
+            for rank in range(d * m):
+                k, restored = _restore_on(FSDP, str(source), d, m, rank, fsdp=fsdp)
+                assert k == TRAINER_STEPS
+                dr, mr = rank // m, rank % m
+                if (source, d, m, fsdp) == (ck, 2, 2, True):     # its own parts at the commit
+                    own = next(r for r in ranks["fsdp_trainer"]
+                               if tuple(r["rank"]) == (dr, mr))["own"]
+                    got = {p: [t.numpy() for t in ls]
+                           for p, ls in reference_leaves(restored).items()}
+                    assert sorted(got) == sorted(own)
+                    for path, layers in own.items():
+                        for j, a in enumerate(layers):
+                            np.testing.assert_array_equal(got[path][j], a, err_msg=path)
+                for path, layers in reference_leaves(restored["params"]).items():
+                    whole = torch.as_tensor(commit[f"params/{path}"])
+                    for j, t in enumerate(layers):
+                        w = whole[j] if path.startswith("segments/") else whole
+                        part = w if lay is None else lay.part(path, w, dr, mr)
+                        np.testing.assert_array_equal(t.numpy(), part.numpy(),
+                                                      err_msg=f"{(d, m, fsdp)} {rank} {path}")
+                _, want_m = expected_rank_shapes(bundle, rules, dr)
+                for path, layers in reference_leaves(restored["opt"].m).items():
+                    assert [tuple(t.shape) for t in layers] == want_m[path], (d, m, path)

@@ -28,7 +28,10 @@ dense and layer 1 LUT, expert sites included). Held here, per family:
     experts, which differ by data rank); the data all-to-all ran;
   * a Trainer commit from (2, 2) in the reference's layout (the reference's
     Checkpointer restores it), which the port restores at (4, 1) and
-    (1, 2).
+    (1, 2);
+  * under FSDP (`ShardingRules(fsdp=True)`), one DENSE step of arctic_480b,
+    mamba2_370m and zamba2_1p2b: the loss, the leaf rule, the gradients and
+    their norm, each rank's parts and the replicas.
 
 The reference's (2, 4) sharded step against the port's (2, 2) step of
 reduced arctic_480b and mamba2_370m is in tests/test_torch_dp.py."""
@@ -72,6 +75,8 @@ SINGLE_LOSS_RTOL = 1e-5
 NORM_RTOL = 1e-6
 LOG_T_TERMS = 1e-6
 CASES = [(f, m) for f in FAMILIES for m in MODES]
+# one FSDP DENSE step each (`ShardingRules(fsdp=True)`: weights over "data" too)
+FSDP_FAMILIES = ("arctic_480b", "mamba2_370m", "zamba2_1p2b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -104,6 +109,9 @@ def ranks(tmp_path_factory) -> dict:
     for f in COMMITS:
         jobs.append(("tp_trainer", (spec_of(f, "dense"), str(ck[f]), TRAINER_STEPS)))
         keys.append(("trainer", f, "dense"))
+    for f in FSDP_FAMILIES:
+        jobs.append(("tp_train", (dict(spec_of(f, "dense"), fsdp=True), None, 1)))
+        keys.append(("fsdp", f, "dense"))
     out = run_ranks(tp_jobs, 4, jobs, axis=MESH, timeout=600)
     return {"by": {k: [r[i] for r in out] for i, k in enumerate(keys)}, "ck": ck}
 
@@ -179,6 +187,31 @@ def test_init_rank_is_the_rank_part_of_the_whole_init(family):
             _, got, lay = tensor_parallel.init_rank(bundle, rules, mesh,
                                                     torch.Generator().manual_seed(3))
             assert lay.over_data if d > 1 else not lay.over_data
+            got, want = reference_leaves(got), reference_leaves(want)
+            assert sorted(got) == sorted(want)
+            for path, ls in want.items():
+                for j, w in enumerate(ls):
+                    assert torch.equal(got[path][j], w), ((d, m), rank, path, j)
+
+
+@pytest.mark.parametrize("family", ["arctic_480b", "zamba2_1p2b"])
+def test_init_rank_under_fsdp_is_the_rank_part_of_the_whole_init(family):
+    """Under FSDP `init_rank` cuts each group of leaves as it is drawn (a
+    layer, the embedding, the shared block: `transformer.init_keeping`) and
+    keeps the rank's data part of each leaf the spec splits over "data":
+    bytewise `place(train=True)` of `bundle.init` from the same generator,
+    at (2, 2) and on a data mesh (2, 1)."""
+    bundle = dp_model(spec_of(family, "lut_train"))[0]
+    whole = bundle.init(torch.Generator().manual_seed(3), device="cpu")
+    for d, m in ((2, 2), (2, 1)):
+        rules = ShardingRules(data=d, model=m, fsdp=True)
+        for rank in range(d * m):
+            mesh = HostMesh(data=d, model=m, rank=rank, device=torch.device("cpu"),
+                            backend="gloo")
+            _, want, _ = tensor_parallel.place(bundle, whole, rules, mesh, train=True)
+            _, got, lay = tensor_parallel.init_rank(bundle, rules, mesh,
+                                                    torch.Generator().manual_seed(3))
+            assert lay.fsdp and lay.dp == d
             got, want = reference_leaves(got), reference_leaves(want)
             assert sorted(got) == sorted(want)
             for path, ls in want.items():
@@ -417,3 +450,53 @@ def test_family_commit_is_the_reference_layout_and_restores_at_other_meshes(rank
                                                   err_msg=f"{(d, m)} {rank} {path}[{j}]")
             for path, layers in reference_leaves(restored["opt"].m).items():
                 assert [tuple(t.shape) for t in layers] == want_m[path], (d, m, rank, path)
+
+
+@pytest.mark.parametrize("family", FSDP_FAMILIES)
+def test_fsdp_family_tp_steps_match_the_single_rank_step(ranks, family):
+    """One FSDP DENSE step at (2, 2) (arctic_480b with grad_accum 2: its
+    router and attention weights over "data" too, its experts the rank's
+    own; mamba2_370m's in_proj rows over "data" beside its head-selected
+    columns; zamba2_1p2b's shared block gathered once per forward): the
+    loss and the params after it by the leaf rule, the gradients before it
+    (gathered) and their global norm, against the single rank's."""
+    spec = dict(spec_of(family, "dense"), fsdp=True)
+    losses, states, rule, params = dp_single(spec, None, 1)
+    _, _, opt, frozen = dp_model(spec)
+    want_1 = _as_tree(states[0], {"params": params, "opt": opt.init(params, frozen)})["params"]
+    single = tp_single_grads(spec)
+    for r in ranks["by"][("fsdp", family, "dense")]:
+        np.testing.assert_allclose(r["loss"], losses, rtol=SINGLE_LOSS_RTOL)
+        worst, where = rule.check(_as_tree(r["params_1"], params), want_1, params)
+        assert worst <= 1.0, (r["rank"], worst, where)
+        assert abs(r["grad_norm0"] - single["norm"]) <= NORM_RTOL * single["norm"]
+        for path, want in single["grads"].items():
+            l2, mx = _rel(torch.as_tensor(r["grads"][path]), torch.as_tensor(want))
+            assert l2 <= GRAD_L2 and mx <= GRAD_MAX, (r["rank"], path, l2, mx)
+        assert sum(r["launches"].values()) == 0 and r["plain"] == 0
+
+
+@pytest.mark.parametrize("family", FSDP_FAMILIES)
+def test_fsdp_family_rank_shapes_and_replicas(ranks, family):
+    """Each rank's params and moments are its FSDP part (the spec's, but for
+    the layout's kept differences: the experts whole over "data" where a
+    rank holds its own, in_proj's head selection, the hybrid's fuse and out
+    whole over "model"); a leaf kept whole over "data" is bytewise equal
+    across each data group; the data gathers and their reduce-scatters ran,
+    and the step gathered nothing after its update."""
+    spec = dict(spec_of(family, "dense"), fsdp=True)
+    bundle = dp_model(spec)[0]
+    rules = ShardingRules(data=2, model=2, fsdp=True)
+    lay = tensor_parallel.layout(bundle, rules, train=True)
+    assert lay.fsdp and not set(lay.fsdp) & lay.over_data
+    by = {tuple(r["rank"]): r for r in ranks["by"][("fsdp", family, "dense")]}
+    for (d, m), r in by.items():
+        want_p, want_m = expected_rank_shapes(bundle, rules, d, kept=lay.kept)
+        assert r["param_shapes"] == {p: [tuple(s) for s in v] for p, v in want_p.items()}
+        assert r["moment_shapes"] == {p: [tuple(s) for s in v] for p, v in want_m.items()}
+        for path, a in r["local"].items():
+            if path not in lay.fsdp and path not in lay.over_data:
+                np.testing.assert_array_equal(a, by[(1 - d, m)]["local"][path], err_msg=path)
+        c = r["axis_counters"]["data"]
+        assert c["all_gather"] > 0 and c["reduce_scatter"] > 0
+        assert r["step_gathers"] == [r["grad_counters"]["data"]["all_gather"]]
