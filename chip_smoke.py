@@ -282,6 +282,28 @@ Phases (any failed check exits non-zero; no phase is skipped):
      memory. Then one FSDP DENSE step of mamba2_370m, held against the same
      single-rank steps. No LUT kernel launches ("phase_launches" reads 0,
      "15_fsdp" for the FSDP run alone).
+ 16. the enc-dec and the vision-LM on a (data, model) mesh. (a) right
+     after phase 9 (its two rank processes started before phase 9, beside
+     it), tensor-parallel serving at tp 2 of phase 9's whisper_tiny (4 + 4
+     layers, 1500 frames) and qwen2_vl_7b (VLM_SERVE_LAYERS layers), each
+     rank reading only its shards of phase 9's artifacts (deleted after):
+     rank 0 tunes the rank's site shapes (measured) and broadcasts the
+     records; phase 9's prefill (frames, or embeddings) and GREEDY_STEPS
+     greedy steps through `make_serve_step(local, mesh=)` on dense and
+     paged caches. Held: the tokens against phase 9's plain run (a
+     difference only after a near-tie or a code picked at a tie), per rank
+     the launch counts (each LUT-site call's kernel as the records choose
+     at its N and the rank's shapes, exactly one launch per call, no plain
+     call), every LUT-site call of the first prefill and decode forward
+     against the plain versions, their row sites bytewise against the
+     unsharded site. Per rank the decode forward's wall time, the
+     all-reduces per forward and their host time, peak memory. (b) in
+     phase 15's ranks (its last jobs): whisper_tiny at full size and
+     qwen2_vl_7b at full width and 2 layers on `testing.family_batch`
+     batches (4 x 128; stub frames, or embeddings with their M-RoPE grid
+     positions), a DENSE and a soft-PQ step under ZeRO-1 and a DENSE step
+     under FSDP, held as phase 15 holds its jobs (qwen2_vl_7b's ZeRO-1
+     single-rank steps run again after the ranks', `TPF_SINGLE_AFTER`).
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -1956,6 +1978,58 @@ def tp_devices() -> tuple[int, list[str]]:
     return n_cards, [f"cuda:{r}" for r in range(TP)] if n_cards >= TP else ["cuda:0"] * TP
 
 
+def start_ranks(target, devices: list[str], *args) -> dict:
+    """A process for each of `devices` running `target(rank, jobs, devices,
+    init, q, *args)`, spawned now: `jobs` is the rank's own queue for what
+    the parent sends it later, `q` the one every rank answers on. Spawned a
+    phase ahead, the ranks' start (interpreter, torch, the CUDA context, the
+    mesh) runs beside that phase."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    jobs = [ctx.Queue() for _ in devices]
+    procs = [ctx.Process(target=target, args=(r, jobs[r], devices, init, q, *args), daemon=True)
+             for r in range(len(devices))]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "q": q, "jobs": jobs, "devices": devices,
+            "cards": torch.cuda.device_count(), "t0": time.perf_counter()}
+
+
+def wait_ranks(q, n: int, seconds: float) -> list:
+    """The ranks' next `n` answers on `q`, (status, value) each. A failed
+    rank ends the wait (its peers would hang), as does no answer within
+    `seconds`."""
+    import queue
+
+    got: list = []
+    deadline = time.monotonic() + seconds
+    try:
+        while len(got) < n:
+            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
+            if got[-1][0] != "ok":
+                break
+    except queue.Empty:
+        got.append(("error", {"trace": f"no result from {n - len(got)} rank(s) in "
+                                       f"{seconds:.0f} s"}))
+    return got
+
+
+def stop_ranks(procs, ok: bool) -> None:
+    """Join the rank processes (after a failure, hardly wait), killing any
+    still alive."""
+    for p in procs:
+        p.join(timeout=60 if ok else 1)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+
+
 def tp_expected_launches(local, lay, counts: list[int], prefill_fwd: int, decode_fwd: int,
                          dev) -> dict[str, int]:
     """Launches of each kernel that the records choose for a rank's LUT sites
@@ -2273,7 +2347,6 @@ def phase_tp(dev, scratch: Path) -> dict:
     forward's wall and busy time, the all-reduces per forward and their
     host time, and device memory."""
     import multiprocessing as mp
-    import queue
     import socket
 
     from repro_torch.launch.mesh import backend_for
@@ -2298,22 +2371,9 @@ def phase_tp(dev, scratch: Path) -> dict:
                          daemon=True) for r in range(TP)]
     for p in procs:
         p.start()
-    got: list = []
-    deadline = time.monotonic() + 500
-    try:
-        while len(got) < len(procs):     # a failed rank ends the wait: its peer would hang
-            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
-            if got[-1][0] != "ok":
-                break
-    except queue.Empty:
-        got.append(("error", {"trace": f"no result from {TP - len(got)} rank(s) in 500 s"}))
-    finally:
-        t_results = time.perf_counter() - t0
-        for p in procs:
-            p.join(timeout=30 if got and got[-1][0] == "ok" else 1)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
+    got = wait_ranks(q, TP, 500)
+    t_results = time.perf_counter() - t0
+    stop_ranks(procs, got[-1][0] == "ok")
     errors = [val["trace"] for status, val in got if status != "ok"]
     check(not errors, "a tp rank failed:\n" + "\n".join(errors))
     ranks = sorted((val for _, val in got), key=lambda v: v["rank"])
@@ -2676,8 +2736,10 @@ def hold_moe(label: str, model, layers: list, experts: list) -> dict:
     return out
 
 
-def tp_family_rank(rank: int, jobs: list, devices: list[str], init: str, q) -> None:
-    """One rank of phase 12, in its own process: each of phase 8's models
+def tp_family_rank(rank: int, jobs_q, devices: list[str], init: str, q) -> None:
+    """One rank of phase 12, in its own process, started before phase 8:
+    join the model mesh, wait for the jobs phase 8's models make (None:
+    phase 8 failed, the end), then serve each of phase 8's models
     served through the launcher's rank function (`serve_on_mesh`) with a
     `TPProbe` that records every LUT-site call of the counted burst, dense
     and, where the family has attention, paged. The recurrent families load
@@ -2702,7 +2764,7 @@ def tp_family_rank(rank: int, jobs: list, devices: list[str], init: str, q) -> N
         mesh = make_host_mesh(data=1, model=len(devices), rank=rank, devices=devices,
                               init_method=init, timeout_s=600)
         out["mesh_s"] = time.perf_counter() - t0
-        for name, art, model in jobs:
+        for name, art, model in jobs_q.get(timeout=900) or ():
             tables: dict = {}
             # the unsharded twin's model: the whole params (arctic's are the
             # parent's, viewed; the recurrent two's read from the artifact)
@@ -2759,56 +2821,35 @@ def tp_family_rank(rank: int, jobs: list, devices: list[str], init: str, q) -> N
         q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
 
 
-def phase_tp_families(scratch: Path, fam: dict) -> dict:
+def phase_tp_families(scratch: Path, fam: dict, started: dict) -> dict:
     """Phase 12: phase 8's models at tp 2 through the launcher's rank
     function, over NCCL when the host has two cards, else both ranks on the
     one card over gloo; phase 8's burst against phase 8's plain run, and per
     rank the launch counts, the holds, the decode forward's wall and busy
-    time, the all-reduces per forward and their host time, and memory."""
-    import multiprocessing as mp
-    import queue
-    import socket
-
+    time, the all-reduces per forward and their host time, and memory.
+    `started`: the ranks `start_ranks` spawned before phase 8."""
     from repro_torch.launch.mesh import backend_for
 
-    n_cards, devices = tp_devices()
+    procs, q, devices, n_cards = (started[k] for k in ("procs", "q", "devices", "cards"))
     backend = backend_for(devices)
     log(f"[tp12] tp={TP} on {n_cards} card(s): ranks on {devices}, backend {backend}; "
         + ", ".join(f"{name} ({'artifact' if fam[name]['art'] else 'the card-resident params'})"
                     for name in TP_FAMILIES))
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
     jobs = [(name, str(fam[name]["art"]) if fam[name]["art"] else None, fam[name]["model"])
             for name in TP_FAMILIES]
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
+    for jq in started["jobs"]:
+        jq.put(jobs)
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=tp_family_rank, args=(r, jobs, devices, init, q), daemon=True)
-             for r in range(TP)]
-    for p in procs:
-        p.start()
-    got: list = []
-    deadline = time.monotonic() + 500
-    try:
-        while len(got) < len(procs):     # a failed rank ends the wait: its peer would hang
-            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
-            if got[-1][0] != "ok":
-                break
-    except queue.Empty:
-        got.append(("error", {"trace": f"no result from {TP - len(got)} rank(s) in 500 s"}))
-    finally:
-        t_results = time.perf_counter() - t0
-        for p in procs:
-            p.join(timeout=30 if got and got[-1][0] == "ok" else 1)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
+    got = wait_ranks(q, TP, 500)
+    t_results = time.perf_counter() - t0
+    stop_ranks(procs, got[-1][0] == "ok")
     errors = [val["trace"] for status, val in got if status != "ok"]
     check(not errors, "a tp12 rank failed:\n" + "\n".join(errors))
     ranks = sorted((val for _, val in got), key=lambda v: v["rank"])
-    log(f"[tp12] both ranks' results in {t_results:.1f}s (spawn, import, mesh, 3 models, 5 "
-        f"engines), both exited {time.perf_counter() - t0 - t_results:.1f}s later")
+    log(f"[tp12] both ranks' results in {t_results:.1f}s (3 models, 5 engines; spawned "
+        f"{t0 - started['t0']:.1f}s before, beside phase 8: import, mesh "
+        f"{ranks[0]['mesh_s']:.1f}s), both exited {time.perf_counter() - t0 - t_results:.1f}s "
+        f"later")
     total_mib = int(smi("--query-gpu=memory.total").splitlines()[0])
     out = {"ties": 0, "launches": dict.fromkeys(ranks[0][f"{TP_FAMILIES[0]}/dense"]["launches"], 0),
            "backend": backend, "cards": n_cards}
@@ -3314,8 +3355,9 @@ def run_logged(cmd: list[str], log_path: Path, timeout: float,
 
 def launcher_resume(scratch: Path) -> dict:
     """(c) The training launcher at its default size: killed mid soft-PQ and
-    re-run, its artifact served, alone on the card."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    re-run, its artifact served, beside (b); its own autotune records."""
+    cache = scratch / "autotune_resume.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_AUTOTUNE_CACHE=str(cache))
     py = [sys.executable, "-m"]
     ck, art = scratch / "launch_ck", scratch / "launch_art"
     train = py + ["repro_torch.launch.train", "--lut", "--steps", str(LAUNCHER_STEPS),
@@ -3346,7 +3388,7 @@ def launcher_resume(scratch: Path) -> dict:
     check(stage["dense"]["status"] == stage["centroid_init"]["status"] == "done"
           and stage["soft_pq"]["status"] == "running" and committed,
           f"manifest after the kill: {[(n, e['status'], e['step']) for n, e in stage.items()]}")
-    text = run_logged(train, scratch / "train_resumed.log", 600)
+    text = run_logged(train, scratch / "train_resumed.log", 600, autotune_cache=cache)
     softpq = text.split("[soft_pq]", 1)[-1]
     first_step = re.search(r"step\s+(\d+) loss", softpq)
     check("[dense] already done — restored" in text
@@ -3362,7 +3404,7 @@ def launcher_resume(scratch: Path) -> dict:
         if line.startswith(("[eval]", "step ")):
             log(f"  {line}")
     text = run_logged(py + ["repro_torch.launch.serve", "--artifact", str(art)],
-                      scratch / "serve.log", 600)
+                      scratch / "serve.log", 600, autotune_cache=cache)
     check(f"artifact {art}" in text, f"serve did not name its artifact: {text[-2000:]}")
     log("[launcher] served: " + " | ".join(l.strip() for l in text.splitlines()[:3]))
 
@@ -3400,18 +3442,20 @@ def launcher_spec(scratch: Path) -> dict:
 def phase_train(dev, scratch: Path) -> dict:
     import gc
 
-    # (c)'s two-plan run, a process of its own, goes beside (a), whose time
-    # is mostly the CPU's side of the parity; (b) and the rest of (c) are
-    # timed with nothing else on the card
+    # (c)'s launcher runs, processes of their own at the launcher's default
+    # size, go beside the rest: the two-plan run beside (a), whose time is
+    # mostly the CPU's side of the parity, the killed and resumed run beside
+    # (b), whose step and stage times are taken beside it
     pool = ThreadPoolExecutor(max_workers=1)
     spec = pool.submit(launcher_spec, scratch)
     out = {"step": train_step_parity(dev)}
     spec_out = spec.result(timeout=900)
-    pool.shutdown()
     gc.collect()
     torch.cuda.empty_cache()
+    resume = pool.submit(launcher_resume, scratch)
     out["recipe"] = recipe_full_width(dev, scratch)
-    out["launcher"] = launcher_resume(scratch) | spec_out
+    out["launcher"] = resume.result(timeout=900) | spec_out
+    pool.shutdown()
     return out
 
 
@@ -3667,35 +3711,40 @@ def phase_families(dev, scratch: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 ROWS9 = 4                # batch rows of phase 9's forwards
-VLM_SERVE_LAYERS = 8     # qwen2_vl_7b's depth in phase 9 (full width; cut from 28 so
-                         # that chip_smoke keeps inside its time limit with phase 11)
+VLM_SERVE_LAYERS = 4     # qwen2_vl_7b's depth in phases 9 and 16 (a) (full width; cut from
+                         # 28 so that chip_smoke keeps inside its time limit with phase
+                         # 11, then from 8 with phase 16)
 WHISPER_PROMPT = 8       # decoder tokens of whisper's prefill, beside its frames
 VLM_GRID = (4, 8)        # qwen2_vl's prefill: a 4 x 8 grid of patch embeddings ...
 VLM_TEXT = 8             # ... then 8 text tokens' embedding rows
 GREEDY_STEPS = 16        # greedy decode steps after each prefill
 MAX_SEQ9 = 64            # cache positions per row (4 pages of 16 in the paged run)
+# phase 9's artifacts, kept for phase 16's ranks to read their shards of: {arch: path}
+KEPT_ARTIFACTS: dict[str, str] = {}
 
 
 def greedy_forwards(bundle, params, batch: dict, caches, feed, *,
-                    record: list | None = None) -> dict:
-    """`batch` (a prefill) through `ModelBundle.forward_step`, then
-    GREEDY_STEPS greedy decode steps, each next input `feed(tokens (B, 1))`.
-    Each forward is timed with the card synchronized around it; `record`
-    collects each forward's LUT-site calls (`SiteCalls`), one list per
-    forward. Returns the tokens (B, 1 + steps), the top-2 logit gap of each,
-    and the seconds of the prefill and of each decode forward."""
+                    record: list | None = None, step=None) -> dict:
+    """`batch` (a prefill) through `ModelBundle.forward_step` (or `step(batch,
+    caches)`), then GREEDY_STEPS greedy decode steps, each next input
+    `feed(tokens (B, 1))`. Each forward is timed with the card synchronized
+    around it; `record` collects each forward's LUT-site calls
+    (`SiteCalls`), one list per forward. Returns the tokens (B, 1 + steps),
+    the top-2 logit gap of each, and the seconds of the prefill and of each
+    decode forward."""
     toks, gaps, secs = [], [], []
     cache_len = batch["cache_len"]
+    step = step or (lambda b, c: bundle.forward_step(params, b, c))
     with torch.inference_mode():
         for i in range(1 + GREEDY_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if record is not None:
                 with SiteCalls() as rec:
-                    logits, caches = bundle.forward_step(params, batch, caches)
+                    logits, caches = step(batch, caches)
                 record.append(rec.calls)
             else:
-                logits, caches = bundle.forward_step(params, batch, caches)
+                logits, caches = step(batch, caches)
             last = logits[:, -1].float()
             top2 = last.topk(2, dim=-1).values
             nxt = last.argmax(-1)
@@ -3793,11 +3842,13 @@ def profile_forward(fn, n_steps: int = 8) -> tuple[float, float, dict]:
         {k: v / n_steps for k, v in by_kernel.items()}
 
 
-def family_model(name: str, dev, scratch: Path, n_layers: int | None = None):
-    """(bundle, params, param bytes, build seconds) of `name` at full
-    published width and depth (or `n_layers`), LUT_INFER through the
-    kernels: built on the card from a seed, exported as an artifact and
-    loaded back."""
+def family_model(name: str, dev, scratch: Path, n_layers: int | None = None,
+                 keep: bool = False):
+    """(bundle, params, param bytes) of `name` at full published width and
+    depth (or `n_layers`), LUT_INFER through the kernels: built on the card
+    from a seed, exported as an artifact and loaded back; the artifact is
+    deleted, or with `keep` kept for phase 16 (its path then the bundle's
+    `artifact` in `KEPT_ARTIFACTS`)."""
     from repro_torch.configs import build_model, get_arch
     from repro_torch.core.amm import Mode
     from repro_torch.serving import artifact
@@ -3812,7 +3863,10 @@ def family_model(name: str, dev, scratch: Path, n_layers: int | None = None):
     path = artifact.save_artifact(scratch / name, bundle, params)
     del params
     art = artifact.load_artifact(path, device=dev)
-    shutil.rmtree(path)
+    if keep:
+        KEPT_ARTIFACTS[name] = str(path)
+    else:
+        shutil.rmtree(path)
     log(f"[encdec/vlm] {name}: {art.bundle.kind}, {arch.n_layers} layers"
         + (f" + {arch.n_enc_layers} encoder layers over {arch.enc_frames} frames"
            if arch.n_enc_layers else "")
@@ -3894,7 +3948,8 @@ def phase9_whisper(dev, scratch: Path, model: tuple | None = None) -> dict:
     params, bytes) replaces the seeded artifact (phase 10's trained one)."""
     from repro_torch.models.attention import PagedSpec
 
-    bundle, params, n_bytes = model or family_model("whisper_tiny", dev, scratch)
+    bundle, params, n_bytes = model or family_model("whisper_tiny", dev, scratch,
+                                                    keep=True)
     arch = bundle.arch
     check_refused("whisper_tiny", bundle, params, dev, "could not run the encoder")
     counts = [ROWS9, ROWS9 * WHISPER_PROMPT, ROWS9 * arch.enc_frames]
@@ -3944,7 +3999,11 @@ def phase9_whisper(dev, scratch: Path, model: tuple | None = None) -> dict:
         + "; tokens equal the dense kernel run's")
     res = report_family("whisper_tiny", bundle, held, want, got, launches, ties, dev,
                         counts)
-    return dict(res, versions=versions, param_bytes=n_bytes, paged_launches=launches_p)
+    # phase 16's reference: the plain run, on the same inputs
+    plain = {"tokens": want["tokens"], "gaps": want["gaps"], "counts": counts,
+             "inputs": {"prompt": prompt.cpu().numpy(), "frames": frames.cpu().numpy()}}
+    return dict(res, versions=versions, param_bytes=n_bytes, paged_launches=launches_p,
+                plain=plain)
 
 
 def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
@@ -3958,7 +4017,7 @@ def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
     from repro_torch.testing import grid_positions
 
     bundle, params, n_bytes = model or family_model("qwen2_vl_7b", dev, scratch,
-                                                    n_layers=VLM_SERVE_LAYERS)
+                                                    n_layers=VLM_SERVE_LAYERS, keep=True)
     arch = bundle.arch
     check_refused("qwen2_vl_7b", bundle, params, dev, "could not give this model the embeddings")
     n_patch = VLM_GRID[0] * VLM_GRID[1]
@@ -3993,6 +4052,9 @@ def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
           "qwen2_vl_7b: the kernel run's tokens differ from the recorded run's")
     del recorded
     res = report_family("qwen2_vl_7b", bundle, held, want, got, launches, ties, dev, counts)
+    # phase 16's reference: the plain run, on the same inputs
+    plain = {"tokens": want["tokens"], "gaps": want["gaps"], "counts": counts,
+             "inputs": {"embeds": embeds.cpu().numpy()}}
     del got, want
 
     # M-RoPE at work: the grid's (t, h, w) streams against the serving
@@ -4019,7 +4081,7 @@ def phase9_vlm(dev, scratch: Path, model: tuple | None = None) -> dict:
         f"versions max logit err {err:.3g} ({held_grid['sites']} site calls held, "
         f"{held_grid['codes_off']} codes off at ties); the streams move the logits by "
         f"{moved:.3g} against the serving positions")
-    return dict(res, versions=versions, param_bytes=n_bytes, grid_err=err)
+    return dict(res, versions=versions, param_bytes=n_bytes, grid_err=err, plain=plain)
 
 
 def phase_encdec_vlm(dev, scratch: Path) -> dict:
@@ -4043,6 +4105,269 @@ def phase_encdec_vlm(dev, scratch: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16 (a): tensor-parallel serving (tp 2) of the enc-dec and the vision-LM
+# ---------------------------------------------------------------------------
+
+TPE_RECORDED = 2         # forwards whose LUT-site calls are held: the first prefill and decode
+
+
+def tpe_rank(rank: int, jobs_q, devices: list[str], init: str, q) -> None:
+    """One rank of phase 16 (a), in its own process, started before phase 9:
+    join the model mesh, wait for the jobs phase 9's artifacts make (None:
+    phase 9 failed, the end), then serve each job's model from its artifact
+    (`tpe_rank_work`)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (sets the fp32 matmul policy)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    try:
+        t0 = time.perf_counter()
+        mesh = make_host_mesh(data=1, model=len(devices), rank=rank, devices=devices,
+                              init_method=init, timeout_s=600)
+        out: dict = {"rank": rank, "mesh_s": time.perf_counter() - t0}
+        jobs = jobs_q.get(timeout=900)
+        for job in jobs or ():
+            out[job["name"]] = tpe_rank_work(mesh, job)
+            torch.cuda.empty_cache()
+        out["backend"] = mesh.backend
+        mesh.close()
+        # numpy arrays: a queue would hand a CPU tensor over as shared
+        # memory that dies with the exiting rank
+        q.put(("ok", map_tensors(out, lambda t: t.detach().cpu().numpy())))
+    except BaseException:                     # noqa: BLE001 — the parent reports it
+        import traceback
+
+        q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
+
+
+def map_tensors(obj, fn):
+    """`obj` with `fn` applied to every tensor, through dicts, lists and
+    tuples."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map_tensors(v, fn) for v in obj)
+    return obj
+
+
+def tpe_rank_work(mesh, job: dict) -> dict:
+    """A rank's serving of one model: its shards read from phase 9's
+    artifact (`load_artifact(mesh=)`), the measured warm-up of its site
+    shapes (rank 0 tunes, every rank takes its records), then phase 9's
+    prefill (frames, or embeddings) and GREEDY_STEPS greedy steps through
+    `make_serve_step(local, mesh=)`, on dense then paged caches, with the
+    counts set to 0 just before each run and read just after, each LUT-site
+    call's (N, signature) tallied for the kernel its record chooses; the
+    dense run's first prefill and decode recorded (their LUT-site calls held
+    against the plain versions, their row sites against the unsharded
+    site)."""
+    from repro_torch.core.amm import Mode
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.kernels import autotune, counters, ops
+    from repro_torch.models import sharded
+    from repro_torch.models.attention import PagedSpec
+    from repro_torch.serving.artifact import load_artifact
+    from repro_torch.serving.engine import tp_warm_lut_autotune
+    from repro_torch.train.train_step import make_serve_step
+
+    dev, name = mesh.device, job["name"]
+    t0 = time.perf_counter()
+    art = load_artifact(job["art"], mesh=mesh, restore_autotune=False)
+    local, lp, lay = tensor_parallel.place(art.bundle, art.params, ShardingRules.for_mesh(mesh),
+                                           mesh)
+    torch.cuda.synchronize(dev)
+    out: dict = {"load_s": time.perf_counter() - t0, "kept": lay.kept,
+                 "param_bytes": sum(t.numel() * t.element_size() for t in _tensors(lp))}
+    t0 = time.perf_counter()
+    counts = job["counts"]
+    out["tuned"] = tp_warm_lut_autotune(local, lay, mesh, counts, "float32", dev)
+    out["tune_s"] = time.perf_counter() - t0
+    backend = autotune.backend_for(dev)
+    out["sigs"] = {str(sig[:4]): [autotune.kernel_choice(n, *sig[:4], dtype=sig[4],
+                                                         backend=backend)[0] for n in counts]
+                   for sig in tensor_parallel.kernel_signatures(local, lay, "float32")}
+    inputs = {k: torch.from_numpy(v).to(dev) for k, v in job["inputs"].items()}
+    serve_step = make_serve_step(local, compute_dtype=torch.float32, mesh=mesh)
+    if local.arch.takes_embeds:
+        first = {"embeds": inputs["embeds"]}
+
+        def feed(t):               # the tokens' rows of the rank's vocab shard, reduced
+            with sharded.bound(mesh):
+                return {"embeds": sharded.embed(lp["embed"], t)}
+    else:
+        first = {"tokens": inputs["prompt"], "frames": inputs["frames"]}
+
+        def feed(t):
+            return {"tokens": t.to(torch.int32)}
+    n_tables = MAX_SEQ9 // 16
+
+    def run(paged: bool, step) -> dict:
+        spec = PagedSpec(n_pages=ROWS9 * n_tables + 1, page_size=16) if paged else None
+        caches = local.init_caches(ROWS9, MAX_SEQ9, dtype=torch.float32, device=dev, paged=spec)
+        batch = {**first, "cache_len": torch.zeros(ROWS9, dtype=torch.long)}
+        if paged:
+            batch["block_tables"] = torch.arange(1, 1 + ROWS9 * n_tables).view(ROWS9, n_tables)
+        return greedy_forwards(local, lp, batch, caches, feed, step=step)
+
+    def counted(paged: bool, step) -> dict:
+        tally, plain_fn = [], ops.lut_amm
+
+        def tallied(x, c, q_, s, **kw):
+            tally.append((x.shape[0], q_.shape[-1], *c.shape, autotune.dtype_name(x.dtype)))
+            return plain_fn(x, c, q_, s, **kw)
+
+        mesh.reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters.reset()
+        ops.lut_amm = tallied
+        try:
+            res = run(paged, step)
+        finally:
+            ops.lut_amm = plain_fn
+        launches, plain = counters.launches(), counters.plain_calls()
+        want = dict.fromkeys(KERNEL_OF_VERSION.values(), 0)
+        for n, m, c, k, v, dt in tally:
+            want[KERNEL_OF_VERSION[autotune.kernel_choice(n, m, c, k, v, dtype=dt,
+                                                          backend=backend)[0]]] += 1
+        return {"tokens": res["tokens"], "prefill_s": res["prefill_s"],
+                "decode_s": res["decode_s"], "launches": launches, "plain": plain,
+                "expected": want, "calls": len(tally), "coll": dict(mesh.counters),
+                "peak": torch.cuda.max_memory_allocated(dev)}
+
+    # the dense run's first prefill's and decode's LUT-site calls, and their
+    # row sites' inputs and reduced outputs
+    calls, rows, n_fwd, real = [], [], [0], sharded.linear
+
+    def linear(site, p, x):
+        y = real(site, p, x)
+        if site.tp == "row" and site.mode == Mode.LUT_INFER:
+            rows.append((p["table_q"].data_ptr(), p, x.reshape(-1, x.shape[-1]).clone(),
+                         y.reshape(-1, y.shape[-1]).clone()))
+        return y
+
+    def recorded(b, c):
+        n_fwd[0] += 1
+        if n_fwd[0] > TPE_RECORDED:
+            return serve_step(lp, b, c)
+        sharded.linear = linear
+        try:
+            with SiteCalls() as rec:
+                res = serve_step(lp, b, c)
+        finally:
+            sharded.linear = real
+        calls.append(rec.calls)
+        return res
+
+    out["dense"] = counted(False, recorded)
+    out["paged"] = counted(True, lambda b, c: serve_step(lp, b, c))
+    held, taint = held_forwards(f"tp {name} rank {mesh.rank}", calls)
+    held.pop("off_rows")
+    lut = local.lut_sites()
+    decode_sites = [s for s in lut if not s.path.startswith("encoder/")
+                    and s.kind not in ("cross/k", "cross/v")]
+    check([len(f) for f in calls] == [len(lut), len(decode_sites)],
+          f"tp {name} rank {mesh.rank}: LUT-site calls in the recorded forwards "
+          f"{[len(f) for f in calls]}, expected {len(lut)} then {len(decode_sites)}")
+    n_rows = sum(lay.roles.get(s.path) == "row" for s in lut) + sum(
+        lay.roles.get(s.path) == "row" for s in decode_sites)
+    rows_held = hold_rows(f"tp {name} rank {mesh.rank}", mesh, rows, {})
+    check(rows_held["calls"] == n_rows > 0, f"tp {name} rank {mesh.rank}: {rows_held['calls']} "
+                                            f"row-site outputs recorded, expected {n_rows}")
+    del calls, rows
+    out.update(held=held, taint=taint, rows_held=rows_held)
+    out["allocated"] = torch.cuda.memory_allocated(dev)
+    return out
+
+
+def phase_tp_encdec_vlm(dev, scratch: Path, p9: dict, started: dict) -> dict:
+    """Phase 16 (a): tensor-parallel serving at tp 2 of phase 9's whisper_tiny
+    (4 + 4 layers, 1500 frames) and qwen2_vl_7b (VLM_SERVE_LAYERS layers)
+    from their artifacts, both ranks on the one card over gloo unless the
+    host has two cards: phase 9's prefill and greedy steps through
+    `make_serve_step(local, mesh=)` on dense and paged caches. Holds the
+    tokens against phase 9's plain run (near-ties and codes picked at ties
+    as phase 9 treats them), per rank the launch counts (the kernels the
+    records choose at the rank's shapes, one per LUT-site call, no plain
+    call), the first prefill's and decode's LUT-site calls against the
+    plain versions and their row sites bytewise against the unsharded site;
+    prints the decode forward's wall time, the all-reduces per forward and
+    their host time, and device memory. `started`: the ranks `start_ranks`
+    spawned before phase 9."""
+    from repro_torch.launch.mesh import backend_for
+
+    jobs = [{"name": name, "art": KEPT_ARTIFACTS[name], "counts": p9[name]["plain"]["counts"],
+             "inputs": p9[name]["plain"]["inputs"]} for name in ("whisper_tiny", "qwen2_vl_7b")]
+    procs, q, devices, n_cards = (started[k] for k in ("procs", "q", "devices", "cards"))
+    backend = backend_for(devices)
+    for jq in started["jobs"]:
+        jq.put(jobs)
+    t0 = time.perf_counter()
+    got = wait_ranks(q, TP, 500)
+    t_results = time.perf_counter() - t0
+    stop_ranks(procs, got[-1][0] == "ok")
+    for path in KEPT_ARTIFACTS.values():
+        shutil.rmtree(path, ignore_errors=True)
+    KEPT_ARTIFACTS.clear()
+    errors = [val["trace"] for status, val in got if status != "ok"]
+    check(not errors, "a phase-16 tp rank failed:\n" + "\n".join(errors))
+    ranks = sorted((val for _, val in got), key=lambda v: v["rank"])
+    log(f"[tpe] tp={TP} on {n_cards} card(s): ranks on {devices}, backend {backend}"
+        + ("" if backend == "nccl" else " (both ranks share the card: NCCL is not measured)")
+        + f"; started {t0 - started['t0']:.1f}s before (spawn, import, mesh "
+          f"{ranks[0]['mesh_s']:.1f}s, beside phase 9); both ranks' results in "
+          f"{t_results:.1f}s (load, warm-up, 2 runs of each model)")
+    out: dict = {"launches": {}}
+    for job in jobs:
+        name = job["name"]
+        want = p9[name]["plain"]
+        for rank in ranks:
+            res = rank[name]
+            tag = f"tp {name} rank {rank['rank']}"
+            held, rows = res["held"], res["rows_held"]
+            dense = torch.from_numpy(res["dense"]["tokens"])
+            ties = compare_greedy(tag, {"tokens": dense}, want, res["taint"])
+            check(torch.equal(torch.from_numpy(res["paged"]["tokens"]), dense),
+                  f"{tag}: the paged run's tokens differ from the dense run's")
+            for case in ("dense", "paged"):
+                r = res[case]
+                check(r["plain"] == 0, f"{tag} {case}: a plain version ran ({r['plain']} calls)")
+                check(r["launches"] == {k: r["expected"].get(k, 0) for k in r["launches"]}
+                      and sum(r["launches"].values()) == r["calls"] > 0,
+                      f"{tag} {case}: launches {r['launches']}, the records say "
+                      f"{r['expected']} over {r['calls']} LUT-site calls")
+                for k, v in r["launches"].items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+            d, c = res["dense"], res["dense"]["coll"]
+            n_fwd = 1 + GREEDY_STEPS
+            dec_ms = 1e3 * sum(d["decode_s"]) / len(d["decode_s"])
+            log(f"[tpe] {tag}: shards read in {res['load_s']:.1f}s "
+                f"({res['param_bytes'] / 1e9:.2f} GB), warm-up {res['tune_s']:.1f}s "
+                f"({res['tuned']} shapes tuned on rank 0; kept: {', '.join(res['kept'])}); "
+                f"version per rank site (M, C, K, V) at N={job['counts']}: {res['sigs']}")
+            log(f"[tpe] {tag}: {held['sites']} LUT-site calls of the first prefill and decode "
+                f"({held['kernels']}) equal to the plain lookup of the encode kernel's codes "
+                f"(max abs err {held['err']:.3g}; {held['codes_off']} of {held['codes']} codes "
+                f"off the plain encode's, each a tie); {rows['calls']} row-site outputs "
+                f"({rows['rows']} rows) bytewise the unsharded site's ({rows['codes_off']} codes "
+                f"off, each a tie); tokens equal phase 9's plain run but {ties} near-tie "
+                f"difference(s)")
+            log(f"[tpe] {tag}: prefill forward {1e3 * d['prefill_s']:.1f} ms, decode forward "
+                f"{dec_ms:.2f} ms mean over {len(d['decode_s'])}; all_reduce "
+                f"{c['all_reduce'] / n_fwd:.1f} per forward, "
+                f"{1e6 * c['all_reduce_s'] / max(c['all_reduce'], 1):.1f} us host each "
+                f"({c['all_reduce_bytes'] / n_fwd / 1e6:.2f} MB per forward); peak "
+                f"{d['peak'] / 2**30:.2f} GiB allocated; launches dense "
+                + " ".join(f"{k}={v}" for k, v in d["launches"].items()) + ", paged "
+                + " ".join(f"{k}={v}" for k, v in res["paged"]["launches"].items()))
+            out[f"{name}/{rank['rank']}"] = {"decode_ms": dec_ms, "ties": ties,
+                                             "all_reduce_per_fwd": c["all_reduce"] / n_fwd}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: training the MoE, SSM, hybrid, enc-dec and vision-LM families
 # ---------------------------------------------------------------------------
 
@@ -4055,7 +4380,8 @@ def phase_encdec_vlm(dev, scratch: Path) -> dict:
 PARITY_LAYERS = {"mamba2_370m": 2, "zamba2_1p2b": 6, "whisper_tiny": 4}
 # rows x tokens of each parity batch
 PARITY_BATCH = {"mamba2_370m": (4, 32), "zamba2_1p2b": (4, 32), "whisper_tiny": (4, 32)}
-TRAIN_VLM_LAYERS = 4     # qwen2_vl_7b's depth in (c): 28 layers in fp32 with AdamW are ~122 GB
+TRAIN_VLM_LAYERS = 2     # qwen2_vl_7b's depth in (c): 28 layers in fp32 with AdamW are ~122 GB
+                         # (4 until phase 16, which trains it at 2 layers too)
 # depth of (b)'s recipe runs (full width; cut from 48 and 38 so that chip_smoke
 # keeps inside its time limit with phase 11): zamba2_1p2b's shared block runs once
 RECIPE_LAYERS = {"mamba2_370m": 6, "zamba2_1p2b": 6}
@@ -4994,10 +5320,15 @@ def tpt_devices(world: int) -> tuple[int, list[str]]:
     return n, ([f"cuda:{r}" for r in range(world)] if n >= world else ["cuda:0"] * world)
 
 
-def tpt_rank(rank: int, devices: list[str], init: str, pin_path: str, go, release, q) -> None:
-    """One rank of phase 14, in its own process: join the (2, 2) mesh, run
-    `tpt_rank_work`, hand its results (CUDA tensors as IPC handles) to the
-    parent, and keep them alive until the parent releases it."""
+def tpt_rank(rank: int, jobs, devices: list[str], init: str, q, pin_path: str, go) -> None:
+    """One rank of phases 14 and 15, in its own process: join the (2, 2)
+    mesh, run `tpt_rank_work` and hand its results (CUDA tensors as IPC
+    handles) to the parent; then, on the same mesh, run each job of phase
+    15 the parent sends (`tpf_rank_work`) and hand its results over. A
+    rank keeps its last results alive until the next message arrives: a
+    job, "free" (the parent is done with them, or a single-rank step on the
+    card comes next: the rank answers once it let go) or None (the end)."""
+    import gc as pygc
     import traceback
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -5007,15 +5338,24 @@ def tpt_rank(rank: int, devices: list[str], init: str, pin_path: str, go, releas
         mesh = make_host_mesh(data=TPT_MESH[0], model=TPT_MESH[1], rank=rank, devices=devices,
                               init_method=init)
         try:
-            res = tpt_rank_work(mesh, pin_path, go)
-            q.put(("ok", res))
-            release.wait(900)
-            del res
-            import gc as pygc
-            pygc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.ipc_collect()
-            torch.cuda.empty_cache()
+            held = tpt_rank_work(mesh, pin_path, go)
+            q.put(("ok", held))
+            while True:
+                job = jobs.get(timeout=900)
+                del held
+                held = None
+                pygc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+                if job is None:
+                    break
+                if job == "free":
+                    q.put(("freed", rank))
+                    continue
+                held = tpf_rank_work(mesh, job)
+                del job
+                q.put(("ok", held))
         finally:
             mesh.close()
     except BaseException:             # noqa: BLE001 — the parent reports it and fails
@@ -5132,6 +5472,15 @@ def tpt_rank_work(mesh, pin_path: str, go) -> dict:
     return out
 
 
+def tpt_free(started: dict) -> None:
+    """The (2, 2) ranks (`tpt_rank`) let go of their last results."""
+    for jq in started["jobs"]:
+        jq.put("free")
+    freed = [started["q"].get(timeout=120) for _ in started["jobs"]]
+    check(all(st == "freed" for st, _ in freed),
+          f"a tp-train rank failed: {[v for st, v in freed if st != 'freed']}")
+
+
 def tpt_assemble(ranks: dict, lay, data_rank: int = 0):
     """The whole params (port layout) from the shards of the ranks of one
     data row: each cut leaf concatenated over its model ranks, the others
@@ -5141,7 +5490,7 @@ def tpt_assemble(ranks: dict, lay, data_rank: int = 0):
     row = [ranks[(data_rank, m)] for m in range(lay.tp)]
 
     def whole(path, t, *others):
-        if path not in lay.cuts:
+        if t is None or path not in lay.cuts:
             return t
         return torch.cat([t, *others], dim=lay.cuts[path][0])
 
@@ -5342,11 +5691,9 @@ def phase_tp_train(dev, scratch: Path) -> dict:
     soft-PQ step's ties pinned and checked. No float64 witness on the card
     (4 ranks leave it no room): multi-step holds are the CPU tests' work.
     Reads the kernel counts around the phase: LUT_TRAIN runs plain tensor
-    ops, no LUT kernel."""
+    ops, no LUT kernel. The ranks live on as phase 15's (`out["ranks"]`)."""
     import gc as pygc
     import multiprocessing as mp
-    import queue
-    import socket
 
     from repro_torch import testing
     from repro_torch.distributed.sharding import ShardingRules
@@ -5362,58 +5709,42 @@ def phase_tp_train(dev, scratch: Path) -> dict:
     n_cards, devices = tpt_devices(world)
     backend = backend_for(devices)
     pin_path = scratch / "tpt_pin.pt"
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
-    ctx = mp.get_context("spawn")
-    q, go, release = ctx.Queue(), ctx.Event(), ctx.Event()
-    procs = [ctx.Process(target=tpt_rank,
-                         args=(r, devices, init, str(pin_path), go, release, q), daemon=True)
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    got: list = []
-    try:
-        # the single-rank steps on the same global batches, while the ranks start
-        bundle, start, opt, _ = tpt_setup("dense", dev)
-        vocab = bundle.arch.vocab
-        batches = [tpt_batch(vocab, 0, dev)]
-        step = make_train_step(bundle, opt, compute_dtype=torch.float32)
-        rule = AdamLeafRule(opt)
-        (single_1, state, met), wall = timed_step(dev, step, start, opt.init(start), batches[0])
-        rule.note(state.m, TPT_LR)                     # m = (1 - b1) g after the first step
-        single = [(float(met["loss"]), wall)]
-        del state, step
-        lbundle, lstart, lopt, lfrozen = tpt_setup("lut_train", dev)
-        lstep = make_train_step(lbundle, lopt, frozen_mask=lfrozen, compute_dtype=torch.float32)
-        with testing.table_hooks(lstart) as rec_c:
-            (lsingle_1, lstate, lmet), lwall = timed_step(dev, lstep, lstart,
-                                                          lopt.init(lstart, lfrozen), batches[0])
-        lrule = AdamLeafRule(lopt)
-        lrule.note(tree_map_ref(lambda _p, m: None if m.numel() == 0 else m, lstate.m), TPT_LR)
-        single_m_log_t = {p: [float(t) for t in ls] for p, ls in
-                          reference_leaves(lstate.m).items() if p.endswith("log_t")}
-        del lstate, lstep
-        torch.save({"codes": rec_c["codes"], "rounding": rec_c["rounding"]}, pin_path)
-        n_codes = sum(int(c.numel()) for c in rec_c["codes"].values())
-        n_entries = sum(int(x.numel()) for x, _ in rec_c["rounding"].values())
-        del rec_c
-        # the log_t terms' magnitudes (`testing.lut_train_grads`) of the same batch
-        _, _, _, terms, _ = testing.lut_train_grads(lbundle, lstart, batches[0])
-        pygc.collect()
-        torch.cuda.empty_cache()          # the ranks' steps have the card to themselves
-        log(f"[tpt] single-rank steps here: DENSE {', '.join(f'{w:.3f}s' for _, w in single)}, "
-            f"soft-PQ {lwall:.3f}s; {n_codes} codes and {n_entries} table entries recorded "
-            f"for the pins")
-        go.set()
-        deadline = time.monotonic() + 600
-        while len(got) < world:          # a failed rank ends the wait: its peers would hang
-            got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
-            if got[-1][0] != "ok":
-                break
-    except queue.Empty:
-        got.append(("error", {"trace": f"no result from {world - len(got)} rank(s) in 600 s"}))
+    go = mp.get_context("spawn").Event()
+    started = start_ranks(tpt_rank, devices, str(pin_path), go)
+    procs, q, t0 = started["procs"], started["q"], started["t0"]
+    # the single-rank steps on the same global batches, while the ranks start
+    bundle, start, opt, _ = tpt_setup("dense", dev)
+    vocab = bundle.arch.vocab
+    batches = [tpt_batch(vocab, 0, dev)]
+    step = make_train_step(bundle, opt, compute_dtype=torch.float32)
+    rule = AdamLeafRule(opt)
+    (single_1, state, met), wall = timed_step(dev, step, start, opt.init(start), batches[0])
+    rule.note(state.m, TPT_LR)                     # m = (1 - b1) g after the first step
+    single = [(float(met["loss"]), wall)]
+    del state, step
+    lbundle, lstart, lopt, lfrozen = tpt_setup("lut_train", dev)
+    lstep = make_train_step(lbundle, lopt, frozen_mask=lfrozen, compute_dtype=torch.float32)
+    with testing.table_hooks(lstart) as rec_c:
+        (lsingle_1, lstate, lmet), lwall = timed_step(dev, lstep, lstart,
+                                                      lopt.init(lstart, lfrozen), batches[0])
+    lrule = AdamLeafRule(lopt)
+    lrule.note(tree_map_ref(lambda _p, m: None if m.numel() == 0 else m, lstate.m), TPT_LR)
+    single_m_log_t = {p: [float(t) for t in ls] for p, ls in
+                      reference_leaves(lstate.m).items() if p.endswith("log_t")}
+    del lstate, lstep
+    torch.save({"codes": rec_c["codes"], "rounding": rec_c["rounding"]}, pin_path)
+    n_codes = sum(int(c.numel()) for c in rec_c["codes"].values())
+    n_entries = sum(int(x.numel()) for x, _ in rec_c["rounding"].values())
+    del rec_c
+    # the log_t terms' magnitudes (`testing.lut_train_grads`) of the same batch
+    _, _, _, terms, _ = testing.lut_train_grads(lbundle, lstart, batches[0])
+    pygc.collect()
+    torch.cuda.empty_cache()          # the ranks' steps have the card to themselves
+    log(f"[tpt] single-rank steps here: DENSE {', '.join(f'{w:.3f}s' for _, w in single)}, "
+        f"soft-PQ {lwall:.3f}s; {n_codes} codes and {n_entries} table entries recorded "
+        f"for the pins")
+    go.set()
+    got = wait_ranks(q, world, 600)
     errors = [val["trace"] for status, val in got if status != "ok"]
     if errors:
         for p in procs:
@@ -5437,13 +5768,7 @@ def phase_tp_train(dev, scratch: Path) -> dict:
     pygc.collect()
     torch.cuda.empty_cache()
     torch.cuda.ipc_collect()
-    release.set()
-    for p in procs:
-        p.join(timeout=60)
-        if p.is_alive():
-            p.kill()
-            p.join(timeout=30)
-    check(all(p.exitcode == 0 for p in procs), f"tp-train ranks exited {[p.exitcode for p in procs]}")
+    tpt_free(started)
     pin_path.unlink(missing_ok=True)
     log(f"[tpt] the card's used memory with the four ranks alive: {used} MiB; ranks' results "
         f"{t_ranks:.1f}s after spawn (spawn, import, mesh, init, the wait for the single-rank "
@@ -5457,6 +5782,7 @@ def phase_tp_train(dev, scratch: Path) -> dict:
     out["launches"] = {name: 0 for name in launches} | launches
     log("[tpt] no LUT kernel launched and no plain LUT version called, here or on a rank")
     out["used_mib"] = used
+    out["ranks"] = started         # phase 15's ranks
     return out
 
 
@@ -5466,7 +5792,7 @@ def phase_tp_train(dev, scratch: Path) -> dict:
 # all-to-all, SSD heads, the shared block
 # ---------------------------------------------------------------------------
 
-TPF_MESH = (2, 2)
+TPF_MESH = TPT_MESH        # the jobs run in phase 14's ranks
 # (arch, layers, mode, steps) at full width: mamba2_370m at 2 layers,
 # zamba2_1p2b at 6 (one invocation of the shared block), arctic_480b at 1
 # (every layer LUT; its DENSE step, ~107 GB of experts, gradients and AdamW
@@ -5475,10 +5801,28 @@ TPF_MESH = (2, 2)
 # follows the ZeRO-1 job of the same model and is held against its single-rank steps.
 # One step each: the leaf rule after it holds the update (multi-step holds,
 # the float64 witness among them, are the CPU tests' work)
+# Phase 16 (b) rides in the same ranks: whisper_tiny at full size (4 + 4
+# layers, 1500 frames) and qwen2_vl_7b at full width and 2 layers, each a
+# DENSE and a soft-PQ step under ZeRO-1 and a DENSE step under FSDP, on
+# `testing.family_batch` batches (`tpf_batch`)
 TPF_JOBS = (("mamba2_370m", 2, "dense", 1, False), ("mamba2_370m", 2, "dense", 1, True),
             ("mamba2_370m", 2, "lut_train", 1, False),
             ("zamba2_1p2b", 6, "dense", 1, False), ("zamba2_1p2b", 6, "lut_train", 1, False),
-            ("arctic_480b", 1, "lut_train", 1, False))
+            ("arctic_480b", 1, "lut_train", 1, False),
+            ("whisper_tiny", 4, "dense", 1, False), ("whisper_tiny", 4, "dense", 1, True),
+            ("whisper_tiny", 4, "lut_train", 1, False),
+            ("qwen2_vl_7b", 2, "dense", 1, False), ("qwen2_vl_7b", 2, "dense", 1, True),
+            ("qwen2_vl_7b", 2, "lut_train", 1, False))
+PHASE16_ARCHS = ("whisper_tiny", "qwen2_vl_7b")
+# the (arch, mode, fsdp) jobs whose single-rank steps run again after the
+# ranks' (the first run gives the soft-PQ pins, and is freed), once the
+# parent holds copies of the ranks' results and the ranks let go of theirs:
+# qwen2_vl_7b's single-rank state (1.48 G params before and after its step,
+# the leaf rule's masks, ~12 GiB) beside ZeRO-1's and soft-PQ's peaks (15.6
+# and 14.1 GiB a rank), or its step (~38 GiB) beside the ranks' IPC-shared
+# results, left too little of the card (OOM); FSDP's (11.5 GiB) leave room,
+# and the FSDP job reuses the DENSE job's
+TPF_SINGLE_AFTER = (("qwen2_vl_7b", "dense", False), ("qwen2_vl_7b", "lut_train", False))
 TPF_LR = 1e-3            # constant: the leaf rule's bound is 2 lr a step (100x for log_t)
 # under bf16 weights (arctic_480b) a bf16 leaf's gradient is rounded to bf16,
 # and a codebook's gradient through its bf16 table is a contraction rounded
@@ -5546,7 +5890,20 @@ def tpf_one_expert_chunks():
         moe.CHUNK_BYTES = real
 
 
-def tpf_cut_pin(rec: dict, lay, mesh, n_rows: int, n_local: int) -> dict:
+def tpf_batch(arch, step: int, dev) -> dict:
+    """Phase 15's global batch `step` of `arch`: MarkovLM's tokens, or for the
+    enc-dec and the vision-LM `testing.family_batch`'s (stub frames, or
+    embeddings and their M-RoPE grid positions) from a seed, TPT_BATCH x
+    TPT_SEQ."""
+    if arch.family != "audio" and not arch.takes_embeds:
+        return tpt_batch(arch.vocab, step, dev)
+    from repro_torch.testing import family_batch
+
+    batch = family_batch(arch, TPT_BATCH, TPT_SEQ, seed=SEED + 60 + step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def tpf_cut_pin(rec: dict, lay, mesh, n_local: int) -> dict:
     """The single-rank step's `testing.table_hooks` record cut to a rank's
     part: its data rows of every code (a row site's codebooks of them), an
     expert site's codes and table digests of the rank's experts (renamed to
@@ -5555,7 +5912,6 @@ def tpf_cut_pin(rec: dict, lay, mesh, n_rows: int, n_local: int) -> dict:
     from repro_torch.distributed.tensor_parallel import cut
 
     r, tp, d = mesh.model_rank, lay.tp, mesh.data_rank
-    per = n_rows // mesh.data
     first = (r * lay.data + (d if lay.data > 1 else 0)) * n_local
 
     def table(site: str, t):
@@ -5582,6 +5938,7 @@ def tpf_cut_pin(rec: dict, lay, mesh, n_rows: int, n_local: int) -> dict:
         if k is None:
             continue
         if key[2] is None:
+            per = cds.shape[0] // mesh.data        # the encoder's sites: B x frames rows
             cds = cds[d * per:(d + 1) * per]
             if lay.roles.get(key[0]) == "row":
                 c = cds.shape[1] // tp
@@ -5592,41 +5949,6 @@ def tpf_cut_pin(rec: dict, lay, mesh, n_rows: int, n_local: int) -> dict:
         if k is not None:
             rounding[k] = val if isinstance(val[0], str) else tuple(table(key[0], t) for t in val)
     return {"codes": codes, "rounding": rounding}
-
-
-def tpf_rank(rank: int, devices: list[str], init: str, jobs, q) -> None:
-    """One rank of phase 15, in its own process: join the (2, 2) mesh, then
-    run each job the parent sends (`tpf_rank_work`) and hand its results
-    (CUDA tensors as IPC handles) to the parent, keeping them alive until
-    the next job (or None, the end) arrives."""
-    import gc as pygc
-    import traceback
-
-    sys.path.insert(0, str(ROOT / "src"))
-    try:
-        from repro_torch.launch.mesh import make_host_mesh
-
-        mesh = make_host_mesh(data=TPF_MESH[0], model=TPF_MESH[1], rank=rank, devices=devices,
-                              init_method=init)
-        try:
-            held = None
-            while True:
-                job = jobs.get(timeout=900)
-                del held
-                held = None
-                pygc.collect()
-                torch.cuda.synchronize()
-                torch.cuda.ipc_collect()
-                torch.cuda.empty_cache()
-                if job is None:
-                    break
-                held = tpf_rank_work(mesh, job)
-                del job
-                q.put(("ok", held))
-        finally:
-            mesh.close()
-    except BaseException:             # noqa: BLE001 — the parent reports it and fails
-        q.put(("error", {"rank": rank, "trace": traceback.format_exc()}))
 
 
 def tpf_rank_work(mesh, job: dict) -> dict:
@@ -5681,10 +6003,10 @@ def tpf_rank_work(mesh, job: dict) -> dict:
         n_local = next((b.moe.gate.n_experts for _, b in getattr(local.cfg, "segments", ())
                         if b.kind == "moe"), 1)
         rec_c = torch.load(job["pin"], weights_only=False)
-        pin = tpf_cut_pin(rec_c, lay, mesh, TPT_BATCH * TPT_SEQ, n_local)
+        pin = tpf_cut_pin(rec_c, lay, mesh, n_local)
         del rec_c
     for i in range(job["steps"]):
-        batch = tpt_batch(bundle.arch.vocab, i, dev)
+        batch = tpf_batch(bundle.arch, i, dev)
         mesh.reset_counters()
         torch.cuda.reset_peak_memory_stats(dev)
         with contextlib.ExitStack() as stack:
@@ -5705,10 +6027,13 @@ def tpf_rank_work(mesh, job: dict) -> dict:
             trainable = layout.model_shards(
                 tree_map_ref(lambda p, t: None if p in frozen_paths else t, lp))
             out["local_1"] = trainable
-            whole = layout.gather_model(trainable)
-            if mesh.rank == 0:
-                out["whole_1"] = whole
-            del whole
+            # the whole leaves for rank (0, 0): its model group gathers them
+            # (every rank, where experts are split over "data" too)
+            if mesh.data_rank == 0 or lay.over_data:
+                whole = layout.gather_model(trainable)
+                if mesh.rank == 0:
+                    out["whole_1"] = whole
+                del whole
         if lut:
             out["failures"] += [f"rank {mesh.rank} {m}" for m in rec["off"]]
             out["pinned"] += rec["pinned"]
@@ -5716,11 +6041,15 @@ def tpf_rank_work(mesh, job: dict) -> dict:
                                                     f"rank {mesh.rank}", out["failures"])
             del rec
     if lut:     # whole moments: a stacked leaf's may be held in whole layers by their
-        # data rank, a row site's codebooks are split over "model"
-        m = layout.gather_model(layout.gather(state.m, lp))
+        # data rank, a row site's codebooks are split over "model"; of a float32
+        # model only the log_t's (the rest hold bf16 leaves, `tpf_hold`)
+        bf16 = bundle.arch.param_dtype == "bfloat16"
+        m = layout.gather_model(layout.gather(
+            tree_map_ref(lambda p, t: t if bf16 or p.endswith("log_t") else None, state.m),
+            lp))
         out["m_log_t"] = {p: [float(t) for t in ls] for p, ls in reference_leaves(m).items()
                           if p.endswith("log_t")}
-        if mesh.rank == 0:
+        if mesh.rank == 0 and bf16:
             out["m_trainable"] = {p: ls for p, ls in reference_leaves(m).items()
                                   if ls[0].numel()}
         del m
@@ -5756,7 +6085,7 @@ def tpf_single(name: str, layers: int, mode: str, steps: int, dev) -> dict:
                  "rule": AdamLeafRule(opt), "init_s": init_s}
     params, state = start, opt.init(start, frozen)
     for i in range(steps):
-        batch = tpt_batch(bundle.arch.vocab, i, dev)
+        batch = tpf_batch(bundle.arch, i, dev)
         m_old = state.m
         with contextlib.ExitStack() as stack:
             routes = stack.enter_context(tpf_routes())
@@ -5781,11 +6110,11 @@ def tpf_single(name: str, layers: int, mode: str, steps: int, dev) -> dict:
     if lut:
         out["m_log_t"] = {p: [float(t) for t in ls] for p, ls in
                           reference_leaves(state.m).items() if p.endswith("log_t")}
-        out["m_trainable"] = {p: ls for p, ls in reference_leaves(state.m).items()
-                              if ls[0].numel()}
+        if bundle.arch.param_dtype == "bfloat16":     # the bf16 leaves' holds
+            out["m_trainable"] = {p: ls for p, ls in reference_leaves(state.m).items()
+                                  if ls[0].numel()}
         with tpf_one_expert_chunks():
-            out["terms"] = testing.lut_train_grads(bundle, start, tpt_batch(bundle.arch.vocab, 0,
-                                                                            dev),
+            out["terms"] = testing.lut_train_grads(bundle, start, tpf_batch(bundle.arch, 0, dev),
                                                    digest_experts=True)[3]
     del state, step, params
     return out
@@ -5951,10 +6280,11 @@ def tpf_hold(label: str, s: dict, results: list, steps: int, dev) -> dict:
             "counts": [(r["launches"], r["plain"]) for r in ranks.values()]}
 
 
-def phase_tp_train_families(dev, scratch: Path) -> dict:
+def phase_tp_train_families(dev, scratch: Path, started: dict) -> dict:
     """Tensor-parallel training of the MoE, SSM and hybrid families at
-    (data, model) = (2, 2): four rank processes on the one card over gloo
-    (a card each over NCCL where the host has four). Each job of TPF_JOBS
+    (data, model) = (2, 2) in phase 14's four rank processes (`started`)
+    on the one card over gloo (a card each over NCCL where the host has
+    four). Each job of TPF_JOBS
     runs its single-rank steps here first on the same global batches and
     frees its frozen leaves; each rank then draws its part of the same
     init (`tensor_parallel.init_rank`: no rank holds a whole expert stack)
@@ -5965,66 +6295,67 @@ def phase_tp_train_families(dev, scratch: Path) -> dict:
     Reads the kernel counts around the phase: no LUT kernel, no plain LUT
     version."""
     import gc as pygc
-    import multiprocessing as mp
-    import queue
-    import socket
 
     from repro_torch.kernels import counters
     from repro_torch.launch.mesh import backend_for
 
     counters.reset()
     world = TPF_MESH[0] * TPF_MESH[1]
-    n_cards, devices = tpt_devices(world)
+    procs, q, jobs, devices, n_cards, t0 = (started[k] for k in ("procs", "q", "jobs", "devices",
+                                                                 "cards", "t0"))
     backend = backend_for(devices)
     pin_path = scratch / "tpf_pin.pt"
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    jobs = [ctx.Queue() for _ in range(world)]
-    procs = [ctx.Process(target=tpf_rank, args=(r, devices, init, jobs[r], q), daemon=True)
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
     out: dict = {"jobs": {}, "fsdp_launches": {}}
     counts: list = []
     try:
         s, s_key = None, None
         for name, layers, mode, steps, fsdp in TPF_JOBS:
-            label = (f"{name} {mode} ({layers} layer{'s' if layers > 1 else ''}"
+            label = (("phase 16 (b): " if name in PHASE16_ARCHS else "")
+                     + f"{name} {mode} ({layers} layer{'s' if layers > 1 else ''}"
                      + (", FSDP)" if fsdp else ")"))
             t_job = time.perf_counter()
-            if s_key != (name, layers, mode):     # an FSDP job reuses its model's single rank
-                s = None
-                pygc.collect()
-                s, s_key = tpf_single(name, layers, mode, steps, dev), (name, layers, mode)
+            after = (name, mode, fsdp) in TPF_SINGLE_AFTER
+
+            def single():
+                s = tpf_single(name, layers, mode, steps, dev)
                 pygc.collect()
                 torch.cuda.empty_cache()
                 tpf_free_frozen(s, dev)
+                return s
+
+            if s_key != (name, layers, mode):     # an FSDP job reuses its model's single rank
+                s = None
+                if s_key is not None:
+                    tpt_free(started)
+                pygc.collect()
+                s_key = (name, layers, mode)
+                s = single()
             t_single = time.perf_counter() - t_job
             job = {"name": name, "layers": layers, "mode": mode, "steps": steps, "pin": None,
                    "fsdp": fsdp}
             if "pin" in s:
                 job["pin"] = str(pin_path)
                 torch.save(s.pop("pin"), pin_path)
+            if after:          # run again once the ranks are done: the card is theirs
+                s = None
+                pygc.collect()
+                torch.cuda.empty_cache()
             for jq in jobs:
                 jq.put(job)
-            got: list = []
-            deadline = time.monotonic() + 600
-            try:
-                while len(got) < world:      # a failed rank ends the wait: its peers would hang
-                    got.append(q.get(timeout=max(1.0, deadline - time.monotonic())))
-                    if got[-1][0] != "ok":
-                        break
-            except queue.Empty:
-                got.append(("error", {"trace": f"no result from {world - len(got)} rank(s) in "
-                                               f"600 s"}))
+            got = wait_ranks(q, world, 600)
             errors = [val["trace"] for status, val in got if status != "ok"]
             check(not errors, f"a tp-train rank failed on {label}:\n" + "\n".join(errors))
             t_ranks = time.perf_counter() - t_job - t_single
             out["used_mib"] = max(out.get("used_mib", 0), gpu_used_mib())
+            if s is None:                  # the single rank's steps, now the ranks' are done:
+                # copies of their results here, and the ranks let go of theirs
+                t0_single = time.perf_counter()
+                got = [(st, map_tensors(val, torch.clone)) for st, val in got]
+                pygc.collect()
+                tpt_free(started)
+                s = single()
+                s.pop("pin", None)
+                t_single += time.perf_counter() - t0_single
             # the ranks' tensors are IPC views of their memory: every reference
             # to them dies with `tpf_hold`'s frame, before the next job
             held = tpf_hold(label, s, [val for _, val in got], steps, dev)
@@ -6041,6 +6372,8 @@ def phase_tp_train_families(dev, scratch: Path) -> dict:
             out["jobs"][label] = held
             log(f"[tpf] {label}: single-rank here {t_single:.1f}s (params built in "
                 f"{s['init_s']:.1f}s), the ranks' parts, steps and results {t_ranks:.1f}s")
+            if name in PHASE16_ARCHS:
+                out["phase16_s"] = out.get("phase16_s", 0.0) + time.perf_counter() - t_job
             del got
             pygc.collect()
             torch.cuda.empty_cache()
@@ -6051,11 +6384,7 @@ def phase_tp_train_families(dev, scratch: Path) -> dict:
         raise
     for jq in jobs:
         jq.put(None)
-    for p in procs:
-        p.join(timeout=60)
-        if p.is_alive():
-            p.kill()
-            p.join(timeout=30)
+    stop_ranks(procs, True)
     check(all(p.exitcode == 0 for p in procs), f"tp-train ranks exited {[p.exitcode for p in procs]}")
     pin_path.unlink(missing_ok=True)
     log(f"[tpf] (data, model) = {TPF_MESH} on {n_cards} card(s): ranks on {devices}, backend "
@@ -6064,12 +6393,14 @@ def phase_tp_train_families(dev, scratch: Path) -> dict:
                         "all-reduces of zero-padded buffers)")
         + f"; MarkovLM {TPT_BATCH} x {TPT_SEQ}; the card's used memory at most "
         f"{out['used_mib']} MiB with the ranks' results alive; {time.perf_counter() - t0:.1f}s "
-        f"from spawn to the ranks' exit")
+        f"from the ranks' spawn in phase 14 to their exit")
     launches, plain_calls = counters.launches(), counters.plain_calls()
     check(all(sum(ln.values()) == 0 and pc == 0 for ln, pc in counts + [(launches, plain_calls)]),
           f"phase 15 reached a LUT kernel or a plain version: {counts}, {launches}, {plain_calls}")
     out["launches"] = {name: 0 for name in launches} | launches
     log("[tpf] no LUT kernel launched and no plain LUT version called, here or on a rank")
+    log(f"[time] phase 16 (b): {out['phase16_s']:.1f}s of phase 15's (its jobs in the same "
+        f"ranks)")
     out.update(backend=backend, cards=n_cards)
     return out
 
@@ -6124,7 +6455,15 @@ def main() -> int:
         timed(7, phase_train, dev, scratch)
         gc.collect()
         torch.cuda.empty_cache()
-        timed(9, phase_encdec_vlm, dev, scratch)
+        # phase 16 (a)'s ranks start beside phase 9, phase 12's beside phase
+        # 8 (their interpreter, torch, CUDA context and mesh): those phases'
+        # wall times are taken beside the ranks' start
+        tpe_ranks = start_ranks(tpe_rank, tp_devices()[1])
+        p9 = timed(9, phase_encdec_vlm, dev, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tpe = timed("16 (a)", phase_tp_encdec_vlm, dev, scratch, p9, tpe_ranks)
+        del p9
         gc.collect()
         torch.cuda.empty_cache()
         trained = timed(10, phase_train_families, dev, scratch)
@@ -6138,16 +6477,17 @@ def main() -> int:
         tpt = timed(14, phase_tp_train, dev, scratch)
         gc.collect()
         torch.cuda.empty_cache()
-        tpf = timed(15, phase_tp_train_families, dev, scratch)
+        tpf = timed(15, phase_tp_train_families, dev, scratch, tpt.pop("ranks"))
         gc.collect()
         torch.cuda.empty_cache()
         # phases 8 and 12 last: arctic's params, shared with phase 12's rank
         # processes over CUDA IPC, stayed allocated here after the phase
         # (deleted, collected, `ipc_collect()`: 32.59 GiB before and after),
         # which phase 10's arctic step cannot spare
+        tp12_ranks = start_ranks(tp_family_rank, tp_devices()[1])
         fam = timed(8, phase_families, dev, scratch)
         torch.cuda.empty_cache()
-        tp12 = timed(12, phase_tp_families, scratch, fam)
+        tp12 = timed(12, phase_tp_families, scratch, fam, tp12_ranks)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6176,6 +6516,7 @@ def main() -> int:
                                         "14": tpt["launches"].get(name, 0),
                                         "14_fsdp": tpt["fsdp"]["launches"].get(name, 0),
                                         "15": tpf["launches"].get(name, 0),
+                                        "16": tpe["launches"].get(name, 0),
                                         "15_fsdp": tpf["fsdp_launches"].get(name, 0)},
                      "max_abs_err": k["err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

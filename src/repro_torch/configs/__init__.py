@@ -481,9 +481,11 @@ class ModelBundle:
         M-RoPE); without it the positions are 0..S-1 (in all three streams
         under M-RoPE). An enc-dec batch carries "frames" (B, enc_frames, D)
         beside the decoder's "tokens". A tensor-parallel training rank's
-        bundle (`distributed.tensor_parallel.local_bundle(train=True)`) runs
-        its shard with its collectives on `mesh`; its logits are then the
-        rank's vocab columns (B, S, vocab / tp) where the vocab is sharded."""
+        bundle (`distributed.tensor_parallel.local_bundle(train=True)`, of
+        every kind) runs its shard with its collectives on `mesh`; its logits
+        are then the rank's vocab columns (B, S, vocab / tp) where the vocab
+        is sharded, and whole where the spec splits the embedding's d_model
+        instead (the enc-dec's "embed_whole")."""
         if mesh is not None:
             with sharded.bound(mesh):
                 return self._train_logits(params, batch, compute_dtype=compute_dtype)
@@ -515,8 +517,7 @@ class ModelBundle:
     @property
     def vocab_parallel(self) -> bool:
         """Whether the training logits are a rank's vocab columns."""
-        return (self.kind in ("lm", "hybrid") and self.cfg.vocab_sharded
-                and not self.cfg.gather_logits)
+        return self.cfg.vocab_sharded and not self.cfg.gather_logits
 
     def loss_from_logits(self, logits, aux, labels, *, mesh=None):
         """Cross-entropy, plus the aux penalty for the lm family: the one
@@ -581,7 +582,8 @@ class ModelBundle:
         tensors to keep the forward free of device-to-host waits. A tensor-
         parallel rank's bundle (`distributed.tensor_parallel.local_bundle`)
         runs its shard of the forward with its collectives on `mesh`; every
-        rank must run the same forwards."""
+        rank must run the same forwards (an enc-dec rank's encoder on the
+        written rows' frames, writing its KV heads of their cross K/V)."""
         if mesh is not None:
             with sharded.bound(mesh):
                 return self._forward_step(params, batch, caches, compute_dtype=compute_dtype)

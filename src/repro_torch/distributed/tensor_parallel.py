@@ -37,6 +37,15 @@ forward; `models/sharded.py`):
   * the hybrid (zamba2_1p2b): its mamba stack as above, its shared
     attention and MLP the attention and MLP roles; fuse and out have no
     column/row partner and stay replicated;
+  * the enc-dec (whisper_tiny): the encoder's blocks (bidirectional
+    attention, a non-gated MLP) and the decoder's self attention, cross
+    attention and MLP take the attention and MLP roles; the cross
+    attention's q, k and v are column sites (k and v read the encoder's
+    output, q the decoder's stream) and its o a row site, and the per-row
+    cross K/V cache holds the rank's KV heads. The vision-LM (qwen2_vl_7b)
+    is a decoder LM that takes embedding rows and M-RoPE positions (3, B,
+    S): its attention runs the rank's heads on all three streams, its
+    untied head is vocab-sharded like any other;
   * the embedding is vocab-sharded and the tied logits vocab-sharded and
     gathered; an untied head's vocab columns are gathered the same way.
     Where the spec does not shard the vocab, they are replicated. Dense
@@ -65,24 +74,39 @@ layout takes; ROADMAP lists them):
       puts E over "data" and each expert's M over "model", which would need
       an all-max of each expert's fake-quant scale and two gathers); the
       router replicated as above;
+  "heads_whole"  an attention whose heads or GQA groups a shard would
+      split (whisper_tiny's 6 heads at tp 4) stays whole on every rank,
+      where the specs split its sites: every rank computes it;
+  "embed_whole"  an embedding whose vocab does not divide by tp (whisper's
+      51865) stays whole on every rank, where the spec splits its d_model:
+      the lookup and the tied logits are then the unsharded ones on every
+      rank, and a training rank's loss the plain cross-entropy;
+  "cross_kv_by_heads"  the enc-dec's cross K/V cache holds the rank's KV
+      heads of every row (the spec splits its 1500 frames over "model", as
+      it does the self-attention cache's sequence);
   and for every model, the dense KV cache by KV heads (the spec shards its
   sequence).
 
 A rank's bundle (`local_bundle`) names each site's role in its config
 (`common.SiteCfg.tp`, `moe.MoECfg.ep`, `mamba2.Mamba2Cfg.tp`,
-`transformer.LMCfg.vocab_sharded`, `hybrid.HybridCfg.vocab_sharded`); the
-mesh is bound per forward (`ModelBundle.forward_step(mesh=)`). Families
-left out of serving (`tp_refusal`): the enc-dec and the vision-LM, which
-the engine does not serve (ROADMAP Queue A item 5), and LUT_TRAIN bundles.
+`transformer.LMCfg.vocab_sharded`, `hybrid.HybridCfg.vocab_sharded`,
+`encdec.EncDecCfg.vocab_sharded`); the mesh is bound per forward
+(`ModelBundle.forward_step(mesh=)`, `train_step.make_serve_step(mesh=)`).
+Every family serves; the engine drives the token-fed ones
+(`serving.engine.engine_refusal` keeps refusing the enc-dec and the
+vision-LM, which need frames or embeddings per request). Left out of
+serving (`tp_refusal`): LUT_TRAIN bundles.
 
 Training (`layout(..., train=True)`, the reference's sharded step under
-`ShardingRules(mesh)`, fsdp off or on): the decoder LMs of every block kind
-(dense, MoE, mamba) and the hybrid, DENSE and LUT_TRAIN. A LUT_TRAIN column
+`ShardingRules(mesh)`, fsdp off or on): every family (the decoder LMs of
+every block kind, the hybrid, the enc-dec and the vision-LM), DENSE and
+LUT_TRAIN. A LUT_TRAIN column
 site holds its M shard of the frozen `w` and `b`, its `centroids` and
 `log_t` whole; a row site its C shard of `centroids` and the matching C·V
 rows of `w`, `b` and `log_t` whole (the specs' cuts). The vocab head stays
 vocab-sharded ("col", never "col_gather"; `LMCfg.gather_logits` off) and
-the loss is vocab-parallel (`sharded.vocab_cross_entropy`). A replicated
+the loss is vocab-parallel (`sharded.vocab_cross_entropy`); under
+"embed_whole" the logits and the loss are whole on every rank. A replicated
 leaf that a rank uses inside its shard of the forward takes only that
 shard's part of the gradient, which the step sums over "model"
 (`Layout.partial`): a sharded attention's qk-norm scales, a LUT_TRAIN
@@ -95,9 +119,8 @@ final_norm) has its whole gradient already. An expert leaf held by one
 data rank takes its gradient from every data rank's tokens (`Layout.
 over_data`): the step scales it by 1 / dp instead of the data mean.
 LUT_TRAIN expert, mamba and shared-block sites cut their frozen `w` with
-their site. `place` copies only the rank's part of each leaf. Families left
-out of training (`tp_refusal(train=True)`): the enc-dec and the vision-LM
-(ROADMAP Queue A item 5).
+their site. `place` copies only the rank's part of each leaf. Left out of
+training (`tp_refusal(train=True)`): LUT_INFER bundles.
 
 FSDP (`ShardingRules(fsdp=True)`): inside its model shard a rank holds its
 part over "data" of each leaf the spec splits over "data" too (`Layout.
@@ -105,8 +128,12 @@ fsdp`: the embedding, every 2-D `w`, a frozen one too, along the spec's
 "data" dim), but an expert leaf the rank already holds alone and a leaf
 whose "data" dim is the one its model shard is cut along (experts over
 "model": they stay whole over "data"). `place` and `init_rank` cut it; the
-local bundle names the leaves (`LMCfg.fsdp`, `HybridCfg.fsdp`) and the
-forward gathers them per block (`models/sharded.py`). On a data mesh
+local bundle names the leaves (`LMCfg.fsdp`, `HybridCfg.fsdp`,
+`EncDecCfg.fsdp`) and the forward gathers them per block (`models/
+sharded.py`; each of the enc-dec's encoder and decoder blocks inside its
+recomputed function), but a vision-LM's embedding, which a model that
+takes embeddings does not read (its zero gradient updates it all the
+same). On a data mesh
 (model = 1) the training layout has no roles and no model cuts: the data
 cuts alone.
 """
@@ -137,20 +164,14 @@ Cut = tuple[int, "tuple[tuple[int, bool], ...] | None"]
 
 def tp_refusal(bundle: ModelBundle, *, train: bool = False) -> str | None:
     """Why tensor parallelism cannot serve (or, with `train`, train) the
-    bundle, or None."""
-    arch = bundle.arch
+    bundle, or None. Every family of the reference is admitted: the
+    enc-dec and the vision-LM through `ModelBundle.forward_step(mesh=)` and
+    `ModelBundle.loss(mesh=)`, which the serving engine does not drive
+    (`serving.engine.engine_refusal`)."""
     if train:
-        if bundle.kind not in ("lm", "hybrid") or arch.takes_embeds or arch.mrope_sections:
-            return (f"tensor-parallel training of {arch.name} ({arch.family}) is not ported: "
-                    f"it trains the decoder LMs (dense, MoE, SSM) and the hybrid; the enc-dec "
-                    f"and vision-LM families wait, ROADMAP Queue A item 5")
         if bundle.mode == Mode.LUT_INFER:
             return "tensor-parallel training takes DENSE and LUT_TRAIN bundles, not LUT_INFER"
         return None
-    if bundle.kind == "encdec" or arch.takes_embeds or arch.mrope_sections:
-        return (f"tensor-parallel serving of {arch.name} ({arch.family}) is not ported: the "
-                f"engine serves neither the enc-dec nor the vision-LM family; both wait for "
-                f"ModelBundle.forward_step(mesh=), ROADMAP Queue A item 5")
     if bundle.mode == Mode.LUT_TRAIN:
         return "tensor parallelism serves DENSE and LUT_INFER bundles, not LUT_TRAIN"
     return None
@@ -231,9 +252,12 @@ def _unsplit_ranges(blocks, tp: int) -> tuple[tuple[int, int], ...]:
 
 
 def _blocks(bundle: ModelBundle) -> list[tuple[str, Any]]:
-    """(path prefix, block config) of every kind of block the model runs."""
+    """(path prefix, block config) of every kind of block the model runs in
+    layers (the enc-dec's decoder block, of no block kind, aside)."""
     if bundle.kind == "hybrid":
         return [("mamba_stack", bundle.cfg.mamba_block)]
+    if bundle.kind == "encdec":
+        return [("encoder", bundle.cfg.enc_block)]
     return [(f"segments/{i}", b) for i, (_, b) in enumerate(bundle.cfg.segments)]
 
 
@@ -266,6 +290,12 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
         eff = spec[len(spec) - (3 if leaf == "table_q" else 2):]
         return eff[-1] == "model", eff[0] == "model"
 
+    def splits(prefix: str, cols: list, row) -> bool:
+        """Whether the specs shard the column sites `cols` and the row site
+        `row` as a pair."""
+        return (all(axes(f"{prefix}/{s.name}", s)[0] for s in cols)
+                and axes(f"{prefix}/{row.name}", row)[1])
+
     def pair(prefix: str, cols: list, row, ok: bool = True) -> bool:
         """The column sites `cols` and the row site `row` take their roles
         where `ok` and the specs shard them as a pair."""
@@ -273,18 +303,22 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
         row_path = f"{prefix}/{row.name}"
         if row.mode == Mode.LUT_TRAIN:       # its centroids' C shard aligns with w's rows
             ok = ok and row.lut.codebooks(row.d_in) % tp == 0
-        if not (ok and all(axes(p, s)[0] for p, s in zip(paths, cols))
-                and axes(row_path, row)[1]):
+        if not (ok and splits(prefix, cols, row)):
             return False
         roles.update(dict.fromkeys(paths, "col"))
         roles[row_path] = "row"
         return True
 
     def attn(prefix: str, a) -> None:
-        if (pair(prefix, [a.q, a.k, a.v], a.o, a.n_heads % tp == 0 and a.n_kv_heads % tp == 0)
-                and a.qk_norm):
-            base = f"{prefix}/{a.q.name}".rsplit("/", 1)[0]      # the attention's params
-            partial.update(dict.fromkeys(f"{base}/{n}/scale" for n in ("q_norm", "k_norm")))
+        heads = a.n_heads % tp == 0 and a.n_kv_heads % tp == 0
+        if pair(prefix, [a.q, a.k, a.v], a.o, heads):
+            if a.qk_norm:
+                base = f"{prefix}/{a.q.name}".rsplit("/", 1)[0]      # the attention's params
+                partial.update(dict.fromkeys(f"{base}/{n}/scale" for n in ("q_norm", "k_norm")))
+        elif not heads and splits(prefix, [a.q, a.k, a.v], a.o):
+            # the specs shard the sites, but a shard would split a head or a
+            # GQA group: the block stays whole on every rank
+            kept.append("heads_whole")
 
     def mlp(prefix: str, m) -> None:
         if m is not None:
@@ -330,10 +364,19 @@ def layout(bundle: ModelBundle, rules: ShardingRules, *, train: bool = False) ->
     elif bundle.kind == "hybrid":
         attn("shared", bundle.cfg.shared_attn)
         mlp("shared", bundle.cfg.shared_mlp)
+    elif bundle.kind == "encdec":
+        cfg = bundle.cfg
+        attn("decoder", cfg.dec_self)
+        attn("decoder", cfg.dec_cross)
+        if f"decoder/{cfg.dec_cross.k.name}" in roles:
+            kept.append("cross_kv_by_heads")
+        mlp("decoder", cfg.dec_mlp)
     elif bundle.cfg.lm_head is not None and axes("lm_head", bundle.cfg.lm_head)[0]:
         roles["lm_head"] = "col" if train else "col_gather"
-    vocab = (not data_only
-             and rules.param_spec("embed/table", tuple(specs["embed/table"].shape))[0] == "model")
+    embed_spec = rules.param_spec("embed/table", tuple(specs["embed/table"].shape))
+    vocab = not data_only and embed_spec[0] == "model"
+    if not data_only and embed_spec[1] == "model":
+        kept.append("embed_whole")
 
     if vocab:
         cuts["embed/table"] = (0, None)
@@ -429,7 +472,14 @@ def local_bundle(bundle: ModelBundle, lay: Layout) -> ModelBundle:
         return dataclasses.replace(b, moe=moe(prefix, b.moe)) if b.kind == "moe" else b
 
     cfg = bundle.cfg
-    if bundle.kind == "hybrid":
+    if bundle.kind == "encdec":
+        cfg = dataclasses.replace(cfg, enc_block=block("encoder", cfg.enc_block),
+                                  dec_self=attn("decoder", cfg.dec_self),
+                                  dec_cross=attn("decoder", cfg.dec_cross),
+                                  dec_mlp=mlp("decoder", cfg.dec_mlp),
+                                  vocab_sharded=lay.vocab, gather_logits=not lay.train,
+                                  fsdp=tuple(sorted(lay.fsdp.items())))
+    elif bundle.kind == "hybrid":
         cfg = dataclasses.replace(cfg, mamba_block=block("mamba_stack", cfg.mamba_block),
                                   shared_attn=attn("shared", cfg.shared_attn),
                                   shared_mlp=mlp("shared", cfg.shared_mlp),

@@ -346,8 +346,10 @@ def attention(cfg: AttnCfg, p: Params, x: torch.Tensor, *, pos: torch.Tensor,
 
 def memory_kv(cfg: AttnCfg, p: Params, memory: torch.Tensor) -> Params:
     """K/V of a cross-attention memory (B, T, D): {"k", "v"} (B, T, KV, Dh),
-    without RoPE."""
+    without RoPE. On a tensor-parallel rank, its KV heads."""
     b, t, _ = memory.shape
+    if cfg.k.tp is not None:              # a tensor-parallel rank's k/v: one copy
+        memory = sharded.copy(memory)
     return {name: linear(getattr(cfg, name), p[name], memory).reshape(b, t, cfg.n_kv_heads,
                                                                       cfg.d_head)
             for name in ("k", "v")}
@@ -356,8 +358,11 @@ def memory_kv(cfg: AttnCfg, p: Params, memory: torch.Tensor) -> Params:
 def cross_attention(cfg: AttnCfg, p: Params, x: torch.Tensor, kv: Params) -> torch.Tensor:
     """x (B, S, D) attends to every position of a memory's K/V (`memory_kv`,
     or a cache's rows of them, upcast to x's dtype): non-causal and unmasked,
-    as the reference's decoder cross-attention. Returns (B, S, D)."""
+    as the reference's decoder cross-attention. Returns (B, S, D). On a
+    tensor-parallel rank, `kv` holds its KV heads and q its query heads."""
     b, s, _ = x.shape
+    if cfg.q.tp is not None:              # a tensor-parallel rank's q: one copy
+        x = sharded.copy(x)
     q = linear(cfg.q, p["q"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
     zeros = torch.zeros((b, s), dtype=torch.long, device=x.device)
     out = flash_attention(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype), q_pos=zeros,

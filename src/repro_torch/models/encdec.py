@@ -20,17 +20,33 @@ then attends over the cache, as the reference's decoder does (no deferred
 slab write). Under an activation tape the records are keyed
 'encoder/<j>/<site>' and 'decoder/<j>/<site>', the registry's tape keys.
 The training forward is `encode` then `decode` with `enc_out` over whole
-sequences (no caches), each run of autograd.
+sequences (no caches), each run of autograd; each encoder and decoder
+block is recomputed in the backward pass (the reference's `remat=True`),
+a decoder block with its layer's cross K/V.
+
+A tensor-parallel rank's config (`distributed.tensor_parallel.
+local_bundle`) runs its heads of every attention and its columns of every
+MLP; its cross K/V cache holds its KV heads. Its embedding is
+vocab-sharded where the spec splits the vocab (`vocab_sharded`: the
+masked lookup, and the tied logits gathered in serving or kept
+vocab-sharded in training), else whole on every rank with the plain
+lookup and logits. An FSDP rank's config names the leaves it holds only
+its "data" part of (`fsdp`): each block gathers its own inside its
+recomputed function, the embedding once per forward
+(`sharded.gather_data`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import sharded
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -42,9 +58,12 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.transformer import (
     BlockCfg,
+    _train_block_on,
     block_apply,
     block_init,
     block_specs,
+    kept,
+    remat_active,
     zeros_like_specs,
 )
 
@@ -60,6 +79,10 @@ class EncDecCfg:
     dec_self: attn_mod.AttnCfg      # causal self-attention
     dec_cross: attn_mod.AttnCfg     # cross-attention (causal=False, no RoPE)
     dec_mlp: mlp_mod.MLPCfg
+    vocab_sharded: bool = False     # a tensor-parallel rank's vocab rows (models/sharded.py)
+    gather_logits: bool = True      # False: a training rank's logits stay vocab-sharded
+    # FSDP: ((reference path, dim), ...) of the leaves a rank holds its "data" part of
+    fsdp: tuple[tuple[str, int], ...] = ()
 
 
 def _dec_block_init(gen: torch.Generator, cfg: EncDecCfg, *, dtype, device) -> Params:
@@ -76,11 +99,11 @@ def _dec_block_init(gen: torch.Generator, cfg: EncDecCfg, *, dtype, device) -> P
 def encdec_init(gen: torch.Generator, cfg: EncDecCfg, *, dtype=torch.float32,
                 device="cpu") -> Params:
     return {
-        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device),
-        "encoder": [block_init(gen, cfg.enc_block, dtype=dtype, device=device)
+        "embed": kept("embed", embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)),
+        "encoder": [kept("encoder", block_init(gen, cfg.enc_block, dtype=dtype, device=device))
                     for _ in range(cfg.n_enc_layers)],
         "enc_norm": rmsnorm_init(cfg.d_model, dtype, device),
-        "decoder": [_dec_block_init(gen, cfg, dtype=dtype, device=device)
+        "decoder": [kept("decoder", _dec_block_init(gen, cfg, dtype=dtype, device=device))
                     for _ in range(cfg.n_dec_layers)],
         "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
     }
@@ -137,9 +160,15 @@ def encode(cfg: EncDecCfg, params: Params, frames: torch.Tensor, *,
     b, t, _ = frames.shape
     pos = torch.arange(t, device=frames.device)[None, :].expand(b, t)
     x = frames.to(compute_dtype)
+    remat = remat_active(True, None)
+    fsdp = sharded.data_dims(cfg.fsdp, "encoder/")
     for j, lp in enumerate(params["encoder"]):
         set_tape_prefix(f"encoder/{j}")
-        x, _, _ = block_apply(cfg.enc_block, lp, x, pos=pos)
+        if remat:
+            x, _ = checkpoint(_train_block_on, sharded.current(), cfg.enc_block, lp, x, pos,
+                              fsdp, use_reentrant=False)
+        else:
+            x, _, _ = block_apply(cfg.enc_block, sharded.gather_data(lp, fsdp), x, pos=pos)
     return rmsnorm(params["enc_norm"], x)
 
 
@@ -147,9 +176,11 @@ def cross_kv(cfg: EncDecCfg, params: Params, enc_out: torch.Tensor) -> Params:
     """Every decoder layer's cross-attention K/V of the encoder output:
     {"k", "v"} (L, B, T, KV, Dh)."""
     per_layer = []
+    fsdp = sharded.data_dims(cfg.fsdp, "decoder/cross/")
     for j, lp in enumerate(params["decoder"]):
         set_tape_prefix(f"decoder/{j}")
-        per_layer.append(attn_mod.memory_kv(cfg.dec_cross, lp["cross"], enc_out))
+        per_layer.append(attn_mod.memory_kv(cfg.dec_cross, sharded.gather_data(lp["cross"], fsdp),
+                                            enc_out))
     return {name: torch.stack([kv[name] for kv in per_layer]) for name in ("k", "v")}
 
 
@@ -163,6 +194,21 @@ def _dec_block(cfg: EncDecCfg, lp: Params, x: torch.Tensor, *, pos, self_cache, 
     return x + mlp_mod.mlp(cfg.dec_mlp, lp["mlp"], rmsnorm(lp["norm3"], x))
 
 
+def _dec_train_block(cfg: EncDecCfg, lp: Params, x: torch.Tensor, pos: torch.Tensor,
+                     enc_out: torch.Tensor, mesh=None, fsdp: dict[str, int] | None = None
+                     ) -> torch.Tensor:
+    """A decoder block's training forward over whole sequences, its cross
+    K/V from `enc_out` computed inside it: what a recomputed block runs,
+    with a tensor-parallel rank's mesh bound (the recomputation runs on the
+    autograd engine's thread) and an FSDP rank's data-split leaves gathered
+    first (`fsdp`, {path in the block: dim})."""
+    with sharded.bound(mesh) if mesh is not None else contextlib.nullcontext():
+        lp = sharded.gather_data(lp, fsdp, mesh)
+        kv = attn_mod.memory_kv(cfg.dec_cross, lp["cross"], enc_out)
+        return _dec_block(cfg, lp, x, pos=pos, self_cache=None, cache_len=None, cross=kv,
+                          write_index=None, block_tables=None)
+
+
 def decode(cfg: EncDecCfg, params: Params, *, tokens: torch.Tensor, pos: torch.Tensor,
            enc_out: torch.Tensor | None = None, caches: Params | None = None,
            cache_len: torch.Tensor | None = None, compute_dtype=torch.float32,
@@ -172,14 +218,28 @@ def decode(cfg: EncDecCfg, params: Params, *, tokens: torch.Tensor, pos: torch.T
     runs over whole sequences against `enc_out`'s cross K/V; with caches it
     reads each row's cached cross K/V and writes the self K/V in place
     (`attention.attention`'s prefill path, at every S)."""
-    x = embed(params["embed"], tokens).to(compute_dtype)
-    cross = cross_kv(cfg, params, enc_out) if caches is None else caches["cross"]
-    for j, lp in enumerate(params["decoder"]):
-        set_tape_prefix(f"decoder/{j}")
-        sc = None if caches is None else {n: t[j] for n, t in caches["self"].items()}
-        x = _dec_block(cfg, lp, x, pos=pos, self_cache=sc, cache_len=cache_len,
-                       cross={n: t[j] for n, t in cross.items()}, write_index=write_index,
-                       block_tables=block_tables)
+    emb = sharded.gather_data(params["embed"], sharded.data_dims(cfg.fsdp, "embed/"))
+    x = (sharded.embed(emb, tokens) if cfg.vocab_sharded else embed(emb, tokens)
+         ).to(compute_dtype)
+    fsdp = sharded.data_dims(cfg.fsdp, "decoder/")
+    if remat_active(True, caches):
+        # each recomputed block computes its layer's cross K/V
+        for j, lp in enumerate(params["decoder"]):
+            set_tape_prefix(f"decoder/{j}")
+            x = checkpoint(_dec_train_block, cfg, lp, x, pos, enc_out, sharded.current(), fsdp,
+                           use_reentrant=False)
+    else:
+        # every layer's cross K/V first (the order a tape records them in, as
+        # the reference's), or the cached rows'
+        cross = cross_kv(cfg, params, enc_out) if caches is None else caches["cross"]
+        for j, lp in enumerate(params["decoder"]):
+            set_tape_prefix(f"decoder/{j}")
+            sc = None if caches is None else {n: t[j] for n, t in caches["self"].items()}
+            x = _dec_block(cfg, sharded.gather_data(lp, fsdp), x, pos=pos, self_cache=sc,
+                           cache_len=cache_len, cross={n: t[j] for n, t in cross.items()},
+                           write_index=write_index, block_tables=block_tables)
     x = rmsnorm(params["final_norm"], x)
+    if cfg.vocab_sharded:
+        return sharded.tied_logits(x, emb["table"], gather=cfg.gather_logits), caches
     # tied head: a plain matmul, left to the library as the reference leaves it to XLA
-    return x @ params["embed"]["table"].to(x.dtype).T, caches
+    return x @ emb["table"].to(x.dtype).T, caches

@@ -353,7 +353,10 @@ def lm_apply(cfg: LMCfg, params: Params, *, tokens: torch.Tensor | None = None,
     caches, which also take `block_tables`, attention.paged_write_flat), and
     mamba state where `state` says. Without caches this is the training
     forward over whole sequences."""
-    emb = sharded.gather_data(params["embed"], sharded.data_dims(cfg.fsdp, "embed/"))
+    # a model that takes embeddings reads its table only for tied logits: an
+    # FSDP rank gathers it only then (its zero gradient updates it all the same)
+    emb = (params["embed"] if cfg.takes_embeds and cfg.lm_head is not None else
+           sharded.gather_data(params["embed"], sharded.data_dims(cfg.fsdp, "embed/")))
     if cfg.takes_embeds:
         if embeds is None:
             raise ValueError("this model takes embeddings (embeds=), not token ids")

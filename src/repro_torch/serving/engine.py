@@ -196,6 +196,35 @@ def warm_lut_autotune(bundle: ModelBundle, token_counts: list[int], dtype: str =
     return tuned
 
 
+def tp_warm_lut_autotune(local: ModelBundle, layout, mesh, token_counts: list[int], dtype: str,
+                         device: str | torch.device) -> int:
+    """A tensor-parallel rank's warm-up (every rank of `mesh` calls it):
+    rank 0 tunes every (rank site signature x token count) of the local
+    bundle `local` (`tensor_parallel.kernel_signatures` of `layout`) and
+    broadcasts its records; every rank then holds them, so that every rank
+    launches the same kernels. Returns the number of shapes rank 0 tuned."""
+    import json
+
+    from repro_torch.distributed import tensor_parallel
+
+    sigs = tensor_parallel.kernel_signatures(local, layout, dtype)
+    cache = autotune.get_cache()
+    tuned, payload = 0, None
+    if mesh.rank == 0:
+        tuned = warm_lut_autotune(local, token_counts, device=device, signatures=sigs)
+        backend = autotune.backend_for(device)
+        keys = [autotune.shape_key(kind, n, mm, c, k, v, dt, backend)
+                for m, c, k, v, dt in sigs for n in token_counts
+                for kind, mm in (("lut_amm", m), ("encode", 0))]
+        payload = json.dumps({key: cache.get(key) for key in keys
+                              if cache.get(key) is not None}).encode()
+    records = json.loads(mesh.broadcast_bytes(payload))
+    if mesh.rank != 0:
+        for key, rec in records.items():
+            cache.put(key, rec)
+    return tuned
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -314,8 +343,9 @@ class ServingEngine:
         # the token shapes the engine issues: decode, a prefill chunk and,
         # speculating, the verify forward; the draft runs decode and prefill
         if autotune_lut and mesh is not None:
-            self.n_lut_shapes_tuned = self._tp_warm_autotune(
-                [n_slots, n_slots * prefill_chunk], autotune.dtype_name(compute_dtype))
+            self.n_lut_shapes_tuned = tp_warm_lut_autotune(
+                self.bundle, self.layout, self.mesh, [n_slots, n_slots * prefill_chunk],
+                autotune.dtype_name(compute_dtype), self.device)
         elif autotune_lut:
             dtype = autotune.dtype_name(compute_dtype)
             counts = [n_slots, n_slots * prefill_chunk]
@@ -821,31 +851,6 @@ class ServingEngine:
         self.mesh.broadcast_ints(head, _HEADER)
         if payload.size:
             self.mesh.broadcast_ints(payload, payload.size)
-
-    def _tp_warm_autotune(self, counts: list[int], dtype: str) -> int:
-        """Rank 0 tunes every (rank site signature x token count) and
-        broadcasts its records; every rank then holds them. Returns the
-        number of shapes rank 0 tuned."""
-        import json
-
-        from repro_torch.distributed import tensor_parallel
-
-        sigs = tensor_parallel.kernel_signatures(self.bundle, self.layout, dtype)
-        cache = autotune.get_cache()
-        tuned, payload = 0, None
-        if self.mesh.rank == 0:
-            tuned = warm_lut_autotune(self.bundle, counts, device=self.device, signatures=sigs)
-            backend = autotune.backend_for(self.device)
-            keys = [autotune.shape_key(kind, n, mm, c, k, v, dt, backend)
-                    for m, c, k, v, dt in sigs for n in counts
-                    for kind, mm in (("lut_amm", m), ("encode", 0))]
-            payload = json.dumps({key: cache.get(key) for key in keys
-                                  if cache.get(key) is not None}).encode()
-        records = json.loads(self.mesh.broadcast_bytes(payload))
-        if self.mesh.rank != 0:
-            for key, rec in records.items():
-                cache.put(key, rec)
-        return tuned
 
     def tp_mark(self, code: int) -> None:
         """Rank 0: pass `code` to every follower's `on_mark` between forwards

@@ -592,22 +592,37 @@ class AdamLeafRule:
         wants, starts = reference_leaves(want), reference_leaves(start)
         for path, leaves in reference_leaves(got).items():
             for j, g in enumerate(leaves):
-                w = wants[path][j].float()
-                err = (g.float() - w).abs()
-                key = (path, j)
-                if key not in self.ill:                   # frozen: exact
-                    r = float("inf") if bool((err > 0).any()) else 0.0
-                else:
-                    ill = self.ill[key]
-                    well_bound = torch.maximum(
-                        1e-4 * (w - starts[path][j].float()).abs(),
-                        torch.full_like(w, 1e-5 * float(w.abs().max()))).clamp_min(1e-30)
-                    r = float((err / well_bound)[~ill].max()) if bool((~ill).any()) else 0.0
-                    if bool(ill.any()):
-                        r = max(r, float(err[ill].max()) / self.moves[key])
+                r = self._worst(g, wants[path][j], starts[path][j], (path, j))
                 if r > worst:
                     worst, where = r, f"{path}[{j}]"
         return worst, where
+
+    CHUNK = 1 << 24      # elements a leaf is held in at a time
+
+    def _worst(self, got: torch.Tensor, want: torch.Tensor, start: torch.Tensor,
+               key: tuple[str, int]) -> float:
+        """One leaf's worst error over its bound, CHUNK elements at a time: a
+        full-width embedding's temporaries (qwen2_vl_7b's 545 M entries)
+        would not fit on the card beside what a check keeps."""
+        g, w, s = (t.reshape(-1) for t in (got, want, start))
+        ill = self.ill.get(key)
+        floor = 1e-5 * float(torch.maximum(w.max(), -w.min()).float())   # of the largest |w|
+        r = 0.0
+        for lo in range(0, g.numel(), self.CHUNK):
+            part = slice(lo, lo + self.CHUNK)
+            wc = w[part].float()
+            err = (g[part].float() - wc).abs()
+            if ill is None:                                   # frozen: exact
+                if bool((err > 0).any()):
+                    return float("inf")
+                continue
+            bound = torch.maximum(1e-4 * (wc - s[part].float()).abs(),
+                                  torch.full_like(wc, floor)).clamp_min(1e-30)
+            ic = ill.reshape(-1)[part]
+            r = max(r, float(torch.where(ic, 0.0, err / bound).max()))
+            if bool(ic.any()):
+                r = max(r, float(torch.where(ic, err, 0.0).max()) / self.moves[key])
+        return r
 
 
 def one_step_off(got: torch.Tensor, want: torch.Tensor, n: int) -> tuple[int, float]:
@@ -693,7 +708,11 @@ def kept_rank_shape(bundle, kept: tuple, path: str, shape: tuple, sizes: dict[st
       * SSD heads: in_proj's columns and the conv's channels of the rank's
         heads, B and C whole; dt_bias, A_log and D the rank's heads;
       * the hybrid's fuse and out sites, which have no column/row partner,
-        stay whole (the spec splits their columns)."""
+        stay whole (the spec splits their columns);
+      * an attention whose heads or GQA groups a shard would split stays
+        whole ("heads_whole"; the spec splits its sites);
+      * the embedding stays whole where the spec splits its d_model, the
+        vocab not dividing ("embed_whole")."""
     from repro_torch.distributed.sharding import is_stacked
 
     stacked = is_stacked(path)
@@ -720,6 +739,27 @@ def kept_rank_shape(bundle, kept: tuple, path: str, shape: tuple, sizes: dict[st
             return (*one[:-1], heads[leaf])
     if bundle.kind == "hybrid" and parts[:2] in (["shared", "fuse"], ["shared", "out"]):
         return one
+    if "heads_whole" in kept:
+        a = _attn_of(bundle, parts)
+        if a is not None and (a.n_heads % t or a.n_kv_heads % t):
+            return one
+    if "embed_whole" in kept and path == "embed/table":
+        return one
+    return None
+
+
+def _attn_of(bundle, parts: list[str]):
+    """The attention config whose param leaf the reference path `parts`
+    names, or None."""
+    cfg = bundle.cfg
+    if bundle.kind == "encdec":
+        by = {("encoder", "attn"): cfg.enc_block.attn, ("decoder", "self"): cfg.dec_self,
+              ("decoder", "cross"): cfg.dec_cross}
+        return by.get(tuple(parts[:2]))
+    if bundle.kind == "hybrid":
+        return cfg.shared_attn if parts[:2] == ["shared", "attn"] else None
+    if parts[0] == "segments" and parts[2] == "attn":
+        return cfg.segments[int(parts[1])][1].attn
     return None
 
 

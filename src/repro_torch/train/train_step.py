@@ -22,7 +22,8 @@ the caller's tensors are never changed.
 opaque optimizer-state slot, so the Trainer checkpoints and restores it
 with no special case. The exact data-parallel step with ZeRO-1 moments is
 `distributed.data_parallel.make_data_parallel_step`. `make_serve_step` is
-`ModelBundle.forward_step` under the step contract.
+`ModelBundle.forward_step` under the step contract, on a tensor-parallel
+mesh too (`mesh=`).
 """
 
 from __future__ import annotations
@@ -260,8 +261,14 @@ def init_compressed_state(opt: AdamW, params: Any, frozen: Any | None = None) ->
     return {"opt": opt.init(params, frozen), "residual": init_residual(params)}
 
 
-def make_serve_step(bundle, *, compute_dtype=torch.bfloat16) -> Callable:
+def make_serve_step(bundle, *, compute_dtype=torch.bfloat16, mesh: Any = None) -> Callable:
+    """(params, batch, caches) -> (logits, caches): `ModelBundle.forward_step`
+    under the step contract, the reference's serve step. With `mesh`,
+    `bundle` and `params` are a tensor-parallel rank's
+    (`distributed.tensor_parallel.place` or `load_artifact(mesh=)`), and
+    every rank of the mesh calls the step with the same batch."""
     def serve_step(params, batch, caches):
-        return bundle.forward_step(params, batch, caches, compute_dtype=compute_dtype)
+        return bundle.forward_step(params, batch, caches, compute_dtype=compute_dtype,
+                                   mesh=mesh)
 
     return serve_step

@@ -24,6 +24,11 @@ forward's logits recorded on each rank. The dense and paged engines are
 built here from the whole param tree; the artifact engine is the
 launcher's (`launch.serve.serve_on_mesh`), each rank reading only its
 shards.
+`tp_serve_family` is the ranks' serving work in
+tests/test_torch_tp_encdec_vlm.py (the enc-dec and the vision-LM through
+`ModelBundle.forward_step(mesh=)` and `make_serve_step(mesh=)`, by
+`greedy_serve`), whose training work is `tp_train` on `dp_batch`'s
+family batches.
 The `dp_*` functions are the ranks' work in the data-parallel tests
 (tests/test_torch_dp.py, test_torch_elastic.py, test_torch_grad_compression.py
 and the card's test_torch_cuda.py): ZeRO-1 steps (`dp_train`) against the
@@ -326,14 +331,12 @@ def dp_model(spec: dict, flat: dict | None = None):
     the arch reduced to spec's width and depth, the params the reference's
     arrays `flat` (or the port's init from seed 0, on the CPU) on
     spec["device"] (the CPU by default), AdamW as spec says."""
-    from repro_torch.configs import build_model, get_arch, reduce_arch
+    from repro_torch.configs import build_model
     from repro_torch.core.amm import Mode
     from repro_torch.optim import SOFT_PQ_RULES, AdamW, lut_frozen_mask
     from repro_torch.weights import layer_specs, tree_from_reference, tree_map_ref
 
-    arch = reduce_arch(get_arch(spec["arch"]), n_layers=spec["layers"], vocab=spec["vocab"],
-                       d_model=spec["d"], d_ff=spec["d_ff"])
-    bundle = build_model(arch, Mode(spec["mode"]))
+    bundle = build_model(spec_arch(spec), Mode(spec["mode"]))
     dev = spec.get("device", "cpu")
     params = (tree_from_reference(layer_specs(bundle), flat, device=dev) if flat is not None
               else tree_map_ref(lambda _p, t: t.to(dev), bundle.init(
@@ -344,13 +347,30 @@ def dp_model(spec: dict, flat: dict | None = None):
     return bundle, params, opt, lut_frozen_mask(params) if lut else None
 
 
+def spec_arch(spec: dict):
+    """The arch of a small run `spec`: reduced to its width and depth."""
+    from repro_torch.configs import get_arch, reduce_arch
+
+    return reduce_arch(get_arch(spec["arch"]), n_layers=spec["layers"], vocab=spec["vocab"],
+                       d_model=spec["d"], d_ff=spec["d_ff"])
+
+
 def dp_batch(spec: dict, i: int) -> dict:
+    """The `i`-th global batch of `spec`: MarkovLM's tokens, or for the
+    enc-dec and a model that takes embeddings `testing.family_batch`'s
+    (frames, or embeddings and M-RoPE positions) from seed `i`."""
     import numpy as np
 
     from repro_torch.data import MarkovLM
+    from repro_torch.testing import family_batch
 
-    data = MarkovLM(vocab=spec["vocab"], seq_len=spec["seq"], batch=spec["batch"])
-    return {k: torch.as_tensor(np.asarray(v)) for k, v in data.batch_at(i).items()}
+    arch = spec_arch(spec)
+    if arch.family == "audio" or arch.takes_embeds:
+        batch = family_batch(arch, spec["batch"], spec["seq"], seed=i)
+    else:
+        batch = MarkovLM(vocab=spec["vocab"], seq_len=spec["seq"], batch=spec["batch"]
+                         ).batch_at(i)
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
 
 
 def dp_train(mesh, spec: dict, flat: dict | None, steps: int) -> dict:
@@ -568,7 +588,7 @@ def tp_rank_state(mesh, spec: dict, flat: dict | None = None):
 def grad_arrays(grads) -> dict:
     """{reference path: host array} of a gradient tree (frozen leaves, None,
     left out)."""
-    from repro_torch.weights import reference_leaves, tensor_to_numpy
+    from repro_torch.weights import is_stacked, reference_leaves, tensor_to_numpy
 
     import numpy as np
 
@@ -577,7 +597,7 @@ def grad_arrays(grads) -> dict:
         if leaves[0] is None:
             continue
         out[p] = (np.stack([tensor_to_numpy(g) for g in leaves]) if len(leaves) > 1
-                  or p.startswith("segments/") else tensor_to_numpy(leaves[0]))
+                  or is_stacked(p) else tensor_to_numpy(leaves[0]))
     return out
 
 
@@ -784,6 +804,143 @@ def tp_route_record(mesh, spec: dict) -> dict:
     rec["rank"] = (mesh.data_rank, mesh.model_rank)
     rec["axis_counters"] = {a: dict(c) for a, c in mesh.axis_counters.items()}
     return rec
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving of the enc-dec and the vision-LM
+# (tests/test_torch_tp_encdec_vlm.py)
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_MAX, SERVE_PAGE = 2, 32, 8
+
+
+def serve_model(spec: dict):
+    """(LUT_INFER bundle through the kernels' wrappers, the port's params from
+    seed spec["seed"], on the CPU) of a small serving run `spec`."""
+    import dataclasses
+
+    from repro_torch.configs import build_model
+    from repro_torch.core.amm import Mode
+
+    bundle = build_model(dataclasses.replace(spec_arch(spec), lut_use_kernel=True),
+                         Mode.LUT_INFER)
+    return bundle, bundle.init(torch.Generator().manual_seed(spec["seed"]), device="cpu")
+
+
+def serve_inputs(spec: dict) -> dict:
+    """The prefill's inputs, numpy from a seed: a prompt's tokens and stub
+    frames (B, enc_frames, D) for the enc-dec, else embedding rows."""
+    import numpy as np
+
+    arch = spec_arch(spec)
+    rng = np.random.default_rng(spec["seed"] + 100)
+    if arch.takes_embeds:
+        return {"embeds": (rng.standard_normal((SERVE_B, 12, arch.d_model)) * 0.5
+                           ).astype(np.float32)}
+    return {"prompt": rng.integers(0, arch.vocab, (SERVE_B, 6)).astype(np.int32),
+            "frames": rng.standard_normal((SERVE_B, arch.enc_frames, arch.d_model)
+                                          ).astype(np.float32)}
+
+
+def greedy_serve(step, bundle, inputs: dict, table: torch.Tensor, steps: int, *,
+                 paged: bool = False) -> dict:
+    """`inputs`' prefill (with frames, or embeddings) then `steps` greedy
+    decode steps through `step(batch, caches) -> (logits, caches)`, on
+    `bundle`'s fresh caches (dense, or paged in pages of SERVE_PAGE); a
+    model that takes embeddings is fed its tokens' rows of the whole
+    `table`. Returns each forward's logits and the tokens (B, 1 + steps)."""
+    from repro_torch.models.attention import PagedSpec
+
+    n_tables = SERVE_MAX // SERVE_PAGE
+    caches = bundle.init_caches(SERVE_B, SERVE_MAX, dtype=torch.float32, device="cpu",
+                                paged=PagedSpec(n_pages=SERVE_B * n_tables + 1,
+                                                page_size=SERVE_PAGE) if paged else None)
+    batch = {"cache_len": torch.zeros(SERVE_B, dtype=torch.long)}
+    if "embeds" in inputs:
+        batch["embeds"] = torch.as_tensor(inputs["embeds"])
+    else:
+        batch.update(tokens=torch.as_tensor(inputs["prompt"]),
+                     frames=torch.as_tensor(inputs["frames"]))
+    tables = ({"block_tables": torch.arange(1, 1 + SERVE_B * n_tables).view(SERVE_B, n_tables)}
+              if paged else {})
+    out: dict = {"logits": [], "tokens": []}
+    with torch.no_grad():
+        for _ in range(1 + steps):
+            logits, caches = step({**batch, **tables}, caches)
+            nxt = logits[:, -1].argmax(-1)
+            out["logits"].append(logits.clone())
+            out["tokens"].append(nxt)
+            cl = batch["cache_len"] + logits.shape[1]
+            batch = ({"cache_len": cl, "embeds": table[nxt][:, None]} if "embeds" in inputs
+                     else {"cache_len": cl, "tokens": nxt[:, None].to(torch.int32)})
+    out["tokens"] = torch.stack(out["tokens"], 1)
+    return out
+
+
+def tp_serve_family(mesh, spec: dict, steps: int) -> dict:
+    """On a rank of the mesh's model axis (each data row serves alone):
+    `serve_model(spec)`'s shard (`place` by `ShardingRules(model=tp)`)
+    through `ModelBundle.forward_step(mesh=)` on dense and paged caches,
+    and through `make_serve_step(mesh=)` on dense ones (`greedy_serve`);
+    each row-parallel LUT site call of the dense run against the unsharded
+    site on the gathered input and tables (bytewise, and where its codes
+    are the ranks' concatenation); the layout's kept differences and the
+    rank's cross K/V cache shape."""
+    import dataclasses
+
+    from repro_torch.configs import cache_leaves
+    from repro_torch.core.amm import Mode
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.distributed.tensor_parallel import place
+    from repro_torch.kernels import ref
+    from repro_torch.models import common, sharded
+    from repro_torch.train.train_step import make_serve_step
+
+    bundle, params = serve_model(spec)
+    local, lp, lay = place(bundle, params, ShardingRules(model=mesh.model), mesh)
+    inputs, table = serve_inputs(spec), params["embed"]["table"]
+    rows, real = [], sharded.linear
+
+    def linear(site, p, x):
+        y = real(site, p, x)
+        if site.tp == "row" and site.mode == Mode.LUT_INFER:
+            rows.append((site, p, x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])))
+        return y
+
+    def fwd(b, c):
+        return local.forward_step(lp, b, c, mesh=mesh)
+
+    sharded.linear = linear
+    try:
+        dense = greedy_serve(fwd, local, inputs, table, steps)
+    finally:
+        sharded.linear = real
+    paged = greedy_serve(fwd, local, inputs, table, steps, paged=True)
+    serve_step = make_serve_step(local, compute_dtype=torch.float32, mesh=mesh)
+    served = greedy_serve(lambda b, c: serve_step(lp, b, c), local, inputs, table, steps)
+    held = {"calls": 0, "bytewise": 0, "codes_off": 0}
+    for site, p, x, y in rows:
+        whole = {k: (mesh.gather_dim(v.to(torch.int32 if k == "table_q" else v.dtype)
+                                     .contiguous(), 0, "model").to(v.dtype)
+                     if k in ("centroids", "table_q") else v) for k, v in p.items()}
+        x_full = mesh.gather_last(x.contiguous(), "model")
+        want = common.linear(dataclasses.replace(site, tp=None, d_in=site.d_in * mesh.model),
+                             whole, x_full)
+        codes = ref.encode_plain(x_full, whole["centroids"])
+        ranks = mesh.gather_last(ref.encode_plain(x, p["centroids"]).float().contiguous(),
+                                 "model").int()
+        same = (codes == ranks).all(dim=1)
+        held["calls"] += 1
+        held["codes_off"] += int((~same).sum())
+        held["bytewise"] += bool(torch.equal(y[same], want[same].to(y.dtype)))
+    k = next(t for n, t in cache_leaves(local.init_caches(1, 8, device="cpu")) if n == "k")
+    return {"rank": (mesh.data_rank, mesh.model_rank), "dense": dense, "paged": paged,
+            "serve_step_bytewise": all(torch.equal(a, b) for a, b in
+                                       zip(dense["logits"], served["logits"])),
+            "rows": held, "kept": lay.kept, "vocab": lay.vocab,
+            "cross_k": tuple(local.init_caches(1, 8, device="cpu")["cross"]["k"].shape)
+            if local.kind == "encdec" else None, "k": tuple(k.shape),
+            "counters": dict(mesh.axis_counters["model"])}
 
 
 def tp_jobs(mesh, jobs: list) -> list:

@@ -287,15 +287,20 @@ def test_launcher_tp_refusals_exit_2(served, extra, why):
 
 
 def test_left_out_families_are_refused_with_their_reason():
-    """Tensor parallelism refuses the enc-dec and vision-LM families (the
-    engine serves neither) and LUT_TRAIN bundles, with their reasons, and
+    """`--tp` refuses the enc-dec and vision-LM families with the engine's
+    reason (`engine_refusal`: the engine feeds token ids only), though
+    tensor parallelism admits both (`tp_refusal` is None: they serve
+    through `ModelBundle.forward_step(mesh=)`,
+    tests/test_torch_tp_encdec_vlm.py); it refuses LUT_TRAIN bundles, and
     builds a tensor-parallel engine for the MoE, SSM and hybrid families."""
-    r = _launch("--tp", "2", "--arch", "whisper_tiny", "--layers", "2", "--d-model", "64",
-                "--vocab", "128", timeout=60)
-    assert r.returncode == 2 and "not served by ServingEngine" in r.stderr
-    for name in ("whisper_tiny", "qwen2_vl_7b"):
+    for name, why in (("whisper_tiny", "could not run the encoder"),
+                      ("qwen2_vl_7b", "could not give this model the embeddings")):
+        r = _launch("--tp", "2", "--arch", name, "--layers", "2", "--d-model", "64",
+                    "--vocab", "128", timeout=60)
+        assert r.returncode == 2 and "not served by ServingEngine" in r.stderr, name
+        assert why in r.stderr, name
         bundle = build_model(reduce_arch(get_arch(name), n_layers=2), Mode.LUT_INFER)
-        assert "ROADMAP Queue A item 5" in tp_refusal(bundle)
+        assert tp_refusal(bundle) is None
     train = build_model(reduce_arch(get_arch("mamba2_370m"), n_layers=2), Mode.LUT_TRAIN)
     assert "not LUT_TRAIN" in tp_refusal(train)
     mesh = HostMesh(data=1, model=2, rank=0, device=torch.device("cpu"), backend="gloo")

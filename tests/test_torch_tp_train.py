@@ -330,10 +330,11 @@ def test_trainer_commit_is_the_reference_layout_and_restores_at_any_mesh(ranks):
 
 
 def test_remaining_refusals_name_their_reason():
-    """Tensor-parallel training of the enc-dec and vision-LM families is
-    refused with a reason naming ROADMAP Queue A item 5; a model mesh (or
-    FSDP) without a training layout and a whole-logits loss on a model mesh
-    are refused too. FSDP builds: `Zero1.build` under
+    """A model mesh (or FSDP) without a training layout and a whole-logits
+    loss on a model mesh are refused; tensor-parallel training admits the
+    enc-dec and vision-LM families, DENSE and LUT_TRAIN (`tp_refusal(train=
+    True)` is None and `layout(train=True)` builds them; their steps:
+    tests/test_torch_tp_encdec_vlm.py), and refuses LUT_INFER bundles. FSDP builds: `Zero1.build` under
     `ShardingRules(fsdp=True)` on the layout of its parts (a data cut of
     every leaf the spec splits over "data" too), and
     `ElasticContext.build(fsdp=True)` hands its step FSDP's rules. The
@@ -364,10 +365,13 @@ def test_remaining_refusals_name_their_reason():
     for name in ("whisper_tiny", "qwen2_vl_7b"):
         for mode in (Mode.DENSE, Mode.LUT_TRAIN):
             b = build_model(reduce_arch(get_arch(name), n_layers=2), mode)
-            why = tensor_parallel.tp_refusal(b, train=True)
-            assert why and "Queue A item 5" in why and name in why, (name, why)
-            with pytest.raises(NotImplementedError, match="Queue A item 5"):
-                tensor_parallel.layout(b, rules, train=True)
+            assert tensor_parallel.tp_refusal(b, train=True) is None, name
+            lay = tensor_parallel.layout(b, rules, train=True)
+            assert lay.train and lay.roles, name
+        b = build_model(reduce_arch(get_arch(name), n_layers=2), Mode.LUT_INFER)
+        assert "not LUT_INFER" in tensor_parallel.tp_refusal(b, train=True)
+        with pytest.raises(NotImplementedError, match="not LUT_INFER"):
+            tensor_parallel.layout(b, rules, train=True)
     for name in ("qwen3_1p7b", "llama3_8b", "arctic_480b", "llama4_maverick_400b",
                  "mamba2_370m", "zamba2_1p2b"):
         for mode in (Mode.DENSE, Mode.LUT_TRAIN):
