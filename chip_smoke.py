@@ -304,6 +304,19 @@ Phases (any failed check exits non-zero; no phase is skipped):
      positions), a DENSE and a soft-PQ step under ZeRO-1 and a DENSE step
      under FSDP, held as phase 15 holds its jobs (qwen2_vl_7b's ZeRO-1
      single-rank steps run again after the ranks', `TPF_SINGLE_AFTER`).
+ 17. the dry run and the H100 roofline (right after phase 4, on its
+     engine): (a) its decode step (4 slots, max_seq 256, float32, the
+     artifact's bundle) traced on the meta device on a (1, 1) DryMesh
+     (`roofline.op_cost.trace_step`). Held: the trace's argument bytes
+     equal the engine's params, caches and batch exactly; its roofline's
+     t_bound is at most phase 4's measured device-busy time per decode
+     step; every LUT site is charged once, at `roofline.analysis.
+     lut_site_cost` for the version its record chose. Printed: each term,
+     t_bound against the busy time, the costliest model paths
+     (`op_cost.hotspots`), and the predicted peak against
+     `torch.cuda.max_memory_allocated` around one real decode forward of
+     the engine. (b) qwen3_1p7b x decode_32k traced on both production
+     meshes (`launch.dryrun.trace_cell`), each record's `[ok]` line.
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.
 """
@@ -347,9 +360,6 @@ SEED = 0
 TIE_EPS = 1e-6          # relative fp32 distance gap: rounding order may flip a code
 KERNEL_ATOL = 1e-4      # fp32 per-codebook / per-column sums in another order
 LOGIT_ATOL = 1e-3       # full-model logits, card vs CPU, at positions without a tie
-HBM_BYTES_S = 3.35e12   # H100 SXM device memory
-FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
-INT8_OPS = 1979e12      # H100 SXM int8
 # qwen3_1p7b LUT sites at lut_v = 32: (name, C, M)
 SITES = [("q/o", 64, 2048), ("k/v", 64, 1024), ("gate/up", 64, 6144), ("down", 192, 2048)]
 # the path's token counts at 4 slots: decode, verify (gamma 4) and a prefill chunk of 32
@@ -427,20 +437,12 @@ def host_us(fn, reps: int = 50) -> float:
 def bound_ms(n: int, c: int, k: int, v: int, m: int, x_bytes: int, *,
              kernel: str = "lut_amm") -> tuple[float, str]:
     """Least time for one call: each input read once and the output written
-    once over HBM, against the operations at the card's peaks. LUT-AMM: the
-    encode's fp32 FMAs plus the lookup's N*C*M integer adds (v1: an fp32
-    multiply and add per gathered entry instead); encode: the fp32 FMAs
-    and N*C int32 codes out."""
-    if kernel == "encode":
-        nbytes = n * c * v * x_bytes + c * k * v * 4 + n * c * 4
-        t_ops = 2 * n * c * k * v / FP32_FLOPS
-    else:
-        nbytes = n * c * v * x_bytes + c * k * v * 4 + c * k * m + m * 4 + n * m * x_bytes
-        lookup = (2 * n * c * m / FP32_FLOPS if kernel == "lut_amm_v1"
-                  else n * c * m / INT8_OPS)
-        t_ops = 2 * n * c * k * v / FP32_FLOPS + lookup
-    t_bytes = nbytes / HBM_BYTES_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    once over HBM, against the operations at the card's peaks
+    (`roofline.analysis.lut_site_cost`, the H100's constants there)."""
+    from repro_torch.roofline.analysis import lut_site_cost
+
+    cost = lut_site_cost(n, c, k, v, m, x_bytes, kernel)
+    return cost.t_bound * 1e3, cost.bound_by
 
 
 def compare(name: str, got, want, x, centroids, *, exact: bool, rtol: float) -> float:
@@ -1224,6 +1226,115 @@ def profile_decode(eng, vocab: int, gen: torch.Generator, n_steps: int = 8) -> t
         f"per step ({100 * busy / wall_us:.1f}% of wall); device time: "
         + ", ".join(f"{k} {v / n_steps:.0f} us" for k, v in sorted(by_kernel.items())))
     return wall_us / n_steps, busy / n_steps
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the dry run and the H100 roofline of phase 4's decode step
+# ---------------------------------------------------------------------------
+
+def _meta_like(tree, memo: dict | None = None):
+    """The tree with each card tensor an empty meta tensor of its shape and
+    dtype (one per distinct tensor); host tensors as they are."""
+    memo = {} if memo is None else memo
+    if isinstance(tree, dict):
+        return {k: _meta_like(v, memo) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_meta_like(v, memo) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.device.type != "cpu":
+        if id(tree) not in memo:
+            memo[id(tree)] = torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+        return memo[id(tree)]
+    return tree
+
+
+def phase_dryrun(dev, served: dict) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import ModelBundle
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import KERNEL_OF_VERSION
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dry_mesh
+    from repro_torch.roofline.analysis import analyze_trace, lut_site_cost, memory_stats
+    from repro_torch.roofline.op_cost import hotspots, trace_step, tree_bytes
+    from repro_torch.train.train_step import make_serve_step
+
+    eng = served["engine"]
+    wall_us, busy_us = served["profile"]
+    n = eng.n_slots
+    # (a) one real decode forward of the engine (its batch captured as it
+    # reaches the model) around the allocator's peak
+    seen: list[dict] = []
+    forward_step = ModelBundle.forward_step
+
+    def capture(self, params, batch, caches, **kw):
+        seen.append(batch)
+        return forward_step(self, params, batch, caches, **kw)
+
+    toks = np.zeros((n, 1), np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ModelBundle.forward_step = capture
+    try:
+        eng._forward(toks, np.full((n,), 24, np.int32), np.ones((n,), np.int32))
+    finally:
+        ModelBundle.forward_step = forward_step
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(len(seen) == 1, f"the decode forward reached the model {len(seen)} times")
+    batch = seen[0]
+
+    mesh = dry_mesh(1, 1)
+    params, caches = _meta_like(eng.params), _meta_like(eng.caches)
+    step = make_serve_step(eng.bundle, compute_dtype=eng._compute_dtype)
+    _, trace = trace_step(step, params, _meta_like(batch), caches, mesh=mesh)
+    want = tree_bytes(eng.params) + tree_bytes(eng.caches) + tree_bytes(batch)
+    check(trace.arg_bytes == want, f"the trace's argument bytes {trace.arg_bytes} are not the "
+                                   f"engine's params, caches and batch, {want}")
+    sites = eng.bundle.lut_sites()
+    expect = []
+    for site in sites:
+        c, k, v, m = site.d_in // site.lut.v, site.lut.k, site.lut.v, site.d_out
+        version, _, from_record = autotune.kernel_choice(
+            n, m, c, k, v, dtype=autotune.dtype_name(eng._compute_dtype),
+            backend=autotune.BACKEND_CUDA)
+        check(from_record, f"no record chose the version at {(n, m, c, k, v)}")
+        kernel = KERNEL_OF_VERSION[version]
+        x_bytes = torch.empty((), dtype=eng._compute_dtype).element_size()
+        expect.append((kernel, (n, m, c, k, v), lut_site_cost(n, c, k, v, m, x_bytes, kernel)))
+    got = [(s["kernel"], s["shape"], s["cost"]) for s in trace.sites]
+    check(sorted(got, key=repr) == sorted(expect, key=repr),
+          f"{len(got)} LUT-site charges against {len(sites)} sites, or at other costs")
+    roof = analyze_trace(trace)
+    mem = memory_stats(trace)
+    busy_s = busy_us * 1e-6
+    log(f"[dryrun] decode step traced on meta (1, 1): {trace.n_ops} ops in "
+        f"{trace.trace_s:.2f}s; {len(got)} LUT sites charged once each (versions "
+        + ", ".join(f"{k}: {sum(g[0] == k for g in got)}" for k in sorted({g[0] for g in got}))
+        + f"); argument bytes {trace.arg_bytes} = the engine's params, caches and batch")
+    log(f"[dryrun] roofline (H100 SXM peaks): t_compute {roof.t_compute * 1e6:.2f} us "
+        f"(flops by unit {({u: f'{f:.4g}' for u, f in roof.flops_by_unit.items()})}), t_memory "
+        f"{roof.t_memory * 1e6:.2f} us ({roof.hbm_bytes / 1e9:.4f} GB), t_collective "
+        f"{roof.t_collective * 1e6:.2f} us -> {roof.bottleneck}; t_bound "
+        f"{roof.t_bound * 1e6:.2f} us against phase 4's device busy {busy_us:.1f} us per "
+        f"decode step (wall {wall_us:.1f} us): busy / t_bound = {busy_s / roof.t_bound:.2f}")
+    for path, c in hotspots(trace, top=4, depth=5):
+        log(f"[dryrun]   {c['t_s'] * 1e6:8.1f} us  {c['hbm_bytes'] / 1e9:.4f} GB  {c['ops']:5d} "
+            f"ops  {path}")
+    log(f"[dryrun] memory: predicted peak {mem['total_hbm_bytes'] / 2**30:.3f} GiB "
+        f"(arguments {mem['argument_size_in_bytes'] / 2**30:.3f}, temp "
+        f"{mem['temp_size_in_bytes'] / 2**30:.3f}) against max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB around one decode forward")
+    check(roof.t_bound <= busy_s, f"t_bound {roof.t_bound * 1e6:.2f} us exceeds the measured "
+                                  f"device busy time {busy_us:.1f} us per step")
+    # (b) the production cell on both meshes
+    lines = []
+    for multi_pod in (False, True):
+        rec, _ = dryrun.trace_cell("qwen3_1p7b", "decode_32k", multi_pod=multi_pod)
+        lines.append(dryrun.ok_line(rec))
+        log(f"[dryrun] {lines[-1]} kept={rec['kept']} axes={rec['mesh_axes']}")
+    return {"t_bound_us": roof.t_bound * 1e6, "busy_us": busy_us,
+            "predicted_peak": mem["total_hbm_bytes"], "peak": peak, "lines": lines}
 
 
 # ---------------------------------------------------------------------------
@@ -6443,6 +6554,7 @@ def main() -> int:
         timed(3, phase_slice_parity, dev, scratch)
         served = timed(4, phase_serve, dev, scratch)
         launches = served["launches"]
+        timed(17, phase_dryrun, dev, served)
         refs = timed(5, phase_paged_spec, dev, scratch, served["art"], served["engine"])
         timed(6, phase_process, scratch, served["engine"], refs)
         tp = timed(11, phase_tp, dev, scratch)

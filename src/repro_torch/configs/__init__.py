@@ -8,7 +8,9 @@ replacement plan. Every arch of the reference: the dense family
 bert_base), moe (arctic_480b, llama4_maverick_400b), ssm (mamba2_370m),
 hybrid (zamba2_1p2b), the audio enc-dec (whisper_tiny: stub frames, encoder,
 cross-attention; bundle kind "encdec") and the vision-LM backbone
-(qwen2_vl_7b: M-RoPE over embedding inputs; kind "lm").
+(qwen2_vl_7b: M-RoPE over embedding inputs; kind "lm"). `SHAPES` are the
+reference's dry-run cells and `input_specs` their inputs on the meta device
+(`launch/dryrun.py`).
 """
 
 from __future__ import annotations
@@ -117,10 +119,39 @@ ARCH_IDS = (
 EXTRA_IDS = ("bert_base",)           # the paper's own model
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One dry-run shape of `repro.configs.SHAPES` (assigned to every arch)."""
+
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
 def get_arch(name: str) -> ArchSpec:
     if name not in ARCH_IDS + EXTRA_IDS:
         raise ValueError(f"unknown arch {name!r} (known: {ARCH_IDS + EXTRA_IDS})")
     return importlib.import_module(f"repro_torch.configs.{name}").ARCH
+
+
+def all_archs() -> list[ArchSpec]:
+    return [get_arch(n) for n in ARCH_IDS]
+
+
+def shape_applicable(arch: ArchSpec, shape: str) -> tuple[bool, str]:
+    """Whether an (arch, shape) cell runs; the reference's reason if skipped."""
+    if shape == "long_500k" and not arch.sub_quadratic:
+        return False, "full-attention arch: 500k decode needs sub-quadratic mixing"
+    return True, ""
 
 
 def arch_to_dict(arch: ArchSpec) -> dict[str, Any]:
@@ -694,3 +725,53 @@ def build_model(arch: ArchSpec | str, mode: Mode | str = Mode.DENSE) -> ModelBun
         takes_embeds=arch.takes_embeds,
     )
     return ModelBundle(arch=arch, mode=mode, kind="lm", cfg=cfg)
+
+
+def input_specs(arch: ArchSpec | str, shape: str | ShapeSpec) -> dict[str, torch.Tensor]:
+    """The model inputs of one (arch x shape) dry-run cell (a `SHAPES` name,
+    or a `ShapeSpec` of another size): meta tensors of
+    `repro.configs.input_specs`' shapes and dtypes. Kept difference:
+    `forward_step` plans its cache writes on the host, so a serving cell's
+    "cache_len" is a real CPU int32 tensor, the cache full to seq_len - 1 at
+    decode (one new token at the last position) and empty at prefill; a
+    caller that adds "write_len" or "block_tables" passes them on the CPU
+    too."""
+    if isinstance(arch, str):
+        arch = get_arch(arch)
+    sp = SHAPES[shape] if isinstance(shape, str) else shape
+    b, s = sp.global_batch, sp.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def meta(*shape_, dtype=i32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if sp.kind == "train":
+        batch: dict[str, torch.Tensor] = {"labels": meta(b, s)}
+        if arch.family == "vlm":
+            batch["embeds"] = meta(b, s, arch.d_model, dtype=bf16)
+            batch["pos"] = meta(3, b, s)
+        elif arch.family == "audio":
+            batch["frames"] = meta(b, arch.enc_frames, arch.d_model, dtype=bf16)
+            batch["tokens"] = meta(b, s)
+        else:
+            batch["tokens"] = meta(b, s)
+        return batch
+
+    if sp.kind == "prefill":
+        batch = {"cache_len": torch.zeros((b,), dtype=i32)}
+        if arch.family == "vlm":
+            batch["embeds"] = meta(b, s, arch.d_model, dtype=bf16)
+        elif arch.family == "audio":
+            batch["frames"] = meta(b, arch.enc_frames, arch.d_model, dtype=bf16)
+            batch["tokens"] = meta(b, s)
+        else:
+            batch["tokens"] = meta(b, s)
+        return batch
+
+    # decode: one new token against a seq_len-deep cache
+    batch = {"cache_len": torch.full((b,), s - 1, dtype=i32)}
+    if arch.family == "vlm":
+        batch["embeds"] = meta(b, 1, arch.d_model, dtype=bf16)
+    else:
+        batch["tokens"] = meta(b, 1)
+    return batch

@@ -18,6 +18,9 @@ Param dicts as in the reference:
   train  : {"centroids": (C, K, V), "log_t": ()} (+ frozen {"w", "b"})
   deploy : {"centroids": (C, K, V), "table_q": int8 (C, K, M),
             "table_scale": (1|C, 1, 1|M) [, "b": (M,)]}
+
+and the cost accounting of the paper's Table 1 (`lut_flops`, `dense_flops`,
+`lut_table_bytes`, `dense_bytes`).
 """
 
 from __future__ import annotations
@@ -113,3 +116,25 @@ def lut_train_contract(cfg: LUTConfig, params: Mapping[str, Any], w: torch.Tenso
     dists = pq.pairwise_sq_dists(pq.split_subvectors(xf, cfg.v), p)
     enc = pq.ste_encode(dists, t)
     return pq.lut_contract(enc.to(xf.dtype), table.to(xf.dtype))
+
+
+def lut_flops(n: int, d: int, m: int, cfg: LUTConfig) -> int:
+    """Paper Table 1: N*D*K (encode) + N*M*D/V (lookup-accumulate)."""
+    return n * d * cfg.k + n * m * d // cfg.v
+
+
+def dense_flops(n: int, d: int, m: int) -> int:
+    return n * d * m
+
+
+def lut_table_bytes(d: int, m: int, cfg: LUTConfig) -> int:
+    """int8 table + fp32 scales + fp32 codebook bytes (paper Table 1 size)."""
+    c = d // cfg.v
+    table = c * cfg.k * m                       # int8
+    scales = c * 4 * (m if cfg.per_column else 1)
+    codebook = c * cfg.k * cfg.v * 4
+    return table + scales + codebook
+
+
+def dense_bytes(d: int, m: int, dtype_bytes: int = 4) -> int:
+    return d * m * dtype_bytes

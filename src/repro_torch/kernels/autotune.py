@@ -66,12 +66,11 @@ from repro_torch.kernels import dist_argmin as enc_mod
 from repro_torch.kernels import fused_decode as fused_mod
 from repro_torch.kernels import lut_amm as lut_mod
 from repro_torch.kernels import ref
+from repro_torch.roofline.analysis import FP32_FLOPS, HBM_BW, INT8_OPS
 
-# H100 SXM (NVIDIA's data sheet): device memory rate, fp32 outside the
-# tensor cores, int8 tensor-core rate; L2 rate (rough) for staging centroids
-HBM_BYTES_S = 3.35e12
-FP32_FLOPS = 67e12
-INT8_OPS = 1979e12
+# H100 SXM (NVIDIA's data sheet, `roofline.analysis`): device memory rate,
+# fp32 outside the tensor cores, int8 tensor-core rate; L2 rate (rough) for
+# staging centroids
 L2_BYTES_S = 10e12
 LAUNCH_S = 4e-6              # fixed cost of one kernel launch on the device
 CLUSTER_SYNC_S = 1e-6        # a cluster's two barriers and its code exchange (rough)
@@ -273,7 +272,7 @@ def predict_us(kind: str, n: int, m: int, c: int, k: int, v: int, cfg: BlockConf
         serial = ((cc * cb + rows * cc * v * 4) / (L2_BYTES_S / n_sms)
                   + 2.0 * rows * cc * k * v / (FP32_FLOPS / n_sms))
         waves = lut_mod.cdiv(geo["blocks"], n_sms)
-        return (max(hbm / HBM_BYTES_S, ops) + waves * serial + LAUNCH_S) * 1e6
+        return (max(hbm / HBM_BW, ops) + waves * serial + LAUNCH_S) * 1e6
     s = lut_mod.default_cluster(c)
     # one wave of whole clusters (the card may hold fewer: a cluster's blocks
     # share a GPC)
@@ -294,7 +293,7 @@ def predict_us(kind: str, n: int, m: int, c: int, k: int, v: int, cfg: BlockConf
         per_thread = lut_mod.cdiv(min(n, geo["rows"]) * 4 * geo["quads"], lut_mod.THREADS)
         serial += geo["tiles_per_block"] * per_thread * c * ORDERED_ADD_S
     waves = lut_mod.cdiv(blocks, n_sms)
-    return (max(hbm / HBM_BYTES_S, ops) + waves * serial + LAUNCH_S) * 1e6
+    return (max(hbm / HBM_BW, ops) + waves * serial + LAUNCH_S) * 1e6
 
 
 # ---------------------------------------------------------------------------

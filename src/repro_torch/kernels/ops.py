@@ -7,6 +7,12 @@ fused kernel (v3) runs when all C codebooks' fp32 centroids plus one N tile's
 codes fit in a block's shared memory on this card, else v2. `version=1|2|3`
 forces a kernel. A CPU tensor runs the plain version of the chosen kernel.
 `encode` runs the encode kernel.
+
+On the meta device (a dry run, `launch/dryrun.py`) both launch nothing: they
+return an empty tensor of the output's shape and charge the active
+`roofline.op_cost.OpCostMode` the kernel's work (`roofline.analysis.
+lut_site_cost`), for the version `autotune.kernel_choice` picks on the card
+at that shape. Only meta tensors take that branch.
 """
 
 from __future__ import annotations
@@ -22,6 +28,28 @@ from repro_torch.kernels import ref
 VERSION_V1 = 1
 VERSION_V2 = 2
 VERSION_FUSED = autotune.VERSION_FUSED
+KERNEL_OF_VERSION = {VERSION_V1: "lut_amm_v1", VERSION_V2: "lut_amm_v2",
+                     VERSION_FUSED: "fused_decode"}
+
+
+def _backend(x: torch.Tensor) -> str:
+    """The autotune key's backend: the card's for a dry run's meta tensors."""
+    return autotune.BACKEND_CUDA if x.is_meta else autotune.backend_of(x)
+
+
+def _dry_call(kernel: str, x: torch.Tensor, centroids: torch.Tensor, m: int,
+              out_shape: tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
+    """A kernel call on meta tensors: its work charged to the active
+    OpCostMode (none: nothing), an empty output returned."""
+    from repro_torch.roofline import analysis, op_cost
+
+    mode = op_cost.active()
+    if mode is not None:
+        c, k, v = centroids.shape
+        n = x.shape[0]
+        mode.charge_site(analysis.lut_site_cost(n, c, k, v, m, x.element_size(), kernel),
+                         kernel, (n, m, c, k, v))
+    return torch.empty(out_shape, dtype=dtype, device=x.device)
 
 
 def lut_amm(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
@@ -40,8 +68,11 @@ def lut_amm(x: torch.Tensor, centroids: torch.Tensor, table_q: torch.Tensor,
         c, k, v = centroids.shape
         version, rec_blocks, _ = autotune.kernel_choice(
             n, table_q.shape[-1], c, k, v, dtype=autotune.dtype_name(x.dtype),
-            backend=autotune.backend_of(x))
+            backend=_backend(x))
         blocks = blocks or rec_blocks
+    if x.is_meta:
+        m = table_q.shape[-1]
+        return _dry_call(KERNEL_OF_VERSION[version], x, centroids, m, (x.shape[0], m), x.dtype)
     cfg = blocks or autotune.DEFAULT
     if version == VERSION_V1:
         # v1 has no fused epilogue: bias and activation follow in x's dtype,
@@ -65,6 +96,8 @@ def encode(x: torch.Tensor, centroids: torch.Tensor, *, block_n: int | None = No
     not fit the kernel takes the default, `autotune.encode_launch`)."""
     n, _ = x.shape
     c, k, v = centroids.shape
+    if x.is_meta:
+        return _dry_call("encode", x, centroids, 0, (n, c), torch.int32)
     cfg = autotune.resolve_blocks("encode", n, 0, c, k, v, autotune.dtype_name(x.dtype),
                                   autotune.backend_of(x), block_n, None, block_c)
     if block_n is None or block_c is None:          # a field came from the record

@@ -1,9 +1,10 @@
 """The host mesh of a tensor-, data- or (data, model)-parallel run, over
 `torch.distributed` ranks.
 
-Counterpart of `repro.launch.mesh.make_host_mesh` and `mesh_from_devices`.
-One process per rank; each rank calls `make_host_mesh(data=dp, model=tp,
-rank=r, devices=...)`, which joins the process group and gives the rank its
+Counterpart of `repro.launch.mesh.make_host_mesh`, `mesh_from_devices` and
+`make_production_mesh`; the reference's `make_mesh`, a version shim over
+`jax.sharding.Mesh`, has no counterpart. One process per rank; each rank
+calls `make_host_mesh(data=dp, model=tp, rank=r, devices=...)`, which joins the process group and gives the rank its
 explicit device, `devices[rank]`. The backend is NCCL when every rank has a
 card of its own, and gloo when ranks share a device: on the CPU, or several
 ranks on one card (each rank its own process and CUDA context).
@@ -42,6 +43,17 @@ message, so that group never times out an idle server
 (`DATA_TIMEOUT_S`) when a peer stops answering. The mesh counts each
 collective, the bytes it was given and the host time spent in it, in all
 (`counters`) and per axis (`axis_counters`).
+
+`make_production_mesh` is the dry run's mesh (`launch/dryrun.py`): a
+`DryMesh`, rank (0, 0) of the reference's production mesh, (16, 16) over
+("data", "model") or, multi-pod, (2, 16, 16) over ("pod", "data",
+"model"). It joins no process group: each collective returns a meta tensor
+of its result's shape and records the bytes it was given, per axis, and
+the wire bytes of the ring model (`roofline.analysis.RING_KIND`). Pods are
+pure data parallelism in the reference (`repro.distributed.sharding`), so
+the multi-pod mesh folds "pod" into a data axis of 32 and keeps the three
+axis names in its record (a kept difference: the port's meshes have two
+axes).
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.roofline.analysis import link_bw, wire_bytes
 
 # a follower rank waits in the control group's broadcast until the leader's
 # next message: an idle server must not time it out
@@ -413,3 +426,108 @@ def mesh_of_group(device: str | torch.device | None = None) -> HostMesh:
         return HostMesh(data=1, model=1, rank=0, device=dev, backend=backend_for([dev]))
     return HostMesh(data=dist.get_world_size(), model=1, rank=dist.get_rank(), device=dev,
                     backend=dist.get_backend())
+
+
+@dataclasses.dataclass
+class DryMesh(HostMesh):
+    """Rank (0, 0) of a (data, model) mesh with no process group, for a
+    step traced on the meta device: `HostMesh`'s collectives and counters,
+    each collective returning a meta tensor of its result's shape (in-place
+    ones the tensor itself) and recording its wire bytes per axis and ring
+    kind (`wire`). `axis_names` and `grid` are the mesh as the record names
+    it (the multi-pod mesh's three axes)."""
+
+    axis_names: tuple[str, ...] = AXES
+    grid: tuple[int, ...] = ()
+    wire: dict = dataclasses.field(default_factory=dict)
+
+    def reset_counters(self) -> None:
+        super().reset_counters()
+        self.wire = {}
+
+    def _ranks(self, axis: str) -> list[int]:
+        """The global ranks of rank (0, 0)'s group on `axis`."""
+        return [self._src(axis, i) for i in range(self.size(axis))]
+
+    def _dry(self, name: str, t: torch.Tensor, out_shape, axis: str | None) -> None:
+        ax = self._axis(axis)
+        nin = t.numel() * t.element_size()
+        kind, nwire = wire_bytes(name, nin, int(np.prod(out_shape)) * t.element_size())
+        if name != "gather_dim":
+            self._count(name, time.perf_counter(), nin, axis)
+        if self.size(axis) > 1:
+            per = self.wire.setdefault(ax, {})
+            per[kind] = per.get(kind, 0) + nwire
+
+    def wire_summary(self) -> tuple[dict, dict, dict]:
+        """({ring kind: wire bytes}, {axis: wire bytes}, {axis: link
+        bytes/s}) of the collectives recorded since the last reset."""
+        by_kind: dict[str, float] = {}
+        for per in self.wire.values():
+            for kind, b in per.items():
+                by_kind[kind] = by_kind.get(kind, 0) + b
+        return (by_kind, {a: sum(per.values()) for a, per in self.wire.items()},
+                {a: link_bw(self._ranks(a)) for a in self.wire})
+
+    def all_reduce(self, t, axis=None):
+        self._dry("all_reduce", t, t.shape, axis)
+        return t
+
+    def all_max(self, t, axis=None):
+        self._dry("all_max", t, t.shape, axis)
+        return torch.empty_like(t)
+
+    def all_mean(self, t, axis=None):
+        self._dry("all_mean", t, t.shape, axis)
+        return t
+
+    def all_to_all(self, t, axis=None):
+        if t.shape[0] != self.size(axis):
+            raise ValueError(f"all_to_all: {t.shape[0]} rows for {self.size(axis)} ranks")
+        self._dry("all_to_all", t, t.shape, axis)
+        return torch.empty_like(t)
+
+    def all_gather(self, t, axis=None):
+        shape = (self.size(axis), *t.shape)
+        self._dry("all_gather", t, shape, axis)
+        return t.new_empty(shape)
+
+    def reduce_scatter(self, t, dim, axis=None):
+        n, dim = self.size(axis), dim % t.dim()
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} over {n} ranks")
+        shape = list(t.shape)
+        shape[dim] //= n
+        self._dry("reduce_scatter", t, shape, axis)
+        return t.new_empty(shape)
+
+    def broadcast(self, t, src, axis=None):
+        self._dry("broadcast", t, t.shape, axis)
+        return t
+
+    def gather_dim(self, t, dim, axis=None):
+        """Counted as the all-gather it stands for (output bytes on the
+        wire), and as the all_reduce `HostMesh.gather_dim` runs."""
+        dim = dim % t.dim()
+        shape = list(t.shape)
+        shape[dim] *= self.size(axis)
+        self._count("all_reduce", time.perf_counter(), int(np.prod(shape)) * t.element_size(),
+                    axis)
+        self._dry("gather_dim", t, shape, axis)
+        return t.new_empty(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DryMesh:
+    """Rank (0, 0) of the reference's production mesh, (16, 16) over
+    ("data", "model"), or multi-pod (2, 16, 16) over ("pod", "data",
+    "model") with "pod" folded into a data axis of 32, as a `DryMesh`."""
+    if multi_pod:
+        return dry_mesh(32, 16, axis_names=("pod", "data", "model"), grid=(2, 16, 16))
+    return dry_mesh(16, 16)
+
+
+def dry_mesh(data: int = 1, model: int = 1, **names) -> DryMesh:
+    """Rank (0, 0) of a (data, model) `DryMesh` on the meta device (`names`:
+    its record's `axis_names` and `grid`, else the two axes')."""
+    return DryMesh(data=data, model=model, rank=0, device=torch.device("meta"), backend="dry",
+                   **{"grid": (data, model), **names})

@@ -31,8 +31,8 @@ mesh of WORLD_SIZE ranks, rank RANK on card RANK mod the host's cards (on
 the CPU with `--device cpu`), and the dense stage reduces its gradients in
 int8 over it; rank 0 alone writes the checkpoints and the manifest. Only
 that stage runs over ranks: `--grad-compression` is required and `--lut`
-refused (the data-parallel LUT stages are ROADMAP Queue A item 5's next
-slice):
+refused (the reference spans devices in the compressed dense stage alone,
+`repro.train.recipe.DensePretrain`):
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --grad-compression --steps 20
@@ -129,8 +129,8 @@ def main(argv: list[str] | None = None) -> None:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and (args.lut or (args.recipe is None and not args.grad_compression)):
         ap.error(f"WORLD_SIZE={world}: over ranks the launcher runs the dense stage with "
-                 f"--grad-compression only; the LUT stages and the uncompressed data-parallel "
-                 f"step are not run by it yet (ROADMAP Queue A item 5)")
+                 f"--grad-compression only, the one stage the reference spans devices in "
+                 f"(repro.train.recipe.DensePretrain); the LUT stages run on one device")
     if args.recipe is not None:
         recipe = Recipe.load(args.recipe)
     else:

@@ -206,8 +206,10 @@ def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
     if sum(sections) != dh // 2:
         raise ValueError(f"M-RoPE sections {sections} must sum to d_head/2 = {dh // 2}")
     inv = rope_freqs(dh, theta, device=x.device)
+    # output_size: known on the host, so no device read (and meta tensors run)
     sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
-                                     torch.tensor(sections, device=x.device))   # (Dh/2,)
+                                     torch.tensor(sections, device=x.device),
+                                     output_size=dh // 2)                       # (Dh/2,)
     ang = pos3.float()[sec_id].movedim(0, -1) * inv                        # (B, S, Dh/2)
     return _rotate(x, ang)
 

@@ -347,8 +347,12 @@ def _load_balance(cfg: MoECfg, probs: torch.Tensor, dispatch: torch.Tensor) -> t
 def _contract(cfg: MoECfg, p: Params, xin: torch.Tensor, sent: torch.Tensor) -> torch.Tensor:
     """The expert FFN of the site params' experts on their slots xin (n,
     rows, D): gate, up, act and down of the experts `sent` marks, zero for
-    the others (an expert may receive no token)."""
-    active = sent.nonzero()[:, 0]
+    the others (an expert may receive no token). On the meta device (a dry
+    run) which experts received a token is unknown: every expert counts as
+    active, the work the reference's GShard einsum computes (every expert's
+    capacity slots)."""
+    active = (torch.arange(sent.shape[0], device=sent.device) if sent.is_meta
+              else sent.nonzero()[:, 0])
     h = xin.new_zeros(xin.shape)
     if active.numel():
         xa = xin[active]

@@ -626,8 +626,9 @@ class Recipe:
             if alone:
                 raise RecipeError(
                     f"stages {alone} do not run over the {dist.get_world_size()} ranks of "
-                    f"the process group: only DensePretrain(grad_compression=True) does (the "
-                    f"data-parallel LUT stages are ROADMAP Queue A item 5's next slice)")
+                    f"the process group: only DensePretrain(grad_compression=True) does, as the "
+                    f"reference spans devices in that stage alone "
+                    f"(repro.train.recipe.DensePretrain)")
         dev = resolve_device(device)
         ckpt_dir = pathlib.Path(ckpt_dir)
         ckpt_dir.mkdir(parents=True, exist_ok=True)
